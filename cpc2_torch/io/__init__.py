@@ -1,0 +1,5 @@
+"""Weight interchange with the JAX package."""
+
+from .from_jax import state_dict_from_jax
+
+__all__ = ["state_dict_from_jax"]

@@ -30,7 +30,8 @@ setup(
     version="0.1.0",
     description="TPU-native Contrastive Predictive Coding on raw audio "
                 "(JAX/XLA/Pallas), feature-complete with MarvinLvn/CPC2",
-    packages=find_packages(include=["cpc2_tpu", "cpc2_tpu.*"]),
+    packages=find_packages(include=["cpc2_tpu", "cpc2_tpu.*",
+                                    "cpc2_torch", "cpc2_torch.*"]),
     package_data={"cpc2_tpu.ops": ["libflacdec.so", "libaudiodec.so"],
                   "cpc2_tpu.utils": ["small_grid.json"]},
     python_requires=">=3.10",
