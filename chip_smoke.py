@@ -9,19 +9,29 @@ Phases, each of which fails the run with a nonzero exit:
 3. hold each kernel against its plain PyTorch version at the recipe's
    shapes (B = 8, T = 128, H = 256, K = 12, W = 116, N = 128, D = 256,
    P = 1,024, FFN 256 -> 2048 -> 256 on 928 rows), forward and backward,
-   the FFN at dropout 0 and 0.1 with the same seed; then time the kernel,
-   the plain version and, where one PyTorch call computes the same
-   function, that call;
+   the FFN at dropout 0 and 0.1 with the same seed, and the DTW kernel at
+   one ABX flush (18,432 pairs of 32 x 32 frames), a ragged 16 x 64, a
+   multi-strip 64 x 64 and its 2,048 x 2,048 limit, where it must be
+   bit-identical; then time the kernel, the plain version and, where one
+   PyTorch call computes the same function, that call;
 4. hold one whole training step on the card (kernels) against the same step
    on the CPU (plain versions) at a small width, same weights, same
    negatives, dropout off;
 5. write a synthetic 16 kHz wav corpus in LibriSpeech layout and run
    `cpc2_torch.train.main` at the CLI defaults on it for one epoch
    (batch 8 x 20,480 samples, 256-d, LSTM, 12 transformer heads, 128
-   negatives), with every kernel's launch count set to 0 just before and
-   read just after: every kernel must have launched, the losses must be
-   finite and the parameters must live on the card;
-6. print one `kernels` JSON line and, last, the `ok` line.
+   negatives) with `--pathCheckpoint`, with every kernel's launch count set
+   to 0 just before and read just after: the LSTM, FFN and InfoNCE kernels
+   must have launched, the losses must be finite, the parameters must live
+   on the card and the checkpoint files must exist;
+6. write a phone corpus with its `.item` file (4 speakers x 8 files x 24
+   tokens) and run `cpc2_torch.eval.eval_ABX.main from_checkpoint` on the
+   checkpoint of phase 5 at its defaults, the counts again set to 0 just
+   before and read just after: the DTW and LSTM forward kernels must have
+   launched and both scores must lie in [0, 1]; then score the same
+   features on the card with the kernel and with the plain DTW (identical
+   scores), and hold two files' features card against CPU;
+7. print one `kernels` JSON line and, last, the `ok` line.
 
 It exits nonzero, printing no result, when no CUDA card is available or
 when the `cpc2_torch` package is not beside it.
@@ -29,6 +39,7 @@ when the `cpc2_torch` package is not beside it.
 
 from __future__ import annotations
 
+import glob
 import json
 import math
 import os
@@ -275,6 +286,47 @@ def check_infonce(dev, gen):
                      nbytes(*cot, *inputs, idx) + nbytes(*grad_k), 2 * dots)]
 
 
+def check_dtw(dev, gen):
+    """The DTW kernel against its plain version: bit-identical (max abs
+    error 0) at one ABX flush, a ragged shape, a multi-strip shape and the
+    kernel's limit; timed at the flush. Its bound counts the cells this
+    run's lengths need: 4 bytes read and about 20 operations each."""
+    from cpc2_torch.ops.dtw import MAX_LEN, dtw_normalized, \
+        dtw_normalized_plain
+
+    def inputs(p, s1, s2):
+        dist = torch.rand(p, s1, s2, device=dev, generator=gen)
+        n1 = torch.randint(1, s1 + 1, (p,), device=dev, generator=gen,
+                           dtype=torch.int32)
+        n2 = torch.randint(1, s2 + 1, (p,), device=dev, generator=gen,
+                           dtype=torch.int32)
+        n1[0] = n2[0] = 1
+        n1[1], n2[1] = s1, s2
+        return dist, n1, n2
+
+    flush = inputs(32 * 24 * 24, 32, 32)
+    err = 0.0
+    for args in (flush, inputs(4096, 16, 64), inputs(1024, 64, 64),
+                 inputs(4, MAX_LEN, MAX_LEN)):
+        got = dtw_normalized(*args)
+        want = dtw_normalized_plain(*args)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"dtw {tuple(args[0].shape)}: non-finite")
+        err = max(err, (got.double() - want.double()).abs().max().item())
+    if err != 0.0:
+        raise AssertionError(f"dtw: kernel differs from plain, max abs err "
+                             f"{err:.3e}")
+    ms = cuda_ms(lambda: dtw_normalized(*flush))
+    plain_ms = cuda_ms(lambda: dtw_normalized_plain(*flush), iters=3,
+                       warmup=1)
+    dist, n1, n2 = flush
+    cells = (n1.double() * n2.double()).sum().item()
+    return [kernel_entry("dtw", "cpc2_torch/csrc/dtw.cu",
+                         "cpc2_tpu/ops/dtw_pallas.py:163", err, ms, plain_ms,
+                         None, 4 * cells + nbytes(n1, n2) + 4 * n1.numel(),
+                         20 * cells)]
+
+
 def check_step(dev) -> float:
     """One training step on the card against the same step on the CPU at a
     small width, same weights and negatives, dropout off: the per-head
@@ -338,20 +390,36 @@ def write_corpus(root: str, n_speakers: int = 4, n_files: int = 3,
                      x.astype(np.float32), 16000)
 
 
-def run_training(dev) -> dict:
+TRAINING_KERNELS = ("lstm_fwd", "lstm_bwd", "ffn_fwd", "ffn_bwd",
+                    "infonce_fwd", "infonce_bwd")
+ABX_KERNELS = ("dtw", "lstm_fwd")
+
+
+def check_launched(path: str, launches: dict, kernels) -> None:
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the {path} path: "
+                             f"{missing}")
+
+
+def run_training(dev, work: str) -> dict:
+    """One epoch at the CLI defaults with `--pathCheckpoint <work>/ck`."""
     from cpc2_torch.ops import _build
     from cpc2_torch.train import main
-    with tempfile.TemporaryDirectory() as root:
-        write_corpus(root)
-        _build.reset_launches()
-        record = main(["--pathDB", root, "--file_extension", ".wav",
-                       "--nEpoch", "1", "--random_seed", "0",
-                       "--n_process_loader", "2", "--logging_step", "10"])
-        launches = dict(_build.LAUNCHES)
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+    root = os.path.join(work, "train_db")
+    ck = os.path.join(work, "ck")
+    write_corpus(root)
+    _build.reset_launches()
+    record = main(["--pathDB", root, "--file_extension", ".wav",
+                   "--nEpoch", "1", "--random_seed", "0",
+                   "--n_process_loader", "2", "--logging_step", "10",
+                   "--pathCheckpoint", ck])
+    launches = dict(_build.LAUNCHES)
+    check_launched("training", launches, TRAINING_KERNELS)
+    for name in ("checkpoint_0.pt", "checkpoint_args.json",
+                 "checkpoint_logs.json"):
+        if not os.path.exists(os.path.join(ck, name)):
+            raise AssertionError(f"the trainer wrote no {name}")
     logs = record["logs"]
     for key in ("locLoss_train", "locAcc_train", "locLoss_val"):
         values = np.asarray(logs[key], dtype=np.float64)
@@ -362,7 +430,137 @@ def run_training(dev) -> dict:
     if set(record["param_devices"]) != {str(dev)}:
         raise AssertionError(f"parameters on {record['param_devices']}")
     record["launches"] = launches
+    record["checkpoint"] = os.path.join(ck, "checkpoint_0.pt")
     return record
+
+
+PHONES = {"aa": (220, 900), "iy": (260, 1150), "uw": (240, 800),
+          "eh": (290, 1000), "sil": (120, 120)}
+
+
+def write_phone_corpus(root: str, n_speakers: int = 4, n_files: int = 8,
+                       n_tokens: int = 24) -> str:
+    """A phone corpus and its `.item` file: each file is `n_tokens` phone
+    tokens between silences, each token two tones of its phone, jittered,
+    plus noise and a speaker hum. "aa" and "iy" last 0.10-0.15 s (9-14
+    frames), "uw" and "eh" 0.20-0.30 s (19-29 frames), so that token
+    lengths fall in DTW buckets 16 and 32. File i of every speaker has the
+    same phones and timings, so feature extraction batches 4 files of one
+    length. Returns the `.item` path."""
+    from cpc2_torch.data.audio_io import save_wav
+    sr, sil = 16000, 0.12
+    lines = ["#file onset offset #phone prev-phone next-phone speaker"]
+    noise = np.random.RandomState(1)
+    for f in range(n_files):
+        rs = np.random.RandomState(100 + f)
+        phones = [list(PHONES)[k] for k in rs.randint(0, 4, n_tokens)]
+        durs = [(0.10 if p in ("aa", "iy") else 0.20)
+                + 0.01 * rs.randint(0, 6 if p in ("aa", "iy") else 11)
+                for p in phones]
+        tokens = [("sil", sil)]
+        for p, d in zip(phones, durs):
+            tokens += [(p, d), ("sil", sil)]
+        for s in range(n_speakers):
+            spk = f"spk{s}"
+            os.makedirs(os.path.join(root, spk), exist_ok=True)
+            name = f"{spk}-{f:02d}"
+            wav, t = [], 0.0
+            for tok, dur in tokens:
+                n = int(round(dur * sr))
+                tt = np.arange(n) / sr
+                f1, f2 = (f * (1 + 0.1 * noise.randn()) for f in PHONES[tok])
+                wav.append(0.4 * np.sin(2 * np.pi * f1 * tt)
+                           + 0.3 * np.sin(2 * np.pi * f2 * tt)
+                           + 0.15 * noise.randn(n)
+                           + 0.05 * s * np.sin(2 * np.pi * 60 * tt))
+                if tok != "sil":
+                    lines.append(f"{name} {t:.4f} {t + dur:.4f} {tok} sil sil "
+                                 f"{spk}")
+                t += n / sr
+            save_wav(os.path.join(root, spk, name + ".wav"),
+                     np.concatenate(wav).astype(np.float32), sr)
+    item = os.path.join(os.path.dirname(root), "phones.item")
+    with open(item, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return item
+
+
+def run_abx(dev, work: str, checkpoint: str) -> dict:
+    """`eval_ABX from_checkpoint` on the card at its defaults, then the
+    scoring held against itself with the plain DTW on the same features,
+    and two files' features card against CPU."""
+    import random
+
+    from cpc2_torch.eval import eval_ABX
+    from cpc2_torch.eval.abx import abx_group_computation as abx_g
+    from cpc2_torch.feature_loader import (FeatureModule, build_feature,
+                                           build_feature_files, load_model)
+    from cpc2_torch.ops import _build
+    from cpc2_torch.ops.dtw import dtw_normalized, dtw_normalized_plain
+    root = os.path.join(work, "phones")
+    item = write_phone_corpus(root)
+    _build.reset_launches()
+    scores = eval_ABX.main(["from_checkpoint", checkpoint, item, root,
+                            "--out", os.path.join(work, "abx")])
+    launches = dict(_build.LAUNCHES)
+    run = dict(eval_ABX.LAST_RUN)
+    check_launched("ABX", launches, ABX_KERNELS)
+    for mode in ("within", "across"):
+        if not 0.0 <= scores.get(mode, math.nan) <= 1.0:
+            raise AssertionError(f"ABX {mode}: {scores.get(mode)}")
+
+    # the same features, scored with the kernel and with the plain DTW
+    paths = sorted(glob.glob(os.path.join(root, "*", "*.wav")))
+    model = load_model([checkpoint])[0]
+    card = build_feature_files(
+        FeatureModule(model.to(dev), False, keep_hidden=True), paths)
+    seqs = [(os.path.splitext(os.path.basename(p))[0], p) for p in paths]
+    events = []
+
+    def timed_dtw(dist, n1, n2):
+        # CUDA events around each launch: the DTW kernel's share of scoring
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        out = dtw_normalized(dist, n1, n2)
+        pair[1].record()
+        events.append(pair)
+        return out
+
+    def score(dtw):
+        # the scorer's DTW swapped for this call; the same subsampled
+        # groups both times
+        abx_g.dtw_normalized = dtw
+        random.seed(0)
+        try:
+            return eval_ABX.ABX(card.__getitem__, item, seqs, "cosine",
+                                100.0, ["within", "across"],
+                                max_size_group=20, device=dev)
+        finally:
+            abx_g.dtw_normalized = dtw_normalized
+
+    kernel_scores = score(timed_dtw)
+    torch.cuda.synchronize()
+    dtw_ms = sum(a.elapsed_time(b) for a, b in events)
+    timed_scoring_s = eval_ABX.LAST_RUN["scoring_s"]
+    plain_scores = score(dtw_normalized_plain)
+    if kernel_scores != plain_scores:
+        raise AssertionError(f"ABX with the DTW kernel {kernel_scores} vs "
+                             f"the plain DTW {plain_scores}")
+
+    cpu = FeatureModule(model.cpu(), False, keep_hidden=True)
+    err = compare("features (card vs cpu)",
+                  [torch.from_numpy(card[p]) for p in paths[:2]],
+                  [torch.from_numpy(build_feature(cpu, p)) for p in paths[:2]],
+                  rtol=1e-3)
+    return {"scores": scores, "launches": launches, "features_s":
+            run["features_s"], "scoring_s": run["scoring_s"],
+            "flushes": run["flushes"], "dtw_pairs": run["dtw_pairs"],
+            "kernel_vs_plain_scores": kernel_scores,
+            "feature_max_abs_err": err,
+            "files": len(paths), "dtw_calls": len(events),
+            "dtw_device_ms": dtw_ms,
+            "dtw_share_of_scoring": dtw_ms / 1e3 / timed_scoring_s}
 
 
 def main() -> int:
@@ -389,7 +587,7 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     kernels = []
-    for check in (check_lstm, check_ffn, check_infonce):
+    for check in (check_lstm, check_ffn, check_infonce, check_dtw):
         start = time.perf_counter()
         kernels += check(dev, gen)
         log(f"[{check.__name__}] {time.perf_counter() - start:.1f} s")
@@ -404,12 +602,24 @@ def main() -> int:
     log(f"[check_step] max abs err {step_err:.2e}, "
         f"{time.perf_counter() - start:.1f} s")
 
-    start = time.perf_counter()
-    record = run_training(dev)
-    log(f"[train] {time.perf_counter() - start:.1f} s, "
-        f"launches {record['launches']}")
+    with tempfile.TemporaryDirectory() as work:
+        start = time.perf_counter()
+        record = run_training(dev, work)
+        log(f"[train] {time.perf_counter() - start:.1f} s, "
+            f"launches {record['launches']}")
+        start = time.perf_counter()
+        abx = run_abx(dev, work, record["checkpoint"])
+        log(f"[abx] {time.perf_counter() - start:.1f} s, scores "
+            f"{abx['scores']}, {abx['files']} files: features "
+            f"{abx['features_s']:.3f} s, scoring {abx['scoring_s']:.3f} s "
+            f"in {abx['flushes']} flushes, launches {abx['launches']}, "
+            f"DTW {abx['dtw_device_ms']:.3f} ms in {abx['dtw_calls']} calls "
+            f"({100 * abx['dtw_share_of_scoring']:.1f}% of scoring), "
+            f"card-vs-cpu features {abx['feature_max_abs_err']:.2e}")
+    # each kernel's launches on its own path
     for k in kernels:
-        k["launches"] = record["launches"][k["name"]]
+        k["launches"] = (abx if k["name"] == "dtw"
+                         else record)["launches"][k["name"]]
     step_ms = record["step_ms"]
     summary = {
         "kernels": kernels,
@@ -418,6 +628,11 @@ def main() -> int:
                   "audio_hours_per_hour": record["audio_hours_per_hour"],
                   "step_ms_quartiles": statistics.quantiles(step_ms, n=4),
                   "step_parity_max_abs_err": step_err},
+        "abx": {k: abx[k] for k in ("scores", "launches", "features_s",
+                                    "scoring_s", "flushes", "dtw_pairs",
+                                    "dtw_device_ms", "dtw_share_of_scoring",
+                                    "kernel_vs_plain_scores",
+                                    "feature_max_abs_err", "files")},
     }
     if not all(math.isfinite(v) for k in kernels
                for v in (k["ms"], k["plain_ms"], k["bound_ms"])):

@@ -13,6 +13,7 @@ something to XLA and are accepted and do nothing: `--prng`, `--remat`,
 from __future__ import annotations
 
 import argparse
+import os
 import random
 from typing import Optional, Sequence
 
@@ -208,7 +209,8 @@ def set_train_config(parser: argparse.ArgumentParser
 
 # Features not ported yet: flag -> (is it set away from its default?,
 # the ROADMAP.md item that ports it).
-_CHECKPOINTS = "Checkpoint save and resume"
+CONCATENATION = "Multi-checkpoint concatenation"
+_PROFILE = "Step profiling (--profile_dir)"
 _DDP = "Data-parallel training (DDP)"
 _NEG_POOLS = "Negative pools across or within devices"
 _BF16 = "bf16 precision"
@@ -216,9 +218,8 @@ _COMPRESSED = "FLAC and compressed audio"
 _AUGMENT = "Augmentation"
 _VARIANTS = "Other model and criterion modes"
 _UNPORTED = (
-    ('pathCheckpoint', lambda v: v is not None, _CHECKPOINTS),
-    ('load', lambda v: v is not None, _CHECKPOINTS),
-    ('profile_dir', lambda v: v is not None, _CHECKPOINTS),
+    ('load', lambda v: v is not None and len(v) > 1, CONCATENATION),
+    ('profile_dir', lambda v: v is not None, _PROFILE),
     ('distributed', bool, _DDP),
     ('nGPU', lambda v: v > 1, _DDP),
     ('data_axis_size', lambda v: v > 1, _DDP),
@@ -242,13 +243,28 @@ _UNPORTED = (
 )
 
 
-def check_ported(args: argparse.Namespace) -> None:
-    """Raise `NotImplementedError` for a flag whose feature is not ported."""
-    for name, is_set, item in _UNPORTED:
+def _raise_unported(args: argparse.Namespace, entries) -> None:
+    for name, is_set, item in entries:
         if is_set(getattr(args, name)):
             raise NotImplementedError(
                 f"--{name} {getattr(args, name)!r}: not ported to cpc2_torch "
                 f"(ROADMAP.md item: {item})")
+
+
+_MODEL_FLAGS = ('cpc_mode', 'encoder_type')
+
+
+def check_model_ported(args: argparse.Namespace) -> None:
+    """Raise `NotImplementedError` when the architecture flags (a
+    checkpoint's saved ones, say) name a model that is not ported."""
+    _raise_unported(args, [u for u in _UNPORTED if u[0] in _MODEL_FLAGS])
+    if args.arMode not in ('GRU', 'LSTM', 'RNN', 'no_ar', 'transformer'):
+        raise ValueError(f"unknown arMode {args.arMode!r}")
+
+
+def check_ported(args: argparse.Namespace) -> None:
+    """Raise `NotImplementedError` for a flag whose feature is not ported."""
+    _raise_unported(args, _UNPORTED)
     if args.steps_per_dispatch != 1 or args.corpus_on_device:
         raise ValueError("--steps_per_dispatch > 1 and --corpus_on_device "
                          "mean something to XLA only; the port takes one "
@@ -259,17 +275,31 @@ def check_ported(args: argparse.Namespace) -> None:
             f"only (ROADMAP.md item: {_COMPRESSED})")
 
 
+def get_default_cpc_config() -> argparse.Namespace:
+    """The architecture flags at their defaults (what a checkpoint's
+    `checkpoint_args.json` is merged into)."""
+    return set_default_cpc_config(argparse.ArgumentParser()).parse_args([])
+
+
 def parse_args(argv: Optional[Sequence[str]]) -> argparse.Namespace:
     """The trainer's command line, checked as `cpc2_tpu.train.parse_args`
-    checks it, plus `check_ported`."""
+    checks it, plus `check_ported`. Without `--pathDB`, a run resumes from
+    `--pathCheckpoint` with the corpus and flags saved there; `train.main`
+    checks those once it has read them."""
     parser = argparse.ArgumentParser(description='CPC trainer (PyTorch)')
     set_default_cpc_config(parser)
     set_port_config(parser)
     set_train_config(parser)
     args = parser.parse_args(argv)
-    if args.pathDB is None:
-        parser.error("--pathDB is required")
-    check_ported(args)
+    if args.pathDB is None and (args.pathCheckpoint is None or args.restart):
+        parser.error("--pathDB is required unless --pathCheckpoint names a "
+                     "run to resume")
+    if args.pathDB is not None:
+        check_ported(args)
+    if args.pathCheckpoint is not None:
+        args.pathCheckpoint = os.path.abspath(args.pathCheckpoint)
+    if args.load is not None:
+        args.load = [os.path.abspath(x) for x in args.load]
     if args.samplingType == "temporalsamespeaker":
         if args.pathTrain is not None or args.pathVal is not None:
             raise ValueError("Can not apply temporal sampling (with same "

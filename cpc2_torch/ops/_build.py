@@ -24,12 +24,12 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cpc2_torch_kernels"
-SOURCES = ("lstm.cu", "ffn.cu", "infonce.cu")
+SOURCES = ("lstm.cu", "ffn.cu", "infonce.cu", "dtw.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 LIBRARY = BUILD_DIR / "libcpc2_kernels.so"
 
 KERNELS = ("lstm_fwd", "lstm_bwd", "ffn_fwd", "ffn_bwd", "infonce_fwd",
-           "infonce_bwd")
+           "infonce_bwd", "dtw")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
@@ -42,6 +42,7 @@ _SIGNATURES = {
     "cpc2_ffn_bwd": [_P] * 12 + [_I] * 4 + [_U, _F, _P],
     "cpc2_infonce_fwd": [_P] * 4 + [_I] * 5 + [_P],
     "cpc2_infonce_bwd": [_P] * 6 + [_I] * 5 + [_P],
+    "cpc2_dtw": [_P] * 4 + [_I] * 3 + [_P],
 }
 
 _lib = None

@@ -7,23 +7,35 @@ It parses the JAX trainer's flags, finds the sequences and splits them
 the model, criterion and optimizer on the device, and runs `--nEpoch`
 epochs of training steps, each followed by a validation pass. It prints
 the reference's per-step loss and accuracy tables and the step times.
+
+With `--pathCheckpoint <dir>` it writes `checkpoint_args.json` at the
+start and `checkpoint_<epoch>.pt` (the reference's `{gEncoder,
+cpcCriterion, optimizer, best}`) with `checkpoint_logs.json` every
+`--save_step` epochs and at the last one. A run whose directory holds a
+checkpoint resumes from the newest one (model, criterion, optimizer, the
+next epoch) unless `--restart`. `--load <checkpoint>` starts from a
+checkpoint's model, and its criterion with `--loadCriterion`.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import random
 import statistics
 import sys
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .config import parse_args
+from .config import check_ported, parse_args
 from .data import AudioBatchData, filter_seqs, find_all_seqs
-from .feature_loader import build_model
+from .feature_loader import build_model, load_model, load_state
+from .io.checkpoint import (get_checkpoint_data, load_args,
+                            load_torch_checkpoint, save_args,
+                            save_checkpoint, save_logs)
 from .losses import CPCUnsupervisedCriterion
 from .models.encoder import DOWNSAMPLING
 from .training import (Trainer, make_lr_schedule, make_optimizer,
@@ -156,11 +168,55 @@ def val_epoch(trainer: Trainer, loader, device: torch.device) -> Dict:
     return logs
 
 
+# Flags a resumed run keeps from its own command line, not the checkpoint's
+# (`cpc2_tpu/train.py:382-388`, plus the port's `--device`).
+_RUN_FLAGS = {"nGPU", "pathCheckpoint", "debug", "restart", "max_size_loaded",
+              "nEpoch", "save_step", "device"}
+_OPTAX = "Optimizer state from optax checkpoints"
+
+
+def _resume(args) -> Tuple[Dict, bool]:
+    """With `--pathCheckpoint` and no `--restart`, take the flags and logs
+    of the directory's newest checkpoint and load it as a whole. Returns
+    (logs, whether to restore the optimizer)."""
+    logs = {"epoch": [], "iter": [], "saveStep": args.save_step,
+            "logging_step": args.logging_step}
+    cdata = (get_checkpoint_data(args.pathCheckpoint)
+             if args.pathCheckpoint is not None and not args.restart
+             else None)
+    if cdata is None:
+        if args.pathDB is None:
+            raise ValueError(f"no checkpoint to resume at "
+                             f"{args.pathCheckpoint} and no --pathDB")
+        return logs, False
+    path, logs, loc_args = cdata
+    print(f"Checkpoint detected at {path}")
+    load_args(args, loc_args, forbidden_attr=_RUN_FLAGS)
+    check_ported(args)
+    args.load, args.loadCriterion = [path], True
+    logs["logging_step"] = args.logging_step
+    return logs, True
+
+
+def _load_optimizer(optimizer: torch.optim.Optimizer, saved) -> None:
+    """Restore a torch optimizer state dict; the JAX package's optax
+    leaves are not converted."""
+    if not (isinstance(saved, dict) and "state" in saved
+            and "param_groups" in saved):
+        raise NotImplementedError(
+            "the checkpoint's optimizer state is not a torch optimizer's "
+            "(a cpc2_tpu checkpoint keeps optax leaves): resuming it is not "
+            f"ported to cpc2_torch (ROADMAP.md item: {_OPTAX})")
+    optimizer.load_state_dict(saved)
+    print("Restored optimizer state")
+
+
 def main(argv: Optional[Sequence[str]]) -> Dict:
     """Train as the flags say; returns the run's record: per-epoch logs,
     every training step's time in ms, its median, and the audio hours
     trained per hour of step time."""
     args = parse_args(argv)
+    logs, load_optimizer = _resume(args)
     device = resolve_device(args.device)
     set_precision(args.precision)
     set_seed(args.random_seed)
@@ -186,24 +242,41 @@ def main(argv: Optional[Sequence[str]]) -> Dict:
                                   nProcessLoader=args.n_process_loader)
                    if seq_val else None)
 
-    model = build_model(args).to(device)
-    criterion = get_criterion(args).to(device)
+    if args.load is not None:
+        model, args.hiddenGar, args.hiddenEncoder = load_model(args.load)
+    else:
+        model = build_model(args)
+    model = model.to(device)
+    criterion = get_criterion(args)
+    if args.load is not None and args.loadCriterion:
+        load_state(criterion, load_torch_checkpoint(args.load[0])[
+            "cpcCriterion"], "cpcCriterion")
+    criterion = criterion.to(device)
     params = list(model.parameters()) + list(criterion.parameters())
     print(f"Model: {sum(p.numel() for p in params)} parameters on {device}")
+    optimizer = make_optimizer(args, params)
+    if load_optimizer:
+        _load_optimizer(optimizer,
+                        load_torch_checkpoint(args.load[0])["optimizer"])
     generator = torch.Generator(device=device)
     generator.manual_seed(args.random_seed)
-    trainer = Trainer(model, criterion, make_optimizer(args, params),
-                      generator, keep_hidden=getattr(model.gAR, 'keep_hidden',
-                                                     False))
+    trainer = Trainer(model, criterion, optimizer, generator,
+                      keep_hidden=getattr(model.gAR, 'keep_hidden', False))
     lr_fn = make_lr_schedule(args.learningRate, args.schedulerStep,
                              args.schedulerRamp)
     batch_size = args.batchSizeGPU
 
-    logs: Dict[str, List] = {"epoch": []}
+    path_checkpoint = None
+    if args.pathCheckpoint is not None:
+        os.makedirs(args.pathCheckpoint, exist_ok=True)
+        path_checkpoint = os.path.join(args.pathCheckpoint, "checkpoint")
+        save_args(args, path_checkpoint + "_args.json")
+
     step_ms: List[float] = []
+    best_acc, best_state = -1.0, None
     start_time = time.time()
     try:
-        for epoch in range(args.nEpoch):
+        for epoch in range(len(logs["epoch"]), args.nEpoch):
             print(f"Starting epoch {epoch}")
             trainer.set_learning_rate(lr_fn(epoch))
             # host-side draws re-keyed per epoch, as the JAX trainer does
@@ -225,11 +298,23 @@ def main(argv: Optional[Sequence[str]]) -> Dict:
                        if val_dataset is not None else {})
             print(f'Ran {epoch + 1} epochs '
                   f'in {time.time() - start_time:.2f} seconds')
+            if "locAcc_val" in loc_val:
+                accuracy = float(np.mean(loc_val["locAcc_val"]))
+                if accuracy > best_acc:
+                    best_acc = accuracy
+                    best_state = {k: v.detach().cpu().clone()
+                                  for k, v in model.state_dict().items()}
             for key, value in dict(loc_train, **loc_val).items():
-                logs.setdefault(key, []).append(
+                logs.setdefault(key, [None] * epoch).append(
                     value.tolist() if isinstance(value, np.ndarray)
                     else value)
             logs["epoch"].append(epoch)
+            if path_checkpoint is not None and (
+                    epoch % logs["saveStep"] == 0 or epoch == args.nEpoch - 1):
+                save_checkpoint(model.state_dict(), criterion.state_dict(),
+                                optimizer.state_dict(), best_state,
+                                f"{path_checkpoint}_{epoch}.pt")
+                save_logs(logs, path_checkpoint + "_logs.json")
     finally:
         train_dataset.close()
         if val_dataset is not None:

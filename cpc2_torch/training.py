@@ -11,6 +11,7 @@ whose update is optax's `adam` formula.
 from __future__ import annotations
 
 import argparse
+import contextlib
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -37,6 +38,22 @@ def set_precision(precision: str) -> None:
     tf32 = precision == "bf16mix"
     torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.backends.cudnn.allow_tf32 = tf32
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """Library matmuls and convolutions in full fp32 inside the block,
+    whatever `set_precision` chose, as the JAX package's feature extraction
+    and ABX force `default_matmul_precision('highest')`."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
 
 
 def make_optimizer(args: argparse.Namespace, params) -> torch.optim.Optimizer:

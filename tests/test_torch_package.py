@@ -50,7 +50,7 @@ BASE = ["--pathDB", "db", "--file_extension", ".wav"]
 
 
 @pytest.mark.parametrize("flags", [
-    ["--pathCheckpoint", "ck"], ["--load", "a.pt"], ["--nGPU", "2"],
+    ["--profile_dir", "p"], ["--load", "a.pt", "b.pt"], ["--nGPU", "2"],
     ["--distributed"], ["--augment_past"], ["--cpc_mode", "reverse"],
     ["--rnnMode", "linear"], ["--multihead_rnn"], ["--precision", "bf16"],
     ["--global_negatives"], ["--neg_pool_group", "4"],
