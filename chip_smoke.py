@@ -8,22 +8,29 @@ Phases, each of which fails the run with a nonzero exit:
 2. build the CUDA kernels from `cpc2_torch/csrc` (`cpc2_torch/ops/_build.py`);
 3. hold each kernel against its plain PyTorch version at the recipe's
    shapes (B = 8, T = 128, H = 256, K = 12, W = 116, N = 128, D = 256,
-   P = 1,024, FFN 256 -> 2048 -> 256 on 928 rows), forward and backward,
-   the FFN at dropout 0 and 0.1 with the same seed, and the DTW kernel at
-   one ABX flush (18,432 pairs of 32 x 32 frames), a ragged 16 x 64, a
+   P = 1,024, FFN 256 -> 2048 -> 256 on 928 rows, attention 64 units of
+   116 x 32, encoder 16 x 20,480 samples at C = 256), forward and
+   backward, the FFN and the attention at dropout 0 and 0.1 with the same
+   seed, the encoder in its bf16 working type, and the DTW kernel at one
+   ABX flush (18,432 pairs of 32 x 32 frames), a ragged 16 x 64, a
    multi-strip 64 x 64 and its 2,048 x 2,048 limit, where it must be
    bit-identical; then time the kernel, the plain version and, where one
-   PyTorch call computes the same function, that call;
+   PyTorch call computes the same function, that call (for the attention
+   and the encoder, which no one call computes, the port's default route
+   for the same work as a yardstick);
 4. hold one whole training step on the card (kernels) against the same step
    on the CPU (plain versions) at a small width, same weights, same
-   negatives, dropout off;
+   negatives, dropout off; then again with CPC2_FUSED_ATTENTION=1 and
+   CPC2_FUSED_ENCODER=1 under `bf16mix`;
 5. write a synthetic 16 kHz wav corpus in LibriSpeech layout and run
    `cpc2_torch.train.main` at the CLI defaults on it for one epoch
    (batch 8 x 20,480 samples, 256-d, LSTM, 12 transformer heads, 128
    negatives) with `--pathCheckpoint`, with every kernel's launch count set
    to 0 just before and read just after: the LSTM, FFN and InfoNCE kernels
-   must have launched, the losses must be finite, the parameters must live
-   on the card and the checkpoint files must exist;
+   must have launched and the attention and encoder kernels must not, the
+   losses must be finite, the parameters must live on the card and the
+   checkpoint files must exist; then one more epoch with both variables
+   set (and restored after), which must launch all ten training kernels;
 6. write a phone corpus with its `.item` file (4 speakers x 8 files x 24
    tokens) and run `cpc2_torch.eval.eval_ABX.main from_checkpoint` on the
    checkpoint of phase 5 at its defaults, the counts again set to 0 just
@@ -39,6 +46,7 @@ when the `cpc2_torch` package is not beside it.
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import json
 import math
@@ -54,10 +62,13 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# NVIDIA H100 SXM data sheet: HBM3 rate and fp32 (non-tensor-core) peak.
-# The hand-written kernels compute in fp32 on the FMA units.
+# NVIDIA H100 SXM data sheet: HBM3 rate, fp32 (non-tensor-core) peak and
+# dense bf16 tensor-core peak. The hand-written kernels compute in fp32 on
+# the FMA units; the encoder's products take bf16 operands, so its bound is
+# reckoned at the bf16 rate.
 MEMORY_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 # Tolerances of kernel against plain version: fp32 sums in another order.
 # An error passes when it is at most ATOL + RTOL * max|plain|.
@@ -92,11 +103,12 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, flops: float):
+def bound_ms(n_bytes: float, flops: float, peak: float = FP32_FLOP_PER_S):
     """Least time for the work: bytes over the memory rate or operations
-    over the fp32 peak, whichever is larger, and which one it is."""
+    over the peak for their type, whichever is larger, and which one it
+    is."""
     t_bytes = n_bytes / MEMORY_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -123,6 +135,12 @@ def compare(name: str, got, want, rtol: float = RTOL) -> float:
     return worst
 
 
+def norm_rel(got, want) -> float:
+    """|got - want| / |want| in the 2-norm."""
+    return ((got.double() - want.double()).norm()
+            / want.double().norm().clamp_min(1e-30)).item()
+
+
 def grads_of(fn, inputs, cotangents):
     """(outputs, gradients of sum(out * cot) w.r.t. inputs, a function
     that recomputes those gradients on the retained graph)."""
@@ -137,8 +155,8 @@ def grads_of(fn, inputs, cotangents):
 
 
 def kernel_entry(name, source, replaces, err, ms, plain_ms, library_ms,
-                 n_bytes, flops):
-    bound, by = bound_ms(n_bytes, flops)
+                 n_bytes, flops, peak=FP32_FLOP_PER_S):
+    bound, by = bound_ms(n_bytes, flops, peak)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
@@ -327,14 +345,230 @@ def check_dtw(dev, gen):
                          20 * cells)]
 
 
-def check_step(dev) -> float:
+def check_attention(dev, gen):
+    """The attention kernel against its plain version at one head call of
+    the recipe (64 units of 116 x 32), at dropout 0 and 0.1 with one seed;
+    the hash mask keeps about 0.9 of the causal probabilities. Timed at
+    0.1, with the module's shift-trick path (the port's default route for
+    the same work) as the yardstick. Its bound counts the causal pairs:
+    q.k, the relative term and p.v forward (6 dk FLOPs a pair), 16 dk
+    backward."""
+    from cpc2_torch.models.transformer import ScaledDotProductAttention
+    from cpc2_torch.ops.attention import attention_plain, \
+        fused_relpos_attention
+    from cpc2_torch.ops.ffn import keep_mask
+    n, s, dk = 64, 116, 32
+    inputs = [torch.randn(n, s, dk, device=dev, generator=gen)
+              for _ in range(3)]
+    inputs.append(0.2 * torch.randn(dk, s, device=dev, generator=gen))
+    seed = torch.tensor([12345], device=dev, dtype=torch.int32)
+    cot = [torch.randn(n, s, dk, device=dev, generator=gen)]
+    errs = []
+    for rate in (0.0, 0.1):
+        def kern(*a):
+            return fused_relpos_attention(*a, seed, rate)
+
+        def plain(*a):
+            return attention_plain(*a, seed, rate)
+        out_k, grad_k, bwd_k = grads_of(kern, inputs, cot)
+        out_p, grad_p, bwd_p = grads_of(plain, inputs, cot)
+        errs.append((compare(f"attention forward rate {rate}", out_k, out_p),
+                     compare(f"attention backward rate {rate}", grad_k,
+                             grad_p)))
+    causal = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+    keep = keep_mask(seed, n * s, s, 0.1).reshape(n, s, s)
+    kept = keep[:, causal].float().mean().item()
+    if abs(kept - 0.9) > 0.005:
+        raise AssertionError(f"attention dropout kept {kept:.4f} of the "
+                             f"probabilities")
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: kern(*inputs))
+        plain_fwd_ms = cuda_ms(lambda: plain(*inputs))
+    bwd_ms = cuda_ms(bwd_k)
+    plain_bwd_ms = cuda_ms(bwd_p)
+
+    module = ScaledDotProductAttention(s, dk, 0.1, relpos=True).to(dev)
+    with torch.no_grad():
+        module.Krelpos.copy_(inputs[3])
+    qkv = [t.detach().requires_grad_(True) for t in inputs[:3]]
+    out_m = module(*qkv, gen)
+    with torch.no_grad():
+        shift_fwd_ms = cuda_ms(lambda: module(*inputs[:3], gen))
+    shift_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        out_m, qkv + [module.Krelpos], cot, retain_graph=True))
+
+    pairs = n * s * (s + 1) // 2
+    src = "cpc2_torch/csrc/attention.cu"
+    rep = "cpc2_tpu/ops/attention_pallas.py"
+    yard = {"attention_fwd": shift_fwd_ms, "attention_bwd": shift_bwd_ms}
+    return [
+        kernel_entry("attention_fwd", src, rep + ":159",
+                     max(e[0] for e in errs), fwd_ms, plain_fwd_ms, None,
+                     nbytes(*inputs, seed) + nbytes(*out_k), 6 * dk * pairs),
+        kernel_entry("attention_bwd", src, rep + ":179",
+                     max(e[1] for e in errs), bwd_ms, plain_bwd_ms, None,
+                     nbytes(*inputs, seed, *cot) + nbytes(*grad_k),
+                     16 * dk * pairs)], yard
+
+
+# The encoder kernels against their plain version. Both round to bf16 at the
+# same points, but their fp32 sums run in other orders, so a value within
+# reordering noise of a bf16 rounding boundary rounds one way on one side and
+# the other way on the other, and a ReLU whose input lies that close to 0
+# flips: at the recipe this moves single gradient elements by several
+# percent of a tensor's largest value. So each tensor is held, in the 2-norm
+# of the difference over the norm of the plain version, to ENCODER_BAND times
+# the same measure between the plain version in fp32 and in fp64 (the chatter
+# of the bf16 rounding points themselves, on the same inputs), or RTOL when
+# that is smaller.
+ENCODER_BAND = 3.0
+
+
+def check_encoder(dev, gen):
+    """The encoder kernels against their plain version at the recipe (16 x
+    20,480 samples, C = 256) in their bf16 working type, forward and
+    backward; timed with `nn.Conv1d` + ChannelNorm under TF32 (the port's
+    default route) as the yardstick. The products take bf16 operands, so
+    the bound is reckoned at the bf16 tensor-core rate."""
+    from cpc2_torch.models.encoder import CONV_STACK, CPCEncoder
+    from cpc2_torch.ops.encoder import encoder_plain, fused_encoder
+    n, t, c = 16, 20480, 256
+    torch.manual_seed(0)
+    module = CPCEncoder(c).to(dev)
+    with torch.no_grad():
+        for i in range(5):
+            norm = getattr(module, f"batchNorm{i}")
+            norm.weight.add_(0.1 * torch.randn(norm.weight.shape, device=dev,
+                                               generator=gen))
+            norm.bias.add_(0.1 * torch.randn(norm.bias.shape, device=dev,
+                                             generator=gen))
+    groups = [[getattr(module, f"conv{i}").weight for i in range(5)],
+              [getattr(module, f"conv{i}").bias for i in range(5)],
+              [getattr(module, f"batchNorm{i}").weight for i in range(5)],
+              [getattr(module, f"batchNorm{i}").bias for i in range(5)]]
+    params = [p for g in groups for p in g]
+    x = 0.1 * torch.randn(n, t, device=dev, generator=gen)
+    cot = [torch.randn(n, t // 160, c, device=dev, generator=gen)]
+
+    def regroup(fn):
+        return lambda x, *p: fn(x, p[0:5], p[5:10], p[10:15], p[15:20])
+    kern, plain = regroup(fused_encoder), regroup(encoder_plain)
+    out_k, grad_k, bwd_k = grads_of(kern, [x] + params, cot)
+    out_p, grad_p, bwd_p = grads_of(plain, [x] + params, cot)
+    out_d, grad_d, _ = grads_of(plain, [t.double() for t in [x] + params],
+                                [cot[0].double()])
+    names = ["output", "dx"] + [f"{g}[{i}]" for g in (
+        "dconv_w", "dconv_b", "dnorm_w", "dnorm_b") for i in range(5)]
+    ratios, bands, errs = [], [], []
+    for name, k, p, d in zip(names, out_k + list(grad_k),
+                             out_p + list(grad_p), out_d + list(grad_d)):
+        if not torch.isfinite(k).all():
+            raise AssertionError(f"encoder {name}: non-finite values")
+        err, band = norm_rel(k, p), norm_rel(p, d)
+        ratios.append(err / max(band, RTOL))
+        bands.append(band)
+        if err > max(ENCODER_BAND * band, RTOL):
+            raise AssertionError(f"encoder {name}: kernel vs plain {err:.3e} "
+                                 f"(2-norm, relative), plain fp32 vs fp64 "
+                                 f"{band:.3e}")
+        errs.append((k.double() - p.double()).abs().max().item())
+    log(f"  encoder kernel vs plain, relative 2-norm: output "
+        f"{norm_rel(out_k[0], out_p[0]):.2e} (fp32 vs fp64 plain "
+        f"{bands[0]:.2e}); each gradient at most {max(ratios[1:]):.2f} x "
+        f"the plain version's own fp32-vs-fp64 spread, which is "
+        f"{min(bands[1:]):.2e} to {max(bands[1:]):.2e}")
+    err_f, err_b = errs[0], max(errs[1:])
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: kern(x, *params))
+        plain_fwd_ms = cuda_ms(lambda: plain(x, *params))
+    bwd_ms = cuda_ms(bwd_k)
+    plain_bwd_ms = cuda_ms(bwd_p)
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        x_m = x.detach().requires_grad_(True)
+        out_m = module(x_m)
+        with torch.no_grad():
+            cudnn_fwd_ms = cuda_ms(lambda: module(x))
+        cudnn_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            out_m, [x_m] + params, cot, retain_graph=True))
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+    flops, length, cin = 0, t, 1
+    for k, s, _p in CONV_STACK:
+        length //= s
+        flops += 2 * n * length * k * cin * c
+        cin = c
+    src = "cpc2_torch/csrc/encoder.cu"
+    rep = "cpc2_tpu/ops/encoder_pallas.py"
+    yard = {"encoder_fwd": cudnn_fwd_ms, "encoder_bwd": cudnn_bwd_ms}
+    return [
+        kernel_entry("encoder_fwd", src, rep + ":340", err_f, fwd_ms,
+                     plain_fwd_ms, None, nbytes(x, *params, *out_k), flops,
+                     BF16_FLOP_PER_S),
+        kernel_entry("encoder_bwd", src, rep + ":362", err_b, bwd_ms,
+                     plain_bwd_ms, None,
+                     nbytes(x, *params, *cot) + nbytes(*grad_k), 2 * flops,
+                     BF16_FLOP_PER_S)], yard
+
+
+FUSED = ("CPC2_FUSED_ATTENTION", "CPC2_FUSED_ENCODER")
+
+
+@contextlib.contextmanager
+def fused_switches(on: bool):
+    """Both opt-in kernels' variables set to 1 (on) or unset (off) inside
+    the block, restored after; with `on`, `bf16mix` library math too."""
+    saved_env = {k: os.environ.get(k) for k in FUSED}
+    saved_tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                  torch.backends.cudnn.allow_tf32)
+    for k in FUSED:
+        if on:
+            os.environ[k] = "1"
+        else:
+            os.environ.pop(k, None)
+    if on:
+        from cpc2_torch.training import set_precision
+        set_precision("bf16mix")
+    try:
+        yield
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved_tf32
+
+
+# Step card against CPU with both opt-in kernels: the encoder rounds to bf16
+# on both devices at the same points, but a value within fp32 reordering
+# noise of a rounding boundary rounds differently on the two, and a ReLU
+# whose input lies that close to 0 flips (see ENCODER_BAND); every later
+# layer and gradient carries that chatter. So the losses are held to
+# FUSED_LOSS_RTOL of their largest value and each gradient, in the 2-norm of
+# the difference over the CPU's, to FUSED_GRAD_NORM_TOL.
+FUSED_LOSS_RTOL = 1e-3
+FUSED_GRAD_NORM_TOL = 5e-2
+
+
+def check_step(dev, fused: bool = False) -> float:
     """One training step on the card against the same step on the CPU at a
     small width, same weights and negatives, dropout off: the per-head
     losses and every gradient. The tolerance is 1e-3 of each tensor's
     largest value: the whole network's sums run in other orders on the two
-    devices (cuDNN's convolutions among them). Parameters after the Adam
+    devices (cuDNN's convolutions among them); with `fused` (both opt-in
+    kernels, `bf16mix`), see FUSED_GRAD_NORM_TOL. Parameters after the Adam
     step are not compared: where a gradient is near zero its first step is
     +-lr times the sign of a rounding error."""
+    with fused_switches(fused):
+        return _check_step(dev, fused)
+
+
+def _check_step(dev, fused: bool) -> float:
     from cpc2_torch.config import parse_args
     from cpc2_torch.feature_loader import build_model
     from cpc2_torch.train import get_criterion
@@ -365,8 +599,26 @@ def check_step(dev) -> float:
         trainer = Trainer(model, crit, make_optimizer(args, params))
         losses, _accs = trainer.train_step(batch.to(device), neg.to(device))
         results.append([losses.cpu()] + [p.grad.cpu() for p in params])
-    return compare("training step (card vs cpu)", results[1], results[0],
-                   rtol=1e-3)
+    if not fused:
+        return compare("training step (card vs cpu)", results[1],
+                       results[0], rtol=1e-3)
+    err = loss_err = compare("fused training step losses (card vs cpu)",
+                             results[1][:1], results[0][:1],
+                             rtol=FUSED_LOSS_RTOL)
+    worst = 0.0
+    for i, (card, cpu) in enumerate(zip(results[1][1:], results[0][1:])):
+        if not torch.isfinite(card).all():
+            raise AssertionError(f"fused step gradient {i}: non-finite")
+        rel = norm_rel(card, cpu)
+        if rel > FUSED_GRAD_NORM_TOL:
+            raise AssertionError(f"fused step gradient {i}: card vs cpu "
+                                 f"{rel:.3e} (2-norm, relative)")
+        worst = max(worst, rel)
+        err = max(err, (card.double() - cpu.double()).abs().max().item())
+    log(f"  fused step card vs cpu: losses max abs err {loss_err:.2e}, worst "
+        f"gradient {worst:.2e} (2-norm, relative; tolerance "
+        f"{FUSED_GRAD_NORM_TOL})")
+    return err
 
 
 def write_corpus(root: str, n_speakers: int = 4, n_files: int = 3,
@@ -392,6 +644,8 @@ def write_corpus(root: str, n_speakers: int = 4, n_files: int = 3,
 
 TRAINING_KERNELS = ("lstm_fwd", "lstm_bwd", "ffn_fwd", "ffn_bwd",
                     "infonce_fwd", "infonce_bwd")
+FUSED_KERNELS = ("attention_fwd", "attention_bwd", "encoder_fwd",
+                 "encoder_bwd")
 ABX_KERNELS = ("dtw", "lstm_fwd")
 
 
@@ -402,20 +656,31 @@ def check_launched(path: str, launches: dict, kernels) -> None:
                              f"{missing}")
 
 
-def run_training(dev, work: str) -> dict:
-    """One epoch at the CLI defaults with `--pathCheckpoint <work>/ck`."""
+def run_training(dev, work: str, fused: bool = False) -> dict:
+    """One epoch at the CLI defaults with `--pathCheckpoint <work>/ck` (or
+    `ck_fused`), with both opt-in kernels' variables set (`fused`) or
+    unset."""
     from cpc2_torch.ops import _build
     from cpc2_torch.train import main
     root = os.path.join(work, "train_db")
-    ck = os.path.join(work, "ck")
-    write_corpus(root)
-    _build.reset_launches()
-    record = main(["--pathDB", root, "--file_extension", ".wav",
-                   "--nEpoch", "1", "--random_seed", "0",
-                   "--n_process_loader", "2", "--logging_step", "10",
-                   "--pathCheckpoint", ck])
-    launches = dict(_build.LAUNCHES)
-    check_launched("training", launches, TRAINING_KERNELS)
+    ck = os.path.join(work, "ck_fused" if fused else "ck")
+    if not os.path.exists(root):
+        write_corpus(root)
+    with fused_switches(fused):
+        _build.reset_launches()
+        record = main(["--pathDB", root, "--file_extension", ".wav",
+                       "--nEpoch", "1", "--random_seed", "0",
+                       "--n_process_loader", "2", "--logging_step", "10",
+                       "--pathCheckpoint", ck])
+        launches = dict(_build.LAUNCHES)
+    if fused:
+        check_launched("fused training", launches,
+                       TRAINING_KERNELS + FUSED_KERNELS)
+    else:
+        check_launched("training", launches, TRAINING_KERNELS)
+        ran = [k for k in FUSED_KERNELS if launches[k]]
+        if ran:
+            raise AssertionError(f"the default training path launched {ran}")
     for name in ("checkpoint_0.pt", "checkpoint_args.json",
                  "checkpoint_logs.json"):
         if not os.path.exists(os.path.join(ck, name)):
@@ -586,27 +851,45 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    kernels = []
-    for check in (check_lstm, check_ffn, check_infonce, check_dtw):
-        start = time.perf_counter()
-        kernels += check(dev, gen)
-        log(f"[{check.__name__}] {time.perf_counter() - start:.1f} s")
+    kernels, yardsticks = [], {}
+    with fused_switches(False):
+        for check in (check_lstm, check_ffn, check_infonce, check_dtw,
+                      check_attention, check_encoder):
+            start = time.perf_counter()
+            result = check(dev, gen)
+            if isinstance(result, tuple):
+                result, yard = result
+                yardsticks.update(yard)
+            kernels += result
+            log(f"[{check.__name__}] {time.perf_counter() - start:.1f} s")
     for k in kernels:
-        log(f"  {k['name']:12s} err {k['max_abs_err']:.2e}  kernel "
+        yard = yardsticks.get(k["name"])
+        log(f"  {k['name']:13s} err {k['max_abs_err']:.2e}  kernel "
             f"{k['ms']:.4f} ms  plain {k['plain_ms']:.4f} ms  library "
             f"{k['library_ms']} ms  bound {k['bound_ms']:.4f} ms "
-            f"({k['bound_by']})")
+            f"({k['bound_by']})"
+            + (f"  default route {yard:.4f} ms" if yard else ""))
 
-    start = time.perf_counter()
-    step_err = check_step(dev)
-    log(f"[check_step] max abs err {step_err:.2e}, "
-        f"{time.perf_counter() - start:.1f} s")
+    step_err = {}
+    for fused in (False, True):
+        start = time.perf_counter()
+        step_err["fused" if fused else "default"] = err = check_step(
+            dev, fused)
+        log(f"[check_step{' fused' if fused else ''}] max abs err "
+            f"{err:.2e}, {time.perf_counter() - start:.1f} s")
 
     with tempfile.TemporaryDirectory() as work:
         start = time.perf_counter()
         record = run_training(dev, work)
         log(f"[train] {time.perf_counter() - start:.1f} s, "
             f"launches {record['launches']}")
+        start = time.perf_counter()
+        fused_record = run_training(dev, work, fused=True)
+        log(f"[train fused] {time.perf_counter() - start:.1f} s, "
+            f"launches {fused_record['launches']}")
+        log(f"[epochs] median ms/step: default {record['median_step_ms']:.3f}"
+            f", CPC2_FUSED_ATTENTION=1 CPC2_FUSED_ENCODER=1 "
+            f"{fused_record['median_step_ms']:.3f}")
         start = time.perf_counter()
         abx = run_abx(dev, work, record["checkpoint"])
         log(f"[abx] {time.perf_counter() - start:.1f} s, scores "
@@ -618,16 +901,23 @@ def main() -> int:
             f"card-vs-cpu features {abx['feature_max_abs_err']:.2e}")
     # each kernel's launches on its own path
     for k in kernels:
-        k["launches"] = (abx if k["name"] == "dtw"
-                         else record)["launches"][k["name"]]
-    step_ms = record["step_ms"]
+        path = (abx if k["name"] == "dtw" else fused_record
+                if k["name"] in FUSED_KERNELS else record)
+        k["launches"] = path["launches"][k["name"]]
+
+    def epoch(rec):
+        return {"steps": len(rec["step_ms"]),
+                "median_step_ms": rec["median_step_ms"],
+                "audio_hours_per_hour": rec["audio_hours_per_hour"],
+                "step_ms_quartiles": statistics.quantiles(rec["step_ms"],
+                                                          n=4)}
     summary = {
         "kernels": kernels,
-        "slice": {"steps": len(step_ms),
-                  "median_step_ms": record["median_step_ms"],
-                  "audio_hours_per_hour": record["audio_hours_per_hour"],
-                  "step_ms_quartiles": statistics.quantiles(step_ms, n=4),
-                  "step_parity_max_abs_err": step_err},
+        "slice": dict(epoch(record), step_parity_max_abs_err=step_err[
+            "default"]),
+        "slice_fused": dict(epoch(fused_record),
+                            step_parity_max_abs_err=step_err["fused"]),
+        "default_route_ms": yardsticks,
         "abx": {k: abx[k] for k in ("scores", "launches", "features_s",
                                     "scoring_s", "flushes", "dtw_pairs",
                                     "dtw_device_ms", "dtw_share_of_scoring",

@@ -1,14 +1,18 @@
 """The strided convolutional waveform encoder (counterpart of
 `cpc2_tpu/models/encoder.py`, reference `cpc/model.py:27-108`).
 
-The convolutions are `nn.Conv1d` in PyTorch's NCW layout and stay cuDNN;
-the public output is `(B, frames, C)`, the JAX package's layout.
+The convolutions are `nn.Conv1d` in PyTorch's NCW layout on cuDNN, or,
+with CPC2_FUSED_ENCODER=1, the CUDA kernels of `ops/encoder.py`, which run
+the whole stack; the public output is `(B, frames, C)`, the JAX package's
+layout.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from ..ops.encoder import fused_encoder, use_fused_encoder
 
 DOWNSAMPLING = 160
 
@@ -67,6 +71,8 @@ class CPCEncoder(nn.Module):
 
     def __init__(self, size_hidden: int = 512, norm_mode: str = "layerNorm"):
         super().__init__()
+        self.norm_mode = norm_mode
+        self.size_hidden = size_hidden
         in_channels = 1
         for i, (k, s, p) in enumerate(CONV_STACK):
             self.add_module(f"conv{i}", nn.Conv1d(in_channels, size_hidden,
@@ -77,6 +83,18 @@ class CPCEncoder(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dim() == 2:
             x = x[:, None, :]
+        if x.shape[1] == 1 and use_fused_encoder(
+                x.shape[2], self.size_hidden, CONV_STACK, self.norm_mode,
+                x.dtype):
+            # the whole stack in the encoder kernels (`ops/encoder.py`),
+            # opt-in as in the JAX package
+            n = len(CONV_STACK)
+            convs = [getattr(self, f"conv{i}") for i in range(n)]
+            norms = [getattr(self, f"batchNorm{i}") for i in range(n)]
+            return fused_encoder(x[:, 0], [c.weight for c in convs],
+                                 [c.bias for c in convs],
+                                 [m.weight for m in norms],
+                                 [m.bias for m in norms])
         for i in range(len(CONV_STACK)):
             x = getattr(self, f"conv{i}")(x)
             x = torch.relu(getattr(self, f"batchNorm{i}")(x))

@@ -2,14 +2,15 @@
 (counterpart of `cpc2_tpu/models/transformer.py`, reference
 `cpc/transformers.py`).
 
-Attention stays `torch.matmul` and softmax; the FFN runs through the CUDA
-kernel of `ops/ffn.py`. Module and parameter names follow the reference's
+Attention is `torch.matmul` and softmax, or, with CPC2_FUSED_ATTENTION=1,
+the CUDA kernel of `ops/attention.py`; the FFN runs through the CUDA kernel
+of `ops/ffn.py`. Module and parameter names follow the reference's
 (`multihead.Wq.weight`, `ln_multihead.weight`, `ffnetwork.lin1.weight`,
 `last_linear.weight`, ...), with the layers of a `TransformerAR` named
 '0', '1', ... like an `nn.Sequential`.
 
 Every `forward` takes an optional `torch.Generator` that draws the dropout
-masks and the FFN kernel's dropout seed; dropout is active in training mode
+masks and the kernels' dropout seeds; dropout is active in training mode
 only.
 """
 
@@ -21,11 +22,22 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..ops.attention import fused_relpos_attention, use_fused_attention
 from ..ops.ffn import fused_ffn
 from .layers import Dropout, LayerNorm
 
 Tensor = torch.Tensor
 Generator = Optional[torch.Generator]
+
+
+def _dropout_seed(rate: float, generator: Generator,
+                  device: torch.device) -> Tensor:
+    """A kernel's int32 dropout seed, drawn from `generator` on `device`
+    when the rate is nonzero (else 0)."""
+    if rate > 0.0:
+        return torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                             device=device, dtype=torch.int32)
+    return torch.zeros((1,), device=device, dtype=torch.int32)
 
 
 class ScaledDotProductAttention(nn.Module):
@@ -62,6 +74,13 @@ class ScaledDotProductAttention(nn.Module):
         n, s_orig, dk = q.shape
         q, k, v = self._prepare(q), self._prepare(k), self._prepare(v)
         s = self.size_seq
+        if self.relpos and use_fused_attention(s, dk):
+            # the whole unit in one kernel (`ops/attention.py`), opt-in as
+            # in the JAX package; its dropout seed comes from the generator
+            rate = self.drop.rate if self.training else 0.0
+            seed = _dropout_seed(rate, generator, q.device)
+            out = fused_relpos_attention(q, k, v, self.Krelpos, seed, rate)
+            return out.reshape(n, -1, dk)[:, :s_orig]
         qk = torch.matmul(q, k.transpose(1, 2))
         if self.relpos:
             # rel[r, c] = q[r] . Krelpos[:, s-1-(r-c)] for c <= r: prepend a
@@ -120,11 +139,7 @@ class FFNetwork(nn.Module):
 
     def forward(self, x: Tensor, generator: Generator = None) -> Tensor:
         rate = self.dropout if self.training else 0.0
-        if rate > 0.0:
-            seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
-                                 device=x.device, dtype=torch.int32)
-        else:
-            seed = torch.zeros((1,), device=x.device, dtype=torch.int32)
+        seed = _dropout_seed(rate, generator, x.device)
         lead = x.shape[:-1]
         y = fused_ffn(x.reshape(-1, x.shape[-1]), self.lin1.weight,
                       self.lin1.bias, self.lin2.weight, self.lin2.bias, seed,

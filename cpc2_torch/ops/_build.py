@@ -24,15 +24,18 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cpc2_torch_kernels"
-SOURCES = ("lstm.cu", "ffn.cu", "infonce.cu", "dtw.cu")
+SOURCES = ("lstm.cu", "ffn.cu", "infonce.cu", "dtw.cu", "attention.cu",
+           "encoder.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 LIBRARY = BUILD_DIR / "libcpc2_kernels.so"
 
 KERNELS = ("lstm_fwd", "lstm_bwd", "ffn_fwd", "ffn_bwd", "infonce_fwd",
-           "infonce_bwd", "dtw")
+           "infonce_bwd", "dtw", "attention_fwd", "attention_bwd",
+           "encoder_fwd", "encoder_bwd")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_L = ctypes.c_long
 # Argument types of each C entry point: device pointers, then sizes and
 # scalars, then the stream (see the `extern "C"` blocks of csrc/*.cu).
 _SIGNATURES = {
@@ -43,6 +46,10 @@ _SIGNATURES = {
     "cpc2_infonce_fwd": [_P] * 4 + [_I] * 5 + [_P],
     "cpc2_infonce_bwd": [_P] * 6 + [_I] * 5 + [_P],
     "cpc2_dtw": [_P] * 4 + [_I] * 3 + [_P],
+    "cpc2_attention_fwd": [_P] * 6 + [_I] * 3 + [_U, _F, _P],
+    "cpc2_attention_bwd": [_P] * 11 + [_I] * 3 + [_U, _F, _P],
+    "cpc2_encoder_fwd": [_P] * 8 + [_I] * 3 + [_P],
+    "cpc2_encoder_bwd": [_P] * 14 + [_L] + [_I] * 3 + [_P],
 }
 
 _lib = None

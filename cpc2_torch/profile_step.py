@@ -2,6 +2,9 @@
 
     python -m cpc2_torch.profile_step [--steps 10] [--trace out.json]
 
+With CPC2_FUSED_ATTENTION=1 and CPC2_FUSED_ENCODER=1 in the environment it
+profiles the step through the opt-in attention and encoder kernels.
+
 Builds the recipe model and criterion (the trainer's defaults: batch 8 x
 20,480 samples, 256-d encoder and LSTM, 12 transformer heads, 128
 negatives) from a seed, feeds random batches made with numpy, and after
@@ -12,8 +15,8 @@ warm-up steps:
   and optimizer phases, each ending in a synchronise;
 * profiles the same number of steps with `torch.profiler` and prints the
   device time per step, its share of the wall time, the share of the
-  port's hand-written kernels, and the kernels that take the most device
-  time.
+  port's hand-written kernels, the launches per step of each of the port's
+  kernel wrappers, and the kernels that take the most device time.
 
 It needs a CUDA card.
 """
@@ -30,6 +33,7 @@ import torch
 
 from .config import parse_args
 from .feature_loader import build_model
+from .ops import _build
 from .train import get_criterion
 from .training import Trainer, make_optimizer, resolve_device, set_precision
 
@@ -37,7 +41,10 @@ WARMUP_STEPS = 3
 TOP_KERNELS = 15
 # Name fragments of the port's kernels in `csrc/*.cu`.
 PORT_KERNELS = ("lstm_fwd_step", "lstm_bwd_step", "gemm_kernel",
-                "colsum_kernel", "neg_scores_fwd", "neg_scores_bwd")
+                "colsum_kernel", "neg_scores_fwd", "neg_scores_bwd",
+                "attention_fwd", "attention_bwd", "relpos_grad_sum",
+                "conv_gemm", "norm_bwd", "conv_wgrad", "sum_rows",
+                "input_taps", "input_overlap")
 
 
 def _device_us(event) -> float:
@@ -106,12 +113,14 @@ def main(argv=None) -> dict:
 
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
+    _build.reset_launches()
     with torch.profiler.profile(activities=activities) as prof:
         start = time.perf_counter()
         for i in range(opts.steps):
             step(i)
         torch.cuda.synchronize()
         profiled_ms = 1000.0 * (time.perf_counter() - start) / opts.steps
+    launches = {k: n / opts.steps for k, n in _build.LAUNCHES.items() if n}
     if opts.trace:
         prof.export_chrome_trace(opts.trace)
 
@@ -138,12 +147,15 @@ def main(argv=None) -> dict:
           f"profiled step, {100.0 * device_ms / median:.1f}% of the "
           f"unprofiled median), of which the port's kernels "
           f"{port_ms:.3f} ms")
+    print("the port's kernel wrappers, launches/step: " + ", ".join(
+        f"{k} {n:g}" for k, n in launches.items()))
     print(f"{'device ms/step':>15} {'calls/step':>11}  kernel")
     for e in sorted(kernels, key=_device_us, reverse=True)[:TOP_KERNELS]:
         print(f"{_device_us(e) / 1000.0 / opts.steps:15.4f} "
               f"{e.count / opts.steps:11.1f}  {e.key[:100]}")
     return {"median_step_ms": median, "device_ms": device_ms,
             "port_kernel_ms": port_ms, "profiled_step_ms": profiled_ms,
+            "launches_per_step": launches,
             "phase_ms": {k: statistics.median(v) for k, v in phases.items()}}
 
 

@@ -1,7 +1,8 @@
-"""The plain PyTorch versions of the port's three kernels
+"""The plain PyTorch versions of the port's three training-step kernels
 (`cpc2_torch/ops/{lstm,ffn,infonce}.py`) against the JAX package's Pallas
 kernels, run in interpret mode on the CPU as the JAX package's own tests
-run them. The same inputs, made from a seed with numpy, go to both sides.
+run them, and every kernel wrapper off the CPU. The same inputs, made from
+a seed with numpy, go to both sides.
 
 Tolerances are fp32 reordering: rtol 1e-5, atol 1e-6 for forwards and
 rtol 1e-4, atol 1e-6 for gradients, unless a test states a looser one
@@ -18,6 +19,8 @@ from cpc2_tpu.ops.ffn_pallas import fused_ffn as jax_fused_ffn
 from cpc2_tpu.ops.infonce_pallas import negative_scores_pallas
 from cpc2_tpu.ops.lstm_pallas import fused_lstm as jax_fused_lstm
 from cpc2_torch.ops import _build
+from cpc2_torch.ops.attention import fused_relpos_attention
+from cpc2_torch.ops.encoder import fused_encoder
 from cpc2_torch.ops.ffn import (dropout_bits, ffn_plain, fused_ffn,
                                 keep_mask)
 from cpc2_torch.ops.infonce import negative_scores
@@ -167,7 +170,8 @@ def test_ffn_mask_rate_and_forward_backward_agree():
     torch.testing.assert_close(xr.grad, dh @ w1, rtol=1e-4, atol=1e-6)
 
 
-@pytest.mark.parametrize("call", ["lstm", "ffn", "infonce"])
+@pytest.mark.parametrize("call", ["lstm", "ffn", "infonce", "attention",
+                                  "encoder"])
 def test_kernel_wrappers_raise_off_cpu_without_a_card(call):
     """A tensor that is not on the CPU goes to the kernel or raises; here
     (no card) a meta tensor raises before anything is built or counted."""
@@ -183,9 +187,22 @@ def test_kernel_wrappers_raise_off_cpu_without_a_card(call):
                       torch.empty(16, **meta), torch.empty(8, 16, **meta),
                       torch.empty(8, **meta),
                       torch.zeros(1, dtype=torch.int32, **meta))
-        else:
+        elif call == "infonce":
             negative_scores(torch.empty(1, 2, 3, 8, **meta),
                             torch.empty(5, 8, **meta),
                             torch.zeros(1, 3, 4, dtype=torch.int32, **meta))
+        elif call == "attention":
+            fused_relpos_attention(
+                torch.empty(2, 5, 4, **meta), torch.empty(2, 5, 4, **meta),
+                torch.empty(2, 5, 4, **meta), torch.empty(4, 5, **meta),
+                torch.zeros(1, dtype=torch.int32, **meta), 0.1)
+        else:
+            c, cin, conv_w = 32, 1, []
+            for k in (10, 8, 4, 4, 4):
+                conv_w.append(torch.empty(c, cin, k, **meta))
+                cin = c
+            vecs = [[torch.empty(c, **meta) for _ in range(5)]
+                    for _ in range(3)]
+            fused_encoder(torch.empty(2, 320, **meta), conv_w, *vecs)
     assert _build.LAUNCHES == before
     assert _build._lib is None
