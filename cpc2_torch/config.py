@@ -134,8 +134,11 @@ def set_port_config(parser: argparse.ArgumentParser
     group.add_argument('--precision', type=str, default='bf16mix',
                        choices=['fp32', 'bf16mix', 'bf16'],
                        help='fp32: library matmuls and convolutions in full '
-                       'fp32. bf16mix (default): in TF32. The hand-written '
-                       'kernels compute in fp32 either way.')
+                       'fp32, and the head FFN kernels in fp32. bf16mix '
+                       '(default): library math in TF32, and the head FFN '
+                       'kernels in bf16 products with fp32 sums. The opt-in '
+                       'encoder kernel runs under bf16mix only; the other '
+                       'hand-written kernels compute in fp32 either way.')
     group.add_argument('--data_axis_size', type=int, default=-1)
     group.add_argument('--model_axis_size', type=int, default=1)
     group.add_argument('--dcn_axis_size', type=int, default=0)

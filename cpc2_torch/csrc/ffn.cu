@@ -1,8 +1,8 @@
 // Position-wise FFN of the transformer prediction heads,
 // y = lin2(dropout(relu(lin1(x)))), forward and backward, for Hopper.
 //
-// Replaces the TPU kernel cpc2_tpu/ops/ffn_pallas.py (`_fwd_kernel`,
-// `_bwd_kernel`, `fused_ffn`). Same contract: torch-layout weights W1 (Dff,
+// Replaces the TPU kernel cpc2_tpu/ops/ffn_pallas.py (`_fwd_call`,
+// `_bwd_call`, `fused_ffn`). Same contract: torch-layout weights W1 (Dff,
 // Din) and W2 (Dout, Dff), a dropout mask drawn inside the kernel from a
 // seed, and a backward that recomputes the hidden and its mask from that
 // seed instead of saving them. The seed lives in device memory, so the
@@ -10,15 +10,323 @@
 //
 // What bounds it: at the recipe (M = 928 rows, 256 -> 2048 -> 256) the two
 // products are 1.9 GFLOP per head forward, far above the card's
-// FLOP-per-byte balance, so it is bound by operations. This first version
-// runs them as plain fp32 tiled GEMMs on the FMA units (common.cuh) with
-// the bias, ReLU and dropout fused into the first product's epilogue and
-// the bias into the second's; the 2048-wide hidden goes through device
-// memory (M x Dff fp32, 7.6 MB at the recipe). Tensor-core tiles and
-// keeping the hidden on chip are later work.
+// FLOP-per-byte balance, so it is bound by operations. Two routes, one per
+// `--precision`:
+//
+// - bf16 (`cpc2_ffn_{fwd,bwd}_bf16`, the default `bf16mix`): single-pass
+//   bf16 products with fp32 accumulation, as the JAX package's kernel takes
+//   them on the TPU. One launch casts the fp32 operands to bf16; every
+//   product is the TMA + wgmma GEMM of hopper_gemm.cuh with its epilogue
+//   fused (bias + ReLU + dropout to a bf16 hidden; the dropout and ReLU
+//   gradient in place on that hidden, with db1's column sums; fp32 stores);
+//   the narrow products (y, dx) and the weight gradients split K over the
+//   SMs, and one last launch sums every split's partials and the bias
+//   sums' per-block partials in a fixed order. The bf16 hidden (M x Dff,
+//   3.8 MB at the recipe) goes through device memory and stays in L2
+//   between its two products.
+// - fp32 (`cpc2_ffn_{fwd,bwd}`, `--precision fp32`): the same products as
+//   plain fp32 tiled GEMMs on the FMA units (common.cuh) with the same
+//   fused epilogues, and an fp32 hidden.
 #include "common.cuh"
+#include "hopper_gemm.cuh"
+
+namespace {
+
+using cpc2::bf16;
+
+// --- bf16 route: operand casts and the fixed-order sums ---------------------
+
+constexpr int kCastThreads = 256;
+constexpr int kSumRows = 16;  // rows of g per block of db2's partial sums
+constexpr int kMaxCast = 4, kMaxSum = 5;
+
+struct CastSeg {
+  const float* src;
+  bf16* dst;
+  long n;  // a multiple of 8
+};
+
+struct CastArgs {
+  CastSeg seg[kMaxCast];
+  int nseg;
+  // with colsum_rows > 0: partial[b][c] = sum of colsum_src over rows
+  // [kSumRows b, kSumRows (b + 1)), column c, for the (rows, cols) matrix
+  const float* colsum_src;
+  int colsum_rows, colsum_cols;
+  float* partial;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// blockIdx.y < nseg: a vectorised fp32 -> bf16 cast of segment y, 8 values a
+// thread; blockIdx.y == nseg: db2's per-block column sums of g.
+__global__ void __launch_bounds__(kCastThreads)
+ffn_cast_bf16(CastArgs a) {
+  const int y = blockIdx.y;
+  if (y < a.nseg) {
+    CastSeg s = a.seg[0];
+#pragma unroll
+    for (int i = 1; i < kMaxCast; ++i)  // constant indices: no stack copy
+      if (i == y) s = a.seg[i];
+    const long n8 = s.n / 8;
+    for (long i = blockIdx.x * static_cast<long>(kCastThreads) + threadIdx.x;
+         i < n8; i += static_cast<long>(gridDim.x) * kCastThreads) {
+      const float4 lo = reinterpret_cast<const float4*>(s.src)[2 * i];
+      const float4 hi = reinterpret_cast<const float4*>(s.src)[2 * i + 1];
+      reinterpret_cast<uint4*>(s.dst)[i] =
+          make_uint4(pack_bf16(lo.x, lo.y), pack_bf16(lo.z, lo.w),
+                     pack_bf16(hi.x, hi.y), pack_bf16(hi.z, hi.w));
+    }
+    return;
+  }
+  const int blocks = (a.colsum_rows + kSumRows - 1) / kSumRows;
+  const int c4n = a.colsum_cols / 4;
+  for (int b = blockIdx.x; b < blocks; b += gridDim.x) {
+    const int r0 = b * kSumRows;
+    const int r1 = min(r0 + kSumRows, a.colsum_rows);
+    for (int c4 = threadIdx.x; c4 < c4n; c4 += kCastThreads) {
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int r = r0; r < r1; ++r) {
+        const float4 v = reinterpret_cast<const float4*>(
+            a.colsum_src + static_cast<long>(r) * a.colsum_cols)[c4];
+        acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
+      }
+      reinterpret_cast<float4*>(
+          a.partial + static_cast<long>(b) * a.colsum_cols)[c4] = acc;
+    }
+  }
+}
+
+cudaError_t cast_bf16(CastArgs a, cudaStream_t stream) {
+  long most = 0;
+  for (int i = 0; i < a.nseg; ++i) most = a.seg[i].n > most ? a.seg[i].n : most;
+  long blocks = (most / 8 + kCastThreads - 1) / kCastThreads;
+  const long sum_blocks = (a.colsum_rows + kSumRows - 1) / kSumRows;
+  blocks = blocks > sum_blocks ? blocks : sum_blocks;
+  blocks = blocks < 1 ? 1 : (blocks > 1024 ? 1024 : blocks);
+  dim3 grid(static_cast<unsigned>(blocks), a.nseg + (a.colsum_rows > 0));
+  ffn_cast_bf16<<<grid, kCastThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+struct SumSeg {
+  const float* part;  // count partials of n values, `stride` apart
+  long stride, n;
+  int count;
+  const float* bias;  // nullptr, or `cols` values added per row
+  int cols;
+  float* out;
+};
+
+struct SumArgs {
+  SumSeg seg[kMaxSum];
+  int nseg;
+};
+
+// out = part[0] + part[1] + ... (+ bias), in that order; 4 values a thread.
+__global__ void __launch_bounds__(kCastThreads)
+ffn_sum_partials(SumArgs a) {
+  SumSeg s = a.seg[0];
+#pragma unroll
+  for (int i = 1; i < kMaxSum; ++i)
+    if (i == static_cast<int>(blockIdx.y)) s = a.seg[i];
+  const long n4 = s.n / 4;
+  for (long i = blockIdx.x * static_cast<long>(kCastThreads) + threadIdx.x;
+       i < n4; i += static_cast<long>(gridDim.x) * kCastThreads) {
+    float4 acc = reinterpret_cast<const float4*>(s.part)[i];
+    for (int r = 1; r < s.count; ++r) {
+      const float4 v = reinterpret_cast<const float4*>(s.part + r * s.stride)[i];
+      acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
+    }
+    if (s.bias) {
+      const float4 b = reinterpret_cast<const float4*>(s.bias)[i % (s.cols / 4)];
+      acc.x += b.x; acc.y += b.y; acc.z += b.z; acc.w += b.w;
+    }
+    reinterpret_cast<float4*>(s.out)[i] = acc;
+  }
+}
+
+cudaError_t sum_partials(SumArgs a, cudaStream_t stream) {
+  if (a.nseg == 0) return cudaSuccess;
+  long most = 0;
+  for (int i = 0; i < a.nseg; ++i) most = a.seg[i].n > most ? a.seg[i].n : most;
+  long blocks = (most / 4 + kCastThreads - 1) / kCastThreads;
+  blocks = blocks < 1 ? 1 : (blocks > 1024 ? 1024 : blocks);
+  dim3 grid(static_cast<unsigned>(blocks), a.nseg);
+  ffn_sum_partials<<<grid, kCastThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The workspace: bf16 copies of the operands and the hidden, then fp32
+// partials. Every region starts on a 256-byte boundary.
+struct Workspace {
+  char* base;
+  size_t used;
+  template <typename T>
+  T* take(size_t count) {
+    T* p = base ? reinterpret_cast<T*>(base + used) : nullptr;
+    used += (count * sizeof(T) + 255) / 256 * 256;
+    return p;
+  }
+};
+
+cpc2::SplitK whole_k(int K) {
+  return {(K + cpc2::kWgBK - 1) / cpc2::kWgBK, 1};
+}
+
+cpc2::WgArgs gemm_args(int M, int N, int K) {
+  cpc2::WgArgs g = {};
+  g.M = M;
+  g.N = N;
+  g.K = K;
+  return g;
+}
+
+// A store product's output: the result itself when K is not split, else
+// its partials, summed into `out` (with `bias`) by the last launch.
+void store_to(cpc2::WgArgs* g, cpc2::SplitK split, Workspace* ws, float* out,
+              const float* bias, SumArgs* sums) {
+  g->ldo = g->N;
+  if (split.splits == 1) {
+    g->out = out;
+    g->bias = bias;
+    return;
+  }
+  const long n = static_cast<long>(g->M) * g->N;
+  g->out = ws->take<float>(static_cast<size_t>(n) * split.splits);
+  g->split_stride = n;
+  g->bias = nullptr;
+  sums->seg[sums->nseg++] = {g->out, n, n, split.splits, bias, g->N, out};
+}
+
+// The bf16 forward on workspace `ws` (sizes only when ws.base is null).
+cudaError_t ffn_fwd_bf16(Workspace* ws, const float* x, const float* w1,
+                         const float* b1, const float* w2, const float* b2,
+                         const unsigned* seed, float* y, int M, int Din,
+                         int Dff, int Dout, unsigned threshold, float scale,
+                         cudaStream_t s) {
+  bf16* xb = ws->take<bf16>(static_cast<size_t>(M) * Din);
+  bf16* w1b = ws->take<bf16>(static_cast<size_t>(Dff) * Din);
+  bf16* w2b = ws->take<bf16>(static_cast<size_t>(Dout) * Dff);
+  bf16* hb = ws->take<bf16>(static_cast<size_t>(M) * Dff);
+  SumArgs sums = {};
+  const cpc2::SplitK split_y = cpc2::split_k(M, Dout, Dff);
+  cpc2::WgArgs gy = gemm_args(M, Dout, Dff);
+  store_to(&gy, split_y, ws, y, b2, &sums);
+  if (ws->base == nullptr) return cudaSuccess;
+
+  CastArgs cast = {};
+  cast.seg[0] = {x, xb, static_cast<long>(M) * Din};
+  cast.seg[1] = {w1, w1b, static_cast<long>(Dff) * Din};
+  cast.seg[2] = {w2, w2b, static_cast<long>(Dout) * Dff};
+  cast.nseg = 3;
+  cudaError_t err = cast_bf16(cast, s);
+  if (err != cudaSuccess) return err;
+  // hidden = bf16(dropout(relu(x W1^T + b1)))
+  cpc2::WgArgs gh = gemm_args(M, Dff, Din);
+  gh.bias = b1;
+  gh.hidden = hb;
+  gh.ldh = Dff;
+  gh.seed = seed;
+  gh.threshold = threshold;
+  gh.scale = scale;
+  err = cpc2::wgmma_gemm<true, true, cpc2::kWgHidden>(xb, w1b, gh,
+                                                      whole_k(Din), s);
+  if (err != cudaSuccess) return err;
+  // y = hidden W2^T + b2
+  err = cpc2::wgmma_gemm<true, true, cpc2::kWgStore>(hb, w2b, gy, split_y, s);
+  if (err != cudaSuccess) return err;
+  return sum_partials(sums, s);
+}
+
+// The bf16 backward on workspace `ws` (sizes only when ws.base is null).
+cudaError_t ffn_bwd_bf16(Workspace* ws, const float* x, const float* w1,
+                         const float* b1, const float* w2, const float* g,
+                         const unsigned* seed, float* dx, float* dw1,
+                         float* db1, float* dw2, float* db2, int M, int Din,
+                         int Dff, int Dout, unsigned threshold, float scale,
+                         cudaStream_t s) {
+  bf16* xb = ws->take<bf16>(static_cast<size_t>(M) * Din);
+  bf16* w1b = ws->take<bf16>(static_cast<size_t>(Dff) * Din);
+  bf16* w2b = ws->take<bf16>(static_cast<size_t>(Dout) * Dff);
+  bf16* gb = ws->take<bf16>(static_cast<size_t>(M) * Dout);
+  bf16* hb = ws->take<bf16>(static_cast<size_t>(M) * Dff);
+  const int row_blocks = (M + kSumRows - 1) / kSumRows;
+  float* db2_part = ws->take<float>(static_cast<size_t>(row_blocks) * Dout);
+  const int m_tiles = (M + cpc2::kWgBM - 1) / cpc2::kWgBM;
+  float* db1_part = ws->take<float>(static_cast<size_t>(m_tiles) * Dff);
+  SumArgs sums = {};
+  sums.seg[sums.nseg++] = {db2_part, Dout, Dout, row_blocks, nullptr, Dout,
+                           db2};
+  sums.seg[sums.nseg++] = {db1_part, Dff, Dff, m_tiles, nullptr, Dff, db1};
+  const cpc2::SplitK split_dw2 = cpc2::split_k(Dout, Dff, M);
+  const cpc2::SplitK split_dw1 = cpc2::split_k(Dff, Din, M);
+  const cpc2::SplitK split_dx = cpc2::split_k(M, Din, Dff);
+  cpc2::WgArgs gw2 = gemm_args(Dout, Dff, M);
+  store_to(&gw2, split_dw2, ws, dw2, nullptr, &sums);
+  cpc2::WgArgs gw1 = gemm_args(Dff, Din, M);
+  store_to(&gw1, split_dw1, ws, dw1, nullptr, &sums);
+  cpc2::WgArgs gx = gemm_args(M, Din, Dff);
+  store_to(&gx, split_dx, ws, dx, nullptr, &sums);
+  if (ws->base == nullptr) return cudaSuccess;
+
+  CastArgs cast = {};
+  cast.seg[0] = {x, xb, static_cast<long>(M) * Din};
+  cast.seg[1] = {w1, w1b, static_cast<long>(Dff) * Din};
+  cast.seg[2] = {w2, w2b, static_cast<long>(Dout) * Dff};
+  cast.seg[3] = {g, gb, static_cast<long>(M) * Dout};
+  cast.nseg = 4;
+  cast.colsum_src = g;  // db2 = sum_m g, before the bf16 rounding
+  cast.colsum_rows = M;
+  cast.colsum_cols = Dout;
+  cast.partial = db2_part;
+  cudaError_t err = cast_bf16(cast, s);
+  if (err != cudaSuccess) return err;
+  // hidden = the forward's bf16 hidden, recomputed
+  cpc2::WgArgs gh = gemm_args(M, Dff, Din);
+  gh.bias = b1;
+  gh.hidden = hb;
+  gh.ldh = Dff;
+  gh.seed = seed;
+  gh.threshold = threshold;
+  gh.scale = scale;
+  err = cpc2::wgmma_gemm<true, true, cpc2::kWgHidden>(xb, w1b, gh,
+                                                      whole_k(Din), s);
+  if (err != cudaSuccess) return err;
+  // dW2[o, f] = sum_m g[m, o] hidden[m, f]: A = g^T (M-major), B = hidden
+  // (N-major)
+  err = cpc2::wgmma_gemm<false, false, cpc2::kWgStore>(gb, hb, gw2, split_dw2,
+                                                       s);
+  if (err != cudaSuccess) return err;
+  // dh = bf16((g W2) * mask * scale) in place of the hidden; db1's column
+  // sums of the unrounded dh per 128-row tile. B = W2 read N-major.
+  cpc2::WgArgs gd = gemm_args(M, Dff, Dout);
+  gd.hidden = hb;
+  gd.ldh = Dff;
+  gd.scale = scale;
+  gd.colsum = db1_part;
+  err = cpc2::wgmma_gemm<true, false, cpc2::kWgHiddenGrad>(gb, w2b, gd,
+                                                           whole_k(Dout), s);
+  if (err != cudaSuccess) return err;
+  // dW1[f, d] = sum_m dh[m, f] x[m, d]: A = dh^T (M-major), B = x (N-major)
+  err = cpc2::wgmma_gemm<false, false, cpc2::kWgStore>(hb, xb, gw1, split_dw1,
+                                                       s);
+  if (err != cudaSuccess) return err;
+  // dx = dh W1: B = W1 read N-major
+  err = cpc2::wgmma_gemm<true, false, cpc2::kWgStore>(hb, w1b, gx, split_dx,
+                                                      s);
+  if (err != cudaSuccess) return err;
+  return sum_partials(sums, s);
+}
+
+}  // namespace
 
 extern "C" {
+
+// --- fp32 route -------------------------------------------------------------
 
 // x (M,Din), w1 (Dff,Din), b1 (Dff), w2 (Dout,Dff), b2 (Dout) -> y (M,Dout).
 // hidden (M,Dff) is scratch. Dropout keeps (m, f) when
@@ -70,6 +378,51 @@ int cpc2_ffn_bwd(const float* x, const float* w1, const float* b1,
   // dx = dh @ W1
   err = cpc2::gemm(M, Din, Dff, hidden, Dff, 1, w1, Din, 1, dx, Din, store, s);
   return (int)err;
+}
+
+// --- bf16 route -------------------------------------------------------------
+// Din, Dff and Dout must be multiples of 8 (TMA rows of 16-byte multiples),
+// and every pointer 16-byte aligned; the wrapper checks both.
+
+// Bytes of workspace the bf16 forward (backward != 0: backward) needs.
+long cpc2_ffn_bf16_workspace(int M, int Din, int Dff, int Dout,
+                             int backward) {
+  Workspace ws{nullptr, 0};
+  if (backward)
+    ffn_bwd_bf16(&ws, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                 nullptr, nullptr, nullptr, nullptr, nullptr, M, Din, Dff,
+                 Dout, 0u, 1.f, nullptr);
+  else
+    ffn_fwd_bf16(&ws, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                 nullptr, M, Din, Dff, Dout, 0u, 1.f, nullptr);
+  return static_cast<long>(ws.used);
+}
+
+// As cpc2_ffn_fwd, in bf16 products; workspace of
+// cpc2_ffn_bf16_workspace(..., 0) bytes.
+int cpc2_ffn_fwd_bf16(const float* x, const float* w1, const float* b1,
+                      const float* w2, const float* b2, const unsigned* seed,
+                      void* workspace, float* y, int M, int Din, int Dff,
+                      int Dout, unsigned threshold, float scale,
+                      void* stream) {
+  Workspace ws{static_cast<char*>(workspace), 0};
+  return (int)ffn_fwd_bf16(&ws, x, w1, b1, w2, b2, seed, y, M, Din, Dff,
+                           Dout, threshold, scale,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// As cpc2_ffn_bwd, in bf16 products; workspace of
+// cpc2_ffn_bf16_workspace(..., 1) bytes.
+int cpc2_ffn_bwd_bf16(const float* x, const float* w1, const float* b1,
+                      const float* w2, const float* g, const unsigned* seed,
+                      void* workspace, float* dx, float* dw1, float* db1,
+                      float* dw2, float* db2, int M, int Din, int Dff,
+                      int Dout, unsigned threshold, float scale,
+                      void* stream) {
+  Workspace ws{static_cast<char*>(workspace), 0};
+  return (int)ffn_bwd_bf16(&ws, x, w1, b1, w2, g, seed, dx, dw1, db1, dw2,
+                           db2, M, Din, Dff, Dout, threshold, scale,
+                           static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

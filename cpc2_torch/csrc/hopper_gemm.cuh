@@ -1,0 +1,470 @@
+// A bf16 GEMM building block for Hopper (sm_90a): TMA loads into a ring of
+// shared-memory stages guarded by mbarriers, `wgmma.mma_async` products with
+// fp32 accumulators in registers, and fused epilogues applied on the
+// accumulator fragment. The FFN kernels of ffn.cu are built from it.
+//
+// C[m, n] = sum_k A(m, k) * B(n, k) over bf16 operands:
+// - A is K-major (stored [M][K]) or M-major (stored [K][M]);
+// - B is K-major (stored [N][K]) or N-major (stored [K][N]);
+//   the majors go into the wgmma descriptors' transpose bits, so no
+//   transposed copy of an operand is ever made.
+// - Block tile 128 x 128 x 64: two consumer warpgroups of 64 rows each,
+//   m64n128k16 products, and one producer warp whose lane 0 keeps TMA loads
+//   in flight over kStages stages (128-byte swizzle, 16 KB per operand a
+//   stage: one 128-row box for a K-major operand, two 64-wide boxes for an
+//   MN-major one).
+// - Ragged edges (M = 928 rows at the recipe; K = 928 for the weight
+//   gradients): TMA fills out-of-range elements with zeros, and the
+//   epilogues store only rows and columns in range.
+// - Split-K: blockIdx.z takes a run of k tiles and writes its own fp32
+//   partial; a second pass sums the partials in a fixed order
+//   (deterministic, no atomics).
+//
+// Everything has internal linkage, as in common.cuh.
+#pragma once
+
+#include <cstdint>
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "common.cuh"
+
+namespace cpc2 {
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kWgBM = 128, kWgBN = 128, kWgBK = 64, kWgStages = 4;
+constexpr int kWgConsumers = 256;                 // two warpgroups
+constexpr int kWgThreads = kWgConsumers + 32;     // and one producer warp
+constexpr int kWgOperandBytes = kWgBM * kWgBK * 2;  // 16 KB
+constexpr int kWgStageBytes = 2 * kWgOperandBytes;
+constexpr int kWgRedBytes = 8 * kWgBN * 4;        // column sums, 8 warps
+constexpr int kWgSmemBytes =
+    1024 + kWgStages * kWgStageBytes + kWgRedBytes + 2 * kWgStages * 8;
+
+enum WgEpilogue : int {
+  kWgStore = 0,       // out[z] = acc (+ bias[n]), fp32
+  kWgHidden = 1,      // hidden = bf16(keep(m,n) ? relu(acc + bias[n]) * scale : 0)
+  kWgHiddenGrad = 2,  // v = acc * (hidden > 0 ? scale : 0); hidden = bf16(v);
+                      // colsum[m tile][n] = sum of v over the tile's rows
+};
+
+struct WgArgs {
+  int M, N, K;
+  int k_tiles_per_split;
+  float* out;              // kWgStore: split z at out + z * split_stride
+  long ldo, split_stride;
+  const float* bias;       // kWgStore (or nullptr), kWgHidden
+  bf16* hidden;            // kWgHidden, kWgHiddenGrad
+  long ldh;
+  const uint32_t* seed;    // kWgHidden: one value in device memory
+  uint32_t threshold;      // drop when dropout_bits < threshold
+  float scale;             // 1 / (1 - rate)
+  float* colsum;           // kWgHiddenGrad: (ceil(M / 128), N)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
+                                              uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait for the completion of the barrier's phase of the given parity. A
+// wait that has not completed after 2^35 cycles (over 15 s) traps, so that
+// a fault in the pipeline fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - start > (1ll << 35)) __trap();
+}
+
+// One 2-D TMA box, coordinates innermost first, completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// byte offset (MN-major: the stride between 64-wide MN atoms; unused for
+// K-major) and stride byte offset (the stride between groups of 8 rows of
+// 128 bytes), all in 16-byte units.
+__device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t lbo,
+                                            uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(kPending)
+               : "memory");
+}
+
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous products.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d += A (64 x 16) * B (16 x 128); kTransA / kTransB: 1 for MN-major.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(kTransA), "n"(kTransB));
+}
+
+// kAK: A is K-major (else M-major); kBK: B is K-major (else N-major).
+template <bool kAK, bool kBK, int kEpi>
+__global__ void __launch_bounds__(kWgThreads, 1)
+ffn_wgmma_gemm(const __grid_constant__ CUtensorMap map_a,
+               const __grid_constant__ CUtensorMap map_b, WgArgs args) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* tiles = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* red = reinterpret_cast<float*>(tiles + kWgStages * kWgStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 8 * kWgBN);
+  uint64_t* empty = full + kWgStages;
+
+  const int m0 = blockIdx.y * kWgBM, n0 = blockIdx.x * kWgBN;
+  const int k_tiles = (args.K + kWgBK - 1) / kWgBK;
+  const int kt0 = blockIdx.z * args.k_tiles_per_split;
+  const int kt1 = min(kt0 + args.k_tiles_per_split, k_tiles);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWgConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kWgConsumers) {
+    // producer: lane 0 of the last warp keeps the ring full
+    if (threadIdx.x == kWgConsumers) {
+      for (int t = kt0, it = 0; t < kt1; ++t, ++it) {
+        const int s = it % kWgStages;
+        mbar_wait(&empty[s], ((it / kWgStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], kWgStageBytes);
+        uint8_t* a = tiles + s * kWgStageBytes;
+        uint8_t* b = a + kWgOperandBytes;
+        const int k = t * kWgBK;
+        if (kAK) {
+          tma_load(a, &map_a, &full[s], k, m0);
+        } else {
+          tma_load(a, &map_a, &full[s], m0, k);
+          tma_load(a + kWgOperandBytes / 2, &map_a, &full[s], m0 + 64, k);
+        }
+        if (kBK) {
+          tma_load(b, &map_b, &full[s], k, n0);
+        } else {
+          tma_load(b, &map_b, &full[s], n0, k);
+          tma_load(b + kWgOperandBytes / 2, &map_b, &full[s], n0 + 64, k);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the tile
+  const int wg = threadIdx.x / 128;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int t = kt0, it = 0; t < kt1; ++t, ++it) {
+    const int s = it % kWgStages;
+    mbar_wait(&full[s], (it / kWgStages) & 1);
+    const uint8_t* a = tiles + s * kWgStageBytes + wg * (kWgOperandBytes / 2);
+    const uint8_t* b = tiles + s * kWgStageBytes + kWgOperandBytes;
+    fence_acc(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgBK / 16; ++kk) {
+      // K-major: the next 16 k are 32 bytes on within each 128-byte row;
+      // MN-major: 16 rows of 128 bytes further
+      const uint64_t da = kAK ? wg_desc(a + 32 * kk, 16, 1024)
+                              : wg_desc(a + 2048 * kk, kWgOperandBytes / 2,
+                                        1024);
+      const uint64_t db = kBK ? wg_desc(b + 32 * kk, 16, 1024)
+                              : wg_desc(b + 2048 * kk, kWgOperandBytes / 2,
+                                        1024);
+      wgmma_m64n128k16<kAK ? 0 : 1, kBK ? 0 : 1>(acc, da, db);
+    }
+    wg_commit();
+    wg_wait<1>();  // the previous tile's products are done with its stage
+    fence_acc(acc);
+    if (it > 0) mbar_arrive(&empty[(it - 1) % kWgStages]);
+  }
+  wg_wait<0>();
+  fence_acc(acc);
+
+  // accumulator fragment: acc[4j + 2h + e] is row r0 + 8h, column
+  // c0 + 8j + e of the tile
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int row0 = m0 + 16 * warp + lane / 4;  // warp w of 8: rows 16w..
+  const int colb = n0 + 2 * (lane % 4);
+  const int M = args.M, N = args.N;
+
+  if (kEpi == kWgStore) {
+    float* out = args.out + blockIdx.z * args.split_stride;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = colb + 8 * j;
+      if (col >= N) continue;
+      float b0 = 0.f, b1 = 0.f;
+      if (args.bias) { b0 = args.bias[col]; b1 = args.bias[col + 1]; }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        if (row < M)
+          *reinterpret_cast<float2*>(out + row * args.ldo + col) =
+              make_float2(acc[4 * j + 2 * h] + b0, acc[4 * j + 2 * h + 1] + b1);
+      }
+    }
+  } else if (kEpi == kWgHidden) {
+    const uint32_t seed = args.threshold ? *args.seed : 0u;
+    uint32_t rbits[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      rbits[h] = mix32(seed ^ mix32(static_cast<uint32_t>(row0 + 8 * h)));
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = colb + 8 * j;
+      if (col >= N) continue;
+      const float b0 = args.bias[col], b1 = args.bias[col + 1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        if (row >= M) continue;
+        float v0 = fmaxf(acc[4 * j + 2 * h] + b0, 0.f);
+        float v1 = fmaxf(acc[4 * j + 2 * h + 1] + b1, 0.f);
+        if (args.threshold) {
+          const bool k0 = mix32(rbits[h] + col) >= args.threshold;
+          const bool k1 = mix32(rbits[h] + col + 1) >= args.threshold;
+          v0 = k0 ? v0 * args.scale : 0.f;
+          v1 = k1 ? v1 * args.scale : 0.f;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(args.hidden + row * args.ldh +
+                                           col) = __floats2bfloat162_rn(v0, v1);
+      }
+    }
+  } else {  // kWgHiddenGrad: the stored hidden is > 0 exactly where it was
+            // kept and its pre-activation was positive
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = colb + 8 * j;
+      float s0 = 0.f, s1 = 0.f;
+      if (col < N) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + 8 * h;
+          if (row >= M) continue;
+          __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(
+              args.hidden + row * args.ldh + col);
+          const float2 hv = __bfloat1622float2(*p);
+          const float v0 = acc[4 * j + 2 * h] * (hv.x > 0.f ? args.scale : 0.f);
+          const float v1 =
+              acc[4 * j + 2 * h + 1] * (hv.y > 0.f ? args.scale : 0.f);
+          *p = __floats2bfloat162_rn(v0, v1);
+          s0 += v0;
+          s1 += v1;
+        }
+      }
+      // sum the warp's 16 rows: lanes with the same lane % 4 share columns
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+      }
+      if (lane < 4) {
+        red[warp * kWgBN + 8 * j + 2 * lane] = s0;
+        red[warp * kWgBN + 8 * j + 2 * lane + 1] = s1;
+      }
+    }
+    asm volatile("bar.sync 1, %0;" ::"n"(kWgConsumers) : "memory");
+    if (threadIdx.x < kWgBN && n0 + threadIdx.x < N) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) s += red[w * kWgBN + threadIdx.x];
+      args.colsum[blockIdx.y * static_cast<long>(N) + n0 + threadIdx.x] = s;
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found at run time so that the
+// library needs no link against libcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn tensor_map_encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A dense row-major bf16 matrix of `outer` rows of `inner` elements, read
+// in boxes of 64 x box_outer with the 128-byte swizzle; zeros out of range.
+inline cudaError_t bf16_tensor_map(CUtensorMap* map, const bf16* ptr,
+                                   long inner, long outer, int box_outer) {
+  EncodeTiledFn encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || n <= 0)
+      n = 132;
+  }
+  return n;
+}
+
+// k tiles per split and the number of splits for an M x N x K product:
+// enough splits to give every SM a block, each split at least one k tile.
+struct SplitK {
+  int per, splits;
+};
+
+inline SplitK split_k(int M, int N, int K) {
+  const int tiles = ((M + kWgBM - 1) / kWgBM) * ((N + kWgBN - 1) / kWgBN);
+  const int k_tiles = (K + kWgBK - 1) / kWgBK;
+  int s = sm_count() / tiles;
+  s = s < 1 ? 1 : (s > k_tiles ? k_tiles : s);
+  const int per = (k_tiles + s - 1) / s;
+  return {per, (k_tiles + per - 1) / per};
+}
+
+// C (M x N) from A and B (see the kernel), split as `split` says; every
+// operand dense and row-major in its stated major.
+template <bool kAK, bool kBK, int kEpi>
+cudaError_t wgmma_gemm(const bf16* A, const bf16* B, WgArgs args,
+                       SplitK split, cudaStream_t stream) {
+  const int M = args.M, N = args.N, K = args.K;
+  if (M <= 0 || N <= 0 || K <= 0) return cudaSuccess;
+  CUtensorMap map_a, map_b;
+  cudaError_t err = kAK ? bf16_tensor_map(&map_a, A, K, M, kWgBM)
+                        : bf16_tensor_map(&map_a, A, M, K, kWgBK);
+  if (err != cudaSuccess) return err;
+  err = kBK ? bf16_tensor_map(&map_b, B, K, N, kWgBN)
+            : bf16_tensor_map(&map_b, B, N, K, kWgBK);
+  if (err != cudaSuccess) return err;
+  auto kernel = ffn_wgmma_gemm<kAK, kBK, kEpi>;
+  static bool smem_set = false;
+  if (!smem_set) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kWgSmemBytes);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  args.k_tiles_per_split = split.per;
+  dim3 grid((N + kWgBN - 1) / kWgBN, (M + kWgBM - 1) / kWgBM, split.splits);
+  kernel<<<grid, kWgThreads, kWgSmemBytes, stream>>>(map_a, map_b, args);
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace cpc2

@@ -3,7 +3,7 @@
 `cpc/transformers.py`).
 
 Attention is `torch.matmul` and softmax, or, with CPC2_FUSED_ATTENTION=1,
-the CUDA kernel of `ops/attention.py`; the FFN runs through the CUDA kernel
+the CUDA kernel of `ops/attention.py`; the FFN runs through the CUDA kernels
 of `ops/ffn.py`. Module and parameter names follow the reference's
 (`multihead.Wq.weight`, `ln_multihead.weight`, `ffnetwork.lin1.weight`,
 `last_linear.weight`, ...), with the layers of a `TransformerAR` named
@@ -128,8 +128,11 @@ class MultiHeadAttention(nn.Module):
 
 class FFNetwork(nn.Module):
     """`transformers.py:107-116`: lin1 -> ReLU -> dropout -> lin2, run by
-    the FFN kernel (`ops/ffn.py`), whose dropout seed is drawn from the
-    generator on the input's device."""
+    the FFN kernels (`ops/ffn.py`), whose dropout seed is drawn from the
+    generator on the input's device. Under `bf16mix` (TF32 library matmuls,
+    `training.set_precision`) the FFN takes its bf16 route, as the JAX
+    package's kernel takes single-pass bf16 products; under `fp32` and
+    inside `training.full_fp32()` its fp32 route."""
 
     def __init__(self, din: int, dout: int, dff: int, dropout: float):
         super().__init__()
@@ -143,7 +146,7 @@ class FFNetwork(nn.Module):
         lead = x.shape[:-1]
         y = fused_ffn(x.reshape(-1, x.shape[-1]), self.lin1.weight,
                       self.lin1.bias, self.lin2.weight, self.lin2.bias, seed,
-                      rate)
+                      rate, bf16=torch.backends.cuda.matmul.allow_tf32)
         return y.reshape(*lead, y.shape[-1])
 
 

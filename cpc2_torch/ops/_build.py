@@ -29,9 +29,11 @@ SOURCES = ("lstm.cu", "ffn.cu", "infonce.cu", "dtw.cu", "attention.cu",
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 LIBRARY = BUILD_DIR / "libcpc2_kernels.so"
 
-KERNELS = ("lstm_fwd", "lstm_bwd", "ffn_fwd", "ffn_bwd", "infonce_fwd",
-           "infonce_bwd", "dtw", "attention_fwd", "attention_bwd",
-           "encoder_fwd", "encoder_bwd")
+# `ffn_fwd`/`ffn_bwd` are the FFN's bf16 kernels (`--precision bf16mix`),
+# `ffn_*_fp32` its fp32 ones (`--precision fp32`).
+KERNELS = ("lstm_fwd", "lstm_bwd", "ffn_fwd", "ffn_bwd", "ffn_fwd_fp32",
+           "ffn_bwd_fp32", "infonce_fwd", "infonce_bwd", "dtw",
+           "attention_fwd", "attention_bwd", "encoder_fwd", "encoder_bwd")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
@@ -43,6 +45,9 @@ _SIGNATURES = {
     "cpc2_lstm_bwd": [_P] * 13 + [_I] * 3 + [_P],
     "cpc2_ffn_fwd": [_P] * 8 + [_I] * 4 + [_U, _F, _P],
     "cpc2_ffn_bwd": [_P] * 12 + [_I] * 4 + [_U, _F, _P],
+    "cpc2_ffn_fwd_bf16": [_P] * 8 + [_I] * 4 + [_U, _F, _P],
+    "cpc2_ffn_bwd_bf16": [_P] * 12 + [_I] * 4 + [_U, _F, _P],
+    "cpc2_ffn_bf16_workspace": [_I] * 5,
     "cpc2_infonce_fwd": [_P] * 4 + [_I] * 5 + [_P],
     "cpc2_infonce_bwd": [_P] * 6 + [_I] * 5 + [_P],
     "cpc2_dtw": [_P] * 4 + [_I] * 3 + [_P],
@@ -51,6 +56,9 @@ _SIGNATURES = {
     "cpc2_encoder_fwd": [_P] * 8 + [_I] * 3 + [_P],
     "cpc2_encoder_bwd": [_P] * 14 + [_L] + [_I] * 3 + [_P],
 }
+
+# Entry points that return something other than a CUDA error code.
+_RESTYPES = {"cpc2_ffn_bf16_workspace": _L}
 
 _lib = None
 
@@ -118,7 +126,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         _lib = lib
     return _lib
 

@@ -15,8 +15,9 @@ warm-up steps:
   and optimizer phases, each ending in a synchronise;
 * profiles the same number of steps with `torch.profiler` and prints the
   device time per step, its share of the wall time, the share of the
-  port's hand-written kernels, the launches per step of each of the port's
-  kernel wrappers, and the kernels that take the most device time.
+  port's hand-written kernels and of the FFN's bf16 kernels, the launches
+  per step of each of the port's kernel wrappers, and the kernels that take
+  the most device time.
 
 It needs a CUDA card.
 """
@@ -39,19 +40,33 @@ from .training import Trainer, make_optimizer, resolve_device, set_precision
 
 WARMUP_STEPS = 3
 TOP_KERNELS = 15
-# Name fragments of the port's kernels in `csrc/*.cu`.
-PORT_KERNELS = ("lstm_fwd_step", "lstm_bwd_step", "gemm_kernel",
-                "colsum_kernel", "neg_scores_fwd", "neg_scores_bwd",
-                "attention_fwd", "attention_bwd", "relpos_grad_sum",
-                "conv_gemm", "norm_bwd", "conv_wgrad", "sum_rows",
-                "input_taps", "input_overlap")
+# Name fragments of the port's kernels in `csrc/*.cu`: the FFN's bf16 route
+# (`--precision bf16mix`), then the rest. Under `--precision fp32` the FFN
+# runs in `gemm_kernel` and `colsum_kernel`, which the LSTM's dW_hh shares.
+FFN_KERNELS = ("ffn_wgmma_gemm", "ffn_cast_bf16", "ffn_sum_partials")
+PORT_KERNELS = FFN_KERNELS + (
+    "lstm_fwd_step", "lstm_bwd_step", "gemm_kernel", "colsum_kernel",
+    "neg_scores_fwd", "neg_scores_bwd", "attention_fwd", "attention_bwd",
+    "relpos_grad_sum", "conv_gemm", "norm_bwd", "conv_wgrad", "sum_rows",
+    "input_taps", "input_overlap")
 
 
-def _device_us(event) -> float:
+def device_us(event) -> float:
+    """The event's own device time in µs."""
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(event, attr):
             return float(getattr(event, attr))
     return 0.0
+
+
+def device_kernels(prof) -> list:
+    """The profile's device kernels: not the user annotations (e.g. the
+    optimizer's step range) that the profiler also puts on the device
+    timeline."""
+    return [e for e in prof.key_averages() if device_us(e) > 0
+            and e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and "#" not in e.key]
 
 
 def main(argv=None) -> dict:
@@ -124,16 +139,12 @@ def main(argv=None) -> dict:
     if opts.trace:
         prof.export_chrome_trace(opts.trace)
 
-    # device kernels only: not the user annotations (e.g. the optimizer's
-    # step range) that the profiler also puts on the device timeline
-    kernels = [e for e in prof.key_averages() if _device_us(e) > 0
-               and e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and "#" not in e.key]
-    device_ms = sum(_device_us(e) for e in kernels) / 1000.0 / opts.steps
-    port_ms = sum(_device_us(e) for e in kernels
-                  if any(k in e.key for k in PORT_KERNELS)) / 1000.0 \
-        / opts.steps
+    kernels = device_kernels(prof)
+    device_ms = sum(device_us(e) for e in kernels) / 1000.0 / opts.steps
+    port_ms, ffn_ms = (sum(device_us(e) for e in kernels
+                           if any(k in e.key for k in names))
+                       / 1000.0 / opts.steps
+                       for names in (PORT_KERNELS, FFN_KERNELS))
     median = statistics.median(wall_ms)
     print(f"card: {torch.cuda.get_device_name(0)}")
     print(f"wall: median {median:.3f} ms/step over {opts.steps} steps "
@@ -146,15 +157,16 @@ def main(argv=None) -> dict:
           f"of device kernels ({100.0 * device_ms / profiled_ms:.1f}% of the "
           f"profiled step, {100.0 * device_ms / median:.1f}% of the "
           f"unprofiled median), of which the port's kernels "
-          f"{port_ms:.3f} ms")
+          f"{port_ms:.3f} ms, the FFN's bf16 kernels {ffn_ms:.3f} ms")
     print("the port's kernel wrappers, launches/step: " + ", ".join(
         f"{k} {n:g}" for k, n in launches.items()))
     print(f"{'device ms/step':>15} {'calls/step':>11}  kernel")
-    for e in sorted(kernels, key=_device_us, reverse=True)[:TOP_KERNELS]:
-        print(f"{_device_us(e) / 1000.0 / opts.steps:15.4f} "
+    for e in sorted(kernels, key=device_us, reverse=True)[:TOP_KERNELS]:
+        print(f"{device_us(e) / 1000.0 / opts.steps:15.4f} "
               f"{e.count / opts.steps:11.1f}  {e.key[:100]}")
     return {"median_step_ms": median, "device_ms": device_ms,
-            "port_kernel_ms": port_ms, "profiled_step_ms": profiled_ms,
+            "port_kernel_ms": port_ms, "ffn_bf16_kernel_ms": ffn_ms,
+            "profiled_step_ms": profiled_ms,
             "launches_per_step": launches,
             "phase_ms": {k: statistics.median(v) for k, v in phases.items()}}
 

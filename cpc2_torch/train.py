@@ -39,7 +39,7 @@ from .io.checkpoint import (get_checkpoint_data, load_args,
 from .losses import CPCUnsupervisedCriterion
 from .models.encoder import DOWNSAMPLING
 from .training import (Trainer, make_lr_schedule, make_optimizer,
-                       resolve_device, set_precision)
+                       precision, resolve_device)
 
 SAMPLE_RATE = 16000
 
@@ -218,7 +218,12 @@ def main(argv: Optional[Sequence[str]]) -> Dict:
     args = parse_args(argv)
     logs, load_optimizer = _resume(args)
     device = resolve_device(args.device)
-    set_precision(args.precision)
+    with precision(args.precision):
+        return _train(args, logs, load_optimizer, device)
+
+
+def _train(args, logs: Dict, load_optimizer: bool,
+           device: torch.device) -> Dict:
     set_seed(args.random_seed)
     torch.manual_seed(args.random_seed)
     print(f'CONFIG:\n{json.dumps(vars(args), indent=4, sort_keys=True)}')

@@ -31,8 +31,11 @@ def resolve_device(name: str) -> torch.device:
 
 def set_precision(precision: str) -> None:
     """`fp32`: library matmuls and convolutions in full fp32. `bf16mix`:
-    in TF32, the card's analogue of the TPU's single-pass default. The
-    hand-written kernels compute in fp32 either way."""
+    in TF32, the card's analogue of the TPU's single-pass default, and the
+    head FFN's kernels (`ops/ffn.py`) in bf16 products with fp32 sums, as
+    the JAX package's FFN kernel under that precision; the opt-in encoder
+    kernel runs under `bf16mix` only. The other hand-written kernels
+    compute in fp32 either way."""
     if precision not in ("fp32", "bf16mix"):
         raise NotImplementedError(f"--precision {precision}: not ported")
     tf32 = precision == "bf16mix"
@@ -41,19 +44,24 @@ def set_precision(precision: str) -> None:
 
 
 @contextlib.contextmanager
-def full_fp32():
-    """Library matmuls and convolutions in full fp32 inside the block,
-    whatever `set_precision` chose, as the JAX package's feature extraction
-    and ABX force `default_matmul_precision('highest')`."""
+def precision(name: str):
+    """`set_precision(name)` inside the block; the switches it sets are
+    restored after."""
     saved = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_precision(name)
     try:
         yield
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
+
+
+def full_fp32():
+    """Library matmuls and convolutions (and the FFN kernels) in full fp32
+    inside the block, whatever `set_precision` chose, as the JAX package's
+    feature extraction and ABX force `default_matmul_precision('highest')`."""
+    return precision("fp32")
 
 
 def make_optimizer(args: argparse.Namespace, params) -> torch.optim.Optimizer:

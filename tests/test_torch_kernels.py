@@ -170,8 +170,8 @@ def test_ffn_mask_rate_and_forward_backward_agree():
     torch.testing.assert_close(xr.grad, dh @ w1, rtol=1e-4, atol=1e-6)
 
 
-@pytest.mark.parametrize("call", ["lstm", "ffn", "infonce", "attention",
-                                  "encoder"])
+@pytest.mark.parametrize("call", ["lstm", "ffn", "ffn_bf16", "infonce",
+                                  "attention", "encoder"])
 def test_kernel_wrappers_raise_off_cpu_without_a_card(call):
     """A tensor that is not on the CPU goes to the kernel or raises; here
     (no card) a meta tensor raises before anything is built or counted."""
@@ -182,11 +182,12 @@ def test_kernel_wrappers_raise_off_cpu_without_a_card(call):
             fused_lstm(torch.empty(2, 3, 16, **meta),
                        torch.empty(2, 4, **meta), torch.empty(2, 4, **meta),
                        torch.empty(16, 4, **meta), torch.empty(16, **meta))
-        elif call == "ffn":
+        elif call in ("ffn", "ffn_bf16"):
             fused_ffn(torch.empty(4, 8, **meta), torch.empty(16, 8, **meta),
                       torch.empty(16, **meta), torch.empty(8, 16, **meta),
                       torch.empty(8, **meta),
-                      torch.zeros(1, dtype=torch.int32, **meta))
+                      torch.zeros(1, dtype=torch.int32, **meta),
+                      bf16=call == "ffn_bf16")
         elif call == "infonce":
             negative_scores(torch.empty(1, 2, 3, 8, **meta),
                             torch.empty(5, 8, **meta),
