@@ -17,11 +17,15 @@ Phases, each of which fails the run with a nonzero exit:
    route and the encoder in their bf16 working type, and the DTW kernel at
    one ABX flush (18,432 pairs of 32 x 32 frames), a ragged 16 x 64, a
    multi-strip 64 x 64 and its 2,048 x 2,048 limit, where it must be
-   bit-identical; then time the kernel, the plain version and, where one
-   PyTorch call computes the same function, that call (for the FFN's bf16
-   route, the attention and the encoder, which no one call computes, the
-   same work through library calls as a yardstick; the FFN by device
-   time);
+   bit-identical; the LSTM's two routes, the resident cluster kernels also
+   at ABX batches (4 and 16 files of 400 frames) and a ragged one, the
+   per-step kernels also at H = 512, with the resident backward
+   bit-identical across two calls; then time the kernel, the plain version
+   and, where one PyTorch call computes the same function, that call (for
+   the FFN's bf16 route, the attention and the encoder, which no one call
+   computes, the same work through library calls as a yardstick; the FFN
+   and the LSTM by device time, the LSTM's backward split by kernel and
+   several of its cluster and batch tiles side by side);
 4. hold one whole training step on the card (kernels) against the same step
    on the CPU (plain versions) at a small width, same weights, same
    negatives, dropout off: under `--precision fp32` (the FFN's fp32
@@ -33,16 +37,18 @@ Phases, each of which fails the run with a nonzero exit:
    negatives, `bf16mix`) with `--pathCheckpoint`, with every kernel's
    launch count set to 0 just before and read just after: the LSTM,
    InfoNCE and bf16 FFN kernels must have launched and the fp32 FFN,
-   attention and encoder kernels must not, the losses must be finite, the
-   parameters must live on the card and the checkpoint files must exist;
+   attention, encoder and per-step LSTM kernels must not, the losses must
+   be finite, the parameters must live on the card and the checkpoint
+   files must exist;
    then one more epoch with both variables set (and restored after),
    which must launch all ten training kernels, and one with `--precision
    fp32`, which must launch the FFN's fp32 kernels and not its bf16 ones;
 6. write a phone corpus with its `.item` file (4 speakers x 8 files x 24
    tokens) and run `cpc2_torch.eval.eval_ABX.main from_checkpoint` on the
    checkpoint of phase 5 at its defaults, the counts again set to 0 just
-   before and read just after: the DTW and LSTM forward kernels must have
-   launched and both scores must lie in [0, 1]; then score the same
+   before and read just after: the DTW and resident LSTM forward kernels
+   must have launched, the per-step LSTM ones not, and both scores must lie
+   in [0, 1]; then score the same
    features on the card with the kernel and with the plain DTW (identical
    scores), and hold two files' features card against CPU;
 7. print one `kernels` JSON line and, last, the `ok` line.
@@ -110,12 +116,9 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Device time per call of `fn`: the sum of the device times of the
-    kernels it launches, by `torch.profiler`, over `iters` calls after
-    `warmup` calls. Where a call's device work is shorter than its host
-    path (autograd, allocations, several launches), CUDA events around
-    back-to-back calls (`cuda_ms`) time the host instead."""
+def device_split(fn, iters: int = 20, warmup: int = 3) -> dict:
+    """Device ms per call of `fn` by kernel name, by `torch.profiler`, over
+    `iters` calls after `warmup` calls."""
     from cpc2_torch.profile_step import device_kernels, device_us
     for _ in range(warmup):
         fn()
@@ -126,7 +129,16 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(device_us(e) for e in device_kernels(prof)) / 1e3 / iters
+    return {e.key: device_us(e) / 1e3 / iters for e in device_kernels(prof)}
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time per call of `fn`: the sum of the device times of the
+    kernels it launches (`device_split`). Where a call's device work is
+    shorter than its host path (autograd, allocations, several launches),
+    CUDA events around back-to-back calls (`cuda_ms`) time the host
+    instead."""
+    return sum(device_split(fn, iters, warmup).values())
 
 
 def bound_ms(n_bytes: float, flops: float, peak: float = FP32_FLOP_PER_S):
@@ -218,24 +230,96 @@ def check_sass(build) -> str:
             f"UTMALDG; ptxas: {' | '.join(usage)}")
 
 
+# The LSTM's routes against `lstm_plain`, forward and all five gradients:
+# the resident cluster kernels at the recipe, at ABX feature batches (4 and
+# 16 files of 400 frames) and at a ragged batch; the per-step kernels at the
+# recipe and at a width whose W_hh slice does not fit a CTA.
+LSTM_RESIDENT_SHAPES = ((8, 128, 256), (4, 400, 256), (16, 400, 256),
+                        (5, 37, 256))
+LSTM_STEPS_SHAPES = ((8, 128, 256), (8, 32, 512))
+# (cluster size, batch tile) pairs of the resident route timed side by side
+LSTM_TILES = {(8, 128, 256): ((16, 1), (16, 2), (8, 1), (8, 8)),
+              (4, 400, 256): ((16, 1), (16, 4), (8, 1), (8, 4))}
+
+
+def lstm_inputs(dev, gen, b, t, h):
+    return ([torch.randn(b, t, 4 * h, device=dev, generator=gen),
+             torch.randn(b, h, device=dev, generator=gen),
+             torch.randn(b, h, device=dev, generator=gen),
+             torch.randn(4 * h, h, device=dev, generator=gen) / 16,
+             torch.randn(4 * h, device=dev, generator=gen) / 16],
+            [torch.randn(b, t, h, device=dev, generator=gen),
+             torch.randn(b, h, device=dev, generator=gen),
+             torch.randn(b, h, device=dev, generator=gen)])
+
+
+def ptxas_usage(build, fragment: str) -> list:
+    """'name: N registers, S spill bytes' of each kernel in the build log
+    whose mangled name holds `fragment`, template arguments shown."""
+    import re
+    lines = (build.BUILD_DIR / "build.log").read_text().splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        if "Function properties" not in line or fragment not in line:
+            continue
+        targs = re.findall(r"ILi(\d+)ELi(\d+)E", line)
+        name = fragment + (f"<{','.join(targs[0])}>" if targs else "")
+        spill = re.findall(r"(\d+) bytes spill stores", lines[i + 1])
+        regs = re.findall(r"Used (\d+) registers", lines[i + 2])
+        out.append(f"{name}: {regs[0] if regs else '?'} registers, "
+                   f"{spill[0] if spill else '?'} spill bytes")
+    return sorted(out)
+
+
 def check_lstm(dev, gen):
-    from cpc2_torch.ops.lstm import fused_lstm, lstm_plain
-    b, t, h = 8, 128, 256
-    inputs = [torch.randn(b, t, 4 * h, device=dev, generator=gen),
-              torch.randn(b, h, device=dev, generator=gen),
-              torch.randn(b, h, device=dev, generator=gen),
-              torch.randn(4 * h, h, device=dev, generator=gen) / 16,
-              torch.randn(4 * h, device=dev, generator=gen) / 16]
-    cot = [torch.randn(b, t, h, device=dev, generator=gen),
-           torch.randn(b, h, device=dev, generator=gen),
-           torch.randn(b, h, device=dev, generator=gen)]
-    out_k, grad_k, bwd_k = grads_of(fused_lstm, inputs, cot)
-    out_p, grad_p, bwd_p = grads_of(lstm_plain, inputs, cot)
-    err_f = compare("lstm forward", out_k, out_p)
-    err_b = compare("lstm backward", grad_k, grad_p)
+    """Both LSTM routes against `lstm_plain` (LSTM_RESIDENT_SHAPES,
+    LSTM_STEPS_SHAPES), the resident backward bit-identical across two
+    calls, then at the recipe (8, 128, 256) the resident kernels, the
+    per-step kernels, the plain version and cuDNN timed by device time
+    (events beside), the backward's dW_hh product alone, and the LSTM_TILES
+    choices. Prints the resident kernels' `-Xptxas -v` registers and spills
+    and how many clusters the card holds at once on an `[lstm]` line."""
+    from cpc2_torch.ops import _build
+    from cpc2_torch.ops.lstm import (_LSTMResident, _LSTMSteps, fused_lstm,
+                                     lstm_plain, lstm_plan)
+    lib = _build.library()
+    errs = {"resident": [0.0, 0.0], "steps": [0.0, 0.0]}
+    held = {}
+    for route, shapes in (("resident", LSTM_RESIDENT_SHAPES),
+                          ("steps", LSTM_STEPS_SHAPES)):
+        for b, t, h in shapes:
+            plan = lstm_plan(b, h)
+            if route == "resident":
+                if plan.route != "resident":
+                    raise AssertionError(f"lstm_plan({b}, {h}) = {plan}")
+                c_smem = max(lib.cpc2_lstm_smem(h, plan.cluster, plan.bc, 0),
+                             lib.cpc2_lstm_smem(h, plan.cluster, plan.bc, 1))
+                if c_smem != plan.smem:
+                    raise AssertionError(f"lstm_plan({b}, {h}) shared memory "
+                                         f"{plan.smem}, the kernels' {c_smem}")
+
+                def fn(*a, plan=plan):
+                    return _LSTMResident.apply(*a, plan.cluster, plan.bc)
+            else:
+                fn = _LSTMSteps.apply
+            inputs, cot = lstm_inputs(dev, gen, b, t, h)
+            out_k, grad_k, bwd_k = grads_of(fn, inputs, cot)
+            out_p, grad_p, bwd_p = grads_of(lstm_plain, inputs, cot)
+            what = f"lstm {route} ({b}, {t}, {h})"
+            errs[route][0] = max(errs[route][0],
+                                 compare(what + " forward", out_k, out_p))
+            errs[route][1] = max(errs[route][1],
+                                 compare(what + " backward", grad_k, grad_p))
+            if (b, t, h) == (8, 128, 256):
+                held[route] = (inputs, cot, fn, out_k, grad_k, bwd_k, bwd_p)
+    inputs, cot, _fn, out_k, grad_k, bwd_k, bwd_p = held["resident"]
+    again = bwd_k()
+    if not all(torch.equal(a, g) for a, g in zip(again, grad_k)):
+        raise AssertionError("lstm resident backward: two calls differ")
 
     # cuDNN's LSTM computes the same recurrence when its input is gi and
     # its input weight the identity: the library yardstick.
+    b, t, h = 8, 128, 256
     cudnn = torch.nn.LSTM(4 * h, h, batch_first=True).to(dev)
     with torch.no_grad():
         cudnn.weight_ih_l0.copy_(torch.eye(4 * h, device=dev))
@@ -259,13 +343,50 @@ def check_lstm(dev, gen):
                                    (cot[0], cot[1][None], cot[2][None]),
                                    retain_graph=True)
 
+    steps_bwd = held["steps"][5]
     with torch.no_grad():
-        fwd_ms = cuda_ms(lambda: fused_lstm(*inputs))
-        plain_fwd_ms = cuda_ms(lambda: lstm_plain(*inputs), iters=5)
-        lib_fwd_ms = cuda_ms(lib_fwd)
-    bwd_ms = cuda_ms(bwd_k)
-    plain_bwd_ms = cuda_ms(bwd_p, iters=5)
-    lib_bwd_ms = cuda_ms(lib_bwd)
+        timed_fwd = {"lstm_fwd": lambda: fused_lstm(*inputs),
+                     "lstm_fwd_steps": lambda: _LSTMSteps.apply(*inputs)}
+        ms = {k: device_ms(f) for k, f in timed_fwd.items()}
+        events = {k: cuda_ms(f) for k, f in timed_fwd.items()}
+        plain_fwd_ms = device_ms(lambda: lstm_plain(*inputs), iters=3)
+        lib_fwd_ms = device_ms(lib_fwd)
+    bwd_split = device_split(bwd_k)
+    ms["lstm_bwd"] = sum(bwd_split.values())
+    ms["lstm_bwd_steps"] = device_ms(steps_bwd)
+    events["lstm_bwd"] = cuda_ms(bwd_k)
+    events["lstm_bwd_steps"] = cuda_ms(steps_bwd)
+    plain_bwd_ms = device_ms(bwd_p, iters=3)
+    lib_bwd_ms = device_ms(lib_bwd)
+    dw_ms = sum(v for k, v in bwd_split.items() if "gemm_kernel" in k)
+
+    tiles = {}
+    for (tb, tt, th), choices in LSTM_TILES.items():
+        t_inputs, t_cot = lstm_inputs(dev, gen, tb, tt, th)
+        for c, bc in choices:
+            def fn(*a, c=c, bc=bc):
+                return _LSTMResident.apply(*a, c, bc)
+            _o, _g, bwd = grads_of(fn, t_inputs, t_cot)
+            with torch.no_grad():
+                f_ms = device_ms(lambda: fn(*t_inputs))
+            tiles[f"({tb},{tt},{th}) C{c} Bc{bc}"] = (f_ms, device_ms(bwd))
+    plan = lstm_plan(b, h)
+    clusters = {f"C{c} Bc{bc} {'bwd' if d else 'fwd'}":
+                lib.cpc2_lstm_max_clusters(h, c, bc, d)
+                for c, bc in ((plan.cluster, plan.bc), (8, 8)) for d in (0, 1)}
+    log(f"[lstm] plan at the recipe {tuple(plan)}; max active clusters "
+        f"{clusters}; ptxas: "
+        + " | ".join(ptxas_usage(_build, "lstm_fwd_resident")
+                     + ptxas_usage(_build, "lstm_bwd_resident")))
+    log("[lstm] device ms per call at the recipe: resident fwd "
+        f"{ms['lstm_fwd']:.4f} bwd {ms['lstm_bwd']:.4f} (of which dW_hh "
+        f"product {dw_ms:.4f}; by kernel "
+        + ", ".join(f"{k[:40]} {v:.4f}" for k, v in bwd_split.items())
+        + f"), steps fwd {ms['lstm_fwd_steps']:.4f} bwd "
+        f"{ms['lstm_bwd_steps']:.4f}, cuDNN fwd {lib_fwd_ms:.4f} bwd "
+        f"{lib_bwd_ms:.4f}; events {events}")
+    log("[lstm tiles] device ms fwd/bwd: " + ", ".join(
+        f"{k} {f:.4f}/{bw:.4f}" for k, (f, bw) in tiles.items()))
 
     gi, h0, c0, w_hh, b_hh = inputs
     mm = 2 * b * t * 4 * h * h
@@ -274,11 +395,19 @@ def check_lstm(dev, gen):
     bwd_bytes = (nbytes(w_hh, h0, c0) + nbytes(*cot) + nbytes(out_k[0]) * 2
                  + nbytes(gi) + nbytes(*grad_k))
     src, rep = "cpc2_torch/csrc/lstm.cu", "cpc2_tpu/ops/lstm_pallas.py"
-    return [
-        kernel_entry("lstm_fwd", src, rep + ":166", err_f, fwd_ms,
-                     plain_fwd_ms, lib_fwd_ms, fwd_bytes, mm),
-        kernel_entry("lstm_bwd", src, rep + ":206", err_b, bwd_ms,
-                     plain_bwd_ms, lib_bwd_ms, bwd_bytes, 2 * mm)]
+    entries = []
+    for route, suffix in (("resident", ""), ("steps", "_steps")):
+        err_f, err_b = errs[route]
+        entries += [
+            kernel_entry("lstm_fwd" + suffix, src, rep + ":166", err_f,
+                         ms["lstm_fwd" + suffix], plain_fwd_ms, lib_fwd_ms,
+                         fwd_bytes, mm),
+            kernel_entry("lstm_bwd" + suffix, src, rep + ":206", err_b,
+                         ms["lstm_bwd" + suffix], plain_bwd_ms, lib_bwd_ms,
+                         bwd_bytes, 2 * mm)]
+    extra = {"lstm_dw_hh_ms": dw_ms, "lstm_bwd_by_kernel_ms": bwd_split,
+             "lstm_tiles_ms": tiles, "lstm_max_clusters": clusters}
+    return entries, {}, events, extra
 
 
 # The bf16 kernels (FFN, encoder) against their plain versions. Both round to
@@ -826,6 +955,8 @@ FFN_KERNELS = BF16_FFN + FP32_FFN
 FP32_KERNELS = ("lstm_fwd", "lstm_bwd", "infonce_fwd", "infonce_bwd",
                 *FP32_FFN)
 ABX_KERNELS = ("dtw", "lstm_fwd")
+# the LSTM's per-step route, which no path at H = 256 may take
+LSTM_STEPS = ("lstm_fwd_steps", "lstm_bwd_steps")
 
 
 def check_launched(path: str, launches: dict, kernels) -> None:
@@ -836,9 +967,9 @@ def check_launched(path: str, launches: dict, kernels) -> None:
 
 
 EPOCHS = {  # kernels each epoch must launch, and kernels it must not
-    "default": (TRAINING_KERNELS, FUSED_KERNELS + FP32_FFN),
-    "fused": (TRAINING_KERNELS + FUSED_KERNELS, FP32_FFN),
-    "fp32": (FP32_KERNELS, FUSED_KERNELS + BF16_FFN),
+    "default": (TRAINING_KERNELS, FUSED_KERNELS + FP32_FFN + LSTM_STEPS),
+    "fused": (TRAINING_KERNELS + FUSED_KERNELS, FP32_FFN + LSTM_STEPS),
+    "fp32": (FP32_KERNELS, FUSED_KERNELS + BF16_FFN + LSTM_STEPS),
 }
 
 
@@ -954,6 +1085,9 @@ def run_abx(dev, work: str, checkpoint: str) -> dict:
     launches = dict(_build.LAUNCHES)
     run = dict(eval_ABX.LAST_RUN)
     check_launched("ABX", launches, ABX_KERNELS)
+    ran = [k for k in LSTM_STEPS if launches[k]]
+    if ran:
+        raise AssertionError(f"the ABX path launched {ran}")
     for mode in ("within", "across"):
         if not 0.0 <= scores.get(mode, math.nan) <= 1.0:
             raise AssertionError(f"ABX {mode}: {scores.get(mode)}")
@@ -1036,7 +1170,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    kernels, yardsticks, events = [], {}, {}
+    kernels, yardsticks, events, details = [], {}, {}, {}
     with fused_switches(False):
         for check in (check_lstm, check_ffn, check_infonce, check_dtw,
                       check_attention, check_encoder):
@@ -1045,13 +1179,15 @@ def main() -> int:
             if isinstance(result, tuple):
                 result, yard, *timed = result
                 yardsticks.update(yard)
-                for t in timed:
-                    events.update(t)
+                if timed:
+                    events.update(timed[0])
+                if len(timed) > 1:
+                    details.update(timed[1])
             kernels += result
             log(f"[{check.__name__}] {time.perf_counter() - start:.1f} s")
     for k in kernels:
         yard = yardsticks.get(k["name"])
-        log(f"  {k['name']:13s} err {k['max_abs_err']:.2e}  kernel "
+        log(f"  {k['name']:14s} err {k['max_abs_err']:.2e}  kernel "
             f"{k['ms']:.4f} ms  plain {k['plain_ms']:.4f} ms  library "
             f"{k['library_ms']} ms  bound {k['bound_ms']:.4f} ms "
             f"({k['bound_by']})"
@@ -1112,7 +1248,8 @@ def main() -> int:
         "slice_fp32": dict(epoch(records["fp32"]),
                            step_parity_max_abs_err=step_err["fp32"]),
         "default_route_ms": yardsticks,
-        "ffn_events_ms": events,
+        "events_ms": events,
+        "lstm": details,
         "abx": {k: abx[k] for k in ("scores", "launches", "features_s",
                                     "scoring_s", "flushes", "dtw_pairs",
                                     "dtw_device_ms", "dtw_share_of_scoring",

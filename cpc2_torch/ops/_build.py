@@ -29,11 +29,15 @@ SOURCES = ("lstm.cu", "ffn.cu", "infonce.cu", "dtw.cu", "attention.cu",
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 LIBRARY = BUILD_DIR / "libcpc2_kernels.so"
 
-# `ffn_fwd`/`ffn_bwd` are the FFN's bf16 kernels (`--precision bf16mix`),
-# `ffn_*_fp32` its fp32 ones (`--precision fp32`).
-KERNELS = ("lstm_fwd", "lstm_bwd", "ffn_fwd", "ffn_bwd", "ffn_fwd_fp32",
-           "ffn_bwd_fp32", "infonce_fwd", "infonce_bwd", "dtw",
-           "attention_fwd", "attention_bwd", "encoder_fwd", "encoder_bwd")
+# `lstm_fwd`/`lstm_bwd` are the LSTM's resident cluster kernels,
+# `lstm_*_steps` its per-step kernels for widths whose W_hh slice does not
+# fit a CTA (`ops/lstm.py:lstm_plan`). `ffn_fwd`/`ffn_bwd` are the FFN's bf16
+# kernels (`--precision bf16mix`), `ffn_*_fp32` its fp32 ones (`--precision
+# fp32`).
+KERNELS = ("lstm_fwd", "lstm_bwd", "lstm_fwd_steps", "lstm_bwd_steps",
+           "ffn_fwd", "ffn_bwd", "ffn_fwd_fp32", "ffn_bwd_fp32",
+           "infonce_fwd", "infonce_bwd", "dtw", "attention_fwd",
+           "attention_bwd", "encoder_fwd", "encoder_bwd")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
@@ -41,8 +45,12 @@ _L = ctypes.c_long
 # Argument types of each C entry point: device pointers, then sizes and
 # scalars, then the stream (see the `extern "C"` blocks of csrc/*.cu).
 _SIGNATURES = {
-    "cpc2_lstm_fwd": [_P] * 10 + [_I] * 3 + [_P],
-    "cpc2_lstm_bwd": [_P] * 13 + [_I] * 3 + [_P],
+    "cpc2_lstm_fwd": [_P] * 10 + [_I] * 5 + [_P],
+    "cpc2_lstm_bwd": [_P] * 16 + [_I] * 5 + [_P],
+    "cpc2_lstm_fwd_steps": [_P] * 10 + [_I] * 3 + [_P],
+    "cpc2_lstm_bwd_steps": [_P] * 13 + [_I] * 3 + [_P],
+    "cpc2_lstm_smem": [_I] * 4,
+    "cpc2_lstm_max_clusters": [_I] * 4,
     "cpc2_ffn_fwd": [_P] * 8 + [_I] * 4 + [_U, _F, _P],
     "cpc2_ffn_bwd": [_P] * 12 + [_I] * 4 + [_U, _F, _P],
     "cpc2_ffn_fwd_bf16": [_P] * 8 + [_I] * 4 + [_U, _F, _P],
@@ -58,7 +66,7 @@ _SIGNATURES = {
 }
 
 # Entry points that return something other than a CUDA error code.
-_RESTYPES = {"cpc2_ffn_bf16_workspace": _L}
+_RESTYPES = {"cpc2_ffn_bf16_workspace": _L, "cpc2_lstm_smem": _L}
 
 _lib = None
 

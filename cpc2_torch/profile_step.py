@@ -15,9 +15,10 @@ warm-up steps:
   and optimizer phases, each ending in a synchronise;
 * profiles the same number of steps with `torch.profiler` and prints the
   device time per step, its share of the wall time, the share of the
-  port's hand-written kernels and of the FFN's bf16 kernels, the launches
-  per step of each of the port's kernel wrappers, and the kernels that take
-  the most device time.
+  port's hand-written kernels, of the FFN's bf16 kernels and of the LSTM's
+  kernels, the device kernel launches per step, the launches per step of
+  each of the port's kernel wrappers, and the kernels that take the most
+  device time.
 
 It needs a CUDA card.
 """
@@ -41,14 +42,17 @@ from .training import Trainer, make_optimizer, resolve_device, set_precision
 WARMUP_STEPS = 3
 TOP_KERNELS = 15
 # Name fragments of the port's kernels in `csrc/*.cu`: the FFN's bf16 route
-# (`--precision bf16mix`), then the rest. Under `--precision fp32` the FFN
-# runs in `gemm_kernel` and `colsum_kernel`, which the LSTM's dW_hh shares.
+# (`--precision bf16mix`), the LSTM's walks (the resident cluster kernels
+# and the per-step ones), then the rest. `gemm_kernel` and `colsum_kernel`
+# are the LSTM's dW_hh product and db_hh sum and, under `--precision fp32`,
+# the FFN's products and bias sums too.
 FFN_KERNELS = ("ffn_wgmma_gemm", "ffn_cast_bf16", "ffn_sum_partials")
-PORT_KERNELS = FFN_KERNELS + (
-    "lstm_fwd_step", "lstm_bwd_step", "gemm_kernel", "colsum_kernel",
-    "neg_scores_fwd", "neg_scores_bwd", "attention_fwd", "attention_bwd",
-    "relpos_grad_sum", "conv_gemm", "norm_bwd", "conv_wgrad", "sum_rows",
-    "input_taps", "input_overlap")
+LSTM_KERNELS = ("lstm_fwd_resident", "lstm_bwd_resident", "lstm_fwd_step",
+                "lstm_bwd_step")
+PORT_KERNELS = FFN_KERNELS + LSTM_KERNELS + (
+    "gemm_kernel", "colsum_kernel", "neg_scores_fwd", "neg_scores_bwd",
+    "attention_fwd", "attention_bwd", "relpos_grad_sum", "conv_gemm",
+    "norm_bwd", "conv_wgrad", "sum_rows", "input_taps", "input_overlap")
 
 
 def device_us(event) -> float:
@@ -141,10 +145,13 @@ def main(argv=None) -> dict:
 
     kernels = device_kernels(prof)
     device_ms = sum(device_us(e) for e in kernels) / 1000.0 / opts.steps
-    port_ms, ffn_ms = (sum(device_us(e) for e in kernels
-                           if any(k in e.key for k in names))
-                       / 1000.0 / opts.steps
-                       for names in (PORT_KERNELS, FFN_KERNELS))
+    lstm_kernels = LSTM_KERNELS + (
+        () if opts.precision == "fp32" else ("gemm_kernel", "colsum_kernel"))
+    port_ms, ffn_ms, lstm_ms = (
+        sum(device_us(e) for e in kernels if any(k in e.key for k in names))
+        / 1000.0 / opts.steps
+        for names in (PORT_KERNELS, FFN_KERNELS, lstm_kernels))
+    device_launches = sum(e.count for e in kernels) / opts.steps
     median = statistics.median(wall_ms)
     print(f"card: {torch.cuda.get_device_name(0)}")
     print(f"wall: median {median:.3f} ms/step over {opts.steps} steps "
@@ -157,7 +164,10 @@ def main(argv=None) -> dict:
           f"of device kernels ({100.0 * device_ms / profiled_ms:.1f}% of the "
           f"profiled step, {100.0 * device_ms / median:.1f}% of the "
           f"unprofiled median), of which the port's kernels "
-          f"{port_ms:.3f} ms, the FFN's bf16 kernels {ffn_ms:.3f} ms")
+          f"{port_ms:.3f} ms, the FFN's bf16 kernels {ffn_ms:.3f} ms, the "
+          f"LSTM's {lstm_ms:.3f} ms (its walks"
+          + ("" if opts.precision == "fp32" else ", dW_hh and db_hh sums")
+          + f"); {device_launches:g} device kernel launches per step")
     print("the port's kernel wrappers, launches/step: " + ", ".join(
         f"{k} {n:g}" for k, n in launches.items()))
     print(f"{'device ms/step':>15} {'calls/step':>11}  kernel")
@@ -166,6 +176,8 @@ def main(argv=None) -> dict:
               f"{e.count / opts.steps:11.1f}  {e.key[:100]}")
     return {"median_step_ms": median, "device_ms": device_ms,
             "port_kernel_ms": port_ms, "ffn_bf16_kernel_ms": ffn_ms,
+            "lstm_kernel_ms": lstm_ms,
+            "device_launches_per_step": device_launches,
             "profiled_step_ms": profiled_ms,
             "launches_per_step": launches,
             "phase_ms": {k: statistics.median(v) for k, v in phases.items()}}

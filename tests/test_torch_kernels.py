@@ -24,7 +24,7 @@ from cpc2_torch.ops.encoder import fused_encoder
 from cpc2_torch.ops.ffn import (dropout_bits, ffn_plain, fused_ffn,
                                 keep_mask)
 from cpc2_torch.ops.infonce import negative_scores
-from cpc2_torch.ops.lstm import fused_lstm
+from cpc2_torch.ops.lstm import _LSTMResident, _LSTMSteps, fused_lstm
 
 torch.set_num_threads(1)
 
@@ -170,8 +170,9 @@ def test_ffn_mask_rate_and_forward_backward_agree():
     torch.testing.assert_close(xr.grad, dh @ w1, rtol=1e-4, atol=1e-6)
 
 
-@pytest.mark.parametrize("call", ["lstm", "ffn", "ffn_bf16", "infonce",
-                                  "attention", "encoder"])
+@pytest.mark.parametrize("call", ["lstm", "lstm_resident", "lstm_steps",
+                                  "ffn", "ffn_bf16", "infonce", "attention",
+                                  "encoder"])
 def test_kernel_wrappers_raise_off_cpu_without_a_card(call):
     """A tensor that is not on the CPU goes to the kernel or raises; here
     (no card) a meta tensor raises before anything is built or counted."""
@@ -182,6 +183,15 @@ def test_kernel_wrappers_raise_off_cpu_without_a_card(call):
             fused_lstm(torch.empty(2, 3, 16, **meta),
                        torch.empty(2, 4, **meta), torch.empty(2, 4, **meta),
                        torch.empty(16, 4, **meta), torch.empty(16, **meta))
+        elif call in ("lstm_resident", "lstm_steps"):
+            # each route's own entry, at the recipe's width
+            args = (torch.empty(2, 3, 1024, **meta),
+                    torch.empty(2, 256, **meta), torch.empty(2, 256, **meta),
+                    torch.empty(1024, 256, **meta), torch.empty(1024, **meta))
+            if call == "lstm_resident":
+                _LSTMResident.apply(*args, 8, 2)
+            else:
+                _LSTMSteps.apply(*args)
         elif call in ("ffn", "ffn_bf16"):
             fused_ffn(torch.empty(4, 8, **meta), torch.empty(16, 8, **meta),
                       torch.empty(16, **meta), torch.empty(8, 16, **meta),
