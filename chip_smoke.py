@@ -22,10 +22,13 @@ Phases, each of which fails the run with a nonzero exit:
    per-step kernels also at H = 512, with the resident backward
    bit-identical across two calls; then time the kernel, the plain version
    and, where one PyTorch call computes the same function, that call (for
-   the FFN's bf16 route, the attention and the encoder, which no one call
-   computes, the same work through library calls as a yardstick; the FFN
-   and the LSTM by device time, the LSTM's backward split by kernel and
-   several of its cluster and batch tiles side by side);
+   the FFN's two routes, InfoNCE, the attention and the encoder, which no
+   one call computes, the same work through library calls as a yardstick;
+   the FFN, InfoNCE and the LSTM by device time, the LSTM's backward split
+   by kernel and several of its cluster and batch tiles side by side);
+   InfoNCE also at a ragged shape, a 4,096-row pool, N = 10 and 384, K = 40
+   with a ragged D above a stage, a large D, one (b, w) and an empty
+   shape, its backward bit-identical across two calls;
 4. hold one whole training step on the card (kernels) against the same step
    on the CPU (plain versions) at a small width, same weights, same
    negatives, dropout off: under `--precision fp32` (the FFN's fp32
@@ -76,12 +79,15 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, fp32 (non-tensor-core) peak and
-# dense bf16 tensor-core peak. Most hand-written kernels compute in fp32 on
-# the FMA units; the products of the encoder and of the FFN's bf16 route
-# take bf16 operands, so their bounds are reckoned at the bf16 rate.
+# dense bf16 and TF32 tensor-core peaks. Most hand-written kernels compute
+# in fp32 on the FMA units; the products of the encoder and of the FFN's
+# bf16 route take bf16 operands, so their bounds are reckoned at the bf16
+# rate; InfoNCE's products run in 3xTF32 (three TF32 products for one at
+# fp32 accuracy), a third of the TF32 rate.
 MEMORY_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
+TF32X3_FLOP_PER_S = 495e12 / 3
 
 # Tolerances of kernel against plain version: fp32 sums in another order.
 # An error passes when it is at most ATOL + RTOL * max|plain|.
@@ -262,8 +268,9 @@ def ptxas_usage(build, fragment: str) -> list:
     for i, line in enumerate(lines):
         if "Function properties" not in line or fragment not in line:
             continue
-        targs = re.findall(r"ILi(\d+)ELi(\d+)E", line)
-        name = fragment + (f"<{','.join(targs[0])}>" if targs else "")
+        targs = re.search(r"I((?:Li\d+E)+)E", line)
+        name = fragment + (f"<{','.join(re.findall(r'Li(\d+)E', targs[1]))}>"
+                           if targs else "")
         spill = re.findall(r"(\d+) bytes spill stores", lines[i + 1])
         regs = re.findall(r"Used (\d+) registers", lines[i + 2])
         out.append(f"{name}: {regs[0] if regs else '?'} registers, "
@@ -443,23 +450,23 @@ def hold_to_band(name, names, got, plain, wide, band_factor):
     return errs, ratios, bands
 
 
-def ffn_route(x, w1, b1, w2, b2, keep, scale):
-    """The bf16 FFN forward as `torch.matmul` on bf16 tensors with the
-    epilogues as torch ops: the yardstick of the bf16 kernels, never called
-    by the port. Returns y and what its backward needs."""
-    xb, w1b, w2b = (t.to(torch.bfloat16) for t in (x, w1, w2))
+def ffn_route(x, w1, b1, w2, b2, keep, scale, dtype=torch.bfloat16):
+    """The FFN forward as `torch.matmul` on tensors of `dtype` (bf16: the
+    yardstick of the bf16 kernels; float32, with TF32 off as `main` sets
+    it: of the fp32 ones) with the epilogues as torch ops, never called by
+    the port. Returns y and what its backward needs."""
+    xb, w1b, w2b = (t.to(dtype) for t in (x, w1, w2))
     pre = (xb @ w1b.t()).float() + b1
-    hb = (torch.relu(pre) * keep * scale).to(torch.bfloat16)
+    hb = (torch.relu(pre) * keep * scale).to(dtype)
     return (hb @ w2b.t()).float() + b2, (xb, w1b, w2b, hb)
 
 
 def ffn_route_bwd(g, keep, scale, saved):
-    """The bf16 FFN backward through the same route: dx, dW1, db1, dW2,
-    db2."""
+    """The FFN backward through the same route: dx, dW1, db1, dW2, db2."""
     xb, w1b, w2b, hb = saved
-    gb = g.to(torch.bfloat16)
+    gb = g.to(xb.dtype)
     dh = (gb @ w2b).float() * ((hb > 0) * keep * scale)
-    dhb = dh.to(torch.bfloat16)
+    dhb = dh.to(xb.dtype)
     return (dhb @ w1b, dhb.t() @ xb, dh.sum(0), gb.t() @ hb, g.sum(0))
 
 
@@ -564,22 +571,114 @@ def check_ffn(dev, gen):
     if abs(kept - 0.9) > 0.005:
         raise AssertionError(f"ffn dropout kept {kept:.4f} of the hidden")
     with torch.no_grad():
-        _y, saved = ffn_route(*inputs, keep, 1 / 0.9)
-        yard["ffn_fwd"] = device_ms(lambda: ffn_route(*inputs, keep, 1 / 0.9))
-        yard["ffn_bwd"] = device_ms(lambda: ffn_route_bwd(
-            cot[0], keep, 1 / 0.9, saved))
+        for suffix, dtype in (("", torch.bfloat16), ("_fp32", torch.float32)):
+            _y, saved = ffn_route(*inputs, keep, 1 / 0.9, dtype)
+            yard["ffn_fwd" + suffix] = device_ms(
+                lambda: ffn_route(*inputs, keep, 1 / 0.9, dtype))
+            yard["ffn_bwd" + suffix] = device_ms(
+                lambda: ffn_route_bwd(cot[0], keep, 1 / 0.9, saved))
     return entries, yard, events
 
 
+# InfoNCE shapes (B, K, W, N, D, P) held against the plain version: the
+# recipe (with repeated rows: half the draws from 16 pool rows), a ragged
+# small one (K, N and D not multiples of the kernels' tiles), the recipe's
+# widths over a 4,096-row pool, N = 10 (padded to 12 for the backward) and
+# N = 384 (two chunks of sampled rows), K = 40 (two groups of predictions)
+# with D = 1030 (padded to 1032; forward chunks of D, three dz slices), a
+# D of 2,048 (two dz slices), and one (b, w) (one split, whose partial is
+# the whole of dz).
+INFONCE_SHAPES = ((8, 12, 116, 128, 256, 1024), (3, 5, 9, 20, 36, 1100),
+                  (8, 12, 116, 128, 256, 4096), (2, 12, 7, 10, 256, 1024),
+                  (2, 12, 9, 384, 256, 1024), (2, 40, 5, 30, 1030, 300),
+                  (2, 12, 3, 64, 2048, 500), (1, 3, 1, 8, 16, 40))
+
+
+def infonce_route(preds, z, idx):
+    """The forward as library calls, never called by the port: a row gather
+    (`index_select`) and one batched product (`torch.bmm`)."""
+    b, k, w, d = preds.shape
+    n = idx.shape[2]
+    zg = z.index_select(0, idx.reshape(-1).long()).reshape(b * w, n, d)
+    pw = preds.permute(0, 2, 1, 3).reshape(b * w, k, d)
+    return torch.bmm(pw, zg.transpose(1, 2)).reshape(b, w, k, n) \
+        .permute(0, 2, 1, 3)
+
+
+def infonce_route_bwd(g, preds, z, idx):
+    """The backward as library calls: `torch.bmm` for dpreds and for the
+    sampled rows' cotangents, `index_add_` to scatter those into dz."""
+    b, k, w, d = preds.shape
+    n = idx.shape[2]
+    flat = idx.reshape(-1).long()
+    zg = z.index_select(0, flat).reshape(b * w, n, d)
+    gw = g.permute(0, 2, 1, 3).reshape(b * w, k, n)
+    dpreds = torch.bmm(gw, zg).reshape(b, w, k, d).permute(0, 2, 1, 3)
+    pw = preds.permute(0, 2, 1, 3).reshape(b * w, k, d)
+    dzg = torch.bmm(gw.transpose(1, 2), pw).reshape(-1, d)
+    return dpreds, torch.zeros_like(z).index_add_(0, flat, dzg)
+
+
 def check_infonce(dev, gen):
-    from cpc2_torch.ops.infonce import negative_scores, negative_scores_plain
-    b, k, w, n, d, p = 8, 12, 116, 128, 256, 1024
+    """The InfoNCE kernels against `negative_scores_plain` at
+    INFONCE_SHAPES, forward and both gradients, the backward bit-identical
+    across two calls at each, and an empty shape launching nothing; then
+    at the recipe, on the trainer's own draws, the kernels, the plain
+    version and the library route (`infonce_route`, full fp32) held to the
+    same tolerance and timed by device time, events beside. Prints each
+    shape's plan, the backward's device time by kernel and the kernels'
+    registers and spills on `[infonce]` lines."""
+    from cpc2_torch.ops import _build
+    from cpc2_torch.ops.infonce import (infonce_plan, negative_scores,
+                                        negative_scores_plain)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    err_f = err_b = 0.0
+    for b, k, w, n, d, p in INFONCE_SHAPES:
+        plan = infonce_plan(b, k, w, n, d + (-d) % 4, p, sms)
+        log(f"[infonce] plan at {(b, k, w, n, d, p)}: {tuple(plan)}")
+        inputs = [torch.randn(b, k, w, d, device=dev, generator=gen),
+                  torch.randn(p, d, device=dev, generator=gen)]
+        idx = torch.randint(0, p, (b, w, n), device=dev, generator=gen,
+                            dtype=torch.int32)
+        if (b, k, w, n, d, p) == INFONCE_SHAPES[0]:
+            idx[..., ::2] = idx[..., ::2] % 16
+        cot = [torch.randn(b, k, w, n, device=dev, generator=gen)]
+
+        def kern(preds, z, idx=idx):
+            return negative_scores(preds, z, idx)
+
+        def plain(preds, z, idx=idx):
+            return negative_scores_plain(preds, z, idx)
+        out_k, grad_k, bwd_k = grads_of(kern, inputs, cot)
+        out_p, grad_p, bwd_p = grads_of(plain, inputs, cot)
+        what = f"infonce {(b, k, w, n, d, p)}"
+        err_f = max(err_f, compare(what + " forward", out_k, out_p))
+        err_b = max(err_b, compare(what + " backward", grad_k, grad_p))
+        again = bwd_k()
+        if not all(torch.equal(a, g) for a, g in zip(again, grad_k)):
+            raise AssertionError(what + " backward: two calls differ")
+    # an empty shape (W = 0): zeros of the right shapes, no launch
+    before = dict(_build.LAUNCHES)
+    inputs = [torch.randn(2, 12, 0, 256, device=dev),
+              torch.randn(1024, 256, device=dev)]
+    idx = torch.zeros(2, 0, 128, device=dev, dtype=torch.int32)
+    out_k, grad_k, _ = grads_of(lambda a, z: negative_scores(a, z, idx),
+                                inputs, [torch.ones(2, 12, 0, 128,
+                                                    device=dev)])
+    if out_k[0].shape != (2, 12, 0, 128) or grad_k[0].shape != (
+            2, 12, 0, 256) or not torch.equal(
+                grad_k[1], torch.zeros_like(inputs[1])) \
+            or dict(_build.LAUNCHES) != before:
+        raise AssertionError("infonce at W = 0: wrong shapes, a nonzero dz "
+                             "or a launch")
+    # timed at the recipe on the trainer's own draws (`sample_negative_indices`:
+    # uniform over the pool but a position's own frame)
+    from cpc2_torch.losses import sample_negative_indices
+    b, k, w, n, d, p = INFONCE_SHAPES[0]
     inputs = [torch.randn(b, k, w, d, device=dev, generator=gen),
               torch.randn(p, d, device=dev, generator=gen)]
-    # repeated rows on purpose: half the draws come from 16 pool rows
-    idx = torch.randint(0, p, (b, w, n), device=dev, generator=gen,
-                        dtype=torch.int32)
-    idx[..., ::2] = idx[..., ::2] % 16
+    idx = sample_negative_indices(gen, b, p // b, n, w, dev).transpose(
+        1, 2).contiguous()
     cot = [torch.randn(b, k, w, n, device=dev, generator=gen)]
 
     def kern(preds, z):
@@ -589,22 +688,47 @@ def check_infonce(dev, gen):
         return negative_scores_plain(preds, z, idx)
     out_k, grad_k, bwd_k = grads_of(kern, inputs, cot)
     out_p, grad_p, bwd_p = grads_of(plain, inputs, cot)
-    err_f = compare("infonce forward", out_k, out_p)
-    err_b = compare("infonce backward", grad_k, grad_p)
+    err_f = max(err_f, compare("infonce drawn forward", out_k, out_p))
+    err_b = max(err_b, compare("infonce drawn backward", grad_k, grad_p))
     with torch.no_grad():
-        fwd_ms = cuda_ms(lambda: kern(*inputs))
-        plain_fwd_ms = cuda_ms(lambda: plain(*inputs))
-    bwd_ms = cuda_ms(bwd_k)
-    plain_bwd_ms = cuda_ms(bwd_p)
-    dots = 2 * b * k * w * n * d
+        fwd_ms = device_ms(lambda: kern(*inputs))
+        plain_fwd_ms = device_ms(lambda: plain(*inputs))
+        route_fwd_ms = device_ms(lambda: infonce_route(*inputs, idx))
+        events = {"infonce_fwd": cuda_ms(lambda: kern(*inputs))}
+        route_out = infonce_route(*inputs, idx)
+
+        def route_bwd():
+            return infonce_route_bwd(cot[0], *inputs, idx)
+        route_bwd_ms = device_ms(route_bwd)
+        route_grad = route_bwd()
+    compare("infonce route forward", [route_out], out_k)
+    compare("infonce route backward", route_grad, grad_k)
+    bwd_split = device_split(bwd_k)
+    bwd_ms = sum(bwd_split.values())
+    plain_bwd_ms = device_ms(bwd_p)
+    events["infonce_bwd"] = cuda_ms(bwd_k)
+    log("[infonce] at the recipe, backward device ms by kernel "
+        + ", ".join(f"{k[:40]} {v:.4f}" for k, v in bwd_split.items())
+        + "; ptxas: " + " | ".join(ptxas_usage(_build, "gathered_fwd")
+                                    + ptxas_usage(_build, "gathered_bwd")
+                                    + ptxas_usage(_build, "dz_sum")))
+    b, k, w, d = inputs[0].shape
+    dots = 2 * b * k * w * idx.shape[2] * d
     src, rep = "cpc2_torch/csrc/infonce.cu", "cpc2_tpu/ops/infonce_pallas.py"
-    return [
+    # The forward's products run in 3xTF32 on the tensor cores. The
+    # backward's dpreds products (3xTF32) and dz's sparse FMAs (fp32, as
+    # many) run on separate units; its bound is the larger, the FMAs' at
+    # the fp32 rate.
+    entries = [
         kernel_entry("infonce_fwd", src, rep + ":107", err_f, fwd_ms,
                      plain_fwd_ms, None,
-                     nbytes(*inputs, idx) + nbytes(*out_k), dots),
+                     nbytes(*inputs, idx) + nbytes(*out_k), dots,
+                     TF32X3_FLOP_PER_S),
         kernel_entry("infonce_bwd", src, rep + ":170", err_b, bwd_ms,
                      plain_bwd_ms, None,
-                     nbytes(*cot, *inputs, idx) + nbytes(*grad_k), 2 * dots)]
+                     nbytes(*cot, *inputs, idx) + nbytes(*grad_k), dots)]
+    yard = {"infonce_fwd": route_fwd_ms, "infonce_bwd": route_bwd_ms}
+    return entries, yard, events
 
 
 def check_dtw(dev, gen):

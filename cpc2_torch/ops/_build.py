@@ -56,8 +56,8 @@ _SIGNATURES = {
     "cpc2_ffn_fwd_bf16": [_P] * 8 + [_I] * 4 + [_U, _F, _P],
     "cpc2_ffn_bwd_bf16": [_P] * 12 + [_I] * 4 + [_U, _F, _P],
     "cpc2_ffn_bf16_workspace": [_I] * 5,
-    "cpc2_infonce_fwd": [_P] * 4 + [_I] * 5 + [_P],
-    "cpc2_infonce_bwd": [_P] * 6 + [_I] * 5 + [_P],
+    "cpc2_infonce_fwd": [_P] * 4 + [_I] * 12 + [_L, _P],
+    "cpc2_infonce_bwd": [_P] * 7 + [_I] * 22 + [_L, _P],
     "cpc2_dtw": [_P] * 4 + [_I] * 3 + [_P],
     "cpc2_attention_fwd": [_P] * 6 + [_I] * 3 + [_U, _F, _P],
     "cpc2_attention_bwd": [_P] * 11 + [_I] * 3 + [_U, _F, _P],

@@ -1,24 +1,34 @@
-"""InfoNCE negative scoring with a hand-written CUDA kernel:
+"""InfoNCE negative scoring with hand-written CUDA kernels:
 `neg[b, k, w, n] = preds[b, k, w, :] · z[idx[b, w, n], :]` (a raw dot; the
 criterion divides by D).
 
 Counterpart of `cpc2_tpu/ops/infonce_pallas.py:negative_scores_pallas`.
-The TPU kernel keeps the whole pool resident and selects rows by one-hot
-matmuls, so its cost grows with the pool; here (`csrc/infonce.cu`) one
-block per (b, w) stages its K prediction rows and N indices in shared
-memory and reads each sampled pool row once for all K dots, so the cost
-does not depend on the pool size. The work is bound by operations (0.73
-GFLOP forward at the recipe). The backward gives `dpreds` with the same
-blocking and scatter-adds `dz` with fp32 atomics, whose order of summation
-varies from run to run.
+The TPU kernels keep the whole pool resident and select rows by one-hot
+matmuls, so their cost grows with the pool. Here (`csrc/infonce.cu`) a unit
+of work is one (b, w): a persistent grid stages each unit's N sampled pool
+rows in shared memory with bulk async copies behind mbarriers, and the
+products run on the tensor cores in 3xTF32 (fp32 accuracy). The backward
+computes `dpreds` the same way and, in the same launch, `dz` by CTAs that
+each own a tile of pool rows and a slice of columns and add the sampled
+rows' contributions in a fixed order: no atomics, bit-for-bit the same
+from call to call. A second launch sums the partials of the CTAs that
+split a tile's units, in a fixed order.
 
-`negative_scores` launches the kernel for CUDA tensors and runs
+`infonce_plan` chooses each launch and shared-memory layout (groups of
+predictions, row blocks, column chunks, strides, stages, grids, dz tiles)
+from the shapes alone; the kernels take it as given. Any K, N, D and pool
+size: the wrapper pads D to a multiple of 4 and, for the backward, N too,
+and launches nothing for an empty shape.
+`negative_scores` launches the kernels for CUDA tensors and runs
 `negative_scores_plain` for CPU tensors; there is no other path.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
@@ -33,6 +43,169 @@ def negative_scores_plain(preds: Tensor, z: Tensor, idx: Tensor) -> Tensor:
     n = idx.shape[2]
     neg_z = z[idx.reshape(-1).long()].reshape(b, w, n, d)
     return torch.einsum('bkwd,bwnd->bkwn', preds, neg_z)
+
+
+# The kernels' limits (`csrc/infonce.cu`): the dynamic shared memory of one
+# block, the barriers before the rings, at most PLAN_STAGES stages a ring,
+# the row blocks of the gathered kernels tried from the largest, the widest
+# column chunk of dpreds, the sampled rows of one chunk, the dz
+# accumulator's budget and the consumer warps.
+SMEM_LIMIT = 232448
+BARRIER_BYTES = 128
+PLAN_STAGES = 4
+ROW_BLOCKS = (128, 64, 32, 16)
+MAX_CHUNK = 256
+CHUNK_N = 256
+DZ_ACC_BYTES = 131072
+CONSUMER_WARPS = 8
+# a forward row block's (m16, n8) tile pairs per consumer warp, at most
+PAIR_SLOTS = 2
+# streaming multiprocessors of an H100 SXM, the plan's default grid
+H100_SMS = 132
+
+
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+class InfoncePlan(NamedTuple):
+    """Every launch choice and shared-memory layout of the kernels.
+    Predictions go in groups of kp (16 or 32) rows. Forward stage: fwd_rb
+    gathered rows, then kp prediction rows, each fwd_stride floats, fwd_dc
+    columns of D a stage. dpreds stage: bwd_rb gathered rows of a
+    bwd_dc-wide chunk at stride bwd_zs, then kp rows of g at bwd_gs. dz
+    stage: nc indices, then min(K, kp) rows of g at stride nc and of the
+    preds slice at dzc; after the ring, the (pt, dzc) accumulator and each
+    consumer warp's list of nc rows. Stages in floats, shared memory in
+    bytes. The backward runs at N rounded up to a multiple of 4, bwd_n."""
+    kp: int
+    fwd_rb: int
+    fwd_dc: int
+    fwd_stride: int
+    fwd_stage: int
+    fwd_stages: int
+    fwd_grid: int
+    fwd_smem: int
+    bwd_n: int
+    bwd_rb: int
+    bwd_dc: int
+    bwd_zs: int
+    bwd_gs: int
+    bwd_stage: int
+    bwd_stages: int
+    bwd_grid: int     # dpreds CTAs
+    nc: int
+    dzc: int          # columns of a dz slice
+    dz_stage: int
+    dz_stages: int
+    pt: int           # pool rows of a dz tile
+    row_tiles: int
+    col_slices: int
+    splits: int       # dz CTAs a tile, each over a run of units
+    bwd_smem: int
+
+
+def _ring(stage_floats: int, budget: int = SMEM_LIMIT) -> int:
+    return min(PLAN_STAGES, max(0, budget - BARRIER_BYTES)
+               // (4 * stage_floats))
+
+
+def _row_block(n: int, stage_floats) -> tuple:
+    """The largest row block of ROW_BLOCKS (none above round16(N) but the
+    smallest) whose ring holds at least two stages, and its stages; (0, 0)
+    if none. `stage_floats(rb)` is 0 for a block the kernel cannot take."""
+    for rb in ROW_BLOCKS:
+        if rb > _up(n, 16) and rb != ROW_BLOCKS[-1]:
+            continue
+        floats = stage_floats(rb)
+        if floats and _ring(floats) >= 2:
+            return rb, _ring(floats)
+    return 0, 0
+
+
+def _chunk(n: int, d: int, widest: int, stage_floats) -> tuple:
+    """The widest column chunk, a multiple of 8 from min(widest, round8(D))
+    down by halves, for which `_row_block` finds a block of
+    `stage_floats(rb, dc)`; and that block and its stages."""
+    dc = min(widest, _up(d, 8))
+    while True:
+        rb, stages = _row_block(n, lambda r: stage_floats(r, dc))
+        if rb:
+            return dc, rb, stages
+        if dc <= 8:
+            raise ValueError("infonce_plan: no row block fits shared memory")
+        dc = _up(dc // 2, 8)
+
+
+def infonce_plan(b: int, k: int, w: int, n: int, d: int, p: int,
+                 sms: int = H100_SMS) -> InfoncePlan:
+    """The launches for preds (b, k, w, d), a pool of p rows and n samples
+    a position, on a card with `sms` multiprocessors. Any K, N and P; D a
+    multiple of 4 (the wrapper pads it). Raises ValueError on an empty
+    dimension (the wrapper launches nothing then) and on D not a multiple
+    of 4."""
+    if min(b, k, w, n, d, p, sms) <= 0:
+        raise ValueError(f"infonce_plan: empty shape b={b} k={k} w={w} "
+                         f"n={n} d={d} p={p}")
+    if d % 4:
+        raise ValueError(f"infonce_plan: the kernels take D a multiple of "
+                         f"4, got {d}")
+    kp = 16 if k <= 16 else 32
+    kr = min(k, kp)
+    units = b * w
+    grid = min(units, sms)
+
+    # forward: whole rows of D where a stage holds them, the row block's
+    # tile pairs within PAIR_SLOTS a consumer warp
+    def fwd_stage(rb, dc):
+        if rb // 16 * kp // 8 > PAIR_SLOTS * CONSUMER_WARPS:
+            return 0
+        return (rb + kp) * (_up(dc, 32) + 4)
+    fwd_dc, fwd_rb, fwd_stages = _chunk(n, d, _up(d, 8), fwd_stage)
+
+    n4 = _up(n, 4)
+
+    def dp_stage(rb, dc):
+        return rb * (_up(dc, 32) + 8) + kp * (_up(rb, 32) + 4)
+    bwd_dc, bwd_rb, bwd_stages = _chunk(n4, d, MAX_CHUNK, dp_stage)
+
+    # dz: the fewest column slices (each at most 256 threads x 64 / kp
+    # columns) whose ring holds two stages beside the accumulator and lists,
+    # the accumulator halved down to 8 rows before a slice is added
+    nc = min(n4, CHUNK_N)
+    slices = -(-d // (256 * 64 // kp))
+    while True:
+        dzc = _up(-(-d // slices), 4)
+        dz_stage = nc * (1 + kr) + kr * dzc
+        pt = max(1, min(_up(p, 8), DZ_ACC_BYTES // (4 * dzc)))
+        while True:
+            fixed = pt * dzc + CONSUMER_WARPS * nc
+            dz_stages = _ring(dz_stage, SMEM_LIMIT - 4 * fixed)
+            if dz_stages >= 2 or pt <= 8:
+                break
+            pt //= 2
+        if dz_stages >= 2:
+            break
+        slices += 1
+    row_tiles = -(-p // pt)
+    col_slices = -(-d // dzc)
+    splits = max(1, min(units, sms // (row_tiles * col_slices)))
+    fwd_st = fwd_stage(fwd_rb, fwd_dc)
+    dp_st = dp_stage(bwd_rb, bwd_dc)
+    return InfoncePlan(
+        kp, fwd_rb, fwd_dc, _up(fwd_dc, 32) + 4, fwd_st, fwd_stages, grid,
+        BARRIER_BYTES + 4 * fwd_stages * fwd_st,
+        n4, bwd_rb, bwd_dc, _up(bwd_dc, 32) + 8, _up(bwd_rb, 32) + 4, dp_st,
+        bwd_stages, grid, nc, dzc, dz_stage, dz_stages, pt, row_tiles,
+        col_slices, splits,
+        BARRIER_BYTES + 4 * max(bwd_stages * dp_st,
+                                dz_stages * dz_stage + pt * dzc
+                                + CONSUMER_WARPS * nc))
+
+
+def dz_partial_floats(plan: InfoncePlan, d: int) -> int:
+    """Floats of the dz partials' buffer: splits x row_tiles * pt x D."""
+    return plan.splits * plan.row_tiles * plan.pt * d
 
 
 def _check(preds, z, idx) -> torch.device:
@@ -51,33 +224,83 @@ def _check(preds, z, idx) -> torch.device:
     return device
 
 
+def _aligned(t: Tensor) -> Tensor:
+    """t contiguous and 16-byte aligned, as the bulk copies read it."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _pad_last(t: Tensor, size: int) -> Tensor:
+    """t with its last dimension padded with zeros to `size`, 16-byte
+    aligned."""
+    return _aligned(t if t.shape[-1] == size
+                    else F.pad(t, (0, size - t.shape[-1])))
+
+
+_SMS = {}
+
+
+def _plan(b, k, w, n, d4, p, device) -> InfoncePlan:
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return infonce_plan(b, k, w, n, d4, p, _SMS[device])
+
+
 class _NegativeScores(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, preds, z, idx):
         device = _check(preds, z, idx)
-        preds, z, idx = preds.contiguous(), z.contiguous(), idx.contiguous()
         b, k, w, d = preds.shape
-        n = idx.shape[2]
+        n, p = idx.shape[2], z.shape[0]
+        ctx.shapes = preds.shape, z.shape
         out = torch.empty((b, k, w, n), device=device)
+        if out.numel() == 0 or d == 0:  # nothing to launch
+            ctx.plan = None
+            return out.zero_()
+        # D padded with zeros to a multiple of 4 adds nothing to any dot
+        d4 = _up(d, 4)
+        plan = _plan(b, k, w, n, d4, p, device)
+        preds, z = _pad_last(preds, d4), _pad_last(z, d4)
+        idx = _aligned(idx)
         _build.launch("infonce_fwd", "cpc2_infonce_fwd", device,
                       preds.data_ptr(), z.data_ptr(), idx.data_ptr(),
-                      out.data_ptr(), b, k, w, n, d)
+                      out.data_ptr(), b, k, w, n, d4, plan.kp, plan.fwd_rb,
+                      plan.fwd_dc, plan.fwd_stride, plan.fwd_stage,
+                      plan.fwd_stages, plan.fwd_grid, plan.fwd_smem)
         ctx.save_for_backward(preds, z, idx)
+        ctx.plan = plan
         return out
 
     @staticmethod
     def backward(ctx, g):
+        preds_shape, z_shape = ctx.shapes
+        plan = ctx.plan
+        if plan is None:
+            return (g.new_zeros(preds_shape), g.new_zeros(z_shape), None)
         preds, z, idx = ctx.saved_tensors
-        g = g.contiguous()
-        b, k, w, d = preds.shape
-        n = idx.shape[2]
+        b, k, w, d4 = preds.shape
+        p, d = z.shape[0], preds_shape[3]
+        # the backward's N padded to a multiple of 4: rows of the pool's
+        # row 0 with a zero cotangent, which add nothing
+        n4 = plan.bwd_n
+        g, idx = _pad_last(g, n4), _pad_last(idx, n4)
         dpreds = torch.empty_like(preds)
-        dz = torch.zeros_like(z)
+        dz = torch.empty_like(z)
+        partial = torch.empty(dz_partial_floats(plan, d4),
+                              device=preds.device)
         _build.launch("infonce_bwd", "cpc2_infonce_bwd", preds.device,
                       g.data_ptr(), preds.data_ptr(), z.data_ptr(),
                       idx.data_ptr(), dpreds.data_ptr(), dz.data_ptr(),
-                      b, k, w, n, d)
+                      partial.data_ptr(), b, k, w, n4, d4, p, plan.kp,
+                      plan.bwd_rb, plan.bwd_dc, plan.bwd_zs, plan.bwd_gs,
+                      plan.bwd_stage, plan.bwd_stages, plan.bwd_grid,
+                      plan.nc, plan.dzc, plan.dz_stage, plan.dz_stages,
+                      plan.pt, plan.row_tiles, plan.col_slices, plan.splits,
+                      plan.bwd_smem)
+        if d4 != d:
+            dpreds, dz = dpreds[..., :d], dz[:, :d]
         return dpreds, dz, None
 
 
@@ -85,8 +308,9 @@ def negative_scores(preds: Tensor, z: Tensor, idx: Tensor) -> Tensor:
     """neg[b, k, w, n] = preds[b, k, w, :] · z[idx[b, w, n], :].
 
     preds: (B, K, W, D) float32; z: (P, D) float32; idx: (B, W, N) int32
-    rows of z, each in [0, P). Returns (B, K, W, N) float32. CUDA tensors
-    go through the kernel, CPU tensors through `negative_scores_plain`."""
+    rows of z, each in [0, P) (the kernels do not check the range). Returns
+    (B, K, W, N) float32. CUDA tensors go through the kernels, CPU tensors
+    through `negative_scores_plain`."""
     if preds.device.type == "cpu":
         return negative_scores_plain(preds, z, idx)
     return _NegativeScores.apply(preds, z, idx)

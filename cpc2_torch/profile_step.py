@@ -15,10 +15,10 @@ warm-up steps:
   and optimizer phases, each ending in a synchronise;
 * profiles the same number of steps with `torch.profiler` and prints the
   device time per step, its share of the wall time, the share of the
-  port's hand-written kernels, of the FFN's bf16 kernels and of the LSTM's
-  kernels, the device kernel launches per step, the launches per step of
-  each of the port's kernel wrappers, and the kernels that take the most
-  device time.
+  port's hand-written kernels, of the FFN's bf16 kernels, of the LSTM's
+  kernels and of InfoNCE's, the device kernel launches per step, the
+  launches per step of each of the port's kernel wrappers, and the kernels
+  that take the most device time.
 
 It needs a CUDA card.
 """
@@ -49,10 +49,11 @@ TOP_KERNELS = 15
 FFN_KERNELS = ("ffn_wgmma_gemm", "ffn_cast_bf16", "ffn_sum_partials")
 LSTM_KERNELS = ("lstm_fwd_resident", "lstm_bwd_resident", "lstm_fwd_step",
                 "lstm_bwd_step")
-PORT_KERNELS = FFN_KERNELS + LSTM_KERNELS + (
-    "gemm_kernel", "colsum_kernel", "neg_scores_fwd", "neg_scores_bwd",
-    "attention_fwd", "attention_bwd", "relpos_grad_sum", "conv_gemm",
-    "norm_bwd", "conv_wgrad", "sum_rows", "input_taps", "input_overlap")
+INFONCE_KERNELS = ("gathered_fwd", "gathered_bwd", "dz_sum")
+PORT_KERNELS = FFN_KERNELS + LSTM_KERNELS + INFONCE_KERNELS + (
+    "gemm_kernel", "colsum_kernel", "attention_fwd", "attention_bwd",
+    "relpos_grad_sum", "conv_gemm", "norm_bwd", "conv_wgrad", "sum_rows",
+    "input_taps", "input_overlap")
 
 
 def device_us(event) -> float:
@@ -147,10 +148,11 @@ def main(argv=None) -> dict:
     device_ms = sum(device_us(e) for e in kernels) / 1000.0 / opts.steps
     lstm_kernels = LSTM_KERNELS + (
         () if opts.precision == "fp32" else ("gemm_kernel", "colsum_kernel"))
-    port_ms, ffn_ms, lstm_ms = (
+    port_ms, ffn_ms, lstm_ms, infonce_ms = (
         sum(device_us(e) for e in kernels if any(k in e.key for k in names))
         / 1000.0 / opts.steps
-        for names in (PORT_KERNELS, FFN_KERNELS, lstm_kernels))
+        for names in (PORT_KERNELS, FFN_KERNELS, lstm_kernels,
+                      INFONCE_KERNELS))
     device_launches = sum(e.count for e in kernels) / opts.steps
     median = statistics.median(wall_ms)
     print(f"card: {torch.cuda.get_device_name(0)}")
@@ -167,7 +169,8 @@ def main(argv=None) -> dict:
           f"{port_ms:.3f} ms, the FFN's bf16 kernels {ffn_ms:.3f} ms, the "
           f"LSTM's {lstm_ms:.3f} ms (its walks"
           + ("" if opts.precision == "fp32" else ", dW_hh and db_hh sums")
-          + f"); {device_launches:g} device kernel launches per step")
+          + f"), InfoNCE's {infonce_ms:.3f} ms; {device_launches:g} device "
+          "kernel launches per step")
     print("the port's kernel wrappers, launches/step: " + ", ".join(
         f"{k} {n:g}" for k, n in launches.items()))
     print(f"{'device ms/step':>15} {'calls/step':>11}  kernel")
@@ -176,7 +179,7 @@ def main(argv=None) -> dict:
               f"{e.count / opts.steps:11.1f}  {e.key[:100]}")
     return {"median_step_ms": median, "device_ms": device_ms,
             "port_kernel_ms": port_ms, "ffn_bf16_kernel_ms": ffn_ms,
-            "lstm_kernel_ms": lstm_ms,
+            "lstm_kernel_ms": lstm_ms, "infonce_kernel_ms": infonce_ms,
             "device_launches_per_step": device_launches,
             "profiled_step_ms": profiled_ms,
             "launches_per_step": launches,

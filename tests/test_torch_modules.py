@@ -106,23 +106,28 @@ def test_encoder_matches_jax(norm_mode):
         _close_sums(p.grad, grads[name].numpy(), name)
 
 
-def test_lstm_ar_with_carry_matches_jax():
-    """Two chained calls threading the (h, c) carry, and the gradients of
-    the second call's output w.r.t. every weight and the input."""
+@pytest.mark.parametrize("mode", ["LSTM", "GRU", "RNN"])
+def test_lstm_ar_with_carry_matches_jax(mode):
+    """Two layers of each recurrent context network: two chained calls
+    threading the carry (the (h, c) pair in LSTM mode, h otherwise), and
+    the gradients of the second call's output w.r.t. every weight and the
+    input."""
     rs = np.random.RandomState(1)
     x1 = rs.randn(2, 9, 8).astype(np.float32)
     x2 = rs.randn(2, 9, 8).astype(np.float32)
     jmod = JaxCPCAR(dim_encoded=8, dim_output=6, keep_hidden=True,
-                    n_levels=2, mode="LSTM")
+                    n_levels=2, mode=mode)
     params = _np(jax.jit(jmod.init)(jax.random.PRNGKey(1),
                                     jnp.asarray(x1))["params"])
-    mod = CPCAR(8, 6, keep_hidden=True, n_levels=2, mode="LSTM")
+    mod = CPCAR(8, 6, keep_hidden=True, n_levels=2, mode=mode)
     mod.load_state_dict(state_dict_from_jax(params))
 
     y1_j, hid_j = jmod.apply({"params": params}, jnp.asarray(x1))
     y1, hid = mod(torch.from_numpy(x1))
     _close(y1, y1_j, FWD, "y1")
-    for a, b in zip(hid, hid_j):
+    pairs = zip(hid, hid_j, strict=True) if mode == "LSTM" \
+        else [(hid, hid_j)]
+    for a, b in pairs:
         _close(a, b, FWD, "hidden")
 
     def f(p, xx):
@@ -131,7 +136,9 @@ def test_lstm_ar_with_carry_matches_jax():
     cot = rs.randn(*y2_j.shape).astype(np.float32)
     gp, gx = vjp(jnp.asarray(cot))
     x2t = torch.from_numpy(x2).requires_grad_(True)
-    y2, _ = mod(x2t, tuple(h.detach() for h in hid))
+    carry = tuple(h.detach() for h in hid) if mode == "LSTM" \
+        else hid.detach()
+    y2, _ = mod(x2t, carry)
     y2.backward(torch.from_numpy(cot))
     _close(y2, y2_j, FWD, "y2")
     _close(x2t.grad, gx, GRAD, "dx")
@@ -164,6 +171,60 @@ def test_transformer_head_with_block_padding_matches_jax():
     _close(y, y_j, FWD, "y")
     _close(xt.grad, gx, GRAD, "dx")
     grads = state_dict_from_jax(_np(gp))
+    for name, p in mod.named_parameters():
+        _close_sums(p.grad, grads[name].numpy(), name)
+
+
+def _relu_margin(mod, x):
+    """The smallest |pre-activation| of any FFN ReLU of a TransformerAR on
+    x."""
+    pre = []
+    hooks = [layer.ffnetwork.register_forward_hook(
+        lambda m, inp, _out: pre.append(
+            (inp[0] @ m.lin1.weight.t() + m.lin1.bias).abs().min().item()))
+        for layer in mod if hasattr(layer, "ffnetwork")]
+    with torch.no_grad():
+        mod(x)
+    for h in hooks:
+        h.remove()
+    return min(pre)
+
+
+@pytest.mark.parametrize("abspos,size_seq", [(False, 8), (True, 16)])
+def test_transformer_context_network_matches_jax(abspos, size_seq):
+    """The transformer context network (`--arMode transformer`): two
+    layers, with and without the static position embedding (`--abspos`,
+    which also turns the relative-position attention off; its table is
+    size_seq long, so S = 13 lies in one block of 16 there and in two
+    blocks of 8, the last zero-padded, without it), dropout off: forward
+    and every gradient. A ReLU's gradient jumps at 0, so an FFN
+    pre-activation within fp32 reordering noise of 0 (about 1e-7 here)
+    flips between two correct implementations and moves dx by about 1e-2:
+    the test first checks that its inputs keep every one at least 1e-6
+    from 0."""
+    rs = np.random.RandomState(5)
+    x = rs.randn(2, 13, 16).astype(np.float32)
+    jmod = JaxTransformerAR(dim_encoded=16, dim_ar=16, n_layers=2,
+                            size_seq=size_seq, abspos=abspos)
+    params = _np(jax.jit(lambda key, xx: jmod.init(key, xx, None, False))(
+        jax.random.PRNGKey(5), jnp.asarray(x))["params"])
+    mod = TransformerAR(16, 16, 2, size_seq, abspos)
+    mod.load_state_dict(state_dict_from_jax(params))
+    mod.eval()
+    assert _relu_margin(mod, torch.from_numpy(x)) > 1e-6
+    cot = rs.randn(2, 13, 16).astype(np.float32)
+
+    def f(p, xx):
+        return jmod.apply({"params": p}, xx, None, False)[0]
+    y_j, vjp = jax.vjp(jax.jit(f), params, jnp.asarray(x))
+    gp, gx = vjp(jnp.asarray(cot))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y, _ = mod(xt)
+    y.backward(torch.from_numpy(cot))
+    _close(y, y_j, FWD, "y")
+    _close(xt.grad, gx, GRAD, "dx")
+    grads = state_dict_from_jax(_np(gp))
+    assert {name for name, _ in mod.named_parameters()} == set(grads)
     for name, p in mod.named_parameters():
         _close_sums(p.grad, grads[name].numpy(), name)
 
