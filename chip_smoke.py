@@ -6,20 +6,23 @@ Phases, each of which fails the run with a nonzero exit:
 
 1. print the card's name and power limit (`nvidia-smi`);
 2. build the CUDA kernels from `cpc2_torch/csrc` (`cpc2_torch/ops/_build.py`)
-   and check with `cuobjdump --dump-sass` that the FFN's bf16 GEMM kernels
-   are `wgmma` products fed by TMA (HGMMA and UTMALDG in their SASS);
+   and check with `cuobjdump --dump-sass` that the FFN's GEMM kernels are
+   `wgmma` products fed by TMA (HGMMA and UTMALDG in their SASS; the fp32
+   route's HGMMA in TF32, with no spills);
 3. hold each kernel against its plain PyTorch version at the recipe's
    shapes (B = 8, T = 128, H = 256, K = 12, W = 116, N = 128, D = 256,
    P = 1,024, FFN 256 -> 2048 -> 256 on 928 rows, attention 64 units of
    116 x 32, encoder 16 x 20,480 samples at C = 256), forward and
-   backward, the FFN (both routes, and two ragged shapes) and the
-   attention at dropout 0 and 0.1 with the same seed, the FFN's bf16
-   route and the encoder in their bf16 working type, and the DTW kernel at
-   one ABX flush (18,432 pairs of 32 x 32 frames), a ragged 16 x 64, a
-   multi-strip 64 x 64 and its 2,048 x 2,048 limit, where it must be
-   bit-identical; the LSTM's two routes, the resident cluster kernels also
-   at ABX batches (4 and 16 files of 400 frames) and a ragged one, the
-   per-step kernels also at H = 512, with the resident backward
+   backward, the FFN (both routes, and two ragged shapes; the fp32 route
+   also at widths that are not multiples of 4 and at one row, its
+   backward bit-identical across two calls and an empty batch launching
+   nothing) and the attention at dropout 0 and 0.1 with the same seed,
+   the FFN's bf16 route and the encoder in their bf16 working type, and the
+   DTW kernel at one ABX flush (18,432 pairs of 32 x 32 frames), a ragged
+   16 x 64, a multi-strip 64 x 64 and its 2,048 x 2,048 limit, where it
+   must be bit-identical; the LSTM's two routes, the resident cluster
+   kernels also at ABX batches (4 and 16 files of 400 frames) and a ragged
+   one, the per-step kernels also at H = 512, with the resident backward
    bit-identical across two calls; then time the kernel, the plain version
    and, where one PyTorch call computes the same function, that call (for
    the FFN's two routes, InfoNCE, the attention and the encoder, which no
@@ -82,8 +85,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # dense bf16 and TF32 tensor-core peaks. Most hand-written kernels compute
 # in fp32 on the FMA units; the products of the encoder and of the FFN's
 # bf16 route take bf16 operands, so their bounds are reckoned at the bf16
-# rate; InfoNCE's products run in 3xTF32 (three TF32 products for one at
-# fp32 accuracy), a third of the TF32 rate.
+# rate; InfoNCE's products and the FFN's fp32 route's run in 3xTF32 (three
+# TF32 products for one at fp32 accuracy), a third of the TF32 rate.
 MEMORY_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
@@ -124,18 +127,26 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def device_split(fn, iters: int = 20, warmup: int = 3) -> dict:
     """Device ms per call of `fn` by kernel name, by `torch.profiler`, over
-    `iters` calls after `warmup` calls."""
+    `iters` calls after `warmup` calls. Every call launches at least one
+    kernel, so a profile that holds fewer kernels than half the calls lost
+    events (one held 3 of 20): it is taken again, at most twice. (Of the
+    LSTM's cluster kernels it holds 19 of 20 launches in most profiles.)"""
     from cpc2_torch.profile_step import device_kernels, device_us
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: device_us(e) / 1e3 / iters for e in device_kernels(prof)}
+    for _attempt in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        if 2 * sum(e.count for e in kernels) >= iters:
+            return {e.key: device_us(e) / 1e3 / iters for e in kernels}
+    raise AssertionError(f"the profiler caught fewer device kernels than "
+                         f"half of {iters} calls, three times")
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -208,32 +219,42 @@ def kernel_entry(name, source, replaces, err, ms, plain_ms, library_ms,
 
 
 def check_sass(build) -> str:
-    """The bf16 FFN kernels must be `wgmma` products fed by TMA: their SASS
-    holds HGMMA and UTMALDG. Returns a summary with each one's registers
-    and spills from the build log."""
+    """The FFN's GEMM kernels must be `wgmma` products fed by TMA: the bf16
+    route's SASS holds HGMMA and UTMALDG, the fp32 route's HGMMA in TF32
+    (an HGMMA line naming TF32) and UTMALDG, and the fp32 ones spill
+    nothing. Returns a summary with each one's registers and spills from
+    the build log."""
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "--dump-sass", str(build.LIBRARY)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    found = []
+    found = {"ffn_wgmma_gemm": [], "ffn_tf32x3_gemm": []}
     for fn in sass.split("Function : ")[1:]:
         name = fn.split(None, 1)[0]
-        if "ffn_wgmma_gemm" not in name:
+        kind = next((k for k in found if k in name), None)
+        if kind is None:
             continue
         missing = [op for op in ("HGMMA", "UTMALDG") if op not in fn]
+        if kind == "ffn_tf32x3_gemm" and not any(
+                "HGMMA" in line and "TF32" in line
+                for line in fn.splitlines()):
+            missing.append("HGMMA ... TF32")
         if missing:
             raise AssertionError(f"{name}: no {missing} in its SASS")
-        found.append(name)
-    if len(found) < 5:
-        raise AssertionError(f"only {len(found)} bf16 FFN GEMM kernels in "
-                             f"the SASS: {found}")
-    lines = (build.BUILD_DIR / "build.log").read_text().splitlines()
-    usage = []
-    for i, line in enumerate(lines):
-        if "Function properties" in line and "ffn_wgmma_gemm" in line:
-            usage += [text.strip() for text in lines[i + 1:i + 3]]
-    return (f"{len(found)} bf16 FFN GEMM kernels, each with HGMMA and "
-            f"UTMALDG; ptxas: {' | '.join(usage)}")
+        found[kind].append(name)
+    for kind, least in (("ffn_wgmma_gemm", 5), ("ffn_tf32x3_gemm", 3)):
+        if len(found[kind]) < least:
+            raise AssertionError(f"only {len(found[kind])} {kind} kernels "
+                                 f"in the SASS: {found[kind]}")
+    usage = {kind: ptxas_usage(build, kind) for kind in found}
+    spilled = [u for u in usage["ffn_tf32x3_gemm"]
+               if not u.endswith(" 0 spill bytes")]
+    if spilled:
+        raise AssertionError(f"fp32 FFN GEMM kernels spill: {spilled}")
+    return (f"{len(found['ffn_wgmma_gemm'])} bf16 FFN GEMM kernels, each "
+            f"with HGMMA and UTMALDG; {len(found['ffn_tf32x3_gemm'])} fp32 "
+            f"(3xTF32) ones, each with HGMMA in TF32 and UTMALDG; ptxas: "
+            + " | ".join(u for lines in usage.values() for u in lines))
 
 
 # The LSTM's routes against `lstm_plain`, forward and all five gradients:
@@ -472,7 +493,18 @@ def ffn_route_bwd(g, keep, scale, saved):
 
 # Ragged shapes beside the recipe's: the small step's (84 rows, 64 -> 2048 ->
 # 64) and one where no width is a multiple of the bf16 kernels' 64 or 128.
+# The fp32 route takes any width, so it is also held where none is a
+# multiple of 4 (the planes' row padding) and at one row.
 FFN_EDGE_SHAPES = ((84, 64, 2048, 64), (200, 72, 136, 24))
+FFN_FP32_SHAPES = ((37, 30, 75, 13), (1, 256, 2048, 256))
+# The fp32 route against `ffn_plain` in fp32: a ReLU input this close to 0,
+# relative to sum_k |x_k w_k| + |b|, lies within the two sides' rounding
+# of it and may fall on either side of 0; its gradient jumps there (at the
+# recipe, one such flip moves a row of dx by 1% of its largest value). The
+# entries downstream of such a tie (that row of dx, that row of dW1 and
+# that entry of db1) are held, at the same tolerance, to the plain backward
+# in float64 with the ReLU's decision at each tie taken from the kernel.
+FFN_TIE = 2.0 ** -20
 
 
 def ffn_inputs(dev, gen, m, din, dff, dout):
@@ -484,10 +516,40 @@ def ffn_inputs(dev, gen, m, din, dff, dout):
             [torch.randn(m, dout, device=dev, generator=gen)])
 
 
+def ffn_ties(inputs):
+    """The ReLU inputs that tie (FFN_TIE), as a (M, Dff) mask."""
+    x, w1, b1 = (t.double() for t in inputs[:3])
+    pre = x @ w1.T + b1
+    return pre.abs() <= FFN_TIE * (x.abs() @ w1.abs().T + b1.abs())
+
+
+def hold_ffn_fp32_at_ties(what, inputs, cot, seed, rate, ties, grad_k):
+    """The fp32 kernels' dx, dW1 and db1 downstream of the ReLU ties
+    against the plain backward in float64 with the kernel's decisions
+    there: the kernel's own hidden > 0, read from its forward with W2 = I
+    and b2 = 0 (whose y is the hidden; the hidden's product is the same
+    whatever W2). Returns the max abs error over those entries."""
+    from cpc2_torch.ops.ffn import fused_ffn, keep_mask
+    x, w1, b1, w2, _b2 = (t.double() for t in inputs)
+    dff = w1.shape[0]
+    with torch.no_grad():
+        hidden = fused_ffn(*inputs[:3], torch.eye(dff, device=x.device),
+                           torch.zeros(dff, device=x.device), seed, rate,
+                           False)
+    keep = keep_mask(seed, x.shape[0], dff, rate)
+    pos = torch.where(ties, hidden > 0, x @ w1.T + b1 > 0) & keep
+    dh = (cot[0].double() @ w2) * pos / (1.0 - rate)
+    rows, cols = ties.any(1), ties.any(0)
+    return compare(what + " backward at ReLU ties",
+                   [grad_k[0][rows], grad_k[1][cols], grad_k[2][cols]],
+                   [(dh @ w1)[rows], (dh.T @ x)[cols], dh.sum(0)[cols]])
+
+
 def hold_ffn(inputs, cot, seed, rate, bf16):
     """One FFN route's kernels against its plain version (see check_ffn):
     (forward max abs error, backward max abs error, each tensor's error
-    over its band, the bands) and the timing closures."""
+    over its band, the bands) and the timing closures; for the fp32 route
+    the number of ReLU ties (FFN_TIE) in place of the last two."""
     from cpc2_torch.ops.ffn import ffn_plain, fused_ffn
 
     def kern(*a):
@@ -500,8 +562,17 @@ def hold_ffn(inputs, cot, seed, rate, bf16):
     what = f"ffn {'bf16' if bf16 else 'fp32'} {tuple(inputs[0].shape)} x " \
            f"{tuple(inputs[1].shape)} rate {rate}"
     if not bf16:
+        ties = ffn_ties(inputs)
+        err_t = (hold_ffn_fp32_at_ties(what, inputs, cot, seed, rate, ties,
+                                       grad_k) if ties.any() else 0.0)
+        rows, cols = ~ties.any(1), ~ties.any(0)
+        held = [grad_k[0][rows], grad_k[1][cols], grad_k[2][cols],
+                *grad_k[3:]]
+        want = [grad_p[0][rows], grad_p[1][cols], grad_p[2][cols],
+                *grad_p[3:]]
         return (compare(what + " forward", out_k, out_p),
-                compare(what + " backward", grad_k, grad_p), [], [],
+                max(compare(what + " backward", held, want), err_t),
+                int(ties.sum()), None,
                 (kern, plain, bwd_k, bwd_p, out_k, grad_k))
     out_d, grad_d, _ = grads_of(plain, [t.double() for t in inputs],
                                 [cot[0].double()])
@@ -511,25 +582,67 @@ def hold_ffn(inputs, cot, seed, rate, bf16):
     return e[0], max(e[1:]), r, b, (kern, plain, bwd_k, bwd_p, out_k, grad_k)
 
 
+def check_ffn_fp32_extra(dev, seed, inputs, cot):
+    """The fp32 route beyond the shared shapes: FFN_FP32_SHAPES at both
+    rates, the recipe's backward bit for bit across two calls, and an
+    empty batch, which launches nothing and gives zero weight gradients.
+    Returns the most ReLU ties in one call. Its inputs come from a
+    generator of its own, so that the later checks draw what they drew
+    before it existed."""
+    from cpc2_torch.ops import _build
+    from cpc2_torch.ops.ffn import fused_ffn
+    own = torch.Generator(device=dev)
+    own.manual_seed(1)
+    ties = 0
+    for shape in FFN_FP32_SHAPES:
+        edge_inputs, edge_cot = ffn_inputs(dev, own, *shape)
+        for rate in (0.0, 0.1):
+            ties = max(ties, hold_ffn(edge_inputs, edge_cot, seed, rate,
+                                      False)[2])
+    _out, grads, bwd = grads_of(
+        lambda *a: fused_ffn(*a, seed, 0.1, False), inputs, cot)
+    again = bwd()
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError("ffn fp32 backward differs between two calls")
+    empty = [torch.zeros(0, inputs[0].shape[1], device=dev)] + inputs[1:]
+    _build.reset_launches()
+    out, grads, _ = grads_of(lambda *a: fused_ffn(*a, seed, 0.1, False),
+                             empty, [torch.zeros(0, inputs[3].shape[0],
+                                                 device=dev)])
+    torch.cuda.synchronize()
+    launched = {k: n for k, n in _build.LAUNCHES.items() if n}
+    if launched or out[0].shape != (0, inputs[3].shape[0]) or any(
+            g.abs().max().item() != 0 for g in grads[1:]):
+        raise AssertionError(f"ffn fp32 on an empty batch: launched "
+                             f"{launched}, y {tuple(out[0].shape)}")
+    return ties
+
+
 def check_ffn(dev, gen):
     """Both FFN routes at the recipe's shapes (M = 928 rows, 256 -> 2048 ->
     256) and at FFN_EDGE_SHAPES, at dropout 0 and 0.1 with one seed: the
-    fp32 kernels within RTOL/ATOL of `ffn_plain`, the bf16 kernels within
-    FFN_BAND of `ffn_plain(bf16=True)`. Timed at 0.1 by device time (`device_ms`: a
-    bf16 call's device work is shorter than its host path) beside their
-    plain versions and, for the bf16 kernels, the same products as
-    `torch.matmul` on bf16 tensors (`ffn_route`); the events' times go to
-    the third value returned. The bf16 rows' bound is reckoned at the bf16
-    rate."""
+    fp32 kernels within RTOL/ATOL of `ffn_plain` (entries downstream of a
+    ReLU tie as FFN_TIE says), also at FFN_FP32_SHAPES, bit for bit across
+    two calls and on an empty batch (`check_ffn_fp32_extra`); the bf16
+    kernels within FFN_BAND of `ffn_plain(bf16=True)`. Timed at 0.1 by
+    device time (`device_ms`: a call's device work is shorter than its
+    host path) beside their plain versions and the same products as
+    `torch.matmul` on bf16 tensors, or on fp32 ones with TF32 off
+    (`ffn_route`); the events' times go to the third value returned. The
+    bf16 rows' bound is reckoned at the bf16 rate, the fp32 rows' at the
+    3xTF32 rate."""
     from cpc2_torch.ops.ffn import keep_mask
     m, din, dff, dout = 8 * 116, 256, 2048, 256
     seed = torch.tensor([12345], device=dev, dtype=torch.int32)
+    ties = 0
     for shape in FFN_EDGE_SHAPES:
         edge_inputs, edge_cot = ffn_inputs(dev, gen, *shape)
         for bf16 in (True, False):
             for rate in (0.0, 0.1):
-                hold_ffn(edge_inputs, edge_cot, seed, rate, bf16)
+                held = hold_ffn(edge_inputs, edge_cot, seed, rate, bf16)
+                ties = ties if bf16 else max(ties, held[2])
     inputs, cot = ffn_inputs(dev, gen, m, din, dff, dout)
+    ties = max(ties, check_ffn_fp32_extra(dev, seed, inputs, cot))
     gemm = 2 * m * din * dff
     src, rep = "cpc2_torch/csrc/ffn.cu", "cpc2_tpu/ops/ffn_pallas.py"
     entries, yard, events = [], {}, {}
@@ -539,17 +652,26 @@ def check_ffn(dev, gen):
             err_f, err_b, r, b, timed = hold_ffn(inputs, cot, seed, rate,
                                                  bf16)
             errs.append((err_f, err_b))
-            ratios += r
-            bands += b
+            if bf16:
+                ratios += r
+                bands += b
+            else:
+                ties = max(ties, r)
         kern, plain, bwd_k, bwd_p, out_k, grad_k = timed
         if bf16:
             log(f"  ffn bf16 kernels vs plain at the recipe, relative "
                 f"2-norm: at most {max(ratios):.2f} x the plain version's own "
                 f"fp32-vs-fp64 spread (or {RTOL}), which is {min(bands):.2e} "
                 f"to {max(bands):.2e}")
+        else:
+            log(f"  ffn fp32 kernels vs plain: every shape within "
+                f"{ATOL} + {RTOL} x max|plain|, at most {ties} ReLU ties in a "
+                f"call held against the kernel's own decisions; backward "
+                f"bit for bit across two calls; an empty batch launched "
+                f"nothing")
         # timed at rate 0.1, the recipe's
         suffix, peak = ("", BF16_FLOP_PER_S) if bf16 else ("_fp32",
-                                                          FP32_FLOP_PER_S)
+                                                          TF32X3_FLOP_PER_S)
         with torch.no_grad():
             fwd_ms = device_ms(lambda: kern(*inputs))
             plain_fwd_ms = device_ms(lambda: plain(*inputs))

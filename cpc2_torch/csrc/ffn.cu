@@ -24,9 +24,25 @@
 //   sums' per-block partials in a fixed order. The bf16 hidden (M x Dff,
 //   3.8 MB at the recipe) goes through device memory and stays in L2
 //   between its two products.
-// - fp32 (`cpc2_ffn_{fwd,bwd}`, `--precision fp32`): the same products as
-//   plain fp32 tiled GEMMs on the FMA units (common.cuh) with the same
-//   fused epilogues, and an fp32 hidden.
+// - fp32 (`cpc2_ffn_{fwd,bwd}`, `--precision fp32`): the same products at
+//   fp32 accuracy, in 3xTF32 on the tensor cores (`ffn_tf32x3_gemm` of
+//   hopper_gemm.cuh): each operand as two TF32 planes, big and small, both
+//   K-major, since the TF32 `wgmma` reads no other layout. One launch
+//   (`ffn_split_tf32`) splits the operands into their planes, transposing
+//   those a product reads M- or N-major (x^T, g^T, W1^T, W2^T), and takes
+//   db2's per-tile column sums of g; the hidden product's epilogue writes
+//   the hidden's planes in the layout the next product reads (forward:
+//   (M, Dff) for y; backward: (Dff, M) for dW2, and the hidden's signs, 64
+//   bits a thread), and the dh epilogue reads those bits back (the two
+//   products share tiles and fragments) and writes dh's planes both ways,
+//   (M, Dff) for dx and, in place of the hidden's, (Dff, M) for dW1, with
+//   db1's column sums per 128-row tile. The hidden and dh products are never
+//   split over K (the backward's hidden is bit for bit the forward's); the
+//   others split as the host's plan says (`ops/ffn.py:ffn_fp32_plan`), and
+//   one last launch sums every split's partials and the bias sums' partials
+//   in a fixed order: no atomics, the backward the same bit for bit from
+//   call to call. The planes' rows are padded to 4 floats for TMA, so any
+//   M, Din, Dff and Dout are taken. A forward is 4 launches, a backward 7.
 #include "common.cuh"
 #include "hopper_gemm.cuh"
 
@@ -126,16 +142,34 @@ struct SumArgs {
   int nseg;
 };
 
-// out = part[0] + part[1] + ... (+ bias), in that order; 4 values a thread.
+// out = part[0] + part[1] + ... (+ bias), in that order; 4 values a thread
+// where every row of values starts 16-byte aligned, else one.
 __global__ void __launch_bounds__(kCastThreads)
 ffn_sum_partials(SumArgs a) {
   SumSeg s = a.seg[0];
 #pragma unroll
   for (int i = 1; i < kMaxSum; ++i)
     if (i == static_cast<int>(blockIdx.y)) s = a.seg[i];
+  const bool vec =
+      s.n % 4 == 0 && s.stride % 4 == 0 &&
+      (reinterpret_cast<uintptr_t>(s.part) |
+       reinterpret_cast<uintptr_t>(s.out)) % 16 == 0 &&
+      (s.bias == nullptr ||
+       (s.cols % 4 == 0 && reinterpret_cast<uintptr_t>(s.bias) % 16 == 0));
+  const long step = static_cast<long>(gridDim.x) * kCastThreads;
+  if (!vec) {
+    for (long i = blockIdx.x * static_cast<long>(kCastThreads) + threadIdx.x;
+         i < s.n; i += step) {
+      float acc = s.part[i];
+      for (int r = 1; r < s.count; ++r) acc += s.part[i + r * s.stride];
+      if (s.bias) acc += s.bias[i % s.cols];
+      s.out[i] = acc;
+    }
+    return;
+  }
   const long n4 = s.n / 4;
   for (long i = blockIdx.x * static_cast<long>(kCastThreads) + threadIdx.x;
-       i < n4; i += static_cast<long>(gridDim.x) * kCastThreads) {
+       i < n4; i += step) {
     float4 acc = reinterpret_cast<const float4*>(s.part)[i];
     for (int r = 1; r < s.count; ++r) {
       const float4 v = reinterpret_cast<const float4*>(s.part + r * s.stride)[i];
@@ -187,7 +221,8 @@ cpc2::WgArgs gemm_args(int M, int N, int K) {
 
 // A store product's output: the result itself when K is not split, else
 // its partials, summed into `out` (with `bias`) by the last launch.
-void store_to(cpc2::WgArgs* g, cpc2::SplitK split, Workspace* ws, float* out,
+template <typename Args>
+void store_to(Args* g, cpc2::SplitK split, Workspace* ws, float* out,
               const float* bias, SumArgs* sums) {
   g->ldo = g->N;
   if (split.splits == 1) {
@@ -322,62 +357,289 @@ cudaError_t ffn_bwd_bf16(Workspace* ws, const float* x, const float* w1,
   return sum_partials(sums, s);
 }
 
+// --- fp32 route: the operands' TF32 planes, the 3xTF32 products ------------
+
+constexpr int kSplitTile = 32;  // a block of the split pass: 32 x 32 values
+constexpr int kMaxSplit = 8;
+
+struct SplitSeg {
+  const float* src;  // rows x cols, row-major
+  int rows, cols;
+  cpc2::Planes dst;  // src as (rows, ld) planes, or src^T as (cols, ld)
+  int transpose;
+  float* colsum;     // or nullptr: colsum[t][c] = the sum of src[., c] over
+                     // rows [32 t, 32 t + 32), in order
+  int first;         // the segment's first block
+};
+
+struct SplitArgs {
+  SplitSeg seg[kMaxSplit];
+  int nseg, blocks;
+};
+
+__device__ __forceinline__ void put_split(const cpc2::Planes& p, long r,
+                                          long c, float v) {
+  float big, small;
+  cpc2::tf32_split(v, big, small);
+  p.p[r * p.ld + c] = big;
+  p.p[r * p.ld + c + p.plane] = small;
+}
+
+// Block b of segment s splits a 32 x 32 tile of s.src into its planes,
+// through shared memory where it transposes, and takes the tile's column
+// sums where s.colsum is set.
+__global__ void __launch_bounds__(kCastThreads)
+ffn_split_tf32(SplitArgs a) {
+  __shared__ float tile[kSplitTile][kSplitTile + 1];
+  SplitSeg s = a.seg[0];
+#pragma unroll
+  for (int i = 1; i < kMaxSplit; ++i)  // constant indices: no stack copy
+    if (i < a.nseg && static_cast<int>(blockIdx.x) >= a.seg[i].first)
+      s = a.seg[i];
+  const int t = blockIdx.x - s.first;
+  const int tiles_c = (s.cols + kSplitTile - 1) / kSplitTile;
+  const int r0 = t / tiles_c * kSplitTile, c0 = t % tiles_c * kSplitTile;
+  const int tx = threadIdx.x % kSplitTile, ty = threadIdx.x / kSplitTile;
+  constexpr int kRowsStep = kCastThreads / kSplitTile;
+  for (int i = ty; i < kSplitTile; i += kRowsStep) {
+    const int r = r0 + i, c = c0 + tx;
+    const bool in = r < s.rows && c < s.cols;
+    const float v = in ? s.src[static_cast<long>(r) * s.cols + c] : 0.f;
+    tile[i][tx] = v;
+    if (in && !s.transpose) put_split(s.dst, r, c, v);
+  }
+  if (!s.transpose && s.colsum == nullptr) return;
+  __syncthreads();
+  if (s.transpose) {
+    for (int i = ty; i < kSplitTile; i += kRowsStep) {
+      const int c = c0 + i, r = r0 + tx;
+      if (c < s.cols && r < s.rows) put_split(s.dst, c, r, tile[tx][i]);
+    }
+  }
+  if (s.colsum && ty == 0 && c0 + tx < s.cols) {
+    float sum = 0.f;
+    for (int i = 0; i < kSplitTile && r0 + i < s.rows; ++i) sum += tile[i][tx];
+    s.colsum[static_cast<long>(t / tiles_c) * s.cols + c0 + tx] = sum;
+  }
+}
+
+void add_split(SplitArgs* a, const float* src, int rows, int cols,
+               cpc2::Planes dst, bool transpose, float* colsum = nullptr) {
+  if (rows <= 0 || cols <= 0) return;
+  const int tiles = ((rows + kSplitTile - 1) / kSplitTile) *
+                    ((cols + kSplitTile - 1) / kSplitTile);
+  a->seg[a->nseg++] = {src, rows, cols, dst, transpose, colsum, a->blocks};
+  a->blocks += tiles;
+}
+
+cudaError_t split_planes(const SplitArgs& a, cudaStream_t stream) {
+  if (a.blocks == 0) return cudaSuccess;
+  ffn_split_tf32<<<a.blocks, kCastThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+long up4(int n) { return (n + 3) / 4 * 4; }
+
+// Two planes of rows x ld floats.
+cpc2::Planes take_planes(Workspace* ws, int rows, long ld) {
+  const long plane = static_cast<long>(rows) * ld;
+  return {ws->take<float>(static_cast<size_t>(2 * plane)), ld, plane};
+}
+
+// A product's split of its K into runs of `per` k tiles (at least one run).
+cpc2::SplitK tf_split(int K, int per) {
+  const int k_tiles = (K + cpc2::kTfBK - 1) / cpc2::kTfBK;
+  return {per, k_tiles > 0 ? (k_tiles + per - 1) / per : 1};
+}
+
+cpc2::TfArgs tf_args(int M, int N, int K, int per) {
+  cpc2::TfArgs g = {};
+  g.M = M;
+  g.N = N;
+  g.K = K;
+  g.k_tiles_per_split = per;
+  return g;
+}
+
+// A product that is never split over K.
+int whole(int K) {
+  const int k_tiles = (K + cpc2::kTfBK - 1) / cpc2::kTfBK;
+  return k_tiles > 0 ? k_tiles : 1;
+}
+
+// The fp32 forward on workspace `ws` (sizes only when ws.base is null); y's
+// product split into runs of per_y k tiles.
+cudaError_t ffn_fwd_fp32(Workspace* ws, const float* x, const float* w1,
+                         const float* b1, const float* w2, const float* b2,
+                         const unsigned* seed, float* y, int M, int Din,
+                         int Dff, int Dout, int per_y, unsigned threshold,
+                         float scale, cudaStream_t s) {
+  if (M <= 0 || Din < 0 || Dff < 0 || Dout < 0 || per_y <= 0)
+    return cudaErrorInvalidValue;
+  const long ld_din = up4(Din), ld_dff = up4(Dff);
+  const cpc2::Planes xp = take_planes(ws, M, ld_din);
+  const cpc2::Planes w1p = take_planes(ws, Dff, ld_din);
+  const cpc2::Planes w2p = take_planes(ws, Dout, ld_dff);
+  const cpc2::Planes hp = take_planes(ws, M, ld_dff);
+  SumArgs sums = {};
+  cpc2::TfArgs gy = tf_args(M, Dout, Dff, per_y);
+  store_to(&gy, tf_split(Dff, per_y), ws, y, b2, &sums);
+  if (ws->base == nullptr) return cudaSuccess;
+
+  SplitArgs split = {};
+  add_split(&split, x, M, Din, xp, false);
+  add_split(&split, w1, Dff, Din, w1p, false);
+  add_split(&split, w2, Dout, Dff, w2p, false);
+  cudaError_t err = split_planes(split, s);
+  if (err != cudaSuccess) return err;
+  // hidden = dropout(relu(x W1^T + b1)), as (M, Dff) planes
+  cpc2::TfArgs gh = tf_args(M, Dff, Din, whole(Din));
+  gh.bias = b1;
+  gh.rows = hp;
+  gh.seed = seed;
+  gh.threshold = threshold;
+  gh.scale = scale;
+  err = cpc2::tf32x3_gemm<cpc2::kTfHidden>(xp, w1p, gh, s);
+  if (err != cudaSuccess) return err;
+  // y = hidden W2^T + b2
+  err = cpc2::tf32x3_gemm<cpc2::kTfStore>(hp, w2p, gy, s);
+  if (err != cudaSuccess) return err;
+  return sum_partials(sums, s);
+}
+
+// The fp32 backward on workspace `ws` (sizes only when ws.base is null);
+// dW2's, dW1's and dx's products split into runs of per_dw2, per_dw1 and
+// per_dx k tiles.
+cudaError_t ffn_bwd_fp32(Workspace* ws, const float* x, const float* w1,
+                         const float* b1, const float* w2, const float* g,
+                         const unsigned* seed, float* dx, float* dw1,
+                         float* db1, float* dw2, float* db2, int M, int Din,
+                         int Dff, int Dout, int per_dw2, int per_dw1,
+                         int per_dx, unsigned threshold, float scale,
+                         cudaStream_t s) {
+  if (M <= 0 || Din < 0 || Dff < 0 || Dout < 0 || per_dw2 <= 0 ||
+      per_dw1 <= 0 || per_dx <= 0)
+    return cudaErrorInvalidValue;
+  const long ld_m = up4(M), ld_din = up4(Din), ld_dff = up4(Dff),
+             ld_dout = up4(Dout);
+  const cpc2::Planes xp = take_planes(ws, M, ld_din);
+  const cpc2::Planes xt = take_planes(ws, Din, ld_m);
+  const cpc2::Planes w1p = take_planes(ws, Dff, ld_din);
+  const cpc2::Planes w1t = take_planes(ws, Din, ld_dff);
+  const cpc2::Planes w2t = take_planes(ws, Dff, ld_dout);
+  const cpc2::Planes gp = take_planes(ws, M, ld_dout);
+  const cpc2::Planes gt = take_planes(ws, Dout, ld_m);
+  const cpc2::Planes ht = take_planes(ws, Dff, ld_m);  // then dh^T
+  const cpc2::Planes dhp = take_planes(ws, M, ld_dff);
+  const int row_tiles = (M + kSplitTile - 1) / kSplitTile;
+  float* db2_part = ws->take<float>(static_cast<size_t>(row_tiles) * Dout);
+  const int m_tiles = (M + cpc2::kWgBM - 1) / cpc2::kWgBM;
+  float* db1_part = ws->take<float>(static_cast<size_t>(m_tiles) * Dff);
+  const int n_tiles = (Dff + cpc2::kWgBN - 1) / cpc2::kWgBN;
+  uint2* signs = ws->take<uint2>(static_cast<size_t>(m_tiles) * n_tiles *
+                                 cpc2::kWgConsumers);
+  SumArgs sums = {};
+  sums.seg[sums.nseg++] = {db2_part, Dout, Dout, row_tiles, nullptr, Dout,
+                           db2};
+  sums.seg[sums.nseg++] = {db1_part, Dff, Dff, m_tiles, nullptr, Dff, db1};
+  cpc2::TfArgs gw2 = tf_args(Dout, Dff, M, per_dw2);
+  store_to(&gw2, tf_split(M, per_dw2), ws, dw2, nullptr, &sums);
+  cpc2::TfArgs gw1 = tf_args(Dff, Din, M, per_dw1);
+  store_to(&gw1, tf_split(M, per_dw1), ws, dw1, nullptr, &sums);
+  cpc2::TfArgs gx = tf_args(M, Din, Dff, per_dx);
+  store_to(&gx, tf_split(Dff, per_dx), ws, dx, nullptr, &sums);
+  if (ws->base == nullptr) return cudaSuccess;
+
+  SplitArgs split = {};
+  add_split(&split, x, M, Din, xp, false);
+  add_split(&split, x, M, Din, xt, true);
+  add_split(&split, w1, Dff, Din, w1p, false);
+  add_split(&split, w1, Dff, Din, w1t, true);
+  add_split(&split, w2, Dout, Dff, w2t, true);
+  add_split(&split, g, M, Dout, gp, false, db2_part);  // and db2's partials
+  add_split(&split, g, M, Dout, gt, true);
+  cudaError_t err = split_planes(split, s);
+  if (err != cudaSuccess) return err;
+  // the forward's hidden, recomputed, as (Dff, M) planes, and its signs
+  cpc2::TfArgs gh = tf_args(M, Dff, Din, whole(Din));
+  gh.bias = b1;
+  gh.cols = ht;
+  gh.signs = signs;
+  gh.seed = seed;
+  gh.threshold = threshold;
+  gh.scale = scale;
+  err = cpc2::tf32x3_gemm<cpc2::kTfHidden>(xp, w1p, gh, s);
+  if (err != cudaSuccess) return err;
+  // dW2[o, f] = sum_m g^T[o, m] hidden^T[f, m]
+  err = cpc2::tf32x3_gemm<cpc2::kTfStore>(gt, ht, gw2, s);
+  if (err != cudaSuccess) return err;
+  // dh = (g W2) * mask * scale: g[m, o] W2^T[f, o]; to (M, Dff) planes and,
+  // in place of the hidden's, (Dff, M) ones; db1's column sums per tile
+  cpc2::TfArgs gd = tf_args(M, Dff, Dout, whole(Dout));
+  gd.rows = dhp;
+  gd.cols = ht;
+  gd.signs = signs;
+  gd.scale = scale;
+  gd.colsum = db1_part;
+  err = cpc2::tf32x3_gemm<cpc2::kTfHiddenGrad>(gp, w2t, gd, s);
+  if (err != cudaSuccess) return err;
+  // dW1[f, d] = sum_m dh^T[f, m] x^T[d, m]
+  err = cpc2::tf32x3_gemm<cpc2::kTfStore>(ht, xt, gw1, s);
+  if (err != cudaSuccess) return err;
+  // dx[m, d] = sum_f dh[m, f] W1^T[d, f]
+  err = cpc2::tf32x3_gemm<cpc2::kTfStore>(dhp, w1t, gx, s);
+  if (err != cudaSuccess) return err;
+  return sum_partials(sums, s);
+}
+
 }  // namespace
 
 extern "C" {
 
 // --- fp32 route -------------------------------------------------------------
+// Any M > 0, Din, Dff and Dout; the workspace is `bytes` long, exactly what
+// the layout of ffn_{fwd,bwd}_fp32 takes at the given splits, or the call
+// is refused (the host's plan, `ops/ffn.py:ffn_fp32_plan`, mirrors it).
 
 // x (M,Din), w1 (Dff,Din), b1 (Dff), w2 (Dout,Dff), b2 (Dout) -> y (M,Dout).
-// hidden (M,Dff) is scratch. Dropout keeps (m, f) when
-// dropout_bits(*seed, m, f) >= threshold and scales kept values by scale.
+// Dropout keeps (m, f) when dropout_bits(*seed, m, f) >= threshold and
+// scales kept values by scale.
 int cpc2_ffn_fwd(const float* x, const float* w1, const float* b1,
                  const float* w2, const float* b2, const unsigned* seed,
-                 float* hidden, float* y, int M, int Din, int Dff, int Dout,
-                 unsigned threshold, float scale, void* stream) {
+                 void* workspace, float* y, long bytes, int M, int Din,
+                 int Dff, int Dout, int per_y, unsigned threshold,
+                 float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cpc2::EpilogueArgs hid{cpc2::kBiasReluDropout, b1, seed, threshold, scale};
-  cudaError_t err =
-      cpc2::gemm(M, Dff, Din, x, Din, 1, w1, 1, Din, hidden, Dff, hid, s);
+  Workspace size{nullptr, 0};
+  cudaError_t err = ffn_fwd_fp32(&size, x, w1, b1, w2, b2, seed, y, M, Din,
+                                 Dff, Dout, per_y, threshold, scale, s);
   if (err != cudaSuccess) return (int)err;
-  cpc2::EpilogueArgs out{cpc2::kStore, b2, nullptr, 0u, 1.f};
-  err = cpc2::gemm(M, Dout, Dff, hidden, Dff, 1, w2, 1, Dff, y, Dout, out, s);
-  return (int)err;
+  if (static_cast<long>(size.used) != bytes)
+    return (int)cudaErrorInvalidValue;
+  Workspace ws{static_cast<char*>(workspace), 0};
+  return (int)ffn_fwd_fp32(&ws, x, w1, b1, w2, b2, seed, y, M, Din, Dff, Dout,
+                           per_y, threshold, scale, s);
 }
 
-// Backward from g = dL/dy (M,Dout). hidden (M,Dff) is scratch: it first
-// holds the recomputed dropped hidden, then dL/d(pre-activation) in place.
+// Backward from g = dL/dy (M,Dout), recomputing the hidden and its mask.
 int cpc2_ffn_bwd(const float* x, const float* w1, const float* b1,
                  const float* w2, const float* g, const unsigned* seed,
-                 float* hidden, float* dx, float* dw1, float* db1, float* dw2,
-                 float* db2, int M, int Din, int Dff, int Dout,
+                 void* workspace, float* dx, float* dw1, float* db1,
+                 float* dw2, float* db2, long bytes, int M, int Din, int Dff,
+                 int Dout, int per_dw2, int per_dw1, int per_dx,
                  unsigned threshold, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cpc2::EpilogueArgs hid{cpc2::kBiasReluDropout, b1, seed, threshold, scale};
-  cpc2::EpilogueArgs store{cpc2::kStore, nullptr, nullptr, 0u, 1.f};
-  cpc2::EpilogueArgs mask{cpc2::kDropoutReluGrad, nullptr, nullptr, 0u,
-                          scale};
-  cudaError_t err;
-  // hidden = dropout(relu(x @ W1^T + b1)), the forward's hidden
-  err = cpc2::gemm(M, Dff, Din, x, Din, 1, w1, 1, Din, hidden, Dff, hid, s);
+  Workspace size{nullptr, 0};
+  cudaError_t err = ffn_bwd_fp32(&size, x, w1, b1, w2, g, seed, dx, dw1, db1,
+                                 dw2, db2, M, Din, Dff, Dout, per_dw2,
+                                 per_dw1, per_dx, threshold, scale, s);
   if (err != cudaSuccess) return (int)err;
-  // dW2[o, f] = sum_m g[m, o] * hidden[m, f];  db2 = sum_m g[m, :]
-  err = cpc2::gemm(Dout, Dff, M, g, 1, Dout, hidden, Dff, 1, dw2, Dff, store,
-                   s);
-  if (err != cudaSuccess) return (int)err;
-  err = cpc2::colsum(M, Dout, g, Dout, db2, s);
-  if (err != cudaSuccess) return (int)err;
-  // dh[m, f] = (g @ W2)[m, f] * scale where hidden > 0, else 0 (in place)
-  err = cpc2::gemm(M, Dff, Dout, g, Dout, 1, w2, Dff, 1, hidden, Dff, mask, s);
-  if (err != cudaSuccess) return (int)err;
-  // dW1[f, d] = sum_m dh[m, f] * x[m, d];  db1 = sum_m dh[m, :]
-  err = cpc2::gemm(Dff, Din, M, hidden, 1, Dff, x, Din, 1, dw1, Din, store, s);
-  if (err != cudaSuccess) return (int)err;
-  err = cpc2::colsum(M, Dff, hidden, Dff, db1, s);
-  if (err != cudaSuccess) return (int)err;
-  // dx = dh @ W1
-  err = cpc2::gemm(M, Din, Dff, hidden, Dff, 1, w1, Din, 1, dx, Din, store, s);
-  return (int)err;
+  if (static_cast<long>(size.used) != bytes)
+    return (int)cudaErrorInvalidValue;
+  Workspace ws{static_cast<char*>(workspace), 0};
+  return (int)ffn_bwd_fp32(&ws, x, w1, b1, w2, g, seed, dx, dw1, db1, dw2,
+                           db2, M, Din, Dff, Dout, per_dw2, per_dw1, per_dx,
+                           threshold, scale, s);
 }
 
 // --- bf16 route -------------------------------------------------------------

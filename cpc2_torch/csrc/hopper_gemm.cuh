@@ -1,9 +1,11 @@
-// A bf16 GEMM building block for Hopper (sm_90a): TMA loads into a ring of
+// GEMM building blocks for Hopper (sm_90a): TMA loads into a ring of
 // shared-memory stages guarded by mbarriers, `wgmma.mma_async` products with
 // fp32 accumulators in registers, and fused epilogues applied on the
-// accumulator fragment. The FFN kernels of ffn.cu are built from it.
+// accumulator fragment. The FFN kernels of ffn.cu are built from them. Two
+// blocks share the ring, the tile and the split-K scheme:
 //
-// C[m, n] = sum_k A(m, k) * B(n, k) over bf16 operands:
+// `ffn_wgmma_gemm`, bf16 operands (the FFN's `bf16mix` route):
+// C[m, n] = sum_k A(m, k) * B(n, k)
 // - A is K-major (stored [M][K]) or M-major (stored [K][M]);
 // - B is K-major (stored [N][K]) or N-major (stored [K][N]);
 //   the majors go into the wgmma descriptors' transpose bits, so no
@@ -19,6 +21,21 @@
 // - Split-K: blockIdx.z takes a run of k tiles and writes its own fp32
 //   partial; a second pass sums the partials in a fixed order
 //   (deterministic, no atomics).
+//
+// `ffn_tf32x3_gemm`, fp32 operands at fp32 accuracy (the FFN's `fp32`
+// route), the same C from 3xTF32 products: each operand comes as two
+// planes, big = x rounded to TF32 and small = x - big, and each k step adds
+// small_A big_B + big_A small_B + big_A big_B (the dropped small_A small_B
+// is below 2^-22 |A B|). The TF32 `wgmma` reads both operands from shared
+// memory K-major only (the transpose bits are for 16-bit types), so both
+// are stored K-major: the planes are made by a pass before the products,
+// which also transposes, or by the epilogue of the product before.
+// - Block tile 128 x 128 x 32 (128-byte rows, as the bf16 block's), three
+//   stages of four 16 KB boxes (A big, A small, B big, B small), each box a
+//   3-D TMA load of one plane; m64n128k8 products, three a k step.
+// - The planes' row stride is a multiple of 4 floats (TMA's 16-byte
+//   strides); the tensor maps give the true widths, so TMA never reads the
+//   padding and any M, N and K are taken.
 //
 // Everything has internal linkage, as in common.cuh.
 #pragma once
@@ -463,6 +480,359 @@ cudaError_t wgmma_gemm(const bf16* A, const bf16* B, WgArgs args,
   args.k_tiles_per_split = split.per;
   dim3 grid((N + kWgBN - 1) / kWgBN, (M + kWgBM - 1) / kWgBM, split.splits);
   kernel<<<grid, kWgThreads, kWgSmemBytes, stream>>>(map_a, map_b, args);
+  return cudaGetLastError();
+}
+
+// --- 3xTF32 block ------------------------------------------------------------
+
+constexpr int kTfBK = 32, kTfStages = 3;
+constexpr int kTfBoxBytes = kWgBM * kTfBK * 4;  // 16 KB: one plane's box
+constexpr int kTfStageBytes = 4 * kTfBoxBytes;  // A, B: big, small
+constexpr int kTfSmemBytes =
+    1024 + kTfStages * kTfStageBytes + kWgRedBytes + 2 * kTfStages * 8;
+
+enum TfEpilogue : int {
+  kTfStore = 0,       // out[z] = acc (+ bias[n]), fp32
+  kTfHidden = 1,      // v = keep(m,n) ? relu(acc + bias[n]) * scale : 0, to
+                      // the planes of `rows` and/or `cols`, and v > 0 to
+                      // `signs` if set
+  kTfHiddenGrad = 2,  // v = acc * (hidden > 0 ? scale : 0), the hidden's
+                      // signs read from `signs`, v written to both planes;
+                      // colsum[m tile][n] = sum of v over the tile's rows
+};
+
+// An fp32 matrix as its two TF32 planes: big at p, small at p + plane; row r
+// at p + r * ld.
+struct Planes {
+  float* p;
+  long ld, plane;
+};
+
+struct TfArgs {
+  int M, N, K;
+  int k_tiles_per_split;
+  float* out;           // kTfStore: split z at out + z * split_stride
+  long ldo, split_stride;
+  const float* bias;    // kTfStore (or nullptr), kTfHidden
+  Planes rows;          // kTfHidden, kTfHiddenGrad: v as (M x N) planes
+  Planes cols;          // kTfHidden, kTfHiddenGrad: v as (N x M) planes
+  const uint32_t* seed; // kTfHidden: one value in device memory
+  uint32_t threshold;   // drop when dropout_bits < threshold
+  float scale;          // 1 / (1 - rate)
+  float* colsum;        // kTfHiddenGrad: (ceil(M / 128), N)
+  uint2* signs;         // the hidden's signs, a consumer thread's 64 values
+                        // at [tile][thread]: bit 2j + e of .x (h = 0) and
+                        // .y (h = 1) for acc[4j + 2h + e]. The hidden and
+                        // dh products share tiles and fragments, so each
+                        // thread reads back its own bits.
+};
+
+// x = big + small: big is x rounded to TF32 (half an ulp added, the low 13
+// bits cleared), small = x - big, exact in fp32; the tensor core reads only
+// small's top 19 bits. big + small gives x back exactly.
+__device__ __forceinline__ void tf32_split(float x, float& big, float& small) {
+  big = __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+  small = x - big;
+}
+
+// One 3-D TMA box, coordinates innermost first, completing on `bar`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// d += A (64 x 8) * B (8 x 128) in TF32, both K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64],
+                                                     uint64_t da,
+                                                     uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// v (and v1, column n + 1 if in range) into the planes of `rows` at (m, n)
+// and of `cols` at (n, m), as big and small.
+__device__ __forceinline__ void put_planes(const Planes& rows,
+                                           const Planes& cols, int m, int n,
+                                           float v0, float v1, bool has1) {
+  float b0, s0, b1, s1;
+  tf32_split(v0, b0, s0);
+  tf32_split(v1, b1, s1);
+  if (rows.p) {
+    // n is even and ld a multiple of 4: n + 1 < ld, inside the padding
+    // when it is past the last column
+    float* p = rows.p + m * rows.ld + n;
+    *reinterpret_cast<float2*>(p) = make_float2(b0, b1);
+    *reinterpret_cast<float2*>(p + rows.plane) = make_float2(s0, s1);
+  }
+  if (cols.p) {
+    float* p = cols.p + n * cols.ld + m;
+    p[0] = b0;
+    p[cols.plane] = s0;
+    if (has1) {
+      p[cols.ld] = b1;
+      p[cols.ld + cols.plane] = s1;
+    }
+  }
+}
+
+template <int kEpi>
+__global__ void __launch_bounds__(kWgThreads, 1)
+ffn_tf32x3_gemm(const __grid_constant__ CUtensorMap map_a,
+                const __grid_constant__ CUtensorMap map_b, TfArgs args) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* tiles = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* red = reinterpret_cast<float*>(tiles + kTfStages * kTfStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 8 * kWgBN);
+  uint64_t* empty = full + kTfStages;
+
+  const int m0 = blockIdx.y * kWgBM, n0 = blockIdx.x * kWgBN;
+  const int k_tiles = (args.K + kTfBK - 1) / kTfBK;
+  const int kt0 = blockIdx.z * args.k_tiles_per_split;
+  const int kt1 = min(kt0 + args.k_tiles_per_split, k_tiles);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTfStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWgConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kWgConsumers) {
+    // producer: lane 0 of the last warp keeps the ring full; plane 0 of a
+    // map is big, plane 1 small
+    if (threadIdx.x == kWgConsumers) {
+      for (int t = kt0, it = 0; t < kt1; ++t, ++it) {
+        const int s = it % kTfStages;
+        mbar_wait(&empty[s], ((it / kTfStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], kTfStageBytes);
+        uint8_t* box = tiles + s * kTfStageBytes;
+        const int k = t * kTfBK;
+        tma_load_3d(box, &map_a, &full[s], k, m0, 0);
+        tma_load_3d(box + kTfBoxBytes, &map_a, &full[s], k, m0, 1);
+        tma_load_3d(box + 2 * kTfBoxBytes, &map_b, &full[s], k, n0, 0);
+        tma_load_3d(box + 3 * kTfBoxBytes, &map_b, &full[s], k, n0, 1);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the tile
+  const int wg = threadIdx.x / 128;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int t = kt0, it = 0; t < kt1; ++t, ++it) {
+    const int s = it % kTfStages;
+    mbar_wait(&full[s], (it / kTfStages) & 1);
+    const uint8_t* a_big = tiles + s * kTfStageBytes + wg * (kTfBoxBytes / 2);
+    const uint8_t* a_small = a_big + kTfBoxBytes;
+    const uint8_t* b_big = tiles + s * kTfStageBytes + 2 * kTfBoxBytes;
+    const uint8_t* b_small = b_big + kTfBoxBytes;
+    fence_acc(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTfBK / 8; ++kk) {
+      // the next 8 k are 32 bytes on within each 128-byte row; the small
+      // terms first, so that the big one is added last
+      wgmma_m64n128k8_tf32(acc, wg_desc(a_small + 32 * kk, 16, 1024),
+                           wg_desc(b_big + 32 * kk, 16, 1024));
+      wgmma_m64n128k8_tf32(acc, wg_desc(a_big + 32 * kk, 16, 1024),
+                           wg_desc(b_small + 32 * kk, 16, 1024));
+      wgmma_m64n128k8_tf32(acc, wg_desc(a_big + 32 * kk, 16, 1024),
+                           wg_desc(b_big + 32 * kk, 16, 1024));
+    }
+    wg_commit();
+    wg_wait<1>();  // the previous tile's products are done with its stage
+    fence_acc(acc);
+    if (it > 0) mbar_arrive(&empty[(it - 1) % kTfStages]);
+  }
+  wg_wait<0>();
+  fence_acc(acc);
+
+  // accumulator fragment: acc[4j + 2h + e] is row r0 + 8h, column
+  // c0 + 8j + e of the tile
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int row0 = m0 + 16 * warp + lane / 4;  // warp w of 8: rows 16w..
+  const int colb = n0 + 2 * (lane % 4);
+  const int M = args.M, N = args.N;
+
+  if (kEpi == kTfStore) {
+    float* out = args.out + blockIdx.z * args.split_stride;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = colb + 8 * j + e;
+        if (col >= N) continue;
+        const float b = args.bias ? args.bias[col] : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + 8 * h;
+          if (row < M) out[row * args.ldo + col] = acc[4 * j + 2 * h + e] + b;
+        }
+      }
+    }
+  } else if (kEpi == kTfHidden) {
+    const uint32_t seed = args.threshold ? *args.seed : 0u;
+    uint32_t rbits[2], pos[2] = {0u, 0u};
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      rbits[h] = mix32(seed ^ mix32(static_cast<uint32_t>(row0 + 8 * h)));
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = colb + 8 * j;
+      if (col >= N) continue;
+      const bool has1 = col + 1 < N;
+      const float b0 = args.bias[col], b1 = has1 ? args.bias[col + 1] : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        if (row >= M) continue;
+        float v0 = fmaxf(acc[4 * j + 2 * h] + b0, 0.f);
+        float v1 = has1 ? fmaxf(acc[4 * j + 2 * h + 1] + b1, 0.f) : 0.f;
+        if (args.threshold) {
+          const bool k0 = mix32(rbits[h] + col) >= args.threshold;
+          const bool k1 = mix32(rbits[h] + col + 1) >= args.threshold;
+          v0 = k0 ? v0 * args.scale : 0.f;
+          v1 = k1 ? v1 * args.scale : 0.f;
+        }
+        put_planes(args.rows, args.cols, row, col, v0, v1, has1);
+        pos[h] |= (v0 > 0.f ? 1u : 0u) << (2 * j);
+        pos[h] |= (v1 > 0.f ? 1u : 0u) << (2 * j + 1);
+      }
+    }
+    if (args.signs)
+      args.signs[(blockIdx.y * gridDim.x + blockIdx.x) * kWgConsumers +
+                 threadIdx.x] = make_uint2(pos[0], pos[1]);
+  } else {  // kTfHiddenGrad: the hidden is > 0 exactly where it was kept and
+            // its pre-activation was positive
+    const uint2 signs = args.signs[(blockIdx.y * gridDim.x + blockIdx.x) *
+                                       kWgConsumers + threadIdx.x];
+    const uint32_t pos[2] = {signs.x, signs.y};
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = colb + 8 * j;
+      float s0 = 0.f, s1 = 0.f;
+      if (col < N) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + 8 * h;
+          if (row >= M) continue;
+          const float v0 = acc[4 * j + 2 * h] *
+                           ((pos[h] >> (2 * j)) & 1u ? args.scale : 0.f);
+          const float v1 = acc[4 * j + 2 * h + 1] *
+                           ((pos[h] >> (2 * j + 1)) & 1u ? args.scale : 0.f);
+          put_planes(args.rows, args.cols, row, col, v0, v1, col + 1 < N);
+          s0 += v0;
+          s1 += v1;
+        }
+      }
+      // sum the warp's 16 rows: lanes with the same lane % 4 share columns
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+      }
+      if (lane < 4) {
+        red[warp * kWgBN + 8 * j + 2 * lane] = s0;
+        red[warp * kWgBN + 8 * j + 2 * lane + 1] = s1;
+      }
+    }
+    asm volatile("bar.sync 1, %0;" ::"n"(kWgConsumers) : "memory");
+    if (threadIdx.x < kWgBN && n0 + threadIdx.x < N) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) s += red[w * kWgBN + threadIdx.x];
+      args.colsum[blockIdx.y * static_cast<long>(N) + n0 + threadIdx.x] = s;
+    }
+  }
+}
+
+// The two planes of a K-major operand (rows x k, row stride ld, a multiple
+// of 4) as one 3-D tensor map (k, rows, plane), read in boxes of 32 x 128 x
+// 1 with the 128-byte swizzle; zeros out of range.
+inline cudaError_t planes_tensor_map(CUtensorMap* map, const Planes& p,
+                                     long k, long rows) {
+  EncodeTiledFn encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(k),
+                              static_cast<cuuint64_t>(rows), 2};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(p.ld) * 4,
+                                 static_cast<cuuint64_t>(p.plane) * 4};
+  const cuuint32_t box[3] = {kTfBK, kWgBM, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, p.p, dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// C (M x N) = A (M x K) B (N x K)^T from K-major planes, K split into runs
+// of args.k_tiles_per_split k tiles (blockIdx.z); K = 0 gives C = 0.
+template <int kEpi>
+cudaError_t tf32x3_gemm(const Planes& A, const Planes& B, TfArgs args,
+                        cudaStream_t stream) {
+  const int M = args.M, N = args.N, K = args.K;
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  if (args.k_tiles_per_split <= 0 || A.ld % 4 || B.ld % 4)
+    return cudaErrorInvalidValue;
+  CUtensorMap map_a = {}, map_b = {};
+  if (K > 0) {
+    cudaError_t err = planes_tensor_map(&map_a, A, K, M);
+    if (err != cudaSuccess) return err;
+    err = planes_tensor_map(&map_b, B, K, N);
+    if (err != cudaSuccess) return err;
+  }
+  auto kernel = ffn_tf32x3_gemm<kEpi>;
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTfSmemBytes);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const int k_tiles = (K + kTfBK - 1) / kTfBK;
+  const int per = args.k_tiles_per_split;
+  const int splits = k_tiles > 0 ? (k_tiles + per - 1) / per : 1;
+  dim3 grid((N + kWgBN - 1) / kWgBN, (M + kWgBM - 1) / kWgBM, splits);
+  kernel<<<grid, kWgThreads, kTfSmemBytes, stream>>>(map_a, map_b, args);
   return cudaGetLastError();
 }
 

@@ -51,8 +51,8 @@ _SIGNATURES = {
     "cpc2_lstm_bwd_steps": [_P] * 13 + [_I] * 3 + [_P],
     "cpc2_lstm_smem": [_I] * 4,
     "cpc2_lstm_max_clusters": [_I] * 4,
-    "cpc2_ffn_fwd": [_P] * 8 + [_I] * 4 + [_U, _F, _P],
-    "cpc2_ffn_bwd": [_P] * 12 + [_I] * 4 + [_U, _F, _P],
+    "cpc2_ffn_fwd": [_P] * 8 + [_L] + [_I] * 5 + [_U, _F, _P],
+    "cpc2_ffn_bwd": [_P] * 12 + [_L] + [_I] * 7 + [_U, _F, _P],
     "cpc2_ffn_fwd_bf16": [_P] * 8 + [_I] * 4 + [_U, _F, _P],
     "cpc2_ffn_bwd_bf16": [_P] * 12 + [_I] * 4 + [_U, _F, _P],
     "cpc2_ffn_bf16_workspace": [_I] * 5,

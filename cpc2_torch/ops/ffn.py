@@ -13,8 +13,15 @@ operations (1.9 GFLOP per head forward at the recipe). Two routes:
   the products are TMA-fed `wgmma` tiles with the bias, ReLU, dropout and
   their gradients fused into the epilogues (`csrc/hopper_gemm.cuh`). The
   bias gradients and the forward's bias add see unrounded fp32 values.
-- `bf16=False` (`--precision fp32`): fp32 tiled GEMMs on the card's FMA
-  units with the same fused epilogues.
+- `bf16=False` (`--precision fp32`): the same products at fp32 accuracy,
+  in 3xTF32 on the tensor cores: each operand split into two TF32 planes,
+  big and small, and each product taken as small*big + big*small +
+  big*big, from TMA-fed `wgmma` tiles with the same fused epilogues. The
+  planes are K-major, the one layout the TF32 `wgmma` reads, so a first
+  launch splits (and, where a product reads it the other way, transposes)
+  the operands, and the epilogues write the hidden's and its gradient's
+  planes as the next products read them. `ffn_fp32_plan` holds the launch
+  plan: tiles, splits over K, the planes' padded rows and the workspace.
 
 The mask is a counter-based hash of (seed, row, column), defined the same
 way in CUDA (`csrc/common.cuh:dropout_bits`) and in `dropout_bits` below,
@@ -29,6 +36,7 @@ CPU tensors; there is no other path.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -101,6 +109,118 @@ def ffn_plain(x: Tensor, w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor,
     return h @ w2.t() + b2
 
 
+# The fp32 kernels' tile (`csrc/hopper_gemm.cuh:ffn_tf32x3_gemm`: 128 x 128
+# outputs, k tiles of 32 floats), the split pass's tiles of 32 rows (db2's
+# partial sums), the row padding of the planes (TMA's 16-byte strides) and
+# the alignment of the workspace's regions, in bytes; a block's consumer
+# threads.
+TILE, K_TILE, SPLIT_ROWS, PAD, ALIGN = 128, 32, 32, 4, 256
+CONSUMERS = 256
+# streaming multiprocessors of an H100 SXM, the plan's default
+H100_SMS = 132
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _up(a: int, b: int) -> int:
+    return _cdiv(a, b) * b
+
+
+class Product(NamedTuple):
+    """One product of the fp32 kernels: its grid of output tiles, its k
+    tiles, and their runs of `per` k tiles, one a split (`splits`)."""
+    m_tiles: int
+    n_tiles: int
+    k_tiles: int
+    per: int
+    splits: int
+
+
+class FFNPlan(NamedTuple):
+    """The fp32 kernels' launch plan. ld_*: the padded row stride, in
+    floats, of the planes whose rows are that wide. The products: the
+    hidden (x W1^T) and dh (g W2), never split over K; y (hidden W2^T),
+    dW2 (g^T hidden), dW1 (dh^T x) and dx (dh W1), split to fill the card.
+    fwd_bytes and bwd_bytes: the workspace of a forward and a backward."""
+    ld_m: int
+    ld_din: int
+    ld_dff: int
+    ld_dout: int
+    hidden: Product
+    y: Product
+    dw2: Product
+    dh: Product
+    dw1: Product
+    dx: Product
+    fwd_bytes: int
+    bwd_bytes: int
+
+
+def _product(m: int, n: int, k: int, sms: int, split: bool) -> Product:
+    """Enough splits of K to give every multiprocessor a block, each at
+    least one k tile; at least one split, also for K = 0."""
+    tiles = _cdiv(m, TILE) * _cdiv(n, TILE)
+    k_tiles = _cdiv(k, K_TILE)
+    parts = min(max(sms // max(tiles, 1), 1), k_tiles) if split else 1
+    per = max(_cdiv(k_tiles, max(parts, 1)), 1)
+    return Product(_cdiv(m, TILE), _cdiv(n, TILE), k_tiles, per,
+                   max(_cdiv(k_tiles, per), 1))
+
+
+@functools.lru_cache(maxsize=None)
+def ffn_fp32_plan(m: int, din: int, dff: int, dout: int,
+                  sms: int = H100_SMS) -> FFNPlan:
+    """The fp32 kernels' plan for x (m, din), W1 (dff, din), W2 (dout, dff)
+    on a card of `sms` multiprocessors. The workspace mirrors the layout of
+    `csrc/ffn.cu:ffn_fwd_fp32` and `ffn_bwd_fp32`, region by region, each
+    rounded up to ALIGN bytes; the kernels refuse a byte count that differs
+    from their own. The forward: the big and small planes of x, W1, W2
+    and the hidden, then y's split partials. The backward: the planes of
+    x, x^T, W1, W1^T, W2^T, g, g^T, the hidden^T (then dh^T) and dh, db2's
+    partials per 32 rows, db1's per 128-row tile, the hidden's signs (64
+    bits a consumer thread of each hidden tile), then dW2's, dW1's and
+    dx's split partials. An empty m launches nothing."""
+    if min(m, din, dff, dout) < 0:
+        raise ValueError(f"ffn_fp32_plan: negative width in "
+                         f"{(m, din, dff, dout)}")
+    ld_m, ld_din, ld_dff, ld_dout = (_up(w, PAD) for w in (m, din, dff, dout))
+    hidden = _product(m, dff, din, sms, False)
+    y = _product(m, dout, dff, sms, True)
+    dw2 = _product(dout, dff, m, sms, True)
+    dh = _product(m, dff, dout, sms, False)
+    dw1 = _product(dff, din, m, sms, True)
+    dx = _product(m, din, dff, sms, True)
+
+    def floats(n: int) -> int:
+        return _up(4 * n, ALIGN)
+
+    def planes(rows: int, ld: int) -> int:
+        return floats(2 * rows * ld)
+
+    def partials(p: Product, n: int) -> int:
+        return floats(p.splits * n) if p.splits > 1 else 0
+
+    fwd = (planes(m, ld_din) + planes(dff, ld_din) + planes(dout, ld_dff)
+           + planes(m, ld_dff) + partials(y, m * dout))
+    bwd = (planes(m, ld_din) + planes(din, ld_m) + planes(dff, ld_din)
+           + planes(din, ld_dff) + planes(dff, ld_dout) + planes(m, ld_dout)
+           + planes(dout, ld_m) + planes(dff, ld_m) + planes(m, ld_dff)
+           + floats(_cdiv(m, SPLIT_ROWS) * dout)
+           + floats(_cdiv(m, TILE) * dff)
+           + floats(hidden.m_tiles * hidden.n_tiles * 2 * CONSUMERS)
+           + partials(dw2, dout * dff)
+           + partials(dw1, dff * din) + partials(dx, m * din))
+    return FFNPlan(ld_m, ld_din, ld_dff, ld_dout, hidden, y, dw2, dh, dw1,
+                   dx, fwd, bwd)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _check(x, w1, b1, w2, b2, seed, rate, bf16) -> torch.device:
     device = _build.check_cuda("fused_ffn", x, w1, b1, w2, b2, seed)
     _build.check_f32("fused_ffn", x, w1, b1, w2, b2)
@@ -146,19 +266,25 @@ class _FusedFFN(torch.autograd.Function):
         m, din = x.shape
         dff, dout = w1.shape[0], w2.shape[0]
         y = torch.empty((m, dout), device=device)
-        if bf16:
+        ptrs = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                b2.data_ptr(), seed.data_ptr())
+        drop = (dropout_threshold(rate), 1.0 / (1.0 - rate))
+        if m == 0:
+            pass  # nothing to compute, nothing launched
+        elif bf16:
             _aligned("fused_ffn", x, w1, b1, w2, b2)
             scratch = torch.empty(_workspace_bytes(m, din, dff, dout, False),
                                   device=device, dtype=torch.uint8)
-            kernel, fn = "ffn_fwd", "cpc2_ffn_fwd_bf16"
+            _build.launch("ffn_fwd", "cpc2_ffn_fwd_bf16", device, *ptrs,
+                          scratch.data_ptr(), y.data_ptr(), m, din, dff,
+                          dout, *drop)
         else:
-            scratch = torch.empty((m, dff), device=device)
-            kernel, fn = "ffn_fwd_fp32", "cpc2_ffn_fwd"
-        _build.launch(kernel, fn, device,
-                      x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                      w2.data_ptr(), b2.data_ptr(), seed.data_ptr(),
-                      scratch.data_ptr(), y.data_ptr(), m, din, dff, dout,
-                      dropout_threshold(rate), 1.0 / (1.0 - rate))
+            plan = ffn_fp32_plan(m, din, dff, dout, _sms(device))
+            scratch = torch.empty(plan.fwd_bytes, device=device,
+                                  dtype=torch.uint8)
+            _build.launch("ffn_fwd_fp32", "cpc2_ffn_fwd", device, *ptrs,
+                          scratch.data_ptr(), y.data_ptr(), plan.fwd_bytes,
+                          m, din, dff, dout, plan.y.per, *drop)
         ctx.save_for_backward(x, w1, b1, w2, seed)
         ctx.rate, ctx.bf16 = rate, bf16
         return y
@@ -171,25 +297,34 @@ class _FusedFFN(torch.autograd.Function):
         g = g.contiguous()
         m, din = x.shape
         dff, dout = w1.shape[0], w2.shape[0]
+        if m == 0:  # nothing launched: the weights' gradients are 0
+            return (torch.empty_like(x), torch.zeros_like(w1),
+                    torch.zeros_like(b1), torch.zeros_like(w2),
+                    torch.zeros((dout,), device=device), None, None, None)
         dx = torch.empty_like(x)
         dw1, db1 = torch.empty_like(w1), torch.empty_like(b1)
         dw2 = torch.empty_like(w2)
         db2 = torch.empty((dout,), device=device)
+        ptrs = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                g.data_ptr(), seed.data_ptr())
+        grads = (dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
+                 dw2.data_ptr(), db2.data_ptr())
+        drop = (dropout_threshold(rate), 1.0 / (1.0 - rate))
         if ctx.bf16:
             _aligned("fused_ffn", g)
             scratch = torch.empty(_workspace_bytes(m, din, dff, dout, True),
                                   device=device, dtype=torch.uint8)
-            kernel, fn = "ffn_bwd", "cpc2_ffn_bwd_bf16"
+            _build.launch("ffn_bwd", "cpc2_ffn_bwd_bf16", device, *ptrs,
+                          scratch.data_ptr(), *grads, m, din, dff, dout,
+                          *drop)
         else:
-            scratch = torch.empty((m, dff), device=device)
-            kernel, fn = "ffn_bwd_fp32", "cpc2_ffn_bwd"
-        _build.launch(kernel, fn, device,
-                      x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                      w2.data_ptr(), g.data_ptr(), seed.data_ptr(),
-                      scratch.data_ptr(), dx.data_ptr(), dw1.data_ptr(),
-                      db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
-                      m, din, dff, dout, dropout_threshold(rate),
-                      1.0 / (1.0 - rate))
+            plan = ffn_fp32_plan(m, din, dff, dout, _sms(device))
+            scratch = torch.empty(plan.bwd_bytes, device=device,
+                                  dtype=torch.uint8)
+            _build.launch("ffn_bwd_fp32", "cpc2_ffn_bwd", device, *ptrs,
+                          scratch.data_ptr(), *grads, plan.bwd_bytes, m, din,
+                          dff, dout, plan.dw2.per, plan.dw1.per, plan.dx.per,
+                          *drop)
         return dx, dw1, db1, dw2, db2, None, None, None
 
 
@@ -200,8 +335,8 @@ def fused_ffn(x: Tensor, w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor,
     x: (M, Din); w1: (Dff, Din); b1: (Dff,); w2: (Dout, Dff); b2: (Dout,);
     seed: one int32 value on x's device (unused when rate == 0). Returns
     (M, Dout) float32. `bf16` takes the bf16 route (widths multiples of 8),
-    else the fp32 one. CUDA tensors go through the kernels, CPU tensors
-    through `ffn_plain`."""
+    else the fp32 one (any widths). CUDA tensors go through the kernels, CPU
+    tensors through `ffn_plain`."""
     if x.device.type == "cpu":
         return ffn_plain(x, w1, b1, w2, b2, seed, rate, bf16)
     return _FusedFFN.apply(x, w1, b1, w2, b2, seed, rate, bf16)

@@ -15,8 +15,9 @@ warm-up steps:
   and optimizer phases, each ending in a synchronise;
 * profiles the same number of steps with `torch.profiler` and prints the
   device time per step, its share of the wall time, the share of the
-  port's hand-written kernels, of the FFN's bf16 kernels, of the LSTM's
-  kernels and of InfoNCE's, the device kernel launches per step, the
+  port's hand-written kernels, of the FFN's kernels (the bf16 route's, or
+  under `--precision fp32` the fp32 route's), of the LSTM's kernels and of
+  InfoNCE's, the device kernel launches per step, the
   launches per step of each of the port's kernel wrappers, and the kernels
   that take the most device time.
 
@@ -42,16 +43,17 @@ from .training import Trainer, make_optimizer, resolve_device, set_precision
 WARMUP_STEPS = 3
 TOP_KERNELS = 15
 # Name fragments of the port's kernels in `csrc/*.cu`: the FFN's bf16 route
-# (`--precision bf16mix`), the LSTM's walks (the resident cluster kernels
-# and the per-step ones), then the rest. `gemm_kernel` and `colsum_kernel`
-# are the LSTM's dW_hh product and db_hh sum and, under `--precision fp32`,
-# the FFN's products and bias sums too.
+# (`--precision bf16mix`) and its fp32 route (`--precision fp32`; the
+# partials' sum is shared, and only one route runs in a step), the LSTM's
+# walks (the resident cluster kernels and the per-step ones) with its dW_hh
+# product (`gemm_kernel`) and db_hh sum (`colsum_kernel`), then the rest.
 FFN_KERNELS = ("ffn_wgmma_gemm", "ffn_cast_bf16", "ffn_sum_partials")
+FFN_FP32_KERNELS = ("ffn_tf32x3_gemm", "ffn_split_tf32", "ffn_sum_partials")
 LSTM_KERNELS = ("lstm_fwd_resident", "lstm_bwd_resident", "lstm_fwd_step",
-                "lstm_bwd_step")
+                "lstm_bwd_step", "gemm_kernel", "colsum_kernel")
 INFONCE_KERNELS = ("gathered_fwd", "gathered_bwd", "dz_sum")
-PORT_KERNELS = FFN_KERNELS + LSTM_KERNELS + INFONCE_KERNELS + (
-    "gemm_kernel", "colsum_kernel", "attention_fwd", "attention_bwd",
+PORT_KERNELS = FFN_KERNELS + FFN_FP32_KERNELS + LSTM_KERNELS + (
+    INFONCE_KERNELS) + ("attention_fwd", "attention_bwd",
     "relpos_grad_sum", "conv_gemm", "norm_bwd", "conv_wgrad", "sum_rows",
     "input_taps", "input_overlap")
 
@@ -146,13 +148,12 @@ def main(argv=None) -> dict:
 
     kernels = device_kernels(prof)
     device_ms = sum(device_us(e) for e in kernels) / 1000.0 / opts.steps
-    lstm_kernels = LSTM_KERNELS + (
-        () if opts.precision == "fp32" else ("gemm_kernel", "colsum_kernel"))
+    ffn_route = "fp32" if opts.precision == "fp32" else "bf16"
     port_ms, ffn_ms, lstm_ms, infonce_ms = (
         sum(device_us(e) for e in kernels if any(k in e.key for k in names))
         / 1000.0 / opts.steps
-        for names in (PORT_KERNELS, FFN_KERNELS, lstm_kernels,
-                      INFONCE_KERNELS))
+        for names in (PORT_KERNELS, FFN_FP32_KERNELS if ffn_route == "fp32"
+                      else FFN_KERNELS, LSTM_KERNELS, INFONCE_KERNELS))
     device_launches = sum(e.count for e in kernels) / opts.steps
     median = statistics.median(wall_ms)
     print(f"card: {torch.cuda.get_device_name(0)}")
@@ -166,10 +167,9 @@ def main(argv=None) -> dict:
           f"of device kernels ({100.0 * device_ms / profiled_ms:.1f}% of the "
           f"profiled step, {100.0 * device_ms / median:.1f}% of the "
           f"unprofiled median), of which the port's kernels "
-          f"{port_ms:.3f} ms, the FFN's bf16 kernels {ffn_ms:.3f} ms, the "
-          f"LSTM's {lstm_ms:.3f} ms (its walks"
-          + ("" if opts.precision == "fp32" else ", dW_hh and db_hh sums")
-          + f"), InfoNCE's {infonce_ms:.3f} ms; {device_launches:g} device "
+          f"{port_ms:.3f} ms, the FFN's {ffn_route} kernels {ffn_ms:.3f} ms, "
+          f"the LSTM's {lstm_ms:.3f} ms (its walks, dW_hh and db_hh sums), "
+          f"InfoNCE's {infonce_ms:.3f} ms; {device_launches:g} device "
           "kernel launches per step")
     print("the port's kernel wrappers, launches/step: " + ", ".join(
         f"{k} {n:g}" for k, n in launches.items()))
@@ -178,7 +178,7 @@ def main(argv=None) -> dict:
         print(f"{device_us(e) / 1000.0 / opts.steps:15.4f} "
               f"{e.count / opts.steps:11.1f}  {e.key[:100]}")
     return {"median_step_ms": median, "device_ms": device_ms,
-            "port_kernel_ms": port_ms, "ffn_bf16_kernel_ms": ffn_ms,
+            "port_kernel_ms": port_ms, f"ffn_{ffn_route}_kernel_ms": ffn_ms,
             "lstm_kernel_ms": lstm_ms, "infonce_kernel_ms": infonce_ms,
             "device_launches_per_step": device_launches,
             "profiled_step_ms": profiled_ms,
