@@ -6,9 +6,10 @@ Phases, each of which fails the run with a nonzero exit:
 
 1. print the card's name and power limit (`nvidia-smi`);
 2. build the CUDA kernels from `cpc2_torch/csrc` (`cpc2_torch/ops/_build.py`)
-   and check with `cuobjdump --dump-sass` that the FFN's GEMM kernels are
-   `wgmma` products fed by TMA (HGMMA and UTMALDG in their SASS; the fp32
-   route's HGMMA in TF32, with no spills);
+   and check with `cuobjdump --dump-sass` that the FFN's GEMM kernels and
+   the encoder's conv products are `wgmma` products fed by TMA (HGMMA and
+   UTMALDG in their SASS; the fp32 route's HGMMA in TF32; the fp32 FFN's
+   and the encoder's with no spills);
 3. hold each kernel against its plain PyTorch version at the recipe's
    shapes (B = 8, T = 128, H = 256, K = 12, W = 116, N = 128, D = 256,
    P = 1,024, FFN 256 -> 2048 -> 256 on 928 rows, attention 64 units of
@@ -17,7 +18,11 @@ Phases, each of which fails the run with a nonzero exit:
    also at widths that are not multiples of 4 and at one row, its
    backward bit-identical across two calls and an empty batch launching
    nothing) and the attention at dropout 0 and 0.1 with the same seed,
-   the FFN's bf16 route and the encoder in their bf16 working type, and the
+   the FFN's bf16 route and the encoder in their bf16 working type (the
+   encoder also at N = 3, T = 1,120 with C = 32 and 128, held against a
+   float64 reference that takes its own bf16 and ReLU decisions, and its
+   backward bit-identical across two calls; its device time split into
+   layers 2-5's products, norms, sums and layer 1), and the
    DTW kernel at one ABX flush (18,432 pairs of 32 x 32 frames), a ragged
    16 x 64, a multi-strip 64 x 64 and its 2,048 x 2,048 limit, where it
    must be bit-identical; the LSTM's two routes, the resident cluster
@@ -27,8 +32,9 @@ Phases, each of which fails the run with a nonzero exit:
    and, where one PyTorch call computes the same function, that call (for
    the FFN's two routes, InfoNCE, the attention and the encoder, which no
    one call computes, the same work through library calls as a yardstick;
-   the FFN, InfoNCE and the LSTM by device time, the LSTM's backward split
-   by kernel and several of its cluster and batch tiles side by side);
+   the FFN, InfoNCE, the encoder and the LSTM by device time, the LSTM's
+   backward split by kernel and several of its cluster and batch tiles
+   side by side);
    InfoNCE also at a ragged shape, a 4,096-row pool, N = 10 and 384, K = 40
    with a ragged D above a stage, a large D, one (b, w) and an empty
    shape, its backward bit-identical across two calls;
@@ -219,16 +225,17 @@ def kernel_entry(name, source, replaces, err, ms, plain_ms, library_ms,
 
 
 def check_sass(build) -> str:
-    """The FFN's GEMM kernels must be `wgmma` products fed by TMA: the bf16
-    route's SASS holds HGMMA and UTMALDG, the fp32 route's HGMMA in TF32
-    (an HGMMA line naming TF32) and UTMALDG, and the fp32 ones spill
-    nothing. Returns a summary with each one's registers and spills from
-    the build log."""
+    """The GEMM kernels must be `wgmma` products fed by TMA: the bf16 FFN
+    route's and the encoder's conv products' SASS holds HGMMA and UTMALDG,
+    the fp32 FFN route's HGMMA in TF32 (an HGMMA line naming TF32) and
+    UTMALDG, and the fp32 FFN's and the encoder's spill nothing. Returns a
+    summary with each one's registers and spills from the build log."""
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "--dump-sass", str(build.LIBRARY)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    found = {"ffn_wgmma_gemm": [], "ffn_tf32x3_gemm": []}
+    found = {"ffn_wgmma_gemm": [], "ffn_tf32x3_gemm": [],
+             "conv_wgmma_gemm": []}
     for fn in sass.split("Function : ")[1:]:
         name = fn.split(None, 1)[0]
         kind = next((k for k in found if k in name), None)
@@ -242,18 +249,21 @@ def check_sass(build) -> str:
         if missing:
             raise AssertionError(f"{name}: no {missing} in its SASS")
         found[kind].append(name)
-    for kind, least in (("ffn_wgmma_gemm", 5), ("ffn_tf32x3_gemm", 3)):
+    for kind, least in (("ffn_wgmma_gemm", 5), ("ffn_tf32x3_gemm", 3),
+                        ("conv_wgmma_gemm", 2)):
         if len(found[kind]) < least:
             raise AssertionError(f"only {len(found[kind])} {kind} kernels "
                                  f"in the SASS: {found[kind]}")
     usage = {kind: ptxas_usage(build, kind) for kind in found}
-    spilled = [u for u in usage["ffn_tf32x3_gemm"]
-               if not u.endswith(" 0 spill bytes")]
+    spilled = [u for kind in ("ffn_tf32x3_gemm", "conv_wgmma_gemm")
+               for u in usage[kind] if not u.endswith(" 0 spill bytes")]
     if spilled:
-        raise AssertionError(f"fp32 FFN GEMM kernels spill: {spilled}")
+        raise AssertionError(f"GEMM kernels spill: {spilled}")
     return (f"{len(found['ffn_wgmma_gemm'])} bf16 FFN GEMM kernels, each "
             f"with HGMMA and UTMALDG; {len(found['ffn_tf32x3_gemm'])} fp32 "
-            f"(3xTF32) ones, each with HGMMA in TF32 and UTMALDG; ptxas: "
+            f"(3xTF32) ones, each with HGMMA in TF32 and UTMALDG; "
+            f"{len(found['conv_wgmma_gemm'])} encoder conv products, each "
+            f"with HGMMA and UTMALDG; ptxas: "
             + " | ".join(u for lines in usage.values() for u in lines))
 
 
@@ -452,22 +462,32 @@ FFN_BAND = 3.0
 ENCODER_BAND = 3.0
 
 
+def band(name, names, got, plain, wide):
+    """Each tensor of `got` against `plain` as above (`wide`: the plain
+    version in fp64): its max abs error, its error over its band, its band
+    and its relative 2-norm error."""
+    errs, ratios, bands, rels = [], [], [], []
+    for n, k, p, d in zip(names, got, plain, wide):
+        if not torch.isfinite(k).all():
+            raise AssertionError(f"{name} {n}: non-finite values")
+        err, spread = norm_rel(k, p), norm_rel(p, d)
+        errs.append((k.double() - p.double()).abs().max().item())
+        ratios.append(err / max(spread, RTOL))
+        bands.append(spread)
+        rels.append(err)
+    return errs, ratios, bands, rels
+
+
 def hold_to_band(name, names, got, plain, wide, band_factor):
     """Hold each tensor of `got` to `plain` as above (`wide`: the plain
     version in fp64); returns each tensor's max abs error, its error over
     its band, and its band."""
-    errs, ratios, bands = [], [], []
-    for n, k, p, d in zip(names, got, plain, wide):
-        if not torch.isfinite(k).all():
-            raise AssertionError(f"{name} {n}: non-finite values")
-        err, band = norm_rel(k, p), norm_rel(p, d)
-        if err > max(band_factor * band, RTOL):
+    errs, ratios, bands, rels = band(name, names, got, plain, wide)
+    for n, err, spread in zip(names, rels, bands):
+        if err > max(band_factor * spread, RTOL):
             raise AssertionError(f"{name} {n}: kernel vs plain {err:.3e} "
                                  f"(2-norm, relative), plain fp32 vs fp64 "
-                                 f"{band:.3e}")
-        errs.append((k.double() - p.double()).abs().max().item())
-        ratios.append(err / max(band, RTOL))
-        bands.append(band)
+                                 f"{spread:.3e}")
     return errs, ratios, bands
 
 
@@ -960,55 +980,214 @@ def check_attention(dev, gen):
                      16 * dk * pairs)], yard
 
 
-def check_encoder(dev, gen):
-    """The encoder kernels against their plain version at the recipe (16 x
-    20,480 samples, C = 256) in their bf16 working type, forward and
-    backward; timed with `nn.Conv1d` + ChannelNorm under TF32 (the port's
-    default route) as the yardstick. The products take bf16 operands, so
-    the bound is reckoned at the bf16 tensor-core rate."""
-    from cpc2_torch.models.encoder import CONV_STACK, CPCEncoder
+# Ragged encoder shapes beside the recipe's (N, T, C): layer 5 at 7 frames,
+# off every tile, at a width below one box (C = 32) and at one of half a
+# column tile (C = 128).
+ENCODER_EDGE_SHAPES = ((3, 160 * 7, 32), (3, 160 * 7, 128))
+
+
+# The ragged shapes' backward against `encoder_reference`, which takes the
+# kernels' own forward decisions: its only rounding points left are dy's,
+# to bf16, where a value within the fp32 error of the kernels' sums of a
+# rounding boundary rounds either way and, through the ChannelNorm
+# projections below, moves whole gradients by up to 1e-3 at these small
+# shapes. So each gradient's band is its largest spread over
+# ENCODER_JITTER_DRAWS runs of the reference with every dy multiplied by
+# 1 + ENCODER_JITTER * N(0, 1) before its rounding (about the relative
+# error of the kernels' fp32 sums: their products alone read up to 4e-6
+# against float64 on an H100), or RTOL when that is larger.
+ENCODER_JITTER = 2.0 ** -20
+ENCODER_JITTER_DRAWS = 8
+
+ENCODER_NAMES = ["output", "dx"] + [f"{g}[{i}]" for g in (
+    "dconv_w", "dconv_b", "dnorm_w", "dnorm_b") for i in range(5)]
+
+
+def hold_encoder(params, x, cot, own_decisions=False):
+    """The encoder kernels, forward and every gradient, and their backward
+    bit for bit across two calls. Held within ENCODER_BAND of
+    `encoder_plain`'s own fp32-vs-fp64 spread; or, with `own_decisions`,
+    against `encoder_reference` (float64 with the kernels' own bf16
+    activations and ReLU masks): every layer's stored pre-norm output
+    within RTOL/ATOL of the float64 conv of the kernels' own stored input,
+    every stored activation within one bf16 ulp of the float64 norm + ReLU
+    of the kernels' own pre-norm output (the output within RTOL/ATOL), and
+    every gradient within ENCODER_BAND of its ENCODER_JITTER spread.
+    Returns (each tensor's max abs error, each one's error over its band
+    (with `own_decisions`, each gradient's), the bands, the timing
+    closures, and each one's error over `encoder_plain`'s band)."""
     from cpc2_torch.ops.encoder import encoder_plain, fused_encoder
-    n, t, c = 16, 20480, 256
-    torch.manual_seed(0)
-    module = CPCEncoder(c).to(dev)
-    with torch.no_grad():
-        for i in range(5):
-            norm = getattr(module, f"batchNorm{i}")
-            norm.weight.add_(0.1 * torch.randn(norm.weight.shape, device=dev,
-                                               generator=gen))
-            norm.bias.add_(0.1 * torch.randn(norm.bias.shape, device=dev,
-                                             generator=gen))
-    groups = [[getattr(module, f"conv{i}").weight for i in range(5)],
-              [getattr(module, f"conv{i}").bias for i in range(5)],
-              [getattr(module, f"batchNorm{i}").weight for i in range(5)],
-              [getattr(module, f"batchNorm{i}").bias for i in range(5)]]
-    params = [p for g in groups for p in g]
-    x = 0.1 * torch.randn(n, t, device=dev, generator=gen)
-    cot = [torch.randn(n, t // 160, c, device=dev, generator=gen)]
 
     def regroup(fn):
         return lambda x, *p: fn(x, p[0:5], p[5:10], p[10:15], p[15:20])
     kern, plain = regroup(fused_encoder), regroup(encoder_plain)
-    out_k, grad_k, bwd_k = grads_of(kern, [x] + params, cot)
+    what = f"encoder {tuple(x.shape)} C {params[0].shape[0]}"
+    leaves = [t.detach().requires_grad_(True) for t in [x] + params]
+    out = kern(*leaves)
+
+    def bwd_k():
+        return torch.autograd.grad(out, leaves, cot, retain_graph=True)
+    out_k, grad_k = [out.detach()], bwd_k()
     out_p, grad_p, bwd_p = grads_of(plain, [x] + params, cot)
     out_d, grad_d, _ = grads_of(plain, [t.double() for t in [x] + params],
                                 [cot[0].double()])
-    names = ["output", "dx"] + [f"{g}[{i}]" for g in (
-        "dconv_w", "dconv_b", "dnorm_w", "dnorm_b") for i in range(5)]
-    errs, ratios, bands = hold_to_band(
-        "encoder", names, out_k + list(grad_k), out_p + list(grad_p),
-        out_d + list(grad_d), ENCODER_BAND)
-    log(f"  encoder kernel vs plain, relative 2-norm: output "
-        f"{norm_rel(out_k[0], out_p[0]):.2e} (fp32 vs fp64 plain "
-        f"{bands[0]:.2e}); each gradient at most {max(ratios[1:]):.2f} x "
-        f"the plain version's own fp32-vs-fp64 spread, which is "
-        f"{min(bands[1:]):.2e} to {max(bands[1:]):.2e}")
+    got, plain_all = out_k + list(grad_k), out_p + list(grad_p)
+    if not own_decisions:
+        errs, ratios, bands = hold_to_band(what, ENCODER_NAMES, got,
+                                           plain_all, out_d + list(grad_d),
+                                           ENCODER_BAND)
+        plain_ratios = ratios
+    else:
+        plain_ratios = band(what, ENCODER_NAMES, got, plain_all,
+                            out_d + list(grad_d))[1]
+        saved = (*out.grad_fn.saved_tensors[4:6], out_k[0])
+        fwd, ref = encoder_reference(x, params, saved, cot[0])
+        for layer, (y, h, own_y, stored) in enumerate(fwd, start=1):
+            compare(f"{what} layer {layer} pre-norm output", [own_y], [y])
+            if layer == 5:
+                errs = [compare(f"{what} output", [stored], [h])]
+            elif ((stored.double() - h).abs()
+                  > 2.0 ** -7 * h.abs() + ATOL).any():
+                raise AssertionError(f"{what} layer {layer}: a stored "
+                                     f"activation off its own norm by over "
+                                     f"a bf16 ulp")
+        jitter = torch.Generator(device=x.device)
+        jitter.manual_seed(0)
+        bands = [0.0] * len(ref)
+        for _ in range(ENCODER_JITTER_DRAWS):
+            noisy = encoder_reference(x, params, saved, cot[0],
+                                      jitter=ENCODER_JITTER, gen=jitter)[1]
+            bands = [max(b, norm_rel(n, r))
+                     for b, n, r in zip(bands, noisy, ref)]
+        ratios = []
+        for name, k, r, spread in zip(ENCODER_NAMES[1:], grad_k, ref, bands):
+            err = norm_rel(k, r)
+            if err > max(ENCODER_BAND * spread, RTOL):
+                raise AssertionError(
+                    f"{what} {name}: kernel vs the reference with its own "
+                    f"decisions {err:.3e} (2-norm, relative), its jitter "
+                    f"spread {spread:.3e}")
+            errs.append((k.double() - r).abs().max().item())
+            ratios.append(err / max(spread, RTOL))
+    again = bwd_k()
+    if not all(torch.equal(a, b) for a, b in zip(grad_k, again)):
+        raise AssertionError(f"{what} backward differs between two calls")
+    return (errs, ratios, bands, (kern, plain, bwd_k, bwd_p, out_k, grad_k),
+            plain_ratios)
+
+
+def encoder_reference(x, params, saved, cot, jitter: float = 0.0, gen=None):
+    """The encoder in float64 with the kernels' own decisions: each layer's
+    input is the kernels' stored bf16 activation of the layer below (x
+    rounded to bf16 for layer 1), its norm is taken of the kernels' own
+    stored pre-norm output, its ReLU mask is where the kernels' activation
+    is positive, and the backward's dy is rounded to bf16 as the kernels
+    round it. `saved` is what the kernels' forward kept: (acts, pre, out).
+    Returns, per layer, (y from the stored input below, the post-ReLU value
+    from the stored y, the stored y, the stored activation or output), and
+    the gradients in `fused_encoder`'s order. With `jitter`, each dy is
+    multiplied by 1 + jitter * N(0, 1) (from `gen`) before its rounding."""
+    import torch.nn.functional as F
+    from cpc2_torch.models.encoder import CONV_STACK
+    acts, pre, out = saved
+    f64 = torch.float64
+    n, length = x.shape
+    c = params[0].shape[0]
+    conv_w = [p.detach().to(torch.bfloat16).to(f64) for p in params[0:5]]
+    conv_b, norm_w, norm_b = ([p.detach().reshape(c).to(f64) for p in
+                               params[i:i + 5]] for i in (5, 10, 15))
+    inputs = [x.detach().to(torch.bfloat16).to(f64)[:, None, :]]
+    forward, norms, a_off, p_off = [], [], 0, 0
+    for layer, (_k, s, p) in enumerate(CONV_STACK):
+        length //= s
+        size = n * length * c
+        own = pre[p_off:p_off + size].reshape(n, length, c)
+        p_off += size
+        if layer < 4:
+            stored = acts[a_off:a_off + size].reshape(n, length, c)
+            a_off += size
+            inputs.append(stored.to(f64).transpose(1, 2))
+        else:
+            stored = out
+        y = own.to(f64)
+        rstd = torch.rsqrt(y.var(-1, keepdim=True) + 1e-5)
+        xh = (y - y.mean(-1, keepdim=True)) * rstd
+        norms.append((rstd, xh, stored > 0))
+        ref = F.conv1d(inputs[layer], conv_w[layer], stride=s, padding=p)
+        forward.append((ref.transpose(1, 2) + conv_b[layer],
+                        torch.relu(xh * norm_w[layer] + norm_b[layer]),
+                        own, stored))
+    g = cot.detach().to(f64)
+    dw, db, dnw, dnb = ([None] * 5 for _ in range(4))
+    for layer in range(4, -1, -1):
+        _k, s, p = CONV_STACK[layer]
+        rstd, xh, mask = norms[layer]
+        da = g * mask
+        dnw[layer], dnb[layer] = (da * xh).sum((0, 1)), da.sum((0, 1))
+        dxh = da * norm_w[layer]
+        dy = rstd * (dxh - dxh.mean(-1, keepdim=True)
+                     - xh * (dxh * xh).sum(-1, keepdim=True) / (c - 1))
+        db[layer] = dy.sum((0, 1))
+        if jitter:
+            dy = dy * (1 + jitter * torch.randn(
+                dy.shape, generator=gen, device=dy.device, dtype=f64))
+        dyb = dy.to(torch.bfloat16).to(f64).transpose(1, 2)
+        dw[layer] = torch.nn.grad.conv1d_weight(
+            inputs[layer], conv_w[layer].shape, dyb, stride=s, padding=p)
+        g = torch.nn.grad.conv1d_input(inputs[layer].shape, conv_w[layer],
+                                       dyb, stride=s, padding=p)
+        g = g[:, 0] if layer == 0 else g.transpose(1, 2)
+    return forward, [g] + [t.reshape(p.shape) for t, p in
+                           zip(dw + db + dnw + dnb, params)]
+
+
+def check_encoder(dev, gen):
+    """The encoder kernels against their plain version at the recipe (16 x
+    20,480 samples, C = 256) and at ENCODER_EDGE_SHAPES in their bf16
+    working type, forward and backward, the backward bit for bit across two
+    calls; timed by device time (split by part: layers 2-5's products, the
+    norms, the sums of partials, layer 1) with `nn.Conv1d` + ChannelNorm
+    under TF32 (the port's default route) as the yardstick. The products
+    take bf16 operands, so the bound is reckoned at the bf16 tensor-core
+    rate."""
+    from cpc2_torch.models.encoder import CONV_STACK
+    from cpc2_torch.profile_step import encoder_parts
+    from cpc2_torch.time_encoder import encoder_inputs
+    own = torch.Generator(device=dev)
+    own.manual_seed(1)
+    for shape in ENCODER_EDGE_SHAPES:
+        _m, edge_params, edge_x, edge_cot = encoder_inputs(dev, own, *shape)
+        _e, r, _b, _t, plain_r = hold_encoder(edge_params, edge_x,
+                                              [edge_cot], own_decisions=True)
+        log(f"  encoder at {shape}: every layer's pre-norm output and "
+            f"activation as its own stored input gives them; every gradient "
+            f"within {max(r):.2f} x its jitter spread about the reference "
+            f"with the kernels' own decisions; backward bit for bit across "
+            f"two calls "
+            f"(against encoder_plain: {max(plain_r):.2f} x its band, "
+            f"{ENCODER_NAMES[plain_r.index(max(plain_r))]})")
+    n, t, c = 16, 20480, 256
+    module, params, x, cot = encoder_inputs(dev, gen, n, t, c)
+    cot = [cot]
+    errs, ratios, bands, timed, _r = hold_encoder(params, x, cot)
+    kern, plain, bwd_k, bwd_p, out_k, grad_k = timed
+    log(f"  encoder kernel vs plain at the recipe, relative 2-norm: output "
+        f"{errs[0]:.2e} max abs ({ratios[0]:.2f} x its band {bands[0]:.2e}); "
+        f"each gradient at most {max(ratios[1:]):.2f} x the plain version's "
+        f"own fp32-vs-fp64 spread, which is {min(bands[1:]):.2e} to "
+        f"{max(bands[1:]):.2e}; backward bit for bit across two calls")
     err_f, err_b = errs[0], max(errs[1:])
     with torch.no_grad():
-        fwd_ms = cuda_ms(lambda: kern(x, *params))
-        plain_fwd_ms = cuda_ms(lambda: plain(x, *params))
-    bwd_ms = cuda_ms(bwd_k)
-    plain_bwd_ms = cuda_ms(bwd_p)
+        fwd_split = device_split(lambda: kern(x, *params))
+        plain_fwd_ms = device_ms(lambda: plain(x, *params))
+        events = {"encoder_fwd": cuda_ms(lambda: kern(x, *params))}
+    bwd_split = device_split(bwd_k)
+    plain_bwd_ms = device_ms(bwd_p)
+    events["encoder_bwd"] = cuda_ms(bwd_k)
+    fwd_ms, bwd_ms = sum(fwd_split.values()), sum(bwd_split.values())
+    log("[encoder] at the recipe, device ms per call by part: forward "
+        + json.dumps(encoder_parts(fwd_split)) + ", backward "
+        + json.dumps(encoder_parts(bwd_split)))
 
     saved = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = True
@@ -1016,8 +1195,8 @@ def check_encoder(dev, gen):
         x_m = x.detach().requires_grad_(True)
         out_m = module(x_m)
         with torch.no_grad():
-            cudnn_fwd_ms = cuda_ms(lambda: module(x))
-        cudnn_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            cudnn_fwd_ms = device_ms(lambda: module(x))
+        cudnn_bwd_ms = device_ms(lambda: torch.autograd.grad(
             out_m, [x_m] + params, cot, retain_graph=True))
     finally:
         torch.backends.cudnn.allow_tf32 = saved
@@ -1037,7 +1216,7 @@ def check_encoder(dev, gen):
         kernel_entry("encoder_bwd", src, rep + ":362", err_b, bwd_ms,
                      plain_bwd_ms, None,
                      nbytes(x, *params, *cot) + nbytes(*grad_k), 2 * flops,
-                     BF16_FLOP_PER_S)], yard
+                     BF16_FLOP_PER_S)], yard, events
 
 
 FUSED = ("CPC2_FUSED_ATTENTION", "CPC2_FUSED_ENCODER")

@@ -12,34 +12,52 @@
 // fit the 227 KB of shared memory a block has, so nothing of that layout
 // carries over.
 //
-// What bounds it: the products, about 25 GFLOP forward and 50 GFLOP
-// backward at the recipe (16 x 20,480 samples, C = 256), far above the
-// card's FLOP-per-byte balance: it is bound by operations. Design, one
-// launch per layer and step (activations channels-last, (rows, C)):
-//  * forward: an implicit-GEMM conv whose block owns 32 output rows and all
-//    C channels (a warp owns 4 whole rows, its lanes the channels lane +
-//    32 j), so bias, ChannelNorm, affine and ReLU fuse into its epilogue
-//    through warp sums. A row's patch of k x Cin inputs is contiguous in
-//    the channels-last input, so A tiles are coalesced loads. Layers 1-4
-//    are written as bf16 (48 MB at the recipe, inside the 50 MB L2); with
-//    gradients on, the pre-norm conv outputs are also kept in fp32 (98 MB)
-//    so that the backward does not recompute the forward;
-//  * backward, per layer from 5 down: a norm kernel (warp per row) turns
-//    dh into dy, writes dy as bf16 and per-block sums of dy, da.xh and da;
-//    dW is A^T.dy over all rows, split over row ranges whose partials a
-//    second pass sums in a fixed order; the lower layer's gradient is the
-//    same implicit GEMM as the forward, run once per phase of the stride
-//    (k = 2 s, so every input row gets exactly two taps: a 2C-deep product
-//    over dy rows a-1 and a with that phase's weights); layer 1's input
-//    gradient is two taps of dy . w1 per sample. No atomics: the results
-//    do not depend on the order in which blocks run.
-// The products run on the fp32 FMA units with bf16 operands; wgmma tiles
-// are later work.
+// What bounds it: the products of layers 2-5 (Cin = C), 24.7 of the
+// forward's 25.0 GFLOP and 49.4 of the backward's 50 at the recipe (16 x
+// 20,480 samples, C = 256): bf16 tensor-core operations. Activations are
+// channels-last, (N, T_l, C). Design:
+//  * layers 2-5: each product is the bf16 `wgmma` block of hopper_gemm.cuh
+//    (4-stage TMA ring, a producer warp, 128 x 128 x 64 tiles, fp32
+//    accumulators) with a tile policy of per-tap boxes. A layer's input
+//    (N, T_in, C), T_in = s T_out, is viewed as the 4-D tensor (C, s, T_out,
+//    N): tap j of output rows t0.. of sample n is one box at (c0, (j - pad)
+//    mod s, t0 + floor((j - pad) / s), n). TMA zero-fills what lies outside
+//    the tensor, which is the conv's padding and each sample's edge, so
+//    tiles never cross a sample and need no masks.
+//    - forward: rows (n, t), k = (tap, channel): K-major A boxes of 128
+//      rows, B the layer's (k, Cin, C) weight pack read N-major; the
+//      epilogue stores y + bias in fp32 (the pre-norm output the backward
+//      reads, or a scratch buffer), then `norm_fwd` (warp per row) writes
+//      ChannelNorm + affine + ReLU;
+//    - dW: rows (tap, channel), k = (n, t) in 64-row boxes: the same
+//      per-tap boxes read M-major and dy's (C, T_out, N) boxes read N-major
+//      (dy's zero fill past T_out cancels the input rows there), split
+//      over k into fp32 partials that `sum_rows` adds in a fixed order;
+//    - the lower layer's gradient, one grid slice per phase ph of the
+//      stride: input row u = s a + ph - pad takes taps ph + s and ph of dy
+//      rows a - 1 and a (k = 2 s), a 2C-deep product of dy boxes with that
+//      phase's (2C, C) weights; the phases below pad start at a = 1, so
+//      every row is written exactly once.
+//    Below 64 channels a box's upper channels lie past the tensor and are
+//    zero-filled: a tap is one k tile whose B rows are that tap's and the
+//    next one's (times zeros; past the pack zero-filled too), so the packs
+//    stay as they are at the cost of half the products at C = 32; the
+//    block's 128-byte swizzle and descriptors stay as they are.
+//  * layer 1 (Cin = 1, 10 taps, 0.34 GFLOP): SIMT kernels on the FMA units,
+//    an implicit GEMM whose block owns 32 rows and all C channels with the
+//    norm in its epilogue, dW in split partials, and the input gradient as
+//    ten taps per row and two per sample.
+//  * the backward's norm (`norm_bwd`, warp per row): dy as bf16 for the
+//    products and per-block sums of dy, da.xhat and da for the bias and norm
+//    gradients.
+// No atomics: the results do not depend on the order in which blocks run.
 #include <cuda_bf16.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
+#include "hopper_gemm.cuh"
 
 namespace {
 
@@ -57,18 +75,18 @@ constexpr float kEps = 1e-5f;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerWarp = 4;
-constexpr int kBM = kWarps * kRowsPerWarp;  // rows of a conv block
-constexpr int kBK = 32;                     // depth of a conv k slice
+constexpr int kBM = kWarps * kRowsPerWarp;  // rows of a layer-1 conv block
+constexpr int kBK = 32;                     // depth of a layer-1 k slice
 constexpr int kNormRows = 64;               // rows of a norm-backward block
-constexpr int kWTile = 64;                  // dW output tile (kc x c)
-constexpr int kWSlice = 16;                 // rows per dW k slice
-constexpr int kWBlocks = 512;               // dW blocks aimed for per layer
+constexpr int kWTile = 64;                  // layer-1 dW output tile (kc x c)
+constexpr int kWSlice = 16;                 // rows per layer-1 dW k slice
+constexpr int kWBlocks = 512;               // layer-1 dW blocks aimed for
+constexpr int kBox = 64;                    // channels of a box: a k tile
+constexpr int kWgradRows = 64;              // rows of t in a dW k tile
 
 __device__ inline float to_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
-__device__ inline float load_f(const float* p) { return to_bf16(*p); }
-__device__ inline float load_f(const bf16* p) { return __bfloat162float(*p); }
 
 __device__ inline float warp_allsum(float v) {
 #pragma unroll
@@ -77,41 +95,34 @@ __device__ inline float warp_allsum(float v) {
   return v;
 }
 
-// An implicit-GEMM convolution over channels-last rows. Output row m = n *
-// Tout + t reads the patch of input rows stride*t - pad + j, j < taps (zero
-// outside [0, Tin)), i.e. the taps*Cin contiguous values from (n*Tin +
-// stride*t - pad) * Cin, against w (taps*Cin, C) bf16, offset by blockIdx.z
-// * w_phase for the backward's phases.
+__device__ inline void put(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ inline void put(float* p, float v) { *p = v; }
+
+// Layer 1's conv over the waveform: output row m = n * Tout + t reads the
+// samples 5 t - 3 + j, j < 10 (zero outside [0, Tin)), rounded to bf16,
+// against w (10, C) bf16; epilogue y = acc + bias (kept in y_save if set),
+// ChannelNorm, affine, ReLU, out as bf16. A warp owns 4 whole rows, its
+// lanes the channels lane + 32 j, so the norm is a warp sum.
 struct ConvArgs {
-  const void* in;
-  int Tin, Cin, taps, stride, pad, Tout;
+  const float* in;
+  int Tin, Tout;
   long M;
   const bf16* w;
-  long w_phase;
-  // forward epilogue: y = acc + bias, ChannelNorm, affine, ReLU
   const float* bias;
   const float* nw;
   const float* nb;
   float* y_save;  // pre-norm y (M, C) fp32, or nullptr
-  void* out;      // (M, C): bf16 (kNormBf16) or fp32 (kNormF32)
-  // backward epilogue (kScatter): out row n * out_T + out_stride * t +
-  // blockIdx.z + out_offset, skipped outside [0, out_T); fp32
-  int out_T, out_stride, out_offset;
+  bf16* out;      // (M, C)
 };
 
-enum Mode : int { kNormBf16 = 0, kNormF32 = 1, kScatter = 2 };
-
-template <typename TIn, int kMode, int CPL>
+template <int CPL>
 __global__ void __launch_bounds__(kThreads) conv_gemm(ConvArgs a) {
   constexpr int C = 32 * CPL;
+  constexpr int KC = kTaps1;
   __shared__ float As[kBK][kBM + 1];  // As[kk][row]
   __shared__ float Bs[kBK][C];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const long m0 = (long)blockIdx.x * kBM;
-  const TIn* in = static_cast<const TIn*>(a.in);
-  const bf16* w = a.w + blockIdx.z * a.w_phase;
-  const int KC = a.taps * a.Cin;
-  const long in_len = (long)a.Tin * a.Cin;
 
   // The A rows this thread loads: warp + kWarps * e, at k offset lane.
   long row_base[kRowsPerWarp], row_off[kRowsPerWarp];
@@ -120,8 +131,8 @@ __global__ void __launch_bounds__(kThreads) conv_gemm(ConvArgs a) {
     const long m = m0 + warp + kWarps * e;
     if (m < a.M) {
       const long n = m / a.Tout, t = m % a.Tout;
-      row_base[e] = n * in_len;
-      row_off[e] = (a.stride * t - a.pad) * (long)a.Cin;
+      row_base[e] = n * a.Tin;
+      row_off[e] = kStride1 * t - kPad1;
     } else {
       row_base[e] = 0;
       row_off[e] = -(long)KC - kBK;  // never valid
@@ -129,50 +140,37 @@ __global__ void __launch_bounds__(kThreads) conv_gemm(ConvArgs a) {
   }
 
   float acc[kRowsPerWarp][CPL] = {};
-  for (int k0 = 0; k0 < KC; k0 += kBK) {
 #pragma unroll
-    for (int e = 0; e < kRowsPerWarp; ++e) {
-      const int kk = k0 + lane;
-      const long off = row_off[e] + kk;
-      As[lane][warp + kWarps * e] =
-          (kk < KC && off >= 0 && off < in_len) ? load_f(in + row_base[e] + off)
-                                                : 0.f;
-    }
-    for (int i = tid; i < kBK * C; i += kThreads) {
-      const int kk = i / C, col = i % C;
-      Bs[kk][col] =
-          (k0 + kk < KC) ? __bfloat162float(w[(long)(k0 + kk) * C + col]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float av[kRowsPerWarp], bv[CPL];
+  for (int e = 0; e < kRowsPerWarp; ++e) {
+    const int kk = lane;
+    const long off = row_off[e] + kk;
+    As[lane][warp + kWarps * e] = (kk < KC && off >= 0 && off < a.Tin)
+                                      ? to_bf16(a.in[row_base[e] + off])
+                                      : 0.f;
+  }
+  for (int i = tid; i < kBK * C; i += kThreads) {
+    const int kk = i / C, col = i % C;
+    Bs[kk][col] = kk < KC ? __bfloat162float(a.w[(long)kk * C + col]) : 0.f;
+  }
+  __syncthreads();
 #pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i)
-        av[i] = As[kk][warp * kRowsPerWarp + i];
+  for (int kk = 0; kk < KC; ++kk) {
+    float av[kRowsPerWarp], bv[CPL];
 #pragma unroll
-      for (int j = 0; j < CPL; ++j) bv[j] = Bs[kk][lane + 32 * j];
+    for (int i = 0; i < kRowsPerWarp; ++i)
+      av[i] = As[kk][warp * kRowsPerWarp + i];
 #pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i)
+    for (int j = 0; j < CPL; ++j) bv[j] = Bs[kk][lane + 32 * j];
 #pragma unroll
-        for (int j = 0; j < CPL; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+    for (int i = 0; i < kRowsPerWarp; ++i)
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
   }
 
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const long m = m0 + warp * kRowsPerWarp + i;
     if (m >= a.M) continue;  // uniform across the warp
-    if (kMode == kScatter) {
-      const long n = m / a.Tout, t = m % a.Tout;
-      const long ot = a.out_stride * t + blockIdx.z + a.out_offset;
-      if (ot < 0 || ot >= a.out_T) continue;
-      float* out = static_cast<float*>(a.out) + (n * a.out_T + ot) * C;
-#pragma unroll
-      for (int j = 0; j < CPL; ++j) out[lane + 32 * j] = acc[i][j];
-      continue;
-    }
     float y[CPL], s = 0.f;
 #pragma unroll
     for (int j = 0; j < CPL; ++j) {
@@ -191,27 +189,43 @@ __global__ void __launch_bounds__(kThreads) conv_gemm(ConvArgs a) {
     for (int j = 0; j < CPL; ++j) {
       const int col = lane + 32 * j;
       if (a.y_save) a.y_save[m * C + col] = y[j];
-      const float h =
-          fmaxf((y[j] - mean) * rstd * a.nw[col] + a.nb[col], 0.f);
-      if (kMode == kNormBf16)
-        static_cast<bf16*>(a.out)[m * C + col] = __float2bfloat16_rn(h);
-      else
-        static_cast<float*>(a.out)[m * C + col] = h;
+      a.out[m * C + col] = __float2bfloat16_rn(
+          fmaxf((y[j] - mean) * rstd * a.nw[col] + a.nb[col], 0.f));
     }
   }
 }
 
-template <typename TIn, int kMode>
-cudaError_t conv(const ConvArgs& a, int C, int phases, cudaStream_t s) {
-  const dim3 grid((unsigned)((a.M + kBM - 1) / kBM), 1, phases);
-  switch (C) {
-    case 32: conv_gemm<TIn, kMode, 1><<<grid, kThreads, 0, s>>>(a); break;
-    case 64: conv_gemm<TIn, kMode, 2><<<grid, kThreads, 0, s>>>(a); break;
-    case 128: conv_gemm<TIn, kMode, 4><<<grid, kThreads, 0, s>>>(a); break;
-    case 256: conv_gemm<TIn, kMode, 8><<<grid, kThreads, 0, s>>>(a); break;
-    default: return cudaErrorInvalidValue;
+// ChannelNorm + affine + ReLU of layers 2-5, warp per row: out = relu((y -
+// mean) rstd nw + nb) from the pre-norm y (M, C) fp32, as bf16 (layers 2-4)
+// or fp32 (layer 5); the same sums, in the same order, as conv_gemm's.
+template <int CPL, typename TOut>
+__global__ void __launch_bounds__(kThreads)
+norm_fwd(const float* __restrict__ y, const float* __restrict__ nw,
+         const float* __restrict__ nb, long M, TOut* __restrict__ out) {
+  constexpr int C = 32 * CPL;
+  const int lane = threadIdx.x % 32;
+  const long m = (long)blockIdx.x * kWarps + threadIdx.x / 32;
+  if (m >= M) return;
+  float v[CPL], s = 0.f;
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) {
+    v[j] = y[m * C + lane + 32 * j];
+    s += v[j];
   }
-  return cudaGetLastError();
+  const float mean = warp_allsum(s) / C;
+  float ss = 0.f;
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) {
+    const float d = v[j] - mean;
+    ss += d * d;
+  }
+  const float rstd = rsqrtf(warp_allsum(ss) / (C - 1) + kEps);
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) {
+    const int col = lane + 32 * j;
+    put(out + m * C + col,
+        fmaxf((v[j] - mean) * rstd * nw[col] + nb[col], 0.f));
+  }
 }
 
 // ChannelNorm + affine + ReLU backward, warp per row. From the pre-norm y and
@@ -280,23 +294,20 @@ norm_bwd(const float* __restrict__ y, const float* __restrict__ dh,
   }
 }
 
-// dW partials: part[z, kc, c] = sum over rows m of split z of A(m, kc) *
-// dy(m, c), with A the conv's patch matrix (as in conv_gemm) and dy bf16.
-template <typename TIn>
+// Layer 1's dW partials: part[z, j, c] = sum over rows m of split z of
+// x(n, 5 t - 3 + j) (bf16-rounded, zero outside) * dy(m, c), dy bf16.
 __global__ void __launch_bounds__(kThreads)
-conv_wgrad(const TIn* __restrict__ in, int Tin, int Cin, int taps,
-           int stride, int pad, int Tout, long M,
+conv_wgrad(const float* __restrict__ x, int Tin, int Tout, long M,
            const bf16* __restrict__ dy, int C, long rows_per_split,
            float* __restrict__ part) {
   __shared__ float As[kWSlice][kWTile + 4];
   __shared__ float Ds[kWSlice][kWTile + 4];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int KC = taps * Cin;
+  constexpr int KC = kTaps1;
   const int c0 = blockIdx.x * kWTile, kc0 = blockIdx.y * kWTile;
   const long m_begin = blockIdx.z * rows_per_split;
   const long m_end =
       m_begin + rows_per_split < M ? m_begin + rows_per_split : M;
-  const long in_len = (long)Tin * Cin;
   float acc[4][4] = {};
   for (long ms = m_begin; ms < m_end; ms += kWSlice) {
     for (int i = tid; i < kWSlice * kWTile; i += kThreads) {
@@ -306,8 +317,8 @@ conv_wgrad(const TIn* __restrict__ in, int Tin, int Cin, int taps,
       float v = 0.f;
       if (m < m_end && kc < KC) {
         const long n = m / Tout, t = m % Tout;
-        const long off = (stride * t - pad) * (long)Cin + kc;
-        if (off >= 0 && off < in_len) v = load_f(in + n * in_len + off);
+        const long off = kStride1 * t - kPad1 + kc;
+        if (off >= 0 && off < Tin) v = to_bf16(x[n * Tin + off]);
       }
       As[mm][kk] = v;
       Ds[mm][kk] = (m < m_end && c0 + kk < C)
@@ -404,14 +415,210 @@ __global__ void input_overlap(const float* __restrict__ P, int N, int T,
   dx[i] = v;
 }
 
-// Frames after each layer, and element offsets of each layer's activations
-// (N, T_l, C) and weights in their packed buffers.
+// --- layers 2-5: the conv products on the wgmma block ------------------------
+
+// A conv product's geometry. A's boxes read a conv of `taps` taps, stride
+// and pad over a 4-D view (C, stride, T, N) of an activation tensor (3-D,
+// (C, T, N), for stride 1): tap j lies at phase (j - pad) mod stride and row
+// offset floor((j - pad) / stride).
+struct ConvGeom {
+  int taps, stride, pad;
+  int cin;        // channels of a tap: B's rows per tap
+  int tile_k;     // k tiles per tap: cin / 64, at least 1
+  int rows;       // rows per sample of the product (its t < rows)
+  int row_tiles;  // tiles of rows per sample: 128 rows (taps), 64 (dW's k)
+  int col_tiles;  // 128-wide column tiles
+  // the taps' products: row (n, t) stored at n out_T + out_stride (t +
+  // shift) + z + out_offset when that lies in [0, out_T), where z is
+  // blockIdx.z and shift is 1 for z < shift_below, else 0; B's rows of z
+  // start at z b_z_rows
+  int out_T, out_stride, out_offset, shift_below, b_z_rows;
+};
+
+__device__ __forceinline__ void tap_box(const ConvGeom& g, int j, int& ph,
+                                        int& off) {
+  const int q = j - g.pad;
+  ph = ((q % g.stride) + g.stride) % g.stride;
+  off = (q - ph) / g.stride;
+}
+
+// The forward conv and the lower layer's gradient (`kConvTaps`): blockIdx.x
+// = (sample, row tile, column tile), the column fastest; A K-major, the
+// tile's rows (n, t0 .. t0 + 127); k tile t is tap t / tile_k, channels
+// c0 = 64 (t mod tile_k).
+struct ConvTiles {
+  static constexpr bool kAK = true;
+  ConvGeom g;
+  int n, t0, n0, kt0, kt1, shift, brow0;
+  __device__ __forceinline__ ConvTiles(const cpc2::WgArgs&,
+                                       const ConvGeom& geom)
+      : g(geom) {
+    const int tile = blockIdx.x / g.col_tiles;
+    n0 = (blockIdx.x - tile * g.col_tiles) * cpc2::kWgBN;
+    n = tile / g.row_tiles;
+    t0 = (tile - n * g.row_tiles) * cpc2::kWgBM;
+    kt0 = 0;
+    kt1 = g.taps * g.tile_k;
+    shift = static_cast<int>(blockIdx.z) < g.shift_below ? 1 : 0;
+    brow0 = blockIdx.z * g.b_z_rows;
+  }
+  __device__ __forceinline__ void load(int t, uint8_t* a, uint8_t* b,
+                                       const CUtensorMap* map_a,
+                                       const CUtensorMap* map_b,
+                                       uint64_t* bar) const {
+    const int j = t / g.tile_k, c0 = (t - j * g.tile_k) * kBox;
+    int ph, off;
+    tap_box(g, j, ph, off);
+    const int first = t0 + off + shift;  // may be -1: TMA takes it signed
+    if (g.stride == 1)
+      cpc2::tma_load_3d(a, map_a, bar, c0, first, n);
+    else
+      cpc2::tma_load_4d(a, map_a, bar, c0, ph, first, n);
+    const int brow = brow0 + j * g.cin + c0;
+    cpc2::tma_load(b, map_b, bar, n0, brow);
+    cpc2::tma_load(b + cpc2::kWgOperandBytes / 2, map_b, bar, n0 + 64, brow);
+  }
+  __device__ __forceinline__ long row(int r) const {
+    const int t = t0 + r;
+    if (t >= g.rows) return -1;
+    const int ot = g.out_stride * (t + shift) + static_cast<int>(blockIdx.z) +
+                   g.out_offset;
+    return ot >= 0 && ot < g.out_T ? (long)n * g.out_T + ot : -1;
+  }
+};
+
+// dW (`kConvWgrad`): blockIdx.x = (row tile, column tile), the column
+// fastest, blockIdx.z the split of k; A M-major, the tile's rows (tap,
+// channel) at a stride of 64 tile_k channels a tap (channels from cin on
+// are zero-filled and not stored); k tile t is sample t / row_tiles, rows
+// t0 = 64 (t mod row_tiles) .. t0 + 63.
+struct WgradTiles {
+  static constexpr bool kAK = false;
+  ConvGeom g;
+  int m0, n0, kt0, kt1;
+  __device__ __forceinline__ WgradTiles(const cpc2::WgArgs& args,
+                                        const ConvGeom& geom)
+      : g(geom) {
+    const int tile = blockIdx.x / g.col_tiles;
+    n0 = (blockIdx.x - tile * g.col_tiles) * cpc2::kWgBN;
+    m0 = tile * cpc2::kWgBM;
+    kt0 = blockIdx.z * args.k_tiles_per_split;
+    kt1 = min(kt0 + args.k_tiles_per_split, args.K / cpc2::kWgBK);
+  }
+  __device__ __forceinline__ void load(int t, uint8_t* a, uint8_t* b,
+                                       const CUtensorMap* map_a,
+                                       const CUtensorMap* map_b,
+                                       uint64_t* bar) const {
+    const int n = t / g.row_tiles, t0 = (t - n * g.row_tiles) * kWgradRows;
+    const int tap_rows = g.tile_k * kBox;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int mm = m0 + 64 * h, j = mm / tap_rows;
+      int ph, off;
+      tap_box(g, j, ph, off);
+      cpc2::tma_load_4d(a + h * (cpc2::kWgOperandBytes / 2), map_a, bar,
+                        mm - j * tap_rows, ph, t0 + off, n);
+    }
+    cpc2::tma_load_3d(b, map_b, bar, n0, t0, n);
+    cpc2::tma_load_3d(b + cpc2::kWgOperandBytes / 2, map_b, bar, n0 + 64, t0,
+                      n);
+  }
+  __device__ __forceinline__ long row(int r) const {
+    const int tap_rows = g.tile_k * kBox;
+    const int mm = m0 + r, j = mm / tap_rows, ci = mm - j * tap_rows;
+    return j < g.taps && ci < g.cin ? (long)j * g.cin + ci : -1;
+  }
+};
+
+enum ConvKind : int { kConvTaps = 0, kConvWgrad = 1 };
+
+// Every product stores fp32 through the block's kWgStore epilogue: out +
+// blockIdx.z * split_stride + row * ldo (+ bias), row from the policy.
+template <int kKind>
+__global__ void __launch_bounds__(cpc2::kWgThreads, 1)
+conv_wgmma_gemm(const __grid_constant__ CUtensorMap map_a,
+                const __grid_constant__ CUtensorMap map_b, cpc2::WgArgs args,
+                ConvGeom geom) {
+  using Tiles =
+      std::conditional_t<kKind == kConvWgrad, WgradTiles, ConvTiles>;
+  cpc2::wgmma_gemm_block<Tiles::kAK, false, cpc2::kWgStore>(
+      &map_a, &map_b, args, Tiles(args, geom));
+}
+
+template <int kKind>
+cudaError_t conv_product(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                         const cpc2::WgArgs& args, const ConvGeom& g,
+                         dim3 grid, cudaStream_t s) {
+  auto kernel = conv_wgmma_gemm<kKind>;
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        cpc2::kWgSmemBytes);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  kernel<<<grid, cpc2::kWgThreads, cpc2::kWgSmemBytes, s>>>(map_a, map_b,
+                                                             args, g);
+  return cudaGetLastError();
+}
+
+// Activations (N, T_in, C) bf16, T_in = stride * T, as the tensor (C,
+// stride, T, N), or (C, T, N) for stride 1, read in boxes of 64 channels x
+// `rows` rows with the 128-byte swizzle; zeros out of range.
+cudaError_t act_map(CUtensorMap* map, const bf16* p, int N, int T,
+                    int stride, int C, int rows) {
+  cpc2::EncodeTiledFn encode = cpc2::tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorInvalidValue;
+  const cuuint64_t c = C, row = 2ull * C;  // a row of C channels, in bytes
+  const cuuint64_t dims4[4] = {c, (cuuint64_t)stride, (cuuint64_t)T,
+                               (cuuint64_t)N};
+  const cuuint64_t strides4[3] = {row, stride * row, stride * row * T};
+  const cuuint32_t box4[4] = {kBox, 1, (cuuint32_t)rows, 1};
+  const cuuint64_t dims3[3] = {c, (cuuint64_t)T, (cuuint64_t)N};
+  const cuuint64_t strides3[2] = {row, row * T};
+  const cuuint32_t box3[3] = {kBox, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const bool flat = stride == 1;
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, flat ? 3 : 4,
+      const_cast<bf16*>(p), flat ? dims3 : dims4, flat ? strides3 : strides4,
+      flat ? box3 : box4, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A weight pack of `rows` rows of C bf16 ([k][n], read N-major), in boxes of
+// 64 x 64; columns past C and rows past the pack are zeros.
+cudaError_t pack_map(CUtensorMap* map, const bf16* p, long rows, int C) {
+  if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorInvalidValue;
+  return cpc2::bf16_tensor_map(map, p, C, rows, kBox);
+}
+
+long cdiv(long a, long b) { return (a + b - 1) / b; }
+
+// Frames after each layer, element offsets of each layer's activations (N,
+// T_l, C) and weights in their packed buffers, the products' tiles and
+// splits, and the backward's scratch floats: ops/encoder.py:encoder_plan
+// computes the same.
 struct Plan {
   int T[kLayers];
   long act_off[kLayers], w_off[kLayers], wt_off[kLayers];
-  Plan(int N, int T0, int C) {
+  int tile_k, col_tiles;
+  // dW of layers 2-5: k tiles per split and splits
+  int wg_per[kLayers], wg_splits[kLayers];
+  // layer 1's dW: rows per split and splits
+  long w1_rows, w1_splits;
+  long part_len;
+  Plan(int N, int T0, int C, int sms) {
     long act = 0, wo = 0, wt = 0;
     int t = T0;
+    tile_k = std::max(1, C / kBox);
+    col_tiles = (int)cdiv(C, cpc2::kWgBN);
+    const long M1 = (long)N * (T0 / kStride[0]);
+    part_len = 0;
     for (int l = 0; l < kLayers; ++l) {
       t /= kStride[l];
       T[l] = t;
@@ -422,42 +629,141 @@ struct Plan {
       wo += (long)kKernel[l] * cin * C;
       wt_off[l] = wt;
       if (l > 0) wt += (long)kStride[l] * 2 * C * cin;
+      wg_per[l] = wg_splits[l] = 0;
+      if (l == 0 || N == 0) continue;
+      const long k_tiles = (long)N * cdiv(t, kWgradRows);
+      const long tiles =
+          cdiv((long)kKernel[l] * tile_k * kBox, cpc2::kWgBM) * col_tiles;
+      const long s = std::min(std::max(1L, sms / tiles), k_tiles);
+      wg_per[l] = (int)cdiv(k_tiles, s);
+      wg_splits[l] = (int)cdiv(k_tiles, wg_per[l]);
+      part_len = std::max(part_len, (long)wg_splits[l] * kKernel[l] * C * C);
     }
+    w1_rows = w1_splits = 0;
+    if (N == 0) return;
+    const long tiles1 = cdiv(C, kWTile) * cdiv(kTaps1, kWTile);
+    w1_splits = std::max(1L, std::min(kWBlocks / tiles1, cdiv(M1, 256)));
+    w1_rows = cdiv(cdiv(M1, w1_splits), kWSlice) * kWSlice;
+    w1_splits = cdiv(M1, w1_rows);
+    part_len = std::max(part_len, w1_splits * kTaps1 * C);
+    part_len = std::max(part_len, cdiv(M1, kNormRows) * 3 * C);
   }
 };
+
+// The forward conv of layer l (1-4), or the lower layer's gradient (`dgrad`).
+ConvGeom taps_geom(const Plan& p, int l, int C, bool dgrad) {
+  ConvGeom g{};
+  g.cin = C;
+  g.tile_k = p.tile_k;
+  g.rows = p.T[l];
+  g.row_tiles = (int)cdiv(p.T[l], cpc2::kWgBM);
+  g.col_tiles = p.col_tiles;
+  if (dgrad) {  // dy rows a - 1 and a
+    g.taps = 2;
+    g.stride = 1;
+    g.pad = 1;
+    g.out_T = p.T[l - 1];
+    g.out_stride = kStride[l];
+    g.out_offset = -kPad[l];
+    g.shift_below = kPad[l];
+    g.b_z_rows = 2 * C;
+  } else {
+    g.taps = kKernel[l];
+    g.stride = kStride[l];
+    g.pad = kPad[l];
+    g.out_T = p.T[l];
+    g.out_stride = 1;
+  }
+  return g;
+}
+
+ConvGeom wgrad_geom(const Plan& p, int l, int C) {
+  ConvGeom g{};
+  g.taps = kKernel[l];
+  g.stride = kStride[l];
+  g.pad = kPad[l];
+  g.cin = C;
+  g.tile_k = p.tile_k;
+  g.rows = p.T[l];
+  g.row_tiles = (int)cdiv(p.T[l], kWgradRows);
+  g.col_tiles = p.col_tiles;
+  return g;
+}
+
+cpc2::WgArgs store_args(int M, int N, int K, float* out, long ldo) {
+  cpc2::WgArgs a{};
+  a.M = M;
+  a.N = N;
+  a.K = K;
+  a.out = out;
+  a.ldo = ldo;
+  return a;
+}
+
+template <int CPL>
+cudaError_t launch_layer1(const ConvArgs& a, cudaStream_t s) {
+  conv_gemm<CPL><<<(unsigned)cdiv(a.M, kBM), kThreads, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <int CPL>
+cudaError_t launch_norm_fwd(const float* y, const float* nw, const float* nb,
+                            long M, bf16* out_bf16, float* out_f32,
+                            cudaStream_t s) {
+  const unsigned grid = (unsigned)cdiv(M, kWarps);
+  if (out_bf16)
+    norm_fwd<CPL, bf16><<<grid, kThreads, 0, s>>>(y, nw, nb, M, out_bf16);
+  else
+    norm_fwd<CPL, float><<<grid, kThreads, 0, s>>>(y, nw, nb, M, out_f32);
+  return cudaGetLastError();
+}
 
 template <int CPL>
 cudaError_t launch_norm_bwd(const float* y, const float* dh, const float* nw,
                             const float* nb, long M, bf16* dy, float* part,
                             cudaStream_t s) {
-  norm_bwd<CPL><<<(unsigned)((M + kNormRows - 1) / kNormRows), kThreads, 0,
-                  s>>>(y, dh, nw, nb, M, dy, part);
+  norm_bwd<CPL><<<(unsigned)cdiv(M, kNormRows), kThreads, 0, s>>>(
+      y, dh, nw, nb, M, dy, part);
   return cudaGetLastError();
+}
+
+template <int CPL>
+cudaError_t launch_taps(const bf16* dy, const bf16* w1, long M, float* P,
+                        cudaStream_t s) {
+  input_taps<CPL><<<(unsigned)cdiv(M, kWarps), kThreads, 0, s>>>(dy, w1, M,
+                                                                 P);
+  return cudaGetLastError();
+}
+
+// The kernels templated on CPL = C / 32, at C.
+#define CPC2_BY_WIDTH(C, fn, ...)            \
+  switch (C) {                               \
+    case 32: return fn<1>(__VA_ARGS__);      \
+    case 64: return fn<2>(__VA_ARGS__);      \
+    case 128: return fn<4>(__VA_ARGS__);     \
+    case 256: return fn<8>(__VA_ARGS__);     \
+    default: return cudaErrorInvalidValue;   \
+  }
+
+cudaError_t layer1_forward(int C, const ConvArgs& a, cudaStream_t s) {
+  CPC2_BY_WIDTH(C, launch_layer1, a, s)
+}
+
+cudaError_t norm_forward(int C, const float* y, const float* nw,
+                         const float* nb, long M, bf16* out_bf16,
+                         float* out_f32, cudaStream_t s) {
+  CPC2_BY_WIDTH(C, launch_norm_fwd, y, nw, nb, M, out_bf16, out_f32, s)
 }
 
 cudaError_t norm_backward(int C, const float* y, const float* dh,
                           const float* nw, const float* nb, long M, bf16* dy,
                           float* part, cudaStream_t s) {
-  switch (C) {
-    case 32: return launch_norm_bwd<1>(y, dh, nw, nb, M, dy, part, s);
-    case 64: return launch_norm_bwd<2>(y, dh, nw, nb, M, dy, part, s);
-    case 128: return launch_norm_bwd<4>(y, dh, nw, nb, M, dy, part, s);
-    case 256: return launch_norm_bwd<8>(y, dh, nw, nb, M, dy, part, s);
-    default: return cudaErrorInvalidValue;
-  }
+  CPC2_BY_WIDTH(C, launch_norm_bwd, y, dh, nw, nb, M, dy, part, s)
 }
 
 cudaError_t taps_backward(int C, const bf16* dy, const bf16* w1, long M,
                           float* P, cudaStream_t s) {
-  const unsigned grid = (unsigned)((M + kWarps - 1) / kWarps);
-  switch (C) {
-    case 32: input_taps<1><<<grid, kThreads, 0, s>>>(dy, w1, M, P); break;
-    case 64: input_taps<2><<<grid, kThreads, 0, s>>>(dy, w1, M, P); break;
-    case 128: input_taps<4><<<grid, kThreads, 0, s>>>(dy, w1, M, P); break;
-    case 256: input_taps<8><<<grid, kThreads, 0, s>>>(dy, w1, M, P); break;
-    default: return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  CPC2_BY_WIDTH(C, launch_taps, dy, w1, M, P, s)
 }
 
 #define CPC2_TRY(expr)                       \
@@ -473,38 +779,38 @@ extern "C" {
 // x (N,T) fp32, T a multiple of 160 -> out (N, T/160, C) fp32.
 // wpack: every layer's weight as (k, Cin, C) bf16, layers in order; bias,
 // nw, nb (5, C) fp32. acts: layers 1-4's outputs (N, T_l, C) bf16, in order.
-// pre: the five pre-norm outputs (N, T_l, C) fp32, in order, or nullptr.
+// pre: the five pre-norm outputs (N, T_l, C) fp32, in order, or nullptr;
+// then scratch holds N * T_2 * C floats for layers 2-5's pre-norm outputs.
 int cpc2_encoder_fwd(const float* x, const bf16* wpack, const float* bias,
                      const float* nw, const float* nb, bf16* acts, float* pre,
-                     float* out, int N, int T, int C, void* stream) {
+                     float* scratch, float* out, int N, int T, int C,
+                     void* stream) {
   if (N == 0) return 0;
+  if (C != 32 && C != 64 && C != 128 && C != 256)
+    return (int)cudaErrorInvalidValue;
+  if (pre == nullptr && scratch == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Plan plan(N, T, C);
-  for (int l = 0; l < kLayers; ++l) {
-    ConvArgs a{};
-    a.in = l == 0 ? (const void*)x : (const void*)(acts + plan.act_off[l - 1]);
-    a.Tin = l == 0 ? T : plan.T[l - 1];
-    a.Cin = l == 0 ? 1 : C;
-    a.taps = kKernel[l];
-    a.stride = kStride[l];
-    a.pad = kPad[l];
-    a.Tout = plan.T[l];
-    a.M = (long)N * plan.T[l];
-    a.w = wpack + plan.w_off[l];
-    a.bias = bias + l * C;
-    a.nw = nw + l * C;
-    a.nb = nb + l * C;
-    a.y_save = pre ? pre + plan.act_off[l] : nullptr;
-    if (l == 0) {
-      a.out = acts;
-      CPC2_TRY((conv<float, kNormBf16>(a, C, 1, s)));
-    } else if (l < kLayers - 1) {
-      a.out = acts + plan.act_off[l];
-      CPC2_TRY((conv<bf16, kNormBf16>(a, C, 1, s)));
-    } else {
-      a.out = out;
-      CPC2_TRY((conv<bf16, kNormF32>(a, C, 1, s)));
-    }
+  const Plan plan(N, T, C, cpc2::sm_count());
+  const ConvArgs a1{x, T, plan.T[0], (long)N * plan.T[0], wpack, bias, nw,
+                    nb, pre, acts};
+  CPC2_TRY(layer1_forward(C, a1, s));
+  for (int l = 1; l < kLayers; ++l) {
+    const long M = (long)N * plan.T[l];
+    float* y = pre ? pre + plan.act_off[l] : scratch;
+    CUtensorMap map_a, map_b;
+    CPC2_TRY(act_map(&map_a, acts + plan.act_off[l - 1], N, plan.T[l],
+                     kStride[l], C, cpc2::kWgBM));
+    CPC2_TRY(pack_map(&map_b, wpack + plan.w_off[l], (long)kKernel[l] * C, C));
+    const ConvGeom g = taps_geom(plan, l, C, false);
+    cpc2::WgArgs args = store_args((int)M, C, kKernel[l] * C, y, C);
+    args.bias = bias + l * C;
+    CPC2_TRY(conv_product<kConvTaps>(
+        map_a, map_b, args, g,
+        dim3((unsigned)((long)N * g.row_tiles * g.col_tiles), 1, 1), s));
+    const bool last = l == kLayers - 1;
+    CPC2_TRY(norm_forward(C, y, nw + l * C, nb + l * C, M,
+                          last ? nullptr : acts + plan.act_off[l],
+                          last ? out : nullptr, s));
   }
   return 0;
 }
@@ -514,73 +820,73 @@ int cpc2_encoder_fwd(const float* x, const bf16* wpack, const float* bias,
 // (2C, C) bf16 matrix [W[:, :, ph + stride]^T; W[:, :, ph]^T], in order.
 // Out: dwpack (fp32, wpack's layout), dnorm (5, 3, C) = (db, dnw, dnb) per
 // layer, dx (N, T). Scratch: dh (N*T_1*C fp32), dy (N*T_1*C bf16) and part
-// (part_len fp32, at least N*T_1/64*3*C and 8*C*C).
+// (part_len fp32, which must be the plan's: ops/encoder.py:encoder_plan).
 int cpc2_encoder_bwd(const float* x, const float* gz, const bf16* wpack,
                      const bf16* wtpack, const float* nw, const float* nb,
                      const bf16* acts, const float* pre, float* dwpack,
                      float* dnorm, float* dx, float* dh, bf16* dy, float* part,
                      long part_len, int N, int T, int C, void* stream) {
   if (N == 0) return 0;
+  if (C != 32 && C != 64 && C != 128 && C != 256)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Plan plan(N, T, C);
+  const Plan plan(N, T, C, cpc2::sm_count());
+  if (part_len != plan.part_len) return (int)cudaErrorInvalidValue;
   for (int l = kLayers - 1; l >= 0; --l) {
     const long M = (long)N * plan.T[l];
-    const int Tin = l == 0 ? T : plan.T[l - 1];
-    const int Cin = l == 0 ? 1 : C;
     // dy and the per-layer sums of dy, da * xhat and da
     CPC2_TRY(norm_backward(C, pre + plan.act_off[l], l == kLayers - 1 ? gz : dh,
                            nw + l * C, nb + l * C, M, dy, part, s));
-    const long blocks = (M + kNormRows - 1) / kNormRows;
-    CPC2_TRY(reduce_rows(part, blocks, 3L * C, dnorm + 3L * l * C, s));
-    // dW = A^T dy, split over row ranges, then the splits summed
-    const int KC = kKernel[l] * Cin;
-    const long tiles = (long)((C + kWTile - 1) / kWTile) *
-                       ((KC + kWTile - 1) / kWTile);
-    long splits = std::min(kWBlocks / tiles, (M + 255) / 256);
-    splits = std::max(1L, std::min(splits, part_len / ((long)KC * C)));
-    long rows = (M + splits - 1) / splits;
-    rows = (rows + kWSlice - 1) / kWSlice * kWSlice;
-    splits = (M + rows - 1) / rows;
-    const dim3 wgrid((C + kWTile - 1) / kWTile, (KC + kWTile - 1) / kWTile,
-                     (unsigned)splits);
-    if (l == 0)
-      conv_wgrad<float><<<wgrid, kThreads, 0, s>>>(
-          x, Tin, Cin, kKernel[l], kStride[l], kPad[l], plan.T[l], M, dy, C,
-          rows, part);
-    else
-      conv_wgrad<bf16><<<wgrid, kThreads, 0, s>>>(
-          acts + plan.act_off[l - 1], Tin, Cin, kKernel[l], kStride[l],
-          kPad[l], plan.T[l], M, dy, C, rows, part);
-    CPC2_TRY(cudaGetLastError());
-    CPC2_TRY(reduce_rows(part, splits, (long)KC * C, dwpack + plan.w_off[l],
+    CPC2_TRY(reduce_rows(part, cdiv(M, kNormRows), 3L * C, dnorm + 3L * l * C,
                          s));
-    if (l > 0) {
-      // dh of the layer below: per phase ph, input rows s*a + ph - pad from
-      // dy rows a-1 and a (a 2C-deep product), every row written once
-      ConvArgs a{};
-      a.in = dy;
-      a.Tin = plan.T[l];
-      a.Cin = C;
-      a.taps = 2;
-      a.stride = 1;
-      a.pad = 1;
-      a.Tout = plan.T[l] + 1;
-      a.M = (long)N * (plan.T[l] + 1);
-      a.w = wtpack + plan.wt_off[l];
-      a.w_phase = 2L * C * Cin;
-      a.out = dh;
-      a.out_T = Tin;
-      a.out_stride = kStride[l];
-      a.out_offset = -kPad[l];
-      CPC2_TRY((conv<bf16, kScatter>(a, C, kStride[l], s)));
-    } else {
-      // dx: the ten taps of every layer-1 row, then the two per sample
+    if (l == 0) {
+      // dW, then dx: the ten taps of every layer-1 row, then the two per
+      // sample
+      const dim3 wgrid((unsigned)cdiv(C, kWTile),
+                       (unsigned)cdiv(kTaps1, kWTile),
+                       (unsigned)plan.w1_splits);
+      conv_wgrad<<<wgrid, kThreads, 0, s>>>(x, T, plan.T[0], M, dy, C,
+                                            plan.w1_rows, part);
+      CPC2_TRY(cudaGetLastError());
+      CPC2_TRY(reduce_rows(part, plan.w1_splits, (long)kTaps1 * C,
+                           dwpack + plan.w_off[0], s));
       CPC2_TRY(taps_backward(C, dy, wpack + plan.w_off[0], M, dh, s));
       const long n_x = (long)N * T;
-      input_overlap<<<(unsigned)((n_x + 255) / 256), 256, 0, s>>>(
-          dh, N, T, plan.T[0], dx);
+      input_overlap<<<(unsigned)cdiv(n_x, 256), 256, 0, s>>>(dh, N, T,
+                                                             plan.T[0], dx);
       CPC2_TRY(cudaGetLastError());
+      continue;
     }
+    // dW = A^T dy in split partials, then the splits summed
+    const long KC = (long)kKernel[l] * C;
+    CUtensorMap map_in, map_dy, map_dy_rows, map_wt;
+    CPC2_TRY(act_map(&map_in, acts + plan.act_off[l - 1], N, plan.T[l],
+                     kStride[l], C, kWgradRows));
+    CPC2_TRY(act_map(&map_dy, dy, N, plan.T[l], 1, C, kWgradRows));
+    const ConvGeom gw = wgrad_geom(plan, l, C);
+    cpc2::WgArgs wargs =
+        store_args((int)(kKernel[l] * plan.tile_k * kBox), C,
+                   N * gw.row_tiles * kWgradRows, part, C);
+    wargs.k_tiles_per_split = plan.wg_per[l];
+    wargs.split_stride = KC * C;
+    const unsigned m_tiles =
+        (unsigned)cdiv((long)kKernel[l] * plan.tile_k * kBox, cpc2::kWgBM);
+    CPC2_TRY(conv_product<kConvWgrad>(
+        map_in, map_dy, wargs, gw,
+        dim3(m_tiles * gw.col_tiles, 1, (unsigned)plan.wg_splits[l]), s));
+    CPC2_TRY(reduce_rows(part, plan.wg_splits[l], KC * C,
+                         dwpack + plan.w_off[l], s));
+    // dh of the layer below, one grid slice per phase of the stride
+    CPC2_TRY(act_map(&map_dy_rows, dy, N, plan.T[l], 1, C, cpc2::kWgBM));
+    CPC2_TRY(pack_map(&map_wt, wtpack + plan.wt_off[l],
+                      (long)kStride[l] * 2 * C, C));
+    const ConvGeom gd = taps_geom(plan, l, C, true);
+    const cpc2::WgArgs dargs = store_args((int)M, C, 2 * C, dh, C);
+    CPC2_TRY(conv_product<kConvTaps>(
+        map_dy_rows, map_wt, dargs, gd,
+        dim3((unsigned)((long)N * gd.row_tiles * gd.col_tiles), 1,
+             (unsigned)kStride[l]),
+        s));
   }
   return 0;
 }

@@ -1,8 +1,9 @@
 // GEMM building blocks for Hopper (sm_90a): TMA loads into a ring of
 // shared-memory stages guarded by mbarriers, `wgmma.mma_async` products with
 // fp32 accumulators in registers, and fused epilogues applied on the
-// accumulator fragment. The FFN kernels of ffn.cu are built from them. Two
-// blocks share the ring, the tile and the split-K scheme:
+// accumulator fragment. The FFN kernels of ffn.cu and the encoder's conv
+// products (encoder.cu) are built from them. Two blocks share the ring, the
+// tile and the split-K scheme:
 //
 // `ffn_wgmma_gemm`, bf16 operands (the FFN's `bf16mix` route):
 // C[m, n] = sum_k A(m, k) * B(n, k)
@@ -21,6 +22,8 @@
 // - Split-K: blockIdx.z takes a run of k tiles and writes its own fp32
 //   partial; a second pass sums the partials in a fixed order
 //   (deterministic, no atomics).
+// - Where the tiles lie is a policy (`DenseTiles` for 2-D operands): the
+//   encoder's products read per-tap 4-D boxes of an activation tensor.
 //
 // `ffn_tf32x3_gemm`, fp32 operands at fp32 accuracy (the FFN's `fp32`
 // route), the same C from 3xTF32 products: each operand comes as two
@@ -62,7 +65,7 @@ constexpr int kWgSmemBytes =
     1024 + kWgStages * kWgStageBytes + kWgRedBytes + 2 * kWgStages * 8;
 
 enum WgEpilogue : int {
-  kWgStore = 0,       // out[z] = acc (+ bias[n]), fp32
+  kWgStore = 0,       // out[z] = acc (+ bias[n]), fp32, at the policy's rows
   kWgHidden = 1,      // hidden = bf16(keep(m,n) ? relu(acc + bias[n]) * scale : 0)
   kWgHiddenGrad = 2,  // v = acc * (hidden > 0 ? scale : 0); hidden = bf16(v);
                       // colsum[m tile][n] = sum of v over the tile's rows
@@ -203,22 +206,84 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1), "n"(kTransA), "n"(kTransB));
 }
 
-// kAK: A is K-major (else M-major); kBK: B is K-major (else N-major).
-template <bool kAK, bool kBK, int kEpi>
-__global__ void __launch_bounds__(kWgThreads, 1)
-ffn_wgmma_gemm(const __grid_constant__ CUtensorMap map_a,
-               const __grid_constant__ CUtensorMap map_b, WgArgs args) {
+// One 3-D TMA box, coordinates innermost first, completing on `bar`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// One 4-D TMA box, coordinates innermost first, completing on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Where a block's tiles lie is a policy of the block (`Tiles`): its k tiles
+// [kt0, kt1), the TMA boxes of k tile t (`load`: A's 16 KB at a, B's at b,
+// in the layout the majors below say), the first column n0, and the output
+// row of the tile's row r (`row`, -1 where nothing is stored). The dense
+// products' policy: tile (blockIdx.y, blockIdx.x) of 128 x 128 at (m0, n0)
+// of 2-D row-major operands; split z takes k tiles [z per, (z + 1) per).
+// (The encoder's conv products bring their own policies, csrc/encoder.cu.)
+template <bool kAK, bool kBK>
+struct DenseTiles {
+  int m0, n0, M, kt0, kt1;
+  __device__ __forceinline__ explicit DenseTiles(const WgArgs& args)
+      : m0(blockIdx.y * kWgBM), n0(blockIdx.x * kWgBN), M(args.M) {
+    const int k_tiles = (args.K + kWgBK - 1) / kWgBK;
+    kt0 = blockIdx.z * args.k_tiles_per_split;
+    kt1 = min(kt0 + args.k_tiles_per_split, k_tiles);
+  }
+  __device__ __forceinline__ void load(int t, uint8_t* a, uint8_t* b,
+                                       const CUtensorMap* map_a,
+                                       const CUtensorMap* map_b,
+                                       uint64_t* bar) const {
+    const int k = t * kWgBK;
+    if (kAK) {
+      tma_load(a, map_a, bar, k, m0);
+    } else {
+      tma_load(a, map_a, bar, m0, k);
+      tma_load(a + kWgOperandBytes / 2, map_a, bar, m0 + 64, k);
+    }
+    if (kBK) {
+      tma_load(b, map_b, bar, k, n0);
+    } else {
+      tma_load(b, map_b, bar, n0, k);
+      tma_load(b + kWgOperandBytes / 2, map_b, bar, n0 + 64, k);
+    }
+  }
+  __device__ __forceinline__ long row(int r) const {
+    return m0 + r < M ? m0 + r : -1;
+  }
+};
+
+// The block: kAK: A is K-major (else M-major); kBK: B is K-major (else
+// N-major); a 128-row box of a K-major operand, two 64-wide boxes of an
+// MN-major one, as `tiles` loads them.
+template <bool kAK, bool kBK, int kEpi, class Tiles>
+__device__ __forceinline__ void wgmma_gemm_block(const CUtensorMap* map_a,
+                                                 const CUtensorMap* map_b,
+                                                 const WgArgs& args,
+                                                 const Tiles& tiles) {
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* tiles = reinterpret_cast<uint8_t*>(
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  float* red = reinterpret_cast<float*>(tiles + kWgStages * kWgStageBytes);
+  float* red = reinterpret_cast<float*>(smem + kWgStages * kWgStageBytes);
   uint64_t* full = reinterpret_cast<uint64_t*>(red + 8 * kWgBN);
   uint64_t* empty = full + kWgStages;
-
-  const int m0 = blockIdx.y * kWgBM, n0 = blockIdx.x * kWgBN;
-  const int k_tiles = (args.K + kWgBK - 1) / kWgBK;
-  const int kt0 = blockIdx.z * args.k_tiles_per_split;
-  const int kt1 = min(kt0 + args.k_tiles_per_split, k_tiles);
+  const int kt0 = tiles.kt0, kt1 = tiles.kt1;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kWgStages; ++s) {
@@ -236,21 +301,8 @@ ffn_wgmma_gemm(const __grid_constant__ CUtensorMap map_a,
         const int s = it % kWgStages;
         mbar_wait(&empty[s], ((it / kWgStages) & 1) ^ 1);
         mbar_expect_tx(&full[s], kWgStageBytes);
-        uint8_t* a = tiles + s * kWgStageBytes;
-        uint8_t* b = a + kWgOperandBytes;
-        const int k = t * kWgBK;
-        if (kAK) {
-          tma_load(a, &map_a, &full[s], k, m0);
-        } else {
-          tma_load(a, &map_a, &full[s], m0, k);
-          tma_load(a + kWgOperandBytes / 2, &map_a, &full[s], m0 + 64, k);
-        }
-        if (kBK) {
-          tma_load(b, &map_b, &full[s], k, n0);
-        } else {
-          tma_load(b, &map_b, &full[s], n0, k);
-          tma_load(b + kWgOperandBytes / 2, &map_b, &full[s], n0 + 64, k);
-        }
+        uint8_t* a = smem + s * kWgStageBytes;
+        tiles.load(t, a, a + kWgOperandBytes, map_a, map_b, &full[s]);
       }
     }
     return;
@@ -264,8 +316,8 @@ ffn_wgmma_gemm(const __grid_constant__ CUtensorMap map_a,
   for (int t = kt0, it = 0; t < kt1; ++t, ++it) {
     const int s = it % kWgStages;
     mbar_wait(&full[s], (it / kWgStages) & 1);
-    const uint8_t* a = tiles + s * kWgStageBytes + wg * (kWgOperandBytes / 2);
-    const uint8_t* b = tiles + s * kWgStageBytes + kWgOperandBytes;
+    const uint8_t* a = smem + s * kWgStageBytes + wg * (kWgOperandBytes / 2);
+    const uint8_t* b = smem + s * kWgStageBytes + kWgOperandBytes;
     fence_acc(acc);
     wg_fence();
 #pragma unroll
@@ -291,12 +343,13 @@ ffn_wgmma_gemm(const __grid_constant__ CUtensorMap map_a,
   // accumulator fragment: acc[4j + 2h + e] is row r0 + 8h, column
   // c0 + 8j + e of the tile
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int row0 = m0 + 16 * warp + lane / 4;  // warp w of 8: rows 16w..
-  const int colb = n0 + 2 * (lane % 4);
-  const int M = args.M, N = args.N;
+  const int r0 = 16 * warp + lane / 4;  // warp w of 8: rows 16w..
+  const int colb = tiles.n0 + 2 * (lane % 4);
+  const int N = args.N;
 
-  if (kEpi == kWgStore) {
+  if constexpr (kEpi == kWgStore) {
     float* out = args.out + blockIdx.z * args.split_stride;
+    const long rows[2] = {tiles.row(r0), tiles.row(r0 + 8)};
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const int col = colb + 8 * j;
@@ -305,13 +358,13 @@ ffn_wgmma_gemm(const __grid_constant__ CUtensorMap map_a,
       if (args.bias) { b0 = args.bias[col]; b1 = args.bias[col + 1]; }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int row = row0 + 8 * h;
-        if (row < M)
-          *reinterpret_cast<float2*>(out + row * args.ldo + col) =
+        if (rows[h] >= 0)
+          *reinterpret_cast<float2*>(out + rows[h] * args.ldo + col) =
               make_float2(acc[4 * j + 2 * h] + b0, acc[4 * j + 2 * h + 1] + b1);
       }
     }
-  } else if (kEpi == kWgHidden) {
+  } else if constexpr (kEpi == kWgHidden) {
+    const int row0 = tiles.m0 + r0, M = args.M;
     const uint32_t seed = args.threshold ? *args.seed : 0u;
     uint32_t rbits[2];
 #pragma unroll
@@ -340,6 +393,7 @@ ffn_wgmma_gemm(const __grid_constant__ CUtensorMap map_a,
     }
   } else {  // kWgHiddenGrad: the stored hidden is > 0 exactly where it was
             // kept and its pre-activation was positive
+    const int row0 = tiles.m0 + r0, M = args.M;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const int col = colb + 8 * j;
@@ -372,13 +426,22 @@ ffn_wgmma_gemm(const __grid_constant__ CUtensorMap map_a,
       }
     }
     asm volatile("bar.sync 1, %0;" ::"n"(kWgConsumers) : "memory");
-    if (threadIdx.x < kWgBN && n0 + threadIdx.x < N) {
+    if (threadIdx.x < kWgBN && tiles.n0 + threadIdx.x < N) {
       float s = 0.f;
 #pragma unroll
       for (int w = 0; w < 8; ++w) s += red[w * kWgBN + threadIdx.x];
-      args.colsum[blockIdx.y * static_cast<long>(N) + n0 + threadIdx.x] = s;
+      args.colsum[blockIdx.y * static_cast<long>(N) + tiles.n0 +
+                  threadIdx.x] = s;
     }
   }
+}
+
+template <bool kAK, bool kBK, int kEpi>
+__global__ void __launch_bounds__(kWgThreads, 1)
+ffn_wgmma_gemm(const __grid_constant__ CUtensorMap map_a,
+               const __grid_constant__ CUtensorMap map_b, WgArgs args) {
+  wgmma_gemm_block<kAK, kBK, kEpi>(&map_a, &map_b, args,
+                                   DenseTiles<kAK, kBK>(args));
 }
 
 // cuTensorMapEncodeTiled from the driver, found at run time so that the
@@ -533,18 +596,6 @@ struct TfArgs {
 __device__ __forceinline__ void tf32_split(float x, float& big, float& small) {
   big = __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
   small = x - big;
-}
-
-// One 3-D TMA box, coordinates innermost first, completing on `bar`.
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
 }
 
 // d += A (64 x 8) * B (8 x 128) in TF32, both K-major in shared memory.

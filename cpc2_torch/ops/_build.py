@@ -15,6 +15,7 @@ its path went through.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -61,7 +62,7 @@ _SIGNATURES = {
     "cpc2_dtw": [_P] * 4 + [_I] * 3 + [_P],
     "cpc2_attention_fwd": [_P] * 6 + [_I] * 3 + [_U, _F, _P],
     "cpc2_attention_bwd": [_P] * 11 + [_I] * 3 + [_U, _F, _P],
-    "cpc2_encoder_fwd": [_P] * 8 + [_I] * 3 + [_P],
+    "cpc2_encoder_fwd": [_P] * 9 + [_I] * 3 + [_P],
     "cpc2_encoder_bwd": [_P] * 14 + [_L] + [_I] * 3 + [_P],
 }
 
@@ -137,6 +138,13 @@ def library() -> ctypes.CDLL:
             fn.restype = _RESTYPES.get(name, ctypes.c_int)
         _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The multiprocessors of `device`, which the kernels' plans size their
+    grids and splits by."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:

@@ -8,15 +8,17 @@ layers 1-4 stored as bf16), sums and the ChannelNorm statistics are fp32
 backward, dy is fp32 for the bias gradient and rounded to bf16 for the
 weight gradient and the lower layer's gradient.
 
-The kernels (`csrc/encoder.cu`) run one launch per layer: an implicit-GEMM
-conv whose blocks own whole rows of C channels, with bias, ChannelNorm,
-affine and ReLU in its epilogue; the backward turns each layer's gradient
-into dy with a norm kernel, forms dW over all rows in split partials summed
-in a fixed order, and the lower layer's gradient with the same implicit
-GEMM, once per phase of the stride. With gradients on, the forward keeps
-the bf16 activations of layers 1-4 and the fp32 pre-norm outputs of all
-five layers (48 MB and 98 MB at the recipe's 16 x 20,480 samples, C = 256)
-so that the backward does not recompute the forward. The work is bound by
+The kernels (`csrc/encoder.cu`): layers 2-5's products (the forward conv,
+dW and the lower layer's gradient) are bf16 `wgmma` implicit GEMMs on the
+TMA block of `csrc/hopper_gemm.cuh`, each k tile one box of a tap, cut
+from a 4-D view of the layer's input (`encoder_plan` holds the boxes, the
+tiles, the splits and the workspace); a warp-per-row kernel applies
+ChannelNorm + affine + ReLU after each forward product, and one turns each
+layer's gradient into dy in the backward. Layer 1 (one input channel, ten
+taps) runs on SIMT kernels. With gradients on, the forward keeps the bf16
+activations of layers 1-4 and the fp32 pre-norm outputs of all five
+layers (48 MB and 98 MB at the recipe's 16 x 20,480 samples, C = 256) so
+that the backward does not recompute the forward. The work is bound by
 operations: about 25 GFLOP forward and 50 GFLOP backward at the recipe.
 
 Weight packing, and unpacking the weight gradients, are plain PyTorch
@@ -31,6 +33,7 @@ JAX package.
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 from typing import Sequence
 
 import torch
@@ -45,11 +48,146 @@ Tensor = torch.Tensor
 CONV_STACK = ((10, 5, 3), (8, 4, 2), (4, 2, 1), (4, 2, 1), (4, 2, 1))
 DOWNSAMPLING = 160
 EPS = 1e-5
-# The kernels' widths: a lane holds C / 32 channels of a row, up to 8.
+# The kernels' widths: a lane of the warp-per-row kernels holds C / 32
+# channels of a row, up to 8.
 CHANNELS = (32, 64, 128, 256)
-# Rows of a norm-backward block and the dW partials' floor (csrc/encoder.cu).
+# The products' tiles (csrc/hopper_gemm.cuh): 128 x 128 outputs, k tiles of
+# one box of 64 channels; dW's k tiles are 64 rows of t.
+TILE = 128
+BOX = 64
+WGRAD_ROWS = 64
+# Layer 1's SIMT kernels (csrc/encoder.cu): rows of a norm-backward block,
+# and the dW tile, k slice and blocks aimed for.
 _NORM_ROWS = 64
-_DW_PARTIAL = 512 * 64 * 64
+_W_TILE, _W_SLICE, _W_BLOCKS = 64, 16, 512
+# streaming multiprocessors of an H100 SXM, the plan's default
+H100_SMS = 132
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclass(frozen=True)
+class Product:
+    """One product's launch: grid (x, z): x counts (sample, row tile,
+    column tile) with the column fastest, or for dW (row tile, column
+    tile); z counts the phases of the lower layer's gradient, or dW's
+    splits. `row_tiles` per sample: of 128 rows, or dW's k tiles of 64
+    rows. `k_tiles` of a tile (dW: in all), `per_split` of a dW split."""
+    grid: tuple
+    row_tiles: int
+    k_tiles: int
+    per_split: int
+
+
+@dataclass(frozen=True)
+class LayerPlan:
+    """Layer 2-5's products. `boxes[j]` = (phase, row offset) of tap j's box
+    in the (C, s, T_out, N) view of the input: input row s t - pad + j is
+    phase (j - pad) mod s of view row t + floor((j - pad) / s). `shifts[ph]`
+    = 1 where phase ph of the lower layer's gradient starts at dy row a = 1
+    (ph < pad), so that its T_out rows u = s (t + shift) + ph - pad all lie
+    in [0, T_in). Element offsets: `in_off` of the input in the bf16
+    activations (layer 1-4 outputs), `pre_off` of the pre-norm output,
+    `w_off` of the weights in wpack, `wt_off` in wtpack."""
+    t_in: int
+    t_out: int
+    taps: int
+    stride: int
+    pad: int
+    boxes: tuple
+    shifts: tuple
+    fwd: Product
+    wgrad: Product
+    dgrad: Product
+    in_off: int
+    pre_off: int
+    w_off: int
+    wt_off: int
+
+
+@dataclass(frozen=True)
+class EncoderPlan:
+    """`tile_k` k tiles a tap (a tap's channels are a multiple of 64, or
+    one box zero-filled past C), `col_tiles` 128-wide column tiles; layer 1's
+    dW in `w1_splits` splits of `w1_rows` rows; the backward's scratch
+    `part_floats` (the kernels refuse another count) and the forward's
+    `scratch_floats` for the pre-norm outputs when no gradient is kept."""
+    lengths: tuple
+    tile_k: int
+    col_tiles: int
+    layers: tuple
+    w1_rows: int
+    w1_splits: int
+    part_floats: int
+    scratch_floats: int
+
+
+def encoder_plan(n: int, t: int, c: int, sms: int = H100_SMS) -> EncoderPlan:
+    """The kernels' plan for x (n, t) at width c on a card of `sms`
+    multiprocessors: what `csrc/encoder.cu:Plan`, `taps_geom` and
+    `wgrad_geom` compute. Raises where T is not a positive multiple of 160,
+    C not one of CHANNELS, or a tensor's offset not 16-byte aligned (TMA's
+    base alignment)."""
+    if t <= 0 or t % DOWNSAMPLING or c not in CHANNELS or n < 0:
+        raise ValueError(f"encoder_plan: N {n}, T {t}, C {c}: T must be a "
+                         f"positive multiple of {DOWNSAMPLING} and C one of "
+                         f"{CHANNELS}")
+    lengths = _lengths(t)
+    tile_k = max(1, c // BOX)
+    col_tiles = _cdiv(c, TILE)
+    act_offs, acc = [], 0
+    for length in lengths:
+        act_offs.append(acc)
+        acc += n * length * c
+    w_off = CONV_STACK[0][0] * c
+    wt_off = 0
+    part = 0
+    layers = []
+    for layer in range(1, len(CONV_STACK)):
+        k, s, p = CONV_STACK[layer]
+        t_in, t_out = lengths[layer - 1], lengths[layer]
+        row_tiles = _cdiv(t_out, TILE)
+        fwd = Product((n * row_tiles * col_tiles, 1), row_tiles,
+                      k * tile_k, k * tile_k)
+        dgrad = Product((n * row_tiles * col_tiles, s), row_tiles,
+                        2 * tile_k, 2 * tile_k)
+        w_tiles = _cdiv(t_out, WGRAD_ROWS)
+        k_tiles = n * w_tiles
+        m_tiles = _cdiv(k * tile_k * BOX, TILE)
+        if n:
+            splits = min(max(1, sms // (m_tiles * col_tiles)), k_tiles)
+            per = _cdiv(k_tiles, splits)
+            splits = _cdiv(k_tiles, per)
+            part = max(part, splits * k * c * c)
+        else:
+            per = splits = 0
+        wgrad = Product((m_tiles * col_tiles, splits), w_tiles, k_tiles, per)
+        boxes = tuple(((j - p) % s, (j - p) // s) for j in range(k))
+        shifts = tuple(int(ph < p) for ph in range(s))
+        layers.append(LayerPlan(t_in, t_out, k, s, p, boxes, shifts, fwd,
+                                wgrad, dgrad, act_offs[layer - 1],
+                                act_offs[layer], w_off, wt_off))
+        w_off += k * c * c
+        wt_off += s * 2 * c * c
+    for lp in layers:
+        for off, size in ((lp.in_off, 2), (lp.pre_off, 4), (lp.w_off, 2),
+                          (lp.wt_off, 2)):
+            if off * size % 16:
+                raise ValueError(f"encoder_plan: an offset of {off} "
+                                 f"elements is not 16-byte aligned")
+    w1_rows = w1_splits = 0
+    if n:
+        m1 = n * lengths[0]
+        tiles1 = _cdiv(c, _W_TILE) * _cdiv(CONV_STACK[0][0], _W_TILE)
+        w1_splits = max(1, min(_W_BLOCKS // tiles1, _cdiv(m1, 256)))
+        w1_rows = _cdiv(_cdiv(m1, w1_splits), _W_SLICE) * _W_SLICE
+        w1_splits = _cdiv(m1, w1_rows)
+        part = max(part, w1_splits * CONV_STACK[0][0] * c,
+                   _cdiv(m1, _NORM_ROWS) * 3 * c)
+    return EncoderPlan(tuple(lengths), tile_k, col_tiles, tuple(layers),
+                       w1_rows, w1_splits, part, n * lengths[1] * c)
 
 
 def use_fused_encoder(t: int, c: int, conv_stack=CONV_STACK,
@@ -206,11 +344,15 @@ class _FusedEncoder(torch.autograd.Function):
         keep = any(ctx.needs_input_grad)
         pre = (torch.empty(n * c * sum(lengths), device=device) if keep
                else None)
+        scratch = (None if keep else torch.empty(
+            encoder_plan(n, t, c, _build.sm_count(device)).scratch_floats,
+            device=device))
         out = torch.empty((n, lengths[-1], c), device=device)
         _build.launch("encoder_fwd", "cpc2_encoder_fwd", device,
                       x.data_ptr(), wpack.data_ptr(), bias.data_ptr(),
                       nw.data_ptr(), nb.data_ptr(), acts.data_ptr(),
-                      pre.data_ptr() if keep else None, out.data_ptr(),
+                      pre.data_ptr() if keep else None,
+                      None if keep else scratch.data_ptr(), out.data_ptr(),
                       n, t, c)
         if keep:
             ctx.save_for_backward(x, wpack, nw, nb, acts, pre,
@@ -232,8 +374,7 @@ class _FusedEncoder(torch.autograd.Function):
         dx = torch.empty_like(x)
         dh = torch.empty(m1 * c, device=device)
         dy = torch.empty(m1 * c, device=device, dtype=torch.bfloat16)
-        part_len = max(_DW_PARTIAL, 8 * c * c,
-                       -(-m1 // _NORM_ROWS) * 3 * c)
+        part_len = encoder_plan(n, t, c, _build.sm_count(device)).part_floats
         part = torch.empty(part_len, device=device)
         _build.launch("encoder_bwd", "cpc2_encoder_bwd", device,
                       x.data_ptr(), gz.data_ptr(), wpack.data_ptr(),

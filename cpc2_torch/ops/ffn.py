@@ -216,11 +216,6 @@ def ffn_fp32_plan(m: int, din: int, dff: int, dout: int,
                    dx, fwd, bwd)
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _check(x, w1, b1, w2, b2, seed, rate, bf16) -> torch.device:
     device = _build.check_cuda("fused_ffn", x, w1, b1, w2, b2, seed)
     _build.check_f32("fused_ffn", x, w1, b1, w2, b2)
@@ -279,7 +274,7 @@ class _FusedFFN(torch.autograd.Function):
                           scratch.data_ptr(), y.data_ptr(), m, din, dff,
                           dout, *drop)
         else:
-            plan = ffn_fp32_plan(m, din, dff, dout, _sms(device))
+            plan = ffn_fp32_plan(m, din, dff, dout, _build.sm_count(device))
             scratch = torch.empty(plan.fwd_bytes, device=device,
                                   dtype=torch.uint8)
             _build.launch("ffn_fwd_fp32", "cpc2_ffn_fwd", device, *ptrs,
@@ -318,7 +313,7 @@ class _FusedFFN(torch.autograd.Function):
                           scratch.data_ptr(), *grads, m, din, dff, dout,
                           *drop)
         else:
-            plan = ffn_fp32_plan(m, din, dff, dout, _sms(device))
+            plan = ffn_fp32_plan(m, din, dff, dout, _build.sm_count(device))
             scratch = torch.empty(plan.bwd_bytes, device=device,
                                   dtype=torch.uint8)
             _build.launch("ffn_bwd_fp32", "cpc2_ffn_bwd", device, *ptrs,

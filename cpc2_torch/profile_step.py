@@ -16,8 +16,9 @@ warm-up steps:
 * profiles the same number of steps with `torch.profiler` and prints the
   device time per step, its share of the wall time, the share of the
   port's hand-written kernels, of the FFN's kernels (the bf16 route's, or
-  under `--precision fp32` the fp32 route's), of the LSTM's kernels and of
-  InfoNCE's, the device kernel launches per step, the
+  under `--precision fp32` the fp32 route's), of the LSTM's kernels, of
+  InfoNCE's and of the opt-in encoder's (by part: layers 2-5's products,
+  norms, sums, layer 1), the device kernel launches per step, the
   launches per step of each of the port's kernel wrappers, and the kernels
   that take the most device time.
 
@@ -52,10 +53,42 @@ FFN_FP32_KERNELS = ("ffn_tf32x3_gemm", "ffn_split_tf32", "ffn_sum_partials")
 LSTM_KERNELS = ("lstm_fwd_resident", "lstm_bwd_resident", "lstm_fwd_step",
                 "lstm_bwd_step", "gemm_kernel", "colsum_kernel")
 INFONCE_KERNELS = ("gathered_fwd", "gathered_bwd", "dz_sum")
+# The opt-in encoder's kernels (`csrc/encoder.cu`): layers 2-5's products
+# (`conv_wgmma_gemm`), the norms, the sums of partials and layer 1's SIMT
+# kernels (`conv_gemm`, `conv_wgrad`, `input_taps`, `input_overlap`).
+ENCODER_KERNELS = ("conv_wgmma_gemm", "norm_fwd", "norm_bwd", "sum_rows",
+                   "conv_gemm", "conv_wgrad", "input_taps", "input_overlap")
 PORT_KERNELS = FFN_KERNELS + FFN_FP32_KERNELS + LSTM_KERNELS + (
     INFONCE_KERNELS) + ("attention_fwd", "attention_bwd",
-    "relpos_grad_sum", "conv_gemm", "norm_bwd", "conv_wgrad", "sum_rows",
-    "input_taps", "input_overlap")
+    "relpos_grad_sum") + ENCODER_KERNELS
+
+
+def encoder_parts(split: dict) -> dict:
+    """Device ms by kernel name (`split`) summed by `encoder_part`, the
+    kernels of no part under `other`."""
+    out = {}
+    for name, ms in split.items():
+        part = encoder_part(name) or "other"
+        out[part] = out.get(part, 0.0) + ms
+    return out
+
+
+def encoder_part(name: str):
+    """Which part of the encoder a kernel of `csrc/encoder.cu` is: layers
+    2-5's `products`, the `norms`, the `sums` of partials or `layer 1`; None
+    for any other kernel. The SIMT products that layers 2-5 ran on before
+    (`conv_gemm` and `conv_wgrad` on bf16 inputs, with the forward's norm
+    fused) count as products."""
+    if "conv_wgmma_gemm" in name or any(
+            f"{k}<__nv_bfloat16" in name for k in ("conv_gemm", "conv_wgrad")):
+        return "products"
+    if "norm_fwd" in name or "norm_bwd" in name:
+        return "norms"
+    if "sum_rows" in name:
+        return "sums"
+    if any(k in name for k in ENCODER_KERNELS):
+        return "layer 1"
+    return None
 
 
 def device_us(event) -> float:
@@ -154,6 +187,9 @@ def main(argv=None) -> dict:
         / 1000.0 / opts.steps
         for names in (PORT_KERNELS, FFN_FP32_KERNELS if ffn_route == "fp32"
                       else FFN_KERNELS, LSTM_KERNELS, INFONCE_KERNELS))
+    encoder_ms = encoder_parts(
+        {e.key: device_us(e) / 1000.0 / opts.steps for e in kernels})
+    encoder_ms.pop("other", None)
     device_launches = sum(e.count for e in kernels) / opts.steps
     median = statistics.median(wall_ms)
     print(f"card: {torch.cuda.get_device_name(0)}")
@@ -169,8 +205,10 @@ def main(argv=None) -> dict:
           f"unprofiled median), of which the port's kernels "
           f"{port_ms:.3f} ms, the FFN's {ffn_route} kernels {ffn_ms:.3f} ms, "
           f"the LSTM's {lstm_ms:.3f} ms (its walks, dW_hh and db_hh sums), "
-          f"InfoNCE's {infonce_ms:.3f} ms; {device_launches:g} device "
-          "kernel launches per step")
+          f"InfoNCE's {infonce_ms:.3f} ms, the encoder's "
+          f"{sum(encoder_ms.values()):.3f} ms ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(encoder_ms.items()))
+          + f"); {device_launches:g} device kernel launches per step")
     print("the port's kernel wrappers, launches/step: " + ", ".join(
         f"{k} {n:g}" for k, n in launches.items()))
     print(f"{'device ms/step':>15} {'calls/step':>11}  kernel")
@@ -180,6 +218,7 @@ def main(argv=None) -> dict:
     return {"median_step_ms": median, "device_ms": device_ms,
             "port_kernel_ms": port_ms, f"ffn_{ffn_route}_kernel_ms": ffn_ms,
             "lstm_kernel_ms": lstm_ms, "infonce_kernel_ms": infonce_ms,
+            "encoder_kernel_ms": encoder_ms,
             "device_launches_per_step": device_launches,
             "profiled_step_ms": profiled_ms,
             "launches_per_step": launches,
