@@ -8,8 +8,9 @@ Phases, each of which fails the run with a nonzero exit:
 2. build the CUDA kernels from `cpc2_torch/csrc` (`cpc2_torch/ops/_build.py`)
    and check with `cuobjdump --dump-sass` that the FFN's GEMM kernels and
    the encoder's conv products are `wgmma` products fed by TMA (HGMMA and
-   UTMALDG in their SASS; the fp32 route's HGMMA in TF32; the fp32 FFN's
-   and the encoder's with no spills);
+   UTMALDG in their SASS; the fp32 route's HGMMA in TF32), that the
+   attention kernels' products are HMMA in TF32, and that the fp32 FFN's,
+   the encoder's and the attention's kernels spill nothing;
 3. hold each kernel against its plain PyTorch version at the recipe's
    shapes (B = 8, T = 128, H = 256, K = 12, W = 116, N = 128, D = 256,
    P = 1,024, FFN 256 -> 2048 -> 256 on 928 rows, attention 64 units of
@@ -17,7 +18,10 @@ Phases, each of which fails the run with a nonzero exit:
    backward, the FFN (both routes, and two ragged shapes; the fp32 route
    also at widths that are not multiples of 4 and at one row, its
    backward bit-identical across two calls and an empty batch launching
-   nothing) and the attention at dropout 0 and 0.1 with the same seed,
+   nothing) and the attention at dropout 0 and 0.1 with the same seed
+   (also at four ragged shapes and at four widths taken in chunks of dk,
+   its backward bit-identical across two calls and an empty batch
+   launching nothing),
    the FFN's bf16 route and the encoder in their bf16 working type (the
    encoder also at N = 3, T = 1,120 with C = 32 and 128, held against a
    float64 reference that takes its own bf16 and ReLU decisions, and its
@@ -32,9 +36,9 @@ Phases, each of which fails the run with a nonzero exit:
    and, where one PyTorch call computes the same function, that call (for
    the FFN's two routes, InfoNCE, the attention and the encoder, which no
    one call computes, the same work through library calls as a yardstick;
-   the FFN, InfoNCE, the encoder and the LSTM by device time, the LSTM's
-   backward split by kernel and several of its cluster and batch tiles
-   side by side);
+   the FFN, InfoNCE, the attention, the encoder and the LSTM by device
+   time, the LSTM's backward split by kernel and several of its cluster
+   and batch tiles side by side);
    InfoNCE also at a ragged shape, a 4,096-row pool, N = 10 and 384, K = 40
    with a ragged D above a stage, a large D, one (b, w) and an empty
    shape, its backward bit-identical across two calls;
@@ -117,42 +121,17 @@ def card_line() -> str:
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean ms per call of `fn` on the card, by CUDA events over `iters`
-    calls after `warmup` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    calls after `warmup` calls (`cpc2_torch.time_kernels.event_ms`)."""
+    from cpc2_torch.time_kernels import event_ms
+    return event_ms(fn, iters, warmup)
 
 
 def device_split(fn, iters: int = 20, warmup: int = 3) -> dict:
     """Device ms per call of `fn` by kernel name, by `torch.profiler`, over
-    `iters` calls after `warmup` calls. Every call launches at least one
-    kernel, so a profile that holds fewer kernels than half the calls lost
-    events (one held 3 of 20): it is taken again, at most twice. (Of the
-    LSTM's cluster kernels it holds 19 of 20 launches in most profiles.)"""
-    from cpc2_torch.profile_step import device_kernels, device_us
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    for _attempt in range(3):
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        kernels = device_kernels(prof)
-        if 2 * sum(e.count for e in kernels) >= iters:
-            return {e.key: device_us(e) / 1e3 / iters for e in kernels}
-    raise AssertionError(f"the profiler caught fewer device kernels than "
-                         f"half of {iters} calls, three times")
+    `iters` calls after `warmup` calls, a lossy profile taken again
+    (`cpc2_torch.time_kernels.device_split`)."""
+    from cpc2_torch.time_kernels import device_split as split
+    return split(fn, iters, warmup)
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -228,20 +207,29 @@ def check_sass(build) -> str:
     """The GEMM kernels must be `wgmma` products fed by TMA: the bf16 FFN
     route's and the encoder's conv products' SASS holds HGMMA and UTMALDG,
     the fp32 FFN route's HGMMA in TF32 (an HGMMA line naming TF32) and
-    UTMALDG, and the fp32 FFN's and the encoder's spill nothing. Returns a
-    summary with each one's registers and spills from the build log."""
+    UTMALDG; the attention kernels' `mma.sync` products are HMMA in TF32 (an
+    HMMA line naming TF32); the fp32 FFN's, the encoder's and the
+    attention's kernels spill nothing. Returns a summary with each one's
+    registers and spills from the build log."""
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "--dump-sass", str(build.LIBRARY)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
     found = {"ffn_wgmma_gemm": [], "ffn_tf32x3_gemm": [],
-             "conv_wgmma_gemm": []}
+             "conv_wgmma_gemm": [], "attention_fwd_mma": [],
+             "attention_bwd_mma": [], "attention_fwd_wide": [],
+             "attention_bwd_wide": []}
     for fn in sass.split("Function : ")[1:]:
         name = fn.split(None, 1)[0]
         kind = next((k for k in found if k in name), None)
         if kind is None:
             continue
-        missing = [op for op in ("HGMMA", "UTMALDG") if op not in fn]
+        if kind.startswith("attention"):
+            missing = [] if any("HMMA" in line and "TF32" in line
+                                for line in fn.splitlines()) else [
+                                    "HMMA ... TF32"]
+        else:
+            missing = [op for op in ("HGMMA", "UTMALDG") if op not in fn]
         if kind == "ffn_tf32x3_gemm" and not any(
                 "HGMMA" in line and "TF32" in line
                 for line in fn.splitlines()):
@@ -250,20 +238,25 @@ def check_sass(build) -> str:
             raise AssertionError(f"{name}: no {missing} in its SASS")
         found[kind].append(name)
     for kind, least in (("ffn_wgmma_gemm", 5), ("ffn_tf32x3_gemm", 3),
-                        ("conv_wgmma_gemm", 2)):
+                        ("conv_wgmma_gemm", 2), ("attention_fwd_mma", 3),
+                        ("attention_bwd_mma", 3), ("attention_fwd_wide", 1),
+                        ("attention_bwd_wide", 1)):
         if len(found[kind]) < least:
             raise AssertionError(f"only {len(found[kind])} {kind} kernels "
                                  f"in the SASS: {found[kind]}")
     usage = {kind: ptxas_usage(build, kind) for kind in found}
-    spilled = [u for kind in ("ffn_tf32x3_gemm", "conv_wgmma_gemm")
+    attention = [k for k in found if k.startswith("attention")]
+    spilled = [u for kind in ["ffn_tf32x3_gemm", "conv_wgmma_gemm"] + attention
                for u in usage[kind] if not u.endswith(" 0 spill bytes")]
     if spilled:
-        raise AssertionError(f"GEMM kernels spill: {spilled}")
+        raise AssertionError(f"kernels spill: {spilled}")
     return (f"{len(found['ffn_wgmma_gemm'])} bf16 FFN GEMM kernels, each "
             f"with HGMMA and UTMALDG; {len(found['ffn_tf32x3_gemm'])} fp32 "
             f"(3xTF32) ones, each with HGMMA in TF32 and UTMALDG; "
             f"{len(found['conv_wgmma_gemm'])} encoder conv products, each "
-            f"with HGMMA and UTMALDG; ptxas: "
+            f"with HGMMA and UTMALDG; "
+            f"{sum(len(found[k]) for k in attention)} attention kernels, "
+            f"each with HMMA in TF32; ptxas: "
             + " | ".join(u for lines in usage.values() for u in lines))
 
 
@@ -914,47 +907,105 @@ def check_dtw(dev, gen):
                          20 * cells)]
 
 
-def check_attention(dev, gen):
-    """The attention kernel against its plain version at one head call of
-    the recipe (64 units of 116 x 32), at dropout 0 and 0.1 with one seed;
-    the hash mask keeps about 0.9 of the causal probabilities. Timed at
-    0.1, with the module's shift-trick path (the port's default route for
-    the same work) as the yardstick. Its bound counts the causal pairs:
-    q.k, the relative term and p.v forward (6 dk FLOPs a pair), 16 dk
-    backward."""
-    from cpc2_torch.models.transformer import ScaledDotProductAttention
-    from cpc2_torch.ops.attention import attention_plain, \
-        fused_relpos_attention
-    from cpc2_torch.ops.ffn import keep_mask
-    n, s, dk = 64, 116, 32
-    inputs = [torch.randn(n, s, dk, device=dev, generator=gen)
-              for _ in range(3)]
-    inputs.append(0.2 * torch.randn(dk, s, device=dev, generator=gen))
-    seed = torch.tensor([12345], device=dev, dtype=torch.int32)
-    cot = [torch.randn(n, s, dk, device=dev, generator=gen)]
-    errs = []
-    for rate in (0.0, 0.1):
-        def kern(*a):
-            return fused_relpos_attention(*a, seed, rate)
+# The attention's shapes beside the recipe's (N, S, dk) = (64, 116, 32): a
+# ragged S at dk = 8, the gate's limit at dk = 32 (a 3-CTA cluster), one
+# step, and dk = 4 (padded to the tensor cores' k = 8 in the kernels); then
+# widths that a block does not hold whole, which the wide kernels take in
+# chunks of dk: 2 chunks at 1 and 3 row tiles, 9 at one step with a ragged
+# dk, and 2 at the gate's widest 4-tile unit with a ragged dk.
+ATTENTION_SHAPES = ((64, 116, 32), (5, 37, 8), (3, 134, 32), (2, 1, 32),
+                    (4, 64, 4), (3, 8, 256), (2, 43, 248), (1, 1, 1999),
+                    (2, 58, 177))
 
-        def plain(*a):
-            return attention_plain(*a, seed, rate)
-        out_k, grad_k, bwd_k = grads_of(kern, inputs, cot)
-        out_p, grad_p, bwd_p = grads_of(plain, inputs, cot)
-        errs.append((compare(f"attention forward rate {rate}", out_k, out_p),
-                     compare(f"attention backward rate {rate}", grad_k,
-                             grad_p)))
+
+def check_attention(dev, gen):
+    """The attention kernels against their plain version at ATTENTION_SHAPES
+    (the recipe first: one head call, 64 units of 116 x 32, drawn from
+    `gen`; the others from a generator of their own, so that the later
+    checks draw what they drew before these shapes came), forward and
+    all four gradients, at dropout 0 and 0.1 with one seed, the backward
+    bit-identical across two calls at each, and N = 0 launching nothing;
+    the hash mask keeps about 0.9 of the causal probabilities. At the
+    recipe and 0.1 they are timed by device time (events beside), with the
+    module's shift-trick path (the port's default route for the same work)
+    as the yardstick. The bound counts the causal pairs: q.k, the relative
+    term and p.v forward (6 dk FLOPs a pair), 16 dk backward, at the 3xTF32
+    rate, or the bytes, the larger. Prints each shape's plan and the
+    kernels' registers on `[attention]` lines."""
+    from cpc2_torch.models.transformer import ScaledDotProductAttention
+    from cpc2_torch.ops import _build
+    from cpc2_torch.ops.attention import (attention_plain, attention_plan,
+                                          fused_relpos_attention)
+    from cpc2_torch.ops.ffn import keep_mask
+    seed = torch.tensor([12345], device=dev, dtype=torch.int32)
+    own = torch.Generator(device=dev)
+    own.manual_seed(2)
+    err_f = err_b = 0.0
+    for i, (n, s, dk) in enumerate(ATTENTION_SHAPES):
+        plan = attention_plan(n, s, dk)
+        log(f"[attention] plan at {(n, s, dk)}: {plan.tiles} row tiles, "
+            f"dk in {plan.chunks} chunk(s) of {plan.dc}, "
+            f"forward {plan.fwd_ctas} CTAs x {plan.fwd_warps} warps a unit, "
+            f"{plan.fwd_smem} B; backward clusters of {plan.bwd_ctas} x "
+            f"{plan.bwd_warps} warps, {plan.bwd_smem} B")
+        draw = own if i else gen
+        inputs = [torch.randn(n, s, dk, device=dev, generator=draw)
+                  for _ in range(3)]
+        inputs.append(0.2 * torch.randn(dk, s, device=dev, generator=draw))
+        cot = [torch.randn(n, s, dk, device=dev, generator=draw)]
+        if i == 0:
+            recipe = inputs, cot
+        for rate in (0.0, 0.1):
+            def kern(*a, rate=rate):
+                return fused_relpos_attention(*a, seed, rate)
+
+            def plain(*a, rate=rate):
+                return attention_plain(*a, seed, rate)
+            out_k, grad_k, bwd_k = grads_of(kern, inputs, cot)
+            out_p, grad_p, bwd_p = grads_of(plain, inputs, cot)
+            what = f"attention {(n, s, dk)} rate {rate}"
+            err_f = max(err_f, compare(what + " forward", out_k, out_p))
+            err_b = max(err_b, compare(what + " backward", grad_k, grad_p))
+            again = bwd_k()
+            if not all(torch.equal(a, g) for a, g in zip(again, grad_k)):
+                raise AssertionError(what + " backward: two calls differ")
+    n, s, dk = ATTENTION_SHAPES[0]
     causal = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
     keep = keep_mask(seed, n * s, s, 0.1).reshape(n, s, s)
     kept = keep[:, causal].float().mean().item()
     if abs(kept - 0.9) > 0.005:
         raise AssertionError(f"attention dropout kept {kept:.4f} of the "
                              f"probabilities")
+    # an empty batch: the right shapes, zero dKrelpos, no launch
+    before = dict(_build.LAUNCHES)
+    empty = [torch.randn(0, s, dk, device=dev) for _ in range(3)] + [
+        torch.randn(dk, s, device=dev)]
+    out_e, grad_e, _ = grads_of(lambda *a: fused_relpos_attention(*a, seed),
+                                empty, [torch.ones(0, s, dk, device=dev)])
+    if out_e[0].shape != (0, s, dk) or not torch.equal(
+            grad_e[3], torch.zeros_like(empty[3])) \
+            or dict(_build.LAUNCHES) != before:
+        raise AssertionError("attention at N = 0: wrong shapes, a nonzero "
+                             "dKrelpos or a launch")
+
+    # timed at the recipe, rate 0.1
+    inputs, cot = recipe
+
+    def kern(*a):
+        return fused_relpos_attention(*a, seed, 0.1)
+
+    def plain(*a):
+        return attention_plain(*a, seed, 0.1)
+    out_k, grad_k, bwd_k = grads_of(kern, inputs, cot)
+    _, _, bwd_p = grads_of(plain, inputs, cot)
     with torch.no_grad():
-        fwd_ms = cuda_ms(lambda: kern(*inputs))
-        plain_fwd_ms = cuda_ms(lambda: plain(*inputs))
-    bwd_ms = cuda_ms(bwd_k)
-    plain_bwd_ms = cuda_ms(bwd_p)
+        fwd_ms = device_ms(lambda: kern(*inputs))
+        plain_fwd_ms = device_ms(lambda: plain(*inputs))
+        events = {"attention_fwd": cuda_ms(lambda: kern(*inputs))}
+    bwd_split = device_split(bwd_k)
+    bwd_ms = sum(bwd_split.values())
+    plain_bwd_ms = device_ms(bwd_p)
+    events["attention_bwd"] = cuda_ms(bwd_k)
 
     module = ScaledDotProductAttention(s, dk, 0.1, relpos=True).to(dev)
     with torch.no_grad():
@@ -962,22 +1013,30 @@ def check_attention(dev, gen):
     qkv = [t.detach().requires_grad_(True) for t in inputs[:3]]
     out_m = module(*qkv, gen)
     with torch.no_grad():
-        shift_fwd_ms = cuda_ms(lambda: module(*inputs[:3], gen))
-    shift_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        shift_fwd_ms = device_ms(lambda: module(*inputs[:3], gen))
+    shift_bwd_ms = device_ms(lambda: torch.autograd.grad(
         out_m, qkv + [module.Krelpos], cot, retain_graph=True))
+    log("[attention] at the recipe, backward device ms by kernel "
+        + ", ".join(f"{k[:40]} {v:.4f}" for k, v in bwd_split.items())
+        + "; ptxas: " + " | ".join(
+            u for kind in ("attention_fwd_mma", "attention_bwd_mma",
+                           "attention_fwd_wide", "attention_bwd_wide",
+                           "relpos_grad_sum")
+            for u in ptxas_usage(_build, kind)))
 
     pairs = n * s * (s + 1) // 2
     src = "cpc2_torch/csrc/attention.cu"
     rep = "cpc2_tpu/ops/attention_pallas.py"
     yard = {"attention_fwd": shift_fwd_ms, "attention_bwd": shift_bwd_ms}
     return [
-        kernel_entry("attention_fwd", src, rep + ":159",
-                     max(e[0] for e in errs), fwd_ms, plain_fwd_ms, None,
-                     nbytes(*inputs, seed) + nbytes(*out_k), 6 * dk * pairs),
-        kernel_entry("attention_bwd", src, rep + ":179",
-                     max(e[1] for e in errs), bwd_ms, plain_bwd_ms, None,
+        kernel_entry("attention_fwd", src, rep + ":159", err_f, fwd_ms,
+                     plain_fwd_ms, None,
+                     nbytes(*inputs, seed) + nbytes(*out_k), 6 * dk * pairs,
+                     TF32X3_FLOP_PER_S),
+        kernel_entry("attention_bwd", src, rep + ":179", err_b, bwd_ms,
+                     plain_bwd_ms, None,
                      nbytes(*inputs, seed, *cot) + nbytes(*grad_k),
-                     16 * dk * pairs)], yard
+                     16 * dk * pairs, TF32X3_FLOP_PER_S)], yard, events
 
 
 # Ragged encoder shapes beside the recipe's (N, T, C): layer 5 at 7 frames,
@@ -1152,7 +1211,7 @@ def check_encoder(dev, gen):
     rate."""
     from cpc2_torch.models.encoder import CONV_STACK
     from cpc2_torch.profile_step import encoder_parts
-    from cpc2_torch.time_encoder import encoder_inputs
+    from cpc2_torch.time_kernels import encoder_inputs
     own = torch.Generator(device=dev)
     own.manual_seed(1)
     for shape in ENCODER_EDGE_SHAPES:

@@ -13,6 +13,8 @@
 #pragma once
 
 #include <cstdint>
+#include <mutex>
+
 #include <cuda_runtime.h>
 
 namespace cpc2 {
@@ -175,11 +177,111 @@ __device__ inline float warp_sum(float v) {
   return v;
 }
 
-// Opt a kernel into more than 48 KB of dynamic shared memory when needed.
+// --- mbarriers, bulk copies and 3xTF32 tensor-core products (sm_90) -------
+// Shared by the kernels that stage operands with asynchronous copies and
+// multiply them on the tensor cores at fp32 accuracy (infonce.cu,
+// attention.cu, and the wgmma blocks of hopper_gemm.cuh).
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
+                                              uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait for the completion of the barrier's phase of the given parity. A
+// wait that has not completed after 2^35 cycles (over 15 s) traps, so that
+// a fault in the pipeline fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - start > (1ll << 35)) __trap();
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(__cvta_generic_to_global(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// x = big + small: big is x rounded to TF32 (10 mantissa bits; half an
+// ulp added, then the low 13 bits cleared), small = x - big exactly in fp32,
+// |small| <= 2^-11 |x|, passed as it is: the tensor core reads only its top
+// 19 bits, which truncates it to TF32 (an error below 2^-21 |x|). Three
+// instructions a value; `cvt.rna.tf32.f32` is no single instruction on
+// sm_90 and made the split, not the products, the forward's bound.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// Not volatile: the compiler may interleave independent products.
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Opt a kernel into more than 48 KB of dynamic shared memory when needed,
+// once per kernel, device and size: the attribute is a host call of its own
+// on every launch else.
 inline cudaError_t set_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  struct Set {
+    const void* fn;
+    int dev;
+    size_t bytes;
+  };
+  constexpr int kSets = 64;
+  static Set sets[kSets];
+  static int n_sets = 0;
+  static std::mutex mu;
+  std::lock_guard<std::mutex> hold(mu);
+  for (int i = 0; i < n_sets; ++i)
+    if (sets[i].fn == fn && sets[i].dev == dev && sets[i].bytes >= bytes)
+      return cudaSuccess;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess && n_sets < kSets) sets[n_sets++] = {fn, dev, bytes};
+  return err;
 }
 
 }  // namespace

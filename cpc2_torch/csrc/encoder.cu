@@ -550,14 +550,9 @@ cudaError_t conv_product(const CUtensorMap& map_a, const CUtensorMap& map_b,
                          const cpc2::WgArgs& args, const ConvGeom& g,
                          dim3 grid, cudaStream_t s) {
   auto kernel = conv_wgmma_gemm<kKind>;
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        cpc2::kWgSmemBytes);
-    if (err != cudaSuccess) return err;
-    smem_set = true;
-  }
+  const cudaError_t err =
+      cpc2::set_smem((const void*)kernel, cpc2::kWgSmemBytes);
+  if (err != cudaSuccess) return err;
   kernel<<<grid, cpc2::kWgThreads, cpc2::kWgSmemBytes, s>>>(map_a, map_b,
                                                              args, g);
   return cudaGetLastError();

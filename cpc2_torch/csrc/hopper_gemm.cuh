@@ -85,51 +85,6 @@ struct WgArgs {
   float* colsum;           // kWgHiddenGrad: (ceil(M / 128), N)
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
-                                              uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait for the completion of the barrier's phase of the given parity. A
-// wait that has not completed after 2^35 cycles (over 15 s) traps, so that
-// a fault in the pipeline fails the launch instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long start = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - start > (1ll << 35)) __trap();
-}
-
 // One 2-D TMA box, coordinates innermost first, completing on `bar`.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
                                          uint64_t* bar, int c0, int c1) {
@@ -532,14 +487,8 @@ cudaError_t wgmma_gemm(const bf16* A, const bf16* B, WgArgs args,
             : bf16_tensor_map(&map_b, B, N, K, kWgBK);
   if (err != cudaSuccess) return err;
   auto kernel = ffn_wgmma_gemm<kAK, kBK, kEpi>;
-  static bool smem_set = false;
-  if (!smem_set) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kWgSmemBytes);
-    if (err != cudaSuccess) return err;
-    smem_set = true;
-  }
+  err = set_smem((const void*)kernel, kWgSmemBytes);
+  if (err != cudaSuccess) return err;
   args.k_tiles_per_split = split.per;
   dim3 grid((N + kWgBN - 1) / kWgBN, (M + kWgBM - 1) / kWgBM, split.splits);
   kernel<<<grid, kWgThreads, kWgSmemBytes, stream>>>(map_a, map_b, args);
@@ -872,12 +821,9 @@ cudaError_t tf32x3_gemm(const Planes& A, const Planes& B, TfArgs args,
     if (err != cudaSuccess) return err;
   }
   auto kernel = ffn_tf32x3_gemm<kEpi>;
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTfSmemBytes);
+  {
+    const cudaError_t err = set_smem((const void*)kernel, kTfSmemBytes);
     if (err != cudaSuccess) return err;
-    smem_set = true;
   }
   const int k_tiles = (K + kTfBK - 1) / kTfBK;
   const int per = args.k_tiles_per_split;

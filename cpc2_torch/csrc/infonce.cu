@@ -74,11 +74,14 @@
 
 namespace {
 
+using cpc2::bulk_copy;
 using cpc2::mbar_arrive;
 using cpc2::mbar_expect_tx;
 using cpc2::mbar_init;
 using cpc2::mbar_wait;
+using cpc2::mma_tf32;
 using cpc2::smem_u32;
+using cpc2::split_tf32;
 
 constexpr int kWarps = 8;          // consumer warps
 constexpr int kProducerWarps = 2;  // faster than one, and four no faster
@@ -123,36 +126,6 @@ __host__ __device__ inline int dz_tpr(int dzc, int cpt) {
   int tpr = 32;
   while (tpr * cpt < dzc) tpr *= 2;
   return tpr;
-}
-
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
-      "l"(__cvta_generic_to_global(src)), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// x = big + small: big is x rounded to TF32 (10 mantissa bits; half an
-// ulp added, then the low 13 bits cleared), small = x - big exactly in fp32,
-// |small| <= 2^-11 |x|, passed as it is: the tensor core reads only its top
-// 19 bits, which truncates it to TF32 (an error below 2^-21 |x|). Three
-// instructions a value; `cvt.rna.tf32.f32` is no single instruction on
-// sm_90 and made the split, not the products, the forward's bound.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-// Not volatile: the compiler may interleave independent products.
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 struct Ring {

@@ -514,8 +514,7 @@ struct ClusterLaunch {
 cudaError_t cluster_config(const void* fn, int C, int n_clusters,
                            const Layout& l, cudaStream_t s,
                            ClusterLaunch* out, int* max_clusters) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
+  cudaError_t err = cpc2::set_smem(fn, l.smem);
   if (err != cudaSuccess) return err;
   if (C > 8) {
     err = cudaFuncSetAttribute(

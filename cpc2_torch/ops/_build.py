@@ -60,8 +60,8 @@ _SIGNATURES = {
     "cpc2_infonce_fwd": [_P] * 4 + [_I] * 12 + [_L, _P],
     "cpc2_infonce_bwd": [_P] * 7 + [_I] * 22 + [_L, _P],
     "cpc2_dtw": [_P] * 4 + [_I] * 3 + [_P],
-    "cpc2_attention_fwd": [_P] * 6 + [_I] * 3 + [_U, _F, _P],
-    "cpc2_attention_bwd": [_P] * 11 + [_I] * 3 + [_U, _F, _P],
+    "cpc2_attention_fwd": [_P] * 7 + [_I, _U, _F, _F, _P],
+    "cpc2_attention_bwd": [_P] * 12 + [_I, _U, _F, _F, _P],
     "cpc2_encoder_fwd": [_P] * 9 + [_I] * 3 + [_P],
     "cpc2_encoder_bwd": [_P] * 14 + [_L] + [_I] * 3 + [_P],
 }

@@ -1,5 +1,5 @@
-"""Causal relative-position attention of the prediction heads with a
-hand-written CUDA kernel:
+"""Causal relative-position attention of the prediction heads with
+hand-written CUDA kernels:
 
     out = dropout(softmax((q·kᵀ + rel) / √dk + causal)) · v,
     rel[r, c] = Σ_d q[r, d] · Krelpos[d, S-1-(r-c)]   (c <= r)
@@ -8,25 +8,37 @@ for every attention unit (a block of S steps of one head of one batch row).
 
 Counterpart of `cpc2_tpu/ops/attention_pallas.py:fused_relpos_attention`.
 The JAX package gathers the (dk, S, S) table `W2[d, r, c] = Krelpos[d,
-S-1-(r-c)]` outside its kernel; here the kernel indexes `Krelpos` itself,
-so no table is built per call and the backward returns `dKrelpos`
-directly. The kernel (`csrc/attention.cu`) runs one block per unit with the
-unit's q, k, v (and g) in shared memory. The forward keeps one row of
-probabilities per warp; the backward recomputes them and holds the
-unit's dropped probabilities and score gradients (2 x S x S fp32) in
-shared memory, then sums per unit `dKrelpos` partials (N, S, dk) in a
-second pass, in a fixed order, so that the result does not depend on the
-order in which blocks run. What bounds it is latency: the work is about
-165 MFLOP forward and 440 MFLOP backward per head call at the recipe
-(N = 64, S = 116, dk = 32), a few microseconds at the fp32 peak.
+S-1-(r-c)]` outside its kernel; here the kernels (`csrc/attention.cu`)
+form the relative term as a product plus a skew: per 16-row tile of a
+unit, QP = Q_t · Krelpos is a (16, S) product and rel[r, c] = QP[r,
+S-1-r+c]. Every product runs on the tensor cores in 3xTF32 (fp32
+accuracy). A unit's row tiles go in causal-balanced pairs (tile i with
+tile T-1-i) to R CTAs; the forward keeps the softmax in registers. The
+backward runs a unit on a thread-block cluster of R CTAs: each CTA
+recomputes its rows' probabilities, gives dq by rows, and forms its rows'
+partials of dk, dv and the unit's dKrelpos by columns; the cluster adds
+the partials through distributed shared memory in rank order, and a
+second launch sums the per-unit dKrelpos partials (N, S, dk) in unit
+order. No atomics: the backward is bit for bit the same from call to
+call.
+
+Where a unit's rows do not fit a block whole (dk above 248, or above what
+shared memory holds at S up to 58), the wide kernels take one CTA a unit
+and dk in chunks: the products over dk add up chunk by chunk, and the
+outputs come a chunk of columns at a time.
+
+`attention_plan(N, S, dk)` holds every launch choice and shared-memory
+layout; the kernels take it as given and refuse a plan that does not hold
+what they put there. The wrapper pads dk to a multiple of 4 (16-byte rows
+for the copies) with zeros; the kernels pad it to 8 in shared memory.
 
 Dropout keeps (unit, r, c) when the hash of `csrc/common.cuh:dropout_bits`
 at row `unit·S + r`, column c is at or above the threshold, as the FFN
-kernel does (`ops/ffn.py`), so the kernel and `attention_plain` draw
+kernel does (`ops/ffn.py`), so the kernels and `attention_plain` draw
 bit-identical masks. The TPU kernel draws its mask from the TPU's own
 generator, so against the JAX package only the distribution matches.
 
-`fused_relpos_attention` launches the kernel for CUDA tensors and runs
+`fused_relpos_attention` launches the kernels for CUDA tensors and runs
 `attention_plain` for CPU tensors; there is no other path.
 `use_fused_attention` is the opt-in gate (`CPC2_FUSED_ATTENTION=1`), as in
 the JAX package.
@@ -34,27 +46,31 @@ the JAX package.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
+from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 from .ffn import dropout_threshold, keep_mask
 
 Tensor = torch.Tensor
 
-# The kernel's limits: a lane holds up to MAX_S / 32 columns of a row in
-# registers, and the backward's shared memory (the unit's q, k, v, g and
-# Krelpos with rows padded to an odd stride, plus two S x S planes) must fit
-# the 227 KB a block can have. At the recipe (S = 116, dk = 32) the backward
-# takes 184 KB.
+# The gate's limits, those of the port's first attention kernel: S <= MAX_S
+# and the shared memory `bwd_smem_bytes` of that kernel's backward (the
+# unit's q, k, v, g and Krelpos at the odd stride dk | 1, plus two S x S
+# planes) within MAX_SMEM_BYTES. They hold S <= 134 at dk = 32, S <= 169 at
+# any dk and dk <= 11,621 at S = 1; `attention_plan` takes every shape
+# within them (dk wider than a block holds whole in chunks of dk).
 MAX_S = 256
 MAX_SMEM_BYTES = 232448
 
 
 def bwd_smem_bytes(s: int, dk: int) -> int:
-    """Shared memory of the backward kernel for one unit (rows at the odd
-    stride dk | 1)."""
+    """The gate's shared-memory measure of a unit (see MAX_SMEM_BYTES)."""
     return 4 * (5 * s * (dk | 1) + 2 * s * s)
 
 
@@ -70,6 +86,205 @@ def use_fused_attention(s: int, dk: int) -> bool:
 
 def _within_limits(s: int, dk: int) -> bool:
     return 0 < s <= MAX_S and dk > 0 and bwd_smem_bytes(s, dk) <= MAX_SMEM_BYTES
+
+
+# --- the kernels' plan -------------------------------------------------------
+
+TILE = 16               # rows of a tile: the m16 of mma.m16n8k8
+MAX_TILES = (4, 8, 12)  # the kernels' instantiations: row tiles of a unit
+MAX_WARPS = 8           # a warp a row tile of a CTA, 256 threads at most
+MAX_CLUSTER = 8         # CTAs of the backward's cluster (portable size)
+MAX_BOX = 256           # a TMA box's extent in each dimension
+HEADER_BYTES = 128      # the mbarrier, keeping each region 128-byte aligned
+SMEM_LIMIT = 232448     # dynamic shared memory of one block
+# The forward's CTAs a unit, where it has the pairs: at the recipe 2 ran
+# faster than 1 or 4 on an H100 (PERF.md §6).
+FWD_CTAS = 2
+
+
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+class AttentionPlan(NamedTuple):
+    """Every launch choice and shared-memory layout of the two kernels.
+
+    A unit's S rows make `tiles` row tiles of 16 (the last one ragged);
+    pair slot i holds tiles i and tiles-1-i (one tile where they meet). CTA
+    rank ρ of a unit's R CTAs owns pair slots ρ, ρ + R, ...; its local tile
+    slots 2k and 2k + 1 hold the k-th slot's tiles, a warp each
+    (`own_tile`). The kernels stage dk in `chunks` chunks of `dc` columns:
+    one (dc = dkp) where a unit fits a block whole, else (the wide
+    kernels: at most MAX_TILES[0] row tiles, one CTA a unit in both
+    kernels) the products over dk add up chunk by chunk and the outputs
+    come a chunk at a time. The kernels keep rows at `ld` floats (dc plus
+    4: fragment loads free of bank conflicts), the transposed Krelpos (SP
+    rows of `ldr` floats, columns XOR-swizzled) and the S-wide planes at
+    `lds` (SP = 16 tiles, plus 4). Offsets and sizes are in floats from the
+    end of the HEADER_BYTES header, shared memory in bytes. Forward: k, v,
+    krel_t, the CTA's q rows, then a scratch region (each warp's QP tile)
+    and `f_raw`, where Krelpos lands before the kernel transposes it (over
+    the scratch in one chunk). Backward: k, v, krel_t, q and g rows, the
+    CTA's planes of dropped probabilities, score gradients and skewed
+    score gradients, and `b_raw` (over the planes in one chunk); the
+    cluster's exchange of partials lies over k, v and krel_t once the rows
+    are done. The backward's CTA finishes m-tiles [ρ T / R, (ρ + 1) T / R)
+    of dk, dv and dKrelpos, at most `mtiles` of them."""
+    n: int
+    s: int
+    dk: int
+    dk_in: int       # the kernels' row width: dk padded to 4
+    dkp: int         # dk padded to 8, the tensor cores' k
+    dc: int          # columns of dk a chunk (a multiple of 8)
+    chunks: int
+    tiles: int
+    pairs: int
+    max_tiles: int   # the kernels' instantiation, MAX_TILES
+    ld: int
+    ldr: int
+    lds: int
+    fwd_ctas: int
+    fwd_warps: int
+    f_k: int
+    f_v: int
+    f_krel: int
+    f_q: int
+    f_x: int
+    f_raw: int
+    f_floats: int
+    fwd_smem: int
+    bwd_ctas: int    # the cluster's size
+    bwd_warps: int
+    mtiles: int
+    b_k: int
+    b_v: int
+    b_krel: int
+    b_q: int
+    b_g: int
+    b_pd: int
+    b_ds: int
+    b_dqp: int
+    b_raw: int
+    b_floats: int
+    exchange: int
+    bwd_smem: int
+
+    def as_c_ints(self):
+        """The plan as the C entry points read it (`AttnPlan` in
+        csrc/attention.cu): a ctypes array of ints, fields in order, made
+        once a plan."""
+        return _c_ints(self)
+
+
+@functools.lru_cache(maxsize=64)
+def _c_ints(plan: AttentionPlan):
+    return (ctypes.c_int * len(plan))(*plan)
+
+
+def own_tile(rank: int, ctas: int, tiles: int, slot: int) -> int:
+    """The row tile of local tile slot `slot` of CTA `rank` of a unit's
+    `ctas` CTAs, or -1 where the slot is empty."""
+    pair = rank + (slot // 2) * ctas
+    if pair >= (tiles + 1) // 2:
+        return -1
+    if slot % 2 == 0:
+        return pair
+    other = tiles - 1 - pair
+    return -1 if other == pair else other
+
+
+def _layout(n, s, dk, fwd_ctas, bwd_ctas, dc):
+    tiles = -(-s // TILE)
+    pairs = -(-tiles // 2)
+    sp = TILE * tiles
+    dk_in, dkp = _up(dk, 4), _up(dk, 8)
+    wide = dc < dkp
+    ld, ldr, lds = dc + 4, _up(dc, 32), sp + 4
+    max_tiles = next((m for m in MAX_TILES if tiles <= m), None)
+
+    def a(x):  # regions start on 128-byte boundaries
+        return _up(x, 32)
+    fwd_warps = 2 * -(-pairs // fwd_ctas)
+    f_k = 0
+    f_v = f_k + a(sp * ld)
+    f_krel = f_v + a(sp * ld)
+    f_q = f_krel + a(sp * ldr)
+    f_x = f_q + a(TILE * fwd_warps * ld)
+    qp = fwd_warps * TILE * lds
+    f_raw = f_x + a(qp) if wide else f_x
+    f_floats = f_raw + a(dc * s) if wide else f_x + a(max(qp, dk_in * s))
+    bwd_warps = 2 * -(-pairs // bwd_ctas)
+    rows = TILE * bwd_warps
+    mtiles = -(-tiles // bwd_ctas)
+    b_k, b_v, b_krel = f_k, f_v, f_krel
+    b_q = b_krel + a(sp * ldr)
+    b_g = b_q + a(rows * ld)
+    b_pd = b_g + a(rows * ld)
+    b_ds = b_pd + a(rows * lds)
+    b_dqp = b_ds + a(rows * lds)
+    planes_end = b_dqp + a(rows * lds)
+    b_raw = planes_end if wide else b_pd
+    b_floats = (b_raw + a(dc * s) if wide
+                else max(planes_end, b_pd + a(dk_in * s)))
+    exchange = (bwd_ctas - 1) * mtiles * 3 * (dkp // 8) * 128
+    return AttentionPlan(
+        n, s, dk, dk_in, dkp, dc, -(-dkp // dc), tiles, pairs, max_tiles,
+        ld, ldr, lds, fwd_ctas, fwd_warps, f_k, f_v, f_krel, f_q, f_x, f_raw,
+        f_floats, HEADER_BYTES + 4 * f_floats, bwd_ctas, bwd_warps, mtiles,
+        b_k, b_v, b_krel, b_q, b_g, b_pd, b_ds, b_dqp, b_raw, b_floats,
+        exchange, HEADER_BYTES + 4 * b_floats)
+
+
+def _fits_fwd(p: AttentionPlan) -> bool:
+    return p.fwd_warps <= MAX_WARPS and p.fwd_smem <= SMEM_LIMIT
+
+
+def _fits_bwd(p: AttentionPlan) -> bool:
+    return (p.bwd_warps <= MAX_WARPS and p.bwd_smem <= SMEM_LIMIT
+            and p.exchange <= p.b_q - p.b_k)
+
+
+def attention_plan(n: int, s: int, dk: int) -> AttentionPlan:
+    """The kernels' plan for N units of S steps and width dk. Where a unit
+    fits a block whole (one chunk of dk), the forward takes FWD_CTAS CTAs a
+    unit (fewer where there are fewer pairs, more where a CTA's shared
+    memory or warps would not hold its tiles) and the backward the smallest
+    cluster of at least 2 CTAs (1 with one pair) that holds them; else the
+    wide kernels take one CTA a unit and the widest chunk of dk that fits.
+    Raises ValueError for a shape the kernels do not take: S above 16 *
+    max(MAX_TILES), or a unit that fits neither way (dk at S above 64 that
+    the gate's limits refuse too). Plans are cached: a head call costs no
+    planning on the host."""
+    return _plan(n, s, dk)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(n: int, s: int, dk: int) -> AttentionPlan:
+    if n < 0 or s < 1 or dk < 1:
+        raise ValueError(f"attention_plan: no kernel for N {n}, S {s}, "
+                         f"dk {dk}")
+    tiles = -(-s // TILE)
+    pairs = -(-tiles // 2)
+    dkp = _up(dk, 8)
+    if tiles > MAX_TILES[-1]:
+        raise ValueError(f"attention_plan: S {s} beyond the kernels' tiles")
+
+    def pick(first, fits):
+        for r in range(min(first, pairs), min(pairs, MAX_CLUSTER) + 1):
+            if fits(_layout(n, s, dk, r, r, dkp)):
+                return r
+        return None
+    if dkp + 4 <= MAX_BOX:
+        rf, rb = pick(FWD_CTAS, _fits_fwd), pick(2, _fits_bwd)
+        if rf is not None and rb is not None:
+            return _layout(n, s, dk, rf, rb, dkp)
+    if tiles <= MAX_TILES[0]:
+        for dc in range(min(dkp - 8, MAX_BOX - 8), 0, -8):
+            plan = _layout(n, s, dk, 1, 1, dc)
+            if _fits_fwd(plan) and _fits_bwd(plan):
+                return plan
+    raise ValueError(f"attention_plan: no layout for S {s}, dk {dk} within "
+                     f"{SMEM_LIMIT} bytes")
 
 
 def relpos_table(krelpos: Tensor) -> Tensor:
@@ -99,9 +314,8 @@ def attention_plain(q: Tensor, k: Tensor, v: Tensor, krelpos: Tensor,
     return torch.matmul(p, v)
 
 
-def _check(q, k, v, krelpos, seed, rate) -> torch.device:
-    device = _build.check_cuda("fused_relpos_attention", q, k, v, krelpos,
-                               seed)
+def _check(q, k, v, krelpos, seed, rate) -> AttentionPlan:
+    _build.check_cuda("fused_relpos_attention", q, k, v, krelpos, seed)
     _build.check_f32("fused_relpos_attention", q, k, v, krelpos)
     n, s, dk = q.shape
     if (tuple(k.shape) != (n, s, dk) or tuple(v.shape) != (n, s, dk)
@@ -110,50 +324,67 @@ def _check(q, k, v, krelpos, seed, rate) -> torch.device:
             f"fused_relpos_attention: inconsistent shapes q {tuple(q.shape)},"
             f" k {tuple(k.shape)}, v {tuple(v.shape)}, krelpos "
             f"{tuple(krelpos.shape)}")
-    if not _within_limits(s, dk):
-        raise ValueError(f"fused_relpos_attention: S {s}, dk {dk} beyond "
-                         f"the kernel's limits")
     if seed.dtype != torch.int32 or seed.numel() != 1:
         raise TypeError("fused_relpos_attention: the seed is one int32 value")
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"fused_relpos_attention: dropout rate {rate} not "
                          f"in [0, 1)")
-    return device
+    return attention_plan(n, s, dk)
+
+
+def _operand(x: Tensor, dk_in: int, dim: int = -1) -> Tensor:
+    """x contiguous and 16-byte aligned, with dimension `dim` (of size dk)
+    padded with zeros to dk_in."""
+    pad = dk_in - x.shape[dim]
+    if pad:
+        x = F.pad(x, (0, pad) if dim == -1 else (0, 0, 0, pad))
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 class _FusedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, krelpos, seed, rate):
-        device = _check(q, k, v, krelpos, seed, rate)
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        krelpos, seed = krelpos.contiguous(), seed.contiguous()
+        plan = _check(q, k, v, krelpos, seed, rate)
         n, s, dk = q.shape
+        q, k, v = (_operand(x, plan.dk_in) for x in (q, k, v))
+        krelpos = _operand(krelpos, plan.dk_in, dim=0)
+        seed = seed.contiguous()
         out = torch.empty_like(q)
-        _build.launch("attention_fwd", "cpc2_attention_fwd", device,
-                      q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      krelpos.data_ptr(), seed.data_ptr(), out.data_ptr(),
-                      n, s, dk, dropout_threshold(rate), 1.0 / (1.0 - rate))
+        if n:
+            ints = plan.as_c_ints()
+            _build.launch("attention_fwd", "cpc2_attention_fwd", q.device,
+                          q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          krelpos.data_ptr(), seed.data_ptr(), out.data_ptr(),
+                          ctypes.addressof(ints), len(ints),
+                          dropout_threshold(rate), 1.0 / (1.0 - rate),
+                          1.0 / dk ** 0.5)
         ctx.save_for_backward(q, k, v, krelpos, seed)
-        ctx.rate = rate
-        return out
+        ctx.rate, ctx.plan = rate, plan
+        return out[..., :dk]
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, krelpos, seed = ctx.saved_tensors
-        rate = ctx.rate
-        g = g.contiguous()
-        n, s, dk = q.shape
-        dq, dk_, dv = (torch.empty_like(q) for _ in range(3))
-        partial = torch.empty((n, s, dk), device=q.device)
-        dkrel = torch.empty_like(krelpos)
-        _build.launch("attention_bwd", "cpc2_attention_bwd", q.device,
-                      q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      krelpos.data_ptr(), seed.data_ptr(), g.data_ptr(),
-                      dq.data_ptr(), dk_.data_ptr(), dv.data_ptr(),
-                      partial.data_ptr(), dkrel.data_ptr(), n, s, dk,
-                      dropout_threshold(rate), 1.0 / (1.0 - rate))
-        return dq, dk_, dv, dkrel, None, None
+        rate, plan = ctx.rate, ctx.plan
+        n, s, dk = plan.n, plan.s, plan.dk
+        g = _operand(g, plan.dk_in)
+        dq, dk_, dv, partial = (torch.empty_like(q) for _ in range(4))
+        # an empty batch sums no partials: zeros without a launch
+        dkrel = (torch.empty_like if n else torch.zeros_like)(krelpos)
+        if n:
+            ints = plan.as_c_ints()
+            _build.launch("attention_bwd", "cpc2_attention_bwd", q.device,
+                          q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          krelpos.data_ptr(), seed.data_ptr(), g.data_ptr(),
+                          dq.data_ptr(), dk_.data_ptr(), dv.data_ptr(),
+                          partial.data_ptr(), dkrel.data_ptr(),
+                          ctypes.addressof(ints), len(ints),
+                          dropout_threshold(rate), 1.0 / (1.0 - rate),
+                          1.0 / dk ** 0.5)
+        return (dq[..., :dk], dk_[..., :dk], dv[..., :dk], dkrel[:dk], None,
+                None)
 
 
 def fused_relpos_attention(q: Tensor, k: Tensor, v: Tensor, krelpos: Tensor,

@@ -17,10 +17,10 @@ warm-up steps:
   device time per step, its share of the wall time, the share of the
   port's hand-written kernels, of the FFN's kernels (the bf16 route's, or
   under `--precision fp32` the fp32 route's), of the LSTM's kernels, of
-  InfoNCE's and of the opt-in encoder's (by part: layers 2-5's products,
-  norms, sums, layer 1), the device kernel launches per step, the
-  launches per step of each of the port's kernel wrappers, and the kernels
-  that take the most device time.
+  InfoNCE's, of the opt-in attention's and of the opt-in encoder's (by
+  part: layers 2-5's products, norms, sums, layer 1), the device kernel
+  launches per step, the launches per step of each of the port's kernel
+  wrappers, and the kernels that take the most device time.
 
 It needs a CUDA card.
 """
@@ -58,9 +58,12 @@ INFONCE_KERNELS = ("gathered_fwd", "gathered_bwd", "dz_sum")
 # kernels (`conv_gemm`, `conv_wgrad`, `input_taps`, `input_overlap`).
 ENCODER_KERNELS = ("conv_wgmma_gemm", "norm_fwd", "norm_bwd", "sum_rows",
                    "conv_gemm", "conv_wgrad", "input_taps", "input_overlap")
+# The opt-in attention's kernels (`csrc/attention.cu`): the forward, the
+# backward and its sum of the units' dKrelpos partials (the fragments also
+# match the older scalar kernels' names, for runs of an older tree).
+ATTENTION_KERNELS = ("attention_fwd", "attention_bwd", "relpos_grad_sum")
 PORT_KERNELS = FFN_KERNELS + FFN_FP32_KERNELS + LSTM_KERNELS + (
-    INFONCE_KERNELS) + ("attention_fwd", "attention_bwd",
-    "relpos_grad_sum") + ENCODER_KERNELS
+    INFONCE_KERNELS) + ATTENTION_KERNELS + ENCODER_KERNELS
 
 
 def encoder_parts(split: dict) -> dict:
@@ -182,11 +185,12 @@ def main(argv=None) -> dict:
     kernels = device_kernels(prof)
     device_ms = sum(device_us(e) for e in kernels) / 1000.0 / opts.steps
     ffn_route = "fp32" if opts.precision == "fp32" else "bf16"
-    port_ms, ffn_ms, lstm_ms, infonce_ms = (
+    port_ms, ffn_ms, lstm_ms, infonce_ms, attention_ms = (
         sum(device_us(e) for e in kernels if any(k in e.key for k in names))
         / 1000.0 / opts.steps
         for names in (PORT_KERNELS, FFN_FP32_KERNELS if ffn_route == "fp32"
-                      else FFN_KERNELS, LSTM_KERNELS, INFONCE_KERNELS))
+                      else FFN_KERNELS, LSTM_KERNELS, INFONCE_KERNELS,
+                      ATTENTION_KERNELS))
     encoder_ms = encoder_parts(
         {e.key: device_us(e) / 1000.0 / opts.steps for e in kernels})
     encoder_ms.pop("other", None)
@@ -205,7 +209,8 @@ def main(argv=None) -> dict:
           f"unprofiled median), of which the port's kernels "
           f"{port_ms:.3f} ms, the FFN's {ffn_route} kernels {ffn_ms:.3f} ms, "
           f"the LSTM's {lstm_ms:.3f} ms (its walks, dW_hh and db_hh sums), "
-          f"InfoNCE's {infonce_ms:.3f} ms, the encoder's "
+          f"InfoNCE's {infonce_ms:.3f} ms, the attention's "
+          f"{attention_ms:.3f} ms, the encoder's "
           f"{sum(encoder_ms.values()):.3f} ms ("
           + ", ".join(f"{k} {v:.3f}" for k, v in sorted(encoder_ms.items()))
           + f"); {device_launches:g} device kernel launches per step")
@@ -218,6 +223,7 @@ def main(argv=None) -> dict:
     return {"median_step_ms": median, "device_ms": device_ms,
             "port_kernel_ms": port_ms, f"ffn_{ffn_route}_kernel_ms": ffn_ms,
             "lstm_kernel_ms": lstm_ms, "infonce_kernel_ms": infonce_ms,
+            "attention_kernel_ms": attention_ms,
             "encoder_kernel_ms": encoder_ms,
             "device_launches_per_step": device_launches,
             "profiled_step_ms": profiled_ms,

@@ -171,3 +171,343 @@ def test_gate_is_off_by_default_and_keeps_the_kernel_limits(monkeypatch):
     assert not use_fused_attention(att.MAX_S + 1, 8)
     assert not use_fused_attention(116, 256)     # shared memory
     assert not use_fused_attention(200, 64)
+
+
+# --- the kernels' plan and their tiled algorithm, emulated from the plan ----
+
+# The recipe, ragged S, the gate's limit at dk = 32, dk = 4 and 128, N = 0;
+# then widths that the wide kernels take in chunks of dk.
+PLAN_SHAPES = [(64, 116, 32), (4, 1, 32), (4, 17, 8), (5, 37, 8),
+               (3, 134, 32), (4, 64, 4), (2, 20, 128), (0, 116, 32),
+               (3, 8, 256), (2, 43, 248), (1, 1, 1999), (2, 58, 177)]
+
+
+@pytest.mark.parametrize("n,s,dk", PLAN_SHAPES)
+def test_attention_plan_owns_every_row_once_and_fits(n, s, dk):
+    """Every row tile is owned by exactly one warp slot of one CTA in both
+    kernels; a CTA's causal work (column tiles of its row tiles) is within
+    one tile pair (T + 1 column tiles) of every other CTA's; the shared
+    memory fits a block, the regions lie in order and the backward's
+    exchange fits over k, v and krel_t; the cluster's m-tile ranges cover
+    every m-tile once; the chunks of dk cover dkp once, and a plan of
+    several chunks has one CTA a unit, the narrowest instantiation and the
+    staged Krelpos clear of the regions that live across chunks."""
+    plan = att.attention_plan(n, s, dk)
+    t = plan.tiles
+    assert t == -(-s // 16) and plan.pairs == -(-t // 2)
+    for ctas, warps in ((plan.fwd_ctas, plan.fwd_warps),
+                        (plan.bwd_ctas, plan.bwd_warps)):
+        owned = [att.own_tile(r, ctas, t, w) for r in range(ctas)
+                 for w in range(warps)]
+        assert sorted(x for x in owned if x >= 0) == list(range(t))
+        work = [sum(x + 1 for x in (att.own_tile(r, ctas, t, w)
+                                    for w in range(warps)) if x >= 0)
+                for r in range(ctas)]
+        assert max(work) - min(work) <= t + 1, work
+        assert warps <= att.MAX_WARPS
+    assert plan.fwd_smem <= 232448 and plan.bwd_smem <= 232448
+    assert plan.bwd_ctas <= att.MAX_CLUSTER
+    f = [plan.f_k, plan.f_v, plan.f_krel, plan.f_q, plan.f_x, plan.f_floats]
+    b = [plan.b_k, plan.b_v, plan.b_krel, plan.b_q, plan.b_g, plan.b_pd,
+         plan.b_ds, plan.b_dqp, plan.b_floats]
+    assert f == sorted(f) and b == sorted(b)
+    assert all(x % 32 == 0 for x in f + b + [plan.f_raw, plan.b_raw])
+    staged = min(plan.dc, plan.dk_in) * s           # Krelpos, a chunk of it
+    assert plan.f_floats - plan.f_raw >= staged
+    assert plan.b_floats - plan.b_raw >= staged
+    assert plan.exchange <= plan.b_q - plan.b_k
+    assert plan.ld % 8 == 4 and plan.lds % 8 == 4 and plan.ldr % 32 == 0
+    assert plan.dc % 8 == 0 and plan.ld == plan.dc + 4 <= att.MAX_BOX
+    assert (plan.chunks - 1) * plan.dc < plan.dkp <= plan.chunks * plan.dc
+    if plan.chunks == 1:  # Krelpos lands over the scratch, or the planes
+        assert (plan.f_raw, plan.b_raw) == (plan.f_x, plan.b_pd)
+    else:
+        assert (plan.fwd_ctas, plan.bwd_ctas, plan.max_tiles) == (1, 1, 4)
+        assert plan.f_raw >= plan.f_x + plan.fwd_warps * 16 * plan.lds
+        assert plan.b_raw >= plan.b_dqp + plan.bwd_warps * 16 * plan.lds
+    ranges = [_mtile_range(r, plan.bwd_ctas, t)
+              for r in range(plan.bwd_ctas)]
+    assert [m for lo, hi in ranges for m in range(lo, hi)] == list(range(t))
+    assert max(hi - lo for lo, hi in ranges) <= plan.mtiles
+
+
+def test_attention_plan_at_the_recipe():
+    plan = att.attention_plan(64, 116, 32)
+    assert (plan.tiles, plan.pairs, plan.fwd_ctas, plan.bwd_ctas) == (8, 4, 2, 2)
+    assert (plan.fwd_warps, plan.bwd_warps, plan.max_tiles) == (4, 4, 8)
+    assert (plan.ld, plan.ldr, plan.lds) == (36, 32, 132)
+    assert (plan.dc, plan.chunks) == (32, 1)
+    assert 160 * 1024 < plan.bwd_smem < 180 * 1024
+
+
+def test_attention_plan_takes_every_gated_shape(monkeypatch):
+    """Every (S, dk) that the gate's limits (`_within_limits`) take, at
+    every dk they admit (up to 11,621 at S = 1), has a plan, so the gate
+    sends no shape to the kernels that they refuse; so does N = 0. Widths
+    past dk = 248, or past what a block holds at S up to 58, come in
+    chunks."""
+    monkeypatch.setenv("CPC2_FUSED_ATTENTION", "1")
+    taken = chunked = 0
+    for s in range(1, att.MAX_S + 1):
+        dk = 1
+        while att._within_limits(s, dk):
+            assert use_fused_attention(s, dk)
+            chunked += att.attention_plan(1, s, dk).chunks > 1  # or raises
+            taken += 1
+            dk += 1
+    assert taken > 60000 and chunked > 39000
+    assert att.attention_plan(1, 8, 248).chunks == 1
+    assert att.attention_plan(1, 8, 249).chunks == 2
+    assert att.attention_plan(0, 116, 32).n == 0
+
+
+def _mtile_range(rank, ctas, tiles):
+    """The m-tiles (16 columns of dk and dv, 16 rows of dKrelpos) that CTA
+    `rank` of the backward's cluster finishes (`csrc/attention.cu`: rank
+    rho finishes [rho T / R, (rho + 1) T / R))."""
+    return rank * tiles // ctas, (rank + 1) * tiles // ctas
+
+
+_KORDER = torch.tensor([0, 2, 4, 6, 1, 3, 5, 7])  # k = t <-> 2t, t + 4 <-> 2t + 1
+
+
+def _permuted(cols):
+    """Column (or row) indices `cols` (a multiple of 8 long) in the order the
+    kernels take them as the k index of a product from a C fragment."""
+    return cols.reshape(-1, 8)[:, _KORDER].reshape(-1)
+
+
+def _swz(j):
+    return ((j & 3) << 3) | (j & 4)
+
+
+def _emulate(plan, q, k, v, krel, seed, rate, g):
+    """The kernels' tiled algorithm in torch, every index from `plan`: the
+    forward's output and the backward's dq, dk, dv and dKrelpos. dk comes
+    in the plan's chunks: each chunk's krel_t is staged and swizzled on its
+    own, the products over dk add up chunk by chunk, and the outputs are
+    written a chunk of columns at a time. Planes and outputs the kernels
+    leave unwritten hold NaN here, so a read or a gap shows."""
+    n, s, dk, t = plan.n, plan.s, plan.dk, plan.tiles
+    sp, dkp, lds = 16 * t, plan.dkp, plan.lds
+    scale, ks = 1.0 / dk ** 0.5, 1.0 / (1.0 - rate)
+
+    def pad(x):
+        out = torch.zeros(n, sp, dkp)
+        out[:, :s, :dk] = x
+        return out
+    Q, K, V, G = map(pad, (q, k, v, g))
+    chunks = [(c * plan.dc, min(plan.dc, dkp - c * plan.dc))
+              for c in range(plan.chunks)]
+    j = torch.arange(s)
+    krel_t = []                     # each chunk's staged, swizzled krel_t
+    for x0, cols in chunks:
+        rows = min(cols, plan.dk_in - x0)
+        kt = torch.zeros(sp, plan.ldr)
+        d = torch.arange(rows)
+        kt[j[:, None], d[None, :] ^ _swz(j)[:, None]] = torch.cat(
+            [krel.T, torch.zeros(s, plan.dk_in - dk)], 1)[:, x0 + d]
+        krel_t.append(kt)
+
+    def krow(c, rows):  # chunk c's krel_t rows, columns unswizzled
+        cols = torch.arange(chunks[c][1])
+        return krel_t[c][rows[:, None], cols[None, :] ^ _swz(rows)[:, None]]
+
+    def over_dk(x, y):  # x[..., :dkp] . y[..., :dkp]^T, chunk by chunk
+        total = 0
+        for c, (x0, cols) in enumerate(chunks):
+            total = total + x(c, x0, cols) @ y(c, x0, cols).transpose(-1, -2)
+        return total
+    keep = (keep_mask(seed, n * s, s, rate).reshape(n, s, s) if rate > 0
+            else torch.ones(n, s, s, dtype=torch.bool))
+
+    def probs(tile):
+        r0 = 16 * tile
+        ncol = min(2 * (tile + 1), -(-s // 8))
+        jlo = max(0, s - 16 - r0) // 8
+        njt = -(-s // 8) - jlo
+        qt = Q[:, r0:r0 + 16]
+        qp = torch.full((n, 16, lds), float("nan"))
+        cols = torch.arange(8 * jlo, 8 * (jlo + njt))
+        qp[:, :, cols] = over_dk(lambda c, x0, w: qt[..., x0:x0 + w],
+                                 lambda c, x0, w: krow(c, cols))
+        r = r0 + torch.arange(16)[:, None]
+        c = torch.arange(8 * ncol)[None, :]
+        valid = (c <= r) & (r < s)
+        rel = qp.gather(2, (s - 1 - r + c).clamp(0, lds - 1).expand(n, -1, -1))
+        qk = over_dk(lambda _, x0, w: qt[..., x0:x0 + w],
+                     lambda _, x0, w: K[:, :8 * ncol, x0:x0 + w])
+        logits = torch.where(valid, (qk + rel) * scale, float("-inf"))
+        m = logits.amax(2, keepdim=True)
+        m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+        e = torch.where(valid, torch.exp(logits - m), torch.zeros_like(m))
+        tot = e.sum(2, keepdim=True)
+        p = e * torch.where(tot > 0, 1 / tot, torch.zeros_like(tot))
+        kp = keep[:, r.clamp(max=s - 1), c.clamp(max=s - 1)]
+        return r0, ncol, jlo, njt, p, kp, valid
+
+    def put(out, r0, rows, x0, cols, val):  # a chunk of an output's columns
+        hi = min(x0 + cols, dk)
+        if hi > x0:
+            out[:, r0:r0 + rows, x0:hi] = val[:, :rows, :hi - x0]
+
+    out = torch.full((n, s, dk), float("nan"))
+    for rank in range(plan.fwd_ctas):
+        for w in range(plan.fwd_warps):
+            tile = att.own_tile(rank, plan.fwd_ctas, t, w)
+            if tile < 0:
+                continue
+            r0, ncol, _, _, p, kp, _ = probs(tile)
+            order = _permuted(torch.arange(8 * ncol))
+            pt = torch.where(kp, p * ks, torch.zeros_like(p))
+            for x0, cols in chunks:
+                put(out, r0, min(16, s - r0), x0, cols,
+                    pt[:, :, order] @ V[:, order, x0:x0 + cols])
+
+    # backward: a cluster of bwd_ctas CTAs a unit
+    rb, wb = plan.bwd_ctas, plan.bwd_warps
+    dq = torch.full((n, s, dk), float("nan"))
+    parts = {}
+    for rank in range(rb):
+        pd = torch.full((n, 16 * wb, lds), float("nan"))
+        ds = torch.full((n, 16 * wb, lds), float("nan"))
+        dqp = torch.full((n, 16 * wb, lds), float("nan"))
+        sq = torch.full((n, 16 * wb, dkp), float("nan"))  # the CTA's rows
+        sg = torch.full((n, 16 * wb, dkp), float("nan"))
+        for w in range(wb):
+            tile = att.own_tile(rank, rb, t, w)
+            if tile < 0:
+                continue
+            r0, ncol, jlo, njt, p, kp, valid = probs(tile)
+            sq[:, 16 * w:16 * w + 16] = Q[:, r0:r0 + 16]
+            sg[:, 16 * w:16 * w + 16] = G[:, r0:r0 + 16]
+            dp = over_dk(lambda _, x0, w: G[:, r0:r0 + 16, x0:x0 + w],
+                         lambda _, x0, w: V[:, :8 * ncol, x0:x0 + w])
+            dp = torch.where(kp, dp * ks, torch.zeros_like(dp))
+            d_r = (dp * p).sum(2, keepdim=True)
+            dsc = p * (dp - d_r) * scale
+            loc = slice(16 * w, 16 * w + 16)
+            pd[:, loc, :8 * ncol] = torch.where(kp, p * ks, torch.zeros_like(p))
+            ds[:, loc, :8 * ncol] = dsc
+            skew = torch.zeros(n, 16, lds)
+            rr, cc = valid.nonzero(as_tuple=True)
+            skew[:, rr, s - 1 - (r0 + rr) + cc] = dsc[:, rr, cc]
+            dqp[:, loc] = skew
+            order = _permuted(torch.arange(8 * ncol))
+            cols = torch.arange(8 * jlo, 8 * (jlo + njt))
+            for c, (x0, width) in enumerate(chunks):
+                put(dq, r0, min(16, s - r0), x0, width,
+                    dsc[:, :, order] @ K[:, order, x0:x0 + width]
+                    + skew[:, :, cols] @ krow(c, cols))
+        for m in range(t):
+            for x, (plane, src) in enumerate(((ds, sq), (pd, sg), (dqp, sq))):
+                acc = torch.zeros(n, 16, dkp)
+                first = 16 * m if x < 2 else s - 16 - 16 * m
+                for w in range(wb):
+                    tile = att.own_tile(rank, rb, t, w)
+                    if tile < 0:
+                        continue
+                    for h in range(2):
+                        b0 = 16 * tile + 8 * h
+                        if b0 + 7 < first or b0 >= s:
+                            continue
+                        lr = 16 * w + 8 * h + _KORDER
+                        blk = plane[:, lr, 16 * m:16 * m + 16]
+                        for x0, width in chunks:
+                            acc[..., x0:x0 + width] += (
+                                blk.transpose(1, 2)
+                                @ src[:, lr, x0:x0 + width])
+                parts[rank, m, x] = acc
+    # the exchange: each rank's partials of another's m-tiles into that
+    # rank's slots, then the owner's sum in rank order
+    frag = (dkp // 8) * 128
+    exch = [[None] * (plan.exchange // frag) for _ in range(rb)]
+    for rank in range(rb):
+        for m in range(t):
+            owner = next(o for o in range(rb)
+                         if _mtile_range(o, rb, t)[0] <= m
+                         < _mtile_range(o, rb, t)[1])
+            if owner == rank:
+                continue
+            src = rank if rank < owner else rank - 1
+            for x in range(3):
+                slot = (src * plan.mtiles + m
+                        - _mtile_range(owner, rb, t)[0]) * 3 + x
+                assert exch[owner][slot] is None
+                exch[owner][slot] = parts[rank, m, x]
+    grads = [torch.full((n, sp, dkp), float("nan")) for _ in range(3)]
+    for owner in range(rb):
+        lo, hi = _mtile_range(owner, rb, t)
+        for m in range(lo, hi):
+            for x in range(3):
+                total = None
+                for r in range(rb):
+                    part = (parts[owner, m, x] if r == owner else exch[owner][
+                        ((r if r < owner else r - 1) * plan.mtiles + m - lo)
+                        * 3 + x])
+                    total = part if total is None else total + part
+                grads[x][:, 16 * m:16 * m + 16] = total
+    dk_, dv, partial = (x[:, :s, :dk] for x in grads)
+    dkrel = partial[0].T.clone()
+    for u in range(1, n):
+        dkrel = dkrel + partial[u].T
+    return out, dq, dk_, dv, dkrel
+
+
+EMULATED_SHAPES = [(8, 116, 32), (5, 37, 8), (3, 134, 32), (2, 1, 32),
+                   (4, 64, 4), (3, 17, 6), (2, 60, 128), (3, 8, 256),
+                   (2, 43, 248), (1, 1, 1999), (2, 58, 177)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("n,s,dk", EMULATED_SHAPES)
+def test_tiled_emulation_matches_plain(n, s, dk, rate):
+    """The kernels' algorithm, emulated from the plan alone (tiles, the skew
+    S-1-r+c into QP and dQP, krel_t's swizzle, the k order that lets a C
+    fragment serve as an A fragment, skipped blocks, per-CTA partials, the
+    exchange's slots and the rank-order sum, dKrelpos summed over units in
+    order, and the chunks of dk of the wide kernels), against
+    `attention_plain` and its autograd gradients: rtol 1e-5 forward, 1e-4
+    on gradients, atol 1e-6."""
+    rs = np.random.RandomState(7)
+    q, k, v = (torch.from_numpy(rs.randn(n, s, dk).astype(np.float32))
+               for _ in range(3))
+    krel = torch.from_numpy(0.3 * rs.randn(dk, s).astype(np.float32))
+    g = torch.from_numpy(rs.randn(n, s, dk).astype(np.float32))
+    seed = torch.tensor([321], dtype=torch.int32)
+    plan = att.attention_plan(n, s, dk)
+    got = _emulate(plan, q, k, v, krel, seed, rate, g)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v, krel)]
+    want = attention_plain(*leaves, seed, rate)
+    want.backward(g)
+    torch.testing.assert_close(got[0], want.detach(), **FWD)
+    for name, a, b in zip(("dq", "dk", "dv", "dKrelpos"), got[1:], leaves):
+        torch.testing.assert_close(a, b.grad, msg=name, **GRAD)
+
+
+@pytest.mark.parametrize("n,s,dk", [x for x in PLAN_SHAPES if x[0]])
+def test_fragment_loads_hit_32_banks(n, s, dk):
+    """The kernels' fragment loads from shared memory, at the plan's
+    strides, each touch 32 distinct banks (no conflicts): the row-major
+    tiles at ld and the S-wide planes at lds read as [g][t] (rows g,
+    columns t) and as [2t][g] (rows 2t and 2t + 1, the permuted k order);
+    krel_t, XOR-swizzled, read as [g][t] for QP and as [t][g] for dq's
+    relative part."""
+    plan = att.attention_plan(n, s, dk)
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+
+    def distinct(addr):
+        return len(set((addr % 32).tolist())) == 32
+    for stride in (plan.ld, plan.lds):
+        for k0 in range(0, 32, 8):
+            assert distinct(g * stride + k0 + t)          # [g][t]
+            assert distinct(2 * t * stride + k0 + g)      # [2t][g]
+            assert distinct((2 * t + 1) * stride + k0 + g)
+    for j0 in range(0, 16 * plan.tiles, 8):
+        for k0 in range(0, plan.dc, 8):
+            for dt in (0, 4):
+                rows = j0 + g                                  # QP: [g][t]
+                assert distinct(rows * plan.ldr + ((k0 + t + dt) ^ _swz(rows)))
+                rows = j0 + t + dt                             # dq: [t][g]
+                assert distinct(rows * plan.ldr + ((k0 + g) ^ _swz(rows)))
