@@ -30,40 +30,48 @@ Phases, each of which fails the run with a nonzero exit:
    DTW kernel at one ABX flush (18,432 pairs of 32 x 32 frames), a ragged
    16 x 64, a multi-strip 64 x 64 and its 2,048 x 2,048 limit, where it
    must be bit-identical; the LSTM's two routes, the resident cluster
-   kernels also at ABX batches (4 and 16 files of 400 frames) and a ragged
-   one, the per-step kernels also at H = 512, with the resident backward
-   bit-identical across two calls; then time the kernel, the plain version
+   kernels at the recipe, at ABX batches (4 and 16 files of 400 frames)
+   and a ragged one, the grid kernels at H = 512 (the training batch, a
+   short one and ABX batches of 1 and 16 files), at H = 510, at the recipe
+   and at H = 1,400 (W_hh read from L2), each with its plan held to the
+   kernels' own layout, every backward bit-identical across two calls;
+   then time the kernel, the plain version
    and, where one PyTorch call computes the same function, that call (for
    the FFN's two routes, InfoNCE, the attention and the encoder, which no
    one call computes, the same work through library calls as a yardstick;
    the FFN, InfoNCE, the attention, the encoder and the LSTM by device
-   time, the LSTM's backward split by kernel and several of its cluster
-   and batch tiles side by side);
+   time, the LSTM's backward split by kernel, several of its cluster and
+   batch tiles side by side, and the grid route's ms per time step at H =
+   256, 512 and 1,024);
    InfoNCE also at a ragged shape, a 4,096-row pool, N = 10 and 384, K = 40
    with a ragged D above a stage, a large D, one (b, w) and an empty
    shape, its backward bit-identical across two calls;
 4. hold one whole training step on the card (kernels) against the same step
    on the CPU (plain versions) at a small width, same weights, same
    negatives, dropout off: under `--precision fp32` (the FFN's fp32
-   kernels), under `bf16mix` (its bf16 kernels), and under `bf16mix` with
-   CPC2_FUSED_ATTENTION=1 and CPC2_FUSED_ENCODER=1;
+   kernels), under `bf16mix` (its bf16 kernels), under `bf16mix` with
+   CPC2_FUSED_ATTENTION=1 and CPC2_FUSED_ENCODER=1, and under `bf16mix` at
+   a 512-wide encoder and LSTM (the LSTM's grid route);
 5. write a synthetic 16 kHz wav corpus in LibriSpeech layout and run
    `cpc2_torch.train.main` at the CLI defaults on it for one epoch
    (batch 8 x 20,480 samples, 256-d, LSTM, 12 transformer heads, 128
    negatives, `bf16mix`) with `--pathCheckpoint`, with every kernel's
-   launch count set to 0 just before and read just after: the LSTM,
-   InfoNCE and bf16 FFN kernels must have launched and the fp32 FFN,
-   attention, encoder and per-step LSTM kernels must not, the losses must
+   launch count set to 0 just before and read just after: the resident
+   LSTM, InfoNCE and bf16 FFN kernels must have launched and the fp32 FFN,
+   attention, encoder and grid LSTM kernels must not, the losses must
    be finite, the parameters must live on the card and the checkpoint
    files must exist;
    then one more epoch with both variables set (and restored after),
-   which must launch all ten training kernels, and one with `--precision
-   fp32`, which must launch the FFN's fp32 kernels and not its bf16 ones;
+   which must launch all ten training kernels, one with `--precision
+   fp32`, which must launch the FFN's fp32 kernels and not its bf16 ones,
+   and one with `--hiddenEncoder 512 --hiddenGar 512` (`wide`), which must
+   launch the grid LSTM, bf16 FFN and InfoNCE kernels and not the resident
+   LSTM ones;
 6. write a phone corpus with its `.item` file (4 speakers x 8 files x 24
    tokens) and run `cpc2_torch.eval.eval_ABX.main from_checkpoint` on the
    checkpoint of phase 5 at its defaults, the counts again set to 0 just
    before and read just after: the DTW and resident LSTM forward kernels
-   must have launched, the per-step LSTM ones not, and both scores must lie
+   must have launched, the grid LSTM ones not, and both scores must lie
    in [0, 1]; then score the same
    features on the card with the kernel and with the plain DTW (identical
    scores), and hold two files' features card against CPU;
@@ -262,25 +270,24 @@ def check_sass(build) -> str:
 
 # The LSTM's routes against `lstm_plain`, forward and all five gradients:
 # the resident cluster kernels at the recipe, at ABX feature batches (4 and
-# 16 files of 400 frames) and at a ragged batch; the per-step kernels at the
-# recipe and at a width whose W_hh slice does not fit a CTA.
+# 16 files of 400 frames) and at a ragged batch; the grid kernels at the
+# recipe forced onto the grid route, a short 512-wide batch, a 512-wide
+# model's training batch and its ABX batches (1 and 16 files of 400 frames,
+# with a carried state), a width off 4 with a ragged last CTA, and a width
+# whose W_hh slice is read from L2 (H = 1,400: 11 units a CTA). The first
+# two grid shapes draw from the run's generator, where the per-step route's
+# two shapes drew before, so that every later check draws what it drew
+# before; the others from a generator of their own.
 LSTM_RESIDENT_SHAPES = ((8, 128, 256), (4, 400, 256), (16, 400, 256),
                         (5, 37, 256))
-LSTM_STEPS_SHAPES = ((8, 128, 256), (8, 32, 512))
+LSTM_GRID_SHAPES = ((8, 128, 256), (8, 32, 512), (8, 128, 512),
+                    (1, 400, 512), (16, 400, 512), (3, 50, 510),
+                    (4, 16, 1400))
 # (cluster size, batch tile) pairs of the resident route timed side by side
 LSTM_TILES = {(8, 128, 256): ((16, 1), (16, 2), (8, 1), (8, 8)),
               (4, 400, 256): ((16, 1), (16, 4), (8, 1), (8, 4))}
-
-
-def lstm_inputs(dev, gen, b, t, h):
-    return ([torch.randn(b, t, 4 * h, device=dev, generator=gen),
-             torch.randn(b, h, device=dev, generator=gen),
-             torch.randn(b, h, device=dev, generator=gen),
-             torch.randn(4 * h, h, device=dev, generator=gen) / 16,
-             torch.randn(4 * h, device=dev, generator=gen) / 16],
-            [torch.randn(b, t, h, device=dev, generator=gen),
-             torch.randn(b, h, device=dev, generator=gen),
-             torch.randn(b, h, device=dev, generator=gen)])
+# widths at which the grid route's device ms per time step is printed
+LSTM_GRID_WIDTHS = (256, 512, 1024)
 
 
 def ptxas_usage(build, fragment: str) -> list:
@@ -292,9 +299,10 @@ def ptxas_usage(build, fragment: str) -> list:
     for i, line in enumerate(lines):
         if "Function properties" not in line or fragment not in line:
             continue
-        targs = re.search(r"I((?:Li\d+E)+)E", line)
-        name = fragment + (f"<{','.join(re.findall(r'Li(\d+)E', targs[1]))}>"
-                           if targs else "")
+        targs = re.search(r"I((?:L[ib]\d+E)+)E", line)
+        name = fragment + (
+            f"<{','.join(re.findall(r'L[ib](\d+)E', targs[1]))}>"
+            if targs else "")
         spill = re.findall(r"(\d+) bytes spill stores", lines[i + 1])
         regs = re.findall(r"Used (\d+) registers", lines[i + 2])
         out.append(f"{name}: {regs[0] if regs else '?'} registers, "
@@ -302,24 +310,50 @@ def ptxas_usage(build, fragment: str) -> list:
     return sorted(out)
 
 
+def check_grid_layout(lib, plan, b, h, sms) -> list:
+    """The grid plan's layout against `cpc2_lstm_grid_layout`, the kernels'
+    own, both directions; returns how many CTAs an SM holds of each."""
+    import ctypes
+    per_sm = []
+    for backward, layout in ((0, plan.fwd), (1, plan.bwd)):
+        out = (ctypes.c_int * 8)()
+        rc = lib.cpc2_lstm_grid_layout(b, h, sms, backward, out)
+        want = [plan.ctas, plan.units, *layout]
+        if rc != 0 or list(out)[:7] != want:
+            raise AssertionError(f"grid_plan({b}, {h}, {sms}) "
+                                 f"{'bwd' if backward else 'fwd'} {want}, the "
+                                 f"kernels' {list(out)[:7]} (rc {rc})")
+        if out[7] < 1:
+            raise AssertionError(f"no CTA of the grid kernel at ({b}, {h}) "
+                                 f"fits an SM")
+        per_sm.append(out[7])
+    return per_sm
+
+
 def check_lstm(dev, gen):
     """Both LSTM routes against `lstm_plain` (LSTM_RESIDENT_SHAPES,
-    LSTM_STEPS_SHAPES), the resident backward bit-identical across two
-    calls, then at the recipe (8, 128, 256) the resident kernels, the
-    per-step kernels, the plain version and cuDNN timed by device time
-    (events beside), the backward's dW_hh product alone, and the LSTM_TILES
-    choices. Prints the resident kernels' `-Xptxas -v` registers and spills
-    and how many clusters the card holds at once on an `[lstm]` line."""
+    LSTM_GRID_SHAPES), each backward bit-identical across two calls, the
+    grid plan against the kernels' own layout, then the resident kernels at
+    the recipe (8, 128, 256) and the grid kernels at (8, 128, 512), each
+    beside the plain version and cuDNN at its shape, timed by device time
+    (events beside), the backward's dW_hh product alone, the LSTM_TILES
+    choices and the grid route's ms per time step at LSTM_GRID_WIDTHS.
+    Prints the kernels' `-Xptxas -v` registers and spills and how many
+    clusters (CTAs) the card holds at once on an `[lstm]` line."""
     from cpc2_torch.ops import _build
-    from cpc2_torch.ops.lstm import (_LSTMResident, _LSTMSteps, fused_lstm,
+    from cpc2_torch.ops.lstm import (_LSTMGrid, _LSTMResident, grid_plan,
                                      lstm_plain, lstm_plan)
+    from cpc2_torch.time_kernels import cudnn_lstm, lstm_inputs
     lib = _build.library()
-    errs = {"resident": [0.0, 0.0], "steps": [0.0, 0.0]}
-    held = {}
+    sms = _build.sm_count(dev)
+    own = torch.Generator(device=dev)
+    own.manual_seed(3)
+    errs = {"resident": [0.0, 0.0], "grid": [0.0, 0.0]}
+    held, per_sm = {}, {}
     for route, shapes in (("resident", LSTM_RESIDENT_SHAPES),
-                          ("steps", LSTM_STEPS_SHAPES)):
-        for b, t, h in shapes:
-            plan = lstm_plan(b, h)
+                          ("grid", LSTM_GRID_SHAPES)):
+        for i, (b, t, h) in enumerate(shapes):
+            plan = lstm_plan(b, h, sms)
             if route == "resident":
                 if plan.route != "resident":
                     raise AssertionError(f"lstm_plan({b}, {h}) = {plan}")
@@ -332,64 +366,50 @@ def check_lstm(dev, gen):
                 def fn(*a, plan=plan):
                     return _LSTMResident.apply(*a, plan.cluster, plan.bc)
             else:
-                fn = _LSTMSteps.apply
-            inputs, cot = lstm_inputs(dev, gen, b, t, h)
+                if h != 256 and plan.route != "grid":
+                    raise AssertionError(f"lstm_plan({b}, {h}) = {plan}")
+                plan = grid_plan(b, h, sms)
+                per_sm[(b, h)] = check_grid_layout(lib, plan, b, h, sms)
+
+                def fn(*a, plan=plan):
+                    return _LSTMGrid.apply(*a, plan)
+            draw = gen if route == "resident" or i < 2 else own
+            inputs, cot = lstm_inputs(dev, draw, b, t, h)
+            _build.reset_launches()
             out_k, grad_k, bwd_k = grads_of(fn, inputs, cot)
+            launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+            kernels = {"resident": {"lstm_fwd": 1, "lstm_bwd": 1},
+                       "grid": {"lstm_fwd_grid": 1, "lstm_bwd_grid": 1}}
+            if launches != kernels[route]:
+                raise AssertionError(f"lstm {route} ({b}, {t}, {h}) launched "
+                                     f"{launches}")
             out_p, grad_p, bwd_p = grads_of(lstm_plain, inputs, cot)
             what = f"lstm {route} ({b}, {t}, {h})"
             errs[route][0] = max(errs[route][0],
                                  compare(what + " forward", out_k, out_p))
             errs[route][1] = max(errs[route][1],
                                  compare(what + " backward", grad_k, grad_p))
-            if (b, t, h) == (8, 128, 256):
+            again = bwd_k()
+            if not all(torch.equal(a, g) for a, g in zip(again, grad_k)):
+                raise AssertionError(f"{what} backward: two calls differ")
+            if (route, b, t, h) in (("resident", 8, 128, 256),
+                                    ("grid", 8, 128, 512)):
                 held[route] = (inputs, cot, fn, out_k, grad_k, bwd_k, bwd_p)
-    inputs, cot, _fn, out_k, grad_k, bwd_k, bwd_p = held["resident"]
-    again = bwd_k()
-    if not all(torch.equal(a, g) for a, g in zip(again, grad_k)):
-        raise AssertionError("lstm resident backward: two calls differ")
 
-    # cuDNN's LSTM computes the same recurrence when its input is gi and
-    # its input weight the identity: the library yardstick.
-    b, t, h = 8, 128, 256
-    cudnn = torch.nn.LSTM(4 * h, h, batch_first=True).to(dev)
-    with torch.no_grad():
-        cudnn.weight_ih_l0.copy_(torch.eye(4 * h, device=dev))
-        cudnn.bias_ih_l0.zero_()
-        cudnn.weight_hh_l0.copy_(inputs[3])
-        cudnn.bias_hh_l0.copy_(inputs[4])
-    cudnn.weight_ih_l0.requires_grad_(False)
-    cudnn.bias_ih_l0.requires_grad_(False)
-
-    def lib_fwd():
-        return cudnn(inputs[0], (inputs[1][None], inputs[2][None]))
-
-    x_lib = inputs[0].detach().requires_grad_(True)
-    h_lib = inputs[1][None].detach().requires_grad_(True)
-    c_lib = inputs[2][None].detach().requires_grad_(True)
-    ys_lib, (hl_lib, cl_lib) = cudnn(x_lib, (h_lib, c_lib))
-    lib_params = [x_lib, h_lib, c_lib, cudnn.weight_hh_l0, cudnn.bias_hh_l0]
-
-    def lib_bwd():
-        return torch.autograd.grad((ys_lib, hl_lib, cl_lib), lib_params,
-                                   (cot[0], cot[1][None], cot[2][None]),
-                                   retain_graph=True)
-
-    steps_bwd = held["steps"][5]
-    with torch.no_grad():
-        timed_fwd = {"lstm_fwd": lambda: fused_lstm(*inputs),
-                     "lstm_fwd_steps": lambda: _LSTMSteps.apply(*inputs)}
-        ms = {k: device_ms(f) for k, f in timed_fwd.items()}
-        events = {k: cuda_ms(f) for k, f in timed_fwd.items()}
-        plain_fwd_ms = device_ms(lambda: lstm_plain(*inputs), iters=3)
-        lib_fwd_ms = device_ms(lib_fwd)
-    bwd_split = device_split(bwd_k)
-    ms["lstm_bwd"] = sum(bwd_split.values())
-    ms["lstm_bwd_steps"] = device_ms(steps_bwd)
-    events["lstm_bwd"] = cuda_ms(bwd_k)
-    events["lstm_bwd_steps"] = cuda_ms(steps_bwd)
-    plain_bwd_ms = device_ms(bwd_p, iters=3)
-    lib_bwd_ms = device_ms(lib_bwd)
-    dw_ms = sum(v for k, v in bwd_split.items() if "gemm_kernel" in k)
+    ms, events, split, timed = {}, {}, {}, {}
+    for route, suffix in (("resident", ""), ("grid", "_grid")):
+        inputs, cot, fn, out_k, grad_k, bwd_k, bwd_p = held[route]
+        lib_fwd, lib_bwd = cudnn_lstm(inputs, cot)
+        with torch.no_grad():
+            ms["lstm_fwd" + suffix] = device_ms(lambda: fn(*inputs))
+            events["lstm_fwd" + suffix] = cuda_ms(lambda: fn(*inputs))
+            plain_fwd = device_ms(lambda: lstm_plain(*inputs), iters=3)
+            lib_f = device_ms(lib_fwd)
+        split[route] = device_split(bwd_k)
+        ms["lstm_bwd" + suffix] = sum(split[route].values())
+        events["lstm_bwd" + suffix] = cuda_ms(bwd_k)
+        timed[route] = (plain_fwd, device_ms(bwd_p, iters=3), lib_f,
+                        device_ms(lib_bwd))
 
     tiles = {}
     for (tb, tt, th), choices in LSTM_TILES.items():
@@ -401,43 +421,74 @@ def check_lstm(dev, gen):
             with torch.no_grad():
                 f_ms = device_ms(lambda: fn(*t_inputs))
             tiles[f"({tb},{tt},{th}) C{c} Bc{bc}"] = (f_ms, device_ms(bwd))
-    plan = lstm_plan(b, h)
+    per_step = {}
+    for h in LSTM_GRID_WIDTHS:
+        plan = grid_plan(8, h, sms)
+        t_inputs, t_cot = lstm_inputs(dev, own, 8, 128, h)
+        _o, _g, bwd = grads_of(lambda *a, plan=plan: _LSTMGrid.apply(
+            *a, plan), t_inputs, t_cot)
+        with torch.no_grad():
+            f_ms = device_ms(lambda: _LSTMGrid.apply(*t_inputs, plan))
+        b_split = device_split(bwd)
+        walk = sum(v for k, v in b_split.items() if "lstm_bwd_grid" in k)
+        per_step[h] = (1e3 * f_ms / 128, 1e3 * walk / 128)
+    b, h = 8, 256
+    plan = lstm_plan(b, h, sms)
     clusters = {f"C{c} Bc{bc} {'bwd' if d else 'fwd'}":
                 lib.cpc2_lstm_max_clusters(h, c, bc, d)
                 for c, bc in ((plan.cluster, plan.bc), (8, 8)) for d in (0, 1)}
-    log(f"[lstm] plan at the recipe {tuple(plan)}; max active clusters "
-        f"{clusters}; ptxas: "
+    wide = lstm_plan(8, 512, sms)
+    log(f"[lstm] plan at the recipe {tuple(plan)[:4]}; max active clusters "
+        f"{clusters}; grid plan at (8, 512) {wide.ctas} CTAs x {wide.units} "
+        f"units, fwd {tuple(wide.fwd)}, bwd {tuple(wide.bwd)}, CTAs an SM "
+        f"(fwd, bwd) {per_sm[(8, 512)]}; ptxas: "
         + " | ".join(ptxas_usage(_build, "lstm_fwd_resident")
-                     + ptxas_usage(_build, "lstm_bwd_resident")))
-    log("[lstm] device ms per call at the recipe: resident fwd "
-        f"{ms['lstm_fwd']:.4f} bwd {ms['lstm_bwd']:.4f} (of which dW_hh "
-        f"product {dw_ms:.4f}; by kernel "
-        + ", ".join(f"{k[:40]} {v:.4f}" for k, v in bwd_split.items())
-        + f"), steps fwd {ms['lstm_fwd_steps']:.4f} bwd "
-        f"{ms['lstm_bwd_steps']:.4f}, cuDNN fwd {lib_fwd_ms:.4f} bwd "
-        f"{lib_bwd_ms:.4f}; events {events}")
+                     + ptxas_usage(_build, "lstm_bwd_resident")
+                     + ptxas_usage(_build, "lstm_fwd_grid")
+                     + ptxas_usage(_build, "lstm_bwd_grid")))
+    for route, where in (("resident", "(8, 128, 256)"),
+                         ("grid", "(8, 128, 512)")):
+        suffix = "" if route == "resident" else "_grid"
+        plain_f, plain_b, lib_f, lib_b = timed[route]
+        log(f"[lstm] {route} at {where}, device ms a call: fwd "
+            f"{ms['lstm_fwd' + suffix]:.4f} bwd {ms['lstm_bwd' + suffix]:.4f} "
+            "(by kernel "
+            + ", ".join(f"{k[:40]} {v:.4f}" for k, v in split[route].items())
+            + f"), plain {plain_f:.4f} / {plain_b:.4f}, cuDNN {lib_f:.4f} / "
+            f"{lib_b:.4f}")
+    log("[lstm] grid route at (8, 128, H), device us a time step fwd/walk: "
+        + ", ".join(f"H = {h} {f:.3f}/{w:.3f}"
+                    for h, (f, w) in per_step.items())
+        + f"; events {events}")
     log("[lstm tiles] device ms fwd/bwd: " + ", ".join(
         f"{k} {f:.4f}/{bw:.4f}" for k, (f, bw) in tiles.items()))
 
-    gi, h0, c0, w_hh, b_hh = inputs
-    mm = 2 * b * t * 4 * h * h
-    # outputs: ys, h_last, c_last, and the cell states and gates it saves
-    fwd_bytes = nbytes(*inputs) + nbytes(*out_k) + nbytes(out_k[0], gi)
-    bwd_bytes = (nbytes(w_hh, h0, c0) + nbytes(*cot) + nbytes(out_k[0]) * 2
-                 + nbytes(gi) + nbytes(*grad_k))
     src, rep = "cpc2_torch/csrc/lstm.cu", "cpc2_tpu/ops/lstm_pallas.py"
     entries = []
-    for route, suffix in (("resident", ""), ("steps", "_steps")):
+    for route, suffix in (("resident", ""), ("grid", "_grid")):
+        inputs, cot, _fn, out_k, grad_k, _b, _p = held[route]
+        gi, h0, c0, w_hh, b_hh = inputs
+        b, t, g4 = gi.shape
+        mm = 2 * b * t * g4 * (g4 // 4)
+        # outputs: ys, h_last, c_last, and the cell states and gates saved
+        fwd_bytes = nbytes(*inputs) + nbytes(*out_k) + nbytes(out_k[0], gi)
+        bwd_bytes = (nbytes(w_hh, h0, c0) + nbytes(*cot)
+                     + nbytes(out_k[0]) * 2 + nbytes(gi) + nbytes(*grad_k))
+        plain_f, plain_b, lib_f, lib_b = timed[route]
         err_f, err_b = errs[route]
         entries += [
             kernel_entry("lstm_fwd" + suffix, src, rep + ":166", err_f,
-                         ms["lstm_fwd" + suffix], plain_fwd_ms, lib_fwd_ms,
-                         fwd_bytes, mm),
+                         ms["lstm_fwd" + suffix], plain_f, lib_f, fwd_bytes,
+                         mm),
             kernel_entry("lstm_bwd" + suffix, src, rep + ":206", err_b,
-                         ms["lstm_bwd" + suffix], plain_bwd_ms, lib_bwd_ms,
-                         bwd_bytes, 2 * mm)]
-    extra = {"lstm_dw_hh_ms": dw_ms, "lstm_bwd_by_kernel_ms": bwd_split,
-             "lstm_tiles_ms": tiles, "lstm_max_clusters": clusters}
+                         ms["lstm_bwd" + suffix], plain_b, lib_b, bwd_bytes,
+                         2 * mm)]
+    dw = {route: sum(v for k, v in split[route].items() if "gemm_kernel" in k)
+          for route in split}
+    extra = {"lstm_dw_hh_ms": dw, "lstm_bwd_by_kernel_ms": split,
+             "lstm_tiles_ms": tiles, "lstm_max_clusters": clusters,
+             "lstm_grid_us_per_time_step": per_step,
+             "lstm_grid_ctas_per_sm": {str(k): v for k, v in per_sm.items()}}
     return entries, {}, events, extra
 
 
@@ -1320,42 +1371,52 @@ FUSED_GRAD_NORM_TOL = 5e-2
 # run: the step is deterministic). Every other tensor stays at
 # FUSED_GRAD_NORM_TOL.
 FFN_LIN1_GRAD_NORM_TOL = 1e-1
-STEP_RUNS = (("fp32", False), ("bf16mix", False), ("bf16mix", True))
+# (precision, both opt-in kernels, encoder and LSTM width): the last at a
+# 512-wide model's width, whose LSTM takes the grid route
+STEP_RUNS = (("fp32", False, 64), ("bf16mix", False, 64),
+             ("bf16mix", True, 64), ("bf16mix", False, 512))
 
 
-def check_step(dev, precision: str, fused: bool) -> tuple:
-    """One training step on the card against the same step on the CPU at a
-    small width, same weights and negatives, dropout off: the per-head
-    losses and every gradient. Under `fp32` the tolerance is 1e-3 of each
-    tensor's largest value: the whole network's sums run in other orders on
-    the two devices (cuDNN's convolutions among them); under `bf16mix`, with
-    or without `fused` (both opt-in kernels), see FUSED_GRAD_NORM_TOL.
-    Parameters after the Adam step are not compared: where a gradient is
-    near zero its first step is +-lr times the sign of a rounding error.
-    Returns the max abs error and the card step's kernel launches."""
+def check_step(dev, precision: str, fused: bool, width: int) -> tuple:
+    """One training step on the card against the same step on the CPU at
+    `width` (64: the LSTM's resident route; 512: its grid route, which the
+    step must launch), same weights and negatives, dropout off: the
+    per-head losses and every gradient. Under `fp32` the tolerance is 1e-3
+    of each tensor's largest value: the whole network's sums run in other
+    orders on the two devices (cuDNN's convolutions among them); under
+    `bf16mix`, with or without `fused` (both opt-in kernels), see
+    FUSED_GRAD_NORM_TOL. Parameters after the Adam step are not compared:
+    where a gradient is near zero its first step is +-lr times the sign of
+    a rounding error. Returns the max abs error and the card step's kernel
+    launches."""
     from cpc2_torch.ops import _build
     from cpc2_torch.training import precision as library_precision
     with fused_switches(fused), library_precision(precision):
         _build.reset_launches()
-        err = _check_step(dev, precision, fused)
+        err = _check_step(dev, precision, fused, width)
         launches = dict(_build.LAUNCHES)
     ffn = FP32_FFN if precision == "fp32" else BF16_FFN
-    check_launched(f"{precision} step", launches, ffn)
-    others = [k for k in FFN_KERNELS if k not in ffn and launches[k]]
+    lstm = LSTM_GRID if width == 512 else LSTM_RESIDENT
+    check_launched(f"{precision} step at width {width}", launches,
+                   ffn + lstm)
+    others = [k for k in FFN_KERNELS + LSTM_RESIDENT + LSTM_GRID
+              if k not in ffn + lstm and launches[k]]
     if others:
-        raise AssertionError(f"the {precision} step launched {others}")
+        raise AssertionError(f"the {precision} step at width {width} "
+                             f"launched {others}")
     return err, launches
 
 
-def _check_step(dev, precision: str, fused: bool) -> float:
+def _check_step(dev, precision: str, fused: bool, width: int) -> float:
     from cpc2_torch.config import parse_args
     from cpc2_torch.feature_loader import build_model
     from cpc2_torch.train import get_criterion
     from cpc2_torch.training import Trainer, make_optimizer
     args = parse_args(["--pathDB", ".", "--file_extension", ".wav",
-                       "--hiddenEncoder", "64", "--hiddenGar", "64",
-                       "--nPredicts", "3", "--negativeSamplingExt", "16",
-                       "--sizeWindow", "3840", "--random_seed", "0"])
+                       "--hiddenEncoder", str(width), "--hiddenGar",
+                       str(width), "--nPredicts", "3",
+                       "--negativeSamplingExt", "16", "--sizeWindow", "3840",
+                       "--random_seed", "0"])
     torch.manual_seed(0)
     rs = np.random.RandomState(0)
     batch = torch.from_numpy(rs.randn(4, 2, 1, 3840).astype(np.float32))
@@ -1383,7 +1444,7 @@ def _check_step(dev, precision: str, fused: bool) -> float:
     if precision == "fp32":
         return compare("training step (card vs cpu)", results[1],
                        results[0], rtol=1e-3)
-    what = f"{precision}{' fused' if fused else ''} step"
+    what = f"{precision}{' fused' if fused else ''} step at width {width}"
     err = loss_err = compare(f"{what} losses (card vs cpu)",
                              results[1][:1], results[0][:1],
                              rtol=FUSED_LOSS_RTOL)
@@ -1439,8 +1500,15 @@ FFN_KERNELS = BF16_FFN + FP32_FFN
 FP32_KERNELS = ("lstm_fwd", "lstm_bwd", "infonce_fwd", "infonce_bwd",
                 *FP32_FFN)
 ABX_KERNELS = ("dtw", "lstm_fwd")
-# the LSTM's per-step route, which no path at H = 256 may take
-LSTM_STEPS = ("lstm_fwd_steps", "lstm_bwd_steps")
+# the LSTM's routes: the resident one at H = 256, the grid one at H = 512
+LSTM_RESIDENT = ("lstm_fwd", "lstm_bwd")
+LSTM_GRID = ("lstm_fwd_grid", "lstm_bwd_grid")
+# the wide epoch's kernels: the LSTM's grid route, the bf16 FFN and InfoNCE
+WIDE_KERNELS = LSTM_GRID + ("ffn_fwd", "ffn_bwd", "infonce_fwd",
+                            "infonce_bwd")
+# the flags of a 512-wide model (the width of the larger published CPC
+# models), every other one at the CLI default
+WIDE = ["--hiddenEncoder", "512", "--hiddenGar", "512"]
 
 
 def check_launched(path: str, launches: dict, kernels) -> None:
@@ -1451,23 +1519,25 @@ def check_launched(path: str, launches: dict, kernels) -> None:
 
 
 EPOCHS = {  # kernels each epoch must launch, and kernels it must not
-    "default": (TRAINING_KERNELS, FUSED_KERNELS + FP32_FFN + LSTM_STEPS),
-    "fused": (TRAINING_KERNELS + FUSED_KERNELS, FP32_FFN + LSTM_STEPS),
-    "fp32": (FP32_KERNELS, FUSED_KERNELS + BF16_FFN + LSTM_STEPS),
+    "default": (TRAINING_KERNELS, FUSED_KERNELS + FP32_FFN + LSTM_GRID),
+    "fused": (TRAINING_KERNELS + FUSED_KERNELS, FP32_FFN + LSTM_GRID),
+    "fp32": (FP32_KERNELS, FUSED_KERNELS + BF16_FFN + LSTM_GRID),
+    "wide": (WIDE_KERNELS, FUSED_KERNELS + FP32_FFN + LSTM_RESIDENT),
 }
 
 
 def run_training(dev, work: str, mode: str = "default") -> dict:
     """One epoch at the CLI defaults with `--pathCheckpoint <work>/ck_<mode>`:
     `default`; `fused`, with both opt-in kernels' variables set; `fp32`,
-    with `--precision fp32` (the FFN's fp32 route)."""
+    with `--precision fp32` (the FFN's fp32 route); `wide`, with WIDE (a
+    512-wide encoder and LSTM: the LSTM's grid route)."""
     from cpc2_torch.ops import _build
     from cpc2_torch.train import main
     root = os.path.join(work, "train_db")
     ck = os.path.join(work, f"ck_{mode}")
     if not os.path.exists(root):
         write_corpus(root)
-    extra = ["--precision", "fp32"] if mode == "fp32" else []
+    extra = {"fp32": ["--precision", "fp32"], "wide": WIDE}.get(mode, [])
     with fused_switches(mode == "fused"):
         _build.reset_launches()
         record = main(["--pathDB", root, "--file_extension", ".wav",
@@ -1569,7 +1639,7 @@ def run_abx(dev, work: str, checkpoint: str) -> dict:
     launches = dict(_build.LAUNCHES)
     run = dict(eval_ABX.LAST_RUN)
     check_launched("ABX", launches, ABX_KERNELS)
-    ran = [k for k in LSTM_STEPS if launches[k]]
+    ran = [k for k in LSTM_GRID if launches[k]]
     if ran:
         raise AssertionError(f"the ABX path launched {ran}")
     for mode in ("within", "across"):
@@ -1680,10 +1750,11 @@ def main() -> int:
                else ""))
 
     step_err = {}
-    for prec, fused in STEP_RUNS:
+    for prec, fused, width in STEP_RUNS:
         start = time.perf_counter()
-        name = f"{prec}{' fused' if fused else ''}"
-        step_err[name], launches = check_step(dev, prec, fused)
+        name = (f"{prec}{' fused' if fused else ''}"
+                f"{' wide' if width > 64 else ''}")
+        step_err[name], launches = check_step(dev, prec, fused, width)
         log(f"[check_step {name}] max abs err {step_err[name]:.2e}, "
             f"{time.perf_counter() - start:.1f} s, launches "
             f"{ {k: n for k, n in launches.items() if n} }")
@@ -1699,7 +1770,7 @@ def main() -> int:
             f"{mode} {rec['median_step_ms']:.3f}"
             for mode, rec in records.items())
             + " (fused: CPC2_FUSED_ATTENTION=1 CPC2_FUSED_ENCODER=1; fp32: "
-            "--precision fp32)")
+            "--precision fp32; wide: " + " ".join(WIDE) + ")")
         record = records["default"]
         start = time.perf_counter()
         abx = run_abx(dev, work, record["checkpoint"])
@@ -1714,7 +1785,8 @@ def main() -> int:
     for k in kernels:
         path = (abx if k["name"] == "dtw" else records["fused"]
                 if k["name"] in FUSED_KERNELS else records["fp32"]
-                if k["name"] in FP32_FFN else record)
+                if k["name"] in FP32_FFN else records["wide"]
+                if k["name"] in LSTM_GRID else record)
         k["launches"] = path["launches"][k["name"]]
 
     def epoch(rec):
@@ -1731,6 +1803,8 @@ def main() -> int:
                             step_parity_max_abs_err=step_err["bf16mix fused"]),
         "slice_fp32": dict(epoch(records["fp32"]),
                            step_parity_max_abs_err=step_err["fp32"]),
+        "slice_wide": dict(epoch(records["wide"]),
+                           step_parity_max_abs_err=step_err["bf16mix wide"]),
         "default_route_ms": yardsticks,
         "events_ms": events,
         "lstm": details,

@@ -1,6 +1,6 @@
 // Shared device code for the cpc2_torch kernels: a plain fp32 tiled GEMM
-// with strided operands and fused epilogues, a column sum, a warp sum and
-// the counter-based dropout hash.
+// with strided operands and fused epilogues, a column sum and the
+// counter-based dropout hash.
 //
 // The GEMM is the simple shared-memory SGEMM (64x64 output tile, 16-deep
 // k slices, a 4x4 register tile per thread, 256 threads). It runs on the
@@ -168,13 +168,6 @@ inline cudaError_t colsum(int M, int N, const float* X, long ld, float* out,
   if (N <= 0) return cudaSuccess;
   colsum_kernel<<<(N + 255) / 256, 256, 0, stream>>>(M, N, X, ld, out);
   return cudaGetLastError();
-}
-
-__device__ inline float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
 }
 
 // --- mbarriers, bulk copies and 3xTF32 tensor-core products (sm_90) -------

@@ -10,8 +10,9 @@
 // (B, H) x (H, 4H) product that depends on the step before, so a step is
 // bound by its latency chain, not by bytes or FLOPs. The TPU kernel keeps the
 // 1 MB W_hh resident in VMEM and walks the sequence inside one call. Here the
-// same holds across a thread-block cluster: two routes, chosen by the caller
-// from (B, H) (cpc2_torch/ops/lstm.py:lstm_plan).
+// same holds across a thread-block cluster or across the whole card: two
+// routes, chosen by the caller from (B, H) and the card's SMs
+// (cpc2_torch/ops/lstm.py:lstm_plan).
 //
 // - Resident (`cpc2_lstm_fwd`, `cpc2_lstm_bwd`): one launch per call.
 //   Clusters of C CTAs (16 as a non-portable size, or 8); each cluster owns
@@ -38,10 +39,13 @@
 //   FLOPs: the chain of shared-memory reads of W (64 KB, 512 clocks at 128
 //   bytes a clock), the partial sums, the cell's transcendentals and the
 //   remote stores' round trip (PERF.md, "Findings").
-// - Steps (`cpc2_lstm_fwd_steps`, `cpc2_lstm_bwd_steps`): where a CTA's
-//   slice of W_hh and its buffers exceed the 227 KB of shared memory (H =
-//   512, say), one launch per time step whose blocks own kUnits hidden
-//   units and read their W_hh rows from L2; the backward reads W_hh^T.
+// - Grid (`cpc2_lstm_fwd_grid`, `cpc2_lstm_bwd_grid`): where a CTA's
+//   slice of W_hh and its buffers exceed a cluster's shared memory (H =
+//   512 and wider, or H not a multiple of 4), one cooperative launch per
+//   call over the whole card, each CTA's slice resident, one grid barrier a
+//   step (the section "grid route" below).
+#include <algorithm>
+
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -557,135 +561,506 @@ cudaError_t cluster_config(const void* fn, int C, int n_clusters,
   return cudaSuccess;
 }
 
-// --- steps route: one launch per time step -----------------------------------
+// --- grid route: one cooperative launch a call --------------------------------
+//
+// The widths whose W_hh slice does not fit a cluster (H = 512 and wider, or
+// H not a multiple of 4). G CTAs, all resident at once (a cooperative
+// launch, which fails with a CUDA error where they cannot be), each owning
+// U hidden units [gU, min((g+1)U, H)); U is the smallest with ceil(H/U) <=
+// the card's SMs, so G = 128 and U = 4 at H = 512 on an H100. A CTA's slice
+// of W_hh stays in shared memory for the whole call (forward: its 4U gate
+// rows; backward: its U columns, rows of W_hh^T), or, where it does not fit
+// beside the staged operand (from about H = 1,200), is read from L2 every
+// step by the same kernel. Time is walked inside the launch: a step stages
+// the operand every CTA wrote the step before (h_{t-1}, or dgi_{t+1}) from
+// L2 into shared memory, forms the CTA's products, runs the cell for its
+// units with c (dc) in registers, writes its outputs, and ends in one grid
+// barrier (`cg::this_grid().sync()`). h_t and h_{t-1} (dgi_t and dgi_{t+1})
+// live at different addresses, so one barrier a step is enough. Those
+// operands are read through L2 only (`ld.global.cg`): never the
+// non-coherent path, and never L1, which could hold a stale line of a row
+// another CTA has written since.
+//
+// A product tile is 32 sums: forward, a unit's 4 gates x 8 batch rows;
+// backward, 4 units x 8 rows. A warp takes a tile and a slice of k (the
+// layout's splits fill the 8 warps); lane l adds up k = 4(l + 32i) .. +3 in
+// fp32 FMAs, then the lanes' partials are reduced in a fixed butterfly that
+// leaves sum l in lane l, and the cell adds the splits in order 0, 1, ...
+// No atomics on values: the backward is the same bit for bit across calls.
+// The batch is staged in chunks of `chunk` rows within a step where all of
+// it does not fit beside the slice, and walked in blocks of `walk` rows
+// (each thread carries c or dc of at most kCellItems (unit, row) items).
+// dW_hh stays one product after the walk and db_hh a fixed-order column sum.
+// What bounds a step is latency: an L2 round trip for the staged operand,
+// the products, the cell and the barrier; the layout is mirrored by
+// cpc2_torch/ops/lstm.py:grid_layout.
 
-constexpr int kUnits = 2;
-constexpr int kThreads = 256;
+constexpr int kGridThreads = 256;
+constexpr int kGridWarps = kGridThreads / 32;
+constexpr int kCellItems = 4;
+constexpr int kTileRows = 8;    // batch rows of a product tile
+constexpr int kStageLoads = 16; // loads a thread has in flight when staging
 
-// One forward step t. h_prev/c_prev rows are h_stride apart (h0 rows, or
-// the rows of ys[:, t-1]).
-__global__ void __launch_bounds__(kThreads)
-lstm_fwd_step(const float* __restrict__ gi, const float* __restrict__ h_prev,
-              const float* __restrict__ c_prev, long prev_stride,
-              const float* __restrict__ w_hh, const float* __restrict__ b_hh,
-              float* __restrict__ ys, float* __restrict__ cs,
-              float* __restrict__ ga, float* __restrict__ h_last,
-              float* __restrict__ c_last, int B, int T, int H, int t) {
-  extern __shared__ float smem[];
-  float* h_s = smem;              // (B, H)
-  float* pre = smem + B * H;      // (4*kUnits, B)
-  const int u0 = blockIdx.x * kUnits;
-  for (int i = threadIdx.x; i < B * H; i += blockDim.x) {
-    const int b = i / H, k = i % H;
-    h_s[i] = h_prev[b * prev_stride + k];
-  }
-  __syncthreads();
+struct GridLayout {
+  int ctas, units, walk, chunk, splits, w_smem;
+  size_t smem;
+  bool ok;
+};
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_warps = blockDim.x / 32;
-  for (int r = warp; r < 4 * kUnits; r += n_warps) {
-    const int gate = r / kUnits, u = u0 + r % kUnits;
-    if (u >= H) continue;
-    const float* w_row = w_hh + (long)(gate * H + u) * H;
-    for (int b = 0; b < B; ++b) {
-      float acc = 0.f;
-      for (int k = lane; k < H; k += 32) acc += w_row[k] * h_s[b * H + k];
-      acc = cpc2::warp_sum(acc);
-      if (lane == 0) pre[r * B + b] = acc;
+// The layout at (B, H) on a card of `sms` SMs, forward or backward. The
+// CTAs resident at once are min(1, the kernel's
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor) x sms (`grid_setup` checks
+// the occupancy): one CTA an SM at most, since a second CTA on an SM would
+// stage the operand again and add an arrival to every barrier, for no FMA
+// the first cannot run. Row length of the staged operand: forward H
+// rounded up to 4 (zero padded), backward 4H. Shared memory: the W slice (forward (4U, k_row); backward
+// (4 ceil(U/4), 4H), zero rows past the CTA's units) when it fits, the
+// staged chunk (chunk, k_row), the splits' partial tiles (splits, tiles,
+// 32). The largest chunk of the walk's rows that fits, with the slice in
+// shared memory if any chunk fits beside it.
+GridLayout grid_layout(int B, int H, int sms, bool backward) {
+  GridLayout l{0, 0, 0, 0, 0, 0, 0, false};
+  if (B < 1 || H < 1 || sms < 1) return l;
+  const int U = (H + sms - 1) / sms;
+  l.units = U;
+  l.ctas = (H + U - 1) / U;
+  l.walk = std::min(B, kGridThreads * kCellItems / U);
+  if (l.walk < 1) return l;
+  const long k_row = backward ? 4l * H : (H + 3) / 4 * 4l;
+  const int groups = backward ? (U + 3) / 4 : U;
+  const long w_floats = backward ? 4l * groups * k_row : 4l * U * k_row;
+  for (int w_smem = 1; w_smem >= 0; --w_smem) {
+    for (int chunk = l.walk; chunk >= 1; --chunk) {
+      const int tiles = groups * ((chunk + kTileRows - 1) / kTileRows);
+      const int splits = std::max(1, kGridWarps / tiles);
+      const size_t smem = sizeof(float) *
+          ((w_smem ? w_floats : 0) + chunk * k_row + 32l * splits * tiles);
+      if (smem <= kSmemLimit) {
+        l.chunk = chunk;
+        l.splits = splits;
+        l.w_smem = w_smem;
+        l.smem = smem;
+        l.ok = true;
+        return l;
+      }
     }
   }
-  __syncthreads();
+  return l;
+}
 
-  for (int p = threadIdx.x; p < kUnits * B; p += blockDim.x) {
-    const int ul = p % kUnits, b = p / kUnits, u = u0 + ul;
-    if (u >= H) continue;
-    const long bt = (long)b * T + t;
-    const float* g_in = gi + bt * 4 * H;
-    const float xi = g_in[u] + pre[(0 * kUnits + ul) * B + b] + b_hh[u];
-    const float xf = g_in[H + u] + pre[(1 * kUnits + ul) * B + b] + b_hh[H + u];
-    const float xg =
-        g_in[2 * H + u] + pre[(2 * kUnits + ul) * B + b] + b_hh[2 * H + u];
-    const float xo =
-        g_in[3 * H + u] + pre[(3 * kUnits + ul) * B + b] + b_hh[3 * H + u];
-    const float i = sigmoid(xi), f = sigmoid(xf), g = tanhf(xg),
-                o = sigmoid(xo);
-    const float c = f * c_prev[b * prev_stride + u] + i * g;
-    const float h = o * tanhf(c);
-    ys[bt * H + u] = h;
-    cs[bt * H + u] = c;
-    float* ga_t = ga + bt * 4 * H;
-    ga_t[u] = i;
-    ga_t[H + u] = f;
-    ga_t[2 * H + u] = g;
-    ga_t[3 * H + u] = o;
-    if (t == T - 1) {
-      h_last[b * H + u] = h;
-      c_last[b * H + u] = c;
+// Rows [0, n) of a chunk into `stage` (rows k_row floats apart): row r is
+// src[r * stride + k] for k < len, zero beyond. Through L2 only: other CTAs
+// of this launch wrote them. Each thread has kStageLoads loads in flight
+// before it stores any, so a chunk costs about one L2 round trip.
+__device__ __forceinline__ void stage_rows(float* stage, const float* src,
+                                           long stride, int n, int len,
+                                           int k_row) {
+  const int tid = threadIdx.x;
+  if ((len & 3) == 0 && len == k_row) {
+    const int q = k_row / 4, total = n * q;
+    for (int base = tid; base < total; base += kStageLoads * kGridThreads) {
+      float4 v[kStageLoads];
+#pragma unroll
+      for (int j = 0; j < kStageLoads; ++j) {
+        const int i = base + j * kGridThreads;
+        if (i < total)
+          v[j] = __ldcg(reinterpret_cast<const float4*>(src + (i / q) * stride) +
+                        i % q);
+      }
+#pragma unroll
+      for (int j = 0; j < kStageLoads; ++j) {
+        const int i = base + j * kGridThreads;
+        if (i < total) reinterpret_cast<float4*>(stage)[i] = v[j];
+      }
+    }
+  } else {
+    const int total = n * k_row;
+    for (int base = tid; base < total; base += kStageLoads * kGridThreads) {
+      float v[kStageLoads];
+#pragma unroll
+      for (int j = 0; j < kStageLoads; ++j) {
+        const int i = base + j * kGridThreads, k = i % k_row;
+        v[j] = (i < total && k < len) ? __ldcg(src + (i / k_row) * stride + k)
+                                      : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kStageLoads; ++j) {
+        const int i = base + j * kGridThreads;
+        if (i < total) stage[i] = v[j];
+      }
     }
   }
 }
 
-// One backward step t (t = T-1 .. 0), the cell algebra of
-// lstm_pallas.py:_bwd_kernel. The recurrent gradient into h_t is
-// dgi[:, t+1] @ W_hh (dh_last at t = T-1). dc_carry holds dc_{t+1} * f_{t+1}
-// between steps (dc_last at t = T-1) and ends as dc0. The extra step t = -1
-// only writes dh0 = dgi[:, 0] @ W_hh.
-__global__ void __launch_bounds__(kThreads)
-lstm_bwd_step(const float* __restrict__ w_hh_t, const float* __restrict__ dys,
-              const float* __restrict__ dh_last,
-              const float* __restrict__ dc_last, const float* __restrict__ cs,
-              const float* __restrict__ ga, const float* __restrict__ c0,
-              float* __restrict__ dgi, float* __restrict__ dc_carry,
-              float* __restrict__ dh0, int B, int T, int H, int t) {
-  extern __shared__ float dh_rec[];  // (B, kUnits)
-  const int u0 = blockIdx.x * kUnits;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_warps = blockDim.x / 32;
-  const int G = 4 * H;
-  for (int task = warp; task < B * kUnits; task += n_warps) {
-    const int b = task / kUnits, u = u0 + task % kUnits;
-    if (u >= H) continue;
-    float acc;
-    if (t == T - 1) {
-      acc = dh_last[b * H + u];
-    } else {
-      const float* d_next = dgi + ((long)b * T + t + 1) * G;
-      const float* w_col = w_hh_t + (long)u * G;
-      acc = 0.f;
-      for (int r = lane; r < G; r += 32) acc += d_next[r] * w_col[r];
-      acc = cpc2::warp_sum(acc);
-    }
-    if (lane == 0) dh_rec[task] = acc;
-  }
-  __syncthreads();
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, acc))));
+}
 
-  for (int p = threadIdx.x; p < B * kUnits; p += blockDim.x) {
-    const int b = p / kUnits, u = u0 + p % kUnits;
-    if (u >= H) continue;
-    if (t < 0) {
-      dh0[b * H + u] = dh_rec[p];
-      continue;
-    }
-    const long bt = (long)b * T + t;
-    const float* ga_t = ga + bt * G;
-    const float i = ga_t[u], f = ga_t[H + u], g = ga_t[2 * H + u],
-                o = ga_t[3 * H + u];
-    const float tanh_c = tanhf(cs[bt * H + u]);
-    const float dh = dys[bt * H + u] + dh_rec[p];
-    const float dc_next = (t == T - 1) ? dc_last[b * H + u] : dc_carry[b * H + u];
-    const float c_prev = (t == 0) ? c0[b * H + u] : cs[(bt - 1) * H + u];
-    const float do_pre = dh * tanh_c * o * (1.f - o);
-    const float dc = dc_next + dh * o * (1.f - tanh_c * tanh_c);
-    const float di_pre = dc * g * i * (1.f - i);
-    const float df_pre = dc * c_prev * f * (1.f - f);
-    const float dg_pre = dc * i * (1.f - g * g);
-    float* dgi_t = dgi + bt * G;
-    dgi_t[u] = di_pre;
-    dgi_t[H + u] = df_pre;
-    dgi_t[2 * H + u] = dg_pre;
-    dgi_t[3 * H + u] = do_pre;
-    dc_carry[b * H + u] = dc * f;
+// The warp's 32 sums, v[i] in lane l a partial over l's k: reduced over the
+// lanes in a fixed butterfly that leaves sum l in lane l (in v[0]). Step
+// kOff keeps the half of v[0, 2 kOff) that lane bit kOff selects and adds
+// the partner lane's copy of it.
+template <int kOff>
+__device__ __forceinline__ void butterfly(float (&v)[32], int lane) {
+  const bool hi = lane & kOff;
+#pragma unroll
+  for (int i = 0; i < kOff; ++i) {
+    const float send = hi ? v[i] : v[i + kOff];
+    const float keep = hi ? v[i + kOff] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, kOff);
   }
+  if constexpr (kOff > 1) butterfly<kOff / 2>(v, lane);
+}
+
+__device__ __forceinline__ float reduce_scatter32(float (&v)[32], int lane) {
+  butterfly<16>(v, lane);
+  return v[0];
+}
+
+struct FwdGridArgs {
+  const float* gi;
+  const float* h0;
+  const float* c0;
+  const float* w_hh;
+  const float* b_hh;
+  float* ys;  // also read: h_{t-1}, written by every CTA
+  float* cs;
+  float* ga;
+  float* h_last;
+  float* c_last;
+  int B, T, H, U, walk, chunk, splits;
+};
+
+// Forward. CTA g's W rows gate-major (r = gate U + unit), k padded to 4.
+template <bool kWSmem>
+__global__ void __launch_bounds__(kGridThreads, 1)
+lstm_fwd_grid(const FwdGridArgs a) {
+  extern __shared__ __align__(16) float smem_f[];
+  cg::grid_group grid = cg::this_grid();
+  const int H = a.H, U = a.U, T = a.T, G4 = 4 * H;
+  const int k_row = (H + 3) / 4 * 4, K4 = k_row / 4;
+  const int u0 = blockIdx.x * U, un = min(U, H - u0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* ws = smem_f;                                     // (4U, k_row)
+  float* stage = smem_f + (kWSmem ? 4 * U * k_row : 0);   // (chunk, k_row)
+  float* red = stage + (size_t)a.chunk * k_row;           // (splits, tiles, 32)
+  if (kWSmem) {
+    for (int i = tid; i < 4 * U * k_row; i += kGridThreads) {
+      const int r = i / k_row, k = i % k_row, u = r % U;
+      ws[i] = (u < un && k < H)
+                  ? __ldg(a.w_hh + (long)((r / U) * H + u0 + u) * H + k)
+                  : 0.f;
+    }
+  }
+  for (int w0 = 0; w0 < a.B; w0 += a.walk) {
+    const int nb = min(a.walk, a.B - w0);
+    // the thread's items: unit u of walk row br, for i = tid + q * threads
+    float c[kCellItems], bias[kCellItems][4], gin[kCellItems][4];
+#pragma unroll
+    for (int q = 0; q < kCellItems; ++q) {
+      const int i = tid + q * kGridThreads, br = i / U, u = i % U;
+      c[q] = 0.f;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) bias[q][g] = gin[q][g] = 0.f;
+      if (br < nb && u < un) {
+        c[q] = __ldg(a.c0 + (long)(w0 + br) * H + u0 + u);
+#pragma unroll
+        for (int g = 0; g < 4; ++g) bias[q][g] = __ldg(a.b_hh + g * H + u0 + u);
+      }
+    }
+    for (int t = 0; t < T; ++t) {
+#pragma unroll
+      for (int q = 0; q < kCellItems; ++q) {
+        const int i = tid + q * kGridThreads, br = i / U, u = i % U;
+        if (br < nb && u < un) {
+          const float* g_in = a.gi + ((long)(w0 + br) * T + t) * G4 + u0 + u;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) gin[q][g] = __ldg(g_in + g * H);
+        }
+      }
+      for (int c_lo = 0; c_lo < nb; c_lo += a.chunk) {
+        const int n = min(a.chunk, nb - c_lo);
+        const long row0 = w0 + c_lo;
+        if (t == 0)
+          stage_rows(stage, a.h0 + row0 * H, H, n, H, k_row);
+        else
+          stage_rows(stage, a.ys + (row0 * T + t - 1) * H, (long)T * H, n, H,
+                     k_row);
+        __syncthreads();
+        const int tiles = U * ((n + kTileRows - 1) / kTileRows);
+        for (int item = warp; item < tiles * a.splits; item += kGridWarps) {
+          const int s = item / tiles, tile = item % tiles;
+          const int g8 = tile / U, u = tile % U;
+          int off[kTileRows];
+#pragma unroll
+          for (int j = 0; j < kTileRows; ++j)
+            off[j] = min(g8 * kTileRows + j, n - 1) * k_row;
+          float v[32];
+#pragma unroll
+          for (int i = 0; i < 32; ++i) v[i] = 0.f;
+          const int hi = (s + 1) * K4 / a.splits;
+          for (int k4 = s * K4 / a.splits + lane; k4 < hi; k4 += 32) {
+            float4 w[4];
+#pragma unroll
+            for (int g = 0; g < 4; ++g) {
+              if (kWSmem) {
+                w[g] = reinterpret_cast<const float4*>(
+                    ws + (g * U + u) * k_row)[k4];
+              } else {
+                const float* row = a.w_hh + (long)(g * H + u0 + u) * H;
+                const int k = 4 * k4;
+                const bool ok = u < un;
+                w[g] = make_float4(
+                    ok && k < H ? __ldg(row + k) : 0.f,
+                    ok && k + 1 < H ? __ldg(row + k + 1) : 0.f,
+                    ok && k + 2 < H ? __ldg(row + k + 2) : 0.f,
+                    ok && k + 3 < H ? __ldg(row + k + 3) : 0.f);
+              }
+            }
+#pragma unroll
+            for (int j = 0; j < kTileRows; ++j) {
+              const float4 x =
+                  reinterpret_cast<const float4*>(stage + off[j])[k4];
+#pragma unroll
+              for (int g = 0; g < 4; ++g)
+                v[g * kTileRows + j] = dot4(w[g], x, v[g * kTileRows + j]);
+            }
+          }
+          red[item * 32 + lane] = reduce_scatter32(v, lane);
+        }
+        __syncthreads();
+#pragma unroll
+        for (int q = 0; q < kCellItems; ++q) {
+          const int i = tid + q * kGridThreads, br = i / U, u = i % U;
+          if (br < c_lo || br >= c_lo + n || u >= un) continue;
+          const int r = br - c_lo;
+          const float* p =
+              red + ((r / kTileRows) * U + u) * 32 + r % kTileRows;
+          float gate[4];
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            float sum = 0.f;
+            for (int sp = 0; sp < a.splits; ++sp)
+              sum += p[sp * tiles * 32 + g * kTileRows];
+            gate[g] = gin[q][g] + sum + bias[q][g];
+          }
+          gate[0] = sigmoid(gate[0]);
+          gate[1] = sigmoid(gate[1]);
+          gate[2] = tanhf(gate[2]);
+          gate[3] = sigmoid(gate[3]);
+          c[q] = gate[1] * c[q] + gate[0] * gate[2];
+          const float h = gate[3] * tanhf(c[q]);
+          const long bt = (long)(w0 + br) * T + t;
+          a.ys[bt * H + u0 + u] = h;
+          a.cs[bt * H + u0 + u] = c[q];
+#pragma unroll
+          for (int g = 0; g < 4; ++g) a.ga[bt * G4 + g * H + u0 + u] = gate[g];
+          if (t == T - 1) {
+            a.h_last[(long)(w0 + br) * H + u0 + u] = h;
+            a.c_last[(long)(w0 + br) * H + u0 + u] = c[q];
+          }
+        }
+        __syncthreads();  // stage and partials free for the next chunk
+      }
+      if (t + 1 < T) grid.sync();  // every CTA's h_t written before step t+1
+    }
+  }
+}
+
+struct BwdGridArgs {
+  const float* w_hh;
+  const float* dys;
+  const float* dh_last;
+  const float* dc_last;
+  const float* cs;
+  const float* ga;
+  const float* c0;
+  const float* h0;
+  const float* ys;
+  float* hs_prev;
+  float* dgi;  // also read: dgi_{t+1}, written by every CTA
+  float* dh0;
+  float* dc0;
+  int B, T, H, U, walk, chunk, splits;
+};
+
+// Backward. CTA g's columns of W_hh as rows of W_hh^T (4 ceil(U/4), 4H),
+// zero past its units. Step t (T-1 .. 0) forms dh_rec = dgi_{t+1} . W[:, u]
+// for its units (dh_last at t = T-1) and runs the cell algebra of
+// lstm_pallas.py:_bwd_kernel; step -1 writes dh0 = dgi_0 . W_hh and dc0.
+template <bool kWSmem>
+__global__ void __launch_bounds__(kGridThreads, 1)
+lstm_bwd_grid(const BwdGridArgs a) {
+  extern __shared__ __align__(16) float smem_b[];
+  cg::grid_group grid = cg::this_grid();
+  const int H = a.H, U = a.U, T = a.T, G4 = 4 * H, K4 = H;
+  const int groups = (U + 3) / 4, UP = 4 * groups;
+  const int u0 = blockIdx.x * U, un = min(U, H - u0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* ws = smem_b;                                  // (UP, 4H)
+  float* stage = smem_b + (kWSmem ? UP * G4 : 0);      // (chunk, 4H)
+  float* red = stage + (size_t)a.chunk * G4;           // (splits, tiles, 32)
+  if (kWSmem) {
+    for (int i = tid; i < UP * G4; i += kGridThreads) {
+      const int r = i / UP, u = i % UP;
+      ws[u * G4 + r] = u < un ? __ldg(a.w_hh + (long)r * H + u0 + u) : 0.f;
+    }
+  }
+  for (int w0 = 0; w0 < a.B; w0 += a.walk) {
+    const int nb = min(a.walk, a.B - w0);
+    float dc[kCellItems];
+#pragma unroll
+    for (int q = 0; q < kCellItems; ++q) {
+      const int i = tid + q * kGridThreads, br = i / U, u = i % U;
+      dc[q] = (br < nb && u < un) ? __ldg(a.dc_last + (long)(w0 + br) * H +
+                                          u0 + u)
+                                  : 0.f;
+    }
+    for (int t = T - 1; t >= -1; --t) {
+      // step t's inputs of the thread's items; h_{t-1} goes to hs_prev,
+      // the right operand of the dW_hh product after the walk
+      float x_dy[kCellItems], x_c[kCellItems], x_cp[kCellItems],
+          x_hp[kCellItems], x_g[kCellItems][4];
+#pragma unroll
+      for (int q = 0; q < kCellItems; ++q) {
+        const int i = tid + q * kGridThreads, br = i / U, u = i % U;
+        x_dy[q] = x_c[q] = x_cp[q] = x_hp[q] = 0.f;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) x_g[q][g] = 0.f;
+        if (t < 0 || br >= nb || u >= un) continue;
+        const long row = w0 + br, bt = row * T + t, col = u0 + u;
+        x_dy[q] = __ldg(a.dys + bt * H + col);
+        x_c[q] = __ldg(a.cs + bt * H + col);
+        x_cp[q] = t > 0 ? __ldg(a.cs + (bt - 1) * H + col)
+                        : __ldg(a.c0 + row * H + col);
+        x_hp[q] = t > 0 ? __ldg(a.ys + (bt - 1) * H + col)
+                        : __ldg(a.h0 + row * H + col);
+#pragma unroll
+        for (int g = 0; g < 4; ++g) x_g[q][g] = __ldg(a.ga + bt * G4 + g * H + col);
+      }
+      for (int c_lo = 0; c_lo < nb; c_lo += a.chunk) {
+        const int n = min(a.chunk, nb - c_lo);
+        const int tiles = groups * ((n + kTileRows - 1) / kTileRows);
+        if (t < T - 1) {
+          stage_rows(stage, a.dgi + ((long)(w0 + c_lo) * T + t + 1) * G4,
+                     (long)T * G4, n, G4, G4);
+          __syncthreads();
+          for (int item = warp; item < tiles * a.splits; item += kGridWarps) {
+            const int s = item / tiles, tile = item % tiles;
+            const int g8 = tile / groups, ug = tile % groups;
+            int off[kTileRows];
+#pragma unroll
+            for (int j = 0; j < kTileRows; ++j)
+              off[j] = min(g8 * kTileRows + j, n - 1) * G4;
+            float v[32];
+#pragma unroll
+            for (int i = 0; i < 32; ++i) v[i] = 0.f;
+            const int hi = (s + 1) * K4 / a.splits;
+            for (int k4 = s * K4 / a.splits + lane; k4 < hi; k4 += 32) {
+              float4 w[4];
+#pragma unroll
+              for (int uu = 0; uu < 4; ++uu) {
+                const int u = 4 * ug + uu;
+                if (kWSmem) {
+                  w[uu] = reinterpret_cast<const float4*>(ws + u * G4)[k4];
+                } else {
+                  const float* col = a.w_hh + (long)(4 * k4) * H + u0 + u;
+                  const bool ok = u < un;
+                  w[uu] = make_float4(ok ? __ldg(col) : 0.f,
+                                      ok ? __ldg(col + H) : 0.f,
+                                      ok ? __ldg(col + 2 * H) : 0.f,
+                                      ok ? __ldg(col + 3 * H) : 0.f);
+                }
+              }
+#pragma unroll
+              for (int j = 0; j < kTileRows; ++j) {
+                const float4 d =
+                    reinterpret_cast<const float4*>(stage + off[j])[k4];
+#pragma unroll
+                for (int uu = 0; uu < 4; ++uu)
+                  v[uu * kTileRows + j] = dot4(d, w[uu], v[uu * kTileRows + j]);
+              }
+            }
+            red[item * 32 + lane] = reduce_scatter32(v, lane);
+          }
+          __syncthreads();
+        }
+#pragma unroll
+        for (int q = 0; q < kCellItems; ++q) {
+          const int i = tid + q * kGridThreads, br = i / U, u = i % U;
+          if (br < c_lo || br >= c_lo + n || u >= un) continue;
+          const int r = br - c_lo;
+          const long row = w0 + br, col = u0 + u;
+          float dh_rec = 0.f;
+          if (t == T - 1) {
+            dh_rec = __ldg(a.dh_last + row * H + col);
+          } else {
+            const float* p = red + ((r / kTileRows) * groups + u / 4) * 32 +
+                             (u % 4) * kTileRows + r % kTileRows;
+            for (int sp = 0; sp < a.splits; ++sp) dh_rec += p[sp * tiles * 32];
+          }
+          if (t < 0) {
+            a.dh0[row * H + col] = dh_rec;
+            a.dc0[row * H + col] = dc[q];
+            continue;
+          }
+          const float ig = x_g[q][0], fg = x_g[q][1], gg = x_g[q][2],
+                      og = x_g[q][3];
+          const float tanh_c = tanhf(x_c[q]);
+          const float dh = x_dy[q] + dh_rec;
+          const float do_pre = dh * tanh_c * og * (1.f - og);
+          const float dcv = dc[q] + dh * og * (1.f - tanh_c * tanh_c);
+          const float d[4] = {dcv * gg * ig * (1.f - ig),
+                              dcv * x_cp[q] * fg * (1.f - fg),
+                              dcv * ig * (1.f - gg * gg), do_pre};
+          const long bt = row * T + t;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) a.dgi[bt * G4 + g * H + col] = d[g];
+          a.hs_prev[bt * H + col] = x_hp[q];
+          dc[q] = dcv * fg;
+        }
+        __syncthreads();  // stage and partials free for the next chunk
+      }
+      if (t >= 0) grid.sync();  // every CTA's dgi_t written before step t-1
+    }
+  }
+}
+
+// The grid kernel of a layout, forward or backward.
+const void* grid_kernel(bool backward, bool w_smem) {
+  if (backward)
+    return w_smem ? (const void*)lstm_bwd_grid<true>
+                  : (const void*)lstm_bwd_grid<false>;
+  return w_smem ? (const void*)lstm_fwd_grid<true>
+                : (const void*)lstm_fwd_grid<false>;
+}
+
+// The layout at (B, H) on the current device, checked against the caller's
+// plan (ctas, units, walk, chunk, splits, w_smem, smem): a plan that differs
+// from this file's own layout is refused. Opts the kernel into its shared
+// memory.
+cudaError_t grid_setup(int B, int H, bool backward, const int* plan,
+                       GridLayout* out, const void** fn) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const GridLayout l = grid_layout(B, H, sms, backward);
+  const int mine[7] = {l.ctas, l.units, l.walk, l.chunk, l.splits, l.w_smem,
+                       (int)l.smem};
+  if (!l.ok) return cudaErrorInvalidValue;
+  for (int i = 0; i < 7; ++i)
+    if (plan[i] != mine[i]) return cudaErrorInvalidValue;
+  *fn = grid_kernel(backward, l.w_smem);
+  *out = l;
+  err = cpc2::set_smem(*fn, l.smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, *fn,
+                                                      kGridThreads, l.smem);
+  if (err != cudaSuccess) return err;
+  return per_sm < 1 ? cudaErrorCooperativeLaunchTooLarge : cudaSuccess;
 }
 
 // dW_hh[r, k] = sum over (b, t) of dgi[b, t, r] * hs_prev[b, t, k]
@@ -782,48 +1157,81 @@ int cpc2_lstm_bwd(const float* w_hh, const float* dys, const float* dh_last,
   return (int)dw_hh_product(dgi, hs_prev, dw_hh, B, T, H, s);
 }
 
-// Steps forward: the arguments of cpc2_lstm_fwd without C and BC.
-int cpc2_lstm_fwd_steps(const float* gi, const float* h0, const float* c0,
-                        const float* w_hh, const float* b_hh, float* ys,
-                        float* cs, float* ga, float* h_last, float* c_last,
-                        int B, int T, int H, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)(B * H + 4 * kUnits * B) * sizeof(float);
-  cudaError_t err = cpc2::set_smem((const void*)lstm_fwd_step, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((H + kUnits - 1) / kUnits);
-  for (int t = 0; t < T; ++t) {
-    const float* hp = t == 0 ? h0 : ys + (long)(t - 1) * H;
-    const float* cp = t == 0 ? c0 : cs + (long)(t - 1) * H;
-    const long stride = t == 0 ? H : (long)T * H;
-    lstm_fwd_step<<<grid, kThreads, smem, s>>>(gi, hp, cp, stride, w_hh, b_hh,
-                                               ys, cs, ga, h_last, c_last, B,
-                                               T, H, t);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
+// The grid route's layout at (B, H) for a card of `sms` SMs, forward or
+// backward, into out[0..7]: ctas, units, walk, chunk, splits, w_smem, smem,
+// and how many of that kernel's CTAs one SM of the current device holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Returns 0, -1 where the
+// route does not take the shape, or minus a CUDA error code.
+int cpc2_lstm_grid_layout(int B, int H, int sms, int backward, int* out) {
+  const GridLayout l = grid_layout(B, H, sms, backward);
+  if (!l.ok) return -1;
+  const void* fn = grid_kernel(backward, l.w_smem);
+  cudaError_t err = cpc2::set_smem(fn, l.smem);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
+                                                        kGridThreads, l.smem);
+  if (err != cudaSuccess) return -(int)err;
+  const int v[8] = {l.ctas, l.units, l.walk, l.chunk, l.splits, l.w_smem,
+                    (int)l.smem, per_sm};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
   return 0;
 }
 
-// Steps backward. w_hh_t (H,4H) is W_hh^T; hs_prev as for cpc2_lstm_bwd.
-int cpc2_lstm_bwd_steps(const float* w_hh_t, const float* dys,
-                        const float* dh_last, const float* dc_last,
-                        const float* cs, const float* ga, const float* c0,
-                        const float* hs_prev, float* dgi, float* dh0,
-                        float* dc0, float* dw_hh, float* db_hh, int B, int T,
-                        int H, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)B * kUnits * sizeof(float);
-  cudaError_t err = cpc2::set_smem((const void*)lstm_bwd_step, smem);
+// Grid forward: the arguments of cpc2_lstm_fwd, then the plan's seven ints
+// (ctas, units, walk, chunk, splits, w_smem, smem) in place of C and BC.
+// h0 16-byte aligned. One cooperative launch; a grid the card cannot hold
+// at once fails with cudaErrorCooperativeLaunchTooLarge.
+int cpc2_lstm_fwd_grid(const float* gi, const float* h0, const float* c0,
+                       const float* w_hh, const float* b_hh, float* ys,
+                       float* cs, float* ga, float* h_last, float* c_last,
+                       int B, int T, int H, int ctas, int units, int walk,
+                       int chunk, int splits, int w_smem, int smem,
+                       void* stream) {
+  if (T < 1) return (int)cudaErrorInvalidValue;
+  const int plan[7] = {ctas, units, walk, chunk, splits, w_smem, smem};
+  GridLayout l;
+  const void* fn = nullptr;
+  cudaError_t err = grid_setup(B, H, false, plan, &l, &fn);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((H + kUnits - 1) / kUnits);
-  for (int t = T - 1; t >= -1; --t) {
-    lstm_bwd_step<<<grid, kThreads, smem, s>>>(w_hh_t, dys, dh_last, dc_last,
-                                               cs, ga, c0, dgi, dc0, dh0, B,
-                                               T, H, t);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
+  FwdGridArgs a{gi, h0, c0, w_hh, b_hh, ys, cs, ga, h_last, c_last,
+                B, T, H, l.units, l.walk, l.chunk, l.splits};
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(fn, dim3(l.ctas), dim3(kGridThreads),
+                                    args, l.smem,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Grid backward: the arguments of cpc2_lstm_bwd without db_part, then the
+// plan's seven ints. The walk writes hs_prev = [h0, ys[:, :-1]] for the
+// dW_hh product after it; db_hh is the column sum of dgi over (b, t) in
+// order.
+int cpc2_lstm_bwd_grid(const float* w_hh, const float* dys,
+                       const float* dh_last, const float* dc_last,
+                       const float* cs, const float* ga, const float* c0,
+                       const float* h0, const float* ys, float* hs_prev,
+                       float* dgi, float* dh0, float* dc0, float* dw_hh,
+                       float* db_hh, int B, int T, int H, int ctas, int units,
+                       int walk, int chunk, int splits, int w_smem, int smem,
+                       void* stream) {
+  if (T < 1) return (int)cudaErrorInvalidValue;
+  const int plan[7] = {ctas, units, walk, chunk, splits, w_smem, smem};
+  GridLayout l;
+  const void* fn = nullptr;
+  cudaError_t err = grid_setup(B, H, true, plan, &l, &fn);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  BwdGridArgs a{w_hh, dys, dh_last, dc_last, cs, ga, c0, h0, ys,
+                hs_prev, dgi, dh0, dc0, B, T, H, l.units, l.walk, l.chunk,
+                l.splits};
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(fn, dim3(l.ctas), dim3(kGridThreads),
+                                    args, l.smem, s);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   err = dw_hh_product(dgi, hs_prev, dw_hh, B, T, H, s);
   if (err != cudaSuccess) return (int)err;
   return (int)cpc2::colsum(B * T, 4 * H, dgi, 4 * H, db_hh, s);

@@ -31,11 +31,11 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 LIBRARY = BUILD_DIR / "libcpc2_kernels.so"
 
 # `lstm_fwd`/`lstm_bwd` are the LSTM's resident cluster kernels,
-# `lstm_*_steps` its per-step kernels for widths whose W_hh slice does not
-# fit a CTA (`ops/lstm.py:lstm_plan`). `ffn_fwd`/`ffn_bwd` are the FFN's bf16
+# `lstm_*_grid` its cooperative whole-card kernels for widths whose W_hh
+# slice does not fit a cluster (`ops/lstm.py:lstm_plan`). `ffn_fwd`/`ffn_bwd` are the FFN's bf16
 # kernels (`--precision bf16mix`), `ffn_*_fp32` its fp32 ones (`--precision
 # fp32`).
-KERNELS = ("lstm_fwd", "lstm_bwd", "lstm_fwd_steps", "lstm_bwd_steps",
+KERNELS = ("lstm_fwd", "lstm_bwd", "lstm_fwd_grid", "lstm_bwd_grid",
            "ffn_fwd", "ffn_bwd", "ffn_fwd_fp32", "ffn_bwd_fp32",
            "infonce_fwd", "infonce_bwd", "dtw", "attention_fwd",
            "attention_bwd", "encoder_fwd", "encoder_bwd")
@@ -48,8 +48,9 @@ _L = ctypes.c_long
 _SIGNATURES = {
     "cpc2_lstm_fwd": [_P] * 10 + [_I] * 5 + [_P],
     "cpc2_lstm_bwd": [_P] * 16 + [_I] * 5 + [_P],
-    "cpc2_lstm_fwd_steps": [_P] * 10 + [_I] * 3 + [_P],
-    "cpc2_lstm_bwd_steps": [_P] * 13 + [_I] * 3 + [_P],
+    "cpc2_lstm_fwd_grid": [_P] * 10 + [_I] * 10 + [_P],
+    "cpc2_lstm_bwd_grid": [_P] * 15 + [_I] * 10 + [_P],
+    "cpc2_lstm_grid_layout": [_I] * 4 + [_P],
     "cpc2_lstm_smem": [_I] * 4,
     "cpc2_lstm_max_clusters": [_I] * 4,
     "cpc2_ffn_fwd": [_P] * 8 + [_L] + [_I] * 5 + [_U, _F, _P],

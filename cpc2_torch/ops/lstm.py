@@ -11,9 +11,9 @@ db_hh`.
 
 What bounds it is latency, not bytes or operations: each step is a tiny
 (B, H) x (H, 4H) product that depends on the step before. The TPU kernel
-keeps W_hh resident in VMEM; 1 MB does not fit one SM's shared memory, but
-it fits across a thread-block cluster's. Two routes (`csrc/lstm.cu`),
-chosen by `lstm_plan` from (B, H) alone:
+keeps W_hh resident in VMEM and walks time inside one call; here the same
+holds across a thread-block cluster or across the whole card. Two routes
+(`csrc/lstm.cu`), chosen by `lstm_plan` from (B, H) and the card's SMs:
 
 - `resident` (launch counters `lstm_fwd`, `lstm_bwd`): one launch per call.
   Clusters of C CTAs each own `bc` batch rows; each CTA keeps the W_hh rows
@@ -26,9 +26,17 @@ chosen by `lstm_plan` from (B, H) alone:
   dW_hh, one product after it. A step is bound by its latency chain, about
   1.5 µs on an H100 whatever the batch tile, so the plan spreads a batch
   over up to MAX_CLUSTERS clusters of 16 CTAs (PERF.md, "Findings").
-- `steps` (counters `lstm_fwd_steps`, `lstm_bwd_steps`): one launch per time
-  step, blocks reading their W_hh rows from L2, for widths whose slice does
-  not fit a CTA's shared memory (H = 512, say).
+- `grid` (counters `lstm_fwd_grid`, `lstm_bwd_grid`): for widths whose
+  slice does not fit a cluster (H = 512 and wider, H not a multiple of 4).
+  One cooperative launch per call of `ctas` CTAs, one an SM at most, each
+  owning `units` hidden units and keeping its W_hh slice in shared memory
+  (read from L2 where it does not fit beside the staged operand); a step
+  stages h_{t-1} (dgi_{t+1}) through L2, forms the CTA's products in a
+  fixed order, runs the cell with c (dc) in registers and ends in one grid
+  barrier. No atomics on values: bit for bit the same across calls. The
+  walk writes `[h0, ys[:, :-1]]` for dW_hh, one product after it, and
+  db_hh is a fixed-order column sum. `grid_layout` mirrors the kernels'
+  layout, which they check.
 
 `fused_lstm` launches a kernel for CUDA tensors and runs `lstm_plain` for
 CPU tensors; there is no other path.
@@ -36,6 +44,7 @@ CPU tensors; there is no other path.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -74,11 +83,33 @@ BATCH_TILES = (1, 2, 4, 8)
 MAX_CLUSTERS = 8
 
 
+# The grid route's limits (`csrc/lstm.cu`, "grid route"): threads and warps
+# a CTA, (unit, batch row) items whose c or dc a thread carries, and the
+# batch rows of a product tile.
+GRID_THREADS = 256
+GRID_WARPS = GRID_THREADS // 32
+CELL_ITEMS = 4
+TILE_ROWS = 8
+
+
+class GridLayout(NamedTuple):
+    """One direction's layout on the grid route (`grid_layout`)."""
+    walk: int    # batch rows walked through time at once
+    chunk: int   # batch rows staged in shared memory at once
+    splits: int  # slices of k a product tile is split into, one a warp
+    w_smem: int  # 1: the W_hh slice stays in shared memory; 0: read from L2
+    smem: int    # dynamic shared memory bytes of a CTA
+
+
 class LSTMPlan(NamedTuple):
-    route: str    # "resident" or "steps"
-    cluster: int  # CTAs a cluster (0 on the steps route)
-    bc: int       # batch rows a cluster (0 on the steps route)
-    smem: int     # shared memory bytes of one CTA (one block on steps)
+    route: str    # "resident" or "grid"
+    cluster: int  # CTAs a cluster (0 on the grid route)
+    bc: int       # batch rows a cluster (0 on the grid route)
+    smem: int     # shared memory bytes of one CTA, the larger direction's
+    ctas: int = 0   # grid route: CTAs of the launch
+    units: int = 0  # grid route: hidden units a CTA
+    fwd: GridLayout | None = None  # grid route: the forward's layout
+    bwd: GridLayout | None = None  # grid route: the backward's layout
 
 
 def _pow2_split(groups: int, fits) -> int:
@@ -108,20 +139,65 @@ def resident_smem(h: int, cluster: int, bc: int) -> int:
     return BARRIER_BYTES + max(fwd, bwd)
 
 
-def lstm_plan(b: int, h: int) -> LSTMPlan:
-    """The route, cluster size, batch tile and shared memory for a batch of
-    b sequences of width h. The resident route takes every width whose
-    W_hh slice and buffers fit one CTA's shared memory at a cluster size of
+def grid_layout(b: int, h: int, units: int, backward: bool
+                ) -> GridLayout | None:
+    """One direction's layout of the grid route at (B, H) with `units`
+    hidden units a CTA, or None where it takes no shape. Mirrors
+    `grid_layout` of `csrc/lstm.cu`: the staged operand's rows are H
+    rounded up to 4 floats (forward) or 4H (backward); shared memory holds
+    the W_hh slice (forward 4 units rows, backward 4 ceil(units / 4) rows
+    of W_hhᵀ) when it fits, the staged chunk and the splits' partial tiles
+    of 32 sums; the chunk is the largest of the walk's rows that fits, with
+    the slice in shared memory if any chunk fits beside it."""
+    walk = min(b, GRID_THREADS * CELL_ITEMS // units)
+    if b < 1 or walk < 1:
+        return None
+    k_row = 4 * h if backward else -(-h // 4) * 4
+    groups = -(-units // 4) if backward else units
+    w_floats = 4 * groups * k_row if backward else 4 * units * k_row
+    for w_smem in (1, 0):
+        for chunk in range(walk, 0, -1):
+            tiles = groups * -(-chunk // TILE_ROWS)
+            splits = max(1, GRID_WARPS // tiles)
+            smem = 4 * (w_smem * w_floats + chunk * k_row
+                        + 32 * splits * tiles)
+            if smem <= SMEM_LIMIT:
+                return GridLayout(walk, chunk, splits, w_smem, smem)
+    return None
+
+
+def grid_plan(b: int, h: int, sms: int) -> LSTMPlan:
+    """The grid route at (B, H) on a card of `sms` SMs: one CTA an SM at
+    most, `units` the smallest with ceil(H / units) <= sms. Raises where it
+    does not take the shape (one staged row of dgi, 4H floats, and its
+    partial sums above a CTA's shared memory: H above 14,304 on 132
+    SMs)."""
+    if h < 1:
+        raise ValueError("fused_lstm: the hidden width is 0")
+    units = -(-h // sms)
+    fwd, bwd = (grid_layout(b, h, units, d) for d in (False, True))
+    if fwd is None or bwd is None:
+        raise ValueError(f"fused_lstm: the grid route does not take B = {b}, "
+                         f"H = {h}")
+    return LSTMPlan("grid", 0, 0, max(fwd.smem, bwd.smem), -(-h // units),
+                    units, fwd, bwd)
+
+
+@functools.lru_cache(maxsize=None)
+def lstm_plan(b: int, h: int, sms: int) -> LSTMPlan:
+    """The route and its layout for a batch of b sequences of width h on a
+    card of `sms` SMs. The resident route takes every width whose W_hh
+    slice and buffers fit one CTA's shared memory at a cluster size of
     CLUSTERS; its batch tile is the smallest of BATCH_TILES that needs at
-    most MAX_CLUSTERS clusters, else the largest. Otherwise the steps
-    route."""
+    most MAX_CLUSTERS clusters, else the largest. Otherwise the grid route
+    (`grid_plan`)."""
     tile = next((t for t in BATCH_TILES if -(-b // t) <= MAX_CLUSTERS),
                 BATCH_TILES[-1])
     for cluster in CLUSTERS:
         smem = resident_smem(h, cluster, tile)
         if 0 < smem <= SMEM_LIMIT:
             return LSTMPlan("resident", cluster, tile, smem)
-    return LSTMPlan("steps", 0, 0, 4 * (b * h + 8 * b))
+    return grid_plan(b, h, sms)
 
 
 def _check(gi, h0, c0, w_hh, b_hh) -> torch.device:
@@ -146,6 +222,8 @@ def _forward(ctx, kernel, fn, route_args, gi, h0, c0, w_hh, b_hh):
     what the backward needs."""
     device = _check(gi, h0, c0, w_hh, b_hh)
     gi, h0, c0 = gi.contiguous(), h0.contiguous(), c0.contiguous()
+    if h0.data_ptr() % 16:
+        h0 = h0.clone()  # the grid route stages h0's rows as 16-byte vectors
     w_hh, b_hh = w_hh.contiguous(), b_hh.contiguous()
     b, t, g4 = gi.shape
     hdim = g4 // 4
@@ -216,29 +294,38 @@ class _LSTMResident(torch.autograd.Function):
         return (*grads, None, None)
 
 
-class _LSTMSteps(torch.autograd.Function):
-    """The steps route: one launch per time step."""
+def _grid_args(plan: LSTMPlan, layout: GridLayout):
+    """The seven ints the grid route's C entry points check against their
+    own layout."""
+    return (plan.ctas, plan.units, layout.walk, layout.chunk, layout.splits,
+            layout.w_smem, layout.smem)
+
+
+class _LSTMGrid(torch.autograd.Function):
+    """The grid route at `plan` (what `lstm_plan` picks, or `grid_plan` at
+    any width): one cooperative launch a call."""
 
     @staticmethod
-    def forward(ctx, gi, h0, c0, w_hh, b_hh):
-        return _forward(ctx, "lstm_fwd_steps", "cpc2_lstm_fwd_steps", (), gi,
-                        h0, c0, w_hh, b_hh)
+    def forward(ctx, gi, h0, c0, w_hh, b_hh, plan):
+        if plan.route != "grid" or plan.ctas * plan.units < gi.shape[-1] // 4:
+            raise ValueError(f"fused_lstm: {plan} is not a grid plan for "
+                             f"H = {gi.shape[-1] // 4}")
+        ctx.plan = plan
+        return _forward(ctx, "lstm_fwd_grid", "cpc2_lstm_fwd_grid",
+                        _grid_args(plan, plan.fwd), gi, h0, c0, w_hh, b_hh)
 
     @staticmethod
     def backward(ctx, dys, dh_last, dc_last):
         (ys, cs, ga, h0, c0, w_hh), cots, grads = _backward_args(
             ctx, dys, dh_last, dc_last)
         b, t, hdim = ys.shape
-        # h_{t-1} of every step, the right operand of dW_hh = dgiᵀ hs_prev:
-        # the carry-in, then ys without its last step
-        hs_prev = torch.cat([h0[:, None], ys[:, :-1]], dim=1)
-        # the per-step backward reads W_hh by columns: W_hhᵀ makes that a
-        # row-contiguous read
-        w_hh_t = w_hh.t().contiguous()
-        _build.launch("lstm_bwd_steps", "cpc2_lstm_bwd_steps", ys.device,
-                      *_ptrs(w_hh_t, *cots, cs, ga, c0, hs_prev, *grads),
-                      b, t, hdim)
-        return grads
+        # the walk writes h_{t-1} of every step here for the dW_hh product
+        hs_prev = torch.empty_like(ys)
+        _build.launch("lstm_bwd_grid", "cpc2_lstm_bwd_grid", ys.device,
+                      *_ptrs(w_hh, *cots, cs, ga, c0, h0, ys, hs_prev,
+                             *grads),
+                      b, t, hdim, *_grid_args(ctx.plan, ctx.plan.bwd))
+        return (*grads, None)
 
 
 def fused_lstm(gi: Tensor, h0: Tensor, c0: Tensor, w_hh: Tensor,
@@ -251,8 +338,9 @@ def fused_lstm(gi: Tensor, h0: Tensor, c0: Tensor, w_hh: Tensor,
     through `lstm_plain`."""
     if gi.device.type == "cpu":
         return lstm_plain(gi, h0, c0, w_hh, b_hh)
-    plan = lstm_plan(gi.shape[0], gi.shape[-1] // 4)
+    device = _check(gi, h0, c0, w_hh, b_hh)
+    plan = lstm_plan(gi.shape[0], gi.shape[-1] // 4, _build.sm_count(device))
     if plan.route == "resident":
         return _LSTMResident.apply(gi, h0, c0, w_hh, b_hh, plan.cluster,
                                    plan.bc)
-    return _LSTMSteps.apply(gi, h0, c0, w_hh, b_hh)
+    return _LSTMGrid.apply(gi, h0, c0, w_hh, b_hh, plan)

@@ -1,8 +1,11 @@
 """Where a training step's time goes on the card.
 
-    python -m cpc2_torch.profile_step [--steps 10] [--trace out.json]
+    python -m cpc2_torch.profile_step [--steps 10] [--trace out.json] \
+        [--precision bf16mix|fp32] [--hiddenEncoder 256] [--hiddenGar 256]
 
-With CPC2_FUSED_ATTENTION=1 and CPC2_FUSED_ENCODER=1 in the environment it
+`--hiddenEncoder 512 --hiddenGar 512` profiles a 512-wide model's step,
+whose LSTM takes the grid route (`ops/lstm.py:lstm_plan`). With
+CPC2_FUSED_ATTENTION=1 and CPC2_FUSED_ENCODER=1 in the environment it
 profiles the step through the opt-in attention and encoder kernels.
 
 Builds the recipe model and criterion (the trainer's defaults: batch 8 x
@@ -46,12 +49,12 @@ TOP_KERNELS = 15
 # Name fragments of the port's kernels in `csrc/*.cu`: the FFN's bf16 route
 # (`--precision bf16mix`) and its fp32 route (`--precision fp32`; the
 # partials' sum is shared, and only one route runs in a step), the LSTM's
-# walks (the resident cluster kernels and the per-step ones) with its dW_hh
-# product (`gemm_kernel`) and db_hh sum (`colsum_kernel`), then the rest.
+# walks (every kernel of `csrc/lstm.cu` is named `lstm_*`, in this tree and
+# in older ones) with its dW_hh product (`gemm_kernel`) and db_hh sum
+# (`colsum_kernel`), then the rest.
 FFN_KERNELS = ("ffn_wgmma_gemm", "ffn_cast_bf16", "ffn_sum_partials")
 FFN_FP32_KERNELS = ("ffn_tf32x3_gemm", "ffn_split_tf32", "ffn_sum_partials")
-LSTM_KERNELS = ("lstm_fwd_resident", "lstm_bwd_resident", "lstm_fwd_step",
-                "lstm_bwd_step", "gemm_kernel", "colsum_kernel")
+LSTM_KERNELS = ("lstm_", "gemm_kernel", "colsum_kernel")
 INFONCE_KERNELS = ("gathered_fwd", "gathered_bwd", "dz_sum")
 # The opt-in encoder's kernels (`csrc/encoder.cu`): layers 2-5's products
 # (`conv_wgmma_gemm`), the norms, the sums of partials and layer 1's SIMT
@@ -118,10 +121,14 @@ def main(argv=None) -> dict:
     parser.add_argument("--trace", type=str, default=None,
                         help="write a Chrome trace of the profiled steps")
     parser.add_argument("--precision", type=str, default="bf16mix")
+    parser.add_argument("--hiddenEncoder", type=int, default=256)
+    parser.add_argument("--hiddenGar", type=int, default=256)
     opts = parser.parse_args(argv)
 
     args = parse_args(["--pathDB", ".", "--file_extension", ".wav",
-                       "--random_seed", "0", "--precision", opts.precision])
+                       "--random_seed", "0", "--precision", opts.precision,
+                       "--hiddenEncoder", str(opts.hiddenEncoder),
+                       "--hiddenGar", str(opts.hiddenGar)])
     device = resolve_device("cuda")
     set_precision(args.precision)
     torch.manual_seed(0)
@@ -196,7 +203,9 @@ def main(argv=None) -> dict:
     encoder_ms.pop("other", None)
     device_launches = sum(e.count for e in kernels) / opts.steps
     median = statistics.median(wall_ms)
-    print(f"card: {torch.cuda.get_device_name(0)}")
+    print(f"card: {torch.cuda.get_device_name(0)}; --hiddenEncoder "
+          f"{args.hiddenEncoder} --hiddenGar {args.hiddenGar} --precision "
+          f"{args.precision}")
     print(f"wall: median {median:.3f} ms/step over {opts.steps} steps "
           f"(min {min(wall_ms):.3f}, max {max(wall_ms):.3f}); "
           f"{args.batchSizeGPU * args.sizeWindow / 16000 / (median / 1e3):.1f}"

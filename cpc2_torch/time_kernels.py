@@ -1,6 +1,7 @@
 """Hand-written kernels alone at the recipe, by device time.
 
-    python -m cpc2_torch.time_kernels {attention,encoder,infonce} [--iters N]
+    python -m cpc2_torch.time_kernels {attention,encoder,infonce,lstm} \
+        [--iters N]
 
 Draws one call's inputs of the recipe from seed 0 on the card, then
 profiles `--iters` forward calls and `--iters` backward calls of the
@@ -21,7 +22,13 @@ as text and as one JSON line:
   TF32;
 * `infonce`: `negative_scores` on preds (8, 12, 116, 256), a pool of
   1,024 rows of 256 and 128 negatives a position from the trainer's own
-  `sample_negative_indices`.
+  `sample_negative_indices`;
+* `lstm`: `fused_lstm` (the route `lstm_plan` picks) at (B, T, H) = (8,
+  128, 512), then (8, 128, 256) and (8, 128, 1024), the backward with its
+  dW_hh product and db_hh sum, beside cuDNN's `nn.LSTM` with an identity
+  input weight (which adds the input projection, 2 B T (4H)^2 FLOPs, to
+  the same recurrence), TF32 off; with each shape's kernel launches per
+  call, the profiler's count of each kernel, and device ms per time step.
 
 Run it from the root of each of two checkouts in one call on the card to
 compare them (with this file copied into the older one). It needs a CUDA
@@ -42,25 +49,34 @@ from .profile_step import device_kernels, device_us, encoder_part, \
 WARMUP = 3
 
 
-def device_split(fn, iters: int = 20, warmup: int = WARMUP) -> dict:
+def device_split(fn, iters: int = 20, warmup: int = WARMUP,
+                 counts: bool = False):
     """Device ms per call of `fn` by kernel name, by `torch.profiler`, over
-    `iters` calls after `warmup` calls. Every call launches at least one
-    kernel, so a profile that holds fewer kernels than half the calls lost
-    events (one held 3 of 20): it is taken again, at most twice. (Of the
-    LSTM's cluster kernels it holds 19 of 20 launches in most profiles.)"""
+    `iters` calls after `warmup` calls; with `counts`, also how many of
+    each kernel the profile holds. Every call launches the same kernels,
+    so a profile in which a kernel's count is not a multiple of `iters`
+    lost events: it is taken again, at most twice, and the last one is kept
+    if it holds at least half the calls' kernels. (Profiles have held 19 of
+    20 launches of the LSTM's cluster and grid kernels, and one of the
+    grid kernels read half its time then; one held 3 of 20 InfoNCE
+    forwards.)"""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for _attempt in range(3):
+    for attempt in range(3):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         kernels = device_kernels(prof)
-        if 2 * sum(e.count for e in kernels) >= iters:
-            return {e.key: device_us(e) / 1e3 / iters for e in kernels}
+        whole = all(e.count % iters == 0 for e in kernels)
+        if whole or (attempt == 2 and
+                     2 * sum(e.count for e in kernels) >= iters):
+            split = {e.key: device_us(e) / 1e3 / iters for e in kernels}
+            return (split, {e.key: e.count for e in kernels}) if counts \
+                else split
     raise AssertionError(f"the profiler caught fewer device kernels than "
                          f"half of {iters} calls, three times")
 
@@ -190,8 +206,106 @@ def time_infonce(dev, gen, iters: int) -> dict:
     return {"fwd": fwd, "bwd": bwd}
 
 
+# (B, T, H) of the `lstm` timer: a 512-wide model's training batch first
+LSTM_SHAPES = ((8, 128, 512), (8, 128, 256), (8, 128, 1024))
+
+
+def lstm_inputs(dev, gen, b: int, t: int, h: int):
+    """`fused_lstm`'s five inputs (gi, h0, c0, w_hh, b_hh) and the three
+    cotangents (ys, h_last, c_last), drawn from `gen` on `dev`."""
+    return ([torch.randn(b, t, 4 * h, device=dev, generator=gen),
+             torch.randn(b, h, device=dev, generator=gen),
+             torch.randn(b, h, device=dev, generator=gen),
+             torch.randn(4 * h, h, device=dev, generator=gen) / 16,
+             torch.randn(4 * h, device=dev, generator=gen) / 16],
+            [torch.randn(b, t, h, device=dev, generator=gen),
+             torch.randn(b, h, device=dev, generator=gen),
+             torch.randn(b, h, device=dev, generator=gen)])
+
+
+def cudnn_lstm(inputs, cot):
+    """cuDNN's `nn.LSTM` computing the same recurrence: its input is gi and
+    its input weight the identity. Returns (forward, backward) callables;
+    the backward takes the gradients of gi, h0, c0, W_hh and b_hh."""
+    gi, h0, c0, w_hh, b_hh = (x.detach() for x in inputs)
+    h = h0.shape[-1]
+    lstm = torch.nn.LSTM(4 * h, h, batch_first=True).to(gi.device)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(torch.eye(4 * h, device=gi.device))
+        lstm.bias_ih_l0.zero_()
+        lstm.weight_hh_l0.copy_(w_hh)
+        lstm.bias_hh_l0.copy_(b_hh)
+    lstm.weight_ih_l0.requires_grad_(False)
+    lstm.bias_ih_l0.requires_grad_(False)
+    x = gi.clone().requires_grad_(True)
+    hc = [h0[None].clone().requires_grad_(True),
+          c0[None].clone().requires_grad_(True)]
+    ys, (h_last, c_last) = lstm(x, tuple(hc))
+    leaves = [x, *hc, lstm.weight_hh_l0, lstm.bias_hh_l0]
+
+    def fwd():
+        return lstm(x, tuple(hc))
+
+    def bwd():
+        return torch.autograd.grad((ys, h_last, c_last), leaves,
+                                   (cot[0], cot[1][None], cot[2][None]),
+                                   retain_graph=True)
+    return fwd, bwd
+
+
+def time_lstm(dev, gen, iters: int) -> dict:
+    from .ops import _build
+    from .ops.lstm import fused_lstm
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    result = {}
+    try:
+        for b, t, h in LSTM_SHAPES:
+            inputs, cot = lstm_inputs(dev, gen, b, t, h)
+            leaves = [x.requires_grad_(True) for x in inputs]
+            outs = fused_lstm(*leaves)
+
+            def fwd():
+                with torch.no_grad():
+                    return fused_lstm(*leaves)
+
+            def bwd():
+                return torch.autograd.grad(outs, leaves, cot,
+                                           retain_graph=True)
+            launches = []
+            for fn in (fwd, bwd):
+                _build.reset_launches()
+                fn()
+                launches.append({k: n for k, n in _build.LAUNCHES.items()
+                                 if n})
+            f_split, f_count = device_split(fwd, iters, counts=True)
+            b_split, b_count = device_split(bwd, iters, counts=True)
+            lib_fwd, lib_bwd = cudnn_lstm(inputs, cot)
+            with torch.no_grad():
+                lib_f = sum(device_split(lib_fwd, iters).values())
+            lib_b = sum(device_split(lib_bwd, iters).values())
+            fwd_ms, bwd_ms = sum(f_split.values()), sum(b_split.values())
+            result[f"({b},{t},{h})"] = {
+                "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+                "fwd_ms_per_time_step": fwd_ms / t,
+                "bwd_ms_per_time_step": bwd_ms / t,
+                "fwd_by_kernel": f_split, "bwd_by_kernel": b_split,
+                "fwd_kernel_count": f_count, "bwd_kernel_count": b_count,
+                "fwd_launches_per_call": launches[0],
+                "bwd_launches_per_call": launches[1],
+                "cudnn_fwd_ms": lib_f, "cudnn_bwd_ms": lib_b}
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    first = result[f"({','.join(map(str, LSTM_SHAPES[0]))})"]
+    return {"fwd": first["fwd_by_kernel"], "bwd": first["bwd_by_kernel"],
+            "shapes": result}
+
+
 TIMERS = {"attention": time_attention, "encoder": time_encoder,
-          "infonce": time_infonce}
+          "infonce": time_infonce, "lstm": time_lstm}
 
 
 def main(argv=None) -> dict:
@@ -215,6 +329,15 @@ def main(argv=None) -> dict:
               f"{name}_bwd_ms": sum(bwd.values()),
               f"{name}_fwd_by_kernel": fwd, f"{name}_bwd_by_kernel": bwd,
               **result}
+    for shape, r in result.get("shapes", {}).items():
+        print(f"{name} at {shape}: fwd {r['fwd_ms']:.4f} ms "
+              f"({r['fwd_ms_per_time_step'] * 1e3:.3f} us a time step), bwd "
+              f"{r['bwd_ms']:.4f} ms ({r['bwd_ms_per_time_step'] * 1e3:.3f} "
+              f"us), cuDNN {r['cudnn_fwd_ms']:.4f} / {r['cudnn_bwd_ms']:.4f} "
+              f"ms; launches a call {r['fwd_launches_per_call']} / "
+              f"{r['bwd_launches_per_call']}; kernels in the profile of "
+              f"{opts.iters} calls {r['fwd_kernel_count']} / "
+              f"{r['bwd_kernel_count']}")
     for what, split in (("forward", fwd), ("backward", bwd)):
         print(f"{name} {what}: {sum(split.values()):.4f} ms per call")
         for key, ms in sorted(split.items(), key=lambda kv: -kv[1]):

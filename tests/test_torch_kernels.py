@@ -26,7 +26,8 @@ from cpc2_torch.ops.ffn import (dropout_bits, ffn_plain, fused_ffn,
 from cpc2_torch.ops.infonce import (SMEM_LIMIT, dz_partial_floats,
                                     infonce_plan, negative_scores,
                                     negative_scores_plain)
-from cpc2_torch.ops.lstm import _LSTMResident, _LSTMSteps, fused_lstm
+from cpc2_torch.ops.lstm import (_LSTMGrid, _LSTMResident, fused_lstm,
+                                 grid_plan)
 
 torch.set_num_threads(1)
 
@@ -410,14 +411,15 @@ def test_kernel_wrappers_raise_off_cpu_without_a_card(call):
                        torch.empty(2, 4, **meta), torch.empty(2, 4, **meta),
                        torch.empty(16, 4, **meta), torch.empty(16, **meta))
         elif call in ("lstm_resident", "lstm_steps"):
-            # each route's own entry, at the recipe's width
+            # each route's own entry, at the recipe's width (`lstm_steps`:
+            # the grid route, which took the per-step route's place)
             args = (torch.empty(2, 3, 1024, **meta),
                     torch.empty(2, 256, **meta), torch.empty(2, 256, **meta),
                     torch.empty(1024, 256, **meta), torch.empty(1024, **meta))
             if call == "lstm_resident":
                 _LSTMResident.apply(*args, 8, 2)
             else:
-                _LSTMSteps.apply(*args)
+                _LSTMGrid.apply(*args, grid_plan(2, 256, 132))
         elif call in ("ffn", "ffn_bf16"):
             fused_ffn(torch.empty(4, 8, **meta), torch.empty(16, 8, **meta),
                       torch.empty(16, **meta), torch.empty(8, 16, **meta),
