@@ -10,7 +10,7 @@ Phases, each of which fails the run with a nonzero exit:
    the encoder's conv products are `wgmma` products fed by TMA (HGMMA and
    UTMALDG in their SASS; the fp32 route's HGMMA in TF32), that the
    attention kernels' products are HMMA in TF32, and that the fp32 FFN's,
-   the encoder's and the attention's kernels spill nothing;
+   the encoder's, the attention's and the DTW kernels spill nothing;
 3. hold each kernel against its plain PyTorch version at the recipe's
    shapes (B = 8, T = 128, H = 256, K = 12, W = 116, N = 128, D = 256,
    P = 1,024, FFN 256 -> 2048 -> 256 on 928 rows, attention 64 units of
@@ -27,9 +27,13 @@ Phases, each of which fails the run with a nonzero exit:
    float64 reference that takes its own bf16 and ReLU decisions, and its
    backward bit-identical across two calls; its device time split into
    layers 2-5's products, norms, sums and layer 1), and the
-   DTW kernel at one ABX flush (18,432 pairs of 32 x 32 frames), a ragged
-   16 x 64, a multi-strip 64 x 64 and its 2,048 x 2,048 limit, where it
-   must be bit-identical; the LSTM's two routes, the resident cluster
+   DTW kernel's two routes at one ABX flush (18,432 pairs of 32 x 32
+   frames), a ragged 16 x 64, a multi-strip 64 x 64, its 2,048 x 2,048
+   limit and `DTW_SHAPES` (a real flush's layout, each route's widths and
+   kernels, S1 != S2 both ways, tie-heavy draws, 4-byte copies), where they
+   must be bit-identical, each shape's plan held to the kernels' own
+   layout and its launch counted under its route, and P = 0 launching
+   nothing; the LSTM's two routes, the resident cluster
    kernels at the recipe, at ABX batches (4 and 16 files of 400 frames)
    and a ragged one, the grid kernels at H = 512 (the training batch, a
    short one and ABX batches of 1 and 16 files), at H = 510, at the recipe
@@ -39,7 +43,7 @@ Phases, each of which fails the run with a nonzero exit:
    and, where one PyTorch call computes the same function, that call (for
    the FFN's two routes, InfoNCE, the attention and the encoder, which no
    one call computes, the same work through library calls as a yardstick;
-   the FFN, InfoNCE, the attention, the encoder and the LSTM by device
+   the FFN, InfoNCE, the attention, the encoder, the LSTM and DTW by device
    time, the LSTM's backward split by kernel, several of its cluster and
    batch tiles side by side, and the grid route's ms per time step at H =
    256, 512 and 1,024);
@@ -70,9 +74,9 @@ Phases, each of which fails the run with a nonzero exit:
 6. write a phone corpus with its `.item` file (4 speakers x 8 files x 24
    tokens) and run `cpc2_torch.eval.eval_ABX.main from_checkpoint` on the
    checkpoint of phase 5 at its defaults, the counts again set to 0 just
-   before and read just after: the DTW and resident LSTM forward kernels
-   must have launched, the grid LSTM ones not, and both scores must lie
-   in [0, 1]; then score the same
+   before and read just after: the DTW kernel (on its lane route) and the
+   resident LSTM forward kernel must have launched, the grid LSTM ones
+   not, and both scores must lie in [0, 1]; then score the same
    features on the card with the kernel and with the plain DTW (identical
    scores), and hold two files' features card against CPU;
 7. print one `kernels` JSON line and, last, the `ok` line.
@@ -216,9 +220,10 @@ def check_sass(build) -> str:
     route's and the encoder's conv products' SASS holds HGMMA and UTMALDG,
     the fp32 FFN route's HGMMA in TF32 (an HGMMA line naming TF32) and
     UTMALDG; the attention kernels' `mma.sync` products are HMMA in TF32 (an
-    HMMA line naming TF32); the fp32 FFN's, the encoder's and the
-    attention's kernels spill nothing. Returns a summary with each one's
-    registers and spills from the build log."""
+    HMMA line naming TF32); the fp32 FFN's, the encoder's, the
+    attention's and the DTW routes' kernels (the lane route's ten) spill
+    nothing. Returns a summary with each one's registers and spills from
+    the build log."""
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "--dump-sass", str(build.LIBRARY)],
                           capture_output=True, text=True, check=True,
@@ -252,9 +257,14 @@ def check_sass(build) -> str:
         if len(found[kind]) < least:
             raise AssertionError(f"only {len(found[kind])} {kind} kernels "
                                  f"in the SASS: {found[kind]}")
-    usage = {kind: ptxas_usage(build, kind) for kind in found}
+    usage = {kind: ptxas_usage(build, kind)
+             for kind in [*found, "dtw_lanes", "dtw_wave"]}
+    if len(usage["dtw_lanes"]) != 10 or len(usage["dtw_wave"]) != 1:
+        raise AssertionError(f"the DTW kernels in the build log: "
+                             f"{usage['dtw_lanes'] + usage['dtw_wave']}")
     attention = [k for k in found if k.startswith("attention")]
-    spilled = [u for kind in ["ffn_tf32x3_gemm", "conv_wgmma_gemm"] + attention
+    spilled = [u for kind in ["ffn_tf32x3_gemm", "conv_wgmma_gemm",
+                              "dtw_lanes", "dtw_wave"] + attention
                for u in usage[kind] if not u.endswith(" 0 spill bytes")]
     if spilled:
         raise AssertionError(f"kernels spill: {spilled}")
@@ -917,45 +927,123 @@ def check_infonce(dev, gen):
     return entries, yard, events
 
 
-def check_dtw(dev, gen):
-    """The DTW kernel against its plain version: bit-identical (max abs
-    error 0) at one ABX flush, a ragged shape, a multi-strip shape and the
-    kernel's limit; timed at the flush. Its bound counts the cells this
-    run's lengths need: 4 bytes read and about 20 operations each."""
-    from cpc2_torch.ops.dtw import MAX_LEN, dtw_normalized, \
-        dtw_normalized_plain
+# DTW shapes beside the four drawn from the run's generator (one ABX flush
+# of 18,432 pairs of 32 x 32, a ragged 16 x 64, a multi-strip 64 x 64 and
+# the limit 2,048 x 2,048), each (P, S1, S2, draw), drawn from a generator
+# of their own so that the later checks draw what they drew before: a real
+# flush's layout (`time_kernels.flush_layout`: 32 groups x 24 x 24 pairs of
+# 32 x 16, a quarter of the rows dummies of length 1); the lane route's
+# widths 8, 16 and 64, each lane route kernel (every G lanes a pair at its
+# widths: P sets G) and the wave route's widths 65 and 128; S1 != S2 both
+# ways; dist from {0, 0.25, 0.5} on both routes ("ties": equal costs meet
+# at most cells, so the tie-break decides the path length); S2 off 4 on
+# both routes and a `dist` that is not 16-byte aligned ("unaligned"),
+# which take 4-byte copies. Most P are not multiples of a CTA's pairs.
+DTW_SHAPES = ((18432, 32, 16, "flush"), (1000, 8, 8, "rand"),
+              (777, 16, 16, "rand"), (34000, 20, 16, "rand"),
+              (34000, 32, 32, "ties"), (34000, 40, 64, "rand"),
+              (20000, 24, 48, "rand"), (10000, 12, 60, "rand"),
+              (333, 64, 64, "rand"), (100, 40, 65, "rand"),
+              (64, 128, 128, "rand"), (2000, 32, 16, "rand"),
+              (2000, 16, 32, "rand"), (300, 200, 64, "rand"),
+              (4095, 32, 32, "ties"), (37, 96, 130, "ties"),
+              (999, 30, 30, "rand"), (33, 70, 67, "rand"),
+              (513, 24, 24, "unaligned"))
 
-    def inputs(p, s1, s2):
+
+def dtw_draw(dev, gen, p, s1, s2, draw="rand"):
+    """(dist, n1, n2): dist uniform in [0, 1) (`ties`: from {0, 0.25,
+    0.5}; `unaligned`: a contiguous view one float past an allocation),
+    lengths uniform in [1, S] with pair 0 at (1, 1) and pair 1 at (S1, S2);
+    `flush` draws `time_kernels.dtw_inputs`' shape (b)."""
+    from cpc2_torch.time_kernels import dtw_inputs
+    if draw == "flush":
+        return dtw_inputs(dev, gen, "b", p, s1, s2)
+    if draw == "ties":
+        dist = torch.randint(0, 3, (p, s1, s2), device=dev, generator=gen,
+                             dtype=torch.int32).float() / 4
+    elif draw == "unaligned":
+        dist = torch.rand(p * s1 * s2 + 1, device=dev,
+                          generator=gen)[1:].view(p, s1, s2)
+    else:
         dist = torch.rand(p, s1, s2, device=dev, generator=gen)
-        n1 = torch.randint(1, s1 + 1, (p,), device=dev, generator=gen,
-                           dtype=torch.int32)
-        n2 = torch.randint(1, s2 + 1, (p,), device=dev, generator=gen,
-                           dtype=torch.int32)
-        n1[0] = n2[0] = 1
-        n1[1], n2[1] = s1, s2
-        return dist, n1, n2
+    n1 = torch.randint(1, s1 + 1, (p,), device=dev, generator=gen,
+                       dtype=torch.int32)
+    n2 = torch.randint(1, s2 + 1, (p,), device=dev, generator=gen,
+                       dtype=torch.int32)
+    n1[0] = n2[0] = 1
+    n1[1], n2[1] = s1, s2
+    return dist, n1, n2
 
-    flush = inputs(32 * 24 * 24, 32, 32)
-    err = 0.0
-    for args in (flush, inputs(4096, 16, 64), inputs(1024, 64, 64),
-                 inputs(4, MAX_LEN, MAX_LEN)):
+
+def check_dtw(dev, gen):
+    """The DTW kernel's two routes against the plain version, bit-identical
+    (max abs error 0), at one ABX flush, a ragged shape, a multi-strip
+    shape and the kernel's limit, drawn from `gen`, and at DTW_SHAPES; each
+    shape's plan held to `cpc2_dtw_layout` and its launch counted under
+    `dtw` and the plan's route only; P = 0 launches nothing. The flush is
+    timed by device time, beside the plain version. Its bound counts the
+    cells this run's lengths need: 4 bytes read and about 20 operations
+    each."""
+    import ctypes
+
+    from cpc2_torch.ops import _build
+    from cpc2_torch.ops.dtw import (MAX_LEN, ROUTES, dtw_normalized,
+                                    dtw_normalized_plain, dtw_plan)
+
+    flush = dtw_draw(dev, gen, 32 * 24 * 24, 32, 32)
+    drawn = [flush] + [dtw_draw(dev, gen, *shape) for shape in (
+        (4096, 16, 64), (1024, 64, 64), (4, MAX_LEN, MAX_LEN))]
+    own = torch.Generator(device=dev)
+    own.manual_seed(12)
+    drawn += [dtw_draw(dev, own, *shape) for shape in DTW_SHAPES]
+    err, routes = 0.0, {}
+    for args in drawn:
+        p, s1, s2 = args[0].shape
+        plan = dtw_plan(s1, s2, p, _build.sm_count(dev))
+        layout = (ctypes.c_int * 7)()
+        rc = _build.library().cpc2_dtw_layout(s1, s2, p,
+                                              _build.sm_count(dev), layout)
+        if rc != 0 or list(layout) != [ROUTES.index(plan.route), *plan[1:]]:
+            raise AssertionError(f"dtw_plan({s1}, {s2}) {plan}, the "
+                                 f"kernels' {list(layout)} (rc {rc})")
+        _build.reset_launches()
         got = dtw_normalized(*args)
+        ran = {k: n for k, n in _build.LAUNCHES.items() if n}
+        if ran != {"dtw": 1, f"dtw_{plan.route}": 1}:
+            raise AssertionError(f"dtw {(p, s1, s2)} on the {plan.route} "
+                                 f"route launched {ran}")
         want = dtw_normalized_plain(*args)
         if not torch.isfinite(got).all():
-            raise AssertionError(f"dtw {tuple(args[0].shape)}: non-finite")
-        err = max(err, (got.double() - want.double()).abs().max().item())
-    if err != 0.0:
-        raise AssertionError(f"dtw: kernel differs from plain, max abs err "
-                             f"{err:.3e}")
-    ms = cuda_ms(lambda: dtw_normalized(*flush))
+            raise AssertionError(f"dtw {(p, s1, s2)}: non-finite")
+        shape_err = (got.double() - want.double()).abs().max().item()
+        if shape_err != 0.0:
+            raise AssertionError(f"dtw {(p, s1, s2)}: kernel differs from "
+                                 f"plain, max abs err {shape_err:.3e}")
+        routes.setdefault(f"{plan.route} G = {plan.lanes}", []).append(
+            (p, s1, s2))
+        err = max(err, shape_err)
+    _build.reset_launches()
+    empty = dtw_normalized(torch.rand(0, 32, 32, device=dev),
+                           *[torch.ones(0, device=dev, dtype=torch.int32)] * 2)
+    if empty.shape != (0,) or any(_build.LAUNCHES.values()):
+        raise AssertionError("dtw at P = 0: a launch or a wrong shape")
+    split = device_split(lambda: dtw_normalized(*flush))
+    ms = sum(split.values())
     plain_ms = cuda_ms(lambda: dtw_normalized_plain(*flush), iters=3,
                        warmup=1)
+    events = {"dtw": cuda_ms(lambda: dtw_normalized(*flush))}
+    log(f"[dtw] bit for bit at {len(drawn)} shapes, by route {routes}; the "
+        f"flush {ms:.4f} ms device "
+        + ", ".join(f"{k[:40]} {v:.4f}" for k, v in split.items())
+        + "; ptxas: " + " | ".join(ptxas_usage(_build, "dtw_lanes")
+                                    + ptxas_usage(_build, "dtw_wave")))
     dist, n1, n2 = flush
     cells = (n1.double() * n2.double()).sum().item()
     return [kernel_entry("dtw", "cpc2_torch/csrc/dtw.cu",
                          "cpc2_tpu/ops/dtw_pallas.py:163", err, ms, plain_ms,
                          None, 4 * cells + nbytes(n1, n2) + 4 * n1.numel(),
-                         20 * cells)]
+                         20 * cells)], {}, events
 
 
 # The attention's shapes beside the recipe's (N, S, dk) = (64, 116, 32): a
@@ -1499,7 +1587,8 @@ FFN_KERNELS = BF16_FFN + FP32_FFN
 # the training kernels under `--precision fp32`: the FFN's fp32 route
 FP32_KERNELS = ("lstm_fwd", "lstm_bwd", "infonce_fwd", "infonce_bwd",
                 *FP32_FFN)
-ABX_KERNELS = ("dtw", "lstm_fwd")
+# the ABX corpus's tokens sit in DTW buckets 16 and 32: the lane route
+ABX_KERNELS = ("dtw", "dtw_lanes", "lstm_fwd")
 # the LSTM's routes: the resident one at H = 256, the grid one at H = 512
 LSTM_RESIDENT = ("lstm_fwd", "lstm_bwd")
 LSTM_GRID = ("lstm_fwd_grid", "lstm_bwd_grid")

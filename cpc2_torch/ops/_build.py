@@ -34,10 +34,12 @@ LIBRARY = BUILD_DIR / "libcpc2_kernels.so"
 # `lstm_*_grid` its cooperative whole-card kernels for widths whose W_hh
 # slice does not fit a cluster (`ops/lstm.py:lstm_plan`). `ffn_fwd`/`ffn_bwd` are the FFN's bf16
 # kernels (`--precision bf16mix`), `ffn_*_fp32` its fp32 ones (`--precision
-# fp32`).
+# fp32`). `dtw` counts every DTW launch, `dtw_lanes` and `dtw_wave` each
+# route's (`ops/dtw.py:dtw_plan`).
 KERNELS = ("lstm_fwd", "lstm_bwd", "lstm_fwd_grid", "lstm_bwd_grid",
            "ffn_fwd", "ffn_bwd", "ffn_fwd_fp32", "ffn_bwd_fp32",
-           "infonce_fwd", "infonce_bwd", "dtw", "attention_fwd",
+           "infonce_fwd", "infonce_bwd", "dtw", "dtw_lanes", "dtw_wave",
+           "attention_fwd",
            "attention_bwd", "encoder_fwd", "encoder_bwd")
 LAUNCHES = {name: 0 for name in KERNELS}
 
@@ -60,7 +62,8 @@ _SIGNATURES = {
     "cpc2_ffn_bf16_workspace": [_I] * 5,
     "cpc2_infonce_fwd": [_P] * 4 + [_I] * 12 + [_L, _P],
     "cpc2_infonce_bwd": [_P] * 7 + [_I] * 22 + [_L, _P],
-    "cpc2_dtw": [_P] * 4 + [_I] * 3 + [_P],
+    "cpc2_dtw": [_P] * 4 + [_I] * 11 + [_P],
+    "cpc2_dtw_layout": [_I] * 4 + [_P],
     "cpc2_attention_fwd": [_P] * 7 + [_I, _U, _F, _F, _P],
     "cpc2_attention_bwd": [_P] * 12 + [_I, _U, _F, _F, _P],
     "cpc2_encoder_fwd": [_P] * 9 + [_I] * 3 + [_P],
@@ -164,16 +167,17 @@ def check_f32(name: str, *tensors: torch.Tensor) -> None:
             raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
 
 
-def launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:
+def launch(kernel, fn_name: str, device: torch.device, *args) -> None:
     """Call `fn_name` of the library with `args` followed by the current
     stream of `device`; raise if the launch failed, else count it under
-    `kernel`."""
+    `kernel` (a name, or a tuple of names each counted)."""
     fn = getattr(library(), fn_name)
     with torch.cuda.device(device):
         code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if code != 0:
         raise RuntimeError(f"{fn_name} failed to launch: CUDA error {code}")
-    LAUNCHES[kernel] += 1
+    for name in (kernel,) if isinstance(kernel, str) else kernel:
+        LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:

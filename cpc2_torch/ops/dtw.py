@@ -8,12 +8,18 @@ before it, so a diagonal of all pairs updates in one vector step. The path
 length is carried forward with the backtracking tie-break (diag <= left <=
 up), which gives the length the reference finds by backtracking.
 
-`dtw_normalized` launches the kernel of `csrc/dtw.cu` for CUDA tensors
-(one warp per pair; see the source) and runs `dtw_normalized_plain` for
-CPU tensors; there is no other path. Both give bit-identical results.
+`dtw_normalized` launches the kernels of `csrc/dtw.cu` for CUDA tensors
+and runs `dtw_normalized_plain` for CPU tensors; there is no other path.
+`dtw_plan` picks the kernel's route from the shape: the lane route (a
+few lanes a pair walking its rows in order, S2 <= 64: every ABX bucket up
+to 64 frames) or the wave route (a warp a pair, a lane a row of a 32-row
+strip, S2 up to `MAX_LEN`); see the source. Both give bit-identical
+results.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -25,6 +31,49 @@ Tensor = torch.Tensor
 _BIG = 1e30
 # Largest S1 and S2 the kernel takes: a 20 s token at 100 frames per second.
 MAX_LEN = 2048
+# The lane route's bucket widths: it takes S2 up to the last.
+LANE_WIDTHS = (8, 16, 32, 64)
+# The wave route's staged chunks: columns of a chunk, chunks in the ring.
+WAVE_CHUNK, WAVE_SLOTS = 32, 3
+ROUTES = ("lanes", "wave")
+
+
+class DTWPlan(NamedTuple):
+    """The kernels' layout (`csrc/dtw.cu:dtw_layout`, which `cpc2_dtw`
+    checks the plan against)."""
+    route: str   # "lanes" or "wave"
+    s2b: int     # lane route: the bucket width S2 is computed at; wave: 0
+    lanes: int   # lanes a pair: lane route G, wave route 1 (a warp a pair)
+    pairs: int   # pairs a CTA of one warp
+    ahead: int   # lane route: rows staged ahead; wave: columns a chunk
+    slots: int   # slots of the staging ring
+    smem: int    # dynamic shared memory bytes of a CTA
+
+
+def dtw_plan(s1: int, s2: int, p: int, sms: int) -> DTWPlan:
+    """The route and layout of the kernel for P pairs of (S1, S2) on a card
+    of `sms` SMs. S2 <= 64 takes the lane route at the smallest bucket
+    width S2B that holds S2, with G lanes a pair (each S2B / G >= 8
+    columns; G the fewest that give every SM 8 warps), 32 / G pairs a
+    warp, rows staged `ahead` steps before they are needed (128 cells a
+    lane), a ring of `ahead` + G row slots of S2B + 4 floats. Above, the
+    wave route: a ring of three 32 x 32 chunks and two row buffers of S2
+    costs and S2 lengths. Raises for S1 or S2 outside [1, `MAX_LEN`]."""
+    if not (1 <= s1 <= MAX_LEN and 1 <= s2 <= MAX_LEN):
+        raise ValueError(f"dtw_normalized: the kernel takes S1, S2 in [1, "
+                         f"{MAX_LEN}] frames, got ({s1}, {s2})")
+    if s2 > LANE_WIDTHS[-1]:
+        return DTWPlan("wave", 0, 1, 1, WAVE_CHUNK, WAVE_SLOTS,
+                       (WAVE_SLOTS * 32 * WAVE_CHUNK + 4 * s2) * 4)
+    s2b = next(w for w in LANE_WIDTHS if s2 <= w)
+    g = 1
+    while g < s2b // 8 and p * g < 32 * 8 * sms:
+        g *= 2
+    cells = s2b // g
+    ahead = 2 if cells >= 64 else 128 // cells
+    slots = ahead + g
+    return DTWPlan("lanes", s2b, g, 32 // g, ahead, slots,
+                   slots * (32 // g) * (s2b + 4) * 4)
 
 
 def dtw_normalized_plain(dist: Tensor, n1: Tensor, n2: Tensor) -> Tensor:
@@ -90,23 +139,27 @@ def dtw_normalized(dist: Tensor, n1: Tensor, n2: Tensor) -> Tensor:
 
     dist: (P, S1, S2) float32, padding values ignored; n1, n2: (P,) true
     lengths in [1, S1] and [1, S2]. Returns (P,) float32. CUDA tensors go
-    through the kernel, which takes S1, S2 <= `MAX_LEN` and raises above;
-    CPU tensors through `dtw_normalized_plain`."""
+    through the kernel on the route `dtw_plan` picks, which takes S1, S2
+    <= `MAX_LEN` and raises above; P = 0 launches nothing. CPU tensors go
+    through `dtw_normalized_plain`."""
     _check(dist, n1, n2)
     if dist.device.type == "cpu":
         return dtw_normalized_plain(dist, n1, n2)
     device = _build.check_cuda("dtw_normalized", dist, n1, n2)
     _build.check_f32("dtw_normalized", dist)
     p, s1, s2 = dist.shape
-    if s1 > MAX_LEN or s2 > MAX_LEN:
-        raise ValueError(f"dtw_normalized: the kernel takes S1, S2 <= "
-                         f"{MAX_LEN} frames, got ({s1}, {s2})")
+    sms = _build.sm_count(device)
+    plan = dtw_plan(s1, s2, p, sms)
+    out = torch.empty(p, dtype=torch.float32, device=device)
+    if p == 0:
+        return out
     dist = dist.contiguous()
     n1 = n1.to(torch.int32).contiguous()
     n2 = n2.to(torch.int32).contiguous()
-    out = torch.empty(p, dtype=torch.float32, device=device)
-    _build.launch("dtw", "cpc2_dtw", device, dist.data_ptr(), n1.data_ptr(),
-                  n2.data_ptr(), out.data_ptr(), p, s1, s2)
+    _build.launch(("dtw", f"dtw_{plan.route}"), "cpc2_dtw", device,
+                  dist.data_ptr(), n1.data_ptr(), n2.data_ptr(),
+                  out.data_ptr(), p, s1, s2, sms, ROUTES.index(plan.route),
+                  *plan[1:])
     return out
 
 

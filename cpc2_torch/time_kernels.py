@@ -1,7 +1,7 @@
 """Hand-written kernels alone at the recipe, by device time.
 
-    python -m cpc2_torch.time_kernels {attention,encoder,infonce,lstm} \
-        [--iters N]
+    python -m cpc2_torch.time_kernels \
+        {attention,dtw,encoder,infonce,lstm} [--iters N]
 
 Draws one call's inputs of the recipe from seed 0 on the card, then
 profiles `--iters` forward calls and `--iters` backward calls of the
@@ -16,6 +16,19 @@ as text and as one JSON line:
   backward by `torch.autograd.grad` on a kept graph, with CUDA-event ms
   per call beside (host included) and the same work through the module's
   shift-trick route (`ScaledDotProductAttention`, the port's default path);
+* `dtw`: `dtw_normalized` (forward only) at DTW_SHAPES: (a) one ABX
+  flush of 18,432 pairs of 32 x 32 frames, lengths uniform in [1, 32];
+  (b) a real flush's layout, 32 groups of 24 x rows by 24 a/b rows, 32 x
+  16 frames, x lengths in [17, 32], a/b lengths in [9, 16], the last
+  quarter of each group's rows dummies of length 1 as `_pad_group` leaves
+  them; (c) 1,024 pairs of 64 x 64; (d) 256 pairs of 128 x 128 and 64 of
+  512 x 512; (e) 4 pairs of 2,048 x 2,048, (c)-(e) at full length. Each
+  with device ms by kernel, CUDA-event ms (host included), launches a
+  call by counter, and its bound: 4 bytes a cell the lengths need plus
+  the lengths and the output over the memory rate, or 20 operations a
+  cell over the fp32 rate, the larger. At (a) and (b) also the device
+  ms of `torch.argsort` of the pairs' lengths, what ordering the pairs
+  by length would add to a call;
 * `encoder`: the recipe's encoder (`CPCEncoder(256)`, norm affines moved
   off 1 and 0) on 16 x 20,480 samples through `fused_encoder` with
   gradients kept (as in training), beside the module's cuDNN route under
@@ -304,8 +317,87 @@ def time_lstm(dev, gen, iters: int) -> dict:
             "shapes": result}
 
 
-TIMERS = {"attention": time_attention, "encoder": time_encoder,
-          "infonce": time_infonce, "lstm": time_lstm}
+# The card's memory rate and fp32 peak (NVIDIA H100 SXM data sheet), for
+# the DTW shapes' bounds.
+MEMORY_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+# (name, pairs, S1, S2) of the `dtw` timer; `flush_layout` draws (b)
+DTW_SHAPES = (("a", 18432, 32, 32), ("b", 18432, 32, 16),
+              ("c", 1024, 64, 64), ("d", 256, 128, 128), ("d", 64, 512, 512),
+              ("e", 4, 2048, 2048))
+
+
+def flush_layout(dev, gen, groups: int = 32, nx: int = 24, nr: int = 24,
+                 s1: int = 32, s2: int = 16):
+    """The lengths of one real ABX flush's pairs, as `_score_groups` lays
+    them out: (group, x row, a/b row), x lengths in [s1 / 2 + 1, s1], a/b
+    lengths in [s2 / 2 + 1, s2], the last quarter of each group's rows
+    dummies of length 1."""
+    lx = torch.randint(s1 // 2 + 1, s1 + 1, (groups, nx), device=dev,
+                       generator=gen, dtype=torch.int32)
+    lr = torch.randint(s2 // 2 + 1, s2 + 1, (groups, nr), device=dev,
+                       generator=gen, dtype=torch.int32)
+    lx[:, nx - nx // 4:] = 1
+    lr[:, nr - nr // 4:] = 1
+    n1 = lx[:, :, None].expand(groups, nx, nr).reshape(-1)
+    n2 = lr[:, None, :].expand(groups, nx, nr).reshape(-1)
+    return n1.contiguous(), n2.contiguous()
+
+
+def dtw_inputs(dev, gen, name: str, p: int, s1: int, s2: int):
+    """(dist, n1, n2) of one DTW_SHAPES entry, drawn from `gen`: dist
+    uniform in [0, 1)."""
+    dist = torch.rand(p, s1, s2, device=dev, generator=gen)
+    if name == "a":
+        n1, n2 = (torch.randint(1, s + 1, (p,), device=dev, generator=gen,
+                                dtype=torch.int32) for s in (s1, s2))
+    elif name == "b":
+        n1, n2 = flush_layout(dev, gen, s1=s1, s2=s2)
+    else:
+        n1 = torch.full((p,), s1, device=dev, dtype=torch.int32)
+        n2 = torch.full((p,), s2, device=dev, dtype=torch.int32)
+    return dist, n1, n2
+
+
+def dtw_bound_ms(n1, n2) -> tuple:
+    """The least time of a DTW call: the cells its lengths need, 4 bytes
+    read and 20 operations each, plus the lengths read and the output
+    written; bytes over the memory rate or operations over the fp32 peak,
+    the larger, and which one it is."""
+    cells = (n1.double() * n2.double()).sum().item()
+    t_bytes = (4 * cells + 12 * n1.numel()) / MEMORY_BYTES_PER_S * 1e3
+    t_ops = 20 * cells / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_dtw(dev, gen, iters: int) -> dict:
+    from .ops import _build
+    from .ops.dtw import dtw_normalized
+    result = {}
+    for name, p, s1, s2 in DTW_SHAPES:
+        args = dtw_inputs(dev, gen, name, p, s1, s2)
+        _build.reset_launches()
+        dtw_normalized(*args)
+        launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+        split = device_split(lambda: dtw_normalized(*args), iters)
+        bound, by = dtw_bound_ms(args[1], args[2])
+        entry = {"ms": sum(split.values()), "by_kernel": split,
+                 "events_ms": event_ms(lambda: dtw_normalized(*args), iters),
+                 "launches_per_call": launches, "bound_ms": bound,
+                 "bound_by": by}
+        if name in ("a", "b"):
+            key = args[1] * (s2 + 1) + args[2]
+            entry["argsort_ms"] = sum(device_split(
+                lambda: torch.argsort(key), iters).values())
+        result[f"({name}) {p} x {s1} x {s2}"] = entry
+    first = next(iter(result.values()))
+    return {"fwd": first["by_kernel"], "bwd": {}, "shapes": result}
+
+
+TIMERS = {"attention": time_attention, "dtw": time_dtw,
+          "encoder": time_encoder, "infonce": time_infonce,
+          "lstm": time_lstm}
 
 
 def main(argv=None) -> dict:
@@ -324,12 +416,21 @@ def main(argv=None) -> dict:
     result = TIMERS[opts.kernels](dev, gen, opts.iters)
     fwd, bwd = result.pop("fwd"), result.pop("bwd")
     name = opts.kernels
-    result = {"card": torch.cuda.get_device_name(0),
-              f"{name}_fwd_ms": sum(fwd.values()),
-              f"{name}_bwd_ms": sum(bwd.values()),
-              f"{name}_fwd_by_kernel": fwd, f"{name}_bwd_by_kernel": bwd,
-              **result}
+    times = {f"{name}_{what}_{key}": value
+             for what, split in (("fwd", fwd), ("bwd", bwd)) if split
+             for key, value in (("ms", sum(split.values())),
+                                ("by_kernel", split))}
+    result = {"card": torch.cuda.get_device_name(0), **times, **result}
     for shape, r in result.get("shapes", {}).items():
+        if name == "dtw":
+            print(f"dtw at {shape}: {r['ms']:.4f} ms device "
+                  f"{ {k[:40]: round(v, 4) for k, v in r['by_kernel'].items()} }, "
+                  f"events {r['events_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+                  f"ms ({r['bound_by']}), launches a call "
+                  f"{r['launches_per_call']}"
+                  + (f", argsort {r['argsort_ms']:.4f} ms"
+                     if "argsort_ms" in r else ""))
+            continue
         print(f"{name} at {shape}: fwd {r['fwd_ms']:.4f} ms "
               f"({r['fwd_ms_per_time_step'] * 1e3:.3f} us a time step), bwd "
               f"{r['bwd_ms']:.4f} ms ({r['bwd_ms_per_time_step'] * 1e3:.3f} "
@@ -339,6 +440,8 @@ def main(argv=None) -> dict:
               f"{opts.iters} calls {r['fwd_kernel_count']} / "
               f"{r['bwd_kernel_count']}")
     for what, split in (("forward", fwd), ("backward", bwd)):
+        if not split:
+            continue
         print(f"{name} {what}: {sum(split.values()):.4f} ms per call")
         for key, ms in sorted(split.items(), key=lambda kv: -kv[1]):
             part = (encoder_part(key) or "other") if name == "encoder" else ""
