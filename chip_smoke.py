@@ -15,10 +15,11 @@ Phases, each of which fails the run with a nonzero exit:
    shapes (B = 8, T = 128, H = 256, K = 12, W = 116, N = 128, D = 256,
    P = 1,024, FFN 256 -> 2048 -> 256 on 928 rows, attention 64 units of
    116 x 32, encoder 16 x 20,480 samples at C = 256), forward and
-   backward, the FFN (both routes, and two ragged shapes; the fp32 route
-   also at widths that are not multiples of 4 and at one row, its
-   backward bit-identical across two calls and an empty batch launching
-   nothing) and the attention at dropout 0 and 0.1 with the same seed
+   backward, the FFN (both routes, and two ragged shapes, each route's
+   backward bit-identical across two calls at the recipe; the fp32 route
+   also at widths that are not multiples of 4 and at one row, and an
+   empty batch launching nothing) and the attention at dropout 0 and 0.1
+   with the same seed
    (also at four ragged shapes and at four widths taken in chunks of dk,
    its backward bit-identical across two calls and an empty batch
    launching nothing),
@@ -55,22 +56,38 @@ Phases, each of which fails the run with a nonzero exit:
    negatives, dropout off: under `--precision fp32` (the FFN's fp32
    kernels), under `bf16mix` (its bf16 kernels), under `bf16mix` with
    CPC2_FUSED_ATTENTION=1 and CPC2_FUSED_ENCODER=1, and under `bf16mix` at
-   a 512-wide encoder and LSTM (the LSTM's grid route);
-5. write a synthetic 16 kHz wav corpus in LibriSpeech layout and run
-   `cpc2_torch.train.main` at the CLI defaults on it for one epoch
-   (batch 8 x 20,480 samples, 256-d, LSTM, 12 transformer heads, 128
-   negatives, `bf16mix`) with `--pathCheckpoint`, with every kernel's
-   launch count set to 0 just before and read just after: the resident
-   LSTM, InfoNCE and bf16 FFN kernels must have launched and the fp32 FFN,
-   attention, encoder and grid LSTM kernels must not, the losses must
-   be finite, the parameters must live on the card and the checkpoint
-   files must exist;
+   a 512-wide encoder and LSTM (the LSTM's grid route); then run the
+   recipe's default step three times on the same weights, batch and draws
+   and report which losses or gradients differ between the passes
+   (`[determinism]`: a report, which fails nothing);
+5. write a synthetic 16 kHz corpus in LibriSpeech layout as 16-bit FLAC
+   (with an encoder of its own, `encode_flac`), and the same samples as
+   WAV; every FLAC file must decode through `cpc2_torch.data.audio_io` bit
+   for bit to the samples it was written from; time the loading of each
+   corpus (`AudioBatchData`, the host's decoding); then run
+   `cpc2_torch.train.main` at the CLI defaults on the FLAC corpus for one
+   epoch (batch 8 x 20,480 samples, 256-d, LSTM, 12 transformer heads, 128
+   negatives, `bf16mix`, `--file_extension .flac`) with `--pathCheckpoint`,
+   with every kernel's launch count set to 0 just before and read just
+   after: the resident LSTM, InfoNCE and bf16 FFN kernels must have
+   launched and the fp32 FFN, attention, encoder and grid LSTM kernels must
+   not, the losses must be finite, the parameters must live on the card
+   and the checkpoint files must exist;
    then one more epoch with both variables set (and restored after),
    which must launch all ten training kernels, one with `--precision
    fp32`, which must launch the FFN's fp32 kernels and not its bf16 ones,
-   and one with `--hiddenEncoder 512 --hiddenGar 512` (`wide`), which must
+   one with `--hiddenEncoder 512 --hiddenGar 512` (`wide`), which must
    launch the grid LSTM, bf16 FFN and InfoNCE kernels and not the resident
-   LSTM ones;
+   LSTM ones, and one more default epoch with `--profile_dir`
+   (`profiled`), held as the default one, whose trace must exist and name
+   the LSTM's, InfoNCE's and the bf16 FFN's kernels (its ten largest
+   device entries and the host's share of the window are printed);
+   resume: two epochs from scratch in one directory, and the default
+   epoch's directory resumed to two in another; every tensor of the two
+   `checkpoint_1.pt` must agree within the bf16mix step tolerance
+   (FUSED_GRAD_NORM_TOL in the 2-norm, lin1's FFN_LIN1_GRAD_NORM_TOL; the
+   generator's state equal), and whether they are bit for bit equal is
+   printed;
 6. write a phone corpus with its `.item` file (4 speakers x 8 files x 24
    tokens) and run `cpc2_torch.eval.eval_ABX.main from_checkpoint` on the
    checkpoint of phase 5 at its defaults, the counts again set to 0 just
@@ -79,6 +96,11 @@ Phases, each of which fails the run with a nonzero exit:
    not, and both scores must lie in [0, 1]; then score the same
    features on the card with the kernel and with the plain DTW (identical
    scores), and hold two files' features card against CPU;
+   then load the default and the wide epochs' checkpoints as one
+   concatenated model (256 + 512 wide): its features on the card must
+   match the CPU's within rtol 1e-3 and equal, channel by channel, each
+   model's own, and the resident and grid LSTM forward kernels must both
+   have launched;
 7. print one `kernels` JSON line and, last, the `ok` line.
 
 It exits nonzero, printing no result, when no CUDA card is available or
@@ -698,7 +720,8 @@ def check_ffn(dev, gen):
     fp32 kernels within RTOL/ATOL of `ffn_plain` (entries downstream of a
     ReLU tie as FFN_TIE says), also at FFN_FP32_SHAPES, bit for bit across
     two calls and on an empty batch (`check_ffn_fp32_extra`); the bf16
-    kernels within FFN_BAND of `ffn_plain(bf16=True)`. Timed at 0.1 by
+    kernels within FFN_BAND of `ffn_plain(bf16=True)`, their backward bit
+    for bit across two calls at the recipe. Timed at 0.1 by
     device time (`device_ms`: a call's device work is shorter than its
     host path) beside their plain versions and the same products as
     `torch.matmul` on bf16 tensors, or on fp32 ones with TF32 off
@@ -733,6 +756,12 @@ def check_ffn(dev, gen):
                 ties = max(ties, r)
         kern, plain, bwd_k, bwd_p, out_k, grad_k = timed
         if bf16:
+            again = bwd_k()
+            if not all(torch.equal(a, b) for a, b in zip(grad_k, again)):
+                raise AssertionError("ffn bf16 backward differs between two "
+                                     "calls")
+            log("  ffn bf16 backward bit for bit across two calls at the "
+                "recipe (rate 0.1)")
             log(f"  ffn bf16 kernels vs plain at the recipe, relative "
                 f"2-norm: at most {max(ratios):.2f} x the plain version's own "
                 f"fp32-vs-fp64 spread (or {RTOL}), which is {min(bands):.2e} "
@@ -1556,14 +1585,168 @@ def _check_step(dev, precision: str, fused: bool, width: int) -> float:
     return err
 
 
-def write_corpus(root: str, n_speakers: int = 4, n_files: int = 3,
-                 seconds: float = 24.0, seed: int = 0) -> None:
-    """LibriSpeech layout: <speaker>/<chapter>/<speaker>-<chapter>-<n>.wav,
-    16 kHz PCM16, each file a speaker-specific tone mix plus noise."""
+def step_determinism(dev, passes: int = 3) -> dict:
+    """The recipe's training step at the CLI defaults (`bf16mix`, dropout
+    on, one batch drawn with numpy, the generator reseeded before each
+    pass) run forward and backward `passes` times on the same weights:
+    whether the losses agree bit for bit, and each gradient that differs
+    from the first pass's, by its largest difference. A report of which
+    ops a resumed run cannot replay; nothing here fails the run."""
+    from cpc2_torch.config import parse_args
+    from cpc2_torch.feature_loader import build_model
+    from cpc2_torch.train import get_criterion
+    from cpc2_torch.training import Trainer, make_optimizer, precision
+    args = parse_args(["--pathDB", ".", "--random_seed", "0"])
+    torch.manual_seed(0)
+    model = build_model(args).to(dev)
+    criterion = get_criterion(args).to(dev)
+    named = (list(model.named_parameters(prefix="model"))
+             + list(criterion.named_parameters(prefix="criterion")))
+    gen = torch.Generator(device=dev)
+    trainer = Trainer(model, criterion, make_optimizer(
+        args, [p for _n, p in named]), gen)
+    rs = np.random.RandomState(0)
+    batch = torch.from_numpy(rs.randn(args.batchSizeGPU, 2, 1,
+                                      args.sizeWindow).astype(
+        np.float32)).to(dev)
+
+    def one_pass():
+        gen.manual_seed(0)
+        model.train()
+        criterion.train()
+        for _n, p in named:
+            p.grad = None
+        losses, _accs = trainer._forward(batch, None, False)
+        losses.sum().backward()
+        torch.cuda.synchronize()
+        return losses.detach(), {n: p.grad.detach().clone()
+                                 for n, p in named}
+
+    with precision(args.precision):
+        runs = [one_pass() for _ in range(passes)]
+    differing = {}
+    for losses, grads in runs[1:]:
+        if not torch.equal(losses, runs[0][0]):
+            differing["losses"] = max(differing.get("losses", 0.0), (
+                losses - runs[0][0]).abs().max().item())
+        for n, g in grads.items():
+            if not torch.equal(g, runs[0][1][n]):
+                differing[n] = max(differing.get(n, 0.0), (
+                    g - runs[0][1][n]).abs().max().item())
+    return {"passes": passes, "gradients": len(named),
+            "differing": differing}
+
+
+# FLAC writing, in the format of the JAX package's test encoder
+# (`tests/test_flac.py:encode_flac`, which this script cannot import): a
+# STREAMINFO block, then frames of a fixed block size with a 16-bit block
+# size code, 16 kHz, 16 bits a sample, each channel a fixed order-1
+# subframe with one Rice partition (a block of one sample verbatim). That
+# encoder writes bit by bit and takes minutes for this corpus; this one
+# builds each frame's bits with numpy, and picks each subframe's Rice
+# parameter from its residuals.
+
+def _crc_table(poly: int, width: int) -> list:
+    top, mask = 1 << (width - 1), (1 << width) - 1
+    table = []
+    for byte in range(256):
+        crc = byte << (width - 8)
+        for _ in range(8):
+            crc = ((crc << 1) ^ poly) & mask if crc & top else (
+                crc << 1) & mask
+        table.append(crc)
+    return table
+
+
+_CRC8, _CRC16 = _crc_table(0x07, 8), _crc_table(0x8005, 16)
+
+
+def _crc8(data: bytes) -> int:
+    crc = 0
+    for b in data:
+        crc = _CRC8[crc ^ b]
+    return crc
+
+
+def _crc16(data: bytes) -> int:
+    crc = 0
+    for b in data:
+        crc = ((crc << 8) & 0xFFFF) ^ _CRC16[(crc >> 8) ^ b]
+    return crc
+
+
+def _bits(values, n: int) -> np.ndarray:
+    """Each value's low `n` bits, most significant first, as 0/1 bytes."""
+    values = np.asarray(values, np.int64).reshape(-1, 1)
+    return ((values >> np.arange(n - 1, -1, -1)) & 1).astype(
+        np.uint8).ravel()
+
+
+def _utf8(n: int) -> bytes:
+    if n < 0x80:
+        return bytes([n])
+    if n < 0x800:
+        return bytes([0xC0 | (n >> 6), 0x80 | (n & 0x3F)])
+    return bytes([0xE0 | (n >> 12), 0x80 | ((n >> 6) & 0x3F),
+                  0x80 | (n & 0x3F)])
+
+
+def _subframe(seg: np.ndarray) -> np.ndarray:
+    """One channel of a block: fixed order 1, zigzag residuals Rice-coded
+    with one parameter k (a unary quotient, then k bits)."""
+    seg = seg.astype(np.int64)
+    if len(seg) < 2:
+        return np.concatenate([_bits(0b00000010, 8), _bits(seg & 0xFFFF, 16)])
+    res = np.diff(seg)
+    u = (res << 1) ^ (res >> 63)
+    k = int(np.clip(np.floor(np.log2(u.mean() + 1)), 0, 14))
+    q = u >> k
+    lengths = q + 1 + k
+    start = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+    rice = np.zeros(int(lengths.sum()), np.uint8)
+    rice[start + q] = 1
+    if k:
+        rice[(start + q + 1)[:, None] + np.arange(k)] = (
+            (u & ((1 << k) - 1))[:, None] >> np.arange(k - 1, -1, -1)) & 1
+    return np.concatenate([_bits(0b00010010, 8), _bits(seg[0] & 0xFFFF, 16),
+                           _bits(0, 2), _bits(0, 4), _bits(k, 4), rice])
+
+
+def encode_flac(path: str, channels, sr: int = 16000,
+                block: int = 4096) -> None:
+    """Write int16 `channels` (one array each) as a FLAC file."""
+    n_ch, n = len(channels), len(channels[0])
+    info = np.concatenate([_bits(block, 16), _bits(block, 16), _bits(0, 24),
+                           _bits(0, 24), _bits(sr, 20), _bits(n_ch - 1, 3),
+                           _bits(15, 5), _bits(n, 36), _bits(0, 128)])
+    body = np.packbits(info).tobytes()
+    out = bytearray(b"fLaC" + bytes([0x80]) + len(body).to_bytes(3, "big")
+                    + body)
+    for index, begin in enumerate(range(0, n, block)):
+        size = min(block, n - begin)
+        header = np.packbits(np.concatenate([
+            _bits(0x3FFE, 14), _bits(0, 2), _bits(7, 4), _bits(5, 4),
+            _bits(n_ch - 1, 4), _bits(4, 3), _bits(0, 1)])).tobytes()
+        header += _utf8(index) + (size - 1).to_bytes(2, "big")
+        header += bytes([_crc8(header)])
+        frame = header + np.packbits(np.concatenate(
+            [_subframe(c[begin:begin + size]) for c in channels])).tobytes()
+        out += frame + _crc16(frame).to_bytes(2, "big")
+    with open(path, "wb") as fh:
+        fh.write(out)
+
+
+def write_corpus(root: str, ext: str = ".flac", n_speakers: int = 4,
+                 n_files: int = 3, seconds: float = 24.0,
+                 seed: int = 0) -> dict:
+    """LibriSpeech layout: <speaker>/<chapter>/<speaker>-<chapter>-<n><ext>,
+    16 kHz, 16-bit FLAC (or WAV), each file a speaker-specific tone mix
+    plus noise. Returns {path: int16 samples}."""
     from cpc2_torch.data.audio_io import save_wav
     rs = np.random.RandomState(seed)
     n = int(seconds * 16000)
     t = np.arange(n) / 16000.0
+    written = {}
     for s in range(n_speakers):
         spk, chap = str(1000 + s), str(100 + s)
         folder = os.path.join(root, spk, chap)
@@ -1572,9 +1755,58 @@ def write_corpus(root: str, n_speakers: int = 4, n_files: int = 3,
         for i in range(n_files):
             x = (0.2 * np.sin(2 * np.pi * f0 * t * (1 + 0.01 * i))
                  + 0.1 * np.sin(2 * np.pi * 3.1 * f0 * t)
-                 + 0.05 * rs.randn(n))
-            save_wav(os.path.join(folder, f"{spk}-{chap}-{i:04d}.wav"),
-                     x.astype(np.float32), 16000)
+                 + 0.05 * rs.randn(n)).astype(np.float32)
+            path = os.path.join(folder, f"{spk}-{chap}-{i:04d}{ext}")
+            # the samples `save_wav` writes
+            pcm = np.clip(np.round(x * 32767.0), -32768, 32767).astype(
+                np.int16)
+            if ext == ".flac":
+                encode_flac(path, [pcm])
+            else:
+                save_wav(path, x, 16000)
+            written[path] = pcm
+    return written
+
+
+def check_corpus(work: str) -> dict:
+    """The training corpus as FLAC (`train_db`) and as WAV (`train_db_wav`,
+    the same samples). Every FLAC file must decode bit for bit to its
+    samples; then each corpus is loaded as the trainer loads it
+    (`AudioBatchData`, two loader threads) and timed on the host clock,
+    and the two must hold the same samples."""
+    from cpc2_torch.data import AudioBatchData, find_all_seqs
+    from cpc2_torch.data.audio_io import load_audio
+    from cpc2_torch.ops import _build
+    start = time.perf_counter()
+    flac = write_corpus(os.path.join(work, "train_db"))
+    write_corpus(os.path.join(work, "train_db_wav"), ".wav")
+    write_s = time.perf_counter() - start
+    _build.host_library("flacdec")
+    for path, pcm in flac.items():
+        x, sr = load_audio(path)
+        if sr != 16000 or not np.array_equal(
+                x, pcm.astype(np.float32) / 32768.0):
+            raise AssertionError(f"{path} does not decode to its samples")
+    load_s, data = {}, {}
+    for ext, name in ((".flac", "train_db"), (".wav", "train_db_wav")):
+        root = os.path.join(work, name)
+        seqs, speakers = find_all_seqs(root, extension=ext)
+        start = time.perf_counter()
+        dataset = AudioBatchData(root, 20480, seqs, len(speakers),
+                                 nProcessLoader=2)
+        load_s[ext] = time.perf_counter() - start
+        data[ext] = np.asarray(dataset.data).copy()
+        dataset.close()
+    if not np.array_equal(data[".flac"], data[".wav"]):
+        raise AssertionError("the FLAC and WAV corpora loaded differently")
+    n_bytes = {ext: sum(os.path.getsize(p) for p in glob.glob(os.path.join(
+        work, name, "*", "*", "*" + ext))) for ext, name in (
+        (".flac", "train_db"), (".wav", "train_db_wav"))}
+    return {"files": len(flac), "seconds_of_audio": sum(
+        len(p) for p in flac.values()) / 16000, "write_s": write_s,
+        "load_s_flac": load_s[".flac"], "load_s_wav": load_s[".wav"],
+        "bytes_flac": n_bytes[".flac"], "bytes_wav": n_bytes[".wav"],
+        "decoded_bit_for_bit": True}
 
 
 TRAINING_KERNELS = ("lstm_fwd", "lstm_bwd", "ffn_fwd", "ffn_bwd",
@@ -1612,27 +1844,34 @@ EPOCHS = {  # kernels each epoch must launch, and kernels it must not
     "fused": (TRAINING_KERNELS + FUSED_KERNELS, FP32_FFN + LSTM_GRID),
     "fp32": (FP32_KERNELS, FUSED_KERNELS + BF16_FFN + LSTM_GRID),
     "wide": (WIDE_KERNELS, FUSED_KERNELS + FP32_FFN + LSTM_RESIDENT),
+    "profiled": (TRAINING_KERNELS, FUSED_KERNELS + FP32_FFN + LSTM_GRID),
 }
+
+
+def train_argv(work: str, ck: str, *extra) -> list:
+    """The trainer's command line at its CLI defaults on the FLAC corpus:
+    no flag but the corpus, the epochs, the seed, the loader threads, the
+    logging step and the checkpoint directory."""
+    return ["--pathDB", os.path.join(work, "train_db"), "--nEpoch", "1",
+            "--random_seed", "0", "--n_process_loader", "2",
+            "--logging_step", "10", "--pathCheckpoint", ck, *extra]
 
 
 def run_training(dev, work: str, mode: str = "default") -> dict:
     """One epoch at the CLI defaults with `--pathCheckpoint <work>/ck_<mode>`:
     `default`; `fused`, with both opt-in kernels' variables set; `fp32`,
     with `--precision fp32` (the FFN's fp32 route); `wide`, with WIDE (a
-    512-wide encoder and LSTM: the LSTM's grid route)."""
+    512-wide encoder and LSTM: the LSTM's grid route); `profiled`, with
+    `--profile_dir <work>/profile`."""
     from cpc2_torch.ops import _build
     from cpc2_torch.train import main
-    root = os.path.join(work, "train_db")
     ck = os.path.join(work, f"ck_{mode}")
-    if not os.path.exists(root):
-        write_corpus(root)
-    extra = {"fp32": ["--precision", "fp32"], "wide": WIDE}.get(mode, [])
+    extra = {"fp32": ["--precision", "fp32"], "wide": WIDE,
+             "profiled": ["--profile_dir", os.path.join(work, "profile")]
+             }.get(mode, [])
     with fused_switches(mode == "fused"):
         _build.reset_launches()
-        record = main(["--pathDB", root, "--file_extension", ".wav",
-                       "--nEpoch", "1", "--random_seed", "0",
-                       "--n_process_loader", "2", "--logging_step", "10",
-                       "--pathCheckpoint", ck] + extra)
+        record = main(train_argv(work, ck, *extra))
         launches = dict(_build.LAUNCHES)
     must, must_not = EPOCHS[mode]
     check_launched(f"{mode} training", launches, must)
@@ -1655,6 +1894,193 @@ def run_training(dev, work: str, mode: str = "default") -> dict:
     record["launches"] = launches
     record["checkpoint"] = os.path.join(ck, "checkpoint_0.pt")
     return record
+
+
+# Name fragments of the default step's kernels in a trace: the resident
+# LSTM's, InfoNCE's and the bf16 FFN's products.
+TRACE_KERNELS = {"lstm": "lstm_fwd_resident", "infonce": "gathered_fwd",
+                 "ffn": "ffn_wgmma_gemm"}
+
+
+def check_trace(work: str) -> dict:
+    """The `profiled` epoch's trace: one file, naming the LSTM's, InfoNCE's
+    and the bf16 FFN's kernels; its window, the device's busy time, the
+    host's share and the ten largest device entries
+    (`cpc2_torch.profile_step.trace_summary`)."""
+    from cpc2_torch.profile_step import trace_summary
+    from cpc2_torch.train import TRACE_NAME
+    folder = os.path.join(work, "profile")
+    files = os.listdir(folder) if os.path.isdir(folder) else []
+    if files != [TRACE_NAME]:
+        raise AssertionError(f"--profile_dir wrote {files}")
+    path = os.path.join(folder, TRACE_NAME)
+    summary = trace_summary(path, top=10)
+    with open(path) as fh:
+        names = {e.get("name", "") for e in json.load(fh)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    missing = [k for k, frag in TRACE_KERNELS.items()
+               if not any(frag in n for n in names)]
+    if missing:
+        raise AssertionError(f"the trace names no {missing} kernel")
+    summary["trace_bytes"] = os.path.getsize(path)
+    return summary
+
+
+def _flat(tree, prefix: str = "") -> dict:
+    """The tensors of a checkpoint by dotted key."""
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree}
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {}
+    out = {}
+    for k, v in items:
+        out.update(_flat(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def diff_checkpoints(path_a: str, path_b: str) -> dict:
+    """{key: (max abs difference, relative 2-norm)} of every tensor that
+    differs between two checkpoints; raises when their keys or shapes
+    differ, or an integer tensor (the generator's state, a step count)."""
+    a, b = (_flat(torch.load(p, weights_only=True)) for p in (path_a, path_b))
+    if set(a) != set(b):
+        raise AssertionError(f"checkpoint keys differ: {set(a) ^ set(b)}")
+    out = {}
+    for key in sorted(a):
+        x, y = a[key], b[key]
+        if x.shape != y.shape:
+            raise AssertionError(f"{key}: {tuple(x.shape)} vs "
+                                 f"{tuple(y.shape)}")
+        if torch.equal(x, y):
+            continue
+        if not x.is_floating_point():
+            raise AssertionError(f"{key} differs between {path_a} and "
+                                 f"{path_b}")
+        out[key] = ((x.double() - y.double()).abs().max().item(),
+                    norm_rel(y, x))
+    return out
+
+
+def hold_resumed(whole: str, resumed: str) -> dict:
+    """The tensors of `resumed`'s `checkpoint_1.pt` that differ from
+    `whole`'s, each within the bf16mix step tolerance of PERF.md section 2
+    in the 2-norm (lin1's looser)."""
+    diffs = diff_checkpoints(os.path.join(whole, "checkpoint_1.pt"),
+                             os.path.join(resumed, "checkpoint_1.pt"))
+    for key, (_diff, rel) in diffs.items():
+        tol = (FFN_LIN1_GRAD_NORM_TOL if ".ffnetwork.lin1." in key
+               else FUSED_GRAD_NORM_TOL)
+        if rel > tol:
+            raise AssertionError(f"{key}: resumed vs uninterrupted {rel:.3e} "
+                                 f"(2-norm, relative)")
+    return diffs
+
+
+def run_resume(work: str) -> dict:
+    """Two epochs from scratch in `ck_whole`; the default epoch's directory
+    copied to `ck_split` and resumed to two epochs. Every tensor of the two
+    `checkpoint_1.pt`: bit for bit, or else within the bf16mix step
+    tolerance (`hold_resumed`); integer tensors (the generator's state,
+    step counts) equal. The two runs' `checkpoint_0.pt` (one epoch each
+    from the same seed) are compared too, to tell a resume's difference
+    from a run's; and `ck_same`, the whole run's own first epoch (its
+    `checkpoint_0.pt` and the logs it wrote then) resumed to two epochs, is
+    held to the whole run the same way: there the runs share the state the
+    resume starts from."""
+    import shutil
+
+    from cpc2_torch.train import main
+    whole = os.path.join(work, "ck_whole")
+    split = os.path.join(work, "ck_split")
+    same = os.path.join(work, "ck_same")
+    shutil.copytree(os.path.join(work, "ck_default"), split)
+    start = time.perf_counter()
+    main(train_argv(work, whole, "--nEpoch", "2"))
+    whole_s = time.perf_counter() - start
+    start = time.perf_counter()
+    main(["--pathCheckpoint", split, "--nEpoch", "2"])
+    resume_s = time.perf_counter() - start
+    os.makedirs(same)
+    for name in ("checkpoint_0.pt", "checkpoint_args.json"):
+        shutil.copy(os.path.join(whole, name), same)
+    with open(os.path.join(whole, "checkpoint_logs.json")) as fh:
+        logs = json.load(fh)
+    with open(os.path.join(same, "checkpoint_logs.json"), "w") as fh:
+        # what the whole run's logs held after its first epoch
+        json.dump({k: v[:1] if isinstance(v, list) else v
+                   for k, v in logs.items()}, fh)
+    main(["--pathCheckpoint", same, "--nEpoch", "2"])
+    diffs = {0: diff_checkpoints(os.path.join(whole, "checkpoint_0.pt"),
+                                 os.path.join(split, "checkpoint_0.pt")),
+             1: hold_resumed(whole, split)}
+    same_diffs = hold_resumed(whole, same)
+    n_tensors = len(_flat(torch.load(os.path.join(whole, "checkpoint_1.pt"),
+                                     weights_only=True)))
+    return {"bit_for_bit": not diffs[1], "tensors": n_tensors,
+            "differing": {k: v[0] for k, v in list(diffs[1].items())[:12]},
+            "n_differing": len(diffs[1]),
+            "max_rel_2norm": max((v[1] for v in diffs[1].values()),
+                                 default=0.0),
+            "largest_rel_2norm": dict(sorted(
+                ((k, v[1]) for k, v in diffs[1].items()),
+                key=lambda kv: -kv[1])[:5]),
+            "epoch0_differing": {k: v[0] for k, v in
+                                 list(diffs[0].items())[:12]},
+            "epoch0_n_differing": len(diffs[0]),
+            "same_start_bit_for_bit": not same_diffs,
+            "same_start_differing": {k: v[0] for k, v in
+                                     list(same_diffs.items())[:12]},
+            "two_epochs_s": whole_s, "resumed_epoch_s": resume_s}
+
+
+def run_concat(dev, default_ck: str, wide_ck: str, paths) -> dict:
+    """The default and wide checkpoints as one model (256 + 512 wide):
+    features of `paths` on the card, the launch counts set to 0 just before
+    and read just after; held against the CPU's and, channel by channel,
+    against each model's own on the card."""
+    from cpc2_torch.feature_loader import (FeatureModule, build_feature,
+                                           build_feature_files, load_model)
+    from cpc2_torch.models import ConcatenatedModel
+    from cpc2_torch.ops import _build
+    own_models = [load_model([ck]) for ck in (default_ck, wide_ck)]
+    widths = np.cumsum([0] + [m[1] for m in own_models]).tolist()
+    model, hidden_gar, hidden_encoder = load_model([default_ck, wide_ck])
+    if not isinstance(model, ConcatenatedModel) or (
+            hidden_gar, hidden_encoder) != (widths[-1], sum(
+                m[2] for m in own_models)):
+        raise AssertionError(f"concatenated model: {type(model).__name__}, "
+                             f"{hidden_gar}, {hidden_encoder}")
+    maker = FeatureModule(model.to(dev), False, keep_hidden=True)
+    _build.reset_launches()
+    start = time.perf_counter()
+    card = build_feature_files(maker, paths)
+    torch.cuda.synchronize()
+    features_s = time.perf_counter() - start
+    launches = dict(_build.LAUNCHES)
+    check_launched("concatenated features", launches,
+                   ("lstm_fwd", "lstm_fwd_grid"))
+    for i, (own_model, _hg, _he) in enumerate(own_models):
+        own = build_feature_files(FeatureModule(own_model.to(dev), False,
+                                                keep_hidden=True), paths)
+        for p in paths:
+            part = card[p][..., widths[i]:widths[i + 1]]
+            if not np.array_equal(part, own[p]):
+                raise AssertionError(f"concatenated features of {p}, "
+                                     f"channels {widths[i]}:{widths[i + 1]}, "
+                                     f"differ from model {i}'s own")
+    cpu = FeatureModule(model.cpu(), False, keep_hidden=True)
+    err = compare("concatenated features (card vs cpu)",
+                  [torch.from_numpy(card[p]) for p in paths[:2]],
+                  [torch.from_numpy(build_feature(cpu, p))
+                   for p in paths[:2]], rtol=1e-3)
+    return {"files": len(paths), "widths": widths[1:],
+            "dims": int(card[paths[0]].shape[-1]),
+            "features_s": features_s, "max_abs_err_vs_cpu": err,
+            "launches": {k: n for k, n in launches.items() if n}}
 
 
 PHONES = {"aa": (220, 900), "iy": (260, 1150), "uw": (240, 800),
@@ -1848,8 +2274,25 @@ def main() -> int:
             f"{time.perf_counter() - start:.1f} s, launches "
             f"{ {k: n for k, n in launches.items() if n} }")
 
+    start = time.perf_counter()
+    determinism = step_determinism(dev)
+    log(f"[determinism] {time.perf_counter() - start:.1f} s: the default "
+        f"step at the recipe, {determinism['passes']} passes on the same "
+        f"weights, batch and draws: of the losses and "
+        f"{determinism['gradients']} gradients these differ (max abs): "
+        f"{determinism['differing'] or 'none'}")
+
     records = {}
     with tempfile.TemporaryDirectory() as work:
+        start = time.perf_counter()
+        corpus = check_corpus(work)
+        log(f"[corpus] {time.perf_counter() - start:.1f} s: {corpus['files']} "
+            f"files, {corpus['seconds_of_audio']:.0f} s of audio, FLAC "
+            f"{corpus['bytes_flac']} bytes, WAV {corpus['bytes_wav']} bytes; "
+            f"every FLAC file decodes bit for bit to its samples; loaded "
+            f"(AudioBatchData, 2 threads, host clock) FLAC in "
+            f"{corpus['load_s_flac']:.3f} s, WAV in "
+            f"{corpus['load_s_wav']:.3f} s, the same samples")
         for mode in EPOCHS:
             start = time.perf_counter()
             records[mode] = run_training(dev, work, mode)
@@ -1859,7 +2302,32 @@ def main() -> int:
             f"{mode} {rec['median_step_ms']:.3f}"
             for mode, rec in records.items())
             + " (fused: CPC2_FUSED_ATTENTION=1 CPC2_FUSED_ENCODER=1; fp32: "
-            "--precision fp32; wide: " + " ".join(WIDE) + ")")
+            "--precision fp32; wide: " + " ".join(WIDE) + "; profiled: "
+            "--profile_dir, steps 5-14 traced)")
+        trace = check_trace(work)
+        log(f"[profile] steps 5-14 of the profiled epoch: window "
+            f"{trace['window_ms']:.3f} ms, device busy "
+            f"{trace['device_busy_ms']:.3f} ms, host's share "
+            f"{100 * trace['host_share']:.1f}%, "
+            f"{trace['kernel_launches']} kernel launches; the ten largest "
+            f"device entries (ms, launches): " + "; ".join(
+                f"{name[:100]} {ms:.3f} x{n}" for name, ms, n in trace["top"]))
+        start = time.perf_counter()
+        resume = run_resume(work)
+        log(f"[resume] {time.perf_counter() - start:.1f} s: checkpoint_1.pt "
+            f"of 2 epochs vs 1 + a resume to 2: "
+            + ("bit for bit equal" if resume["bit_for_bit"] else
+               f"not bit for bit: {resume['n_differing']} of "
+               f"{resume['tensors']} tensors differ (max abs "
+               f"{resume['differing']}), at most "
+               f"{resume['max_rel_2norm']:.3e} in the 2-norm "
+               f"{resume['largest_rel_2norm']}")
+            + f"; the two runs' checkpoint_0.pt: "
+            f"{resume['epoch0_n_differing']} tensors differ "
+            f"{resume['epoch0_differing']}; the whole run's own first epoch "
+            f"resumed to two: " + (
+                "bit for bit equal" if resume["same_start_bit_for_bit"]
+                else f"differs in {resume['same_start_differing']}"))
         record = records["default"]
         start = time.perf_counter()
         abx = run_abx(dev, work, record["checkpoint"])
@@ -1870,6 +2338,18 @@ def main() -> int:
             f"DTW {abx['dtw_device_ms']:.3f} ms in {abx['dtw_calls']} calls "
             f"({100 * abx['dtw_share_of_scoring']:.1f}% of scoring), "
             f"card-vs-cpu features {abx['feature_max_abs_err']:.2e}")
+        start = time.perf_counter()
+        concat = run_concat(dev, record["checkpoint"],
+                            records["wide"]["checkpoint"], sorted(glob.glob(
+                                os.path.join(work, "phones", "*",
+                                             "*.wav")))[:4])
+        log(f"[concat] {time.perf_counter() - start:.1f} s: channels "
+            f"{concat['widths']} of the default and wide models, "
+            f"{concat['files']} files, {concat['dims']} dims, features "
+            f"{concat['features_s']:.3f} s, equal to each model's own "
+            f"channel by channel, card vs cpu "
+            f"{concat['max_abs_err_vs_cpu']:.2e}, launches "
+            f"{concat['launches']}")
     # each kernel's launches on its own path
     for k in kernels:
         path = (abx if k["name"] == "dtw" else records["fused"]
@@ -1894,6 +2374,12 @@ def main() -> int:
                            step_parity_max_abs_err=step_err["fp32"]),
         "slice_wide": dict(epoch(records["wide"]),
                            step_parity_max_abs_err=step_err["bf16mix wide"]),
+        "slice_profiled": epoch(records["profiled"]),
+        "corpus": corpus,
+        "profile": trace,
+        "resume": resume,
+        "step_determinism": determinism,
+        "concat": concat,
         "default_route_ms": yardsticks,
         "events_ms": events,
         "lstm": details,

@@ -212,17 +212,12 @@ def set_train_config(parser: argparse.ArgumentParser
 
 # Features not ported yet: flag -> (is it set away from its default?,
 # the ROADMAP.md item that ports it).
-CONCATENATION = "Multi-checkpoint concatenation"
-_PROFILE = "Step profiling (--profile_dir)"
 _DDP = "Data-parallel training (DDP)"
 _NEG_POOLS = "Negative pools across or within devices"
-_BF16 = "bf16 precision"
-_COMPRESSED = "FLAC and compressed audio"
+BF16 = "bf16 precision"
 _AUGMENT = "Augmentation"
 _VARIANTS = "Other model and criterion modes"
 _UNPORTED = (
-    ('load', lambda v: v is not None and len(v) > 1, CONCATENATION),
-    ('profile_dir', lambda v: v is not None, _PROFILE),
     ('distributed', bool, _DDP),
     ('nGPU', lambda v: v > 1, _DDP),
     ('data_axis_size', lambda v: v > 1, _DDP),
@@ -230,8 +225,8 @@ _UNPORTED = (
     ('dcn_axis_size', lambda v: v > 1, _DDP),
     ('global_negatives', bool, _NEG_POOLS),
     ('neg_pool_group', bool, _NEG_POOLS),
-    ('precision', lambda v: v == 'bf16', _BF16),
-    ('adam_mu_dtype', lambda v: v != 'fp32', _BF16),
+    ('precision', lambda v: v == 'bf16', BF16),
+    ('adam_mu_dtype', lambda v: v != 'fp32', BF16),
     ('augment_past', bool, _AUGMENT),
     ('augment_future', bool, _AUGMENT),
     ('meta_aug', bool, _AUGMENT),
@@ -272,10 +267,6 @@ def check_ported(args: argparse.Namespace) -> None:
         raise ValueError("--steps_per_dispatch > 1 and --corpus_on_device "
                          "mean something to XLA only; the port takes one "
                          "step per dispatch from host batches")
-    if args.file_extension.lower() != '.wav':
-        raise NotImplementedError(
-            f"--file_extension {args.file_extension}: cpc2_torch reads WAV "
-            f"only (ROADMAP.md item: {_COMPRESSED})")
 
 
 def get_default_cpc_config() -> argparse.Namespace:

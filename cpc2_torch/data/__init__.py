@@ -1,5 +1,6 @@
-"""Host-side data pipeline: WAV IO, corpus discovery, samplers and the
-batch loader (own copies of `cpc2_tpu/data`)."""
+"""Host-side data pipeline: audio IO (WAV, FLAC and compressed formats),
+corpus discovery, samplers and the batch loader (own copies of
+`cpc2_tpu/data`)."""
 
 from .audio_io import audio_info, load_audio, save_wav
 from .corpus import filter_seqs, find_all_seqs

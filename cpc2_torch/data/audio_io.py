@@ -1,19 +1,28 @@
-"""WAV reading and writing with numpy alone (a copy of the WAV part of
-`cpc2_tpu/data/audio_io.py`).
+"""Audio reading and writing (a copy of `cpc2_tpu/data/audio_io.py`).
 
-Loaders return (waveform float32 in [-1, 1] shaped (T,), sample_rate);
-multi-channel audio is averaged to mono like the reference
-(`cpc/dataset.py:425`). FLAC and compressed formats are not ported yet and
-raise `NotImplementedError` (ROADMAP.md item: FLAC and compressed audio).
+* WAV is parsed with numpy alone;
+* FLAC is decoded by the port's copy of the native decoder
+  (`cpc2_torch/csrc/host/flacdec.cc`) through ctypes;
+* mp3 and the other `_COMPRESSED_EXTS` go through the FFmpeg-backed shim
+  (`cpc2_torch/csrc/host/audiodec.cc`), which builds only where FFmpeg's
+  development headers exist; elsewhere they raise `AudioFormatError`.
+
+The native libraries are built with `g++` at first use
+(`cpc2_torch/ops/_build.py:build_host`). Loaders return (waveform float32
+in [-1, 1] shaped (T,), sample_rate); multi-channel audio is averaged to
+mono like the reference (`cpc/dataset.py:425`).
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 import struct
 from typing import Tuple
 
 import numpy as np
+
+from ..ops import _build
 
 
 class AudioFormatError(ValueError):
@@ -101,20 +110,133 @@ def save_wav(path: str, x: np.ndarray, sample_rate: int) -> None:
         f.write(data)
 
 
-def _check_wav(path: str) -> str:
-    path = str(path)
-    ext = os.path.splitext(path)[1].lower()
-    if ext != '.wav':
-        raise NotImplementedError(
-            f"{path}: cpc2_torch reads WAV only (ROADMAP.md item: FLAC and "
-            f"compressed audio)")
-    return path
+# ---------------------------------------------------------------------------
+# FLAC (native decoder, csrc/host/flacdec.cc)
+# ---------------------------------------------------------------------------
+
+def load_flac(path: str) -> Tuple[np.ndarray, int]:
+    lib = _build.host_library("flacdec")
+    sr = ctypes.c_int(0)
+    ch = ctypes.c_int(0)
+    n = lib.flac_info_file(str(path).encode(), ctypes.byref(sr),
+                           ctypes.byref(ch))
+    if n < 0:
+        raise AudioFormatError(f"cannot parse FLAC file {path} (err {n})")
+    buf = np.empty(int(n) * max(ch.value, 1), dtype=np.float32)
+    got = lib.flac_decode_file(
+        str(path).encode(),
+        buf.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), buf.size,
+        ctypes.byref(sr), ctypes.byref(ch))
+    if got < 0:
+        raise AudioFormatError(f"FLAC decode failed for {path} (err {got})")
+    x = buf[:int(got) * ch.value]
+    if ch.value > 1:
+        x = x.reshape(-1, ch.value).mean(axis=1)
+    return x, sr.value
+
+
+def flac_info(path: str) -> Tuple[int, int]:
+    lib = _build.host_library("flacdec")
+    sr = ctypes.c_int(0)
+    ch = ctypes.c_int(0)
+    n = lib.flac_info_file(str(path).encode(), ctypes.byref(sr),
+                           ctypes.byref(ch))
+    if n < 0:
+        raise AudioFormatError(f"cannot parse FLAC header of {path}")
+    return int(n), sr.value
+
+
+# ---------------------------------------------------------------------------
+# mp3 / other compressed formats (csrc/host/audiodec.cc, libavformat-backed)
+# ---------------------------------------------------------------------------
+
+_MP3_HELP = (
+    "mp3 decoding needs the native FFmpeg-backed shim "
+    "(csrc/audiodec.cc), which requires the libavformat/libavcodec dev "
+    "libraries at build time; they are missing here. Convert first, "
+    "e.g.: ffmpeg -i in.mp3 -ar 16000 -ac 1 out.wav")
+
+# Extensions routed through the FFmpeg-backed shim. WAV and FLAC keep
+# their dedicated fast paths.
+_COMPRESSED_EXTS = frozenset(
+    ('.mp3', '.ogg', '.opus', '.m4a', '.aac', '.wma', '.mp4', '.webm'))
+
+
+def compressed_available() -> bool:
+    """Whether the FFmpeg-backed shim can be built here."""
+    return _build.host_buildable("audiodec")
+
+
+def _audec(path: str):
+    if not compressed_available():
+        raise AudioFormatError(f"{path}: {_MP3_HELP}")
+    return _build.host_library("audiodec")
+
+
+def load_compressed(path: str) -> Tuple[np.ndarray, int]:
+    """Decode mp3 (or any other container/codec the system FFmpeg
+    libraries know) via the native shim. Mono-averaged like the other
+    loaders."""
+    lib = _audec(path)
+    out = ctypes.POINTER(ctypes.c_float)()
+    sr = ctypes.c_int(0)
+    ch = ctypes.c_int(0)
+    n = lib.audec_decode_file(str(path).encode(), ctypes.byref(out),
+                              ctypes.byref(sr), ctypes.byref(ch))
+    if n < 0:
+        raise AudioFormatError(f"cannot decode {path} (audiodec err {n})")
+    try:
+        x = np.ctypeslib.as_array(out, shape=(int(n) * ch.value,)).copy()
+    finally:
+        lib.audec_free(out)
+    if ch.value > 1:
+        x = x.reshape(-1, ch.value).mean(axis=1)
+    return x, sr.value
+
+
+def compressed_info(path: str) -> Tuple[int, int]:
+    """(estimated num_frames, sample_rate) from container metadata only:
+    for CBR mp3 without a Xing header the count may be off by a frame; the
+    data layer uses it for pack-size budgeting only."""
+    lib = _audec(path)
+    sr = ctypes.c_int(0)
+    ch = ctypes.c_int(0)
+    n = lib.audec_info_file(str(path).encode(), ctypes.byref(sr),
+                            ctypes.byref(ch))
+    if n < 0:
+        raise AudioFormatError(f"cannot parse {path} (audiodec err {n})")
+    return int(n), sr.value
+
+
+# ---------------------------------------------------------------------------
+# Dispatch
+# ---------------------------------------------------------------------------
+
+def _ext(path: str) -> str:
+    return os.path.splitext(str(path))[1].lower()
 
 
 def load_audio(path: str) -> Tuple[np.ndarray, int]:
-    return load_wav(_check_wav(path))
+    ext = _ext(path)
+    if ext == '.flac':
+        return load_flac(str(path))
+    if ext in _COMPRESSED_EXTS:
+        return load_compressed(str(path))
+    return load_wav(str(path))
+
+
+def save_audio(path: str, x: np.ndarray, sample_rate: int) -> None:
+    if _ext(path) != '.wav':
+        raise AudioFormatError("only WAV writing is supported")
+    save_wav(str(path), x, sample_rate)
 
 
 def audio_info(path: str) -> Tuple[int, int]:
-    """(num_frames, sample_rate) without decoding the samples."""
-    return wav_info(_check_wav(path))
+    """(num_frames, sample_rate) without decoding the samples. For
+    compressed formats the count is the container's duration estimate."""
+    ext = _ext(path)
+    if ext == '.flac':
+        return flac_info(str(path))
+    if ext in _COMPRESSED_EXTS:
+        return compressed_info(str(path))
+    return wav_info(str(path))

@@ -3,7 +3,8 @@ of `cpc2_tpu/feature_loader.py`, reference `cpc/feature_loader.py`).
 
 `load_model` builds a `CPCModel` from a checkpoint's saved flags and loads
 its `gEncoder` state dict, which the port's modules take unchanged whether
-the port or the JAX package wrote it. `FeatureModule` turns audio into the
+the port or the JAX package wrote it; several checkpoints make one
+`ConcatenatedModel`. `FeatureModule` turns audio into the
 context network's (or the encoder's) features on the model's device,
 under `torch.no_grad()` and in full fp32. `build_feature` extracts one
 file in chunks; `build_feature_files` batches files of equal length and
@@ -23,11 +24,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from .config import CONCATENATION, check_model_ported
+from .config import check_model_ported
 from .data.audio_io import load_audio
 from .io.checkpoint import (get_checkpoint_data, load_args,
                             load_torch_checkpoint)
-from .models import (CPCAR, CPCEncoder, CPCModel, NoAr,
+from .models import (CPCAR, CPCEncoder, CPCModel, ConcatenatedModel, NoAr,
                      build_transformer_ar)
 from .models.encoder import DOWNSAMPLING
 from .training import full_fp32
@@ -80,44 +81,46 @@ def load_state(module: nn.Module, state: Dict[str, torch.Tensor],
 
 def load_model(path_checkpoints: Sequence[str], loadStateDict: bool = True,
                updateConfig: Optional[argparse.Namespace] = None
-               ) -> Tuple[CPCModel, int, int]:
-    """Reference `loadModel` (`feature_loader.py:238-283`) for one
-    checkpoint: build the model from the checkpoint's saved flags, or from
-    those of the checkpoint its run was loaded from, and load its state.
+               ) -> Tuple[nn.Module, int, int]:
+    """Reference `loadModel` (`feature_loader.py:238-283`): build each
+    checkpoint's model from its saved flags, or from those of the
+    checkpoints its run was loaded from, and load its state; several
+    checkpoints make one `ConcatenatedModel`, whose widths add up.
     Returns (model on the CPU, hiddenGar, hiddenEncoder)."""
     if not path_checkpoints:
-        raise ValueError("load_model needs one checkpoint path: its saved "
-                         "flags define the architecture to build")
-    if len(path_checkpoints) > 1:
-        raise NotImplementedError(
-            f"loading {len(path_checkpoints)} checkpoints as one "
-            f"concatenated model is not ported to cpc2_torch (ROADMAP.md "
-            f"item: {CONCATENATION})")
-    path = path_checkpoints[0]
-    print(f"Loading checkpoint {path}")
-    cdata = get_checkpoint_data(os.path.dirname(path))
-    if cdata is None:
-        raise FileNotFoundError(f"no checkpoint run directory at "
-                                f"{os.path.dirname(path)}")
-    loc_args = cdata[2]
-    loaded = getattr(loc_args, 'load', None)
-    do_load = loaded is not None and (
-        len(loaded) > 1
-        or os.path.dirname(loaded[0]) != os.path.dirname(path))
-    if updateConfig is not None and not do_load:
-        print("Updating the configuration file with")
-        print(json.dumps(vars(updateConfig), indent=4, sort_keys=True))
-        load_args(loc_args, updateConfig)
-    if do_load:
-        model, hidden_gar, hidden_encoder = load_model(
-            loaded, loadStateDict=False, updateConfig=updateConfig)
-    else:
-        check_model_ported(loc_args)
-        model = build_model(loc_args)
-        hidden_gar, hidden_encoder = loc_args.hiddenGar, loc_args.hiddenEncoder
-    if loadStateDict:
-        print(f"Loading the state dict at {path}")
-        load_state(model, load_torch_checkpoint(path)["gEncoder"], "gEncoder")
+        raise ValueError("load_model needs at least one checkpoint path: "
+                         "its saved flags define the architecture to build")
+    models, hidden_gar, hidden_encoder = [], 0, 0
+    for path in path_checkpoints:
+        print(f"Loading checkpoint {path}")
+        cdata = get_checkpoint_data(os.path.dirname(path))
+        if cdata is None:
+            raise FileNotFoundError(f"no checkpoint run directory at "
+                                    f"{os.path.dirname(path)}")
+        loc_args = cdata[2]
+        loaded = getattr(loc_args, 'load', None)
+        do_load = loaded is not None and (
+            len(loaded) > 1
+            or os.path.dirname(loaded[0]) != os.path.dirname(path))
+        if updateConfig is not None and not do_load:
+            print("Updating the configuration file with")
+            print(json.dumps(vars(updateConfig), indent=4, sort_keys=True))
+            load_args(loc_args, updateConfig)
+        if do_load:
+            model, hg, he = load_model(loaded, loadStateDict=False,
+                                       updateConfig=updateConfig)
+        else:
+            check_model_ported(loc_args)
+            model = build_model(loc_args)
+            hg, he = loc_args.hiddenGar, loc_args.hiddenEncoder
+        if loadStateDict:
+            print(f"Loading the state dict at {path}")
+            load_state(model, load_torch_checkpoint(path)["gEncoder"],
+                       "gEncoder")
+        models.append(model)
+        hidden_gar += hg
+        hidden_encoder += he
+    model = models[0] if len(models) == 1 else ConcatenatedModel(models)
     return model, hidden_gar, hidden_encoder
 
 
@@ -125,14 +128,15 @@ loadModel = load_model
 
 
 class FeatureModule:
-    """Feature maker over a `CPCModel`: the context network's output, or
+    """Feature maker over a `CPCModel` or a `ConcatenatedModel`: the context
+    network's output, or
     the encoder's with `get_encoded`, optionally flattened (`collapse`) or
     normalised along time (`seqNorm`). With `keep_hidden` the context
     network's state carries from one call to the next until
     `reset_hidden`. It runs on the model's device, in evaluation mode,
     without gradients and in full fp32."""
 
-    def __init__(self, model: CPCModel, get_encoded: bool,
+    def __init__(self, model: nn.Module, get_encoded: bool,
                  collapse: bool = False, cca_projection: Optional[str] = None,
                  keep_hidden: bool = False, seqNorm: bool = False,
                  train_mode: bool = False):

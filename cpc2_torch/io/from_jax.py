@@ -12,16 +12,18 @@ three rules:
   `(1, C, 1)` here, as in the reference's checkpoints.
 
 This module takes plain nested dicts of numpy arrays and imports nothing of
-the JAX package.
+the JAX package. `jax_param_order` runs the rules the other way: from port
+modules to the JAX param tree's leaves, in the order JAX flattens them.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 _CHANNEL_NORM = re.compile(r"^batchNorm\d+$")
 
@@ -71,3 +73,44 @@ def state_dict_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None,
         out[".".join(path[:-2] + ("num_batches_tracked",))] = \
             torch.tensor(0, dtype=torch.int64)
     return out
+
+
+def _jax_path(module: nn.Module, key: str) -> Tuple[Tuple[str, ...],
+                                                   Optional[int]]:
+    """The flax param path of `module`'s parameter `key`, and the head it
+    is when it is one of the stacked prediction heads' (else None)."""
+    parts = key.split(".")
+    owner = module.get_submodule(".".join(parts[:-1]))
+    head = None
+    if "predictors" in parts[:-2] and parts[parts.index("predictors") + 1
+                                           ].isdigit():
+        i = parts.index("predictors")
+        head = int(parts[i + 1])
+        parts = parts[:i + 1] + parts[i + 2:]
+    if isinstance(owner, nn.modules.batchnorm._BatchNorm):
+        parts = parts[:-1] + ["bn", "scale" if parts[-1] == "weight"
+                              else "bias"]
+    return tuple(parts), head
+
+
+def jax_param_order(modules: Mapping[str, nn.Module]
+                    ) -> List[Tuple[Tuple[str, ...], Tuple[int, ...]]]:
+    """The leaves of the flax param tree `{name: params of module}`, in
+    `jax.tree_util.tree_leaves` order (dict keys sorted at every level, so
+    in the order of their paths), each as (path, flax shape). Only
+    parameters are leaves: BatchNorm statistics are flax `batch_stats`."""
+    heads: Dict[Tuple[str, ...], set] = {}
+    shapes: Dict[Tuple[str, ...], Tuple[int, ...]] = {}
+    for name, module in modules.items():
+        for key, param in module.named_parameters():
+            path, head = _jax_path(module, key)
+            path = (name,) + path
+            shape = tuple(param.shape)
+            if (len(shape) == 3 and shape[0] == shape[2] == 1
+                    and _CHANNEL_NORM.match(path[-2])):
+                shape = (shape[1],)       # ChannelNorm's (1, C, 1)
+            shapes[path] = shape
+            heads.setdefault(path, set()).add(head)
+    return [(path, shapes[path] if heads[path] == {None}
+             else (len(heads[path]),) + shapes[path])
+            for path in sorted(shapes)]

@@ -1,10 +1,11 @@
 """The strided convolutional waveform encoder (counterpart of
 `cpc2_tpu/models/encoder.py`, reference `cpc/model.py:27-108`).
 
-The convolutions are `nn.Conv1d` in PyTorch's NCW layout on cuDNN, or,
-with CPC2_FUSED_ENCODER=1, the CUDA kernels of `ops/encoder.py`, which run
-the whole stack; the public output is `(B, frames, C)`, the JAX package's
-layout.
+The convolutions are `nn.Conv1d` in PyTorch's NCW layout on cuDNN (the
+first, with its one input channel, as one product over the input's
+windows: see `conv_windows`), or, with CPC2_FUSED_ENCODER=1, the CUDA
+kernels of `ops/encoder.py`, which run the whole stack; the public output
+is `(B, frames, C)`, the JAX package's layout.
 """
 
 from __future__ import annotations
@@ -46,6 +47,21 @@ class ChannelNorm(nn.Module):
         var = x.var(dim=1, keepdim=True, unbiased=True)
         return (x - mean) * torch.rsqrt(var + self.epsilon) * self.weight \
             + self.bias
+
+
+def conv_windows(x: torch.Tensor, conv: nn.Conv1d) -> torch.Tensor:
+    """`conv(x)` for a convolution with one input channel, as one batched
+    product of the kernel `(C, k)` with the input's windows `(k, T_out)`,
+    the bias added in it, the output in NCW like `conv`'s. cuDNN's
+    weight gradient for this layer differs between calls on the same
+    inputs on an H100, and with it every later step of a run; the product's
+    gradients are batched GEMMs and sums, the same on every call, so a run
+    on the card replays exactly (a resumed one too)."""
+    (k,), (s,), (p,) = conv.kernel_size, conv.stride, conv.padding
+    windows = nn.functional.pad(x[:, 0], (p, p)).unfold(-1, k, s)
+    weight = conv.weight[:, 0].expand(x.shape[0], -1, -1)    # (B, C, k)
+    return torch.baddbmm(conv.bias[:, None], weight,
+                         windows.transpose(1, 2))             # (B, C, T_out)
 
 
 def _norm(norm_mode: str, channels: int) -> nn.Module:
@@ -96,6 +112,7 @@ class CPCEncoder(nn.Module):
                                  [m.weight for m in norms],
                                  [m.bias for m in norms])
         for i in range(len(CONV_STACK)):
-            x = getattr(self, f"conv{i}")(x)
+            conv = getattr(self, f"conv{i}")
+            x = conv_windows(x, conv) if i == 0 else conv(x)
             x = torch.relu(getattr(self, f"batchNorm{i}")(x))
         return x.transpose(1, 2)

@@ -1,11 +1,16 @@
-"""Build, load and call the port's CUDA kernels (`cpc2_torch/csrc/*.cu`).
+"""Build, load and call the port's CUDA kernels (`cpc2_torch/csrc/*.cu`),
+and build and load its host libraries (`cpc2_torch/csrc/host/*.cc`).
 
-Each source is compiled to an object by its own `nvcc` process, all started
-together, and the objects are linked into one shared library with a plain
-C interface that is loaded with `ctypes` (no PyTorch headers, so a build
-takes seconds). The build runs at first use, into `build/cpc2_torch_kernels/`
-beside the package, and is skipped while the library is newer than every
-source. Importing this module builds nothing.
+Each CUDA source is compiled to an object by its own `nvcc` process, all
+started together, and the objects are linked into one shared library with
+a plain C interface that is loaded with `ctypes` (no PyTorch headers, so a
+build takes seconds). The build runs at first use, into
+`build/cpc2_torch_kernels/` beside the package, and is skipped while the
+library is newer than every source. Importing this module builds nothing.
+
+The host libraries (the audio decoders) are built apart, one `g++` each
+(`build_host`), into the same directory: they need no `nvcc` and no card,
+so the CPU tests build them too.
 
 `LAUNCHES` counts, per kernel, the calls that launched it on the card; a
 run sets the counts to 0 and reads them afterwards to show which kernels
@@ -19,6 +24,7 @@ import functools
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -75,6 +81,34 @@ _RESTYPES = {"cpc2_ffn_bf16_workspace": _L, "cpc2_lstm_smem": _L}
 
 _lib = None
 
+HOST_CSRC = CSRC / "host"
+# Host libraries: name -> (source in HOST_CSRC, libraries it links, headers
+# of which one must exist for it to build, or () for none).
+_FFMPEG_HEADERS = ("/usr/include/x86_64-linux-gnu/libavformat/avformat.h",
+                   "/usr/include/libavformat/avformat.h")
+HOST_LIBRARIES = {
+    "flacdec": ("flacdec.cc", (), ()),
+    "audiodec": ("audiodec.cc", ("-lavformat", "-lavcodec", "-lavutil"),
+                 _FFMPEG_HEADERS),
+}
+_LL, _IP = ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)
+_FP = ctypes.POINTER(ctypes.c_float)
+# (restype, argtypes) of each host library's C entry points.
+_HOST_SIGNATURES = {
+    "flacdec": {
+        "flac_info_file": (_LL, [ctypes.c_char_p, _IP, _IP]),
+        "flac_decode_file": (_LL, [ctypes.c_char_p, _FP, _LL, _IP, _IP]),
+    },
+    "audiodec": {
+        "audec_decode_file": (_LL, [ctypes.c_char_p, ctypes.POINTER(_FP),
+                                    _IP, _IP]),
+        "audec_free": (None, [_FP]),
+        "audec_info_file": (_LL, [ctypes.c_char_p, _IP, _IP]),
+    },
+}
+_host_libs: dict = {}
+_host_lock = threading.Lock()
+
 
 def _nvcc() -> str:
     cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
@@ -129,6 +163,56 @@ def build(force: bool = False) -> Path:
                            f"{link.stderr}")
     os.replace(tmp, LIBRARY)
     return LIBRARY
+
+
+def host_buildable(name: str) -> bool:
+    """Whether host library `name` can be built here: the FFmpeg shim
+    needs FFmpeg's development headers, as `csrc/Makefile` decides."""
+    headers = HOST_LIBRARIES[name][2]
+    return not headers or any(os.path.exists(h) for h in headers)
+
+
+def build_host(name: str, force: bool = False) -> Path:
+    """Compile host library `name` with `g++ -O3 -fPIC -std=c++17 -shared`
+    into `BUILD_DIR/lib<name>.so`, unless it is newer than its source.
+    Raises with the compiler's output when the build fails."""
+    source, libs, _headers = HOST_LIBRARIES[name]
+    src = HOST_CSRC / source
+    out = BUILD_DIR / f"lib{name}.so"
+    if (not force and out.exists()
+            and out.stat().st_mtime >= src.stat().st_mtime):
+        return out
+    if not host_buildable(name):
+        raise RuntimeError(f"{name}: none of {list(_headers)} exists")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # a name of this process's own, so that processes building at once
+    # never write one file; the rename is atomic
+    tmp = BUILD_DIR / f"lib{name}.so.{os.getpid()}.tmp"
+    cxx = os.environ.get("CXX", "g++")
+    proc = subprocess.run([cxx, "-O3", "-fPIC", "-std=c++17", "-shared",
+                           "-o", str(tmp), str(src), *libs],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"building {src} failed:\n{proc.stdout}"
+                           f"{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """Host library `name`, built first if needed and loaded once (under a
+    lock: the data loader decodes from a thread pool)."""
+    with _host_lock:
+        lib = _host_libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_host(name)))
+            for fn_name, (restype, argtypes) in _HOST_SIGNATURES[
+                    name].items():
+                fn = getattr(lib, fn_name)
+                fn.restype, fn.argtypes = restype, argtypes
+            _host_libs[name] = lib
+        return lib
 
 
 def library() -> ctypes.CDLL:

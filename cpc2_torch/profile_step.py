@@ -25,12 +25,14 @@ warm-up steps:
   launches per step, the launches per step of each of the port's kernel
   wrappers, and the kernels that take the most device time.
 
-It needs a CUDA card.
+It needs a CUDA card. `trace_summary` reads such a trace, or one that
+`python -m cpc2_torch.train --profile_dir` writes.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import statistics
 import sys
 import time
@@ -113,6 +115,36 @@ def device_kernels(prof) -> list:
             and e.device_type == torch.autograd.DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)
             and "#" not in e.key]
+
+
+def trace_summary(path: str, top: int = 10) -> dict:
+    """What a Chrome trace of `torch.profiler` shows: its window, from its
+    first event's start to its last one's end; the device's busy time in
+    it, the union of its kernels' intervals; the host's share of the
+    window, the time no kernel ran; and the `top` kernels by device time,
+    each as (name, ms, launches)."""
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    if not events:
+        raise ValueError(f"{path}: no timed events")
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
+                     key=lambda e: e["ts"])
+    start = min(e["ts"] for e in events)
+    window = max(e["ts"] + e["dur"] for e in events) - start
+    busy, reach = 0.0, -float("inf")
+    by_name: dict = {}
+    for e in kernels:
+        end = e["ts"] + e["dur"]
+        busy += max(0.0, end - max(e["ts"], reach))
+        reach = max(reach, end)
+        ms, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
+            "host_share": 1.0 - busy / window if window > 0 else 1.0,
+            "kernel_launches": len(kernels),
+            "top": [(name, ms, n) for name, (ms, n) in ranked]}
 
 
 def main(argv=None) -> dict:

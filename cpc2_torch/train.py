@@ -1,9 +1,11 @@
 """CPC pretraining on one device (counterpart of `cpc2_tpu/train.py`,
 reference `cpc/train.py`).
 
-Run: `python -m cpc2_torch.train --pathDB <corpus> --file_extension .wav`.
-It parses the JAX trainer's flags, finds the sequences and splits them
-95/5 into train and validation as `cpc2_tpu/train.py:459-495` does, builds
+Run: `python -m cpc2_torch.train --pathDB <corpus>` (FLAC by default;
+`--file_extension .wav` and the compressed formats of `data/audio_io.py`
+read too). It parses the JAX trainer's flags, finds the sequences and
+splits them 95/5 into train and validation as `cpc2_tpu/train.py:459-495`
+does, builds
 the model, criterion and optimizer on the device, and runs `--nEpoch`
 epochs of training steps, each followed by a validation pass. It prints
 the reference's per-step loss and accuracy tables and the step times.
@@ -13,12 +15,19 @@ start and `checkpoint_<epoch>.pt` (the reference's `{gEncoder,
 cpcCriterion, optimizer, best}`) with `checkpoint_logs.json` every
 `--save_step` epochs and at the last one. A run whose directory holds a
 checkpoint resumes from the newest one (model, criterion, optimizer, the
-next epoch) unless `--restart`. `--load <checkpoint>` starts from a
-checkpoint's model, and its criterion with `--loadCriterion`.
+next epoch) unless `--restart`, from either package's checkpoint (the JAX
+package's optax leaves become torch Adam's or SGD's state). The port's
+checkpoints also keep the state of the generator behind the negatives and
+dropout, so a resumed run replays an uninterrupted one. `--load
+<checkpoint>` starts from a checkpoint's model, and its criterion with
+`--loadCriterion`; several checkpoints train as one concatenated model.
+`--profile_dir <dir>` writes a `torch.profiler` trace of the first
+epoch's steps 5 to 14 there.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import random
@@ -29,13 +38,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
-from .config import check_ported, parse_args
+from .config import BF16, check_ported, parse_args
 from .data import AudioBatchData, filter_seqs, find_all_seqs
 from .feature_loader import build_model, load_model, load_state
 from .io.checkpoint import (get_checkpoint_data, load_args,
                             load_torch_checkpoint, save_args,
                             save_checkpoint, save_logs)
+from .io.from_jax import jax_param_order, state_dict_from_jax
 from .losses import CPCUnsupervisedCriterion
 from .models.encoder import DOWNSAMPLING
 from .training import (Trainer, make_lr_schedule, make_optimizer,
@@ -119,13 +130,47 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+# The profiled window of `--profile_dir`: steps 5 to 14 of the first
+# epoch, as the JAX trainer's (`cpc2_tpu/train_loop.py:183-195`).
+PROFILE_START, PROFILE_STOP = 5, 15
+TRACE_NAME = "train_steps.pt.trace.json"
+
+
+def _start_profiler(device: torch.device):
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def _stop_profiler(profiler, device: torch.device, profile_dir: str) -> None:
+    _sync(device)
+    profiler.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    profiler.export_chrome_trace(os.path.join(profile_dir, TRACE_NAME))
+    print(f"Profiler trace written to {profile_dir}")
+
+
 def train_epoch(trainer: Trainer, loader, device: torch.device,
-                logging_step: int) -> Dict:
+                logging_step: int, profile_dir: Optional[str] = None
+                ) -> Dict:
     """One epoch of training steps. Each step ends in a device synchronise
-    so that its host-clock time is the step's own."""
+    so that its host-clock time is the step's own. With `profile_dir`,
+    steps PROFILE_START to PROFILE_STOP - 1 (or to the epoch's end) are
+    traced into it; the record's `profiled` says whether a trace was
+    written."""
     sums, n_steps, step_ms = None, 0, []
     window_start, window_steps, last = time.perf_counter(), 0, None
-    for batch, _speaker in loader:
+    profiler, profiled = None, False
+    for step, (batch, _speaker) in enumerate(loader):
+        if profile_dir is not None and not profiled:
+            if step == PROFILE_START:
+                profiler = _start_profiler(device)
+            elif step == PROFILE_STOP and profiler is not None:
+                _stop_profiler(profiler, device, profile_dir)
+                profiler, profiled = None, True
         x = _to_device(batch, device)
         start = time.perf_counter()
         losses, accs = trainer.train_step(x)
@@ -147,11 +192,14 @@ def train_epoch(trainer: Trainer, loader, device: torch.device,
                                         window_steps})
             last, window_start, window_steps = sums.copy(), \
                 time.perf_counter(), 0
+    if profiler is not None:      # the epoch ended inside the window
+        _stop_profiler(profiler, device, profile_dir)
+        profiled = True
     if sums is None:
-        return {"iter": 0, "step_ms": step_ms}
+        return {"iter": 0, "step_ms": step_ms, "profiled": profiled}
     return {"locLoss_train": sums[0] / n_steps,
             "locAcc_train": sums[1] / n_steps, "iter": n_steps,
-            "step_ms": step_ms}
+            "step_ms": step_ms, "profiled": profiled}
 
 
 def val_epoch(trainer: Trainer, loader, device: torch.device) -> Dict:
@@ -172,13 +220,16 @@ def val_epoch(trainer: Trainer, loader, device: torch.device) -> Dict:
 # (`cpc2_tpu/train.py:382-388`, plus the port's `--device`).
 _RUN_FLAGS = {"nGPU", "pathCheckpoint", "debug", "restart", "max_size_loaded",
               "nEpoch", "save_step", "device"}
-_OPTAX = "Optimizer state from optax checkpoints"
+# Where the port's checkpoints keep the state of the trainer's generator:
+# in the optimizer entry, beside torch's own state dict.
+GENERATOR_KEY = "generator_state"
 
 
-def _resume(args) -> Tuple[Dict, bool]:
+def _resume(args) -> Tuple[Dict, bool, Optional[List[str]]]:
     """With `--pathCheckpoint` and no `--restart`, take the flags and logs
     of the directory's newest checkpoint and load it as a whole. Returns
-    (logs, whether to restore the optimizer)."""
+    (logs, whether to restore the optimizer, the `--load` the run's saved
+    flags name: the checkpoints its model was built from)."""
     logs = {"epoch": [], "iter": [], "saveStep": args.save_step,
             "logging_step": args.logging_step}
     cdata = (get_checkpoint_data(args.pathCheckpoint)
@@ -188,27 +239,101 @@ def _resume(args) -> Tuple[Dict, bool]:
         if args.pathDB is None:
             raise ValueError(f"no checkpoint to resume at "
                              f"{args.pathCheckpoint} and no --pathDB")
-        return logs, False
+        return logs, False, args.load
     path, logs, loc_args = cdata
     print(f"Checkpoint detected at {path}")
     load_args(args, loc_args, forbidden_attr=_RUN_FLAGS)
     check_ported(args)
+    built_from = args.load
     args.load, args.loadCriterion = [path], True
     logs["logging_step"] = args.logging_step
-    return logs, True
+    return logs, True, built_from
 
 
-def _load_optimizer(optimizer: torch.optim.Optimizer, saved) -> None:
-    """Restore a torch optimizer state dict; the JAX package's optax
-    leaves are not converted."""
+def _optax_moments(optimizer: torch.optim.Optimizer, saved: Dict,
+                   modules: Dict[str, nn.Module], norm_mode: str
+                   ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """torch optimizer state, by `name.key` of each parameter, from the
+    JAX package's `{'format': 'optax_leaves', 'leaves', 'step'}`: the
+    leaves of `optax.inject_hyperparams(optax.adam)`'s state (the injected
+    count, then b1, b2, eps, eps_root and learning_rate, then Adam's count,
+    mu and nu) or of `inject_hyperparams(optax.sgd)`'s (count,
+    learning_rate, momentum, the trace), each moment over the param tree
+    `{'criterion', 'model'}` in `jax_param_order`."""
+    order = jax_param_order(modules)
+    adam = isinstance(optimizer, torch.optim.Adam)
+    n_scalars, moments = (7, ("mu", "nu")) if adam else (3, ("trace",))
+    leaves = list(saved["leaves"])
+    want = n_scalars + len(moments) * len(order)
+    if len(leaves) != want:
+        raise ValueError(
+            f"the checkpoint's optax state has {len(leaves)} leaves; this "
+            f"model's {type(optimizer).__name__} state takes {want} "
+            f"({n_scalars} scalars and {len(moments)} x {len(order)} "
+            f"parameters)")
+    state: Dict[str, Dict[str, torch.Tensor]] = {}
+    for m, moment in enumerate(moments):
+        start = n_scalars + m * len(order)
+        trees: Dict[str, Dict] = {name: {} for name in modules}
+        for (path, shape), leaf in zip(order,
+                                       leaves[start:start + len(order)]):
+            leaf = torch.as_tensor(leaf)
+            if leaf.dtype == torch.bfloat16:
+                raise NotImplementedError(
+                    f"optax {moment} in bf16 (--adam_mu_dtype bf16): not "
+                    f"ported to cpc2_torch (ROADMAP.md item: {BF16})")
+            if tuple(leaf.shape) != shape:
+                raise ValueError(f"optax {moment} leaf {'/'.join(path)}: "
+                                 f"shape {tuple(leaf.shape)}, the port's "
+                                 f"parameter takes {shape}")
+            node = trees[path[0]]
+            for part in path[1:-1]:
+                node = node.setdefault(part, {})
+            node[path[-1]] = leaf.float().numpy()
+        for name, tree in trees.items():
+            for key, value in state_dict_from_jax(tree,
+                                                  norm_mode=norm_mode).items():
+                state.setdefault(f"{name}.{key}", {})[moment] = value
+    if adam:
+        count = float(torch.as_tensor(leaves[6]))     # Adam's own count
+        return {key: {"step": torch.tensor(count, dtype=torch.float32),
+                      "exp_avg": value["mu"], "exp_avg_sq": value["nu"]}
+                for key, value in state.items()}
+    return {key: {"momentum_buffer": value["trace"]}
+            for key, value in state.items()}
+
+
+def _load_optimizer(optimizer: torch.optim.Optimizer, saved,
+                    modules: Dict[str, nn.Module], norm_mode: str
+                    ) -> Optional[torch.Tensor]:
+    """Restore the optimizer from a checkpoint's `optimizer` entry: torch's
+    state dict (the port's and the reference's checkpoints) or the JAX
+    package's optax leaves. Returns the saved state of the trainer's
+    generator, or None where the checkpoint has none."""
+    if isinstance(saved, dict) and saved.get("format") == "optax_leaves":
+        by_key = _optax_moments(optimizer, saved, modules, norm_mode)
+        params = {f"{name}.{key}": p for name, module in modules.items()
+                  for key, p in module.named_parameters()}
+        state_dict = optimizer.state_dict()
+        ids = dict(zip(map(id, optimizer.param_groups[0]["params"]),
+                       state_dict["param_groups"][0]["params"]))
+        state_dict["state"] = {ids[id(p)]: by_key[key]
+                               for key, p in params.items()}
+        optimizer.load_state_dict(state_dict)
+        print(f"Restored optimizer state from optax leaves (the JAX "
+              f"package's global step {saved.get('step')} is not used)")
+        return None
     if not (isinstance(saved, dict) and "state" in saved
             and "param_groups" in saved):
-        raise NotImplementedError(
-            "the checkpoint's optimizer state is not a torch optimizer's "
-            "(a cpc2_tpu checkpoint keeps optax leaves): resuming it is not "
-            f"ported to cpc2_torch (ROADMAP.md item: {_OPTAX})")
+        raise ValueError(
+            "the checkpoint's optimizer entry is neither a torch optimizer's "
+            "state dict nor the JAX package's optax leaves (a --ckpt_format "
+            "orbax run keeps its optimizer state in <checkpoint>.orbax)")
+    saved = dict(saved)
+    generator_state = saved.pop(GENERATOR_KEY, None)
     optimizer.load_state_dict(saved)
     print("Restored optimizer state")
+    return generator_state
 
 
 def main(argv: Optional[Sequence[str]]) -> Dict:
@@ -216,14 +341,25 @@ def main(argv: Optional[Sequence[str]]) -> Dict:
     every training step's time in ms, its median, and the audio hours
     trained per hour of step time."""
     args = parse_args(argv)
-    logs, load_optimizer = _resume(args)
+    logs, load_optimizer, built_from = _resume(args)
     device = resolve_device(args.device)
     with precision(args.precision):
-        return _train(args, logs, load_optimizer, device)
+        return _train(args, logs, load_optimizer, built_from, device)
+
+
+def _best(logs: Dict, path: str) -> Tuple[float, Optional[Dict]]:
+    """The best validation accuracy of a resumed run's earlier epochs and
+    its checkpoint's `best` weights, so that the resumed run keeps the
+    same best as an uninterrupted one."""
+    accs = [float(np.mean(v)) for v in logs.get("locAcc_val", [])
+            if v is not None]
+    if not accs:
+        return -1.0, None
+    return max(accs), load_torch_checkpoint(path)["best"]
 
 
 def _train(args, logs: Dict, load_optimizer: bool,
-           device: torch.device) -> Dict:
+           built_from: Optional[List[str]], device: torch.device) -> Dict:
     set_seed(args.random_seed)
     torch.manual_seed(args.random_seed)
     print(f'CONFIG:\n{json.dumps(vars(args), indent=4, sort_keys=True)}')
@@ -260,13 +396,22 @@ def _train(args, logs: Dict, load_optimizer: bool,
     params = list(model.parameters()) + list(criterion.parameters())
     print(f"Model: {sum(p.numel() for p in params)} parameters on {device}")
     optimizer = make_optimizer(args, params)
-    if load_optimizer:
-        _load_optimizer(optimizer,
-                        load_torch_checkpoint(args.load[0])["optimizer"])
     generator = torch.Generator(device=device)
     generator.manual_seed(args.random_seed)
+    best_acc, best_state = -1.0, None
+    if load_optimizer:
+        generator_state = _load_optimizer(
+            optimizer, load_torch_checkpoint(args.load[0])["optimizer"],
+            {"criterion": criterion, "model": model}, args.normMode)
+        if generator_state is None:
+            print("The checkpoint holds no generator state: the negatives "
+                  "and dropout draws start again from --random_seed")
+        else:
+            generator.set_state(generator_state)
+            print("Restored the generator state")
+        best_acc, best_state = _best(logs, args.load[0])
     trainer = Trainer(model, criterion, optimizer, generator,
-                      keep_hidden=getattr(model.gAR, 'keep_hidden', False))
+                      keep_hidden=model.keeps_hidden)
     lr_fn = make_lr_schedule(args.learningRate, args.schedulerStep,
                              args.schedulerRamp)
     batch_size = args.batchSizeGPU
@@ -275,10 +420,12 @@ def _train(args, logs: Dict, load_optimizer: bool,
     if args.pathCheckpoint is not None:
         os.makedirs(args.pathCheckpoint, exist_ok=True)
         path_checkpoint = os.path.join(args.pathCheckpoint, "checkpoint")
-        save_args(args, path_checkpoint + "_args.json")
+        # `load` stays what the model was built from, so that a
+        # concatenated run resumed more than once builds the same model
+        save_args(argparse.Namespace(**dict(vars(args), load=built_from)),
+                  path_checkpoint + "_args.json")
 
     step_ms: List[float] = []
-    best_acc, best_state = -1.0, None
     start_time = time.time()
     try:
         for epoch in range(len(logs["epoch"]), args.nEpoch):
@@ -297,8 +444,10 @@ def _train(args, logs: Dict, load_optimizer: bool,
                   "batches, batch size %d" % (len(train_loader),
                                               len(val_loader), batch_size))
             loc_train = train_epoch(trainer, train_loader, device,
-                                    args.logging_step)
+                                    args.logging_step, args.profile_dir)
             step_ms += loc_train.pop("step_ms")
+            if loc_train.pop("profiled"):
+                args.profile_dir = None       # one trace per run
             loc_val = (val_epoch(trainer, val_loader, device)
                        if val_dataset is not None else {})
             print(f'Ran {epoch + 1} epochs '
@@ -317,7 +466,9 @@ def _train(args, logs: Dict, load_optimizer: bool,
             if path_checkpoint is not None and (
                     epoch % logs["saveStep"] == 0 or epoch == args.nEpoch - 1):
                 save_checkpoint(model.state_dict(), criterion.state_dict(),
-                                optimizer.state_dict(), best_state,
+                                dict(optimizer.state_dict(), **{
+                                    GENERATOR_KEY: generator.get_state()}),
+                                best_state,
                                 f"{path_checkpoint}_{epoch}.pt")
                 save_logs(logs, path_checkpoint + "_logs.json")
     finally:

@@ -125,13 +125,13 @@ class Trainer:
     def _forward(self, batch: Tensor, negative_indices: Optional[Tensor],
                  carry: bool) -> Tuple[Tensor, Tensor]:
         b = batch.shape[0]
-        encoded = self.model.gEncoder(
+        encoded = self.model.encode(
             torch.cat([batch[:, 0, 0, :], batch[:, 1, 0, :]], dim=0))
         hidden = self._hidden if carry else None
         if hidden is not None and _batch_of(hidden) != b:
             hidden = None
-        c_feature, new_hidden = self.model.gAR(encoded[:b], hidden,
-                                               self.generator)
+        c_feature, new_hidden = self.model.context(encoded[:b], hidden,
+                                                   self.generator)
         if carry and new_hidden is not None:
             self._hidden = _detach(new_hidden)
         return self.criterion(c_feature, encoded[b:], self.generator,
@@ -162,11 +162,20 @@ class Trainer:
         return self._forward(batch, negative_indices, False)
 
 
-def _batch_of(hidden) -> int:
+def _batch_of(hidden) -> Optional[int]:
+    """The batch of a state: a tensor (L, B, H), an LSTM's (h, c), or a
+    concatenated model's list of those (None for a model without one)."""
+    if isinstance(hidden, list):
+        return next((n for n in map(_batch_of, hidden) if n is not None),
+                    None)
+    if hidden is None:
+        return None
     return (hidden[0] if isinstance(hidden, tuple) else hidden).shape[1]
 
 
 def _detach(hidden):
+    if isinstance(hidden, list):
+        return [_detach(h) for h in hidden]
     if isinstance(hidden, tuple):
         return tuple(h.detach() for h in hidden)
-    return hidden.detach()
+    return None if hidden is None else hidden.detach()

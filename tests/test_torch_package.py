@@ -1,7 +1,8 @@
 """The port's package boundaries, flags and trainer on the CPU: importing it
 pulls in nothing of JAX or the JAX package and builds nothing, unported
 flags raise, `--device cuda` without a card raises, and
-`python -m cpc2_torch.train` trains on a wav corpus with `--device cpu`.
+`python -m cpc2_torch.train` trains on a wav corpus with `--device cpu`,
+and on a FLAC corpus at its own `--file_extension`.
 """
 
 import os
@@ -50,7 +51,7 @@ BASE = ["--pathDB", "db", "--file_extension", ".wav"]
 
 
 @pytest.mark.parametrize("flags", [
-    ["--profile_dir", "p"], ["--load", "a.pt", "b.pt"], ["--nGPU", "2"],
+    ["--adam_mu_dtype", "bf16"], ["--augment_future"], ["--nGPU", "2"],
     ["--distributed"], ["--augment_past"], ["--cpc_mode", "reverse"],
     ["--rnnMode", "linear"], ["--multihead_rnn"], ["--precision", "bf16"],
     ["--global_negatives"], ["--neg_pool_group", "4"],
@@ -61,9 +62,51 @@ def test_unported_flags_raise(flags):
         parse_args(BASE + flags)
 
 
-def test_flac_corpus_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parse_args(["--pathDB", "db"])
+def test_flac_default_parses():
+    """The trainer's own defaults parse: FLAC, and the flags of the ported
+    checkpoint extras; a flag that is not ported still raises."""
+    args = parse_args(["--pathDB", "db"])
+    assert args.file_extension == ".flac"
+    args = parse_args(["--pathDB", "db", "--profile_dir", "p", "--load",
+                       "a.pt", "b.pt"])
+    assert args.profile_dir == "p" and len(args.load) == 2
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item: "
+                       "Augmentation"):
+        parse_args(["--pathDB", "db", "--meta_aug"])
+
+
+@pytest.fixture(scope="module")
+def flac_corpus(tmp_path_factory):
+    """4 speakers x 2 files of 16-bit FLAC in LibriSpeech layout."""
+    from tests.test_flac import encode_flac
+    root = tmp_path_factory.mktemp("flac_db")
+    rs = np.random.RandomState(2)
+    for s in range(4):
+        folder = root / str(300 + s) / "5"
+        folder.mkdir(parents=True)
+        for i in range(2):
+            n = 36000 + 4000 * i
+            t = np.arange(n) / 16000
+            x = 0.3 * np.sin(2 * np.pi * (80 + 35 * s) * t) \
+                + 0.05 * rs.randn(n)
+            encode_flac(str(folder / f"{300 + s}-5-{i}.flac"), [np.clip(
+                np.round(x * 32767), -32768, 32767).astype(np.int16)])
+    return root
+
+
+def test_train_main_on_a_flac_corpus(flac_corpus, capsys):
+    """No `--file_extension`: the trainer reads the FLAC corpus."""
+    record = main(["--pathDB", str(flac_corpus), "--device", "cpu",
+                   "--nEpoch", "1", "--hiddenEncoder", "16",
+                   "--hiddenGar", "16", "--nPredicts", "3",
+                   "--negativeSamplingExt", "4", "--sizeWindow", "3840",
+                   "--batchSizeGPU", "4", "--random_seed", "5",
+                   "--logging_step", "4", "--n_process_loader", "2"])
+    out = capsys.readouterr().out
+    assert "Found files: 8 seqs, 4 speakers" in out
+    values = np.asarray(record["logs"]["locLoss_train"])
+    assert values.shape == (1, 3) and np.isfinite(values).all()
+    assert record["logs"]["iter"][0] > 4
 
 
 @pytest.mark.parametrize("flags", [
