@@ -88,6 +88,22 @@ Phases, each of which fails the run with a nonzero exit:
    (FUSED_GRAD_NORM_TOL in the 2-norm, lin1's FFN_LIN1_GRAD_NORM_TOL; the
    generator's state equal), and whether they are bit for bit equal is
    printed;
+   augmentation (run after the corpus is written, before the epochs): a
+   noise corpus and impulse responses synthesised from a seed
+   (`write_sounds`); `[augment]` holds each device augmentation
+   (`cpc2_torch/data/augment_device.py`, 11 rows: every `--augment_type`
+   and both pitch algorithms) at 8 x 20,480 on the card against the same
+   draws on the CPU (AUGMENT_RTOL of the peak, the WSOLA segment positions
+   equal) and against the host pipeline (`host_reference`), and times the
+   augmented epochs' chain for one step; `[determinism]` runs again with
+   that chain on the device; the epochs above are followed by three on
+   `train_db_part` (a FLAC file a speaker) with AUGMENT_TYPES on both
+   views, `augmented_host` (`--host_prefetch 2`),
+   `augmented_host_noprefetch` (`--host_prefetch 0`) and
+   `augmented_device` (`--augment_on_device`), each held as the default
+   epoch (its kernels launched, the others not, finite losses),
+   their median ms/step, wait for a batch, host ms a batch and audio-hours
+   per hour printed on `[augmented epochs]`;
 6. write a phone corpus with its `.item` file (4 speakers x 8 files x 24
    tokens) and run `cpc2_torch.eval.eval_ABX.main from_checkpoint` on the
    checkpoint of phase 5 at its defaults, the counts again set to 0 just
@@ -1585,13 +1601,16 @@ def _check_step(dev, precision: str, fused: bool, width: int) -> float:
     return err
 
 
-def step_determinism(dev, passes: int = 3) -> dict:
+def step_determinism(dev, passes: int = 3, device_augment=None) -> dict:
     """The recipe's training step at the CLI defaults (`bf16mix`, dropout
     on, one batch drawn with numpy, the generator reseeded before each
     pass) run forward and backward `passes` times on the same weights:
     whether the losses agree bit for bit, and each gradient that differs
-    from the first pass's, by its largest difference. A report of which
-    ops a resumed run cannot replay; nothing here fails the run."""
+    from the first pass's, by its largest difference. With
+    `device_augment` (the trainer's argument) the views go through the
+    device chain first, its generator reseeded before each pass too. A
+    report of which ops a resumed run cannot replay; nothing here fails
+    the run."""
     from cpc2_torch.config import parse_args
     from cpc2_torch.feature_loader import build_model
     from cpc2_torch.train import get_criterion
@@ -1603,8 +1622,10 @@ def step_determinism(dev, passes: int = 3) -> dict:
     named = (list(model.named_parameters(prefix="model"))
              + list(criterion.named_parameters(prefix="criterion")))
     gen = torch.Generator(device=dev)
+    aug_gen = torch.Generator(device=dev)
     trainer = Trainer(model, criterion, make_optimizer(
-        args, [p for _n, p in named]), gen)
+        args, [p for _n, p in named]), gen, device_augment=device_augment,
+        augment_generator=aug_gen)
     rs = np.random.RandomState(0)
     batch = torch.from_numpy(rs.randn(args.batchSizeGPU, 2, 1,
                                       args.sizeWindow).astype(
@@ -1612,11 +1633,13 @@ def step_determinism(dev, passes: int = 3) -> dict:
 
     def one_pass():
         gen.manual_seed(0)
+        aug_gen.manual_seed(0)
         model.train()
         criterion.train()
         for _n, p in named:
             p.grad = None
-        losses, _accs = trainer._forward(batch, None, False)
+        losses, _accs = trainer._forward(batch, None, False,
+                                         device_augment is not None)
         losses.sum().backward()
         torch.cuda.synchronize()
         return losses.detach(), {n: p.grad.detach().clone()
@@ -1809,6 +1832,225 @@ def check_corpus(work: str) -> dict:
         "decoded_bit_for_bit": True}
 
 
+# The augmented epochs' chain: every host stage kind (the band-stop, the
+# WSOLA pitch shift, the reverb's filter chain and dropout, the noise
+# corpus's windows, the impulse responses).
+AUGMENT_TYPES = ("bandreject", "pitch", "artificial_reverb_dropout",
+                 "additive", "natural_reverb")
+# [augment]: (label, --augment_type, --pitch_algo), one row a device
+# function; the two WSOLA rows also hold their segment positions equal
+AUGMENT_CHECKS = (
+    ("bandreject", "bandreject", "wsola"),
+    ("pitch_wsola", "pitch", "wsola"),
+    ("pitch_vocoder", "pitch", "vocoder"),
+    ("pitch_quick", "pitch_quick", "vocoder"),
+    ("pitch_dropout", "pitch_dropout", "wsola"),
+    ("time_dropout", "time_dropout", "wsola"),
+    ("gaussian_noise", "random_noise", "wsola"),
+    ("artificial_reverb", "artificial_reverb", "wsola"),
+    ("artificial_reverb_dropout", "artificial_reverb_dropout", "wsola"),
+    ("natural_reverb", "natural_reverb", "wsola"),
+    ("additive", "additive", "wsola"),
+)
+# card against CPU at the same draws, relative to the CPU result's peak
+AUGMENT_RTOL = 1e-4
+
+
+def write_sounds(work: str, seed: int = 1) -> dict:
+    """What the augmented phases read, synthesised from `seed`: a noise
+    corpus (`noise/`, 4 WAV files of 12 s of white and coloured noise), a
+    directory of 6 impulse responses (`irs/`, a direct path then 0.05 to
+    0.4 s of decaying noise) and `train_db_part`, the first FLAC file of
+    each speaker of `train_db`, the part of the corpus the augmented epochs
+    train on (the host chain takes seconds a batch)."""
+    import shutil
+
+    from scipy import signal
+
+    from cpc2_torch.data.audio_io import save_wav
+    rs = np.random.RandomState(seed)
+    for i, pole in enumerate((0.0, 0.6, 0.95, -0.7)):
+        folder = os.path.join(work, "noise", f"n{i % 2}")
+        os.makedirs(folder, exist_ok=True)
+        x = signal.lfilter([1.0], [1.0, -pole], rs.randn(12 * 16000))
+        save_wav(os.path.join(folder, f"noise-{i}.wav"),
+                 (0.5 * x / np.abs(x).max()).astype(np.float32), 16000)
+    os.makedirs(os.path.join(work, "irs"))
+    for k in range(6):
+        n = int(16000 * (0.05 + 0.07 * k))
+        ir = 0.3 * rs.randn(n) * np.exp(-6.9 * np.arange(n) / n)
+        ir[0] = 1.0
+        save_wav(os.path.join(work, "irs", f"ir{k}.wav"),
+                 (ir / np.abs(ir).max()).astype(np.float32), 16000)
+    part = os.path.join(work, "train_db_part")
+    for first in sorted(glob.glob(os.path.join(work, "train_db", "*", "*",
+                                               "*-0000.flac"))):
+        folder = os.path.join(part, *first.split(os.sep)[-3:-1])
+        os.makedirs(folder)
+        shutil.copy(first, folder)
+    return {"noise": os.path.join(work, "noise"),
+            "irs": os.path.join(work, "irs"), "part": part}
+
+
+def augment_windows(b: int = 8, w: int = 20480, seed: int = 2) -> np.ndarray:
+    """(b, w) float32 windows like the corpus's: two tones and noise."""
+    rs = np.random.RandomState(seed)
+    t = np.arange(w) / 16000.0
+    return np.stack([0.3 * np.sin(2 * np.pi * (110 + 23 * i) * t)
+                     + 0.1 * np.sin(2 * np.pi * (370 + 41 * i) * t)
+                     + 0.05 * rs.randn(w) for i in range(b)]
+                    ).astype(np.float32)
+
+
+def host_reference(label: str, x: np.ndarray, params, stage) -> tuple:
+    """The host pipeline's result (`cpc2_torch.data.augmentation`, numpy
+    and scipy in float64) for the windows `rows` of `x` at the drawn
+    `params`, and its tolerance: the JAX package's tests' (the band-stop's
+    2e-4; the WSOLA and quick pitch shifts' 2e-3 and the vocoder's 2e-2 of
+    the peak; the reverbs' 2e-3 of the peak, on two windows, the host's
+    filter chain taking 0.3 s a window; the impulse responses' and the
+    noise mix's 2e-3), exact for time dropout, and 1e-5 of the peak for
+    the Gaussian noise, whose noise is given."""
+    from scipy import signal
+
+    from cpc2_torch.data import augmentation as host
+    p = [q.numpy() for q in params]
+    w = x.shape[1]
+    peak = float(np.abs(x).max())
+    rows = list(range(x.shape[0]))
+
+    def dropout(y, start, span):
+        y = np.array(y, np.float64)
+        y[start:start + span] = 0.0
+        return y
+
+    def shift(i, **kw):
+        return host.pitch_shift(x[i:i + 1].astype(np.float64), p[0][i],
+                                **kw)[0]
+
+    if label == "bandreject":
+        lo, hi = p
+        ref = [x[i] if hi[i] - lo[i] < 2.0 else signal.fftconvolve(
+            x[i].astype(np.float64), signal.firwin(
+                1021, [lo[i], hi[i]], fs=16000, window=('kaiser', 12.0),
+                pass_zero='bandstop'), mode='same') for i in rows]
+        return rows, ref, 2e-4
+    if label == "pitch_wsola":
+        return rows, [shift(i) for i in rows], 2e-3 * peak
+    if label == "pitch_vocoder":
+        return rows, [shift(i, algo='vocoder') for i in rows], 2e-2 * peak
+    if label == "pitch_quick":
+        return rows, [shift(i, quick=True, algo='vocoder')
+                      for i in rows], 2e-3 * peak
+    if label == "pitch_dropout":
+        return rows, [dropout(shift(i), p[1][i], p[2][i])
+                      for i in rows], 2e-3 * peak
+    if label == "time_dropout":
+        return rows, [dropout(x[i], p[0][i], p[1][i]) for i in rows], 0.0
+    if label == "gaussian_noise":
+        alpha = [10.0 ** 1.5 / (x[i].astype(np.float64).std() + 1e-12)
+                 for i in rows]
+        return rows, [x[i] + p[0][i] / alpha[i] for i in rows], 1e-5 * peak
+    if label in ("artificial_reverb", "artificial_reverb_dropout"):
+        level = 100.0 if label == "artificial_reverb" else 50.0
+        ref = [host._freeverb(x[i].astype(np.float64), level, level,
+                              float(p[0][i])) for i in rows[:2]]
+        if label == "artificial_reverb_dropout":
+            ref = [dropout(y, p[1][i], p[2][i]) for i, y in enumerate(ref)]
+        return rows[:2], ref, 2e-3 * max(np.abs(y).max() for y in ref)
+    if label == "natural_reverb":
+        idx, u = p
+        ref = []
+        for i in rows:
+            ir = stage.bank[idx[i] if len(idx) > 1 else idx[0]]
+            wet = signal.fftconvolve(x[i].astype(np.float64), ir)[:w]
+            ref.append(host.peak_normalization(wet if u[i] < 1.0 else x[i]))
+        return rows, ref, 2e-3
+    if label == "additive":
+        idx, snr = p
+        return rows, [host.peak_normalization(
+            host.energy_normalization(x[i].astype(np.float64))
+            + host.energy_normalization(stage.bank[idx[i], :w].astype(
+                np.float64)) * 10.0 ** (-snr[i] / 20.0)) for i in rows], 2e-3
+    raise ValueError(label)
+
+
+def noise_dataset(sounds: dict, w: int = 20480):
+    """The noise corpus as the trainer loads it (peak-normalised windows
+    of `w` samples)."""
+    from cpc2_torch.data import AudioBatchData, PeakNorm, find_all_seqs
+    seqs, _ = find_all_seqs(sounds["noise"], extension=".wav",
+                            speaker_level=0)
+    return AudioBatchData(sounds["noise"], w, seqs, 1, nProcessLoader=2,
+                          transform=PeakNorm())
+
+
+def check_augment(dev, sounds: dict, noise) -> dict:
+    """[augment]: each device augmentation (`cpc2_torch/data/
+    augment_device.py`) at the recipe's batch, 8 windows of 20,480
+    samples: its draws made on the card, applied there and, the same
+    draws, on the CPU; the two held to AUGMENT_RTOL of the peak, the WSOLA
+    stages' segment positions equal, and the card's result held to the
+    host pipeline's (`host_reference`). Times each apply on the card, and
+    the augmented epochs' chain for one step (both views, draws
+    included). Fails on any mismatch."""
+    from cpc2_torch.data import augment_device as ad
+    b, w = 8, 20480
+    x = augment_windows(b, w)
+    x_cpu = torch.from_numpy(x)
+    x_dev = x_cpu.to(dev)
+    out = {}
+    for label, name, algo in AUGMENT_CHECKS:
+        stage = ad.make_device_augment(
+            [name], noise_dataset=noise, batch_size=b,
+            ir_paths=sounds["irs"], pitch_algo=algo).stages[0]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = stage.draw(b, w, gen)
+        cpu_params = tuple(q.cpu() for q in params)
+        y_dev = stage.apply(x_dev, *params).cpu()
+        y_cpu = stage.apply(x_cpu, *cpu_params)
+        peak = y_cpu.abs().max().item()
+        err = (y_dev - y_cpu).abs().max().item()
+        if not err <= AUGMENT_RTOL * peak:
+            raise AssertionError(f"[augment] {label}: card vs cpu "
+                                 f"{err:.3e} (peak {peak:.3e})")
+        steps = None
+        if label in ("pitch_wsola", "pitch_dropout"):
+            on_dev = ad.wsola_positions(x_dev, params[0]).cpu()
+            on_cpu = ad.wsola_positions(x_cpu, cpu_params[0])
+            if not torch.equal(on_dev, on_cpu):
+                raise AssertionError(
+                    f"[augment] {label}: WSOLA positions differ at "
+                    f"{(on_dev != on_cpu).nonzero().tolist()[:8]}")
+            steps = on_dev.shape[1]
+        rows, ref, tol = host_reference(label, x, cpu_params, stage)
+        host_err = max(float(np.abs(y_dev[i].double().numpy() - r).max())
+                       for i, r in zip(rows, ref))
+        if not host_err <= tol:
+            raise AssertionError(f"[augment] {label}: card vs host "
+                                 f"{host_err:.3e} > {tol:.3e}")
+        ms = cuda_ms(lambda: stage.apply(x_dev, *params), iters=10)
+        out[label] = {"card_vs_cpu": err, "peak": peak,
+                      "card_vs_host": host_err, "host_tol": tol,
+                      "host_windows": len(rows), "ms": ms,
+                      "wsola_steps": steps}
+        log(f"[augment] {label} (--augment_type {name}, --pitch_algo "
+            f"{algo}): card vs cpu {err:.2e} (<= {AUGMENT_RTOL:g} of "
+            f"the peak {peak:.3f}), card vs host {host_err:.2e} on "
+            f"{len(rows)} windows (<= {tol:.2e})"
+            + (f", WSOLA positions equal ({steps} steps x {b})"
+               if steps else "") + f", apply {ms:.3f} ms on the card")
+    chain = ad.make_device_augment(AUGMENT_TYPES, noise_dataset=noise,
+                                   batch_size=b, ir_paths=sounds["irs"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    step_ms = cuda_ms(lambda: (chain(x_dev, gen), chain(x_dev, gen)),
+                      iters=10)
+    return {"checks": out, "chain": list(AUGMENT_TYPES),
+            "chain_ms_per_step": step_ms}
+
+
 TRAINING_KERNELS = ("lstm_fwd", "lstm_bwd", "ffn_fwd", "ffn_bwd",
                     "infonce_fwd", "infonce_bwd")
 FUSED_KERNELS = ("attention_fwd", "attention_bwd", "encoder_fwd",
@@ -1845,16 +2087,31 @@ EPOCHS = {  # kernels each epoch must launch, and kernels it must not
     "fp32": (FP32_KERNELS, FUSED_KERNELS + BF16_FFN + LSTM_GRID),
     "wide": (WIDE_KERNELS, FUSED_KERNELS + FP32_FFN + LSTM_RESIDENT),
     "profiled": (TRAINING_KERNELS, FUSED_KERNELS + FP32_FFN + LSTM_GRID),
+    # the default epoch's kernels, on `train_db_part` with AUGMENT_TYPES
+    "augmented_host": (TRAINING_KERNELS,
+                       FUSED_KERNELS + FP32_FFN + LSTM_GRID),
+    "augmented_host_noprefetch": (TRAINING_KERNELS,
+                                  FUSED_KERNELS + FP32_FFN + LSTM_GRID),
+    "augmented_device": (TRAINING_KERNELS,
+                         FUSED_KERNELS + FP32_FFN + LSTM_GRID),
 }
 
 
-def train_argv(work: str, ck: str, *extra) -> list:
-    """The trainer's command line at its CLI defaults on the FLAC corpus:
-    no flag but the corpus, the epochs, the seed, the loader threads, the
-    logging step and the checkpoint directory."""
-    return ["--pathDB", os.path.join(work, "train_db"), "--nEpoch", "1",
+def train_argv(work: str, ck: str, *extra, db: str = "train_db") -> list:
+    """The trainer's command line at its CLI defaults on the FLAC corpus
+    (`db` under `work`): no flag but the corpus, the epochs, the seed, the
+    loader threads, the logging step and the checkpoint directory."""
+    return ["--pathDB", os.path.join(work, db), "--nEpoch", "1",
             "--random_seed", "0", "--n_process_loader", "2",
             "--logging_step", "10", "--pathCheckpoint", ck, *extra]
+
+
+def augment_argv(work: str) -> list:
+    """The augmented epochs' flags: both views through AUGMENT_TYPES, the
+    noise corpus and the impulse responses of `write_sounds`."""
+    return ["--augment_past", "--augment_future", "--augment_type",
+            *AUGMENT_TYPES, "--pathDBNoise", os.path.join(work, "noise"),
+            "--pathImpulseResponses", os.path.join(work, "irs")]
 
 
 def run_training(dev, work: str, mode: str = "default") -> dict:
@@ -1862,16 +2119,25 @@ def run_training(dev, work: str, mode: str = "default") -> dict:
     `default`; `fused`, with both opt-in kernels' variables set; `fp32`,
     with `--precision fp32` (the FFN's fp32 route); `wide`, with WIDE (a
     512-wide encoder and LSTM: the LSTM's grid route); `profiled`, with
-    `--profile_dir <work>/profile`."""
+    `--profile_dir <work>/profile`; and on `train_db_part` with
+    `augment_argv`, `augmented_host` (`--host_prefetch 2`, the default),
+    `augmented_host_noprefetch` (`--host_prefetch 0`) and
+    `augmented_device` (`--augment_on_device`)."""
     from cpc2_torch.ops import _build
     from cpc2_torch.train import main
     ck = os.path.join(work, f"ck_{mode}")
     extra = {"fp32": ["--precision", "fp32"], "wide": WIDE,
-             "profiled": ["--profile_dir", os.path.join(work, "profile")]
+             "profiled": ["--profile_dir", os.path.join(work, "profile")],
+             "augmented_host": ["--host_prefetch", "2"],
+             "augmented_host_noprefetch": ["--host_prefetch", "0"],
+             "augmented_device": ["--augment_on_device"],
              }.get(mode, [])
+    db = "train_db"
+    if mode.startswith("augmented"):
+        extra, db = augment_argv(work) + extra, "train_db_part"
     with fused_switches(mode == "fused"):
         _build.reset_launches()
-        record = main(train_argv(work, ck, *extra))
+        record = main(train_argv(work, ck, *extra, db=db))
         launches = dict(_build.LAUNCHES)
     must, must_not = EPOCHS[mode]
     check_launched(f"{mode} training", launches, must)
@@ -2293,6 +2559,30 @@ def main() -> int:
             f"(AudioBatchData, 2 threads, host clock) FLAC in "
             f"{corpus['load_s_flac']:.3f} s, WAV in "
             f"{corpus['load_s_wav']:.3f} s, the same samples")
+        sounds = write_sounds(work)
+        noise = noise_dataset(sounds)
+        try:
+            start = time.perf_counter()
+            augment = check_augment(dev, sounds, noise)
+            log(f"[augment] {time.perf_counter() - start:.1f} s: every "
+                f"device augmentation held card vs cpu and card vs host; "
+                f"the augmented epochs' chain {list(AUGMENT_TYPES)} on "
+                f"both views of a batch of 8 x 20,480 (draws included): "
+                f"{augment['chain_ms_per_step']:.3f} ms a step on the card")
+            from cpc2_torch.data.augment_device import make_device_augment
+            chain = make_device_augment(AUGMENT_TYPES, noise_dataset=noise,
+                                        ir_paths=sounds["irs"])
+            start = time.perf_counter()
+            determinism_aug = step_determinism(
+                dev, device_augment=(chain, True, True, False))
+        finally:
+            noise.close()
+        log(f"[determinism] {time.perf_counter() - start:.1f} s: the "
+            f"default step with {list(AUGMENT_TYPES)} on the device, "
+            f"{determinism_aug['passes']} passes on the same weights, "
+            f"batch and draws: of the losses and "
+            f"{determinism_aug['gradients']} gradients these differ (max "
+            f"abs): {determinism_aug['differing'] or 'none'}")
         for mode in EPOCHS:
             start = time.perf_counter()
             records[mode] = run_training(dev, work, mode)
@@ -2303,7 +2593,23 @@ def main() -> int:
             for mode, rec in records.items())
             + " (fused: CPC2_FUSED_ATTENTION=1 CPC2_FUSED_ENCODER=1; fp32: "
             "--precision fp32; wide: " + " ".join(WIDE) + "; profiled: "
-            "--profile_dir, steps 5-14 traced)")
+            "--profile_dir, steps 5-14 traced; augmented_*: "
+            f"{' '.join(AUGMENT_TYPES)} on both views, on train_db_part)")
+        log("[augmented epochs] median ms/step, median wait for a batch, "
+            "median host ms a batch on the loader's thread, audio-hours "
+            "per hour by the median step and over the steps and waits: "
+            + "; ".join(
+                f"{mode} ({len(rec['step_ms'])} steps) "
+                f"{rec['median_step_ms']:.3f} ms/step, wait "
+                f"{rec['median_wait_ms']:.3f} ms, host "
+                f"{rec['median_load_ms']:.3f} ms, "
+                f"{rec['audio_hours_per_hour']:.1f} h/h, with the waits "
+                f"{rec['audio_hours_per_hour_with_waits']:.1f} h/h"
+                for mode, rec in records.items()
+                if mode.startswith("augmented") or mode == "default")
+            + " (default: no augmentation, --host_prefetch 2; "
+            "augmented_host: --host_prefetch 2; augmented_host_noprefetch: "
+            "--host_prefetch 0; augmented_device: --augment_on_device)")
         trace = check_trace(work)
         log(f"[profile] steps 5-14 of the profiled epoch: window "
             f"{trace['window_ms']:.3f} ms, device busy "
@@ -2361,7 +2667,11 @@ def main() -> int:
     def epoch(rec):
         return {"steps": len(rec["step_ms"]),
                 "median_step_ms": rec["median_step_ms"],
+                "median_wait_ms": rec["median_wait_ms"],
+                "median_load_ms": rec["median_load_ms"],
                 "audio_hours_per_hour": rec["audio_hours_per_hour"],
+                "audio_hours_per_hour_with_waits": rec[
+                    "audio_hours_per_hour_with_waits"],
                 "step_ms_quartiles": statistics.quantiles(rec["step_ms"],
                                                           n=4)}
     summary = {
@@ -2375,6 +2685,10 @@ def main() -> int:
         "slice_wide": dict(epoch(records["wide"]),
                            step_parity_max_abs_err=step_err["bf16mix wide"]),
         "slice_profiled": epoch(records["profiled"]),
+        **{f"slice_{mode}": epoch(records[mode]) for mode in EPOCHS
+           if mode.startswith("augmented")},
+        "augment": augment,
+        "step_determinism_augmented": determinism_aug,
         "corpus": corpus,
         "profile": trace,
         "resume": resume,

@@ -6,8 +6,8 @@ written for `python -m cpc2_tpu.train` parses here unchanged. Flags whose
 feature is not ported yet raise `NotImplementedError` naming the ROADMAP
 item when they are set away from their default. A few flags only mean
 something to XLA and are accepted and do nothing: `--prng`, `--remat`,
-`--head_remat`, `--steps_per_dispatch 1`, `--host_prefetch` and
-`--corpus_on_device` off. The port adds `--device`.
+`--head_remat`, `--steps_per_dispatch 1` and `--corpus_on_device` off. The
+port adds `--device`.
 """
 
 from __future__ import annotations
@@ -163,7 +163,9 @@ def set_port_config(parser: argparse.ArgumentParser
     group.add_argument('--global_negatives', action='store_true')
     group.add_argument('--neg_pool_group', type=int, default=0)
     group.add_argument('--host_prefetch', type=int, default=2,
-                       help='XLA-only: accepted and ignored.')
+                       help='Batches the loader (sampling, gather, host '
+                       'augmentation) runs ahead of the steps on a thread '
+                       'of its own; 0 loads each batch between the steps.')
     group.add_argument('--corpus_on_device', action='store_true',
                        help='XLA-only: only off is accepted.')
     return parser
@@ -215,7 +217,6 @@ def set_train_config(parser: argparse.ArgumentParser
 _DDP = "Data-parallel training (DDP)"
 _NEG_POOLS = "Negative pools across or within devices"
 BF16 = "bf16 precision"
-_AUGMENT = "Augmentation"
 _VARIANTS = "Other model and criterion modes"
 _UNPORTED = (
     ('distributed', bool, _DDP),
@@ -227,10 +228,6 @@ _UNPORTED = (
     ('neg_pool_group', bool, _NEG_POOLS),
     ('precision', lambda v: v == 'bf16', BF16),
     ('adam_mu_dtype', lambda v: v != 'fp32', BF16),
-    ('augment_past', bool, _AUGMENT),
-    ('augment_future', bool, _AUGMENT),
-    ('meta_aug', bool, _AUGMENT),
-    ('augment_on_device', bool, _AUGMENT),
     ('supervised', bool, _VARIANTS),
     ('cpc_mode', lambda v: v is not None, _VARIANTS),
     ('encoder_type', lambda v: v != 'cpc', _VARIANTS),
@@ -305,6 +302,16 @@ def parse_args(argv: Optional[Sequence[str]]) -> argparse.Namespace:
             raise ValueError("If you want to use temporalsamespeaker "
                              "sampling type, you must set naming_convention "
                              "accordingly.")
+    # the rules the reference means at `cpc/train.py:657-661` (its
+    # precedence bug and list-vs-str compare let `--meta_aug
+    # --meta_aug_type none` through), as `cpc2_tpu/train.py` checks them
+    if not args.meta_aug and args.meta_aug_type is not None:
+        raise ValueError("You specified parameters --meta_aug_type without "
+                         "having activated --meta_aug flag.")
+    if args.meta_aug and not any(t != 'none'
+                                 for t in args.meta_aug_type or []):
+        raise ValueError("You specified flag --meta_aug, but you haven't "
+                         "specified meta_aug_type")
     if args.random_seed is None:
         args.random_seed = random.randint(0, 2 ** 31)
     if args.arMode == 'no_ar':

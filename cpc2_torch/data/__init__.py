@@ -4,7 +4,7 @@ corpus discovery, samplers and the batch loader (own copies of
 
 from .audio_io import audio_info, load_audio, save_wav
 from .corpus import filter_seqs, find_all_seqs
-from .dataset import AudioBatchData, AudioLoader
+from .dataset import AudioBatchData, AudioLoader, PeakNorm
 
-__all__ = ["AudioBatchData", "AudioLoader", "audio_info", "filter_seqs",
-           "find_all_seqs", "load_audio", "save_wav"]
+__all__ = ["AudioBatchData", "AudioLoader", "PeakNorm", "audio_info",
+           "filter_seqs", "find_all_seqs", "load_audio", "save_wav"]

@@ -1,8 +1,7 @@
 """In-RAM chunked audio corpus and its batch loader, a copy of
 `cpc2_tpu/data/dataset.py` (reference `cpc/dataset.py:23-600`) without the
-features the port does not have yet: host-side augmentation, phone labels
-and signal-quality weights (ROADMAP.md items: Augmentation, Other model and
-criterion modes).
+features the port does not have yet: phone labels and signal-quality
+weights (ROADMAP.md item: Other model and criterion modes).
 
 * packs: the sequence list is split so that each pack's total length fits
   `MAX_SIZE_LOADED`; one pack lives in RAM as one float32 array, and the
@@ -10,7 +9,10 @@ criterion modes).
 * per-pack prefix sums (`speakerLabel`, `seqLabel`) give each window's
   speaker and the samplers' intervals;
 * a batch is gathered with one fancy index and returned as the reference's
-  `(B, 2, 1, W)` past/future views, identical without augmentation.
+  `(B, 2, 1, W)` past/future views, identical without augmentation; a
+  `transform` (the noise corpus's `PeakNorm`) and the host augmentation
+  (`data/augmentation.py`) run on each window of the batch, the past views'
+  draws before the future views'.
 """
 
 from __future__ import annotations
@@ -41,19 +43,41 @@ def load_file(couple):
     return speaker, Path(full_path).stem, np.asarray(seq, dtype=np.float32)
 
 
+class PeakNorm:
+    """Per-window peak normalisation (reference `dataset.py:433-438`)."""
+
+    def __call__(self, x: np.ndarray) -> np.ndarray:
+        max_val = np.abs(x).max(axis=-1, keepdims=True)
+        return x / (max_val + 1e-8)
+
+
 class AudioBatchData:
 
     def __init__(self, path, sizeWindow: int,
                  seqNames: Sequence[Tuple[int, str]], nSpeakers: int,
                  nProcessLoader: int = 10, MAX_SIZE_LOADED: int = 4000000000,
-                 keep_temporality: bool = True):
+                 keep_temporality: bool = True,
+                 transform: Optional[Callable] = None,
+                 augment_past: bool = False, augment_future: bool = False,
+                 augmentation: Optional[Callable] = None,
+                 past_equal_future: bool = False):
         self.MAX_SIZE_LOADED = MAX_SIZE_LOADED
         self.dbPath = Path(path)
         self.sizeWindow = sizeWindow
         self.seqNames = [(s, self.dbPath / x) for s, x in seqNames]
+        self.keep_temporality = keep_temporality
+        self.transform = transform
+        self.augment_past = augment_past
+        self.augment_future = augment_future
+        self.augmentation = augmentation
+        self.past_equal_future = past_equal_future
+        if self.past_equal_future and not self.augment_past:
+            raise ValueError(
+                "Can only apply the same transformation on past and future "
+                "sequences, when past sequence is augmented. Here "
+                "--augment_past = False")
         self.reload_pool = ThreadPoolExecutor(max_workers=max(
             1, nProcessLoader))
-        self.keep_temporality = keep_temporality
         self.prepare()
         self.speakers = list(range(nSpeakers))
         self.data = np.zeros(0, dtype=np.float32)
@@ -165,14 +189,25 @@ class AudioBatchData:
 
     def get_batch(self, indices: Sequence[int]):
         """(batch (B, 2, 1, W) float32, speaker labels (B,) int64) for the
-        windows starting at `indices`; past and future views are the same
-        window."""
+        windows starting at `indices`: the past and future views of each
+        window, after the transform, each augmented as the flags say (the
+        past views first, window by window, then the future ones)."""
         idx = np.asarray(indices, dtype=np.int64)
         window = np.arange(self.sizeWindow, dtype=np.int64)
         wave = self.data[idx[:, None] + window[None, :]][:, None, :]
         speaker = (np.searchsorted(self._speaker_label_arr, idx,
                                    side='right') - 1).astype(np.int64)
-        return np.stack([wave, wave], axis=1), speaker
+        if self.transform is not None:
+            wave = np.stack([self.transform(w) for w in wave])
+        past, future = wave, wave
+        if self.augment_past and self.augmentation:
+            past = np.stack([self.augmentation(w) for w in wave])
+        if (not self.past_equal_future and self.augment_future
+                and self.augmentation):
+            future = np.stack([self.augmentation(w) for w in wave])
+        if self.past_equal_future:
+            future = past
+        return np.stack([past, future], axis=1), speaker
 
     def getBaseSampler(self, type: str, batchSize: int, offset: int,
                        batchSizePerGPU: Optional[int] = None):

@@ -60,6 +60,8 @@ from .profile_step import device_kernels, device_us, encoder_part, \
     encoder_parts
 
 WARMUP = 3
+# profiles taken of one timing before it fails (see `device_split`)
+PROFILE_ATTEMPTS = 6
 
 
 def device_split(fn, iters: int = 20, warmup: int = WARMUP,
@@ -68,30 +70,31 @@ def device_split(fn, iters: int = 20, warmup: int = WARMUP,
     `iters` calls after `warmup` calls; with `counts`, also how many of
     each kernel the profile holds. Every call launches the same kernels,
     so a profile in which a kernel's count is not a multiple of `iters`
-    lost events: it is taken again, at most twice, and the last one is kept
-    if it holds at least half the calls' kernels. (Profiles have held 19 of
-    20 launches of the LSTM's cluster and grid kernels, and one of the
-    grid kernels read half its time then; one held 3 of 20 InfoNCE
-    forwards.)"""
+    lost events: it is taken again, up to PROFILE_ATTEMPTS profiles in all,
+    and the last one is kept if it holds at least half the calls' kernels.
+    (Profiles have held 19 of 20 launches of the LSTM's cluster and grid
+    kernels, and one of the grid kernels read half its time then; one held
+    3 of 20 InfoNCE forwards; three in a row lost LSTM launches on an
+    H100 80GB HBM3.)"""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for attempt in range(3):
+    for attempt in range(PROFILE_ATTEMPTS):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         kernels = device_kernels(prof)
         whole = all(e.count % iters == 0 for e in kernels)
-        if whole or (attempt == 2 and
+        if whole or (attempt == PROFILE_ATTEMPTS - 1 and
                      2 * sum(e.count for e in kernels) >= iters):
             split = {e.key: device_us(e) / 1e3 / iters for e in kernels}
             return (split, {e.key: e.count for e in kernels}) if counts \
                 else split
     raise AssertionError(f"the profiler caught fewer device kernels than "
-                         f"half of {iters} calls, three times")
+                         f"half of {iters} calls, {PROFILE_ATTEMPTS} times")
 
 
 def event_ms(fn, iters: int = 20, warmup: int = WARMUP) -> float:

@@ -23,6 +23,15 @@ dropout, so a resumed run replays an uninterrupted one. `--load
 `--loadCriterion`; several checkpoints train as one concatenated model.
 `--profile_dir <dir>` writes a `torch.profiler` trace of the first
 epoch's steps 5 to 14 there.
+
+`--augment_past` / `--augment_future` with `--augment_type ...` augment the
+training windows on the host (`data/augmentation.py`; `--pathDBNoise` for
+`additive`, `--pathImpulseResponses` for `natural_reverb`, `--meta_aug` to
+augment the noise corpus itself); with `--augment_on_device` the types run
+on the device instead (`data/augment_device.py`), where a type with no
+device version stays on the host ahead of them. The loader runs on a
+thread `--host_prefetch` batches ahead of the steps (0: between them).
+Validation is never augmented.
 """
 
 from __future__ import annotations
@@ -41,7 +50,10 @@ import torch
 from torch import nn
 
 from .config import BF16, check_ported, parse_args
-from .data import AudioBatchData, filter_seqs, find_all_seqs
+from .data import AudioBatchData, PeakNorm, filter_seqs, find_all_seqs
+from .data import augment_device
+from .data.augmentation import (augmentation_factory,
+                                canonical_augment_type, restart)
 from .feature_loader import build_model, load_model, load_state
 from .io.checkpoint import (get_checkpoint_data, load_args,
                             load_torch_checkpoint, save_args,
@@ -51,6 +63,7 @@ from .losses import CPCUnsupervisedCriterion
 from .models.encoder import DOWNSAMPLING
 from .training import (Trainer, make_lr_schedule, make_optimizer,
                        precision, resolve_device)
+from .utils.prefetch import PrefetchIterator, prefetch
 
 SAMPLE_RATE = 16000
 
@@ -118,11 +131,23 @@ def _split(args, seq_names):
     return seq_train, seq_val
 
 
-def _to_device(batch: np.ndarray, device: torch.device) -> torch.Tensor:
-    x = torch.from_numpy(batch)
-    if device.type == "cuda":
-        x = x.pin_memory().to(device, non_blocking=True)
-    return x
+def _host_batches(loader, device: torch.device, load_ms: List[float]):
+    """The loader's batches as tensors, pinned for their copy to a card,
+    each one's host time (sampling, gather, host augmentation, pinning)
+    appended to `load_ms`: the work the prefetch thread takes off the
+    stepping thread."""
+    batches = iter(loader)
+    while True:
+        start = time.perf_counter()
+        try:
+            batch, speaker = next(batches)
+        except StopIteration:
+            return
+        x = torch.from_numpy(batch)
+        if device.type == "cuda":
+            x = x.pin_memory()
+        load_ms.append(1000.0 * (time.perf_counter() - start))
+        yield x, speaker
 
 
 def _sync(device: torch.device) -> None:
@@ -154,58 +179,72 @@ def _stop_profiler(profiler, device: torch.device, profile_dir: str) -> None:
 
 
 def train_epoch(trainer: Trainer, loader, device: torch.device,
-                logging_step: int, profile_dir: Optional[str] = None
-                ) -> Dict:
+                logging_step: int, profile_dir: Optional[str] = None,
+                prefetch_depth: int = 0) -> Dict:
     """One epoch of training steps. Each step ends in a device synchronise
-    so that its host-clock time is the step's own. With `profile_dir`,
-    steps PROFILE_START to PROFILE_STOP - 1 (or to the epoch's end) are
-    traced into it; the record's `profiled` says whether a trace was
-    written."""
-    sums, n_steps, step_ms = None, 0, []
+    so that its host-clock time is the step's own. The loader runs on a
+    thread `prefetch_depth` batches ahead (0: on this thread, between the
+    steps); this thread issues each batch's copy to the card. The record's
+    `wait_ms` holds, for each step, the host-clock time from the end of
+    the step before (from the epoch's start for the first) until its batch
+    was in hand, and `load_ms` each batch's host time on the loader's
+    thread. With `profile_dir`, steps PROFILE_START to PROFILE_STOP - 1 (or
+    to the epoch's end) are traced into it; the record's `profiled` says
+    whether a trace was written."""
+    sums, n_steps, step_ms, wait_ms, load_ms = None, 0, [], [], []
     window_start, window_steps, last = time.perf_counter(), 0, None
     profiler, profiled = None, False
-    for step, (batch, _speaker) in enumerate(loader):
-        if profile_dir is not None and not profiled:
-            if step == PROFILE_START:
-                profiler = _start_profiler(device)
-            elif step == PROFILE_STOP and profiler is not None:
-                _stop_profiler(profiler, device, profile_dir)
-                profiler, profiled = None, True
-        x = _to_device(batch, device)
-        start = time.perf_counter()
-        losses, accs = trainer.train_step(x)
-        _sync(device)
-        step_ms.append(1000.0 * (time.perf_counter() - start))
-        row = torch.cat([losses, accs]).double().cpu().numpy()  # (2, K)
-        sums = row if sums is None else sums + row
-        n_steps += 1
-        window_steps += 1
-        if window_steps >= logging_step:
-            elapsed = time.perf_counter() - window_start
-            print(f"Update {n_steps}")
-            print(f"elapsed: {elapsed:.1f} s")
-            print(f"{1000.0 * elapsed / window_steps:.1f} ms per batch")
-            window = sums if last is None else sums - last
-            show_logs("Training loss", {"locLoss_train": window[0] /
-                                        window_steps,
-                                        "locAcc_train": window[1] /
-                                        window_steps})
-            last, window_start, window_steps = sums.copy(), \
-                time.perf_counter(), 0
+    batches = prefetch(_host_batches(loader, device, load_ms),
+                       prefetch_depth)
+    try:
+        ready = time.perf_counter()
+        for step, (x, _speaker) in enumerate(batches):
+            wait_ms.append(1000.0 * (time.perf_counter() - ready))
+            if profile_dir is not None and not profiled:
+                if step == PROFILE_START:
+                    profiler = _start_profiler(device)
+                elif step == PROFILE_STOP and profiler is not None:
+                    _stop_profiler(profiler, device, profile_dir)
+                    profiler, profiled = None, True
+            x = x.to(device, non_blocking=True)
+            start = time.perf_counter()
+            losses, accs = trainer.train_step(x)
+            _sync(device)
+            step_ms.append(1000.0 * (time.perf_counter() - start))
+            row = torch.cat([losses, accs]).double().cpu().numpy()  # (2, K)
+            sums = row if sums is None else sums + row
+            n_steps += 1
+            window_steps += 1
+            if window_steps >= logging_step:
+                elapsed = time.perf_counter() - window_start
+                print(f"Update {n_steps}")
+                print(f"elapsed: {elapsed:.1f} s")
+                print(f"{1000.0 * elapsed / window_steps:.1f} ms per batch")
+                window = sums if last is None else sums - last
+                show_logs("Training loss", {"locLoss_train": window[0] /
+                                            window_steps,
+                                            "locAcc_train": window[1] /
+                                            window_steps})
+                last, window_start, window_steps = sums.copy(), \
+                    time.perf_counter(), 0
+            ready = time.perf_counter()
+    finally:
+        if isinstance(batches, PrefetchIterator):
+            batches.close()
     if profiler is not None:      # the epoch ended inside the window
         _stop_profiler(profiler, device, profile_dir)
         profiled = True
-    if sums is None:
-        return {"iter": 0, "step_ms": step_ms, "profiled": profiled}
-    return {"locLoss_train": sums[0] / n_steps,
-            "locAcc_train": sums[1] / n_steps, "iter": n_steps,
-            "step_ms": step_ms, "profiled": profiled}
+    record = ({} if sums is None else {"locLoss_train": sums[0] / n_steps,
+                                       "locAcc_train": sums[1] / n_steps})
+    record.update(iter=n_steps, step_ms=step_ms, wait_ms=wait_ms,
+                  load_ms=load_ms, profiled=profiled)
+    return record
 
 
 def val_epoch(trainer: Trainer, loader, device: torch.device) -> Dict:
     sums, n_steps = None, 0
-    for batch, _speaker in loader:
-        losses, accs = trainer.val_step(_to_device(batch, device))
+    for x, _speaker in _host_batches(loader, device, []):
+        losses, accs = trainer.val_step(x.to(device, non_blocking=True))
         row = torch.cat([losses, accs]).double().cpu().numpy()
         sums = row if sums is None else sums + row
         n_steps += 1
@@ -358,6 +397,88 @@ def _best(logs: Dict, path: str) -> Tuple[float, Optional[Dict]]:
     return max(accs), load_torch_checkpoint(path)["best"]
 
 
+def _noise_dataset(args, generators) -> Optional[AudioBatchData]:
+    """The noise corpus of `--pathDBNoise` (`cpc2_tpu/train.py:508-529`):
+    windows peak-normalised, and with `--meta_aug` augmented by
+    `--meta_aug_type` (both views the same)."""
+    if args.pathDBNoise is None or not (args.augment_past
+                                        or args.augment_future):
+        return None
+    seq_noise, _ = find_all_seqs(args.pathDBNoise,
+                                 extension=args.noise_extension,
+                                 loadCache=True, speaker_level=0)
+    if args.pathSeqNoise is not None:
+        seq_noise = filter_seqs(args.pathSeqNoise, seq_noise)
+    if args.debug:
+        seq_noise = seq_noise[:100]
+    print(f'\nLoading noise data at {args.pathDBNoise}')
+    return AudioBatchData(
+        args.pathDBNoise, args.sizeWindow, seq_noise, 1,
+        nProcessLoader=args.n_process_loader,
+        MAX_SIZE_LOADED=args.max_size_loaded, transform=PeakNorm(),
+        augment_past=args.meta_aug, augment_future=False,
+        augmentation=augmentation_factory(
+            args, None, applied_on_noise=True, batch_size=args.batchSizeGPU,
+            **generators),
+        keep_temporality=(args.naming_convention or '').startswith(
+            "id_spkr_onset_offset"),
+        past_equal_future=args.meta_aug)
+
+
+def _split_types(args) -> Tuple[List[str], Optional[List[str]]]:
+    """`--augment_on_device`'s split (`cpc2_tpu/train.py:545-621`): the
+    types with a device version run on the device, the rest on the host.
+    The chain runs host types first, then device types, so a device type
+    listed before a host type raises ValueError rather than train on
+    another order than the one listed. Returns (device types, host
+    types): no device types and `--augment_type` as it is without
+    `--augment_on_device`."""
+    if not (args.augment_on_device and (args.augment_past
+                                        or args.augment_future)):
+        return [], args.augment_type
+    # 'none' entries are no-ops: dropped before the split, they neither
+    # trip the order check nor reach the host factory
+    types = [canonical_augment_type(t) for t in args.augment_type or []
+             if t != 'none']
+    on_device = [t in augment_device.DEVICE_AUGMENTATIONS for t in types]
+    dev_types = [t for t, d in zip(types, on_device) if d]
+    host_types = [t for t, d in zip(types, on_device) if not d]
+    dev_pos = [i for i, d in enumerate(on_device) if d]
+    host_pos = [i for i, d in enumerate(on_device) if not d]
+    if dev_pos and host_pos and min(dev_pos) < max(host_pos):
+        raise ValueError(
+            "--augment_on_device runs the chain as host types first, "
+            f"then device types ({host_types} -> {dev_types}), which would "
+            f"silently reorder the composition you listed ({types}; the "
+            "reference applies --augment_type in order). List the "
+            "host-only types first, or drop --augment_on_device.")
+    if dev_types:
+        print("Augmentations run ON DEVICE: %s" % dev_types)
+        if host_types:
+            print("Augmentations kept ON HOST (no device port): %s"
+                  % host_types)
+    return dev_types, host_types
+
+
+def _device_augment(args, dev_types: List[str], noise_dataset
+                    ) -> Optional[Tuple]:
+    """The trainer's `device_augment` for the device types, or None."""
+    chain = augment_device.make_device_augment(
+        dev_types, shift_max=int(args.shift_max),
+        bandreject_scaler=args.bandreject_scaler, t_ms=args.t_ms,
+        noise_dataset=noise_dataset, snr_min=args.min_snr_in_db,
+        snr_max=args.max_snr_in_db, batch_size=args.batchSizeGPU,
+        ir_paths=args.pathImpulseResponses,
+        ir_prob=args.impulse_response_prob, ir_batch_wise=args.ir_batch_wise,
+        noise_sampling=("temporalsamespeaker"
+                        if args.temporal_additive_noise else "uniform"),
+        pitch_algo=args.pitch_algo)
+    if chain is None:
+        return None
+    return (chain, args.augment_past, args.augment_future,
+            args.past_equal_future)
+
+
 def _train(args, logs: Dict, load_optimizer: bool,
            built_from: Optional[List[str]], device: torch.device) -> Dict:
     set_seed(args.random_seed)
@@ -372,12 +493,29 @@ def _train(args, logs: Dict, load_optimizer: bool,
     print(f'Found files: {len(seq_names)} seqs, {len(speakers)} speakers')
     seq_train, seq_val = _split(args, seq_names)
 
+    dev_types, host_types = _split_types(args)
+    # the host augmenters' generators, reseeded at every epoch
+    generators = {"rng": np.random.RandomState(args.random_seed),
+                  "choice_rng": random.Random(args.random_seed)}
+    noise_dataset = _noise_dataset(args, generators)
+    device_augment = _device_augment(args, dev_types, noise_dataset)
+    use_host_aug = device_augment is None or bool(host_types)
+    train_augment = None
+    if use_host_aug:
+        train_augment = augmentation_factory(
+            argparse.Namespace(**dict(vars(args), augment_type=host_types)),
+            noise_dataset, batch_size=args.batchSizeGPU, **generators)
+
     print(f'\nLoading audio data at {args.pathDB}')
     train_dataset = AudioBatchData(
         args.pathDB, args.sizeWindow, seq_train, len(speakers),
         nProcessLoader=args.n_process_loader,
         MAX_SIZE_LOADED=args.max_size_loaded,
-        keep_temporality=args.samplingType == "temporalsamespeaker")
+        keep_temporality=args.samplingType == "temporalsamespeaker",
+        augment_past=args.augment_past and use_host_aug,
+        augment_future=args.augment_future and use_host_aug,
+        augmentation=train_augment,
+        past_equal_future=args.past_equal_future and use_host_aug)
     val_dataset = (AudioBatchData(args.pathDB, args.sizeWindow, seq_val,
                                   len(speakers),
                                   nProcessLoader=args.n_process_loader)
@@ -411,7 +549,9 @@ def _train(args, logs: Dict, load_optimizer: bool,
             print("Restored the generator state")
         best_acc, best_state = _best(logs, args.load[0])
     trainer = Trainer(model, criterion, optimizer, generator,
-                      keep_hidden=model.keeps_hidden)
+                      keep_hidden=model.keeps_hidden,
+                      device_augment=device_augment,
+                      augment_generator=torch.Generator(device=device))
     lr_fn = make_lr_schedule(args.learningRate, args.schedulerStep,
                              args.schedulerRamp)
     batch_size = args.batchSizeGPU
@@ -426,13 +566,24 @@ def _train(args, logs: Dict, load_optimizer: bool,
                   path_checkpoint + "_args.json")
 
     step_ms: List[float] = []
+    wait_ms: List[float] = []
+    load_ms: List[float] = []
     start_time = time.time()
     try:
         for epoch in range(len(logs["epoch"]), args.nEpoch):
             print(f"Starting epoch {epoch}")
             trainer.set_learning_rate(lr_fn(epoch))
-            # host-side draws re-keyed per epoch, as the JAX trainer does
-            set_seed((args.random_seed + 7919 * (epoch + 1)) % (2 ** 31))
+            # host-side draws re-keyed per epoch, as the JAX trainer does,
+            # and the augmentations' with them, so that a resumed run
+            # replays an uninterrupted one
+            epoch_seed = (args.random_seed + 7919 * (epoch + 1)) % (2 ** 31)
+            set_seed(epoch_seed)
+            for gen in generators.values():
+                gen.seed(epoch_seed)
+            trainer.augment_generator.manual_seed(epoch_seed)
+            for dataset in (noise_dataset, train_dataset):
+                if dataset is not None:
+                    restart(dataset.augmentation)
             train_loader = train_dataset.getDataLoader(
                 batch_size, args.samplingType, True,
                 remove_artefacts=args.no_artefacts,
@@ -444,8 +595,11 @@ def _train(args, logs: Dict, load_optimizer: bool,
                   "batches, batch size %d" % (len(train_loader),
                                               len(val_loader), batch_size))
             loc_train = train_epoch(trainer, train_loader, device,
-                                    args.logging_step, args.profile_dir)
+                                    args.logging_step, args.profile_dir,
+                                    args.host_prefetch)
             step_ms += loc_train.pop("step_ms")
+            wait_ms += loc_train.pop("wait_ms")
+            load_ms += loc_train.pop("load_ms")
             if loc_train.pop("profiled"):
                 args.profile_dir = None       # one trace per run
             loc_val = (val_epoch(trainer, val_loader, device)
@@ -472,21 +626,32 @@ def _train(args, logs: Dict, load_optimizer: bool,
                                 f"{path_checkpoint}_{epoch}.pt")
                 save_logs(logs, path_checkpoint + "_logs.json")
     finally:
-        train_dataset.close()
-        if val_dataset is not None:
-            val_dataset.close()
+        for dataset in (train_dataset, val_dataset, noise_dataset):
+            if dataset is not None:
+                dataset.close()
 
-    record = {"logs": logs, "step_ms": step_ms,
+    record = {"logs": logs, "step_ms": step_ms, "wait_ms": wait_ms,
+              "load_ms": load_ms,
               "param_devices": sorted({str(p.device) for p in params})}
     if step_ms:
         median = statistics.median(step_ms)
         audio_s = batch_size * args.sizeWindow / SAMPLE_RATE
         record["median_step_ms"] = median
+        record["median_wait_ms"] = statistics.median(wait_ms)
+        record["median_load_ms"] = statistics.median(load_ms)
         record["audio_hours_per_hour"] = audio_s / (median / 1000.0)
+        # the same over the steps and the waits for their batches
+        record["audio_hours_per_hour_with_waits"] = (
+            audio_s * len(step_ms) / ((sum(step_ms) + sum(wait_ms)) / 1000.0))
         print(f"{len(step_ms)} training steps: median {median:.3f} ms/step, "
               f"{record['audio_hours_per_hour']:.1f} audio-hours per hour "
               f"(batch {batch_size} x {audio_s / batch_size:.2f} s) "
-              f"on {device}")
+              f"on {device}; the loader's batch: median "
+              f"{record['median_load_ms']:.3f} ms of host time, waited for "
+              f"{record['median_wait_ms']:.3f} ms (--host_prefetch "
+              f"{args.host_prefetch}); with the waits "
+              f"{record['audio_hours_per_hour_with_waits']:.1f} audio-hours "
+              f"per hour")
     return record
 
 

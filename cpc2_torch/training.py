@@ -105,28 +105,58 @@ class Trainer:
     `generator` draws the InfoNCE negatives, the dropout masks and the FFN
     kernel's dropout seeds. With `keep_hidden` (sequential sampling with a
     recurrent context network) the context network's final state is
-    carried, detached, into the next batch of the same size."""
+    carried, detached, into the next batch of the same size.
+
+    `device_augment = (chain, augment_past, augment_future,
+    past_equal_future)` augments the training steps' views on the device
+    before the encoder (`data/augment_device.py`, `--augment_on_device`):
+    the future view takes draws of its own unless `past_equal_future`.
+    They come from `augment_generator`, a generator of their own on the
+    device, so that the negatives and dropout draws are the same with
+    augmentation on or off (the JAX package keys them with
+    `fold_in(key, 3)`)."""
 
     def __init__(self, model: nn.Module, criterion: nn.Module,
                  optimizer: torch.optim.Optimizer,
                  generator: Optional[torch.Generator] = None,
-                 keep_hidden: bool = False):
+                 keep_hidden: bool = False, device_augment=None,
+                 augment_generator: Optional[torch.Generator] = None):
         self.model = model
         self.criterion = criterion
         self.optimizer = optimizer
         self.generator = generator
         self.keep_hidden = keep_hidden
+        self.device_augment = device_augment
+        self.augment_generator = augment_generator
         self._hidden = None
 
     def set_learning_rate(self, lr: float) -> None:
         for group in self.optimizer.param_groups:
             group['lr'] = lr
 
+    def _augment(self, past: Tensor, future: Tensor
+                 ) -> Tuple[Tensor, Tensor]:
+        """The views through the device chain, as
+        `cpc2_tpu/training.py:175-182`."""
+        chain, aug_past, aug_future, same = self.device_augment
+        b, w = past.shape
+        draws = None
+        if aug_past:
+            draws = chain.draw(b, w, self.augment_generator)
+            past = chain.apply(past, draws)
+        if aug_future:
+            if draws is None or not same:
+                draws = chain.draw(b, w, self.augment_generator)
+            future = chain.apply(future, draws)
+        return past, future
+
     def _forward(self, batch: Tensor, negative_indices: Optional[Tensor],
-                 carry: bool) -> Tuple[Tensor, Tensor]:
+                 carry: bool, train: bool = False) -> Tuple[Tensor, Tensor]:
         b = batch.shape[0]
-        encoded = self.model.encode(
-            torch.cat([batch[:, 0, 0, :], batch[:, 1, 0, :]], dim=0))
+        past, future = batch[:, 0, 0, :], batch[:, 1, 0, :]
+        if train and self.device_augment is not None:
+            past, future = self._augment(past, future)
+        encoded = self.model.encode(torch.cat([past, future], dim=0))
         hidden = self._hidden if carry else None
         if hidden is not None and _batch_of(hidden) != b:
             hidden = None
@@ -146,7 +176,7 @@ class Trainer:
         self.criterion.train()
         self.optimizer.zero_grad(set_to_none=True)
         losses, accs = self._forward(batch, negative_indices,
-                                     self.keep_hidden)
+                                     self.keep_hidden, train=True)
         losses.sum().backward()
         self.optimizer.step()
         return losses.detach(), accs

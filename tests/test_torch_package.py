@@ -1,6 +1,7 @@
 """The port's package boundaries, flags and trainer on the CPU: importing it
 pulls in nothing of JAX or the JAX package and builds nothing, unported
-flags raise, `--device cuda` without a card raises, and
+flags raise and ported ones parse, `--device cuda` without a card raises,
+and
 `python -m cpc2_torch.train` trains on a wav corpus with `--device cpu`,
 and on a FLAC corpus at its own `--file_extension`.
 """
@@ -51,8 +52,8 @@ BASE = ["--pathDB", "db", "--file_extension", ".wav"]
 
 
 @pytest.mark.parametrize("flags", [
-    ["--adam_mu_dtype", "bf16"], ["--augment_future"], ["--nGPU", "2"],
-    ["--distributed"], ["--augment_past"], ["--cpc_mode", "reverse"],
+    ["--adam_mu_dtype", "bf16"], ["--nGPU", "2"],
+    ["--distributed"], ["--cpc_mode", "reverse"],
     ["--rnnMode", "linear"], ["--multihead_rnn"], ["--precision", "bf16"],
     ["--global_negatives"], ["--neg_pool_group", "4"],
     ["--encoder_type", "mfcc"], ["--supervised"],
@@ -62,17 +63,35 @@ def test_unported_flags_raise(flags):
         parse_args(BASE + flags)
 
 
+@pytest.mark.parametrize("flags", [
+    ["--augment_future", "--augment_type", "bandreject", "pitch",
+     "artificial_reverb_dropout", "--pathDBNoise", "noise"],
+    ["--augment_past", "--augment_type", "additive", "natural_reverb",
+     "--augment_on_device", "--pathImpulseResponses", "irs",
+     "--host_prefetch", "0"],
+])
+def test_augmentation_flags_parse(flags):
+    """The augmentation flags are ported: they parse as the JAX package's
+    do, with every `--augment_type` of the CLI's choices."""
+    args = parse_args(BASE + flags)
+    assert args.augment_past or args.augment_future
+    assert len(args.augment_type) in (2, 3)
+
+
 def test_flac_default_parses():
     """The trainer's own defaults parse: FLAC, and the flags of the ported
-    checkpoint extras; a flag that is not ported still raises."""
+    checkpoint extras and augmentation; `--meta_aug` parses and needs
+    `--meta_aug_type`."""
     args = parse_args(["--pathDB", "db"])
     assert args.file_extension == ".flac"
     args = parse_args(["--pathDB", "db", "--profile_dir", "p", "--load",
                        "a.pt", "b.pt"])
     assert args.profile_dir == "p" and len(args.load) == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item: "
-                       "Augmentation"):
+    with pytest.raises(ValueError, match="meta_aug_type"):
         parse_args(["--pathDB", "db", "--meta_aug"])
+    args = parse_args(["--pathDB", "db", "--meta_aug", "--meta_aug_type",
+                       "natural_reverb"])
+    assert args.meta_aug and args.meta_aug_type == ["natural_reverb"]
 
 
 @pytest.fixture(scope="module")
