@@ -59,7 +59,9 @@ Phases, each of which fails the run with a nonzero exit:
    a 512-wide encoder and LSTM (the LSTM's grid route); then run the
    recipe's default step three times on the same weights, batch and draws
    and report which losses or gradients differ between the passes
-   (`[determinism]`: a report, which fails nothing);
+   (`[determinism]`: a report, which fails nothing), and the same for a
+   `--supervised --pathPhone --CTC` step at the CLI defaults (torch's CUDA
+   `ctc_loss` backward adds with atomics: a report too);
 5. write a synthetic 16 kHz corpus in LibriSpeech layout as 16-bit FLAC
    (with an encoder of its own, `encode_flac`), and the same samples as
    WAV; every FLAC file must decode through `cpc2_torch.data.audio_io` bit
@@ -116,8 +118,28 @@ Phases, each of which fails the run with a nonzero exit:
    concatenated model (256 + 512 wide): its features on the card must
    match the CPU's within rtol 1e-3 and equal, channel by channel, each
    model's own, and the resident and grid LSTM forward kernels must both
-   have launched;
-7. print one `kernels` JSON line and, last, the `ok` line.
+   have launched; the phone corpus's per-frame labels (`phone_labels_path`)
+   are written beside it;
+7. the supervised path: each supervised criterion (speaker, adversarial
+   speaker with and without labels, phone at 1 and 3 levels, CTC) forward
+   and backward on the card against the CPU at B = 8, T = 128, H = 256
+   (`[supervised criteria]`, CTC at CTC_RTOL); `fused_lstm` at the
+   recipe without gradients, which must launch the forward only and keep
+   no more than its outputs (`[supervised lstm]`); one `--supervised` step
+   (speaker, phone, CTC) card against CPU at width 64 under `fp32`
+   (`[supervised step ...]`); one epoch of `cpc2_torch.train.main
+   --supervised` at the CLI defaults for speakers (the FLAC corpus), phones
+   and CTC (the phone corpus with `--pathPhone`), each with the launch
+   counts set to 0 just before and read just after: the resident LSTM
+   kernels must launch and no InfoNCE, FFN, attention, encoder or grid
+   LSTM kernel, the losses must be finite, the accuracies in [0, 1], the
+   checkpoint must hold the head (`[supervised]`); then
+   `cpc2_torch.eval.linear_separability.main` for one epoch on the default
+   epoch's checkpoint, speaker frozen, phone frozen, phone `--unfrozen` and
+   `--CTC`: a frozen probe must launch `lstm_fwd` and no `lstm_bwd`, an
+   unfrozen one both, the accuracy must lie in [0, 1] and the logs exist
+   (`[probe]`); the phase's wall seconds on `[phase 7]`;
+8. print one `kernels` JSON line and, last, the `ok` line.
 
 It exits nonzero, printing no result, when no CUDA card is available or
 when the `cpc2_torch` package is not beside it.
@@ -1601,24 +1623,28 @@ def _check_step(dev, precision: str, fused: bool, width: int) -> float:
     return err
 
 
-def step_determinism(dev, passes: int = 3, device_augment=None) -> dict:
+def step_determinism(dev, passes: int = 3, device_augment=None,
+                     ctc: bool = False) -> dict:
     """The recipe's training step at the CLI defaults (`bf16mix`, dropout
     on, one batch drawn with numpy, the generator reseeded before each
     pass) run forward and backward `passes` times on the same weights:
     whether the losses agree bit for bit, and each gradient that differs
     from the first pass's, by its largest difference. With
     `device_augment` (the trainer's argument) the views go through the
-    device chain first, its generator reseeded before each pass too. A
+    device chain first, its generator reseeded before each pass too. With
+    `ctc`, the `--supervised --pathPhone --CTC` step on phone labels drawn
+    with numpy (torch's CUDA `ctc_loss` backward adds with atomics). A
     report of which ops a resumed run cannot replay; nothing here fails
     the run."""
     from cpc2_torch.config import parse_args
     from cpc2_torch.feature_loader import build_model
     from cpc2_torch.train import get_criterion
     from cpc2_torch.training import Trainer, make_optimizer, precision
-    args = parse_args(["--pathDB", ".", "--random_seed", "0"])
+    args = parse_args(["--pathDB", ".", "--random_seed", "0"]
+                      + (supervised_argv("ctc") if ctc else []))
     torch.manual_seed(0)
     model = build_model(args).to(dev)
-    criterion = get_criterion(args).to(dev)
+    criterion = get_criterion(args, SUP_SPEAKERS, SUP_PHONES).to(dev)
     named = (list(model.named_parameters(prefix="model"))
              + list(criterion.named_parameters(prefix="criterion")))
     gen = torch.Generator(device=dev)
@@ -1630,6 +1656,9 @@ def step_determinism(dev, passes: int = 3, device_augment=None) -> dict:
     batch = torch.from_numpy(rs.randn(args.batchSizeGPU, 2, 1,
                                       args.sizeWindow).astype(
         np.float32)).to(dev)
+    label = (torch.from_numpy(phone_runs(
+        rs, args.batchSizeGPU, args.sizeWindow // 160, SUP_PHONES)).to(dev)
+        if ctc else None)
 
     def one_pass():
         gen.manual_seed(0)
@@ -1639,7 +1668,8 @@ def step_determinism(dev, passes: int = 3, device_augment=None) -> dict:
         for _n, p in named:
             p.grad = None
         losses, _accs = trainer._forward(batch, None, False,
-                                         device_augment is not None)
+                                         device_augment is not None,
+                                         label=label)
         losses.sum().backward()
         torch.cuda.synchronize()
         return losses.detach(), {n: p.grad.detach().clone()
@@ -1815,7 +1845,7 @@ def check_corpus(work: str) -> dict:
         root = os.path.join(work, name)
         seqs, speakers = find_all_seqs(root, extension=ext)
         start = time.perf_counter()
-        dataset = AudioBatchData(root, 20480, seqs, len(speakers),
+        dataset = AudioBatchData(root, 20480, seqs, None, len(speakers),
                                  nProcessLoader=2)
         load_s[ext] = time.perf_counter() - start
         data[ext] = np.asarray(dataset.data).copy()
@@ -1981,7 +2011,7 @@ def noise_dataset(sounds: dict, w: int = 20480):
     from cpc2_torch.data import AudioBatchData, PeakNorm, find_all_seqs
     seqs, _ = find_all_seqs(sounds["noise"], extension=".wav",
                             speaker_level=0)
-    return AudioBatchData(sounds["noise"], w, seqs, 1, nProcessLoader=2,
+    return AudioBatchData(sounds["noise"], w, seqs, None, 1, nProcessLoader=2,
                           transform=PeakNorm())
 
 
@@ -2361,10 +2391,15 @@ def write_phone_corpus(root: str, n_speakers: int = 4, n_files: int = 8,
     frames), "uw" and "eh" 0.20-0.30 s (19-29 frames), so that token
     lengths fall in DTW buckets 16 and 32. File i of every speaker has the
     same phones and timings, so feature extraction batches 4 files of one
-    length. Returns the `.item` path."""
+    length. Beside the `.item` file it writes the phone labels of every
+    file (`phone_labels_path`: one line a file, the index in PHONES of the
+    token each 160-sample frame starts in, silences included), the
+    `--pathPhone` of the supervised epochs and probes. Returns the `.item`
+    path."""
     from cpc2_torch.data.audio_io import save_wav
     sr, sil = 16000, 0.12
     lines = ["#file onset offset #phone prev-phone next-phone speaker"]
+    label_lines = []
     noise = np.random.RandomState(1)
     for f in range(n_files):
         rs = np.random.RandomState(100 + f)
@@ -2379,9 +2414,10 @@ def write_phone_corpus(root: str, n_speakers: int = 4, n_files: int = 8,
             spk = f"spk{s}"
             os.makedirs(os.path.join(root, spk), exist_ok=True)
             name = f"{spk}-{f:02d}"
-            wav, t = [], 0.0
+            wav, t, ids = [], 0.0, []
             for tok, dur in tokens:
                 n = int(round(dur * sr))
+                ids.append(np.full(n, list(PHONES).index(tok)))
                 tt = np.arange(n) / sr
                 f1, f2 = (f * (1 + 0.1 * noise.randn()) for f in PHONES[tok])
                 wav.append(0.4 * np.sin(2 * np.pi * f1 * tt)
@@ -2394,10 +2430,20 @@ def write_phone_corpus(root: str, n_speakers: int = 4, n_files: int = 8,
                 t += n / sr
             save_wav(os.path.join(root, spk, name + ".wav"),
                      np.concatenate(wav).astype(np.float32), sr)
+            ids = np.concatenate(ids)
+            label_lines.append(name + " " + " ".join(
+                map(str, ids[:len(ids) // 160 * 160:160])))
     item = os.path.join(os.path.dirname(root), "phones.item")
     with open(item, "w") as fh:
         fh.write("\n".join(lines) + "\n")
+    with open(phone_labels_path(root), "w") as fh:
+        fh.write("\n".join(label_lines) + "\n")
     return item
+
+
+def phone_labels_path(root: str) -> str:
+    """The phone labels `write_phone_corpus(root)` writes."""
+    return os.path.join(os.path.dirname(root), "phone_labels.txt")
 
 
 def run_abx(dev, work: str, checkpoint: str) -> dict:
@@ -2481,6 +2527,315 @@ def run_abx(dev, work: str, checkpoint: str) -> dict:
             "dtw_share_of_scoring": dtw_ms / 1e3 / timed_scoring_s}
 
 
+# The supervised criteria at the recipe's shapes: 8 contexts and encodings
+# of 128 frames, 256 wide, over the phone corpus's phones and 4 speakers.
+SUP_B, SUP_T, SUP_H, SUP_SPEAKERS = 8, 128, 256, 4
+SUP_PHONES = len(PHONES)
+# CTC card against CPU: torch's CUDA `ctc_loss` sums each sample's
+# alignment terms in log space in another order than its CPU loop, and its
+# backward adds each frame's terms with atomics in the order they land; so
+# the CTC head's loss and gradients are held to 1e-3 of each tensor's
+# largest value, every other criterion to RTOL.
+CTC_RTOL = 1e-3
+# kernels no supervised epoch or probe may launch: the supervised path has
+# no InfoNCE, no head FFN, no attention; the encoder is not opted in and
+# every model here is 256 wide (the LSTM's resident route)
+SUPERVISED_MUST_NOT = (("infonce_fwd", "infonce_bwd") + FFN_KERNELS
+                       + FUSED_KERNELS + LSTM_GRID)
+
+
+def phone_runs(rs, b: int, t: int, n_phones: int) -> np.ndarray:
+    """(b, t) int64 phone labels in runs of 4-24 frames."""
+    out = np.empty((b, t), np.int64)
+    for i in range(b):
+        runs, n = [], 0
+        while n < t:
+            runs.append(np.full(rs.randint(4, 25), rs.randint(n_phones)))
+            n += len(runs[-1])
+        out[i] = np.concatenate(runs)[:t]
+    return out
+
+
+def supervised_cases() -> dict:
+    """name -> (a maker of the criterion at SUP_H, the kind of its label)."""
+    from cpc2_torch.losses import (AdvSpeakerCriterion, CTCPhoneCriterion,
+                                   PhoneCriterion, SpeakerCriterion)
+    h = SUP_H
+    return {
+        "speaker": (lambda: SpeakerCriterion(h, SUP_SPEAKERS), "speaker"),
+        "adv_speaker": (lambda: AdvSpeakerCriterion(h, h, SUP_SPEAKERS),
+                        "speaker"),
+        "adv_speaker_no_label": (
+            lambda: AdvSpeakerCriterion(h, h, SUP_SPEAKERS), None),
+        "phone": (lambda: PhoneCriterion(h, h, SUP_PHONES), "phone"),
+        "phone_3_levels_on_encoder": (
+            lambda: PhoneCriterion(h, h, SUP_PHONES, on_encoder=True,
+                                   n_layers=3), "phone"),
+        "ctc": (lambda: CTCPhoneCriterion(h, SUP_PHONES), "phone"),
+    }
+
+
+def check_supervised_criteria(dev) -> dict:
+    """Each supervised criterion, forward and backward, on the card against
+    the CPU at the recipe's shapes (SUP_B x SUP_T x SUP_H), same weights
+    and inputs: loss, accuracy and the gradients of the context, the
+    encodings and every weight (CTC at CTC_RTOL, the rest at RTOL). Returns
+    each one's max abs error and its forward and backward ms on the card
+    by events."""
+    rs = np.random.RandomState(21)
+    c = torch.from_numpy(rs.randn(SUP_B, SUP_T, SUP_H).astype(np.float32))
+    e = torch.from_numpy(rs.randn(SUP_B, SUP_T, SUP_H).astype(np.float32))
+    labels = {"speaker": torch.from_numpy(
+        rs.randint(0, SUP_SPEAKERS, SUP_B).astype(np.int64)),
+        "phone": torch.from_numpy(phone_runs(rs, SUP_B, SUP_T, SUP_PHONES)),
+        None: None}
+    out = {}
+    for name, (make, kind) in supervised_cases().items():
+        torch.manual_seed(0)
+        cpu_mod = make()
+        card_mod = make().to(dev)
+        card_mod.load_state_dict(cpu_mod.state_dict())
+
+        def run(mod, device):
+            # fresh leaves on each device: `c` itself never takes a grad
+            ct = c.detach().clone().to(device).requires_grad_(True)
+            et = e.detach().clone().to(device).requires_grad_(True)
+            lab = None if labels[kind] is None else labels[kind].to(device)
+            loss, acc = mod(ct, et, lab)
+            loss.sum().backward()
+            grads = [torch.zeros_like(x) if x.grad is None else x.grad
+                     for x in [ct, et] + list(mod.parameters())]
+            for p in mod.parameters():
+                p.grad = None
+            return [loss.detach(), acc] + grads
+
+        want = run(cpu_mod, torch.device("cpu"))
+        got = [x.cpu() for x in run(card_mod, dev)]
+        err = compare(f"{name} criterion (card vs cpu)", got, want,
+                      rtol=CTC_RTOL if name == "ctc" else RTOL)
+        out[name] = {"max_abs_err": err,
+                     "ms": cuda_ms(lambda: run(card_mod, dev))}
+    return out
+
+
+def check_lstm_no_grad(dev) -> dict:
+    """`fused_lstm` at the recipe's shapes (B 8, T 128, H 256) with and
+    without gradients, as a frozen probe and a supervised step call it:
+    without, it must launch `lstm_fwd` only, return outputs with no
+    autograd history, and keep on the card no more than those outputs
+    (the gates and cells it writes for a backward are freed with the
+    call); with, those stay until the backward. Returns the bytes kept
+    each way."""
+    from cpc2_torch.ops import _build
+    from cpc2_torch.ops.lstm import fused_lstm
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    b, t, h = 8, 128, 256
+
+    def draw(*shape):
+        return (0.1 * torch.randn(*shape, device=dev, generator=gen)
+                ).requires_grad_(True)
+
+    inputs = [draw(b, t, 4 * h), draw(b, h), draw(b, h), draw(4 * h, h),
+              draw(4 * h)]
+    with torch.no_grad():      # any first-call allocation out of the count
+        fused_lstm(*inputs)
+    kept = {}
+    for grad in (False, True):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        _build.reset_launches()
+        with torch.set_grad_enabled(grad):
+            outs = fused_lstm(*inputs)
+        torch.cuda.synchronize()
+        kept[grad] = torch.cuda.memory_allocated(dev) - before
+        launches = dict(_build.LAUNCHES)
+        if launches["lstm_fwd"] != 1 or launches["lstm_bwd"]:
+            raise AssertionError(f"fused_lstm (grad {grad}) launched "
+                                 f"{launches}")
+        if (outs[0].grad_fn is None) == grad:
+            raise AssertionError(f"fused_lstm (grad {grad}): grad_fn "
+                                 f"{outs[0].grad_fn}")
+        if not grad and kept[grad] > nbytes(*outs) + 3 * 512:
+            raise AssertionError(f"fused_lstm without gradients keeps "
+                                 f"{kept[grad]} bytes, its outputs "
+                                 f"{nbytes(*outs)}")
+        del outs
+    return {"bytes_kept_no_grad": kept[False], "bytes_kept_grad": kept[True]}
+
+
+# The supervised steps held card against CPU, as `check_step` holds the
+# CPC step under `fp32`.
+SUPERVISED_STEPS = ("speaker", "phone", "ctc")
+
+
+def supervised_argv(kind: str) -> list:
+    return ["--supervised"] + {"speaker": [], "phone": ["--pathPhone", "p"],
+                               "ctc": ["--pathPhone", "p", "--CTC"]}[kind]
+
+
+def check_supervised_step(dev, kind: str) -> tuple:
+    """One `--supervised` training step (speaker, phone or CTC) on the card
+    against the same step on the CPU at width 64, same weights, batch and
+    labels, under `fp32`: the loss and every gradient within 1e-3 of each
+    tensor's largest value (`check_step`'s `fp32` tolerance, which holds
+    CTC_RTOL too). It must launch the resident LSTM's kernels and none of
+    SUPERVISED_MUST_NOT. Returns the max abs error and the launches."""
+    from cpc2_torch.config import parse_args
+    from cpc2_torch.feature_loader import build_model
+    from cpc2_torch.ops import _build
+    from cpc2_torch.train import get_criterion
+    from cpc2_torch.training import Trainer, make_optimizer
+    from cpc2_torch.training import precision as library_precision
+    args = parse_args(["--pathDB", ".", "--file_extension", ".wav",
+                       "--hiddenEncoder", "64", "--hiddenGar", "64",
+                       "--sizeWindow", "3840", "--random_seed", "0"]
+                      + supervised_argv(kind))
+    rs = np.random.RandomState(1)
+    batch = torch.from_numpy(rs.randn(4, 2, 1, 3840).astype(np.float32))
+    label = torch.from_numpy(
+        rs.randint(0, SUP_SPEAKERS, 4).astype(np.int64) if kind == "speaker"
+        else phone_runs(rs, 4, 24, SUP_PHONES))
+    torch.manual_seed(0)
+    model_cpu = build_model(args)
+    crit_cpu = get_criterion(args, SUP_SPEAKERS, SUP_PHONES)
+    results = []
+    with library_precision("fp32"):
+        _build.reset_launches()
+        for device in (torch.device("cpu"), dev):
+            model = build_model(args).to(device)
+            crit = get_criterion(args, SUP_SPEAKERS, SUP_PHONES).to(device)
+            model.load_state_dict(model_cpu.state_dict())
+            crit.load_state_dict(crit_cpu.state_dict())
+            params = list(model.parameters()) + list(crit.parameters())
+            trainer = Trainer(model, crit, make_optimizer(args, params))
+            losses, _accs = trainer.train_step(batch.to(device),
+                                               label=label.to(device))
+            results.append([losses.cpu()] + [p.grad.cpu() for p in params])
+        launches = dict(_build.LAUNCHES)
+    err = compare(f"--supervised {kind} step (card vs cpu)", results[1],
+                  results[0], rtol=1e-3)
+    check_launched(f"--supervised {kind} step", launches, LSTM_RESIDENT)
+    ran = [k for k in SUPERVISED_MUST_NOT if launches[k]]
+    if ran:
+        raise AssertionError(f"the --supervised {kind} step launched {ran}")
+    return err, launches
+
+
+def supervised_corpus(work: str, mode: str) -> tuple:
+    """(the label flags, the corpus under `work`, its extension) of a
+    supervised epoch or probe: the speakers of the FLAC training corpus, or
+    the phone corpus (WAV) with its labels."""
+    if mode == "speaker":
+        return [], "train_db", ".flac"
+    labels = phone_labels_path(os.path.join(work, "phones"))
+    return (["--pathPhone", labels] + (["--CTC"] if mode == "ctc" else []),
+            "phones", ".wav")
+
+
+def run_supervised(dev, work: str, mode: str) -> dict:
+    """One `--supervised` epoch at the CLI defaults (256-d, batch 8 x
+    20,480): `speaker` on the FLAC training corpus, `phone` and `ctc` on
+    the phone corpus with `--pathPhone`; the launch counts set to 0 just
+    before and read just after. The resident LSTM's forward and backward
+    must launch, none of SUPERVISED_MUST_NOT; the one-column logs finite,
+    the accuracies in [0, 1], the checkpoint's `cpcCriterion` the head's
+    weight and bias."""
+    from cpc2_torch.io.checkpoint import load_torch_checkpoint
+    from cpc2_torch.ops import _build
+    from cpc2_torch.train import main
+    ck = os.path.join(work, f"ck_supervised_{mode}")
+    flags, db, ext = supervised_corpus(work, mode)
+    if ext != ".flac":
+        flags += ["--file_extension", ext]
+    _build.reset_launches()
+    record = main(train_argv(work, ck, "--supervised", *flags, db=db))
+    launches = dict(_build.LAUNCHES)
+    check_launched(f"--supervised {mode} training", launches, LSTM_RESIDENT)
+    ran = [k for k in SUPERVISED_MUST_NOT if launches[k]]
+    if ran:
+        raise AssertionError(f"the --supervised {mode} epoch launched {ran}")
+    logs = record["logs"]
+    for key in ("locLoss_train", "locAcc_train", "locLoss_val",
+                "locAcc_val"):
+        values = np.asarray(logs[key], dtype=np.float64)
+        if values.shape != (1, 1) or not np.isfinite(values).all():
+            raise AssertionError(f"--supervised {mode} {key}: {values}")
+        if key.startswith("locAcc") and not 0.0 <= values[0, 0] <= 1.0:
+            raise AssertionError(f"--supervised {mode} {key}: {values}")
+    head = ("linearSpeakerClassifier" if mode == "speaker"
+            else "PhoneCriterionClassifier")
+    saved = load_torch_checkpoint(os.path.join(ck, "checkpoint_0.pt"))
+    if set(saved["cpcCriterion"]) != {f"{head}.weight", f"{head}.bias"}:
+        raise AssertionError(f"--supervised {mode} checkpoint's head: "
+                             f"{sorted(saved['cpcCriterion'])}")
+    if len(record["step_ms"]) < 5:
+        raise AssertionError(f"only {len(record['step_ms'])} steps ran")
+    if set(record["param_devices"]) != {str(dev)}:
+        raise AssertionError(f"parameters on {record['param_devices']}")
+    return {"steps": len(record["step_ms"]),
+            "median_step_ms": record["median_step_ms"],
+            "audio_hours_per_hour": record["audio_hours_per_hour"],
+            "loss_train": logs["locLoss_train"][0][0],
+            "acc_train": logs["locAcc_train"][0][0],
+            "loss_val": logs["locLoss_val"][0][0],
+            "acc_val": logs["locAcc_val"][0][0],
+            "launches": {k: n for k, n in launches.items() if n}}
+
+
+# probe -> (the supervised mode whose corpus and labels it reads, whether
+# the model trains too)
+PROBES = {"speaker": ("speaker", False), "phone": ("phone", False),
+          "phone_unfrozen": ("phone", True), "ctc": ("ctc", False)}
+
+
+def run_probe(dev, work: str, checkpoint: str, probe: str) -> dict:
+    """`linear_separability.main` on `checkpoint` for one epoch at its
+    defaults (batch 8 x 20,480), every fourth file of the corpus in
+    validation; the launch counts set to 0 just before and read just
+    after. A frozen probe launches `lstm_fwd` and no `lstm_bwd`, an
+    unfrozen one both; none of SUPERVISED_MUST_NOT; the accuracy in [0, 1],
+    the logs and the checkpoint written."""
+    from cpc2_torch.eval import linear_separability as ls
+    from cpc2_torch.ops import _build
+    mode, unfrozen = PROBES[probe]
+    flags, db, ext = supervised_corpus(work, mode)
+    root = os.path.join(work, db)
+    names = sorted(os.path.splitext(os.path.basename(p))[0] for p in
+                   glob.glob(os.path.join(root, "**", "*" + ext),
+                             recursive=True))
+    out = os.path.join(work, f"probe_{probe}")
+    os.makedirs(out)
+    lists = {}
+    for part, chosen in (("train", [n for i, n in enumerate(names)
+                                    if i % 4 != 3]), ("val", names[3::4])):
+        lists[part] = os.path.join(out, f"{part}.txt")
+        with open(lists[part], "w") as fh:
+            fh.write("\n".join(chosen) + "\n")
+    _build.reset_launches()
+    acc = ls.main([root, lists["train"], lists["val"], checkpoint,
+                   "--pathCheckpoint", os.path.join(out, "run"),
+                   "--n_epoch", "1", "--file_extension", ext, *flags]
+                  + (["--unfrozen"] if unfrozen else []))
+    launches = dict(_build.LAUNCHES)
+    check_launched(f"{probe} probe", launches, ("lstm_fwd",) + (
+        ("lstm_bwd",) if unfrozen else ()))
+    ran = [k for k in SUPERVISED_MUST_NOT + (() if unfrozen
+                                             else ("lstm_bwd",))
+           if launches[k]]
+    if ran:
+        raise AssertionError(f"the {probe} probe launched {ran}")
+    if not 0.0 <= acc <= 1.0:
+        raise AssertionError(f"the {probe} probe's accuracy: {acc}")
+    for name in ("checkpoint_logs.json", "checkpoint_0.pt"):
+        if not os.path.exists(os.path.join(out, "run", name)):
+            raise AssertionError(f"the {probe} probe wrote no {name}")
+    return {"steps": len(ls.LAST_RUN["train_step_ms"]),
+            "median_step_ms": ls.LAST_RUN["median_train_step_ms"],
+            "best_acc": acc, "files": len(names),
+            "launches": {k: n for k, n in launches.items() if n}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2547,6 +2902,15 @@ def main() -> int:
         f"weights, batch and draws: of the losses and "
         f"{determinism['gradients']} gradients these differ (max abs): "
         f"{determinism['differing'] or 'none'}")
+    start = time.perf_counter()
+    determinism_ctc = step_determinism(dev, ctc=True)
+    log(f"[determinism] {time.perf_counter() - start:.1f} s: a "
+        f"--supervised --pathPhone --CTC step at the CLI defaults (a "
+        f"report: torch's CUDA ctc_loss backward adds with atomics), "
+        f"{determinism_ctc['passes']} passes on the same weights, batch "
+        f"and labels: of the losses and {determinism_ctc['gradients']} "
+        f"gradients these differ (max abs): "
+        f"{determinism_ctc['differing'] or 'none'}")
 
     records = {}
     with tempfile.TemporaryDirectory() as work:
@@ -2656,6 +3020,59 @@ def main() -> int:
             f"channel by channel, card vs cpu "
             f"{concat['max_abs_err_vs_cpu']:.2e}, launches "
             f"{concat['launches']}")
+
+        # phase 7: the supervised criteria, steps and epochs, and the probe
+        phase7 = time.perf_counter()
+        start = time.perf_counter()
+        sup_criteria = check_supervised_criteria(dev)
+        log(f"[supervised criteria] {time.perf_counter() - start:.1f} s, "
+            f"card vs cpu at B {SUP_B}, T {SUP_T}, H {SUP_H} (CTC to "
+            f"{CTC_RTOL} of the largest value, the rest {RTOL}), max abs "
+            f"err and forward + backward ms by events: " + ", ".join(
+                f"{name} {r['max_abs_err']:.2e} {r['ms']:.4f} ms"
+                for name, r in sup_criteria.items()))
+        no_grad = check_lstm_no_grad(dev)
+        log(f"[supervised lstm] fused_lstm at (8, 128, 256) without "
+            f"gradients (a frozen probe's features) launches lstm_fwd "
+            f"only and keeps {no_grad['bytes_kept_no_grad']} bytes on the "
+            f"card (its outputs); with gradients "
+            f"{no_grad['bytes_kept_grad']} bytes until the backward")
+        sup_steps = {}
+        for kind in SUPERVISED_STEPS:
+            start = time.perf_counter()
+            err, launches = check_supervised_step(dev, kind)
+            sup_steps[kind] = err
+            log(f"[supervised step {kind}] card vs cpu at width 64 "
+                f"(fp32), max abs err {err:.2e}, "
+                f"{time.perf_counter() - start:.1f} s, launches "
+                f"{ {k: n for k, n in launches.items() if n} }")
+        start = time.perf_counter()
+        supervised = {mode: run_supervised(dev, work, mode)
+                      for mode in SUPERVISED_STEPS}
+        supervised_s = time.perf_counter() - start
+        log(f"[supervised] {supervised_s:.1f} s, {card}: one epoch each at "
+            f"the CLI defaults with --supervised (speaker: the FLAC corpus; "
+            f"phone, ctc: the phone corpus with --pathPhone): " + "; ".join(
+                f"{mode} ({r['steps']} steps) {r['median_step_ms']:.3f} "
+                f"ms/step, {r['audio_hours_per_hour']:.1f} audio-hours per "
+                f"hour, loss {r['loss_train']:.4f} train / "
+                f"{r['loss_val']:.4f} val, accuracy {r['acc_train']:.4f} "
+                f"train / {r['acc_val']:.4f} val, launches {r['launches']}"
+                for mode, r in supervised.items()))
+        start = time.perf_counter()
+        probes = {probe: run_probe(dev, work, record["checkpoint"], probe)
+                  for probe in PROBES}
+        probes_s = time.perf_counter() - start
+        log(f"[probe] {probes_s:.1f} s, {card}: linear_separability on the "
+            f"default epoch's checkpoint, one epoch each (speaker: the FLAC "
+            f"corpus; phone, phone_unfrozen (--unfrozen), ctc (--CTC): the "
+            f"phone corpus): " + "; ".join(
+                f"{probe} ({r['steps']} steps) {r['median_step_ms']:.3f} "
+                f"ms/step, best accuracy {r['best_acc']:.4f}, launches "
+                f"{r['launches']}" for probe, r in probes.items()))
+        log(f"[phase 7] {time.perf_counter() - phase7:.1f} s, the whole "
+            f"run so far {time.perf_counter() - t0:.1f} s of the 1,200 s "
+            f"limit")
     # each kernel's launches on its own path
     for k in kernels:
         path = (abx if k["name"] == "dtw" else records["fused"]
@@ -2694,6 +3111,12 @@ def main() -> int:
         "resume": resume,
         "step_determinism": determinism,
         "concat": concat,
+        "step_determinism_ctc": determinism_ctc,
+        "supervised_criteria": sup_criteria,
+        "supervised_lstm_no_grad": no_grad,
+        "supervised_step_max_abs_err": sup_steps,
+        "supervised": supervised,
+        "probe": probes,
         "default_route_ms": yardsticks,
         "events_ms": events,
         "lstm": details,

@@ -228,7 +228,6 @@ _UNPORTED = (
     ('neg_pool_group', bool, _NEG_POOLS),
     ('precision', lambda v: v == 'bf16', BF16),
     ('adam_mu_dtype', lambda v: v != 'fp32', BF16),
-    ('supervised', bool, _VARIANTS),
     ('cpc_mode', lambda v: v is not None, _VARIANTS),
     ('encoder_type', lambda v: v != 'cpc', _VARIANTS),
     ('rnnMode', lambda v: v != 'transformer', _VARIANTS),

@@ -3,8 +3,8 @@
 
 Pure host-side filesystem logic: recursive walk, speaker-level labelling, the
 seven long-form "naming conventions" with temporal sorting, the torch-pickle
-sequence cache (kept for interop with caches produced by the reference), and
-the sorted-merge `filter_seqs`.
+sequence cache (kept for interop with caches produced by the reference), the
+sorted-merge `filter_seqs` and the phone-label parser `parse_seq_labels`.
 """
 
 from __future__ import annotations
@@ -168,6 +168,21 @@ def _sorting_func(format: str, extension: str):
     return table[format]
 
 
+def parse_seq_labels(path_labels: str) -> Tuple[Dict, int]:
+    """Phone-label file parser (reference `dataset.py:951-960`): lines of
+    `seqName idx idx ...`, fixed 160-sample step. Returns (the labels by
+    sequence name, with `"step": 160`, the number of phones)."""
+    with open(path_labels, 'r') as f:
+        lines = f.readlines()
+    output = {"step": 160}
+    max_phone = 0
+    for line in lines:
+        data = line.split()
+        output[data[0]] = [int(x) for x in data[1:]]
+        max_phone = max(max_phone, max(output[data[0]]))
+    return output, max_phone + 1
+
+
 def filter_seqs(path_txt: str, seq_couples: List[Tuple[int, str]]
                 ) -> List[Tuple[int, str]]:
     """Keep sequences whose basename appears in `path_txt`
@@ -189,3 +204,7 @@ def filter_seqs(path_txt: str, seq_couples: List[Tuple[int, str]]
             output.append(x)
     return output
 
+
+
+# Reference-spelled alias
+parseSeqLabels = parse_seq_labels

@@ -1,13 +1,16 @@
 """In-RAM chunked audio corpus and its batch loader, a copy of
-`cpc2_tpu/data/dataset.py` (reference `cpc/dataset.py:23-600`) without the
-features the port does not have yet: phone labels and signal-quality
-weights (ROADMAP.md item: Other model and criterion modes).
+`cpc2_tpu/data/dataset.py` (reference `cpc/dataset.py:23-600`) without
+signal-quality weights (ROADMAP.md item: Other model and criterion modes).
 
 * packs: the sequence list is split so that each pack's total length fits
   `MAX_SIZE_LOADED`; one pack lives in RAM as one float32 array, and the
   next one is decoded on a worker thread while the current one is consumed;
 * per-pack prefix sums (`speakerLabel`, `seqLabel`) give each window's
   speaker and the samplers' intervals;
+* phone labels (`phoneLabelsDict`, from `corpus.parse_seq_labels`): each
+  sequence is cut to its labels' length x 160 samples when its pack is
+  parsed, and a window's label is its `sizeWindow // 160` phones, or its
+  speaker with `doubleLabels` (the phones then come third);
 * a batch is gathered with one fancy index and returned as the reference's
   `(B, 2, 1, W)` past/future views, identical without augmentation; a
   `transform` (the noise corpus's `PeakNorm`) and the host augmentation
@@ -20,6 +23,7 @@ from __future__ import annotations
 import random
 import time
 from concurrent.futures import ThreadPoolExecutor
+from copy import deepcopy
 from pathlib import Path
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -54,12 +58,13 @@ class PeakNorm:
 class AudioBatchData:
 
     def __init__(self, path, sizeWindow: int,
-                 seqNames: Sequence[Tuple[int, str]], nSpeakers: int,
+                 seqNames: Sequence[Tuple[int, str]],
+                 phoneLabelsDict: Optional[dict], nSpeakers: int,
                  nProcessLoader: int = 10, MAX_SIZE_LOADED: int = 4000000000,
-                 keep_temporality: bool = True,
                  transform: Optional[Callable] = None,
                  augment_past: bool = False, augment_future: bool = False,
                  augmentation: Optional[Callable] = None,
+                 keep_temporality: bool = True,
                  past_equal_future: bool = False):
         self.MAX_SIZE_LOADED = MAX_SIZE_LOADED
         self.dbPath = Path(path)
@@ -76,11 +81,17 @@ class AudioBatchData:
                 "Can only apply the same transformation on past and future "
                 "sequences, when past sequence is augmented. Here "
                 "--augment_past = False")
+        self.doubleLabels = False
         self.reload_pool = ThreadPoolExecutor(max_workers=max(
             1, nProcessLoader))
         self.prepare()
         self.speakers = list(range(nSpeakers))
         self.data = np.zeros(0, dtype=np.float32)
+        self.phoneSize = 0 if phoneLabelsDict is None else \
+            phoneLabelsDict["step"]
+        self.phoneStep = 0 if phoneLabelsDict is None else \
+            self.sizeWindow // self.phoneSize
+        self.phoneLabelsDict = deepcopy(phoneLabelsDict)
         self.loadNextPack(first=True)
         self.loadNextPack()
 
@@ -92,10 +103,17 @@ class AudioBatchData:
     # Pack management
     # ------------------------------------------------------------------
 
+    def resetPhoneLabels(self, newPhoneLabels, step):
+        self.phoneSize = step
+        self.phoneStep = self.sizeWindow // self.phoneSize
+        self.phoneLabelsDict = deepcopy(newPhoneLabels)
+        self.loadNextPack()
+
     def clear(self):
         self.data = np.zeros(0, dtype=np.float32)
         self.speakerLabel = [0]
         self.seqLabel = [0]
+        self.phoneLabels = []
 
     def prepare(self):
         if self.keep_temporality:
@@ -160,17 +178,22 @@ class AudioBatchData:
     def parseNextDataBlock(self):
         self.speakerLabel = [0]
         self.seqLabel = [0]
+        self.phoneLabels = []
         speaker_size = 0
         index_speaker = 0
 
         self.nextData.sort(key=lambda x: (x[0], x[1]))
         tmp_data = []
-        for speaker, _seq_name, seq in self.nextData:
+        for speaker, seq_name, seq in self.nextData:
             while self.speakers[index_speaker] < speaker:
                 index_speaker += 1
                 self.speakerLabel.append(speaker_size)
             if self.speakers[index_speaker] != speaker:
                 raise ValueError(f'{speaker} invalid speaker')
+            if self.phoneLabelsDict is not None:
+                self.phoneLabels += self.phoneLabelsDict[seq_name]
+                seq = seq[:len(self.phoneLabelsDict[seq_name])
+                          * self.phoneSize]
             tmp_data.append(seq)
             self.seqLabel.append(self.seqLabel[-1] + seq.shape[0])
             speaker_size += seq.shape[0]
@@ -179,24 +202,37 @@ class AudioBatchData:
         self.data = (np.concatenate(tmp_data, axis=0) if tmp_data
                      else np.zeros(0, np.float32))
         self._speaker_label_arr = np.asarray(self.speakerLabel)
+        self._phone_label_arr = (np.asarray(self.phoneLabels, dtype=np.int64)
+                                 if self.phoneLabels else None)
 
     # ------------------------------------------------------------------
     # Batch access
     # ------------------------------------------------------------------
 
+    def getPhonem(self, idx: int):
+        id_phone = idx // self.phoneSize
+        return self.phoneLabels[id_phone:(id_phone + self.phoneStep)]
+
     def __len__(self):
         return self.totSize // self.sizeWindow
 
     def get_batch(self, indices: Sequence[int]):
-        """(batch (B, 2, 1, W) float32, speaker labels (B,) int64) for the
-        windows starting at `indices`: the past and future views of each
-        window, after the transform, each augmented as the flags say (the
-        past views first, window by window, then the future ones)."""
+        """(batch (B, 2, 1, W) float32, labels int64) for the windows
+        starting at `indices`: the past and future views of each window,
+        after the transform, each augmented as the flags say (the past views
+        first, window by window, then the future ones). The labels are the
+        speakers (B,), or with phone labels the phones (B, W // 160); with
+        `doubleLabels` the speakers, and the phones third."""
         idx = np.asarray(indices, dtype=np.int64)
         window = np.arange(self.sizeWindow, dtype=np.int64)
         wave = self.data[idx[:, None] + window[None, :]][:, None, :]
         speaker = (np.searchsorted(self._speaker_label_arr, idx,
                                    side='right') - 1).astype(np.int64)
+        phone = None
+        if self.phoneSize > 0:
+            steps = np.arange(self.phoneStep, dtype=np.int64)
+            phone = self._phone_label_arr[(idx // self.phoneSize)[:, None]
+                                          + steps[None, :]]
         if self.transform is not None:
             wave = np.stack([self.transform(w) for w in wave])
         past, future = wave, wave
@@ -207,7 +243,12 @@ class AudioBatchData:
             future = np.stack([self.augmentation(w) for w in wave])
         if self.past_equal_future:
             future = past
-        return np.stack([past, future], axis=1), speaker
+        out = np.stack([past, future], axis=1)
+        if phone is None:
+            return out, speaker
+        if self.doubleLabels:
+            return out, speaker, phone
+        return out, phone
 
     def getBaseSampler(self, type: str, batchSize: int, offset: int,
                        batchSizePerGPU: Optional[int] = None):

@@ -1,1 +1,1 @@
-"""Evaluations of a trained model: ABX."""
+"""Evaluations of a trained model: ABX and linear separability."""

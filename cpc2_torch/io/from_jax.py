@@ -2,10 +2,13 @@
 
 The JAX package names its flax scopes after the reference's torch modules,
 so a param path maps to a state-dict key by joining it with dots, with
-three rules:
+four rules:
 
 * the K prediction heads are stacked on a leading axis under one
   `predictors` scope; they become the per-head keys `predictors.{k}.*`;
+* the layers of a torch `Sequential` are flax scopes `<name>_{i}`
+  (`PhoneCriterionClassifier_{i}` for `--nLevelsPhone > 1`); they become
+  `<name>.{i}.*`;
 * a BatchNorm's `bn/scale` and `bn/bias` become `weight` and `bias`, and
   its `bn/mean` and `bn/var` statistics `running_mean` and `running_var`;
 * ChannelNorm's affine params (`normMode layerNorm`) are `(C,)` in flax and
@@ -26,6 +29,29 @@ import torch
 from torch import nn
 
 _CHANNEL_NORM = re.compile(r"^batchNorm\d+$")
+# Sequential containers whose layers flax names `<name>_{i}`
+# (`cpc2_tpu/io/torch_ckpt.py:_LIST_CONTAINERS`, less the prediction heads,
+# which are stacked, and the concatenated models, which the JAX package does
+# not train)
+_LIST_SCOPE = re.compile(r"^(PhoneCriterionClassifier)_(\d+)$")
+
+
+def _split_list_scopes(path: Tuple[str, ...]) -> Tuple[str, ...]:
+    out: List[str] = []
+    for part in path:
+        m = _LIST_SCOPE.match(part)
+        out += [m.group(1), m.group(2)] if m else [part]
+    return tuple(out)
+
+
+def _join_list_scopes(parts: List[str]) -> List[str]:
+    out: List[str] = []
+    for part in parts:
+        if part.isdigit() and out and _LIST_SCOPE.match(f"{out[-1]}_{part}"):
+            out[-1] = f"{out[-1]}_{part}"
+        else:
+            out.append(part)
+    return out
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
@@ -50,6 +76,7 @@ def state_dict_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None,
     collection (`normMode batchNorm`); `norm_mode` is the encoder's."""
     out: Dict[str, torch.Tensor] = {}
     for path, value in _leaves(params):
+        path = _split_list_scopes(path)
         if "predictors" in path:
             i = path.index("predictors")
             stacked = np.asarray(value)
@@ -90,7 +117,7 @@ def _jax_path(module: nn.Module, key: str) -> Tuple[Tuple[str, ...],
     if isinstance(owner, nn.modules.batchnorm._BatchNorm):
         parts = parts[:-1] + ["bn", "scale" if parts[-1] == "weight"
                               else "bias"]
-    return tuple(parts), head
+    return tuple(_join_list_scopes(parts)), head
 
 
 def jax_param_order(modules: Mapping[str, nn.Module]

@@ -1,7 +1,19 @@
-"""Training criteria of the port."""
+"""Training criteria of the port, and the CTC decoding and PER tools."""
 
-from .criterion import (CPCUnsupervisedCriterion, PredictionNetwork,
+from .criterion import (AdvSpeakerCriterion, CPCUnsupervisedCriterion,
+                        CTCPhoneCriterion, ModelCriterionCombined,
+                        PhoneCriterion, PredictionNetwork, SpeakerCriterion,
+                        SupervisedCriterion, collapse_label_chain_padded,
                         sample_negative_indices)
+from .seq_alignment import (NeedlemanWunschAlignScore, beam_search,
+                            collapse_label_chain, collapseLabelChain,
+                            get_seq_PER, getPER,
+                            needleman_wunsch_align_score)
 
-__all__ = ["CPCUnsupervisedCriterion", "PredictionNetwork",
-           "sample_negative_indices"]
+__all__ = ["AdvSpeakerCriterion", "CPCUnsupervisedCriterion",
+           "CTCPhoneCriterion", "ModelCriterionCombined",
+           "NeedlemanWunschAlignScore", "PhoneCriterion", "PredictionNetwork",
+           "SpeakerCriterion", "SupervisedCriterion", "beam_search",
+           "collapseLabelChain", "collapse_label_chain",
+           "collapse_label_chain_padded", "getPER", "get_seq_PER",
+           "needleman_wunsch_align_score", "sample_negative_indices"]

@@ -128,3 +128,159 @@ class CPCUnsupervisedCriterion(nn.Module):
         out_losses = losses.mean(dim=(0, 2))[self.n_skipped:][None, :]
         out_acc = correct.float().mean(dim=(0, 2))[self.n_skipped:][None, :]
         return out_losses, out_acc
+
+
+# ---------------------------------------------------------------------------
+# Supervised criteria (counterparts of `cpc2_tpu/losses/criterion.py:569-736`,
+# reference `criterion.py:366-508`)
+# ---------------------------------------------------------------------------
+
+class SupervisedCriterion(nn.Module):
+    """A criterion called `(c_feature, other_encoded, label)` that returns
+    `(loss (1, 1), acc (1, 1))`: the training step hands it the labels
+    instead of the InfoNCE draws. The JAX package's flax layers take their
+    input width from the tensor they are called on; here each linear layer
+    is sized from the tensor it reads, `dim_ar` wide (the context) or
+    `dim_enc` wide (the encodings)."""
+
+
+def _mean(x: Tensor) -> Tensor:
+    return x.float().mean().reshape(1, 1)
+
+
+class SpeakerCriterion(SupervisedCriterion):
+    """Linear speaker classifier on the last context frame: it reads
+    `c_feature[:, -1]` whatever `--onEncoder` says."""
+
+    def __init__(self, dim_ar: int, n_speakers: int):
+        super().__init__()
+        self.linearSpeakerClassifier = nn.Linear(dim_ar, n_speakers)
+
+    def forward(self, c_feature: Tensor, other_encoded: Tensor,
+                label: Tensor) -> Tuple[Tensor, Tensor]:
+        logits = self.linearSpeakerClassifier(c_feature[:, -1, :])
+        loss = torch.nn.functional.cross_entropy(logits, label)
+        return loss.reshape(1, 1), _mean(logits.argmax(-1) == label)
+
+
+class AdvSpeakerCriterion(SupervisedCriterion):
+    """Adversarial speaker criterion on the mean over frames (of the
+    encodings with `on_encoder`); with `label=None` the loss is the
+    negative entropy of each prediction, (B,), and the accuracy 0."""
+
+    def __init__(self, dim_ar: int, dim_enc: int, n_speakers: int,
+                 on_encoder: bool = False):
+        super().__init__()
+        self.on_encoder = on_encoder
+        self.linearSpeakerClassifier = nn.Linear(
+            dim_enc if on_encoder else dim_ar, n_speakers)
+
+    def forward(self, c_feature: Tensor, other_encoded: Tensor,
+                label: Optional[Tensor]) -> Tuple[Tensor, Tensor]:
+        feats = other_encoded if self.on_encoder else c_feature
+        logits = self.linearSpeakerClassifier(feats.mean(dim=1))
+        if label is None:
+            logp = torch.log_softmax(logits, dim=1)
+            p = torch.softmax(logits, dim=1)
+            return ((logp * p).sum(dim=1),
+                    torch.zeros((1, 1), device=logits.device))
+        loss = torch.nn.functional.cross_entropy(logits, label)
+        return loss.reshape(1, 1), _mean(logits.argmax(-1) == label)
+
+
+class PhoneCriterion(SupervisedCriterion):
+    """Frame-wise phone classifier on the context, or with `on_encoder` on
+    the encodings the step passes (the future view's in training). With
+    `n_layers > 1` the reference's `Sequential` of linear layers with a
+    ReLU between (keys `PhoneCriterionClassifier.{0,2,4,...}`)."""
+
+    def __init__(self, dim_ar: int, dim_enc: int, n_phones: int,
+                 on_encoder: bool = False, n_layers: int = 1):
+        super().__init__()
+        self.on_encoder = on_encoder
+        dim = dim_enc if on_encoder else dim_ar
+        if n_layers == 1:
+            self.PhoneCriterionClassifier = nn.Linear(dim, n_phones)
+        else:
+            layers = [nn.Linear(dim, n_phones)]
+            for _ in range(n_layers - 1):
+                layers += [nn.ReLU(), nn.Linear(n_phones, n_phones)]
+            self.PhoneCriterionClassifier = nn.Sequential(*layers)
+
+    def get_prediction(self, c_feature: Tensor) -> Tensor:
+        return self.PhoneCriterionClassifier(c_feature)
+
+    # reference-spelled alias
+    getPrediction = get_prediction
+
+    def forward(self, c_feature: Tensor, other_encoded: Tensor,
+                label: Tensor) -> Tuple[Tensor, Tensor]:
+        feats = other_encoded if self.on_encoder else c_feature
+        logits = self.get_prediction(feats)
+        loss = torch.nn.functional.cross_entropy(
+            logits.reshape(-1, logits.shape[-1]), label.reshape(-1))
+        return loss.reshape(1, 1), _mean(logits.argmax(-1) == label)
+
+
+def collapse_label_chain_padded(labels: Tensor) -> Tuple[Tensor, Tensor]:
+    """Collapse runs of equal labels, left-compacted and zero-padded to the
+    input length, on the labels' device. Returns (collapsed (N, T), sizes
+    (N,))."""
+    n, t = labels.shape
+    status = torch.cat([torch.ones((n, 1), dtype=torch.bool,
+                                   device=labels.device),
+                        labels[:, 1:] != labels[:, :-1]], dim=1)
+    sizes = status.sum(dim=1)
+    # stable sort: kept positions first, in their order
+    order = torch.argsort((~status).to(torch.int32), dim=1, stable=True)
+    collapsed = torch.gather(labels, 1, order)
+    mask = torch.arange(t, device=labels.device)[None, :] < sizes[:, None]
+    return torch.where(mask, collapsed, torch.zeros_like(collapsed)), sizes
+
+
+class CTCPhoneCriterion(SupervisedCriterion):
+    """A linear (n_phones + 1) head on the context and the CTC loss of the
+    collapsed label chain, blank = n_phones. The reference's
+    `nn.CTCLoss(zero_infinity=True)` with `reduction='mean'`, as the JAX
+    package computes it: a sample with no feasible alignment (more
+    collapsed labels than frames) or a non-finite loss counts 0, each loss
+    is divided by its target length, then the batch mean. The accuracy is
+    0."""
+
+    def __init__(self, dim_ar: int, n_phones: int, on_encoder: bool = False):
+        super().__init__()
+        if on_encoder:
+            raise ValueError("On encoder version not implemented yet")
+        self.n_phones = n_phones
+        self.PhoneCriterionClassifier = nn.Linear(dim_ar, n_phones + 1)
+
+    def forward(self, c_feature: Tensor, other_encoded: Tensor,
+                label: Tensor) -> Tuple[Tensor, Tensor]:
+        b, s, _ = c_feature.shape
+        logits = self.PhoneCriterionClassifier(c_feature)
+        targets, sizes = collapse_label_chain_padded(label)
+        log_probs = torch.log_softmax(logits, dim=-1).transpose(0, 1)
+        # zero_infinity keeps an infeasible sample's gradient at 0 as well
+        loss = torch.nn.functional.ctc_loss(
+            log_probs, targets, torch.full((b,), s, dtype=torch.long,
+                                           device=logits.device),
+            sizes, blank=self.n_phones, reduction='none', zero_infinity=True)
+        loss = torch.where((sizes <= s) & torch.isfinite(loss), loss,
+                           torch.zeros_like(loss))
+        loss = loss / sizes.clamp_min(1).to(loss.dtype)
+        return (loss.mean().reshape(1, 1),
+                torch.zeros((1, 1), device=logits.device))
+
+
+class ModelCriterionCombined(nn.Module):
+    """A model and a supervised criterion as one module (reference
+    `criterion.py:499-508`)."""
+
+    def __init__(self, model: nn.Module, criterion: nn.Module):
+        super().__init__()
+        self.model = model
+        self.criterion = criterion
+
+    def forward(self, data: Tensor, label: Tensor) -> Tuple[Tensor, Tensor]:
+        c_feature, encoded_data, _hidden = self.model(data)
+        return self.criterion(c_feature, encoded_data, label)

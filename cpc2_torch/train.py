@@ -24,6 +24,13 @@ dropout, so a resumed run replays an uninterrupted one. `--load
 `--profile_dir <dir>` writes a `torch.profiler` trace of the first
 epoch's steps 5 to 14 there.
 
+`--supervised` trains the model under a supervised criterion in place of
+CPC's: a linear speaker classifier on the last context frame, or with
+`--pathPhone <labels>` (lines of `seqName idx idx ...`, one phone every 160
+samples) a frame-wise phone classifier (`--nLevelsPhone` layers,
+`--onEncoder` on the encodings) or, with `--CTC`, a CTC phone head. The logs
+keep the reference's `locLoss_*` and `locAcc_*` keys, one column each.
+
 `--augment_past` / `--augment_future` with `--augment_type ...` augment the
 training windows on the host (`data/augmentation.py`; `--pathDBNoise` for
 `additive`, `--pathImpulseResponses` for `natural_reverb`, `--meta_aug` to
@@ -50,7 +57,8 @@ import torch
 from torch import nn
 
 from .config import BF16, check_ported, parse_args
-from .data import AudioBatchData, PeakNorm, filter_seqs, find_all_seqs
+from .data import (AudioBatchData, PeakNorm, filter_seqs, find_all_seqs,
+                   parse_seq_labels)
 from .data import augment_device
 from .data.augmentation import (augmentation_factory,
                                 canonical_augment_type, restart)
@@ -59,7 +67,8 @@ from .io.checkpoint import (get_checkpoint_data, load_args,
                             load_torch_checkpoint, save_args,
                             save_checkpoint, save_logs)
 from .io.from_jax import jax_param_order, state_dict_from_jax
-from .losses import CPCUnsupervisedCriterion
+from .losses import (CPCUnsupervisedCriterion, CTCPhoneCriterion,
+                     PhoneCriterion, SpeakerCriterion)
 from .models.encoder import DOWNSAMPLING
 from .training import (Trainer, make_lr_schedule, make_optimizer,
                        precision, resolve_device)
@@ -76,6 +85,8 @@ def show_logs(text: str, logs: Dict[str, np.ndarray]) -> None:
 
     lines = ["", '-' * 50, text]
     for key, values in logs.items():
+        if key == "iter":
+            continue
         lines.append(row(['Step'] + [str(k) for k in
                                      range(1, values.shape[0] + 1)]))
         lines.append(row([key] + ['{:10.6f}'.format(v) for v in values]))
@@ -90,8 +101,23 @@ def set_seed(seed: int) -> None:
     np.random.seed(seed)
 
 
-def get_criterion(args) -> CPCUnsupervisedCriterion:
-    """Reference `train.py:27-59`, unsupervised CPC branch."""
+def get_criterion(args, n_speakers: int = 0,
+                  n_phones: Optional[int] = None) -> nn.Module:
+    """Reference `train.py:27-59`: the CPC criterion, or with
+    `--supervised` the phone criterion (`--pathPhone`; the CTC one with
+    `--CTC`) or the speaker one over `n_speakers`. A supervised head reads
+    the encodings (`hiddenEncoder` wide) with `--onEncoder` where it can,
+    else the context (`hiddenGar` wide); the speaker head always reads the
+    last context frame."""
+    if args.supervised:
+        if args.pathPhone is None:
+            return SpeakerCriterion(args.hiddenGar, n_speakers)
+        if args.CTC:
+            return CTCPhoneCriterion(args.hiddenGar, n_phones,
+                                     on_encoder=args.onEncoder)
+        return PhoneCriterion(args.hiddenGar, args.hiddenEncoder, n_phones,
+                              on_encoder=args.onEncoder,
+                              n_layers=args.nLevelsPhone)
     return CPCUnsupervisedCriterion(
         n_predicts=args.nPredicts, dim_ar=args.hiddenGar,
         dim_enc=args.hiddenEncoder,
@@ -132,22 +158,32 @@ def _split(args, seq_names):
 
 
 def _host_batches(loader, device: torch.device, load_ms: List[float]):
-    """The loader's batches as tensors, pinned for their copy to a card,
-    each one's host time (sampling, gather, host augmentation, pinning)
-    appended to `load_ms`: the work the prefetch thread takes off the
-    stepping thread."""
+    """The loader's batches and their labels (speakers, or phones) as
+    tensors, pinned for their copy to a card, each one's host time
+    (sampling, gather, host augmentation, pinning) appended to `load_ms`:
+    the work the prefetch thread takes off the stepping thread."""
     batches = iter(loader)
     while True:
         start = time.perf_counter()
         try:
-            batch, speaker = next(batches)
+            batch, label = next(batches)[:2]
         except StopIteration:
             return
-        x = torch.from_numpy(batch)
+        x, y = torch.from_numpy(batch), torch.from_numpy(np.asarray(label))
         if device.type == "cuda":
-            x = x.pin_memory()
+            x, y = x.pin_memory(), y.pin_memory()
         load_ms.append(1000.0 * (time.perf_counter() - start))
-        yield x, speaker
+        yield x, y
+
+
+def _to_device(trainer: Trainer, x: torch.Tensor, label: torch.Tensor,
+               device: torch.device):
+    """The batch, and the labels where the criterion takes them, copied
+    to the device (asynchronously from pinned memory)."""
+    x = x.to(device, non_blocking=True)
+    if not trainer.supervised:
+        return x, None
+    return x, label.to(device, non_blocking=True)
 
 
 def _sync(device: torch.device) -> None:
@@ -198,7 +234,7 @@ def train_epoch(trainer: Trainer, loader, device: torch.device,
                        prefetch_depth)
     try:
         ready = time.perf_counter()
-        for step, (x, _speaker) in enumerate(batches):
+        for step, (x, label) in enumerate(batches):
             wait_ms.append(1000.0 * (time.perf_counter() - ready))
             if profile_dir is not None and not profiled:
                 if step == PROFILE_START:
@@ -206,9 +242,9 @@ def train_epoch(trainer: Trainer, loader, device: torch.device,
                 elif step == PROFILE_STOP and profiler is not None:
                     _stop_profiler(profiler, device, profile_dir)
                     profiler, profiled = None, True
-            x = x.to(device, non_blocking=True)
+            x, label = _to_device(trainer, x, label, device)
             start = time.perf_counter()
-            losses, accs = trainer.train_step(x)
+            losses, accs = trainer.train_step(x, label=label)
             _sync(device)
             step_ms.append(1000.0 * (time.perf_counter() - start))
             row = torch.cat([losses, accs]).double().cpu().numpy()  # (2, K)
@@ -243,8 +279,9 @@ def train_epoch(trainer: Trainer, loader, device: torch.device,
 
 def val_epoch(trainer: Trainer, loader, device: torch.device) -> Dict:
     sums, n_steps = None, 0
-    for x, _speaker in _host_batches(loader, device, []):
-        losses, accs = trainer.val_step(x.to(device, non_blocking=True))
+    for x, label in _host_batches(loader, device, []):
+        x, label = _to_device(trainer, x, label, device)
+        losses, accs = trainer.val_step(x, label=label)
         row = torch.cat([losses, accs]).double().cpu().numpy()
         sums = row if sums is None else sums + row
         n_steps += 1
@@ -413,7 +450,7 @@ def _noise_dataset(args, generators) -> Optional[AudioBatchData]:
         seq_noise = seq_noise[:100]
     print(f'\nLoading noise data at {args.pathDBNoise}')
     return AudioBatchData(
-        args.pathDBNoise, args.sizeWindow, seq_noise, 1,
+        args.pathDBNoise, args.sizeWindow, seq_noise, None, 1,
         nProcessLoader=args.n_process_loader,
         MAX_SIZE_LOADED=args.max_size_loaded, transform=PeakNorm(),
         augment_past=args.meta_aug, augment_future=False,
@@ -492,6 +529,11 @@ def _train(args, logs: Dict, load_optimizer: bool,
         cache_path=args.path_cache)
     print(f'Found files: {len(seq_names)} seqs, {len(speakers)} speakers')
     seq_train, seq_val = _split(args, seq_names)
+    phone_labels, n_phones = None, None
+    if args.supervised and args.pathPhone is not None:
+        print("Loading the phone labels at " + args.pathPhone)
+        phone_labels, n_phones = parse_seq_labels(args.pathPhone)
+        print(f"{n_phones} phones found")
 
     dev_types, host_types = _split_types(args)
     # the host augmenters' generators, reseeded at every epoch
@@ -508,7 +550,7 @@ def _train(args, logs: Dict, load_optimizer: bool,
 
     print(f'\nLoading audio data at {args.pathDB}')
     train_dataset = AudioBatchData(
-        args.pathDB, args.sizeWindow, seq_train, len(speakers),
+        args.pathDB, args.sizeWindow, seq_train, phone_labels, len(speakers),
         nProcessLoader=args.n_process_loader,
         MAX_SIZE_LOADED=args.max_size_loaded,
         keep_temporality=args.samplingType == "temporalsamespeaker",
@@ -517,7 +559,7 @@ def _train(args, logs: Dict, load_optimizer: bool,
         augmentation=train_augment,
         past_equal_future=args.past_equal_future and use_host_aug)
     val_dataset = (AudioBatchData(args.pathDB, args.sizeWindow, seq_val,
-                                  len(speakers),
+                                  phone_labels, len(speakers),
                                   nProcessLoader=args.n_process_loader)
                    if seq_val else None)
 
@@ -526,7 +568,7 @@ def _train(args, logs: Dict, load_optimizer: bool,
     else:
         model = build_model(args)
     model = model.to(device)
-    criterion = get_criterion(args)
+    criterion = get_criterion(args, len(speakers), n_phones)
     if args.load is not None and args.loadCriterion:
         load_state(criterion, load_torch_checkpoint(args.load[0])[
             "cpcCriterion"], "cpcCriterion")

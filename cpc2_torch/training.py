@@ -3,8 +3,9 @@
 
 The step runs the encoder on `concat(past, future)`, the context network
 on the past half only, and the criterion with the future half's encodings
-as targets. The loss is the sum over the K heads of their mean losses; the
-optimizer is Adam (or SGD with momentum 0.9) with the flags' settings,
+as targets (the CPC criterion) or beside the labels (a supervised one,
+`--supervised`). The loss is the sum over the K heads of their mean losses;
+the optimizer is Adam (or SGD with momentum 0.9) with the flags' settings,
 whose update is optax's `adam` formula.
 """
 
@@ -16,6 +17,8 @@ from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
+
+from .losses.criterion import SupervisedCriterion
 
 Tensor = torch.Tensor
 
@@ -114,7 +117,11 @@ class Trainer:
     They come from `augment_generator`, a generator of their own on the
     device, so that the negatives and dropout draws are the same with
     augmentation on or off (the JAX package keys them with
-    `fold_in(key, 3)`)."""
+    `fold_in(key, 3)`).
+
+    A supervised criterion (`losses/criterion.py:SupervisedCriterion`)
+    takes the steps' `label` (the past views' speakers or phones) in place
+    of the negatives."""
 
     def __init__(self, model: nn.Module, criterion: nn.Module,
                  optimizer: torch.optim.Optimizer,
@@ -128,6 +135,7 @@ class Trainer:
         self.keep_hidden = keep_hidden
         self.device_augment = device_augment
         self.augment_generator = augment_generator
+        self.supervised = isinstance(criterion, SupervisedCriterion)
         self._hidden = None
 
     def set_learning_rate(self, lr: float) -> None:
@@ -151,7 +159,8 @@ class Trainer:
         return past, future
 
     def _forward(self, batch: Tensor, negative_indices: Optional[Tensor],
-                 carry: bool, train: bool = False) -> Tuple[Tensor, Tensor]:
+                 carry: bool, train: bool = False,
+                 label: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
         b = batch.shape[0]
         past, future = batch[:, 0, 0, :], batch[:, 1, 0, :]
         if train and self.device_augment is not None:
@@ -164,32 +173,36 @@ class Trainer:
                                                    self.generator)
         if carry and new_hidden is not None:
             self._hidden = _detach(new_hidden)
+        if self.supervised:
+            return self.criterion(c_feature, encoded[b:], label)
         return self.criterion(c_feature, encoded[b:], self.generator,
                               negative_indices)
 
     def train_step(self, batch: Tensor,
-                   negative_indices: Optional[Tensor] = None
-                   ) -> Tuple[Tensor, Tensor]:
+                   negative_indices: Optional[Tensor] = None,
+                   label: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
         """One optimizer step on `batch` (B, 2, 1, W); returns the per-head
-        (losses, accuracies), each (1, K - n_skipped), detached."""
+        (losses, accuracies), each (1, K - n_skipped), or a supervised
+        criterion's (1, 1) on `label`, detached."""
         self.model.train()
         self.criterion.train()
         self.optimizer.zero_grad(set_to_none=True)
         losses, accs = self._forward(batch, negative_indices,
-                                     self.keep_hidden, train=True)
+                                     self.keep_hidden, train=True,
+                                     label=label)
         losses.sum().backward()
         self.optimizer.step()
         return losses.detach(), accs
 
     @torch.no_grad()
     def val_step(self, batch: Tensor,
-                 negative_indices: Optional[Tensor] = None
-                 ) -> Tuple[Tensor, Tensor]:
+                 negative_indices: Optional[Tensor] = None,
+                 label: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
         """The step's losses and accuracies in evaluation mode (no dropout,
         BatchNorm running statistics), without an update."""
         self.model.eval()
         self.criterion.eval()
-        return self._forward(batch, negative_indices, False)
+        return self._forward(batch, negative_indices, False, label=label)
 
 
 def _batch_of(hidden) -> Optional[int]:

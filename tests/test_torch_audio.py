@@ -183,8 +183,8 @@ def test_flac_corpus_batches_match_jax(flac_corpus):
     jax_seqs, jax_speakers = jax_find_all_seqs(str(flac_corpus),
                                                extension=".flac")
     assert seqs == jax_seqs and speakers == jax_speakers
-    port = AudioBatchData(str(flac_corpus), 3840, seqs, len(speakers),
-                          nProcessLoader=2)
+    port = AudioBatchData(str(flac_corpus), 3840, seqs, None,
+                          len(speakers), nProcessLoader=2)
     ref = JaxAudioBatchData(str(flac_corpus), 3840, jax_seqs, None,
                             len(jax_speakers), nProcessLoader=2)
     try:

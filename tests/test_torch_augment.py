@@ -109,7 +109,7 @@ def _noise_datasets(root, w):
     random.seed(3)
     jax_ds = JaxAudioBatchData(str(root), w, seqs, None, 1, nProcessLoader=1)
     random.seed(3)
-    port_ds = AudioBatchData(str(root), w, seqs, 1, nProcessLoader=1)
+    port_ds = AudioBatchData(str(root), w, seqs, None, 1, nProcessLoader=1)
     return jax_ds, port_ds
 
 
@@ -304,7 +304,7 @@ def test_get_batch_bit_for_bit(corpus, equal):
                                augmentation=ha.augmentation_factory(args),
                                **flags)
     random.seed(0)
-    port_ds = AudioBatchData(str(corpus), 3840, seqs, len(speakers),
+    port_ds = AudioBatchData(str(corpus), 3840, seqs, None, len(speakers),
                              nProcessLoader=1,
                              augmentation=pa.augmentation_factory(
                                  args, **gens), **flags)
@@ -320,7 +320,7 @@ def test_get_batch_bit_for_bit(corpus, equal):
     finally:
         port_ds.close()
     with pytest.raises(ValueError, match="augment_past = False"):
-        AudioBatchData(str(corpus), 3840, seqs, len(speakers),
+        AudioBatchData(str(corpus), 3840, seqs, None, len(speakers),
                        past_equal_future=True)
 
 

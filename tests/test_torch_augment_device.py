@@ -358,7 +358,7 @@ def test_additive_noise_mix(tmp_path):
         save_wav(str(root / "n" / f"n{i}.wav"),
                  (0.1 * rs.randn(20000)).astype(np.float32), 16000)
     seqs, _ = find_all_seqs(str(root), extension=".wav", speaker_level=0)
-    ds = AudioBatchData(str(root), 4096, seqs, 1, nProcessLoader=1)
+    ds = AudioBatchData(str(root), 4096, seqs, None, 1, nProcessLoader=1)
     try:
         stage = td.make_additive_noise(ds, 10.0, 10.0, 4, pool_size=8)
         x = _tone(440, w=4096)

@@ -1,6 +1,8 @@
 """The port's package boundaries, flags and trainer on the CPU: importing it
-pulls in nothing of JAX or the JAX package and builds nothing, unported
-flags raise and ported ones parse, `--device cuda` without a card raises,
+(every module, the supervised criteria's `losses/seq_alignment.py` and the
+probe's `eval/linear_separability.py` among them) pulls in nothing of JAX
+or the JAX package and builds nothing, unported flags raise and ported ones
+(augmentation, `--supervised`) parse, `--device cuda` without a card raises,
 and
 `python -m cpc2_torch.train` trains on a wav corpus with `--device cpu`,
 and on a FLAC corpus at its own `--file_extension`.
@@ -46,6 +48,8 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
     assert len(_modules()) >= 20
+    assert {"cpc2_torch.losses.seq_alignment",
+            "cpc2_torch.eval.linear_separability"} <= set(_modules())
 
 
 BASE = ["--pathDB", "db", "--file_extension", ".wav"]
@@ -56,11 +60,29 @@ BASE = ["--pathDB", "db", "--file_extension", ".wav"]
     ["--distributed"], ["--cpc_mode", "reverse"],
     ["--rnnMode", "linear"], ["--multihead_rnn"], ["--precision", "bf16"],
     ["--global_negatives"], ["--neg_pool_group", "4"],
-    ["--encoder_type", "mfcc"], ["--supervised"],
+    ["--encoder_type", "mfcc"],
 ])
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         parse_args(BASE + flags)
+
+
+@pytest.mark.parametrize("flags,phone,ctc,levels,on_encoder", [
+    (["--supervised"], None, False, 1, False),
+    (["--supervised", "--pathPhone", "phones.txt"], "phones.txt", False, 1,
+     False),
+    (["--supervised", "--pathPhone", "phones.txt", "--CTC"], "phones.txt",
+     True, 1, False),
+    (["--supervised", "--pathPhone", "phones.txt", "--nLevelsPhone", "3",
+      "--onEncoder"], "phones.txt", False, 3, True),
+])
+def test_supervised_flags_parse(flags, phone, ctc, levels, on_encoder):
+    """The supervised flags are ported: they parse as the JAX package's
+    do."""
+    args = parse_args(BASE + flags)
+    assert args.supervised
+    assert (args.pathPhone, args.CTC, args.nLevelsPhone, args.onEncoder) == (
+        phone, ctc, levels, on_encoder)
 
 
 @pytest.mark.parametrize("flags", [
