@@ -106,6 +106,32 @@ Phases, each of which fails the run with a nonzero exit:
    epoch (its kernels launched, the others not, finite losses),
    their median ms/step, wait for a batch, host ms a batch and audio-hours
    per hour printed on `[augmented epochs]`;
+   the graph route (`[dispatch]`, `cpc2_torch/training.py:MultiStep`):
+   the capturable Adam against optax's formula in float64 (1e-4 of the
+   largest update); at the recipe in DISPATCH_SETUPS (default, both
+   opt-in kernels, `fp32`, 512 wide: the grid LSTM, the device
+   augmentation chain, and `--supervised` on speakers), from one seeded
+   state, 3 groups of DISPATCH_N steps gathered from a resident pack as
+   graph replays (the third at half the learning rate, captured again)
+   against the same steps eagerly: the losses, every parameter, Adam's
+   moments and counts and both generators' states bit for bit (else the
+   differing tensors named and held to DISPATCH_*_ATOL), each kernel's
+   launches a replay N times an eager step's, the setup's kernels
+   launched inside the graph, and each route's group time and peak memory
+   printed; then CLI epochs with
+   DISPATCH_FLAGS (`dispatch`; `dispatch_augmented` with the
+   `augmented_device` epoch's flags on `train_db`, beside
+   `device_augmented`, the same at N = 1; `dispatch_schedule`, two epochs
+   across an `--schedulerStep 1` halving) held against the same epochs at
+   N = 1 from host batches (`[dispatch epochs]`: the route, its captures,
+   the epoch means bit for bit, since every training run on the card
+   updates with the capturable Adam); `[resume N=4]` as `[resume]`
+   on the graph route; and `[dispatch timings]`: the default training on
+   a 56-step corpus in a fresh process each for N = 1 from host batches,
+   N = 1 from the resident pack, N = 4 and N = 8, two epochs in turn and
+   then one reversed under a device-only profiler (median ms/step, the
+   second epoch's mean, ms to dispatch, peak memory, the device's busy
+   share);
 6. write a phone corpus with its `.item` file (4 speakers x 8 files x 24
    tokens) and run `cpc2_torch.eval.eval_ABX.main from_checkpoint` on the
    checkpoint of phase 5 at its defaults, the counts again set to 0 just
@@ -147,7 +173,9 @@ when the `cpc2_torch` package is not beside it.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import copy
 import glob
 import json
 import math
@@ -2124,6 +2152,18 @@ EPOCHS = {  # kernels each epoch must launch, and kernels it must not
                                   FUSED_KERNELS + FP32_FFN + LSTM_GRID),
     "augmented_device": (TRAINING_KERNELS,
                          FUSED_KERNELS + FP32_FFN + LSTM_GRID),
+    # [dispatch]: the graph route (DISPATCH_FLAGS) at the defaults, with the
+    # augmented_device epoch's flags on `train_db` beside the same epoch at
+    # N = 1 (`device_augmented`), and across a learning-rate halving
+    # (SCHEDULE_FLAGS) beside the same two epochs at N = 1
+    "dispatch": (TRAINING_KERNELS, FUSED_KERNELS + FP32_FFN + LSTM_GRID),
+    "device_augmented": (TRAINING_KERNELS,
+                         FUSED_KERNELS + FP32_FFN + LSTM_GRID),
+    "dispatch_augmented": (TRAINING_KERNELS,
+                           FUSED_KERNELS + FP32_FFN + LSTM_GRID),
+    "schedule": (TRAINING_KERNELS, FUSED_KERNELS + FP32_FFN + LSTM_GRID),
+    "dispatch_schedule": (TRAINING_KERNELS,
+                          FUSED_KERNELS + FP32_FFN + LSTM_GRID),
 }
 
 
@@ -2152,7 +2192,11 @@ def run_training(dev, work: str, mode: str = "default") -> dict:
     `--profile_dir <work>/profile`; and on `train_db_part` with
     `augment_argv`, `augmented_host` (`--host_prefetch 2`, the default),
     `augmented_host_noprefetch` (`--host_prefetch 0`) and
-    `augmented_device` (`--augment_on_device`)."""
+    `augmented_device` (`--augment_on_device`); the graph route
+    (DISPATCH_FLAGS) `dispatch`, and on `train_db` with `augmented_device`'s
+    flags `device_augmented` at N = 1 and `dispatch_augmented` on the graph
+    route; and two epochs across a learning-rate halving (SCHEDULE_FLAGS),
+    `schedule` at N = 1 and `dispatch_schedule` on the graph route."""
     from cpc2_torch.ops import _build
     from cpc2_torch.train import main
     ck = os.path.join(work, f"ck_{mode}")
@@ -2161,10 +2205,17 @@ def run_training(dev, work: str, mode: str = "default") -> dict:
              "augmented_host": ["--host_prefetch", "2"],
              "augmented_host_noprefetch": ["--host_prefetch", "0"],
              "augmented_device": ["--augment_on_device"],
+             "dispatch": DISPATCH_FLAGS,
+             "device_augmented": augment_argv(work) + ["--augment_on_device"],
+             "dispatch_augmented": augment_argv(work) + [
+                 "--augment_on_device"] + DISPATCH_FLAGS,
+             "schedule": SCHEDULE_FLAGS,
+             "dispatch_schedule": SCHEDULE_FLAGS + DISPATCH_FLAGS,
              }.get(mode, [])
     db = "train_db"
     if mode.startswith("augmented"):
         extra, db = augment_argv(work) + extra, "train_db_part"
+    n_epochs = 2 if mode.endswith("schedule") else 1
     with fused_switches(mode == "fused"):
         _build.reset_launches()
         record = main(train_argv(work, ck, *extra, db=db))
@@ -2181,7 +2232,7 @@ def run_training(dev, work: str, mode: str = "default") -> dict:
     logs = record["logs"]
     for key in ("locLoss_train", "locAcc_train", "locLoss_val"):
         values = np.asarray(logs[key], dtype=np.float64)
-        if values.shape != (1, 12) or not np.isfinite(values).all():
+        if values.shape != (n_epochs, 12) or not np.isfinite(values).all():
             raise AssertionError(f"{key}: {values}")
     if len(record["step_ms"]) < 5:
         raise AssertionError(f"only {len(record['step_ms'])} steps ran")
@@ -2276,9 +2327,12 @@ def hold_resumed(whole: str, resumed: str) -> dict:
     return diffs
 
 
-def run_resume(work: str) -> dict:
-    """Two epochs from scratch in `ck_whole`; the default epoch's directory
-    copied to `ck_split` and resumed to two epochs. Every tensor of the two
+def run_resume(work: str, tag: str = "", source: str = "ck_default",
+               extra=()) -> dict:
+    """Two epochs from scratch in `ck_whole<tag>` (with the flags
+    `extra`); the one-epoch directory `source` (the default epoch's, or the
+    `dispatch` epoch's for the graph route) copied to `ck_split<tag>` and
+    resumed to two epochs. Every tensor of the two
     `checkpoint_1.pt`: bit for bit, or else within the bf16mix step
     tolerance (`hold_resumed`); integer tensors (the generator's state,
     step counts) equal. The two runs' `checkpoint_0.pt` (one epoch each
@@ -2290,12 +2344,12 @@ def run_resume(work: str) -> dict:
     import shutil
 
     from cpc2_torch.train import main
-    whole = os.path.join(work, "ck_whole")
-    split = os.path.join(work, "ck_split")
-    same = os.path.join(work, "ck_same")
-    shutil.copytree(os.path.join(work, "ck_default"), split)
+    whole = os.path.join(work, "ck_whole" + tag)
+    split = os.path.join(work, "ck_split" + tag)
+    same = os.path.join(work, "ck_same" + tag)
+    shutil.copytree(os.path.join(work, source), split)
     start = time.perf_counter()
-    main(train_argv(work, whole, "--nEpoch", "2"))
+    main(train_argv(work, whole, "--nEpoch", "2", *extra))
     whole_s = time.perf_counter() - start
     start = time.perf_counter()
     main(["--pathCheckpoint", split, "--nEpoch", "2"])
@@ -2331,6 +2385,400 @@ def run_resume(work: str) -> dict:
             "same_start_differing": {k: v[0] for k, v in
                                      list(same_diffs.items())[:12]},
             "two_epochs_s": whole_s, "resumed_epoch_s": resume_s}
+
+
+# [dispatch]: `--steps_per_dispatch` groups of DISPATCH_N steps, each a
+# CUDA graph replay (`cpc2_torch/training.py:MultiStep`), held against the
+# same steps run eagerly. The setups: (name, precision, both opt-in kernels,
+# encoder and LSTM width, the device augmentation chain on both views).
+DISPATCH_N = 4
+DISPATCH_SETUPS = (("default", "bf16mix", False, 256, False),
+                   ("fused", "bf16mix", True, 256, False),
+                   ("fp32", "fp32", False, 256, False),
+                   ("wide", "bf16mix", False, 512, False),
+                   ("augmented", "bf16mix", False, 256, True),
+                   # `--supervised` on speaker labels
+                   ("speaker", "bf16mix", False, 256, False))
+# the kernels each setup's step must launch inside the graph
+DISPATCH_KERNELS = {"default": TRAINING_KERNELS,
+                    "fused": TRAINING_KERNELS + FUSED_KERNELS,
+                    "fp32": FP32_KERNELS, "wide": WIDE_KERNELS,
+                    "augmented": TRAINING_KERNELS,
+                    "speaker": LSTM_RESIDENT}
+# Where a replay is not bit for bit the eager steps (a library kernel
+# choosing another algorithm under capture), the differing tensors are
+# held to `tests/test_multi_step.py`'s tolerances: losses atol 1e-6,
+# parameters and Adam's moments atol 2e-5.
+DISPATCH_LOSS_ATOL, DISPATCH_PARAM_ATOL = 1e-6, 2e-5
+# the flags of the CLI's graph route, N = 4 with the pack on the device
+DISPATCH_FLAGS = ["--corpus_on_device", "--steps_per_dispatch",
+                  str(DISPATCH_N)]
+# two epochs across a learning-rate halving: a captured graph keeps the
+# rate it was captured with, so the route must capture again
+SCHEDULE_FLAGS = ["--schedulerStep", "1", "--nEpoch", "2"]
+
+
+def dispatch_trainer(dev, width: int, chain=None, supervised=False):
+    """A trainer at the recipe's CLI defaults and `width` (with
+    `supervised`, `--supervised` over SUP_SPEAKERS speakers), its Adam
+    capturable, built from seed 0: (args, trainer)."""
+    from cpc2_torch.config import parse_args
+    from cpc2_torch.feature_loader import build_model
+    from cpc2_torch.train import get_criterion
+    from cpc2_torch.training import Trainer, make_optimizer
+    args = parse_args(["--pathDB", ".", "--random_seed", "0",
+                       "--hiddenEncoder", str(width), "--hiddenGar",
+                       str(width)] + (["--supervised"] if supervised else []))
+    torch.manual_seed(0)
+    model = build_model(args).to(dev)
+    criterion = get_criterion(args, SUP_SPEAKERS).to(dev)
+    params = list(model.parameters()) + list(criterion.parameters())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    aug_gen = torch.Generator(device=dev)
+    aug_gen.manual_seed(1)
+    trainer = Trainer(model, criterion,
+                      make_optimizer(args, params, capturable=True), gen,
+                      device_augment=(None if chain is None
+                                      else (chain, True, True, False)),
+                      augment_generator=aug_gen)
+    return args, trainer
+
+
+def trainer_state(trainer) -> dict:
+    """Every parameter, Adam's moments and step counts, and both
+    generators' states of `trainer`, by name."""
+    out = {}
+    named = (list(trainer.model.named_parameters(prefix="model"))
+             + list(trainer.criterion.named_parameters(prefix="criterion")))
+    for name, p in named:
+        out[name] = p.detach()
+        for key, value in trainer.optimizer.state[p].items():
+            out[f"{name}.{key}"] = value
+    out["generator"] = trainer.generator.get_state()
+    out["augment_generator"] = trainer.augment_generator.get_state()
+    return out
+
+
+def dispatch_corpus(dev, seconds: int = 120, seed: int = 3):
+    """A resident pack of `seconds` of random 16-bit audio and groups of
+    window offsets into it, (4, DISPATCH_N, 8) int32, drawn with numpy."""
+    from cpc2_torch.data.device_corpus import DeviceCorpus
+    rs = np.random.RandomState(seed)
+    pack = rs.randint(-32768, 32768, 16000 * seconds).astype(
+        np.float32) / 32768.0
+    corpus = DeviceCorpus(20480, dev, pack.shape[0])
+    corpus.ensure(pack)
+    offsets = torch.from_numpy(rs.randint(
+        0, pack.shape[0] - 20480, (4, DISPATCH_N, 8)).astype(np.int32))
+    return corpus, offsets.pin_memory() if dev.type == "cuda" else offsets
+
+
+def check_dispatch_setup(dev, setup, corpus, offsets, chain=None) -> dict:
+    """One setup of DISPATCH_SETUPS: a `MultiStep` of DISPATCH_N steps
+    from one seeded state, its first group the eager warm-up; the state
+    then copied to a second trainer. Three groups on the first trainer as
+    graph replays (the second a replay of the first's graph, the third at
+    half the learning rate: captured again), and the same 3 x N steps
+    eagerly on the second. The losses, every parameter, Adam's moments and
+    step counts and both generators' states: bit for bit, else the
+    differing tensors named and held to DISPATCH_*_ATOL. Each kernel's
+    launches per replay must be N times its launches in an eager step, and
+    the setup's kernels must launch inside the graph."""
+    from cpc2_torch.ops import _build
+    from cpc2_torch.training import MultiStep
+    from cpc2_torch.training import precision as library_precision
+    name, prec, fused, width, augmented = setup
+    supervised = name == "speaker"
+    labels = torch.from_numpy(np.random.RandomState(5).randint(
+        0, SUP_SPEAKERS, tuple(offsets.shape))).to(dev)
+    with fused_switches(fused), library_precision(prec):
+        args, graphed = dispatch_trainer(dev, width,
+                                         chain if augmented else None,
+                                         supervised)
+        _, eager = dispatch_trainer(dev, width, chain if augmented else None,
+                                    supervised)
+        multi = MultiStep(graphed, DISPATCH_N, corpus)
+        if multi.route != "graph":
+            raise AssertionError(f"[dispatch {name}] route {multi.route}")
+        multi(offsets[0], labels[0])             # the warm-up, eager
+        eager.model.load_state_dict(graphed.model.state_dict())
+        eager.criterion.load_state_dict(graphed.criterion.state_dict())
+        # a copy: `load_state_dict` would share the tensors it is given
+        eager.optimizer.load_state_dict(
+            copy.deepcopy(graphed.optimizer.state_dict()))
+        eager.generator.set_state(graphed.generator.get_state())
+        eager.augment_generator.set_state(
+            graphed.augment_generator.get_state())
+        lrs = (args.learningRate, args.learningRate, args.learningRate / 2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launches()
+        rows, group_ms = [], []
+        for g, lr in enumerate(lrs, start=1):
+            graphed.set_learning_rate(lr)
+            start = time.perf_counter()
+            losses, _accs = multi(offsets[g], labels[g])
+            rows.append(losses.clone())
+            torch.cuda.synchronize()
+            group_ms.append(1000.0 * (time.perf_counter() - start))
+        launches = dict(_build.LAUNCHES)
+        graph_peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        eager_rows, per_step, eager_ms = [], None, []
+        for g, lr in enumerate(lrs, start=1):
+            eager.set_learning_rate(lr)
+            start = time.perf_counter()
+            for i in range(DISPATCH_N):
+                batch = corpus.put(offsets[g][i])
+                label = labels[g][i] if supervised else None
+                if per_step is None:
+                    _build.reset_launches()
+                    eager_rows.append(eager.train_step(batch,
+                                                       label=label)[0])
+                    per_step = dict(_build.LAUNCHES)
+                else:
+                    eager_rows.append(eager.train_step(batch,
+                                                       label=label)[0])
+            torch.cuda.synchronize()
+            eager_ms.append(1000.0 * (time.perf_counter() - start))
+        eager_peak = torch.cuda.max_memory_allocated(dev)
+    if multi.captures != 2:
+        raise AssertionError(f"[dispatch {name}] {multi.captures} captures, "
+                             f"not 2 (a learning-rate change must capture "
+                             f"again)")
+    counts = {k: (multi.launches.get(k, 0), per_step[k]) for k in per_step
+              if per_step[k] or multi.launches.get(k, 0)}
+    off = {k: v for k, v in counts.items() if v[0] != DISPATCH_N * v[1]
+           or launches[k] != 3 * v[0]}
+    if off:
+        raise AssertionError(f"[dispatch {name}] launches a replay vs an "
+                             f"eager step: {off}")
+    check_launched(f"dispatch {name} graph",
+                   {k: multi.launches.get(k, 0) for k in
+                    DISPATCH_KERNELS[name]}, DISPATCH_KERNELS[name])
+    got, want = torch.cat(rows), torch.cat(eager_rows)
+    differing = {}
+    if not torch.equal(got, want):
+        differing["losses"] = (got - want).abs().max().item()
+    state_g, state_e = trainer_state(graphed), trainer_state(eager)
+    for key, value in state_g.items():
+        if not torch.equal(value, state_e[key]):
+            if not value.is_floating_point():
+                raise AssertionError(f"[dispatch {name}] {key} differs "
+                                     f"between the replays and the eager "
+                                     f"steps")
+            differing[key] = (value.double() - state_e[key].double()
+                              ).abs().max().item()
+    for key, diff in differing.items():
+        tol = DISPATCH_LOSS_ATOL if key == "losses" else DISPATCH_PARAM_ATOL
+        if diff > tol:
+            raise AssertionError(f"[dispatch {name}] {key}: replay vs eager "
+                                 f"{diff:.3e} > {tol}")
+    return {"bit_for_bit": not differing, "differing": differing,
+            "tensors": len(state_g) + 1, "captures": multi.captures,
+            "launches_per_replay": multi.launches,
+            "group_ms_graph": group_ms, "group_ms_eager": eager_ms,
+            "peak_bytes_graph": graph_peak, "peak_bytes_eager": eager_peak}
+
+
+def time_adam_routes(dev, iters: int = 10) -> dict:
+    """One Adam step over the recipe's parameters (model and criterion at
+    width 256, random gradients) by device time, for torch's three routes:
+    `plain` (foreach, step counts on the host: the CPU runs' Adam),
+    `capturable` (foreach, step counts and bias corrections on the
+    device) and `fused` (fused and capturable: what `make_optimizer(...,
+    capturable=True)` builds). Each: device ms and kernel launches a step,
+    from one device-only profile of `iters` steps after 3 (the profiler
+    can lose launches: a mean, not a count)."""
+    from cpc2_torch.config import parse_args
+    from cpc2_torch.feature_loader import build_model
+    from cpc2_torch.profile_step import device_kernels, device_us
+    from cpc2_torch.train import get_criterion
+    args = parse_args(["--pathDB", ".", "--random_seed", "0"])
+    torch.manual_seed(0)
+    params = list(build_model(args).to(dev).parameters()) + list(
+        get_criterion(args, SUP_SPEAKERS).to(dev).parameters())
+    for p in params:
+        p.grad = torch.randn_like(p) * 1e-3
+    out = {"parameters": len(params)}
+    for route, flags in (("plain", {}), ("capturable", {"capturable": True}),
+                         ("fused", {"capturable": True, "fused": True})):
+        opt = torch.optim.Adam(params, lr=2e-4, **flags)
+        for _ in range(3):
+            opt.step()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                opt.step()
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        out[route] = {"ms": sum(map(device_us, kernels)) / 1e3 / iters,
+                      "launches": sum(e.count for e in kernels) / iters}
+    return out
+
+
+def check_capturable_adam(dev, steps: int = 5) -> float:
+    """`make_optimizer(..., capturable=True)`'s Adam, every card run's
+    (torch's fused Adam, bias corrections on the card in fp32), against
+    optax's `adam` formula in float64 over
+    `steps` steps of random gradients: each parameter's total update held
+    to 1e-4 of its largest value (the step tolerance of
+    `tests/test_torch_step.py`). Returns the largest error over that
+    value."""
+    rs = np.random.RandomState(4)
+    shapes = ((256, 512), (512,), (12, 256))
+    lr, b1, b2, eps = 2e-4, 0.9, 0.999, 1e-8
+    start = [rs.randn(*s) * 1e-2 for s in shapes]
+    params = [torch.nn.Parameter(torch.from_numpy(x.astype(np.float32)).to(
+        dev)) for x in start]
+    from cpc2_torch.training import make_optimizer
+    opt = make_optimizer(argparse.Namespace(
+        optimizer="adam", learningRate=lr, beta1=b1, beta2=b2, epsilon=eps),
+        params, capturable=True)
+    if not (opt.param_groups[0]["fused"] and
+            opt.param_groups[0]["capturable"]):
+        raise AssertionError("the card's Adam is not fused and capturable")
+    ref = [p.detach().double().cpu().numpy() for p in params]
+    mu = [np.zeros(s) for s in shapes]
+    nu = [np.zeros(s) for s in shapes]
+    for t in range(1, steps + 1):
+        grads = [rs.randn(*s).astype(np.float32) for s in shapes]
+        for p, g in zip(params, grads):
+            p.grad = torch.from_numpy(g).to(dev)
+        opt.step()
+        for i, g in enumerate(grads):
+            g = g.astype(np.float64)
+            mu[i] = b1 * mu[i] + (1 - b1) * g
+            nu[i] = b2 * nu[i] + (1 - b2) * g * g
+            ref[i] = ref[i] - lr * (mu[i] / (1 - b1 ** t)) / (
+                np.sqrt(nu[i] / (1 - b2 ** t)) + eps)
+    worst = 0.0
+    for p, x0, want in zip(params, start, ref):
+        got = p.detach().double().cpu().numpy() - x0.astype(np.float32)
+        upd = want - x0.astype(np.float32)
+        err = np.abs(got - upd).max() / np.abs(upd).max()
+        worst = max(worst, float(err))
+    if worst > 1e-4:
+        raise AssertionError(f"capturable Adam vs optax: {worst:.3e} of the "
+                             f"largest update")
+    return worst
+
+
+def hold_dispatch_epochs(graph: dict, eager: dict, what: str,
+                         n_epochs: int = 1) -> dict:
+    """A CLI run of the graph route (`DISPATCH_FLAGS`) against the same
+    run at N = 1 with the corpus on the host: the route, its captures, its
+    groups, and each epoch's mean training and validation losses and
+    accuracies bit for bit (both runs update with the same capturable
+    Adam, and a replay is bit for bit N eager steps: `[dispatch <setup>]`).
+    Returns the largest differences, all zero."""
+    if graph["dispatch"] != "graph" or graph["steps_per_dispatch"] != \
+            DISPATCH_N:
+        raise AssertionError(f"{what}: route {graph['dispatch']}, N "
+                             f"{graph['steps_per_dispatch']}")
+    if not graph["graph_captures"] >= n_epochs or not len(
+            graph["dispatch_ms"]) < len(graph["step_ms"]):
+        raise AssertionError(f"{what}: {graph['graph_captures']} captures, "
+                             f"{len(graph['dispatch_ms'])} dispatches for "
+                             f"{len(graph['step_ms'])} steps")
+    out = {}
+    for key in ("locLoss_train", "locAcc_train", "locLoss_val",
+                "locAcc_val"):
+        a = np.asarray(graph["logs"][key], np.float64)
+        b = np.asarray(eager["logs"][key], np.float64)
+        if a.shape != (n_epochs, 12) or b.shape != a.shape:
+            raise AssertionError(f"{what} {key}: {a.shape} vs {b.shape}")
+        out[key] = float(np.abs(a - b).max())
+    differing = {k: v for k, v in out.items() if v != 0.0}
+    if differing:
+        raise AssertionError(f"{what}: graph vs eager epoch means differ "
+                             f"(max abs) {differing}")
+    return out
+
+
+# the fresh processes of the [dispatch] timings: (label, flags), run in
+# this order and then in the reverse one under a device-only profiler
+DISPATCH_TIMINGS = (("N=1 host corpus", []),
+                    ("N=1 device corpus", ["--corpus_on_device"]),
+                    ("N=4", DISPATCH_FLAGS),
+                    ("N=8", ["--corpus_on_device", "--steps_per_dispatch",
+                             "8"]))
+# A timing process: `main` on argv[4:], its record's numbers written to
+# argv[2]; with a trace path in argv[3], the whole run under
+# `torch.profiler` with device activity only (no host events to slow the
+# host), its Chrome trace written there.
+RUNNER = ("import json, sys\n"
+          "sys.path.insert(0, sys.argv[1])\n"
+          "import torch\n"
+          "from cpc2_torch.train import main\n"
+          "if sys.argv[3]:\n"
+          "    with torch.profiler.profile(activities=["
+          "torch.profiler.ProfilerActivity.CUDA]) as prof:\n"
+          "        r = main(sys.argv[4:])\n"
+          "    prof.export_chrome_trace(sys.argv[3])\n"
+          "else:\n"
+          "    r = main(sys.argv[4:])\n"
+          "keys = ('median_step_ms', 'median_dispatch_ms', 'step_ms', "
+          "'dispatch_ms', 'peak_memory_bytes', 'dispatch', "
+          "'steps_per_dispatch', 'graph_captures', 'audio_hours_per_hour')\n"
+          "out = {k: r.get(k) for k in keys}\n"
+          "out['epoch_steps'] = r['logs']['iter']\n"
+          "json.dump(out, open(sys.argv[2], 'w'))\n")
+
+
+def time_dispatch(work: str) -> list:
+    """The default training on `timing_db` (2 speakers x 12 files x 24 s
+    of FLAC, 56 steps an epoch: a short batch a speaker breaks a group, so
+    fewer speakers than `train_db`'s) in a fresh process per run, no
+    checkpoint written: DISPATCH_TIMINGS in order for two epochs, then
+    reversed for one epoch under a device-only profiler. Median ms/step,
+    the second epoch's mean ms/step (the warm-up, the capture and the
+    first calls are in the first), median ms to dispatch, peak device
+    memory and, from the profiled runs' traces (`trace_summary`), the
+    device's busy share from the run's first kernel to its last (loading,
+    validation and the profiler's own cost on the host included) and its
+    busy ms per training step, which `main` sets beside the unprofiled
+    runs' median ms/step."""
+    from cpc2_torch.profile_step import trace_summary
+    write_corpus(os.path.join(work, "timing_db"), n_speakers=2, n_files=12,
+                 seed=5)
+    runs = [(label, flags, False) for label, flags in DISPATCH_TIMINGS]
+    runs += [(label, flags, True) for label, flags in
+             reversed(DISPATCH_TIMINGS)]
+    out = []
+    for i, (label, flags, profiled) in enumerate(runs):
+        result = os.path.join(work, f"timing_{i}.json")
+        trace = os.path.join(work, f"timing_{i}.trace.json") \
+            if profiled else ""
+        argv = ["--pathDB", os.path.join(work, "timing_db"), "--nEpoch",
+                "1" if profiled else "2", "--random_seed", "0",
+                "--n_process_loader", "2",
+                "--logging_step", "10", *flags]
+        proc = subprocess.run(
+            [sys.executable, "-c", RUNNER, ROOT, result, trace, *argv],
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"[dispatch timing {label}] exit "
+                                 f"{proc.returncode}: {proc.stderr[-3000:]}")
+        with open(result) as fh:
+            rec = json.load(fh)
+        rec.update(label=label, profiled=profiled)
+        if not profiled:
+            rec["second_epoch_mean_ms"] = statistics.mean(
+                rec["step_ms"][rec["epoch_steps"][0]:])
+        if profiled:
+            summary = trace_summary(trace)
+            rec["busy_share"] = 1.0 - summary["host_share"]
+            rec["trace_window_ms"] = summary["window_ms"]
+            rec["trace_busy_ms"] = summary["device_busy_ms"]
+            rec["trace_kernels"] = summary["kernel_launches"]
+            rec["device_ms_per_step"] = summary["device_busy_ms"] / len(
+                rec["step_ms"])
+            os.remove(trace)
+        out.append(rec)
+    return out
 
 
 def run_concat(dev, default_ck: str, wide_ck: str, paths) -> dict:
@@ -2939,9 +3387,47 @@ def main() -> int:
             start = time.perf_counter()
             determinism_aug = step_determinism(
                 dev, device_augment=(chain, True, True, False))
+            augment_s = time.perf_counter() - start
+            # [dispatch]: graph replays against eager steps
+            start = time.perf_counter()
+            adam_err = check_capturable_adam(dev)
+            adam_routes = time_adam_routes(dev)
+            log(f"[dispatch] fused capturable Adam vs optax's formula over "
+                f"5 steps: {adam_err:.2e} of the largest update (tolerance "
+                f"1e-4); one step of the recipe's "
+                f"{adam_routes['parameters']} parameters, device ms and "
+                f"launches: " + ", ".join(
+                    f"{route} {adam_routes[route]['ms']:.4f} ms "
+                    f"{adam_routes[route]['launches']:.1f}"
+                    for route in ("plain", "capturable", "fused")))
+            corpus_d, offsets_d = dispatch_corpus(dev)
+            dispatch = {}
+            for setup in DISPATCH_SETUPS:
+                r = dispatch[setup[0]] = check_dispatch_setup(
+                    dev, setup, corpus_d, offsets_d, chain)
+                log(f"[dispatch {setup[0]}] {card}: 3 groups of "
+                    f"{DISPATCH_N} steps as graph replays (the third at "
+                    f"half the rate: {r['captures']} captures) vs "
+                    f"{3 * DISPATCH_N} eager steps: " + (
+                        f"bit for bit ({r['tensors']} tensors: losses, "
+                        f"parameters, Adam's moments and counts, both "
+                        f"generators)" if r["bit_for_bit"] else
+                        f"these differ (max abs, held to "
+                        f"{DISPATCH_LOSS_ATOL} / {DISPATCH_PARAM_ATOL}): "
+                        f"{r['differing']}")
+                    + f"; launches a replay {r['launches_per_replay']} "
+                    f"(= {DISPATCH_N} x an eager step's); a group "
+                    + ", ".join(f"{t:.3f}" for t in r["group_ms_graph"])
+                    + " ms replayed, " + ", ".join(
+                        f"{t:.3f}" for t in r["group_ms_eager"])
+                    + f" ms eager (host clock to a synchronise); peak "
+                    f"memory {r['peak_bytes_graph']} bytes with the graph, "
+                    f"{r['peak_bytes_eager']} eager")
+            del corpus_d
+            dispatch_s = time.perf_counter() - start
         finally:
             noise.close()
-        log(f"[determinism] {time.perf_counter() - start:.1f} s: the "
+        log(f"[determinism] {augment_s:.1f} s: the "
             f"default step with {list(AUGMENT_TYPES)} on the device, "
             f"{determinism_aug['passes']} passes on the same weights, "
             f"batch and draws: of the losses and "
@@ -2959,6 +3445,31 @@ def main() -> int:
             "--precision fp32; wide: " + " ".join(WIDE) + "; profiled: "
             "--profile_dir, steps 5-14 traced; augmented_*: "
             f"{' '.join(AUGMENT_TYPES)} on both views, on train_db_part)")
+        held = {"dispatch": hold_dispatch_epochs(
+                    records["dispatch"], records["default"], "dispatch"),
+                "dispatch_augmented": hold_dispatch_epochs(
+                    records["dispatch_augmented"],
+                    records["device_augmented"], "dispatch_augmented"),
+                "dispatch_schedule": hold_dispatch_epochs(
+                    records["dispatch_schedule"], records["schedule"],
+                    "dispatch_schedule", n_epochs=2)}
+        if records["dispatch_schedule"]["graph_captures"] < 2:
+            raise AssertionError("dispatch_schedule: the learning-rate "
+                                 "halving captured no second graph")
+        log(f"[dispatch epochs] {card}: the CLI at N = {DISPATCH_N} with "
+            f"--corpus_on_device vs N = 1 from host batches, largest "
+            f"difference of the epoch means (held bit for bit): "
+            + "; ".join(
+                f"{mode} vs {ref} ({records[mode]['graph_captures']} "
+                f"captures, {len(records[mode]['dispatch_ms'])} dispatches "
+                f"for {len(records[mode]['step_ms'])} steps, "
+                f"{records[mode]['median_step_ms']:.3f} vs "
+                f"{records[ref]['median_step_ms']:.3f} ms/step) " + ", ".join(
+                    f"{k} {v:.2e}" for k, v in held[mode].items())
+                for mode, ref in (("dispatch", "default"),
+                                  ("dispatch_augmented", "device_augmented"),
+                                  ("dispatch_schedule", "schedule")))
+            + f" ({dispatch_s:.1f} s for the graph checks)")
         log("[augmented epochs] median ms/step, median wait for a batch, "
             "median host ms a batch on the loader's thread, audio-hours "
             "per hour by the median step and over the steps and waits: "
@@ -2998,6 +3509,46 @@ def main() -> int:
             f"resumed to two: " + (
                 "bit for bit equal" if resume["same_start_bit_for_bit"]
                 else f"differs in {resume['same_start_differing']}"))
+        start = time.perf_counter()
+        resume_d = run_resume(work, "_dispatch", "ck_dispatch",
+                              DISPATCH_FLAGS)
+        log(f"[resume N={DISPATCH_N}] {time.perf_counter() - start:.1f} s: "
+            f"the graph route with --corpus_on_device, checkpoint_1.pt of 2 "
+            f"epochs vs 1 + a resume to 2: "
+            + ("bit for bit equal" if resume_d["bit_for_bit"] else
+               f"not bit for bit: {resume_d['n_differing']} of "
+               f"{resume_d['tensors']} tensors differ (max abs "
+               f"{resume_d['differing']}), at most "
+               f"{resume_d['max_rel_2norm']:.3e} in the 2-norm")
+            + "; the whole run's own first epoch resumed to two: " + (
+                "bit for bit equal" if resume_d["same_start_bit_for_bit"]
+                else f"differs in {resume_d['same_start_differing']}"))
+        start = time.perf_counter()
+        timings = time_dispatch(work)
+        unprofiled = {t["label"]: t["median_step_ms"] for t in timings
+                      if not t["profiled"]}
+        log(f"[dispatch timings] {time.perf_counter() - start:.1f} s, "
+            f"{card}: the default training on timing_db in a fresh "
+            f"process each, in this order (two epochs; the last four one "
+            f"epoch under a device-only profiler): " + "; ".join(
+                f"{t['label']}{' (profiled)' if t['profiled'] else ''}: "
+                f"median {t['median_step_ms']:.3f} ms/step" + (
+                    "" if t["profiled"] else
+                    f" (the second epoch's mean "
+                    f"{t['second_epoch_mean_ms']:.3f})") + ", median "
+                f"{t['median_dispatch_ms']:.3f} ms to dispatch "
+                f"({t['dispatch']}, {len(t['dispatch_ms'])} dispatches of "
+                f"{len(t['step_ms'])} steps), peak memory "
+                f"{t['peak_memory_bytes']} bytes" + (
+                    f", device busy {100 * t['busy_share']:.1f}% from the "
+                    f"first kernel to the last ({t['trace_busy_ms']:.3f} of "
+                    f"{t['trace_window_ms']:.3f} ms, {t['trace_kernels']} "
+                    f"kernels), {t['device_ms_per_step']:.3f} device ms a "
+                    f"step, {100 * t['device_ms_per_step'] / unprofiled[
+                        t['label']]:.1f}% of the unprofiled run's median "
+                    f"step"
+                    if t["profiled"] else "")
+                for t in timings))
         record = records["default"]
         start = time.perf_counter()
         abx = run_abx(dev, work, record["checkpoint"])
@@ -3109,6 +3660,18 @@ def main() -> int:
         "corpus": corpus,
         "profile": trace,
         "resume": resume,
+        "dispatch": {"graph_vs_eager": dispatch,
+                     "capturable_adam_rel_err": adam_err,
+                     "adam_routes": adam_routes,
+                     "epochs_vs_single_step": held,
+                     **{f"slice_{mode}": epoch(records[mode]) for mode in
+                        ("dispatch", "device_augmented",
+                         "dispatch_augmented", "dispatch_schedule",
+                         "schedule")},
+                     "resume": resume_d,
+                     "timings": [{k: v for k, v in t.items()
+                                  if k not in ("step_ms", "dispatch_ms")}
+                                 for t in timings]},
         "step_determinism": determinism,
         "concat": concat,
         "step_determinism_ctc": determinism_ctc,

@@ -5,9 +5,8 @@ The names, defaults and choices are the JAX package's, so a command line
 written for `python -m cpc2_tpu.train` parses here unchanged. Flags whose
 feature is not ported yet raise `NotImplementedError` naming the ROADMAP
 item when they are set away from their default. A few flags only mean
-something to XLA and are accepted and do nothing: `--prng`, `--remat`,
-`--head_remat`, `--steps_per_dispatch 1` and `--corpus_on_device` off. The
-port adds `--device`.
+something to XLA and are accepted and do nothing: `--prng`, `--remat` and
+`--head_remat`. The port adds `--device`.
 """
 
 from __future__ import annotations
@@ -159,7 +158,12 @@ def set_port_config(parser: argparse.ArgumentParser
                        default=False, choices=['nothing', 'dots'],
                        help='XLA-only: accepted and ignored.')
     group.add_argument('--steps_per_dispatch', type=int, default=1,
-                       help='XLA-only: only 1 is accepted.')
+                       help='Optimizer steps per host dispatch (on the card, '
+                       'one CUDA graph replay of N captured steps over '
+                       'stacked batches). Amortizes per-dispatch host '
+                       'round-trips; trajectories match 1 to fp tolerance. '
+                       'Incompatible with sequential sampling (hidden '
+                       'carry).')
     group.add_argument('--global_negatives', action='store_true')
     group.add_argument('--neg_pool_group', type=int, default=0)
     group.add_argument('--host_prefetch', type=int, default=2,
@@ -167,7 +171,18 @@ def set_port_config(parser: argparse.ArgumentParser
                        'augmentation) runs ahead of the steps on a thread '
                        'of its own; 0 loads each batch between the steps.')
     group.add_argument('--corpus_on_device', action='store_true',
-                       help='XLA-only: only off is accepted.')
+                       help='Keep each data pack resident in device memory '
+                       '(uploaded once, as int16 when the audio sits on the '
+                       'PCM16 grid) and gather training windows on device '
+                       'from per-step offset vectors. Removes the per-step '
+                       'audio upload. Identical training trajectory to the '
+                       'host path. Needs one TRAIN pack plus the (usually '
+                       'much smaller) VAL pack - both stay resident across '
+                       'epochs - to fit in device memory beside the model '
+                       '(--max_size_loaded bounds each pack), and clean host '
+                       'windows: host-side augmentation is rejected '
+                       '(--augment_on_device composes). Single-process '
+                       'only.')
     return parser
 
 
@@ -259,10 +274,6 @@ def check_model_ported(args: argparse.Namespace) -> None:
 def check_ported(args: argparse.Namespace) -> None:
     """Raise `NotImplementedError` for a flag whose feature is not ported."""
     _raise_unported(args, _UNPORTED)
-    if args.steps_per_dispatch != 1 or args.corpus_on_device:
-        raise ValueError("--steps_per_dispatch > 1 and --corpus_on_device "
-                         "mean something to XLA only; the port takes one "
-                         "step per dispatch from host batches")
 
 
 def get_default_cpc_config() -> argparse.Namespace:

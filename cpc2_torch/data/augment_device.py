@@ -84,6 +84,11 @@ def _mel2freq(m: Tensor) -> Tensor:
     return (10.0 ** (m / 2595.0) - 1) * 700.0
 
 
+# The constant tensors below are made once per device and kept (the first
+# step makes them), so that a step captured into a CUDA graph
+# (`training.MultiStep`) copies nothing from the host.
+
+@functools.lru_cache(maxsize=8)
 def _kaiser_window(n: int, beta: float, device) -> Tensor:
     k = torch.arange(n, dtype=torch.float32, device=device)
     r = 2.0 * k / (n - 1) - 1.0
@@ -178,6 +183,7 @@ def _resample_live_prefix(src: Tensor, true_len: Tensor, w: int) -> Tensor:
     return (1 - fr) * r0 + fr * r1
 
 
+@functools.lru_cache(maxsize=8)
 def _hann(device) -> Tensor:
     return torch.from_numpy(
         np.hanning(_N_FFT + 1)[:-1].astype(np.float32)).to(device)
@@ -194,6 +200,14 @@ def _overlap_add(frames: Tensor, total: int) -> Tensor:
         piece = F.pad(seg, (r * _HOP, total - r * _HOP - seg.shape[1]))
         out = piece if out is None else out + piece
     return out
+
+
+@functools.lru_cache(maxsize=8)
+def _bin_advance(n_bins: int, device) -> Tensor:
+    """Each frequency bin's phase advance over one hop."""
+    return torch.from_numpy((2 * np.pi * _HOP * np.arange(n_bins)
+                             / ((n_bins - 1) * 2)).astype(np.float32)
+                            ).to(device)
 
 
 def pitch_apply(x: Tensor, cents: Tensor, shift_max: int = 300) -> Tensor:
@@ -221,9 +235,7 @@ def pitch_apply(x: Tensor, cents: Tensor, shift_max: int = 300) -> Tensor:
     i = torch.clamp(steps.to(torch.int64), 0, n_frames - 2)
     frac = (steps - i.to(torch.float32))[..., None]
 
-    omega = torch.from_numpy((2 * np.pi * _HOP * np.arange(n_bins)
-                              / ((n_bins - 1) * 2)).astype(np.float32)
-                             ).to(x.device)
+    omega = _bin_advance(n_bins, x.device)
     rows = torch.arange(b, device=x.device)[:, None]
     s_i, s_i1 = spec[rows, i], spec[rows, i + 1]           # (B, T, F)
     mag = (1 - frac) * s_i.abs() + frac * s_i1.abs()
@@ -314,6 +326,12 @@ def _round_ratio(num: Tensor, den: Tensor) -> Tensor:
     return q + up.to(q.dtype)
 
 
+@functools.lru_cache(maxsize=8)
+def _crossfade_ramp(n: int, device) -> Tensor:
+    return torch.from_numpy(np.linspace(0.0, 1.0, n).astype(np.float32)
+                            ).to(device)
+
+
 def _wsola_stretch_dev(x: Tensor, out_len: Tensor, max_out_len: int
                        ) -> Tuple[Tensor, Tensor]:
     """WSOLA time-stretch of each window ((B, W)) to its `out_len` ((B,)
@@ -330,8 +348,7 @@ def _wsola_stretch_dev(x: Tensor, out_len: Tensor, max_out_len: int
     seg, ovr, search, hop = _WS_SEG, _WS_OVR, _WS_SEARCH, _WS_HOP
     n_steps = -(-max_out_len // hop)
     dev = x.device
-    ramp = torch.from_numpy(np.linspace(0.0, 1.0, ovr).astype(np.float32)
-                            ).to(dev)
+    ramp = _crossfade_ramp(ovr, dev)
     # xp[:, search + k] == x[:, k], zeros outside
     xp = F.pad(x, (search, seg + search))
     n_pad = xp.shape[1]

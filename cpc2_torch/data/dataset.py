@@ -15,7 +15,10 @@ signal-quality weights (ROADMAP.md item: Other model and criterion modes).
   `(B, 2, 1, W)` past/future views, identical without augmentation; a
   `transform` (the noise corpus's `PeakNorm`) and the host augmentation
   (`data/augmentation.py`) run on each window of the batch, the past views'
-  draws before the future views'.
+  draws before the future views';
+* with `yield_indices` the loader yields each batch's window offsets and
+  labels (`get_batch_meta`) instead of its audio, for `--corpus_on_device`
+  (`data/device_corpus.py`), where the pack lives on the device.
 """
 
 from __future__ import annotations
@@ -136,6 +139,7 @@ class AudioBatchData:
         print("Checking length...")
         all_length = list(self.reload_pool.map(extract_length, self.seqNames))
 
+        self.seqLengths = all_length
         self.packageIndex, self.totSize = [], 0
         start, package_size = 0, 0
         for index, length in enumerate(all_length):
@@ -154,6 +158,11 @@ class AudioBatchData:
         self.currentPack = -1
         self.nextPack = 0
         self._future = None
+
+    def max_pack_samples(self) -> int:
+        """The largest pack's total sample count, from the scanned lengths
+        without loading any pack: what `DeviceCorpus` sizes its slab by."""
+        return max(sum(self.seqLengths[a:b]) for a, b in self.packageIndex)
 
     def loadNextPack(self, first: bool = False):
         self.clear()
@@ -226,13 +235,7 @@ class AudioBatchData:
         idx = np.asarray(indices, dtype=np.int64)
         window = np.arange(self.sizeWindow, dtype=np.int64)
         wave = self.data[idx[:, None] + window[None, :]][:, None, :]
-        speaker = (np.searchsorted(self._speaker_label_arr, idx,
-                                   side='right') - 1).astype(np.int64)
-        phone = None
-        if self.phoneSize > 0:
-            steps = np.arange(self.phoneStep, dtype=np.int64)
-            phone = self._phone_label_arr[(idx // self.phoneSize)[:, None]
-                                          + steps[None, :]]
+        speaker, phone = self._labels(idx)
         if self.transform is not None:
             wave = np.stack([self.transform(w) for w in wave])
         past, future = wave, wave
@@ -244,11 +247,47 @@ class AudioBatchData:
         if self.past_equal_future:
             future = past
         out = np.stack([past, future], axis=1)
+        return (out,) + self._meta(speaker, phone)
+
+    def _labels(self, idx: np.ndarray):
+        """The speakers (B,) of the windows starting at `idx`, and their
+        phones (B, W // 160) where the corpus has phone labels (else None)."""
+        speaker = (np.searchsorted(self._speaker_label_arr, idx,
+                                   side='right') - 1).astype(np.int64)
+        phone = None
+        if self.phoneSize > 0:
+            steps = np.arange(self.phoneStep, dtype=np.int64)
+            phone = self._phone_label_arr[(idx // self.phoneSize)[:, None]
+                                          + steps[None, :]]
+        return speaker, phone
+
+    def _meta(self, speaker, phone) -> tuple:
         if phone is None:
-            return out, speaker
+            return (speaker,)
         if self.doubleLabels:
-            return out, speaker, phone
-        return out, phone
+            return speaker, phone
+        return (phone,)
+
+    def get_batch_meta(self, indices: Sequence[int]) -> tuple:
+        """`get_batch(indices)[1:]` without gathering the windows: the
+        labels that cross from the host under `--corpus_on_device`, where
+        the audio is resident on the device."""
+        return self._meta(*self._labels(np.asarray(indices, dtype=np.int64)))
+
+    def gather_windows(self, indices: Sequence[int]) -> np.ndarray:
+        """The clean (B, 2, 1, W) float32 windows at `indices`, the past
+        view duplicated as the future one, without transform or
+        augmentation: what `DeviceCorpus.put` gathers on the device. Raises
+        for a corpus that transforms or augments its windows on the host."""
+        if self.transform is not None or (
+                self.augmentation is not None
+                and (self.augment_past or self.augment_future)):
+            raise ValueError("gather_windows is for clean (untransformed, "
+                             "unaugmented-on-host) corpora only")
+        idx = np.asarray(indices, dtype=np.int64)
+        window = np.arange(self.sizeWindow, dtype=np.int64)
+        wave = self.data[idx[:, None] + window[None, :]][:, None, :]
+        return np.stack([wave, wave], axis=1).astype(np.float32)
 
     def getBaseSampler(self, type: str, batchSize: int, offset: int,
                        batchSizePerGPU: Optional[int] = None):
@@ -275,9 +314,11 @@ class AudioBatchData:
 
     def getDataLoader(self, batchSize: int, type: str, randomOffset: bool,
                       remove_artefacts: bool = False,
-                      batch_size_per_gpu: Optional[int] = None):
+                      batch_size_per_gpu: Optional[int] = None,
+                      yield_indices: bool = False):
         """Iterator over the batches of one epoch
-        (reference `dataset.py:366-408`)."""
+        (reference `dataset.py:366-408`); with `yield_indices`, over
+        `(offsets, *get_batch_meta(offsets))` instead."""
         tot_size = self.totSize // (self.sizeWindow * batchSize)
 
         def sampler_call():
@@ -292,22 +333,26 @@ class AudioBatchData:
                                        batch_size_per_gpu)
 
         return AudioLoader(self, sampler_call, len(self.packageIndex),
-                           self.loadNextPack, tot_size, remove_artefacts)
+                           self.loadNextPack, tot_size, remove_artefacts,
+                           yield_indices=yield_indices)
 
 
 class AudioLoader:
-    """Loops over packs, yielding `get_batch` results
+    """Loops over packs, yielding `get_batch` results, or with
+    `yield_indices` each batch's `(offsets, *get_batch_meta(offsets))`
     (reference `dataset.py:440-600`)."""
 
     def __init__(self, dataset: AudioBatchData, samplerCall: Callable,
                  nLoop: int, updateCall: Callable, size: int,
-                 remove_artefacts: bool = False):
+                 remove_artefacts: bool = False,
+                 yield_indices: bool = False):
         self.samplerCall = samplerCall
         self.updateCall = updateCall
         self.nLoop = nLoop
         self.size = size
         self.dataset = dataset
         self.remove_artefacts = remove_artefacts
+        self.yield_indices = yield_indices
 
     def __len__(self):
         return self.size
@@ -354,7 +399,11 @@ class AudioLoader:
         for batch_idx in sampler:
             if len(batch_idx) == 0:
                 continue
-            yield self.dataset.get_batch(batch_idx)
+            if self.yield_indices:
+                yield ((np.asarray(batch_idx, dtype=np.int64),)
+                       + self.dataset.get_batch_meta(batch_idx))
+            else:
+                yield self.dataset.get_batch(batch_idx)
 
     def __iter__(self):
         for i in range(self.nLoop):

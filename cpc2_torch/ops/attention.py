@@ -342,6 +342,8 @@ def _operand(x: Tensor, dk_in: int, dim: int = -1) -> Tensor:
     return x.clone() if x.data_ptr() % 16 else x
 
 
+# Under a CUDA graph capture the TMA descriptors encoded on the host are
+# kept with the launch: right for the same reason as `ffn.py:_FusedFFN`'s.
 class _FusedAttention(torch.autograd.Function):
 
     @staticmethod

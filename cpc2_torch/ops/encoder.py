@@ -328,6 +328,8 @@ def _check(x, params) -> torch.device:
     return device
 
 
+# Under a CUDA graph capture the TMA descriptors encoded on the host are
+# kept with the launch: right for the same reason as `ffn.py:_FusedFFN`'s.
 class _FusedEncoder(torch.autograd.Function):
 
     @staticmethod

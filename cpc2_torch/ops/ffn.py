@@ -251,6 +251,14 @@ def _workspace_bytes(m: int, din: int, dff: int, dout: int,
                                                     int(backward))
 
 
+# Inside a CUDA graph (`training.MultiStep`) a launch keeps the arguments
+# it was captured with, the TMA descriptors that the C entry points encode
+# on the host from these pointers among them, so a replay reads and writes
+# the same addresses. That is right because every operand is a parameter
+# that the optimizer updates in place, or a tensor allocated during the
+# capture from the graph's private pool, which each replay reuses at the
+# same address (`chip_smoke.py`'s `[dispatch]` holds replays bit for bit
+# against eager steps).
 class _FusedFFN(torch.autograd.Function):
 
     @staticmethod

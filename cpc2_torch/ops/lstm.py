@@ -303,7 +303,9 @@ def _grid_args(plan: LSTMPlan, layout: GridLayout):
 
 class _LSTMGrid(torch.autograd.Function):
     """The grid route at `plan` (what `lstm_plan` picks, or `grid_plan` at
-    any width): one cooperative launch a call."""
+    any width): one cooperative launch a call. A CUDA graph capture
+    (`training.MultiStep`) takes `cudaLaunchCooperativeKernel` as a
+    cooperative kernel node."""
 
     @staticmethod
     def forward(ctx, gi, h0, c0, w_hh, b_hh, plan):

@@ -39,6 +39,12 @@ on the device instead (`data/augment_device.py`), where a type with no
 device version stays on the host ahead of them. The loader runs on a
 thread `--host_prefetch` batches ahead of the steps (0: between them).
 Validation is never augmented.
+
+`--corpus_on_device` keeps each split's pack on the device
+(`data/device_corpus.py`), the loader sending only window offsets;
+`--steps_per_dispatch N` runs N steps per dispatch (`training.MultiStep`:
+on a card one CUDA graph replay). Both compose with each other and with
+`--augment_on_device`, not with a host augmentation.
 """
 
 from __future__ import annotations
@@ -62,6 +68,8 @@ from .data import (AudioBatchData, PeakNorm, filter_seqs, find_all_seqs,
 from .data import augment_device
 from .data.augmentation import (augmentation_factory,
                                 canonical_augment_type, restart)
+from .data.device_corpus import DeviceCorpus
+from .dispatch import EPOCH_END, GroupAssembler
 from .feature_loader import build_model, load_model, load_state
 from .io.checkpoint import (get_checkpoint_data, load_args,
                             load_torch_checkpoint, save_args,
@@ -70,8 +78,8 @@ from .io.from_jax import jax_param_order, state_dict_from_jax
 from .losses import (CPCUnsupervisedCriterion, CTCPhoneCriterion,
                      PhoneCriterion, SpeakerCriterion)
 from .models.encoder import DOWNSAMPLING
-from .training import (Trainer, make_lr_schedule, make_optimizer,
-                       precision, resolve_device)
+from .training import (MultiStep, Trainer, make_lr_schedule,
+                       make_optimizer, precision, resolve_device)
 from .utils.prefetch import PrefetchIterator, prefetch
 
 SAMPLE_RATE = 16000
@@ -157,33 +165,56 @@ def _split(args, seq_names):
     return seq_train, seq_val
 
 
-def _host_batches(loader, device: torch.device, load_ms: List[float]):
-    """The loader's batches and their labels (speakers, or phones) as
-    tensors, pinned for their copy to a card, each one's host time
-    (sampling, gather, host augmentation, pinning) appended to `load_ms`:
-    the work the prefetch thread takes off the stepping thread."""
+def _dispatch_items(loader, device: torch.device, load_ms: List[float],
+                    batch_size: int, groups: Optional[GroupAssembler],
+                    offsets: bool):
+    """What the stepping thread runs, built on the loader's thread:
+    `('steps', [(pack, x, label), ...])`, one step each in order, or a
+    full group `('idxgroup', pack, x (N, ...), labels (N, ...), n)`, one
+    `MultiStep` dispatch. `x` is a (B, 2, 1, W) batch, or with `offsets`
+    (`--corpus_on_device`) the batch's (B,) window offsets into `pack`,
+    the host pack they were drawn from (None for batches). With `groups`
+    (N > 1) full batches are buffered into groups; a short batch flushes
+    the buffer and runs after it, so the steps keep the loader's order.
+    Tensors are pinned for their copy to a card. Each loader item's host
+    time (sampling, gather, host augmentation, grouping, pinning) is
+    appended to `load_ms`: the work the prefetch thread takes off the
+    stepping thread."""
+    pin = device.type == "cuda"
+
+    def tensor(a, dtype):
+        t = torch.from_numpy(np.asarray(a).astype(dtype, copy=False))
+        return t.pin_memory() if pin else t
+
+    def steps(items):
+        return ('steps', [(pack, tensor(x, x.dtype), tensor(y, np.int64))
+                          for pack, x, y in items])
+
+    def prep(full):
+        if full is EPOCH_END:
+            flushed = groups.flush() if groups is not None else None
+            return None if flushed is None else steps(flushed[1])
+        x, label = full[:2]
+        item = (loader.dataset.data if offsets else None,
+                np.asarray(x, np.int32) if offsets else x, np.asarray(label))
+        if groups is None or item[1].shape[0] != batch_size:
+            flushed = groups.flush() if groups is not None else None
+            return steps(([] if flushed is None else flushed[1]) + [item])
+        out = groups.add(item)
+        return steps(out[1]) if out is not None and out[0] == 'idxpartial' \
+            else out
+
     batches = iter(loader)
     while True:
         start = time.perf_counter()
-        try:
-            batch, label = next(batches)[:2]
-        except StopIteration:
+        full = next(batches, EPOCH_END)
+        out = prep(full)
+        if full is not EPOCH_END:
+            load_ms.append(1000.0 * (time.perf_counter() - start))
+        if out is not None:
+            yield out
+        if full is EPOCH_END:
             return
-        x, y = torch.from_numpy(batch), torch.from_numpy(np.asarray(label))
-        if device.type == "cuda":
-            x, y = x.pin_memory(), y.pin_memory()
-        load_ms.append(1000.0 * (time.perf_counter() - start))
-        yield x, y
-
-
-def _to_device(trainer: Trainer, x: torch.Tensor, label: torch.Tensor,
-               device: torch.device):
-    """The batch, and the labels where the criterion takes them, copied
-    to the device (asynchronously from pinned memory)."""
-    x = x.to(device, non_blocking=True)
-    if not trainer.supervised:
-        return x, None
-    return x, label.to(device, non_blocking=True)
 
 
 def _sync(device: torch.device) -> None:
@@ -214,43 +245,84 @@ def _stop_profiler(profiler, device: torch.device, profile_dir: str) -> None:
     print(f"Profiler trace written to {profile_dir}")
 
 
+def _run_steps(trainer: Trainer, items, device: torch.device,
+               corpus: Optional[DeviceCorpus]) -> torch.Tensor:
+    """Single steps, in order, of a `('steps', items)` dispatch item: each
+    batch gathered from the resident pack (`corpus`) or copied to the
+    device. Returns their (n, 2, K) losses and accuracies on the device."""
+    rows = []
+    for pack, x, label in items:
+        if corpus is not None:
+            corpus.ensure(pack)
+            x = corpus.put(x)
+        else:
+            x = x.to(device, non_blocking=True)
+        label = (label.to(device, non_blocking=True) if trainer.supervised
+                 else None)
+        rows.append(torch.cat(trainer.train_step(x, label=label)))
+    return torch.stack(rows)
+
+
 def train_epoch(trainer: Trainer, loader, device: torch.device,
                 logging_step: int, profile_dir: Optional[str] = None,
-                prefetch_depth: int = 0) -> Dict:
-    """One epoch of training steps. Each step ends in a device synchronise
-    so that its host-clock time is the step's own. The loader runs on a
-    thread `prefetch_depth` batches ahead (0: on this thread, between the
-    steps); this thread issues each batch's copy to the card. The record's
-    `wait_ms` holds, for each step, the host-clock time from the end of
-    the step before (from the epoch's start for the first) until its batch
-    was in hand, and `load_ms` each batch's host time on the loader's
-    thread. With `profile_dir`, steps PROFILE_START to PROFILE_STOP - 1 (or
-    to the epoch's end) are traced into it; the record's `profiled` says
-    whether a trace was written."""
+                prefetch_depth: int = 0,
+                corpus: Optional[DeviceCorpus] = None,
+                multi_step: Optional[MultiStep] = None,
+                batch_size: int = 0) -> Dict:
+    """One epoch of training steps. The loader runs on a thread
+    `prefetch_depth` batches ahead (0: on this thread, between the steps)
+    and groups its batches there (`_dispatch_items`); this thread issues
+    each dispatch: one step, or with `multi_step` (N > 1) a full group of
+    N, then one device synchronise and one copy of the losses, so that its
+    host-clock time is the dispatch's own. With `corpus`
+    (`--corpus_on_device`) the loader yields window offsets and the steps
+    gather their batches from the resident pack. A batch other than
+    `batch_size` long runs as a single step. The record's `step_ms`
+    holds each step's time (a dispatch's divided by its steps),
+    `dispatch_ms` each dispatch's host time until it returned (before the
+    synchronise), `wait_ms`, for each step, its share of the host-clock
+    time from the end of the dispatch before (from the epoch's start for
+    the first) until its batches were in hand, and `load_ms` each batch's
+    host time on the loader's thread. With `profile_dir`, the dispatches
+    from the one that holds step PROFILE_START up to step PROFILE_STOP - 1
+    (or to the epoch's end) are traced into it; the record's `profiled`
+    says whether a trace was written."""
     sums, n_steps, step_ms, wait_ms, load_ms = None, 0, [], [], []
+    dispatch_ms = []
     window_start, window_steps, last = time.perf_counter(), 0, None
     profiler, profiled = None, False
-    batches = prefetch(_host_batches(loader, device, load_ms),
-                       prefetch_depth)
+    groups = (GroupAssembler(multi_step.n_inner, device.type == "cuda")
+              if multi_step is not None else None)
+    batches = prefetch(_dispatch_items(loader, device, load_ms,
+                                       batch_size, groups,
+                                       corpus is not None), prefetch_depth)
     try:
         ready = time.perf_counter()
-        for step, (x, label) in enumerate(batches):
-            wait_ms.append(1000.0 * (time.perf_counter() - ready))
+        for item in batches:
+            wait = 1000.0 * (time.perf_counter() - ready)
             if profile_dir is not None and not profiled:
-                if step == PROFILE_START:
+                if profiler is None and n_steps >= PROFILE_START:
                     profiler = _start_profiler(device)
-                elif step == PROFILE_STOP and profiler is not None:
+                elif profiler is not None and n_steps >= PROFILE_STOP:
                     _stop_profiler(profiler, device, profile_dir)
                     profiler, profiled = None, True
-            x, label = _to_device(trainer, x, label, device)
             start = time.perf_counter()
-            losses, accs = trainer.train_step(x, label=label)
-            _sync(device)
-            step_ms.append(1000.0 * (time.perf_counter() - start))
-            row = torch.cat([losses, accs]).double().cpu().numpy()  # (2, K)
-            sums = row if sums is None else sums + row
-            n_steps += 1
-            window_steps += 1
+            if item[0] == 'idxgroup':
+                _, pack, x, labels, _n = item
+                if corpus is not None:
+                    corpus.ensure(pack)
+                rows = torch.stack(multi_step(x, labels), dim=1)
+            else:
+                rows = _run_steps(trainer, item[1], device, corpus)
+            dispatch_ms.append(1000.0 * (time.perf_counter() - start))
+            rows = rows.double().cpu().numpy()      # (n, 2, K)
+            n = rows.shape[0]
+            step_ms += [1000.0 * (time.perf_counter() - start) / n] * n
+            wait_ms += [wait / n] * n
+            for row in rows:
+                sums = row if sums is None else sums + row
+            n_steps += n
+            window_steps += n
             if window_steps >= logging_step:
                 elapsed = time.perf_counter() - window_start
                 print(f"Update {n_steps}")
@@ -273,14 +345,25 @@ def train_epoch(trainer: Trainer, loader, device: torch.device,
     record = ({} if sums is None else {"locLoss_train": sums[0] / n_steps,
                                        "locAcc_train": sums[1] / n_steps})
     record.update(iter=n_steps, step_ms=step_ms, wait_ms=wait_ms,
-                  load_ms=load_ms, profiled=profiled)
+                  load_ms=load_ms, dispatch_ms=dispatch_ms,
+                  profiled=profiled)
     return record
 
 
-def val_epoch(trainer: Trainer, loader, device: torch.device) -> Dict:
+def val_epoch(trainer: Trainer, loader, device: torch.device,
+              corpus: Optional[DeviceCorpus] = None) -> Dict:
+    """The validation pass; with `corpus` each batch gathered from the
+    validation pack on the device."""
     sums, n_steps = None, 0
-    for x, label in _host_batches(loader, device, []):
-        x, label = _to_device(trainer, x, label, device)
+    for full in loader:
+        x, label = full[:2]
+        if corpus is not None:
+            corpus.ensure(loader.dataset.data)
+            x = corpus.put(x)
+        else:
+            x = torch.from_numpy(x).to(device)
+        label = (torch.from_numpy(np.asarray(label)).to(device)
+                 if trainer.supervised else None)
         losses, accs = trainer.val_step(x, label=label)
         row = torch.cat([losses, accs]).double().cpu().numpy()
         sums = row if sums is None else sums + row
@@ -407,6 +490,13 @@ def _load_optimizer(optimizer: torch.optim.Optimizer, saved,
             "orbax run keeps its optimizer state in <checkpoint>.orbax)")
     saved = dict(saved)
     generator_state = saved.pop(GENERATOR_KEY, None)
+    # `capturable` and `fused` say how this run's Adam updates (fused, its
+    # step count on the device, on a card), not a setting of the saved run
+    saved["param_groups"] = [
+        dict(group, **{key: mine[key] for key in ("capturable", "fused")
+                       if key in mine})
+        for group, mine in zip(saved["param_groups"],
+                               optimizer.param_groups)]
     optimizer.load_state_dict(saved)
     print("Restored optimizer state")
     return generator_state
@@ -542,6 +632,15 @@ def _train(args, logs: Dict, load_optimizer: bool,
     noise_dataset = _noise_dataset(args, generators)
     device_augment = _device_augment(args, dev_types, noise_dataset)
     use_host_aug = device_augment is None or bool(host_types)
+    if args.corpus_on_device:
+        host_aug_active = any(t != 'none' for t in (host_types or []))
+        if (args.augment_past or args.augment_future) and use_host_aug \
+                and host_aug_active:
+            raise ValueError(
+                "--corpus_on_device needs clean host windows, but "
+                f"host-side augmentations are active ({host_types}). "
+                "Use --augment_on_device with device-ported types, or "
+                "drop --corpus_on_device.")
     train_augment = None
     if use_host_aug:
         train_augment = augmentation_factory(
@@ -575,7 +674,15 @@ def _train(args, logs: Dict, load_optimizer: bool,
     criterion = criterion.to(device)
     params = list(model.parameters()) + list(criterion.parameters())
     print(f"Model: {sum(p.numel() for p in params)} parameters on {device}")
-    optimizer = make_optimizer(args, params)
+    spd = max(args.steps_per_dispatch, 1)
+    if spd > 1 and model.keeps_hidden:
+        print("--steps_per_dispatch > 1 is incompatible with the "
+              "sequential-sampling hidden carry; using 1")
+        spd = 1
+    # the fused, capturable Adam on every card run, N = 1 too: N picks how
+    # steps are dispatched, never how Adam rounds
+    optimizer = make_optimizer(args, params,
+                               capturable=device.type == "cuda")
     generator = torch.Generator(device=device)
     generator.manual_seed(args.random_seed)
     best_acc, best_state = -1.0, None
@@ -597,6 +704,18 @@ def _train(args, logs: Dict, load_optimizer: bool,
     lr_fn = make_lr_schedule(args.learningRate, args.schedulerStep,
                              args.schedulerRamp)
     batch_size = args.batchSizeGPU
+    # --corpus_on_device: one resident pack per split, kept across epochs
+    corpus_train = corpus_val = None
+    if args.corpus_on_device:
+        corpus_train = DeviceCorpus(args.sizeWindow, device,
+                                    train_dataset.max_pack_samples())
+        if val_dataset is not None:
+            corpus_val = DeviceCorpus(args.sizeWindow, device,
+                                      val_dataset.max_pack_samples())
+    multi_step = (MultiStep(trainer, spd, corpus_train) if spd > 1
+                  else None)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
 
     path_checkpoint = None
     if args.pathCheckpoint is not None:
@@ -610,6 +729,7 @@ def _train(args, logs: Dict, load_optimizer: bool,
     step_ms: List[float] = []
     wait_ms: List[float] = []
     load_ms: List[float] = []
+    dispatch_ms: List[float] = []
     start_time = time.time()
     try:
         for epoch in range(len(logs["epoch"]), args.nEpoch):
@@ -629,22 +749,26 @@ def _train(args, logs: Dict, load_optimizer: bool,
             train_loader = train_dataset.getDataLoader(
                 batch_size, args.samplingType, True,
                 remove_artefacts=args.no_artefacts,
-                batch_size_per_gpu=args.batchSizeGPU)
-            val_loader = (val_dataset.getDataLoader(batch_size, 'sequential',
-                                                    False)
-                          if val_dataset is not None else [])
+                batch_size_per_gpu=args.batchSizeGPU,
+                yield_indices=args.corpus_on_device)
+            val_loader = (val_dataset.getDataLoader(
+                batch_size, 'sequential', False,
+                yield_indices=args.corpus_on_device)
+                if val_dataset is not None else [])
             print("Training dataset %d batches, Validation dataset %d "
                   "batches, batch size %d" % (len(train_loader),
                                               len(val_loader), batch_size))
             loc_train = train_epoch(trainer, train_loader, device,
                                     args.logging_step, args.profile_dir,
-                                    args.host_prefetch)
+                                    args.host_prefetch, corpus_train,
+                                    multi_step, batch_size)
             step_ms += loc_train.pop("step_ms")
             wait_ms += loc_train.pop("wait_ms")
             load_ms += loc_train.pop("load_ms")
+            dispatch_ms += loc_train.pop("dispatch_ms")
             if loc_train.pop("profiled"):
                 args.profile_dir = None       # one trace per run
-            loc_val = (val_epoch(trainer, val_loader, device)
+            loc_val = (val_epoch(trainer, val_loader, device, corpus_val)
                        if val_dataset is not None else {})
             print(f'Ran {epoch + 1} epochs '
                   f'in {time.time() - start_time:.2f} seconds')
@@ -673,14 +797,21 @@ def _train(args, logs: Dict, load_optimizer: bool,
                 dataset.close()
 
     record = {"logs": logs, "step_ms": step_ms, "wait_ms": wait_ms,
-              "load_ms": load_ms,
+              "load_ms": load_ms, "dispatch_ms": dispatch_ms,
+              "steps_per_dispatch": spd,
+              "dispatch": "eager" if multi_step is None else multi_step.route,
               "param_devices": sorted({str(p.device) for p in params})}
+    if multi_step is not None:
+        record["graph_captures"] = multi_step.captures
+    if device.type == "cuda":
+        record["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
     if step_ms:
         median = statistics.median(step_ms)
         audio_s = batch_size * args.sizeWindow / SAMPLE_RATE
         record["median_step_ms"] = median
         record["median_wait_ms"] = statistics.median(wait_ms)
         record["median_load_ms"] = statistics.median(load_ms)
+        record["median_dispatch_ms"] = statistics.median(dispatch_ms)
         record["audio_hours_per_hour"] = audio_s / (median / 1000.0)
         # the same over the steps and the waits for their batches
         record["audio_hours_per_hour_with_waits"] = (
@@ -693,7 +824,9 @@ def _train(args, logs: Dict, load_optimizer: bool,
               f"{record['median_wait_ms']:.3f} ms (--host_prefetch "
               f"{args.host_prefetch}); with the waits "
               f"{record['audio_hours_per_hour_with_waits']:.1f} audio-hours "
-              f"per hour")
+              f"per hour; {len(dispatch_ms)} dispatches of up to {spd} "
+              f"steps ({record['dispatch']}), median "
+              f"{record['median_dispatch_ms']:.3f} ms to dispatch")
     return record
 
 

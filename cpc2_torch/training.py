@@ -7,6 +7,10 @@ as targets (the CPC criterion) or beside the labels (a supervised one,
 `--supervised`). The loss is the sum over the K heads of their mean losses;
 the optimizer is Adam (or SGD with momentum 0.9) with the flags' settings,
 whose update is optax's `adam` formula.
+
+`MultiStep` runs N steps per call (`--steps_per_dispatch`, counterpart of
+`cpc2_tpu/training.py:build_multi_step`): on a card, one replay of a CUDA
+graph of the N steps.
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch import nn
 
-from .losses.criterion import SupervisedCriterion
+from .losses.criterion import CTCPhoneCriterion, SupervisedCriterion
+from .ops import _build
 
 Tensor = torch.Tensor
 
@@ -67,13 +72,20 @@ def full_fp32():
     return precision("fp32")
 
 
-def make_optimizer(args: argparse.Namespace, params) -> torch.optim.Optimizer:
+def make_optimizer(args: argparse.Namespace, params,
+                   capturable: bool = False) -> torch.optim.Optimizer:
     """Adam/SGD as `cpc2_tpu/training.py:make_optimizer` (reference
-    `train.py:475-484`)."""
+    `train.py:475-484`). `capturable` (every training run on a card, so
+    that a `MultiStep` graph and a single step update alike): torch's
+    fused Adam, which keeps its step count on the device and computes the
+    bias corrections there, in fp32, in one multi-tensor kernel, so that a
+    CUDA graph can replay its update (the unfused capturable route spends
+    about 400 tiny launches a step on them)."""
     if args.optimizer == 'adam':
         return torch.optim.Adam(params, lr=args.learningRate,
                                 betas=(args.beta1, args.beta2),
-                                eps=args.epsilon)
+                                eps=args.epsilon, capturable=capturable,
+                                fused=True if capturable else None)
     if args.optimizer == 'sgd':
         return torch.optim.SGD(params, lr=args.learningRate, momentum=0.9)
     raise ValueError(f"Unsupported optimizer: {args.optimizer}")
@@ -203,6 +215,134 @@ class Trainer:
         self.model.eval()
         self.criterion.eval()
         return self._forward(batch, negative_indices, False, label=label)
+
+
+def dispatch_route(device: torch.device, criterion: nn.Module) -> str:
+    """`MultiStep`'s route: `graph` on a CUDA device unless the criterion
+    copies to the host (`--CTC`), else `eager`."""
+    if device.type == "cuda" and not isinstance(criterion, CTCPhoneCriterion):
+        return "graph"
+    return "eager"
+
+
+class MultiStep:
+    """`n_inner` optimizer steps of `trainer` a call
+    (`--steps_per_dispatch`): `multi_step(inputs, labels)` returns the
+    steps' (losses (N, K), accs (N, K)) on the device. `inputs` are (N,
+    B) window offsets into `corpus`'s resident pack
+    (`data/device_corpus.py`), whose steps gather their batches on the
+    device, or without a corpus the (N, B, 2, 1, W) batches; `labels` (N,
+    ...) are the batches' labels, which a supervised criterion takes. On
+    the graph route the returned tensors are the graph's outputs, which
+    the next call overwrites.
+
+    `route` is `graph` on a CUDA device: the N steps (gather, device
+    augmentation, forward, backward, optimizer step) are captured into one
+    `torch.cuda.CUDAGraph`, and a call is a copy of the inputs into static
+    buffers and one replay. The run's first call is the warm-up (lazy
+    library handles and workspaces): its N steps run eagerly, on the
+    capture's side stream, as real steps. The graph is captured at the
+    next call and again whenever a group's learning rate changes (the
+    graph holds the rate it was captured with) or the corpus gets a new
+    slab. The trainer's generators (negatives and dropout, device
+    augmentation) are registered with the graph, so that a replay draws
+    what N eager steps draw and leaves the generators where they would.
+    The optimizer must be capturable (`make_optimizer`). The kernels'
+    launch counts (`ops/_build.py:LAUNCHES`) taken at the capture are
+    added at every replay: a replay launches nothing from Python.
+
+    `route` is `eager` on the CPU, and for a criterion that copies to the
+    host (`--CTC`: torch's CUDA `ctc_loss` reads its lengths there): the N
+    steps run one after another, the losses copied once per call."""
+
+    def __init__(self, trainer: Trainer, n_inner: int, corpus=None):
+        self.trainer = trainer
+        self.n_inner = n_inner
+        self.corpus = corpus
+        self.device = next(trainer.model.parameters()).device
+        self.route = dispatch_route(self.device, trainer.criterion)
+        self.launches = {}        # a replay's kernel launches
+        self.captures = 0
+        self._graph = None
+        self._warm = False
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.route == "graph" else None)
+        self._static = None       # inputs, labels
+        self._out = None
+        self._lrs = None
+        self._slab = None
+
+    def _steps(self, inputs: Tensor, labels: Optional[Tensor]
+               ) -> Tuple[Tensor, Tensor]:
+        trainer, out = self.trainer, []
+        for i in range(self.n_inner):
+            batch = (self.corpus.put(inputs[i]) if self.corpus is not None
+                     else inputs[i])
+            label = labels[i] if trainer.supervised else None
+            out.append(trainer.train_step(batch, label=label))
+        return (torch.cat([losses for losses, _ in out]),
+                torch.cat([accs for _, accs in out]))
+
+    def __call__(self, inputs: Tensor, labels: Optional[Tensor] = None
+                 ) -> Tuple[Tensor, Tensor]:
+        if labels is not None and not self.trainer.supervised:
+            labels = None
+        if self.route == "eager":
+            return self._steps(
+                inputs.to(self.device, non_blocking=True),
+                None if labels is None
+                else labels.to(self.device, non_blocking=True))
+        if not self._warm:
+            current = torch.cuda.current_stream(self.device)
+            self._stream.wait_stream(current)
+            with torch.cuda.stream(self._stream):
+                out = self._steps(
+                    inputs.to(self.device, non_blocking=True),
+                    None if labels is None
+                    else labels.to(self.device, non_blocking=True))
+            current.wait_stream(self._stream)
+            torch.cuda.synchronize(self.device)
+            self._warm = True
+            return out
+        if self._static is None:
+            self._static = (torch.empty(inputs.shape, dtype=inputs.dtype,
+                                        device=self.device),
+                            None if labels is None else
+                            torch.empty(labels.shape, dtype=labels.dtype,
+                                        device=self.device))
+        lrs = [group['lr'] for group in self.trainer.optimizer.param_groups]
+        slab = None if self.corpus is None else self.corpus.resident
+        if self._graph is None or lrs != self._lrs or slab is not self._slab:
+            self._capture(lrs, slab)
+        static_inputs, static_labels = self._static
+        static_inputs.copy_(inputs, non_blocking=True)
+        if static_labels is not None:
+            static_labels.copy_(labels, non_blocking=True)
+        self._graph.replay()
+        for name, n in self.launches.items():
+            _build.LAUNCHES[name] += n
+        return self._out
+
+    def _capture(self, lrs, slab) -> None:
+        """Capture the N steps on the static inputs (nothing runs); the
+        graph before it, if any, is dropped first."""
+        self._graph = self._out = None
+        graph = torch.cuda.CUDAGraph()
+        for gen in (self.trainer.generator, self.trainer.augment_generator):
+            if gen is not None:
+                graph.register_generator_state(gen)
+        before = dict(_build.LAUNCHES)
+        # thread_local: the loader's thread pins memory meanwhile
+        with torch.cuda.graph(graph, stream=self._stream,
+                              capture_error_mode="thread_local"):
+            out = self._steps(*self._static)
+        self.launches = {name: _build.LAUNCHES[name] - before[name]
+                         for name in before
+                         if _build.LAUNCHES[name] != before[name]}
+        _build.LAUNCHES.update(before)
+        self._graph, self._out = graph, out
+        self._lrs, self._slab = lrs, slab
+        self.captures += 1
 
 
 def _batch_of(hidden) -> Optional[int]:

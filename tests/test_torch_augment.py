@@ -429,10 +429,10 @@ def test_validation_is_unaugmented(corpus, sounds, tmp_path, monkeypatch):
     seen = []
     real = train_mod.val_epoch
 
-    def spy(trainer, loader, device):
+    def spy(trainer, loader, device, *rest):
         for batch, _speaker in loader:
             seen.append(batch)
-        return real(trainer, loader, device)
+        return real(trainer, loader, device, *rest)
 
     monkeypatch.setattr(train_mod, "val_epoch", spy)
     _run(corpus, sounds, tmp_path / "ck", *HOST_CHAIN, "--nEpoch", "1")

@@ -151,7 +151,7 @@ def test_train_main_on_a_flac_corpus(flac_corpus, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    [], ["--prng", "threefry"], ["--remat"], ["--steps_per_dispatch", "1"],
+    [], ["--prng", "threefry"], ["--remat"], ["--head_remat", "dots"],
     ["--host_prefetch", "0"], ["--head_remat"],
 ])
 def test_xla_only_flags_are_accepted(flags):
