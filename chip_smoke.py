@@ -165,7 +165,38 @@ Phases, each of which fails the run with a nonzero exit:
    `--CTC`: a frozen probe must launch `lstm_fwd` and no `lstm_bwd`, an
    unfrozen one both, the accuracy must lie in [0, 1] and the logs exist
    (`[probe]`); the phase's wall seconds on `[phase 7]`;
-8. print one `kernels` JSON line and, last, the `ok` line.
+8. the discrete-unit path on the default epoch's checkpoint (`run_units`),
+   each card run with the launch counts set to 0 just before and read just
+   after, none of which may launch `lstm_bwd`, InfoNCE, the encoder's or
+   (but `CPCModule`'s fp32 route) the FFN's kernels:
+   `cpc2_torch.clustering.clustering_script.main` at its defaults (-k 50,
+   --batchSizeGPU 50, --sizeWindow 10240) on the FLAC corpus, its 50 start
+   rows drawn from the features (`-n 0`), then KMEANS_ITERS iterations from
+   them twice on the card (`lstm_fwd` launched; the two bit for bit) and
+   once with `--device cpu`, seconds an iteration from each run's log
+   (`[units k-means]`); `--getDistanceEstimation`, which must end in a
+   clean `sys.exit()`, and `--DPMean` at the distances' median on the card
+   and the CPU, the same number of clusters (`[units dp-means]`). Both fits
+   record their features, and `audit_fit` holds the CPU to the card at
+   every iteration: from the card's centroids the CPU makes the card's
+   decisions but at near ties, and with them gives the card's next
+   centroids within 1e-4 of the largest; the last centroids of the two
+   fits agree within 1e-4 where the fits made the same decisions
+   throughout (a near tie parts their paths for good); `clustering_quantization.main` of the phone
+   corpus, batched and `--nobatch`, card against CPU: the same ids but at
+   near ties (two centroids within UNIT_GAP of the nearest squared
+   distance), counted (`[units quantization]`);
+   `eval.eval_ABX_clustering.main` with `--clustering` and `--quantized`,
+   which must launch the DTW kernel on its lane route (and `lstm_fwd`),
+   scores in [0, 1] and equal with the plain DTW (`[units abx]`);
+   `eval.build_zeroSpeech_features.main` with `--clusters` and with
+   `--dimReduction` (a PCA of `research.dim_reduction.main`), and
+   `CPCModule` on the checkpoint's model and criterion, which must launch
+   `ffn_fwd_fp32` and not `ffn_fwd`, card against CPU within UNIT_RTOL
+   (`[units export]`); the phase's wall seconds on `[phase 8]`;
+9. print one `kernels` JSON line (the `lstm_fwd`, `dtw` and
+   `ffn_fwd_fp32` rows with their launches on the unit path,
+   `launches_discrete_units`) and, last, the `ok` line.
 
 It exits nonzero, printing no result, when no CUDA card is available or
 when the `cpc2_torch` package is not beside it.
@@ -3284,6 +3315,642 @@ def run_probe(dev, work: str, checkpoint: str, probe: str) -> dict:
             "launches": {k: n for k, n in launches.items() if n}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the discrete-unit path (clustering, quantization, unit ABX, the
+# ZeroSpeech export and CPCModule)
+# ---------------------------------------------------------------------------
+
+# Kernels the unit path must not launch: it runs every model without
+# gradients, the encoder in cuDNN's fp32 route and no InfoNCE; `CPCModule`
+# alone runs the heads' FFNs, on their fp32 route.
+UNIT_MUST_NOT = ("lstm_bwd", "infonce_fwd", "infonce_bwd", "encoder_fwd",
+                 "encoder_bwd") + FFN_KERNELS
+KMEANS_ITERS = 5
+DPMEANS_ITERS = 2
+# A frame whose two nearest centroids' squared distances differ by less
+# than this share of the nearest one may take either id on the card and on
+# the CPU (fp32 sums in another order).
+UNIT_GAP = 1e-5
+UNIT_RTOL = 1e-3
+
+
+def seeded(main, argv):
+    """`main(argv)` with `random` and numpy's global state seeded: the
+    corpus's order and the uniform windows (and k-means' start rows) come
+    from them, so two runs draw the same."""
+    import random
+    random.seed(0)
+    np.random.seed(0)
+    return main(argv)
+
+
+def iteration_seconds(out: str) -> list:
+    """The fit's seconds an iteration, from its `training_logs.txt`."""
+    import re
+    with open(os.path.join(out, "training_logs.txt")) as fh:
+        return [float(m.group(1)) for m in re.finditer(
+            r"ITER \d+ done in ([0-9.]+) seconds", fh.read())]
+
+
+def centroids_of(path: str) -> torch.Tensor:
+    return torch.load(path, map_location="cpu",
+                      weights_only=False)["state_dict"]["Ck"]
+
+
+@contextlib.contextmanager
+def recorded_features(store: list):
+    """While open, the feature maker of `clustering_script.main` appends a
+    copy of each batch's features (on their own device) to `store`."""
+    from cpc2_torch.clustering import clustering_script
+    make = clustering_script._make_feature_fn
+
+    def recording(args, device):
+        maker = make(args, device)
+
+        def record(data):
+            out = maker(data)
+            store.append(out.detach().clone())
+            return out
+        return record
+
+    clustering_script._make_feature_fn = recording
+    try:
+        yield store
+    finally:
+        clustering_script._make_feature_fn = make
+
+
+def unit_pass(batches: list, mu: torch.Tensor, lam, device,
+              follow: list = None):
+    """One pass of k-means (`lam` None) or DP-means (penalty `lam`) over
+    recorded feature batches from the centroids `mu` (k, D), in the fit's
+    own arithmetic (`clustering._sq_distances`, `_one_hot_sums`, the sums
+    in the same order and the same division). Returns the next centroids
+    (k', D) on the CPU, each batch's decisions (the argmin ids before a
+    cluster opens, and the row that opens one or -1) and how many decisions
+    differ from `follow`'s. With `follow`, another run's decisions on the
+    same frames, each decision of this pass must be that run's or a near
+    tie (an id: `near_ties`; the row that opens a cluster: a farthest
+    distance within UNIT_GAP of the other row's, or of `lam`), and the sums
+    then take `follow`'s decisions: one run's arithmetic held to the other
+    run's choices."""
+    from cpc2_torch.clustering.clustering import (_one_hot_sums, _rows,
+                                                  _sq_distances)
+    mu = mu.to(device, torch.float32)
+    k, d = mu.shape
+    sums = torch.zeros((k, d), device=device)
+    counts = torch.zeros((k,), device=device,
+                         dtype=torch.float32 if lam is None else torch.float64)
+    decisions, differing = [], 0
+    for b, batch in enumerate(batches):
+        x = _rows(batch, d, device)
+        dist2 = _sq_distances(x, mu)
+        assign = dist2.argmin(dim=1)
+        opened = -1
+        if lam is not None:
+            dist = dist2.gather(1, assign[:, None])[:, 0].sqrt()
+            far, idx = torch.stack([dist.max().double(),
+                                    dist.argmax().double()]).tolist()
+            if far > lam:
+                opened = int(idx)
+        if follow is not None:
+            want, want_opened = follow[b]
+            want = want.to(device)
+            differ = (assign != want).nonzero()[:, 0]
+            if differ.numel():
+                tie = near_ties(x[differ].cpu().numpy(), mu.cpu().numpy())
+                if not tie.all():
+                    raise AssertionError(
+                        f"batch {b}: ids differ at rows "
+                        f"{differ[torch.as_tensor(~tie)][:10].tolist()} "
+                        f"that are no near ties")
+                differing += int(differ.numel())
+            if opened != want_opened:
+                # both open a cluster, at two rows: their farthest
+                # distances; one does and one does not: lambda
+                ref = (dist[want_opened].item()
+                       if min(opened, want_opened) >= 0 else lam)
+                if abs(far - ref) > UNIT_GAP * far:
+                    raise AssertionError(
+                        f"batch {b}: row {opened} opens a cluster, the other "
+                        f"run's {want_opened} (farthest {far}, lambda {lam})")
+                differing += 1
+            assign, opened = want.clone(), want_opened
+        decisions.append((assign.clone(), opened))
+        if opened >= 0:
+            mu = torch.cat([mu, x[opened:opened + 1]], dim=0)
+            sums = torch.cat([sums, sums.new_zeros((1, d))], dim=0)
+            counts = torch.cat([counts, counts.new_zeros(1)], dim=0)
+            assign[opened] = k
+            k += 1
+        s, c = _one_hot_sums(x, assign, k)
+        sums += s
+        counts += c.to(counts.dtype)
+    if lam is None:
+        nxt = sums / (counts[:, None] + 1e-8)
+    else:
+        nxt = (sums.double() / (counts + 1e-4)[:, None]).float()
+    return nxt.cpu(), decisions, differing
+
+
+def dp_start(batches: list) -> torch.Tensor:
+    """DP-means' start without `--load`: the mean row of the first pass's
+    features over 100, summed batch by batch as `fastDPMean` sums them."""
+    acc = None
+    for f in batches:
+        f = f.to(torch.float32)
+        acc = f if acc is None else acc + f
+    return acc.reshape(-1, acc.shape[-1]).mean(dim=0)[None, :] / 100
+
+
+def audit_fit(name: str, lam, start: dict, runs: dict) -> dict:
+    """Hold a card fit to a CPU fit iteration by iteration. `runs[tag]` has
+    the fit's recorded feature batches (`batches`, the start pass first for
+    DP-means) and its centroids after each iteration (`steps`); `start[tag]`
+    the centroids it began from. Each run's pass over its own batches from
+    its own centroids must give its next centroids bit for bit (the record
+    is the fit). From the card's centroids, the CPU's pass must make the
+    card's decisions but at near ties, and with the card's decisions give
+    the card's next centroids within 1e-4 of the largest (`compare`). Where
+    the two fits made the same decisions at every iteration, their last
+    centroids must agree within 1e-4; where a near tie parted them, their
+    paths differ from there on, and the error is reported, not held."""
+    iters = len(runs["card"]["steps"])
+    if iters == 0 or len(runs["cpu"]["steps"]) != iters:
+        raise AssertionError(f"{name}: iterations card {iters}, cpu "
+                             f"{len(runs['cpu']['steps'])}")
+    per_iter = {}
+    decisions = {}
+    for tag, run in runs.items():
+        batches = run["batches"]
+        if len(batches) % iters:
+            raise AssertionError(f"{name} {tag}: {len(batches)} batches "
+                                 f"for {iters} iterations")
+        per_iter[tag] = len(batches) // iters
+        dev = batches[0].device
+        prev, decisions[tag] = start[tag], []
+        for i in range(iters):
+            nb = per_iter[tag]
+            nxt, dec, _ = unit_pass(batches[i * nb:(i + 1) * nb], prev, lam,
+                                    dev)
+            if not torch.equal(nxt, run["steps"][i]):
+                raise AssertionError(f"{name} {tag}: the recorded pass "
+                                     f"{i + 1} is not the fit's")
+            decisions[tag].append(dec)
+            prev = run["steps"][i]
+    if per_iter["card"] != per_iter["cpu"]:
+        raise AssertionError(f"{name}: {per_iter} batches an iteration")
+    nb = per_iter["cpu"]
+    cpu_batches = runs["cpu"]["batches"]
+    errs, ties, parted = [], [], None
+    prev = start["card"]
+    for i in range(iters):
+        held, _, differing = unit_pass(cpu_batches[i * nb:(i + 1) * nb],
+                                       prev, lam, torch.device("cpu"),
+                                       follow=decisions["card"][i])
+        want = runs["card"]["steps"][i]
+        errs.append(compare(f"{name} iteration {i + 1} (cpu from the card's "
+                            f"centroids, the card's decisions)", [held],
+                            [want], rtol=1e-4))
+        ties.append(differing)
+        same = all(o_c == o_p and torch.equal(a_c.cpu(), a_p)
+                   for (a_c, o_c), (a_p, o_p) in zip(decisions["card"][i],
+                                                     decisions["cpu"][i]))
+        if parted is None and not same:
+            parted = i + 1
+        prev = want
+    last = {tag: run["steps"][-1] for tag, run in runs.items()}
+    if last["card"].shape != last["cpu"].shape:
+        end = None
+    elif parted is None:
+        end = compare(f"{name} centroids (card vs cpu)", [last["card"]],
+                      [last["cpu"]], rtol=1e-4)
+    else:
+        end = (last["card"].double() - last["cpu"].double()).abs().max().item()
+    return {"iteration_max_abs_err": errs, "near_tie_decisions": ties,
+            "parted_at": parted, "max_abs_err_vs_cpu": end}
+
+
+def audit_line(audit: dict) -> str:
+    errs = ", ".join(f"{e:.2e}" for e in audit["iteration_max_abs_err"])
+    end = audit["max_abs_err_vs_cpu"]
+    if audit["parted_at"] is None:
+        ends = (f"the same decisions at every iteration, last centroids "
+                f"card vs cpu max abs err {end:.2e}")
+    else:
+        ends = (f"a near tie parted the two fits at iteration "
+                f"{audit['parted_at']}, last centroids card vs cpu max abs "
+                f"err {end:.2e} (not held)")
+    return (f"each iteration, cpu from the card's centroids with its "
+            f"decisions, max abs err [{errs}], decisions at near ties "
+            f"{audit['near_tie_decisions']}; {ends}")
+
+
+def fit_steps(run_dir: str, iters: int) -> list:
+    """The centroids (k, D) after each of the fit's iterations (fewer than
+    `iters` where it converged before)."""
+    steps = []
+    for i in range(1, iters + 1):
+        path = os.path.join(run_dir, f"checkpoint_{i}.pt")
+        if not os.path.exists(path):
+            break
+        steps.append(centroids_of(path)[0])
+    return steps
+
+
+def unit_kmeans(work: str, checkpoint: str) -> dict:
+    """`clustering_script.main` at its defaults (-k 50, --batchSizeGPU 50,
+    --sizeWindow 10240) on the FLAC corpus: 50 start rows drawn from the
+    features (`-n 0`), then -n KMEANS_ITERS from them twice on the card
+    (bit for bit; the first with the launch counts set to 0 just before
+    and read just after, the second with its features recorded) and once
+    on the CPU (recorded), held to the card by `audit_fit`."""
+    from cpc2_torch.clustering import clustering_script
+    from cpc2_torch.ops import _build
+    db = os.path.join(work, "train_db")
+    out = os.path.join(work, "units")
+    seeded(clustering_script.main, [checkpoint, os.path.join(out, "start"),
+                                    db, "-n", "0"])
+    start = os.path.join(out, "start", "checkpoint_last.pt")
+    runs = {}
+    for tag, extra in (("card", []), ("card_again", []),
+                       ("cpu", ["--device", "cpu"])):
+        run_dir = os.path.join(out, f"kmeans_{tag}")
+        batches = []
+        record = (recorded_features(batches) if tag != "card"
+                  else contextlib.nullcontext())
+        _build.reset_launches()
+        t = time.perf_counter()
+        with record:
+            seeded(clustering_script.main, [
+                checkpoint, run_dir, db, "-n", str(KMEANS_ITERS), "--load",
+                start] + extra)
+        runs[tag] = {"s": time.perf_counter() - t,
+                     "launches": dict(_build.LAUNCHES),
+                     "iteration_s": iteration_seconds(run_dir),
+                     "centroids": centroids_of(os.path.join(
+                         run_dir, "checkpoint_last.pt")),
+                     "batches": batches,
+                     "steps": fit_steps(run_dir, KMEANS_ITERS)}
+    launches = runs["card"]["launches"]
+    check_launched("k-means", launches, ("lstm_fwd",))
+    ran = [k for k in UNIT_MUST_NOT if launches[k]]
+    if ran:
+        raise AssertionError(f"k-means launched {ran}")
+    if not torch.equal(runs["card"]["centroids"],
+                       runs["card_again"]["centroids"]):
+        raise AssertionError("k-means: two card runs differ")
+    ck0 = centroids_of(start)[0]
+    audit = audit_fit("k-means", None, {"card": ck0, "cpu": ck0},
+                      {"card": runs["card_again"], "cpu": runs["cpu"]})
+    return {"checkpoint": os.path.join(out, "kmeans_card",
+                                       "checkpoint_last.pt"),
+            "k": int(runs["card"]["centroids"].shape[1]),
+            "audit": audit,
+            "card_iteration_s": runs["card"]["iteration_s"],
+            "card_again_iteration_s": runs["card_again"]["iteration_s"],
+            "cpu_iteration_s": runs["cpu"]["iteration_s"],
+            "card_s": runs["card"]["s"], "cpu_s": runs["cpu"]["s"],
+            "launches": {k: n for k, n in launches.items() if n}}
+
+
+def unit_dpmeans(work: str, checkpoint: str) -> dict:
+    """`--getDistanceEstimation` on the card, which must end in a clean
+    `sys.exit()`; then `--DPMean -n DPMEANS_ITERS` with lambda the
+    distances' median, on the card and on the CPU, features recorded: the
+    same number of clusters, the fits held to each other by `audit_fit`."""
+    from cpc2_torch.clustering import clustering_script
+    db = os.path.join(work, "train_db")
+    est = os.path.join(work, "units", "estimate")
+    try:
+        seeded(clustering_script.main, [checkpoint, est, db,
+                                        "--getDistanceEstimation"])
+    except SystemExit as done:
+        if done.code not in (None, 0):
+            raise
+    else:
+        raise AssertionError("--getDistanceEstimation did not exit")
+    with open(os.path.join(est, "quantiles.json")) as fh:
+        deciles = {float(k): v for k, v in json.load(fh).items()}
+    lam = deciles[min(deciles, key=lambda q: abs(q - 0.5))]
+    runs, start = {}, {}
+    for tag, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        run_dir = os.path.join(work, "units", f"dpmeans_{tag}")
+        batches = []
+        t = time.perf_counter()
+        with recorded_features(batches):
+            seeded(clustering_script.main, [
+                checkpoint, run_dir, db, "--DPMean", "-l", repr(lam), "-n",
+                str(DPMEANS_ITERS)] + extra)
+        seconds = time.perf_counter() - t
+        steps = fit_steps(run_dir, DPMEANS_ITERS)
+        # the start pass, then one pass an iteration
+        nb = len(batches) // (len(steps) + 1)
+        start[tag] = dp_start(batches[:nb])
+        runs[tag] = {"s": seconds, "batches": batches[nb:], "steps": steps}
+    n = {tag: int(run["steps"][-1].shape[0]) for tag, run in runs.items()}
+    if n["card"] != n["cpu"] or n["card"] < 2:
+        raise AssertionError(f"DP-means clusters: card {n['card']}, cpu "
+                             f"{n['cpu']}")
+    audit = audit_fit("DP-means", lam, start, runs)
+    return {"lambda": lam, "clusters": n["card"], "audit": audit,
+            "card_s": runs["card"]["s"], "cpu_s": runs["cpu"]["s"]}
+
+
+def near_ties(feats: np.ndarray, ck: np.ndarray) -> np.ndarray:
+    """Per frame, whether its two nearest centroids' squared distances
+    (float64) lie within UNIT_GAP of the nearest."""
+    x = feats.reshape(-1, ck.shape[-1]).astype(np.float64)
+    c = ck.reshape(-1, ck.shape[-1]).astype(np.float64)
+    d = (x * x).sum(1)[:, None] - 2 * x @ c.T + (c * c).sum(1)[None]
+    d.sort(axis=1)
+    return d[:, 1] - d[:, 0] < UNIT_GAP * np.maximum(d[:, 0], 1e-12)
+
+
+def read_quantized(path: str) -> dict:
+    with open(path) as fh:
+        return {name: list(map(int, ids.split(","))) for name, ids in (
+            line.split("\t") for line in fh.read().splitlines())}
+
+
+def unit_quantization(dev, work: str, checkpoint: str, clusters: str,
+                      phones: str) -> dict:
+    """`clustering_quantization.main` of the phone corpus with the card's
+    k-means centroids, batched and `--nobatch`, on the card (launch counts
+    read) and on the CPU: the same ids but at frames whose two nearest
+    centroids are near ties (`near_ties`, from the card's features of the
+    same path)."""
+    from cpc2_torch.clustering import clustering_quantization as cq
+    from cpc2_torch.feature_loader import (FeatureModule,
+                                           build_feature_batch,
+                                           build_feature_files, load_model)
+    from cpc2_torch.ops import _build
+    ck = centroids_of(clusters).numpy()
+    paths = sorted(glob.glob(os.path.join(phones, "*", "*.wav")))
+    model = load_model([checkpoint])[0].to(dev)
+    result = {}
+    for mode, flags in (("batched", []), ("nobatch", ["--nobatch"])):
+        tables, seconds = {}, {}
+        for tag, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+            out = os.path.join(work, "units", f"quantized_{mode}_{tag}")
+            _build.reset_launches()
+            t = time.perf_counter()
+            cq.main([clusters, phones, out, "--file_extension", ".wav"]
+                    + flags + extra)
+            seconds[tag] = time.perf_counter() - t
+            if tag == "card":
+                launches = dict(_build.LAUNCHES)
+            tables[tag] = read_quantized(os.path.join(
+                out, "quantized_outputs.txt"))
+        check_launched(f"quantization {mode}", launches, ("lstm_fwd",))
+        ran = [k for k in UNIT_MUST_NOT if launches[k]]
+        if ran:
+            raise AssertionError(f"quantization {mode} launched {ran}")
+        if mode == "nobatch":
+            feats = build_feature_files(
+                FeatureModule(model, False, keep_hidden=True), paths,
+                strict=True, maxSizeSeq=10240)
+        else:
+            maker = FeatureModule(model, False)
+            feats = {p: build_feature_batch(maker, p, strict=True,
+                                            maxSizeSeq=10240, batch_size=8)
+                     for p in paths}
+        frames = differing = ties = 0
+        for p in paths:
+            name = os.path.splitext(os.path.basename(p))[0]
+            card = np.asarray(tables["card"][name])
+            cpu = np.asarray(tables["cpu"][name])
+            tie = near_ties(feats[p], ck)
+            if card.shape != cpu.shape or card.shape != tie.shape:
+                raise AssertionError(f"quantization {mode} {name}: frames "
+                                     f"{card.shape} {cpu.shape} {tie.shape}")
+            frames += card.size
+            ties += int(tie.sum())
+            differ = card != cpu
+            differing += int(differ.sum())
+            if (differ & ~tie).any():
+                raise AssertionError(
+                    f"quantization {mode} {name}: ids differ card vs cpu at "
+                    f"frames {np.flatnonzero(differ & ~tie)[:10]} that are "
+                    f"no near ties")
+        result[mode] = {"files": len(paths), "frames": frames,
+                        "differing": differing, "near_ties": ties,
+                        "card_s": seconds["card"], "cpu_s": seconds["cpu"],
+                        "launches": {k: n for k, n in launches.items()
+                                     if n},
+                        "table": os.path.join(
+                            work, "units", f"quantized_{mode}_card",
+                            "quantized_outputs.txt")}
+    return result
+
+
+def unit_abx(work: str, clusters: str, table: str, phones: str,
+             item: str) -> dict:
+    """`eval_ABX_clustering.main` on the phone corpus with `--clustering`
+    (the card's k-means checkpoint) and `--quantized` (the card's
+    `--nobatch` table), on the card with the DTW kernel (launch counts
+    read: the lane route's DTW, and for `--clustering` `lstm_fwd`) and
+    again with the plain DTW: the same scores, in [0, 1]."""
+    import random
+
+    from cpc2_torch.eval import eval_ABX_clustering as abx_cl
+    from cpc2_torch.eval.abx import abx_group_computation as abx_g
+    from cpc2_torch.ops import _build
+    from cpc2_torch.ops.dtw import dtw_normalized, dtw_normalized_plain
+    base = ["--path_audio_data", phones, "--path_abx_item", item,
+            "--file-extension", ".wav"]
+    out = {}
+    for source, flags, kernels in (
+            ("clustering", ["--clustering", clusters],
+             ("dtw", "dtw_lanes", "lstm_fwd")),
+            ("quantized", ["--quantized", table], ("dtw", "dtw_lanes"))):
+        scores = {}
+        for dtw in ("kernel", "plain"):
+            abx_g.dtw_normalized = (dtw_normalized if dtw == "kernel"
+                                    else dtw_normalized_plain)
+            _build.reset_launches()
+            random.seed(1)
+            t = time.perf_counter()
+            try:
+                scores[dtw] = abx_cl.main(flags + base)
+            finally:
+                abx_g.dtw_normalized = dtw_normalized
+            if dtw == "kernel":
+                seconds = time.perf_counter() - t
+                launches = dict(_build.LAUNCHES)
+        check_launched(f"unit ABX {source}", launches, kernels)
+        ran = [k for k in UNIT_MUST_NOT if launches[k]]
+        if ran:
+            raise AssertionError(f"unit ABX {source} launched {ran}")
+        if scores["kernel"] != scores["plain"]:
+            raise AssertionError(f"unit ABX {source}: the DTW kernel "
+                                 f"{scores['kernel']} vs the plain DTW "
+                                 f"{scores['plain']}")
+        for mode in ("within", "across"):
+            if not 0.0 <= scores["kernel"].get(mode, math.nan) <= 1.0:
+                raise AssertionError(f"unit ABX {source} {mode}: "
+                                     f"{scores['kernel'].get(mode)}")
+        out[source] = {"scores": scores["kernel"], "s": seconds,
+                       "launches": {k: n for k, n in launches.items()
+                                    if n}}
+    return out
+
+
+def unit_export(dev, work: str, checkpoint: str, clusters: str,
+                phones: str) -> dict:
+    """`build_zeroSpeech_features.main` of the phone corpus as npy with
+    `--clusters` (the card's k-means centroids) and with `--dimReduction`
+    (a PCA that the port's `dim_reduction.main` builds on the card), on
+    the card and on the CPU (UNIT_RTOL); then `CPCModule` on the default
+    checkpoint's model and criterion at 8 x 20,480 samples, card (launch
+    counts read: the fp32 FFN's, not the bf16 one's) against CPU."""
+    from cpc2_torch.eval import build_zeroSpeech_features as zs
+    from cpc2_torch.feature_loader import (CPCModule, CriterionWrapper,
+                                           load_model, load_state)
+    from cpc2_torch.io.checkpoint import (get_checkpoint_data,
+                                          load_torch_checkpoint)
+    from cpc2_torch.ops import _build
+    from cpc2_torch.research import dim_reduction
+    from cpc2_torch.train import get_criterion
+    pca = os.path.join(work, "units", "pca.pt")
+    t = time.perf_counter()
+    seeded(dim_reduction.main, [checkpoint, pca, "--pathDB", phones,
+                                "--extension", ".wav", "--recursionLevel",
+                                "1", "--mode", "PCA"])
+    result = {"pca_s": time.perf_counter() - t}
+    for head, flags in (("clusters", ["--clusters", clusters]),
+                        ("dimReduction", ["--dimReduction", pca])):
+        outs, seconds = {}, {}
+        for tag, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+            out = os.path.join(work, "units", f"zs_{head}_{tag}")
+            t = time.perf_counter()
+            zs.main([phones, out, checkpoint, "--format", "npy"] + flags
+                    + extra)
+            seconds[tag] = time.perf_counter() - t
+            outs[tag] = {os.path.basename(p): np.load(p) for p in
+                         sorted(glob.glob(os.path.join(out, "*.npy")))}
+        if sorted(outs["card"]) != sorted(outs["cpu"]) or not outs["card"]:
+            raise AssertionError(f"export {head}: files differ")
+        err = compare(f"export {head} (card vs cpu)",
+                      [torch.from_numpy(outs["card"][k])
+                       for k in sorted(outs["card"])],
+                      [torch.from_numpy(outs["cpu"][k])
+                       for k in sorted(outs["cpu"])], rtol=UNIT_RTOL)
+        result[head] = {"files": len(outs["card"]), "max_abs_err_vs_cpu": err,
+                        "dims": int(next(iter(outs["card"].values()))
+                                    .shape[1]),
+                        "card_s": seconds["card"], "cpu_s": seconds["cpu"]}
+
+    args = get_checkpoint_data(os.path.dirname(checkpoint))[2]
+
+    def cpc_module(device):
+        crit = get_criterion(args)
+        load_state(crit, load_torch_checkpoint(checkpoint)["cpcCriterion"],
+                   "cpcCriterion")
+        return CPCModule(load_model([checkpoint])[0].to(device),
+                         CriterionWrapper(crit.to(device)))
+    x = (0.1 * np.random.RandomState(4).randn(8, 20480)).astype(np.float32)
+    card_module = cpc_module(dev)
+    card_module((x, None))
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t = time.perf_counter()
+    scores = card_module((x, None))
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t) * 1e3
+    launches = dict(_build.LAUNCHES)
+    check_launched("CPCModule", launches, ("ffn_fwd_fp32", "lstm_fwd"))
+    ran = [k for k in ("ffn_fwd", "ffn_bwd", "ffn_bwd_fp32", "lstm_bwd")
+           if launches[k]]
+    if ran:
+        raise AssertionError(f"CPCModule launched {ran}")
+    want = cpc_module("cpu")((x, None))
+    if scores.shape != (8, 20480 // 160 - args.nPredicts):
+        raise AssertionError(f"CPCModule: shape {tuple(scores.shape)}")
+    result["cpc_module"] = {
+        "max_abs_err_vs_cpu": compare("CPCModule (card vs cpu)",
+                                      [scores.cpu()], [want],
+                                      rtol=UNIT_RTOL),
+        "card_ms": card_ms,
+        "launches": {k: n for k, n in launches.items() if n}}
+    return result
+
+
+def log_units(units: dict, card: str) -> None:
+    k, d, q, a, e = (units[key] for key in ("kmeans", "dpmeans",
+                                            "quantization", "abx", "export"))
+    log(f"[units k-means] {card}: -k {k['k']} --batchSizeGPU 50 "
+        f"--sizeWindow 10240 -n {KMEANS_ITERS} on train_db, s an "
+        f"iteration: card {k['card_iteration_s']}, again "
+        f"{k['card_again_iteration_s']}, cpu {k['cpu_iteration_s']}; "
+        f"the two card runs bit for bit; {audit_line(k['audit'])}; "
+        f"launches {k['launches']}")
+    log(f"[units dp-means] lambda {d['lambda']:.4f} (the distances' "
+        f"median), -n {DPMEANS_ITERS}: {d['clusters']} clusters on the card "
+        f"and the cpu; {audit_line(d['audit'])}; card {d['card_s']:.1f} s, "
+        f"cpu {d['cpu_s']:.1f} s")
+    log("[units quantization] the phone corpus, card vs cpu: " + "; ".join(
+        f"{mode} {r['files']} files, {r['frames']} frames, "
+        f"{r['differing']} ids differ, {r['near_ties']} near ties (gap "
+        f"under {UNIT_GAP} of the nearest), card {r['card_s']:.2f} s, cpu "
+        f"{r['cpu_s']:.2f} s, launches {r['launches']}"
+        for mode, r in q.items()))
+    log("[units abx] the phone corpus, the same scores with the DTW kernel "
+        "and the plain DTW: " + "; ".join(
+            f"{source} {r['scores']} in {r['s']:.2f} s, launches "
+            f"{r['launches']}" for source, r in a.items()))
+    log(f"[units export] npy of the phone corpus, card vs cpu: " + "; ".join(
+        f"{head} {e[head]['dims']} dims, max abs err "
+        f"{e[head]['max_abs_err_vs_cpu']:.2e}, card {e[head]['card_s']:.2f} "
+        f"s, cpu {e[head]['cpu_s']:.2f} s" for head in ("clusters",
+                                                        "dimReduction"))
+        + f" (PCA built in {e['pca_s']:.2f} s); CPCModule at 8 x 20,480: "
+        f"max abs err {e['cpc_module']['max_abs_err_vs_cpu']:.2e}, "
+        f"{e['cpc_module']['card_ms']:.3f} ms (host clock), launches "
+        f"{e['cpc_module']['launches']}")
+
+
+def run_units(dev, work: str, checkpoint: str, phones: str,
+              item: str) -> dict:
+    """Phase 8 on the default epoch's checkpoint: k-means, DP-means, the
+    quantization, unit ABX and the export (`unit_*`)."""
+    units = {"kmeans": unit_kmeans(work, checkpoint)}
+    clusters = units["kmeans"]["checkpoint"]
+    units["dpmeans"] = unit_dpmeans(work, checkpoint)
+    units["quantization"] = unit_quantization(dev, work, checkpoint,
+                                              clusters, phones)
+    units["abx"] = unit_abx(work, clusters,
+                            units["quantization"]["nobatch"]["table"],
+                            phones, item)
+    units["export"] = unit_export(dev, work, checkpoint, clusters, phones)
+    return units
+
+
+def unit_launches(units: dict) -> dict:
+    """This path's launches of `lstm_fwd`, `dtw` and `ffn_fwd_fp32` for the
+    kernel table: per k-means iteration, per quantized corpus, per unit-ABX
+    pass and per `CPCModule` call."""
+    k = units["kmeans"]["launches"]
+    q = units["quantization"]
+    a = units["abx"]
+    c = units["export"]["cpc_module"]["launches"]
+    return {
+        "lstm_fwd": {"kmeans_per_iteration": k.get("lstm_fwd", 0)
+                     / KMEANS_ITERS,
+                     "quantization_batched": q["batched"]["launches"].get(
+                         "lstm_fwd", 0),
+                     "quantization_nobatch": q["nobatch"]["launches"].get(
+                         "lstm_fwd", 0),
+                     "unit_abx_clustering": a["clustering"]["launches"].get(
+                         "lstm_fwd", 0),
+                     "cpc_module": c.get("lstm_fwd", 0)},
+        "dtw": {"unit_abx_clustering": a["clustering"]["launches"].get(
+                    "dtw", 0),
+                "unit_abx_quantized": a["quantized"]["launches"].get(
+                    "dtw", 0)},
+        "ffn_fwd_fp32": {"cpc_module": c.get("ffn_fwd_fp32", 0)}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3624,6 +4291,16 @@ def main() -> int:
         log(f"[phase 7] {time.perf_counter() - phase7:.1f} s, the whole "
             f"run so far {time.perf_counter() - t0:.1f} s of the 1,200 s "
             f"limit")
+
+        # phase 8: the discrete-unit path
+        phase8 = time.perf_counter()
+        units = run_units(dev, work, record["checkpoint"],
+                          os.path.join(work, "phones"),
+                          os.path.join(work, "phones.item"))
+        log_units(units, card)
+        log(f"[phase 8] {time.perf_counter() - phase8:.1f} s, the whole "
+            f"run so far {time.perf_counter() - t0:.1f} s of the 1,200 s "
+            f"limit")
     # each kernel's launches on its own path
     for k in kernels:
         path = (abx if k["name"] == "dtw" else records["fused"]
@@ -3631,6 +4308,10 @@ def main() -> int:
                 if k["name"] in FP32_FFN else records["wide"]
                 if k["name"] in LSTM_GRID else record)
         k["launches"] = path["launches"][k["name"]]
+    for name, by_path in unit_launches(units).items():
+        for k in kernels:
+            if k["name"] == name:
+                k["launches_discrete_units"] = by_path
 
     def epoch(rec):
         return {"steps": len(rec["step_ms"]),
@@ -3680,6 +4361,7 @@ def main() -> int:
         "supervised_step_max_abs_err": sup_steps,
         "supervised": supervised,
         "probe": probes,
+        "units": units,
         "default_route_ms": yardsticks,
         "events_ms": events,
         "lstm": details,

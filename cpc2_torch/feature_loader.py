@@ -7,8 +7,12 @@ the port or the JAX package wrote it; several checkpoints make one
 `ConcatenatedModel`. `FeatureModule` turns audio into the
 context network's (or the encoder's) features on the model's device,
 under `torch.no_grad()` and in full fp32. `build_feature` extracts one
-file in chunks; `build_feature_files` batches files of equal length and
-carries the context network's state across their chunks.
+file in chunks; `build_feature_batch` runs a file's chunks as one batch,
+with no state carried; `build_feature_files` batches files of equal length
+and carries the context network's state across their chunks.
+`ModelPhoneCombined`, `ModelClusterCombined` and `CPCModule` put a phone
+classifier, a k-means quantizer or the CPC criterion's scores on top of a
+feature maker.
 """
 
 from __future__ import annotations
@@ -155,6 +159,11 @@ class FeatureModule:
         self.hidden = None
         self.device = next(model.parameters()).device
 
+    @property
+    def out_feature_dim(self) -> int:
+        return (self.model.dim_encoded if self.get_encoded
+                else self.model.dim_context)
+
     def get_downsampling_factor(self) -> int:
         return DOWNSAMPLING
 
@@ -165,11 +174,13 @@ class FeatureModule:
 
     def __call__(self, data) -> torch.Tensor:
         """data: (audio (B, T), label); audio may also be (B, 1, T) or
-        (B, 1, 1, T). Returns (B, frames, D) on the model's device."""
+        (B, V, 1, T), of which the first view (V = 2: a training batch's
+        past) is taken, as numpy or a tensor. Returns (B, frames, D) on the
+        model's device."""
         batch_audio, _label = data
-        x = torch.as_tensor(np.ascontiguousarray(batch_audio,
-                                                 dtype=np.float32))
-        x = x.reshape(x.shape[0], x.shape[-1]).to(self.device)
+        x = _as_tensor(batch_audio).to(self.device, torch.float32)
+        while x.ndim > 2:
+            x = x[:, 0]
         with torch.no_grad(), full_fp32():
             c, e, h = self.model(x, self.hidden)
         if self.keep_hidden:
@@ -189,10 +200,23 @@ def seqNormalization(out: torch.Tensor) -> torch.Tensor:
     return (out - mean) / torch.sqrt(var + 1e-08)
 
 
+def _as_tensor(x) -> torch.Tensor:
+    """A feature maker's output as a tensor where it lies (numpy on the
+    CPU)."""
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(
+        np.asarray(x))
+
+
 def _downsampling(feature_maker) -> int:
     return (feature_maker.get_downsampling_factor()
             if hasattr(feature_maker, 'get_downsampling_factor')
             else DOWNSAMPLING)
+
+
+def _run(feature_maker: Callable, piece: np.ndarray,
+         seqNorm: bool) -> torch.Tensor:
+    feats = _as_tensor(feature_maker((piece, None)))
+    return seqNormalization(feats) if seqNorm else feats
 
 
 def _chunked(feature_maker: Callable, audio: np.ndarray, maxSizeSeq: int,
@@ -203,19 +227,16 @@ def _chunked(feature_maker: Callable, audio: np.ndarray, maxSizeSeq: int,
     size_seq = audio.shape[-1]
     chunks = []
     start = 0
-
-    def run(piece):
-        feats = feature_maker((piece, None))
-        return seqNormalization(feats) if seqNorm else feats
-
     while start < size_seq:
         if strict and start + maxSizeSeq > size_seq:
             break
-        chunks.append(run(audio[:, start:min(size_seq, start + maxSizeSeq)]))
+        chunks.append(_run(feature_maker, audio[:, start:min(
+            size_seq, start + maxSizeSeq)], seqNorm))
         start += maxSizeSeq
     if strict and start < size_seq:
         delta = (size_seq - start) // _downsampling(feature_maker)
-        chunks.append(run(audio[:, -maxSizeSeq:])[:, -delta:])
+        chunks.append(_run(feature_maker, audio[:, -maxSizeSeq:],
+                           seqNorm)[:, -delta:])
     return torch.cat(chunks, dim=1) if len(chunks) > 1 else chunks[0]
 
 
@@ -234,6 +255,43 @@ def build_feature(feature_maker: Callable, seq_path: str, strict: bool = False,
 
 
 buildFeature = build_feature
+
+
+def build_feature_batch(feature_maker: Callable, seq_path: str,
+                        strict: bool = False, maxSizeSeq: int = 8000,
+                        seqNorm: bool = False, batch_size: int = 8
+                        ) -> np.ndarray:
+    """Whole-file features (1, frames, D) as numpy, the file's whole chunks
+    of `maxSizeSeq` samples run `batch_size` at a time as one batch, each
+    chunk on its own (no state carried from one to the next), then the
+    remainder (the last `maxSizeSeq` samples' final frames when `strict`)
+    (reference `feature_loader.py:370-433`)."""
+    seq, _sr = load_audio(seq_path)
+    seq = np.asarray(seq, dtype=np.float32)
+    size_seq = seq.shape[-1]
+    n_chunks = size_seq // maxSizeSeq
+    n_batches = -(-n_chunks // batch_size)
+    out = []
+    for batch_idx in range(n_batches):
+        start = batch_idx * batch_size * maxSizeSeq
+        end = min((batch_idx + 1) * batch_size * maxSizeSeq,
+                  maxSizeSeq * n_chunks)
+        feats = _run(feature_maker, seq[start:end].reshape(-1, maxSizeSeq),
+                     seqNorm)
+        # the chunks' frames one after the other along time
+        out.append(feats.reshape(1, -1, feats.shape[-1]))
+    remainder = size_seq % maxSizeSeq
+    ds = _downsampling(feature_maker)
+    if remainder >= ds:
+        if strict:
+            out.append(_run(feature_maker, seq[-maxSizeSeq:][None],
+                            seqNorm)[:, -(remainder // ds):])
+        else:
+            out.append(_run(feature_maker, seq[-remainder:][None], seqNorm))
+    return torch.cat(out, dim=1).cpu().numpy()
+
+
+buildFeature_batch = build_feature_batch
 
 
 def build_feature_files(feature_maker: Callable, seq_paths,
@@ -282,3 +340,141 @@ def build_feature_files(feature_maker: Callable, seq_paths,
 
 
 buildFeature_files = build_feature_files
+
+
+# ---------------------------------------------------------------------------
+# Combined feature makers (counterparts of `cpc2_tpu/feature_loader.py:
+# 583-714`, reference `feature_loader.py:57-173`)
+# ---------------------------------------------------------------------------
+
+def to_one_hot(input_vector: torch.Tensor, n_items: int) -> torch.Tensor:
+    """(B, S) int -> (B, S, n_items) int32 one-hot
+    (reference `feature_loader.py:307-313`)."""
+    return torch.nn.functional.one_hot(input_vector.long(),
+                                       n_items).to(torch.int32)
+
+
+toOneHot = to_one_hot
+
+
+class CriterionWrapper:
+    """A criterion module exposing `get_prediction`, run without gradients
+    and in full fp32 (the JAX package's wrapper holds a flax module and its
+    parameters)."""
+
+    def __init__(self, module: nn.Module):
+        self.module = module.eval()
+
+    def to(self, device) -> "CriterionWrapper":
+        self.module.to(device)
+        return self
+
+    def get_prediction(self, c_feature: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad(), full_fp32():
+            return self.module.get_prediction(c_feature)
+
+
+def load_supervised_criterion(path_checkpoint: str):
+    """Reference `loadSupervisedCriterion` (`feature_loader.py:159-173`):
+    the phone classifier of a `--supervised --pathPhone` run, built from
+    its saved flags (`n_phones` from `--pathPhone`'s labels) and loaded
+    from the checkpoint's `cpcCriterion`, on the CPU. Returns
+    (CriterionWrapper, n_phones)."""
+    from .data.corpus import parse_seq_labels
+    from .losses import PhoneCriterion
+    *_, args = get_checkpoint_data(os.path.dirname(path_checkpoint))
+    _, n_phones = parse_seq_labels(args.pathPhone)
+    criterion = PhoneCriterion(args.hiddenGar, args.hiddenEncoder, n_phones,
+                               on_encoder=args.onEncoder,
+                               n_layers=getattr(args, 'nLevelsPhone', 1))
+    load_state(criterion, load_torch_checkpoint(path_checkpoint)[
+        "cpcCriterion"], "cpcCriterion")
+    return CriterionWrapper(criterion), n_phones
+
+
+loadSupervisedCriterion = load_supervised_criterion
+
+
+class ModelPhoneCombined:
+    """Feature maker + phone classifier: per frame the phones' softmax, or
+    with `one_hot` the argmax's one-hot (reference
+    `feature_loader.py:85-115`)."""
+
+    def __init__(self, model: Callable, criterion: CriterionWrapper,
+                 one_hot: bool):
+        self.model = model
+        self.criterion = criterion
+        self.oneHot = one_hot
+
+    def get_downsampling_factor(self) -> int:
+        return self.model.get_downsampling_factor()
+
+    getDownsamplingFactor = get_downsampling_factor
+
+    def __call__(self, data) -> torch.Tensor:
+        pred = self.criterion.get_prediction(_as_tensor(self.model(data)))
+        if self.oneHot:
+            return to_one_hot(pred.argmax(dim=2), pred.shape[2])
+        return torch.softmax(pred, dim=2)
+
+
+class ModelClusterCombined:
+    """Feature maker + k-means quantizer: per frame the nearest centroid as
+    a one-hot (`oneHot`) or an id (`int`), or the softmax of the negated
+    squared distances (`softmax`) (reference `feature_loader.py:118-147`)."""
+
+    def __init__(self, model: Callable, cluster: nn.Module, nk: int,
+                 out_format: str):
+        if out_format not in ['oneHot', 'int', 'softmax']:
+            raise ValueError(f'Invalid output format {out_format}')
+        self.model = model
+        self.cluster = cluster
+        self.nk = nk
+        self.outFormat = out_format
+
+    def get_downsampling_factor(self) -> int:
+        return self.model.get_downsampling_factor()
+
+    getDownsamplingFactor = get_downsampling_factor
+
+    def __call__(self, data) -> torch.Tensor:
+        dist = self.cluster(_as_tensor(self.model(data)))
+        if self.outFormat == 'oneHot':
+            return to_one_hot(dist.argmin(dim=2), self.nk)
+        if self.outFormat == 'int':
+            return dist.argmin(dim=2)
+        return torch.softmax(-dist, dim=2)
+
+
+class CPCModule:
+    """The CPC criterion's positive scores as features: for each window
+    frame the `n_pred`-th head's score, softmaxed over the window unless
+    `main_distance_only` (reference `feature_loader.py:57-82`). The model
+    and the criterion run on the model's device in evaluation mode, without
+    gradients and in full fp32, so the heads' FFNs take their fp32 route."""
+
+    def __init__(self, model: nn.Module, criterion_wrapper: CriterionWrapper,
+                 main_distance_only: bool = False, n_pred: int = -1):
+        self.model = model.eval()
+        self.criterion = criterion_wrapper
+        self.n_pred = n_pred
+        self.main_distance_only = main_distance_only
+        self.device = next(model.parameters()).device
+
+    def get_downsampling_factor(self) -> int:
+        return DOWNSAMPLING
+
+    getDownsamplingFactor = get_downsampling_factor
+
+    def __call__(self, data) -> torch.Tensor:
+        batch_audio, _label = data
+        x = _as_tensor(batch_audio).to(self.device, torch.float32)
+        if x.ndim >= 3:
+            x = x.reshape(x.shape[0], -1)
+        with torch.no_grad(), full_fp32():
+            c, e, _h = self.model(x)
+            distances = self.criterion.module.cosine_distances(c, e)
+        preds = distances[:, self.n_pred]                    # (B, W)
+        if self.main_distance_only:
+            return preds
+        return torch.softmax(preds, dim=1)

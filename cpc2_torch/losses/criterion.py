@@ -108,9 +108,7 @@ class CPCUnsupervisedCriterion(nn.Module):
                 raise ValueError("negative_indices must lie in [0, B*S)")
         neg_idx_wn = neg_idx.transpose(1, 2).contiguous()     # (B, W, N)
 
-        pos_z = torch.stack([encoded_data[:, k:k + w]
-                             for k in range(1, k_p + 1)], dim=1)
-        pos = (preds * pos_z).sum(dim=-1) / d                 # (B, K, W)
+        pos = self._positive_scores(preds, encoded_data, w)  # (B, K, W)
         z_flat = encoded_data.reshape(b * s, d)
         neg = negative_scores(preds, z_flat, neg_idx_wn) / d  # (B, K, W, N)
 
@@ -128,6 +126,32 @@ class CPCUnsupervisedCriterion(nn.Module):
         out_losses = losses.mean(dim=(0, 2))[self.n_skipped:][None, :]
         out_acc = correct.float().mean(dim=(0, 2))[self.n_skipped:][None, :]
         return out_losses, out_acc
+
+    def _positive_scores(self, preds: Tensor, encoded_data: Tensor,
+                         w: int) -> Tensor:
+        """pos[b, k, w] = preds[b, k, w] . z[b, w + k + 1] / D, the one
+        formula of the loss and of `cosine_distances`."""
+        pos_z = torch.stack([encoded_data[:, k:k + w]
+                             for k in range(1, self.n_predicts + 1)], dim=1)
+        return (preds * pos_z).sum(dim=-1) / encoded_data.shape[-1]
+
+    def cosine_distances(self, c_feature: Tensor,
+                         encoded_data: Tensor) -> Tensor:
+        """The positives' scores alone, (B, K, W), the heads run without
+        dropout whatever the module's mode (counterpart of
+        `cpc2_tpu/losses/criterion.py:551-558`, reference
+        `criterion.py:304-327`)."""
+        w = c_feature.shape[1] - self.n_predicts
+        training = self.training
+        self.eval()
+        try:
+            preds = self.wPrediction(c_feature[:, :w])
+        finally:
+            self.train(training)
+        return self._positive_scores(preds, encoded_data, w)
+
+    # reference-spelled alias (`criterion.py:304`)
+    getCosineDistances = cosine_distances
 
 
 # ---------------------------------------------------------------------------

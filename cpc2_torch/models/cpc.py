@@ -29,6 +29,13 @@ class CPCModel(nn.Module):
         return self.gEncoder.size_hidden
 
     @property
+    def dim_context(self) -> int:
+        """The context's width: the recurrent network's, else (a transformer
+        or no context network) the encodings'."""
+        net = getattr(self.gAR, 'baseNet', None)
+        return net.dim_hidden if net is not None else self.dim_encoded
+
+    @property
     def keeps_hidden(self) -> bool:
         """Whether training carries the context network's state from batch
         to batch (the reference's `keepHidden`)."""
@@ -58,6 +65,10 @@ class ConcatenatedModel(nn.Module):
     @property
     def dim_encoded(self) -> int:
         return sum(m.dim_encoded for m in self.models)
+
+    @property
+    def dim_context(self) -> int:
+        return sum(m.dim_context for m in self.models)
 
     @property
     def keeps_hidden(self) -> bool:

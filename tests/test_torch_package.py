@@ -1,13 +1,16 @@
 """The port's package boundaries, flags and trainer on the CPU: importing it
-(every module, the supervised criteria's `losses/seq_alignment.py` and the
-probe's `eval/linear_separability.py` among them) pulls in nothing of JAX
-or the JAX package and builds nothing, unported flags raise and ported ones
+(every module, the supervised criteria's `losses/seq_alignment.py`, the
+probe's `eval/linear_separability.py`, the clustering, dim-reduction,
+unit-ABX and ZeroSpeech-export modules among them) pulls in nothing of JAX
+or the JAX package and builds nothing, the discrete-unit CLIs take the JAX
+package's flags plus `--device`, unported flags raise and ported ones
 (augmentation, `--supervised`) parse, `--device cuda` without a card raises,
 and
 `python -m cpc2_torch.train` trains on a wav corpus with `--device cpu`,
 and on a FLAC corpus at its own `--file_extension`.
 """
 
+import argparse
 import os
 import pkgutil
 import subprocess
@@ -49,7 +52,81 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
     assert out.stdout.startswith("ok")
     assert len(_modules()) >= 20
     assert {"cpc2_torch.losses.seq_alignment",
-            "cpc2_torch.eval.linear_separability"} <= set(_modules())
+            "cpc2_torch.eval.linear_separability",
+            "cpc2_torch.clustering.clustering",
+            "cpc2_torch.clustering.clustering_script",
+            "cpc2_torch.clustering.clustering_quantization",
+            "cpc2_torch.research.dim_reduction",
+            "cpc2_torch.eval.eval_ABX_clustering",
+            "cpc2_torch.eval.build_zeroSpeech_features"} <= set(_modules())
+
+
+class _Parsed(Exception):
+    pass
+
+
+def _parser(entry, argv):
+    """The `ArgumentParser` that `entry(argv)` parses with, caught at its
+    `parse_args`."""
+    real = argparse.ArgumentParser.parse_args
+
+    def spy(self, args=None, namespace=None):
+        raise _Parsed(self)
+    argparse.ArgumentParser.parse_args = spy
+    try:
+        entry(argv)
+    except _Parsed as caught:
+        return caught.args[0]
+    finally:
+        argparse.ArgumentParser.parse_args = real
+    raise AssertionError(f"{entry} parsed nothing")
+
+
+def _flags(parser):
+    """Each argument's names, default, choices, nargs, type, constant and
+    whether it is required."""
+    return {(tuple(a.option_strings) or (a.dest,)): (
+        a.dest, a.default, a.choices, a.nargs, a.const, a.required,
+        getattr(a.type, "__name__", a.type)) for a in parser._actions
+        if not isinstance(a, argparse._HelpAction)}
+
+
+def _cli_entries():
+    from cpc2_torch.clustering import (clustering_quantization,
+                                       clustering_script)
+    from cpc2_torch.eval import build_zeroSpeech_features, eval_ABX_clustering
+    from cpc2_torch.research import dim_reduction
+    from cpc2_tpu.clustering import clustering_quantization as jax_quant
+    from cpc2_tpu.clustering import clustering_script as jax_script
+    from cpc2_tpu.eval import build_zeroSpeech_features as jax_export
+    from cpc2_tpu.eval import eval_ABX_clustering as jax_abx
+    from cpc2_tpu.research import dim_reduction as jax_dr
+    return {"clustering_script": (clustering_script.parseArgs,
+                                  jax_script.parseArgs),
+            "clustering_quantization": (clustering_quantization.parseArgs,
+                                        jax_quant.parseArgs),
+            "eval_ABX_clustering": (eval_ABX_clustering.parse_args,
+                                    jax_abx.parse_args),
+            "build_zeroSpeech_features": (
+                build_zeroSpeech_features.parse_export_args,
+                jax_export.parse_export_args),
+            "dim_reduction": (dim_reduction.parse_args, jax_dr.main)}
+
+
+@pytest.mark.parametrize("cli", ["clustering_script",
+                                 "clustering_quantization",
+                                 "eval_ABX_clustering",
+                                 "build_zeroSpeech_features",
+                                 "dim_reduction"])
+def test_cli_flags_match_jax(cli):
+    """The discrete-unit CLIs take the JAX package's flags name for name,
+    with its defaults, choices and nargs, and `--device` besides (default
+    cuda)."""
+    port, jax_entry = _cli_entries()[cli]
+    got, want = _flags(_parser(port, [])), _flags(_parser(jax_entry, []))
+    device = got.pop(("--device",))
+    assert device[1] == "cuda" and device[2] == ["cuda", "cpu"]
+    assert got == want
 
 
 BASE = ["--pathDB", "db", "--file_extension", ".wav"]
