@@ -194,9 +194,30 @@ Phases, each of which fails the run with a nonzero exit:
    `CPCModule` on the checkpoint's model and criterion, which must launch
    `ffn_fwd_fp32` and not `ffn_fwd`, card against CPU within UNIT_RTOL
    (`[units export]`); the phase's wall seconds on `[phase 8]`;
-9. print one `kernels` JSON line (the `lstm_fwd`, `dtw` and
+9. Common Voices CTC phone recognition and PER, the hub entry and the
+   host DTW on the default epoch's checkpoint (`run_common_voices`): the
+   host DTW (`ops/dtw_host.py`) bit for bit the DTW kernel on one ABX
+   flush (`[dtw host]`); `fused_lstm`'s resident route at (8, 1,000, 256),
+   a batch of 10 s utterances, against `lstm_plain` (`[cv lstm]`); a
+   synthetic Common Voice-like corpus (`write_cv_corpus`: 40 training WAV
+   utterances of 2-10 s, 4 validation ones of 2-6 s, 12 phones a second
+   from 40); one `CVSteps` step card against CPU, frozen with `--LSTM
+   --seqNorm` and unfrozen, the loss and gradients at CTC_RTOL and the
+   parameters after the step at CV_PARAM_NORM_TOL (`[cv step ...]`);
+   `common_voices_eval.main train` for one epoch frozen with `--LSTM
+   --seqNorm` and unfrozen with `--LSTM`, every training and validation
+   step launching exactly its LSTM kernels (`CV_STEP_LAUNCHES`), and `per`
+   on the frozen run's checkpoint on the card and the CPU, the posteriors
+   within CV_POSTERIOR_ATOL and each utterance's PER equal but at counted
+   near ties (`[cv epochs]`, `[cv per]`, `[cv launches]`);
+   `hub.CPC_audio` on a payload of the checkpoint bit for bit
+   `load_model`'s features, and at its defaults a 256-d model on the card
+   whose forward launches `lstm_fwd` (`[hub]`); the phase's wall seconds
+   on `[phase 9]`;
+10. print one `kernels` JSON line (the `lstm_fwd`, `dtw` and
    `ffn_fwd_fp32` rows with their launches on the unit path,
-   `launches_discrete_units`) and, last, the `ok` line.
+   `launches_discrete_units`, and the LSTM rows' on the Common Voices
+   path, `launches_common_voices`) and, last, the `ok` line.
 
 It exits nonzero, printing no result, when no CUDA card is available or
 when the `cpc2_torch` package is not beside it.
@@ -257,12 +278,28 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return event_ms(fn, iters, warmup)
 
 
+# The key of a `device_split` timed by CUDA events because every profile
+# lost the kernels
+EVENTS_KEY = "events (the profiler lost the kernels)"
+
+
 def device_split(fn, iters: int = 20, warmup: int = 3) -> dict:
     """Device ms per call of `fn` by kernel name, by `torch.profiler`, over
     `iters` calls after `warmup` calls, a lossy profile taken again
-    (`cpc2_torch.time_kernels.device_split`)."""
+    (`cpc2_torch.time_kernels.device_split`). Where every profile lost
+    more than half the kernels (an InfoNCE forward did so 6 times running
+    on an H100 80GB HBM3 under torch 2.11), the calls are timed by CUDA
+    events instead, the host's path included, under EVENTS_KEY, and a
+    `[profiler]` line says so."""
+    from cpc2_torch.time_kernels import ProfilerLostKernels
     from cpc2_torch.time_kernels import device_split as split
-    return split(fn, iters, warmup)
+    try:
+        return split(fn, iters, warmup)
+    except ProfilerLostKernels as lost:
+        ms = cuda_ms(fn, iters, 0)
+        log(f"[profiler] {lost}: timed by CUDA events instead, {ms:.4f} ms "
+            f"a call (the host's path included)")
+        return {EVENTS_KEY: ms}
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -3951,6 +3988,398 @@ def unit_launches(units: dict) -> dict:
         "ffn_fwd_fp32": {"cpc_module": c.get("ffn_fwd_fp32", 0)}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: Common Voices CTC phone recognition and PER, the hub entry and
+# the host DTW
+# ---------------------------------------------------------------------------
+
+# The synthetic Common Voice-like corpus: transcripts of CV_RATE phones a
+# second from CV_PHONES phones, each phone a segment of two tones of its
+# own; 40 training utterances of 2-10 s (the first 10 s, 1,000 frames) and
+# 4 validation ones of 2-6 s.
+CV_PHONES, CV_RATE = 40, 12
+CV_TRAIN, CV_VAL = 40, 4
+# [cv per]: the posteriors card against CPU, and a differing PER counts as
+# a near tie where one side's best sequence scores within CV_NEAR_TIE
+# (relative) of the other side's best among the other side's final beams
+CV_POSTERIOR_ATOL = 1e-4
+CV_NEAR_TIE = 1e-3
+# [cv step]: each parameter after the step, card against CPU, in the
+# 2-norm of the difference over the CPU's (`check_step`'s fp32 tolerance)
+CV_PARAM_NORM_TOL = 1e-3
+# lstm_fwd, lstm_bwd a training step (the CPC model's forward, the head's
+# forward and backward; unfrozen the model's backward too) and a
+# validation step; nothing else of ours runs on this path (no InfoNCE, FFN,
+# attention or DTW; the encoder is cuDNN's in full fp32; 256 wide)
+CV_STEP_LAUNCHES = {"frozen_lstm": ({"lstm_fwd": 2, "lstm_bwd": 1},
+                                    {"lstm_fwd": 2}),
+                    "unfrozen_lstm": ({"lstm_fwd": 2, "lstm_bwd": 2},
+                                      {"lstm_fwd": 2})}
+CV_RUNS = {"frozen_lstm": ["--freeze", "--LSTM", "--seqNorm"],
+           "unfrozen_lstm": ["--LSTM"]}
+
+
+def cv_utterance(rs, seconds: float) -> tuple:
+    """(16 kHz samples, phone labels) of one utterance of `seconds`."""
+    n = int(round(seconds * 16000))
+    phones = rs.randint(0, CV_PHONES, max(1, int(round(CV_RATE * seconds))))
+    bounds = np.linspace(0, n, len(phones) + 1).astype(int)
+    t = np.arange(n) / 16000
+    x = 0.03 * rs.randn(n)
+    for k, p in enumerate(phones):
+        part = slice(bounds[k], bounds[k + 1])
+        x[part] += (0.4 * np.sin(2 * np.pi * (200 + 20 * p) * t[part])
+                    + 0.3 * np.sin(2 * np.pi * (900 + 45 * p) * t[part]))
+    return x.astype(np.float32), phones
+
+
+def write_cv_corpus(root: str, seed: int = 10) -> dict:
+    """CV_TRAIN + CV_VAL WAV utterances in 4 speaker folders, the
+    transcripts (`name p1 p2 ...`) and the train and validation lists."""
+    from cpc2_torch.data.audio_io import save_wav
+    rs = np.random.RandomState(seed)
+    seconds = ([10.0] + list(rs.uniform(2, 10, CV_TRAIN - 1))
+               + list(rs.uniform(2, 6, CV_VAL)))
+    names, lines = [], []
+    for i, s in enumerate(seconds):
+        x, phones = cv_utterance(rs, s)
+        spk = f"spk{i % 4}"
+        os.makedirs(os.path.join(root, spk), exist_ok=True)
+        name = f"cv-{i:03d}"
+        save_wav(os.path.join(root, spk, name + ".wav"), x, 16000)
+        names.append(name)
+        lines.append(name + " " + " ".join(map(str, phones)))
+    out = {"root": root, "seconds": sum(seconds),
+           "longest_frames": int(max(seconds) * 16000) // 160}
+    for key, text in (("phones", lines), ("train", names[:CV_TRAIN]),
+                      ("val", names[CV_TRAIN:])):
+        out[key] = os.path.join(os.path.dirname(root), f"cv_{key}.txt")
+        with open(out[key], "w") as fh:
+            fh.write("\n".join(text) + "\n")
+    return out
+
+
+def check_cv_lstm(dev) -> dict:
+    """`fused_lstm`'s resident route at (8, 1,000, 256), a batch of 10 s
+    utterances, forward and every gradient against `lstm_plain` (RTOL, as
+    `check_lstm`), the backward bit-identical across two calls; inputs
+    from a generator of this check's own."""
+    from cpc2_torch.ops import _build
+    from cpc2_torch.ops.lstm import _LSTMResident, lstm_plain, lstm_plan
+    from cpc2_torch.time_kernels import lstm_inputs
+    b, t, h = 8, 1000, 256
+    plan = lstm_plan(b, h, _build.sm_count(dev))
+    if plan.route != "resident":
+        raise AssertionError(f"lstm_plan({b}, {h}) = {plan}")
+    own = torch.Generator(device=dev)
+    own.manual_seed(9)
+    inputs, cot = lstm_inputs(dev, own, b, t, h)
+
+    def fn(*a):
+        return _LSTMResident.apply(*a, plan.cluster, plan.bc)
+    out_k, grad_k, bwd_k = grads_of(fn, inputs, cot)
+    out_p, grad_p, _bwd = grads_of(lstm_plain, inputs, cot)
+    err_f = compare("cv lstm (8, 1000, 256) forward", out_k, out_p)
+    err_b = compare("cv lstm (8, 1000, 256) backward", grad_k, grad_p)
+    if not all(torch.equal(a, g) for a, g in zip(bwd_k(), grad_k)):
+        raise AssertionError("cv lstm (8, 1000, 256) backward: two calls "
+                             "differ")
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: fn(*inputs), iters=5, warmup=1)
+    return {"forward_max_abs_err": err_f, "backward_max_abs_err": err_b,
+            "plan": list(plan[:3]), "fwd_ms": fwd_ms,
+            "bwd_ms": cuda_ms(bwd_k, iters=5, warmup=1)}
+
+
+def cv_step_batch(seed: int = 11) -> tuple:
+    """A batch of 2 utterances of 2 and 3 s: (seq (2, 1, S), size_seq,
+    phone, size_phone), as `SingleSequenceDataset.batches` gives it."""
+    rs = np.random.RandomState(seed)
+    utts = [cv_utterance(rs, s) for s in (2.0, 3.0)]
+    seq = np.zeros((2, 1, max(len(x) for x, _ in utts)), np.float32)
+    phone = np.zeros((2, max(len(p) for _, p in utts)), np.int64)
+    for i, (x, p) in enumerate(utts):
+        seq[i, 0, :len(x)] = x
+        phone[i, :len(p)] = p
+    return (seq, np.asarray([len(x) for x, _ in utts], np.int32), phone,
+            np.asarray([len(p) for _, p in utts], np.int32))
+
+
+def check_cv_step(dev, checkpoint: str, mode: str) -> dict:
+    """One `CVSteps` training step (`mode`: frozen with --LSTM --seqNorm,
+    or unfrozen with the default head) at full width on `cv_step_batch`,
+    on the card and on the CPU from the same weights: the loss and every
+    gradient within CTC_RTOL of each tensor's largest value, every
+    parameter after the step within CV_PARAM_NORM_TOL in the 2-norm; and
+    whether a second card step from the same weights is bit for bit (a
+    report: torch lists its CUDA `ctc_loss` backward as
+    nondeterministic)."""
+    from cpc2_torch.eval import common_voices_eval as cve
+    from cpc2_torch.feature_loader import load_model
+    flags = ["--freeze", "--LSTM", "--seqNorm"] if mode == "frozen" else []
+    args = cve.parse_args(["train", "db", "phones.txt", checkpoint] + flags)
+    base_model, hidden_gar, _ = load_model([checkpoint])
+    torch.manual_seed(0)
+    base_crit = cve.CTCPhoneCriterionCV(
+        hidden_gar, CV_PHONES, use_lstm=args.LSTM, seq_norm=args.seqNorm,
+        reduction=args.loss_reduction)
+    batch = cv_step_batch()
+    batch = (batch[0], batch[1] // 160, *batch[2:])
+    runs = []
+    for device in (torch.device("cpu"), dev, dev):
+        model = copy.deepcopy(base_model).to(device)
+        crit = copy.deepcopy(base_crit).to(device)
+        steps = cve.CVSteps(model, crit, cve.make_optimizer(model, crit,
+                                                            args),
+                            args.freeze)
+        named = (list(model.named_parameters(prefix="model"))
+                 + list(crit.named_parameters(prefix="criterion")))
+        loss = steps.train_batch(*batch)
+        runs.append((loss.reshape(1).cpu(),
+                     [p.grad.detach().cpu() for _n, p in named],
+                     [p.detach().cpu() for _n, p in named]))
+    (loss_c, grad_c, par_c), (loss_k, grad_k, par_k) = runs[:2]
+    what = f"cv step {mode} (card vs cpu)"
+    loss_err = compare(what + " loss", [loss_k], [loss_c], rtol=CTC_RTOL)
+    grad_err = compare(what + " gradients", grad_k, grad_c, rtol=CTC_RTOL)
+    rels = {name: norm_rel(k, c) for (name, _p), k, c in
+            zip(named, par_k, par_c)}
+    worst = max(rels, key=rels.get)
+    if rels[worst] > CV_PARAM_NORM_TOL:
+        raise AssertionError(f"{what} parameter {worst} after the step: "
+                             f"{rels[worst]:.3e} (2-norm, relative)")
+    again = runs[2]
+    differing = [name for (name, _p), a, b in zip(named, again[2], par_k)
+                 if not torch.equal(a, b)]
+    return {"loss": loss_c.item(), "loss_err": loss_err,
+            "grad_max_abs_err": grad_err, "worst_param": worst,
+            "worst_param_rel": rels[worst],
+            "card_steps_bit_for_bit": (torch.equal(again[0], loss_k)
+                                       and not differing),
+            "card_steps_differing": differing[:5]}
+
+
+def run_cv_train(cv: dict, checkpoint: str, work: str, mode: str) -> dict:
+    """`common_voices_eval.main train` on the card for one epoch with the
+    flags of CV_RUNS[mode] (batch 8, the default), the launch counts read
+    around each step: every training and validation step must launch
+    exactly CV_STEP_LAUNCHES[mode]."""
+    from cpc2_torch.eval import common_voices_eval as cve
+    out = os.path.join(work, f"cv_{mode}")
+    best = cve.main(["train", cv["root"], cv["phones"], checkpoint,
+                     "--file_extension", ".wav", "--pathTrain", cv["train"],
+                     "--pathVal", cv["val"], "--nEpochs", "1", "-o", out,
+                     *CV_RUNS[mode]])
+    run = copy.deepcopy(cve.LAST_RUN)
+    want_train, want_val = CV_STEP_LAUNCHES[mode]
+    for part, want in (("train", want_train), ("val", want_val)):
+        steps = run[f"{part}_launches"][0]
+        bad = [(i, got) for i, got in enumerate(steps) if got != want]
+        if not steps or bad:
+            raise AssertionError(f"cv {mode} {part} steps launched {bad} "
+                                 f"(each must launch {want})")
+    if not math.isfinite(best) or not os.path.exists(
+            os.path.join(out, "checkpoint.pt")):
+        raise AssertionError(f"cv {mode}: best loss {best}, no checkpoint")
+    return {"out": out, "epoch_s": run["epoch_s"][0],
+            "loss_train": run["loss_train"][0], "loss_val": best,
+            "train_steps": len(run["train_launches"][0]),
+            "val_steps": len(run["val_launches"][0]),
+            "launches_per_train_step": want_train,
+            "launches_per_val_step": want_val,
+            "launches_epoch": {k: sum(s.get(k, 0) for p in ("train", "val")
+                                      for s in run[f"{p}_launches"][0])
+                               for k in ("lstm_fwd", "lstm_bwd")}}
+
+
+def cv_near_tie(a: np.ndarray, b: np.ndarray, blank: int) -> bool:
+    """Whether the best sequence of one side's beam search scores within
+    CV_NEAR_TIE of the best among the other side's final beams."""
+    from cpc2_torch.losses.seq_alignment import beam_search
+    for p, q in ((a, b), (b, a)):
+        best = beam_search(p, 20, blank)[0][1]
+        beams = beam_search(q, 20, blank)
+        if any(seq == best and score >= (1 - CV_NEAR_TIE) * beams[0][0]
+               for score, seq in beams):
+            return True
+    return False
+
+
+def run_cv_per(out: str) -> dict:
+    """`common_voices_eval.main per` on `out`'s checkpoint on the card
+    (the CPC model's forward and the head's LSTM: 2 `lstm_fwd` a batch)
+    and on the CPU: the posteriors the beam search read within
+    CV_POSTERIOR_ATOL, each utterance's PER equal but at counted near
+    ties."""
+    from cpc2_torch.eval import common_voices_eval as cve
+    from cpc2_torch.ops import _build
+    _build.reset_launches()
+    per_card = cve.main(["per", out])
+    card = copy.deepcopy(cve.LAST_RUN)
+    launches = dict(_build.LAUNCHES)
+    n_batches = -(-len(card["pers"]) // 8)
+    want = {"lstm_fwd": 2 * n_batches}
+    if card["launches"] != want or {k: n for k, n in launches.items()
+                                    if n} != want:
+        raise AssertionError(f"cv per launched {card['launches']}, want "
+                             f"{want}")
+    per_cpu = cve.main(["per", out, "--device", "cpu"])
+    cpu = copy.deepcopy(cve.LAST_RUN)
+    err = max(float(np.abs(k - c).max()) for k, c in
+              zip(card["posteriors"], cpu["posteriors"]))
+    if err > CV_POSTERIOR_ATOL:
+        raise AssertionError(f"cv per posteriors card vs cpu: max abs err "
+                             f"{err:.3e}")
+    ties = []
+    for i, (pk, pc, k, c) in enumerate(zip(card["pers"], cpu["pers"],
+                                           card["posteriors"],
+                                           cpu["posteriors"])):
+        if pk != pc:
+            if not cv_near_tie(k, c, k.shape[1] - 1):
+                raise AssertionError(f"cv per utterance {i}: PER {pk} on "
+                                     f"the card, {pc} on the cpu, and no "
+                                     f"near tie")
+            ties.append((i, pk, pc))
+    return {"per_card": per_card, "per_cpu": per_cpu,
+            "pers": list(map(float, card["pers"])),
+            "posterior_max_abs_err": err, "near_ties": ties,
+            "per_s_card": card["per_s"], "per_s_cpu": cpu["per_s"],
+            "launches": card["launches"], "utterances": len(card["pers"])}
+
+
+def check_hub(dev, work: str, checkpoint: str) -> dict:
+    """`hub.CPC_audio` on the card: a payload in the published layout
+    (`{'config', 'weights'}`) written from `checkpoint` gives features bit
+    for bit those of `feature_loader.load_model` on the same batch; at its
+    defaults it builds the 256-d model on the card, whose forward launches
+    `lstm_fwd`."""
+    from cpc2_torch.feature_loader import load_model
+    from cpc2_torch.hub import CPC_audio
+    from cpc2_torch.io.checkpoint import (get_checkpoint_data,
+                                          load_torch_checkpoint)
+    from cpc2_torch.ops import _build
+    from cpc2_torch.training import full_fp32
+    *_, args = get_checkpoint_data(os.path.dirname(checkpoint))
+    path = os.path.join(work, "hub_payload.pt")
+    torch.save({"config": vars(args),
+                "weights": load_torch_checkpoint(checkpoint)["gEncoder"]},
+               path)
+    hub_model = CPC_audio(pretrained_path=path)
+    ref = load_model([checkpoint])[0].to(dev)
+    x = torch.from_numpy(np.random.RandomState(12).randn(4, 32000).astype(
+        np.float32)).to(dev)
+    with torch.no_grad(), full_fp32():
+        c_h, e_h, _h = hub_model(x)
+        c_r, e_r, _r = ref(x)
+    if not (torch.equal(c_h, c_r) and torch.equal(e_h, e_r)):
+        raise AssertionError("hub payload features differ from load_model's")
+    fresh = CPC_audio()
+    devices = {str(p.device) for p in fresh.parameters()}
+    if devices != {str(dev)} or fresh.dim_context != 256:
+        raise AssertionError(f"CPC_audio(): {fresh.dim_context} wide on "
+                             f"{devices}")
+    _build.reset_launches()
+    with torch.no_grad():
+        c, _e, _h = fresh(x)
+    launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+    if launches.get("lstm_fwd", 0) < 1:
+        raise AssertionError(f"CPC_audio()'s forward launched {launches}")
+    return {"frames": int(c_h.shape[1]), "dims": int(c_h.shape[2]),
+            "fresh_context": list(c.shape), "launches": launches}
+
+
+def check_dtw_host(dev) -> dict:
+    """The host DTW (`ops/dtw_host.py`, g++) on one ABX flush's distances
+    (18,432 pairs of 32 x 16) against the DTW kernel: bit for bit."""
+    from cpc2_torch.ops.dtw import dtw_normalized
+    from cpc2_torch.ops.dtw_host import dtw_normalized_host
+    own = torch.Generator(device=dev)
+    own.manual_seed(13)
+    dist, n1, n2 = dtw_draw(dev, own, 18432, 32, 16, "flush")
+    kernel = dtw_normalized(dist, n1, n2).cpu().numpy()
+    host_in = (dist.cpu().numpy(), n1.cpu().numpy(), n2.cpu().numpy())
+    dtw_normalized_host(*host_in)           # builds the library
+    start = time.perf_counter()
+    host = dtw_normalized_host(*host_in)
+    host_s = time.perf_counter() - start
+    differing = int(np.count_nonzero(host != kernel))
+    if differing:
+        raise AssertionError(f"dtw host vs csrc/dtw.cu: {differing} of "
+                             f"{len(kernel)} pairs differ")
+    return {"pairs": len(kernel), "host_ms": 1e3 * host_s,
+            "kernel_ms": cuda_ms(lambda: dtw_normalized(dist, n1, n2))}
+
+
+def run_common_voices(dev, work: str, checkpoint: str, card: str) -> dict:
+    """Phase 9 on the default epoch's checkpoint: [dtw host], [cv lstm],
+    the corpus, [cv step] frozen and unfrozen, the two training epochs,
+    [cv per], [cv launches] and [hub], each logged as it ends."""
+    cv = {"dtw_host": check_dtw_host(dev)}
+    d = cv["dtw_host"]
+    log(f"[dtw host] one ABX flush ({d['pairs']} pairs of 32 x 16): the "
+        f"host DTW bit for bit the csrc/dtw.cu kernel; host "
+        f"{d['host_ms']:.2f} ms (one thread), kernel {d['kernel_ms']:.4f} "
+        f"ms (events)")
+    cv["lstm"] = lstm = check_cv_lstm(dev)
+    log(f"[cv lstm] fused_lstm resident route {lstm['plan']} at (8, 1000, "
+        f"256) vs lstm_plain: forward {lstm['forward_max_abs_err']:.2e}, "
+        f"gradients {lstm['backward_max_abs_err']:.2e} (RTOL {RTOL} of the "
+        f"largest), the backward bit-identical across two calls; "
+        f"{lstm['fwd_ms']:.4f} ms forward, {lstm['bwd_ms']:.4f} ms "
+        f"backward (CUDA events: this late in a whole run the profiler "
+        f"has come back without device kernels)")
+    corpus = write_cv_corpus(os.path.join(work, "cv"))
+    cv["corpus"] = {k: corpus[k] for k in ("seconds", "longest_frames")}
+    for mode in ("frozen", "unfrozen"):
+        r = cv[f"step_{mode}"] = check_cv_step(dev, checkpoint, mode)
+        log(f"[cv step {mode}] 2 utterances of 2 and 3 s at 256 wide, card "
+            f"vs cpu: loss {r['loss']:.4f} err {r['loss_err']:.2e}, "
+            f"gradients {r['grad_max_abs_err']:.2e} (CTC_RTOL {CTC_RTOL} of "
+            f"the largest), parameters after the step at most "
+            f"{r['worst_param_rel']:.2e} in the 2-norm ({r['worst_param']}; "
+            f"tolerance {CV_PARAM_NORM_TOL}); two card steps "
+            + ("bit for bit" if r["card_steps_bit_for_bit"] else
+               f"differ in {r['card_steps_differing']}"))
+    runs = cv["epochs"] = {mode: run_cv_train(corpus, checkpoint, work, mode)
+                           for mode in CV_RUNS}
+    per = cv["per"] = run_cv_per(runs["frozen_lstm"]["out"])
+    log(f"[cv epochs] {card}: {CV_TRAIN} training and {CV_VAL} validation "
+        f"utterances ({corpus['seconds']:.0f} s in all, the longest "
+        f"{corpus['longest_frames']} frames), batch 8, s per epoch: "
+        + ", ".join(f"{mode} {r['epoch_s']:.3f} ({r['train_steps']} + "
+                    f"{r['val_steps']} steps, loss {r['loss_train']:.3f} "
+                    f"train / {r['loss_val']:.3f} val)"
+                    for mode, r in runs.items()))
+    log(f"[cv per] {card}: {per['utterances']} utterances, PER "
+        f"{per['per_card']:.4f} on the card, {per['per_cpu']:.4f} on the "
+        f"cpu; posteriors card vs cpu {per['posterior_max_abs_err']:.2e} "
+        f"(held to {CV_POSTERIOR_ATOL}); near ties {per['near_ties']}; s "
+        f"per pass {per['per_s_card']:.3f} card, {per['per_s_cpu']:.3f} cpu "
+        f"(beam search on the host)")
+    log("[cv launches] a training and a validation step each: " + "; ".join(
+        f"{mode} {r['launches_per_train_step']} and "
+        f"{r['launches_per_val_step']} (the epoch {r['launches_epoch']})"
+        for mode, r in runs.items())
+        + f"; the per pass {per['launches']}")
+    cv["hub"] = hub = check_hub(dev, work, checkpoint)
+    log(f"[hub] CPC_audio(pretrained_path=<payload of the default epoch>) "
+        f"on the card: features bit for bit load_model's ({hub['frames']} "
+        f"frames x {hub['dims']} on 4 x 32,000 samples); CPC_audio() "
+        f"{hub['fresh_context']}, launches {hub['launches']}")
+    for r in runs.values():
+        del r["out"]
+    return cv
+
+
+def cv_launches(cv: dict) -> dict:
+    """This path's launches of `lstm_fwd` and `lstm_bwd` for the kernel
+    table: per epoch of each training run and per `per` pass."""
+    return {name: {**{mode: r["launches_epoch"][name]
+                      for mode, r in cv["epochs"].items()},
+                   "per": cv["per"]["launches"].get(name, 0)}
+            for name in ("lstm_fwd", "lstm_bwd")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4301,6 +4730,14 @@ def main() -> int:
         log(f"[phase 8] {time.perf_counter() - phase8:.1f} s, the whole "
             f"run so far {time.perf_counter() - t0:.1f} s of the 1,200 s "
             f"limit")
+
+        # phase 9: Common Voices CTC and PER, the hub entry, the host DTW
+        phase9 = time.perf_counter()
+        common_voices = run_common_voices(dev, work, record["checkpoint"],
+                                          card)
+        log(f"[phase 9] {time.perf_counter() - phase9:.1f} s, the whole "
+            f"run so far {time.perf_counter() - t0:.1f} s of the 1,200 s "
+            f"limit")
     # each kernel's launches on its own path
     for k in kernels:
         path = (abx if k["name"] == "dtw" else records["fused"]
@@ -4308,10 +4745,12 @@ def main() -> int:
                 if k["name"] in FP32_FFN else records["wide"]
                 if k["name"] in LSTM_GRID else record)
         k["launches"] = path["launches"][k["name"]]
-    for name, by_path in unit_launches(units).items():
+    for key, by_kernel in (("launches_discrete_units", unit_launches(units)),
+                           ("launches_common_voices",
+                            cv_launches(common_voices))):
         for k in kernels:
-            if k["name"] == name:
-                k["launches_discrete_units"] = by_path
+            if k["name"] in by_kernel:
+                k[key] = by_kernel[k["name"]]
 
     def epoch(rec):
         return {"steps": len(rec["step_ms"]),
@@ -4362,6 +4801,7 @@ def main() -> int:
         "supervised": supervised,
         "probe": probes,
         "units": units,
+        "common_voices": common_voices,
         "default_route_ms": yardsticks,
         "events_ms": events,
         "lstm": details,

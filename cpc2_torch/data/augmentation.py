@@ -505,12 +505,30 @@ class NaturalReverb:
 # Composition and factory (`:321-443`)
 # ---------------------------------------------------------------------------
 
+class AugmentCfg:
+    """One augmentation of a chain given as JSON, as the Common Voices
+    CLI's `-a '{"type": "bandreject", "bandreject_scaler": 1.0}'` gives it:
+    its type and its factory arguments (`:321-329`)."""
+
+    def __init__(self, **kwargs):
+        self.augment_type = kwargs["type"]
+        self.config = {k: i for k, i in kwargs.items() if k != 'type'}
+
+    def __repr__(self):
+        return f"{self.augment_type} : \n {self.config}"
+
+
 class CombinedTransforms:
-    """Apply several augmentations in order (`:331-344`)."""
+    """Apply several augmentations in order (`:331-344`). An entry is an
+    augment type, built from `kwargs`, or an `AugmentCfg`, built from
+    `kwargs` and its own config (the JAX package hands the `AugmentCfg`
+    itself to `get_augment` as the type, which raises on every one)."""
 
     def __init__(self, augment_cfgs, **kwargs):
-        self.transfors_cfgs = [get_augment(x, **kwargs)
-                               for x in augment_cfgs]
+        self.transfors_cfgs = [
+            get_augment(x.augment_type, **{**kwargs, **x.config})
+            if isinstance(x, AugmentCfg) else get_augment(x, **kwargs)
+            for x in augment_cfgs]
 
     def __call__(self, x):
         for transform in self.transfors_cfgs:

@@ -8,7 +8,7 @@ build takes seconds). The build runs at first use, into
 `build/cpc2_torch_kernels/` beside the package, and is skipped while the
 library is newer than every source. Importing this module builds nothing.
 
-The host libraries (the audio decoders) are built apart, one `g++` each
+The host libraries (the audio decoders and the host DTW) are built apart, one `g++` each
 (`build_host`), into the same directory: they need no `nvcc` and no card,
 so the CPU tests build them too.
 
@@ -90,6 +90,7 @@ HOST_LIBRARIES = {
     "flacdec": ("flacdec.cc", (), ()),
     "audiodec": ("audiodec.cc", ("-lavformat", "-lavcodec", "-lavutil"),
                  _FFMPEG_HEADERS),
+    "dtwhost": ("dtwhost.cc", (), ()),
 }
 _LL, _IP = ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)
 _FP = ctypes.POINTER(ctypes.c_float)
@@ -104,6 +105,10 @@ _HOST_SIGNATURES = {
                                     _IP, _IP]),
         "audec_free": (None, [_FP]),
         "audec_info_file": (_LL, [ctypes.c_char_p, _IP, _IP]),
+    },
+    "dtwhost": {
+        "dtw_host_batch": (None, [_FP, _LL, ctypes.c_int, ctypes.c_int, _IP,
+                                  _IP, _FP]),
     },
 }
 _host_libs: dict = {}

@@ -64,6 +64,11 @@ WARMUP = 3
 PROFILE_ATTEMPTS = 6
 
 
+class ProfilerLostKernels(RuntimeError):
+    """Every profile of a `device_split` lost more than half the calls'
+    kernels."""
+
+
 def device_split(fn, iters: int = 20, warmup: int = WARMUP,
                  counts: bool = False):
     """Device ms per call of `fn` by kernel name, by `torch.profiler`, over
@@ -87,14 +92,17 @@ def device_split(fn, iters: int = 20, warmup: int = WARMUP,
                 fn()
             torch.cuda.synchronize()
         kernels = device_kernels(prof)
-        whole = all(e.count % iters == 0 for e in kernels)
+        # a profile that holds no device kernel at all lost them all
+        whole = bool(kernels) and all(e.count % iters == 0
+                                      for e in kernels)
         if whole or (attempt == PROFILE_ATTEMPTS - 1 and
                      2 * sum(e.count for e in kernels) >= iters):
             split = {e.key: device_us(e) / 1e3 / iters for e in kernels}
             return (split, {e.key: e.count for e in kernels}) if counts \
                 else split
-    raise AssertionError(f"the profiler caught fewer device kernels than "
-                         f"half of {iters} calls, {PROFILE_ATTEMPTS} times")
+    raise ProfilerLostKernels(f"the profiler caught fewer device kernels "
+                              f"than half of {iters} calls, "
+                              f"{PROFILE_ATTEMPTS} times")
 
 
 def event_ms(fn, iters: int = 20, warmup: int = WARMUP) -> float:

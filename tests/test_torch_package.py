@@ -1,11 +1,11 @@
 """The port's package boundaries, flags and trainer on the CPU: importing it
 (every module, the supervised criteria's `losses/seq_alignment.py`, the
 probe's `eval/linear_separability.py`, the clustering, dim-reduction,
-unit-ABX and ZeroSpeech-export modules among them) pulls in nothing of JAX
-or the JAX package and builds nothing, the discrete-unit CLIs take the JAX
-package's flags plus `--device`, unported flags raise and ported ones
-(augmentation, `--supervised`) parse, `--device cuda` without a card raises,
-and
+unit-ABX, ZeroSpeech-export and Common Voices modules, the hub entry and the
+host DTW among them) pulls in nothing of JAX or the JAX package and builds
+nothing, the discrete-unit and Common Voices CLIs take the JAX package's
+flags plus `--device`, unported flags raise and ported ones (augmentation,
+`--supervised`) parse, `--device cuda` without a card raises, and
 `python -m cpc2_torch.train` trains on a wav corpus with `--device cpu`,
 and on a FLAC corpus at its own `--file_extension`.
 """
@@ -58,7 +58,9 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
             "cpc2_torch.clustering.clustering_quantization",
             "cpc2_torch.research.dim_reduction",
             "cpc2_torch.eval.eval_ABX_clustering",
-            "cpc2_torch.eval.build_zeroSpeech_features"} <= set(_modules())
+            "cpc2_torch.eval.build_zeroSpeech_features",
+            "cpc2_torch.eval.common_voices_eval", "cpc2_torch.hub",
+            "cpc2_torch.ops.dtw_host"} <= set(_modules())
 
 
 class _Parsed(Exception):
@@ -94,14 +96,20 @@ def _flags(parser):
 def _cli_entries():
     from cpc2_torch.clustering import (clustering_quantization,
                                        clustering_script)
-    from cpc2_torch.eval import build_zeroSpeech_features, eval_ABX_clustering
+    from cpc2_torch.eval import (build_zeroSpeech_features,
+                                 common_voices_eval, eval_ABX_clustering)
     from cpc2_torch.research import dim_reduction
     from cpc2_tpu.clustering import clustering_quantization as jax_quant
     from cpc2_tpu.clustering import clustering_script as jax_script
     from cpc2_tpu.eval import build_zeroSpeech_features as jax_export
+    from cpc2_tpu.eval import common_voices_eval as jax_cv
     from cpc2_tpu.eval import eval_ABX_clustering as jax_abx
     from cpc2_tpu.research import dim_reduction as jax_dr
-    return {"clustering_script": (clustering_script.parseArgs,
+    return {"common_voices_train": (common_voices_eval.parse_args,
+                                    jax_cv.parse_args),
+            "common_voices_per": (common_voices_eval.parse_args,
+                                  jax_cv.parse_args),
+            "clustering_script": (clustering_script.parseArgs,
                                   jax_script.parseArgs),
             "clustering_quantization": (clustering_quantization.parseArgs,
                                         jax_quant.parseArgs),
@@ -113,17 +121,29 @@ def _cli_entries():
             "dim_reduction": (dim_reduction.parse_args, jax_dr.main)}
 
 
+def _subparser(parser, name):
+    """The subcommand `name`'s parser of `parser`."""
+    action = next(a for a in parser._actions
+                  if isinstance(a, argparse._SubParsersAction))
+    return action.choices[name]
+
+
 @pytest.mark.parametrize("cli", ["clustering_script",
                                  "clustering_quantization",
                                  "eval_ABX_clustering",
                                  "build_zeroSpeech_features",
-                                 "dim_reduction"])
+                                 "dim_reduction", "common_voices_train",
+                                 "common_voices_per"])
 def test_cli_flags_match_jax(cli):
-    """The discrete-unit CLIs take the JAX package's flags name for name,
-    with its defaults, choices and nargs, and `--device` besides (default
-    cuda)."""
+    """The discrete-unit CLIs and the Common Voices subcommands take the
+    JAX package's flags name for name, with its defaults, choices and
+    nargs, and `--device` besides (default cuda)."""
     port, jax_entry = _cli_entries()[cli]
-    got, want = _flags(_parser(port, [])), _flags(_parser(jax_entry, []))
+    got, want = _parser(port, []), _parser(jax_entry, [])
+    if cli.startswith("common_voices_"):
+        command = cli[len("common_voices_"):]
+        got, want = _subparser(got, command), _subparser(want, command)
+    got, want = _flags(got), _flags(want)
     device = got.pop(("--device",))
     assert device[1] == "cuda" and device[2] == ["cuda", "cpu"]
     assert got == want
@@ -243,6 +263,20 @@ def test_cuda_without_a_card_raises(mini_corpus):
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--pathDB", str(mini_corpus), "--file_extension", ".wav"])
+
+
+@pytest.mark.parametrize("command", ["train", "per"])
+def test_common_voices_cuda_without_a_card_raises(tmp_path, command):
+    """`--device cuda` (the default) raises before reading anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from cpc2_torch.eval import common_voices_eval
+    argv = {"train": ["train", "db", "phones.txt", "ck.pt"],
+            "per": ["per", str(tmp_path)]}[command]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        common_voices_eval.main(argv + ["-o", str(tmp_path / "out")]
+                                if command == "train" else argv)
+    assert not (tmp_path / "out").exists()
 
 
 @pytest.mark.parametrize("ar_mode,sampling", [
