@@ -214,10 +214,32 @@ Phases, each of which fails the run with a nonzero exit:
    `load_model`'s features, and at its defaults a 256-d model on the card
    whose forward launches `lstm_fwd` (`[hub]`); the phase's wall seconds
    on `[phase 9]`;
-10. print one `kernels` JSON line (the `lstm_fwd`, `dtw` and
+10. the model and criterion modes (`run_variants`): the FFN kernels at
+   the multi-head trunk's 928 x 256 -> 2048 -> 3,072 (both routes, dropout
+   0 and 0.1, each backward bit for bit across two calls) and the resident
+   LSTM at an LSTM head's (8, 116, 256) against their plain versions,
+   timed beside the library route and the bound, in a fresh process where
+   the profiler keeps every launch (`[variant kernels]`);
+   one training step per flag value (VARIANT_STEPS: every `--rnnMode`,
+   `--multihead_rnn` and `--encoder_type mfcc` also under `bf16mix`,
+   `--cpc_mode reverse|bert|none`, `--encoder_type mfcc|lfb`,
+   `--mask_prob`, signal quality) card against CPU at the recipe's widths
+   (the MFCC step under `fp32` against a float64 CPU step with the card's
+   ReLU decisions, `relu_matched_reference`), its launches held exactly to
+   `variant_launches` (`[variant step ...]`); one CLI epoch per group
+   (VARIANT_EPOCHS; `mask_quality` on the WAV corpus with `write_quality`'s
+   `.pt` files), the counts set to 0 just before and read just after and
+   held exactly to the steps' (`[variant epoch ...]`); `--steps_per_dispatch
+   4` replays with masks (and quality) bit for bit against eager steps
+   (`[variant dispatch ...]`); `eval_ABX from_checkpoint` on the reverse
+   and MFCC epochs' checkpoints, features card against CPU within 1e-3
+   (`[variant abx ...]`); the LFB step's `[determinism]`; the phase's wall
+   seconds on `[phase 10]`;
+11. print one `kernels` JSON line (the `lstm_fwd`, `dtw` and
    `ffn_fwd_fp32` rows with their launches on the unit path,
-   `launches_discrete_units`, and the LSTM rows' on the Common Voices
-   path, `launches_common_voices`) and, last, the `ok` line.
+   `launches_discrete_units`, the LSTM rows' on the Common Voices
+   path, `launches_common_voices`, and each training kernel's over phase
+   10's epochs, `launches_variants`) and, last, the `ok` line.
 
 It exits nonzero, printing no result, when no CUDA card is available or
 when the `cpc2_torch` package is not beside it.
@@ -283,9 +305,11 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 EVENTS_KEY = "events (the profiler lost the kernels)"
 
 
-def device_split(fn, iters: int = 20, warmup: int = 3) -> dict:
+def device_split(fn, iters: int = 20, warmup: int = 3,
+                 expect: str = "") -> dict:
     """Device ms per call of `fn` by kernel name, by `torch.profiler`, over
-    `iters` calls after `warmup` calls, a lossy profile taken again
+    `iters` calls after `warmup` calls, a lossy profile (or, with `expect`,
+    one that holds no kernel of that name) taken again
     (`cpc2_torch.time_kernels.device_split`). Where every profile lost
     more than half the kernels (an InfoNCE forward did so 6 times running
     on an H100 80GB HBM3 under torch 2.11), the calls are timed by CUDA
@@ -294,7 +318,7 @@ def device_split(fn, iters: int = 20, warmup: int = 3) -> dict:
     from cpc2_torch.time_kernels import ProfilerLostKernels
     from cpc2_torch.time_kernels import device_split as split
     try:
-        return split(fn, iters, warmup)
+        return split(fn, iters, warmup, expect=expect)
     except ProfilerLostKernels as lost:
         ms = cuda_ms(fn, iters, 0)
         log(f"[profiler] {lost}: timed by CUDA events instead, {ms:.4f} ms "
@@ -302,13 +326,14 @@ def device_split(fn, iters: int = 20, warmup: int = 3) -> dict:
         return {EVENTS_KEY: ms}
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, iters: int = 20, warmup: int = 3,
+              expect: str = "") -> float:
     """Device time per call of `fn`: the sum of the device times of the
     kernels it launches (`device_split`). Where a call's device work is
     shorter than its host path (autograd, allocations, several launches),
     CUDA events around back-to-back calls (`cuda_ms`) time the host
     instead."""
-    return sum(device_split(fn, iters, warmup).values())
+    return sum(device_split(fn, iters, warmup, expect).values())
 
 
 def bound_ms(n_bytes: float, flops: float, peak: float = FP32_FLOP_PER_S):
@@ -567,11 +592,12 @@ def check_lstm(dev, gen):
         inputs, cot, fn, out_k, grad_k, bwd_k, bwd_p = held[route]
         lib_fwd, lib_bwd = cudnn_lstm(inputs, cot)
         with torch.no_grad():
-            ms["lstm_fwd" + suffix] = device_ms(lambda: fn(*inputs))
+            ms["lstm_fwd" + suffix] = device_ms(lambda: fn(*inputs),
+                                                expect="lstm_fwd")
             events["lstm_fwd" + suffix] = cuda_ms(lambda: fn(*inputs))
             plain_fwd = device_ms(lambda: lstm_plain(*inputs), iters=3)
             lib_f = device_ms(lib_fwd)
-        split[route] = device_split(bwd_k)
+        split[route] = device_split(bwd_k, expect="lstm_bwd")
         ms["lstm_bwd" + suffix] = sum(split[route].values())
         events["lstm_bwd" + suffix] = cuda_ms(bwd_k)
         timed[route] = (plain_fwd, device_ms(bwd_p, iters=3), lib_f,
@@ -585,8 +611,9 @@ def check_lstm(dev, gen):
                 return _LSTMResident.apply(*a, c, bc)
             _o, _g, bwd = grads_of(fn, t_inputs, t_cot)
             with torch.no_grad():
-                f_ms = device_ms(lambda: fn(*t_inputs))
-            tiles[f"({tb},{tt},{th}) C{c} Bc{bc}"] = (f_ms, device_ms(bwd))
+                f_ms = device_ms(lambda: fn(*t_inputs), expect="lstm_fwd")
+            tiles[f"({tb},{tt},{th}) C{c} Bc{bc}"] = (
+                f_ms, device_ms(bwd, expect="lstm_bwd"))
     per_step = {}
     for h in LSTM_GRID_WIDTHS:
         plan = grid_plan(8, h, sms)
@@ -594,8 +621,9 @@ def check_lstm(dev, gen):
         _o, _g, bwd = grads_of(lambda *a, plan=plan: _LSTMGrid.apply(
             *a, plan), t_inputs, t_cot)
         with torch.no_grad():
-            f_ms = device_ms(lambda: _LSTMGrid.apply(*t_inputs, plan))
-        b_split = device_split(bwd)
+            f_ms = device_ms(lambda: _LSTMGrid.apply(*t_inputs, plan),
+                             expect="lstm_fwd_grid")
+        b_split = device_split(bwd, expect="lstm_bwd_grid")
         walk = sum(v for k, v in b_split.items() if "lstm_bwd_grid" in k)
         per_step[h] = (1e3 * f_ms / 128, 1e3 * walk / 128)
     b, h = 8, 256
@@ -688,13 +716,13 @@ def band(name, names, got, plain, wide):
     return errs, ratios, bands, rels
 
 
-def hold_to_band(name, names, got, plain, wide, band_factor):
+def hold_to_band(name, names, got, plain, wide, band_factor, floor=RTOL):
     """Hold each tensor of `got` to `plain` as above (`wide`: the plain
-    version in fp64); returns each tensor's max abs error, its error over
-    its band, and its band."""
+    version in fp64), or to `floor` where that is larger; returns each
+    tensor's max abs error, its error over its band, and its band."""
     errs, ratios, bands, rels = band(name, names, got, plain, wide)
     for n, err, spread in zip(names, rels, bands):
-        if err > max(band_factor * spread, RTOL):
+        if err > max(band_factor * spread, floor):
             raise AssertionError(f"{name} {n}: kernel vs plain {err:.3e} "
                                  f"(2-norm, relative), plain fp32 vs fp64 "
                                  f"{spread:.3e}")
@@ -753,19 +781,28 @@ def ffn_ties(inputs):
     return pre.abs() <= FFN_TIE * (x.abs() @ w1.abs().T + b1.abs())
 
 
+def ffn_hidden(x, w1, b1, seed, rate=0.0):
+    """The fp32 FFN's own hidden (after its ReLU and dropout) for `x`: on
+    the card the kernel's forward with W2 = I and b2 = 0, whose y is the
+    hidden (the hidden's product is the same whatever W2); on the CPU
+    `ffn_plain`'s."""
+    from cpc2_torch.ops.ffn import fused_ffn
+    dff = w1.shape[0]
+    with torch.no_grad():
+        return fused_ffn(x, w1, b1, torch.eye(dff, device=x.device),
+                         torch.zeros(dff, device=x.device), seed, rate,
+                         False)
+
+
 def hold_ffn_fp32_at_ties(what, inputs, cot, seed, rate, ties, grad_k):
     """The fp32 kernels' dx, dW1 and db1 downstream of the ReLU ties
     against the plain backward in float64 with the kernel's decisions
-    there: the kernel's own hidden > 0, read from its forward with W2 = I
-    and b2 = 0 (whose y is the hidden; the hidden's product is the same
-    whatever W2). Returns the max abs error over those entries."""
-    from cpc2_torch.ops.ffn import fused_ffn, keep_mask
+    there: the kernel's own hidden > 0 (`ffn_hidden`). Returns the max abs
+    error over those entries."""
+    from cpc2_torch.ops.ffn import keep_mask
     x, w1, b1, w2, _b2 = (t.double() for t in inputs)
     dff = w1.shape[0]
-    with torch.no_grad():
-        hidden = fused_ffn(*inputs[:3], torch.eye(dff, device=x.device),
-                           torch.zeros(dff, device=x.device), seed, rate,
-                           False)
+    hidden = ffn_hidden(*inputs[:3], seed, rate)
     keep = keep_mask(seed, x.shape[0], dff, rate)
     pos = torch.where(ties, hidden > 0, x @ w1.T + b1 > 0) & keep
     dh = (cot[0].double() @ w2) * pos / (1.0 - rate)
@@ -775,11 +812,13 @@ def hold_ffn_fp32_at_ties(what, inputs, cot, seed, rate, ties, grad_k):
                    [(dh @ w1)[rows], (dh.T @ x)[cols], dh.sum(0)[cols]])
 
 
-def hold_ffn(inputs, cot, seed, rate, bf16):
+def hold_ffn(inputs, cot, seed, rate, bf16, floor=RTOL):
     """One FFN route's kernels against its plain version (see check_ffn):
     (forward max abs error, backward max abs error, each tensor's error
     over its band, the bands) and the timing closures; for the fp32 route
-    the number of ReLU ties (FFN_TIE) in place of the last two."""
+    the number of ReLU ties (FFN_TIE) in place of the last two. The bf16
+    route's tensors are held to FFN_BAND, or to `floor` where that is
+    larger (FFN_WIDE_FLOOR at the multi-head trunk's shape)."""
     from cpc2_torch.ops.ffn import ffn_plain, fused_ffn
 
     def kern(*a):
@@ -808,7 +847,7 @@ def hold_ffn(inputs, cot, seed, rate, bf16):
                                 [cot[0].double()])
     e, r, b = hold_to_band(what, ["y", "dx", "dw1", "db1", "dw2", "db2"],
                            out_k + list(grad_k), out_p + list(grad_p),
-                           out_d + list(grad_d), FFN_BAND)
+                           out_d + list(grad_d), FFN_BAND, floor)
     return e[0], max(e[1:]), r, b, (kern, plain, bwd_k, bwd_p, out_k, grad_k)
 
 
@@ -1720,7 +1759,7 @@ def _check_step(dev, precision: str, fused: bool, width: int) -> float:
 
 
 def step_determinism(dev, passes: int = 3, device_augment=None,
-                     ctc: bool = False) -> dict:
+                     ctc: bool = False, flags=()) -> dict:
     """The recipe's training step at the CLI defaults (`bf16mix`, dropout
     on, one batch drawn with numpy, the generator reseeded before each
     pass) run forward and backward `passes` times on the same weights:
@@ -1731,13 +1770,15 @@ def step_determinism(dev, passes: int = 3, device_augment=None,
     `ctc`, the `--supervised --pathPhone --CTC` step on phone labels drawn
     with numpy (torch's CUDA `ctc_loss` backward adds with atomics). A
     report of which ops a resumed run cannot replay; nothing here fails
-    the run."""
+    the run. `flags` go over the defaults (phase 10: `--encoder_type
+    lfb`)."""
     from cpc2_torch.config import parse_args
     from cpc2_torch.feature_loader import build_model
     from cpc2_torch.train import get_criterion
     from cpc2_torch.training import Trainer, make_optimizer, precision
     args = parse_args(["--pathDB", ".", "--random_seed", "0"]
-                      + (supervised_argv("ctc") if ctc else []))
+                      + (supervised_argv("ctc") if ctc else [])
+                      + list(flags))
     torch.manual_seed(0)
     model = build_model(args).to(dev)
     criterion = get_criterion(args, SUP_SPEAKERS, SUP_PHONES).to(dev)
@@ -2486,17 +2527,19 @@ DISPATCH_FLAGS = ["--corpus_on_device", "--steps_per_dispatch",
 SCHEDULE_FLAGS = ["--schedulerStep", "1", "--nEpoch", "2"]
 
 
-def dispatch_trainer(dev, width: int, chain=None, supervised=False):
+def dispatch_trainer(dev, width: int, chain=None, supervised=False,
+                     flags=()):
     """A trainer at the recipe's CLI defaults and `width` (with
-    `supervised`, `--supervised` over SUP_SPEAKERS speakers), its Adam
-    capturable, built from seed 0: (args, trainer)."""
+    `supervised`, `--supervised` over SUP_SPEAKERS speakers), and `flags`
+    over them, its Adam capturable, built from seed 0: (args, trainer)."""
     from cpc2_torch.config import parse_args
     from cpc2_torch.feature_loader import build_model
     from cpc2_torch.train import get_criterion
     from cpc2_torch.training import Trainer, make_optimizer
     args = parse_args(["--pathDB", ".", "--random_seed", "0",
                        "--hiddenEncoder", str(width), "--hiddenGar",
-                       str(width)] + (["--supervised"] if supervised else []))
+                       str(width)] + (["--supervised"] if supervised else [])
+                      + list(flags))
     torch.manual_seed(0)
     model = build_model(args).to(dev)
     criterion = get_criterion(args, SUP_SPEAKERS).to(dev)
@@ -2962,10 +3005,15 @@ def phone_labels_path(root: str) -> str:
     return os.path.join(os.path.dirname(root), "phone_labels.txt")
 
 
-def run_abx(dev, work: str, checkpoint: str) -> dict:
+def run_abx(dev, work: str, checkpoint: str, cpu_batched: bool = False
+            ) -> dict:
     """`eval_ABX from_checkpoint` on the card at its defaults, then the
     scoring held against itself with the plain DTW on the same features,
-    and two files' features card against CPU."""
+    and two files' features card against CPU. With `cpu_batched` the CPU
+    makes the features of the files of the first file's length as the card
+    does, in one batch (`build_feature_files`): the MFCC front-end's top-dB
+    clamp is against its batch's maximum, so a file's MFCCs depend on the
+    files batched with it."""
     import random
 
     from cpc2_torch.eval import eval_ABX
@@ -3029,10 +3077,17 @@ def run_abx(dev, work: str, checkpoint: str) -> dict:
                              f"the plain DTW {plain_scores}")
 
     cpu = FeatureModule(model.cpu(), False, keep_hidden=True)
-    err = compare("features (card vs cpu)",
-                  [torch.from_numpy(card[p]) for p in paths[:2]],
-                  [torch.from_numpy(build_feature(cpu, p)) for p in paths[:2]],
-                  rtol=1e-3)
+    if cpu_batched:
+        from cpc2_torch.data.audio_io import audio_info
+        group = [p for p in paths
+                 if audio_info(p)[0] == audio_info(paths[0])[0]]
+        on_cpu = build_feature_files(cpu, group)
+        got, want = ([torch.from_numpy(card[p]) for p in group],
+                     [torch.from_numpy(on_cpu[p]) for p in group])
+    else:
+        got = [torch.from_numpy(card[p]) for p in paths[:2]]
+        want = [torch.from_numpy(build_feature(cpu, p)) for p in paths[:2]]
+    err = compare("features (card vs cpu)", got, want, rtol=1e-3)
     return {"scores": scores, "launches": launches, "features_s":
             run["features_s"], "scoring_s": run["scoring_s"],
             "flushes": run["flushes"], "dtw_pairs": run["dtw_pairs"],
@@ -4380,6 +4435,643 @@ def cv_launches(cv: dict) -> dict:
             for name in ("lstm_fwd", "lstm_bwd")}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the model and criterion modes (`--rnnMode`, `--multihead_rnn`,
+# `--cpc_mode`, `--encoder_type`, `--mask_prob`, `--signal_quality_path`)
+# ---------------------------------------------------------------------------
+
+# The multi-head trunk's FFN at the recipe (`--multihead_rnn`: 8 x 116 rows,
+# 256 -> 2048 -> 12 x 256) and an LSTM prediction head's recurrence
+# (`--rnnMode LSTM`: 8 x 116 frames, 256 wide)
+VARIANT_FFN = (8 * 116, 256, 2048, 12 * 256)
+VARIANT_LSTM = (8, 116, 256)
+# The bf16 FFN at VARIANT_FFN: dx sums dh over dff and dh sums the incoming
+# gradient over dout = 3,072 terms, 12 times the recipe's, before each is
+# rounded to bf16; the kernel's wgmma sums and the plain version's cuBLAS
+# sums run in other orders, so more of those rounding points flip between
+# the two than between the plain version in fp32 and fp64 (dx 1.245e-4 in
+# the 2-norm against a 1.95e-5 spread, at rate 0, on an H100 80GB HBM3).
+# A relative 2-norm error of 5e-4 is an eighth of one bf16
+# unit of the whole tensor; a wrong tile or index moves it by whole
+# percents.
+FFN_WIDE_FLOOR = 5e-4
+# one training step per flag value, card against CPU at the recipe's
+# widths, under `--precision fp32` (held to 1e-3 of each tensor's largest
+# value), the multi-head trunk and the MFCC front-end also under `bf16mix`
+# (the FFN's bf16 route: FUSED_LOSS_RTOL, FUSED_GRAD_NORM_TOL)
+VARIANT_STEPS = (
+    ("RNN", ["--rnnMode", "RNN"]), ("LSTM", ["--rnnMode", "LSTM"]),
+    ("linear", ["--rnnMode", "linear"]), ("ffd", ["--rnnMode", "ffd"]),
+    ("conv4", ["--rnnMode", "conv4"]), ("conv8", ["--rnnMode", "conv8"]),
+    ("conv12", ["--rnnMode", "conv12"]),
+    ("adaptive_span", ["--rnnMode", "transformer_adaptive_span"]),
+    ("multihead", ["--multihead_rnn"]),
+    ("reverse", ["--cpc_mode", "reverse"]), ("bert", ["--cpc_mode", "bert"]),
+    ("none", ["--cpc_mode", "none"]), ("mfcc", ["--encoder_type", "mfcc"]),
+    ("lfb", ["--encoder_type", "lfb"]),
+    ("mask", ["--mask_prob", "0.01", "--mask_length", "10"]),
+    ("quality", ["--signal_quality_path", ".", "--growth_rate", "5",
+                 "--inflection_point_x", "0.4"]))
+VARIANT_BOTH_PRECISIONS = ("multihead", "mfcc")
+# The MFCC step under `fp32` is held against a float64 CPU step that takes
+# the card's ReLU decisions in the heads' FFN (`relu_matched_reference`).
+# Its features reach the hundreds and differ between cuFFT and the CPU's
+# FFT by fp32 rounding made larger by the log, so a head FFN's input
+# differs between the card's and the CPU's fp32 steps by more than one
+# rounding, and the rare hidden unit whose input lies that close to 0
+# takes the other side of the ReLU on one of them. One such unit moves
+# its head's lin1 gradient by whole percents of its largest value (head
+# 3's by 1.9e-2, card against CPU, on an H100 80GB HBM3), while the
+# tensors no flip reaches agree within 1e-5.
+VARIANT_RELU_MATCHED = ("mfcc",)
+# one CLI epoch per group; `mask_quality` on the WAV corpus with its
+# signal-quality files (`write_quality`)
+VARIANT_EPOCHS = {"heads": ["--rnnMode", "LSTM"],
+                  "multihead": ["--multihead_rnn"],
+                  "reverse": ["--cpc_mode", "reverse"],
+                  "bert": ["--cpc_mode", "bert"],
+                  "mfcc": ["--encoder_type", "mfcc"],
+                  "mask_quality": ["--mask_prob", "0.01",
+                                   "--mask_length", "10"]}
+# --steps_per_dispatch 4 replays against eager steps
+VARIANT_DISPATCH = {"mask_quality": VARIANT_EPOCHS["mask_quality"],
+                    "bert": VARIANT_EPOCHS["bert"]}
+
+
+def variant_launches(flags, train: bool, prec: str = "bf16mix") -> dict:
+    """The kernel launches of one step (`train`) or validation step of the
+    recipe with `flags`: the context LSTM (none under BERT, whose context
+    is a GRU) and an LSTM head a prediction (`--rnnMode LSTM`); the head
+    FFN once a transformer head, once for the multi-head trunk, on the
+    route `prec` picks; InfoNCE once; `--cpc_mode none` runs no criterion
+    and no backward."""
+    flags = list(flags)
+
+    def value(name, default):
+        return flags[flags.index(name) + 1] if name in flags else default
+    mode, rnn = value("--cpc_mode", None), value("--rnnMode", "transformer")
+    multihead = "--multihead_rnn" in flags
+    k = 12
+    lstm = (0 if mode == "bert" else 1) + (k if rnn == "LSTM" and mode not in
+                                           ("bert", "none") else 0)
+    ffn = (0 if mode in ("bert", "none") else 1 if multihead
+           else k if rnn == "transformer" else 0)
+    infonce = 0 if mode in ("bert", "none") else 1
+    back = train and mode != "none"
+    suffix = "_fp32" if prec == "fp32" else ""
+    out = {"lstm_fwd": lstm, "lstm_bwd": lstm if back else 0,
+           "ffn_fwd" + suffix: ffn, "ffn_bwd" + suffix: ffn if back else 0,
+           "infonce_fwd": infonce, "infonce_bwd": infonce if back else 0}
+    return {name: n for name, n in out.items() if n}
+
+
+def held_launches(what: str, launches: dict, want: dict) -> None:
+    """Every kernel's launches exactly `want`'s (0 where it has none)."""
+    off = {k: (n, want.get(k, 0)) for k, n in launches.items()
+           if n != want.get(k, 0)}
+    if off:
+        raise AssertionError(f"{what}: launches (got, want) {off}")
+
+
+# `check_variant_kernels` in a process of its own: late in a whole run the
+# profiler has lost launches in every profile (all 17 of phase 10's
+# timings in one run on an H100 80GB HBM3; a minute or more of retakes in
+# others), while a fresh process keeps them
+VARIANT_KERNELS_RUNNER = (
+    "import json, sys\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "import torch\n"
+    "import chip_smoke\n"
+    "torch.backends.cuda.matmul.allow_tf32 = False\n"
+    "torch.backends.cudnn.allow_tf32 = False\n"
+    "out = chip_smoke.check_variant_kernels(torch.device('cuda', 0))\n"
+    "json.dump(out, open(sys.argv[2], 'w'))\n")
+
+
+def variant_kernels_fresh(work: str) -> dict:
+    """`check_variant_kernels` in a fresh process (VARIANT_KERNELS_RUNNER),
+    the library built by `main` loaded there; its `[profiler]` lines are
+    passed on."""
+    path = os.path.join(work, "variant_kernels.json")
+    proc = subprocess.run([sys.executable, "-c", VARIANT_KERNELS_RUNNER,
+                           ROOT, path], capture_output=True, text=True,
+                          timeout=600)
+    for line in proc.stdout.splitlines():
+        if line.startswith("[profiler]"):
+            log(line)
+    if proc.returncode != 0:
+        raise AssertionError(f"[variant kernels] exit {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def check_variant_kernels(dev) -> dict:
+    """The FFN kernels at the multi-head trunk's shape (VARIANT_FFN: dout
+    wider than din, 3,072 columns), both routes at dropout 0 and 0.1 held
+    against `ffn_plain` as `check_ffn` holds them (the bf16 route's floor
+    FFN_WIDE_FLOOR), each backward bit for bit across two calls; the LSTM
+    kernels at an LSTM head's (8, 116, 256) against `lstm_plain` (RTOL),
+    which must take the resident route, the
+    backward bit for bit across two calls. Each timed at the step's
+    dropout (0.1) by device time beside its plain version, the bound and
+    the library route (the same products as `torch.matmul`, `ffn_route`;
+    cuDNN's LSTM), each by device time (`device_ms`). `run_variants` runs
+    it in a fresh process (`variant_kernels_fresh`)."""
+    from cpc2_torch.ops import _build
+    from cpc2_torch.ops.ffn import keep_mask
+    from cpc2_torch.ops.lstm import fused_lstm, lstm_plain, lstm_plan
+    from cpc2_torch.time_kernels import cudnn_lstm, lstm_inputs
+    own = torch.Generator(device=dev)
+    own.manual_seed(19)
+    seed = torch.tensor([12345], device=dev, dtype=torch.int32)
+    m, din, dff, dout = VARIANT_FFN
+    inputs, cot = ffn_inputs(dev, own, m, din, dff, dout)
+    fwd_flops = 2 * m * dff * (din + dout)
+    bwd_flops = 2 * m * dff * (3 * din + 2 * dout)
+    keep = keep_mask(seed, m, dff, 0.1)
+    out = {}
+    for bf16 in (True, False):
+        errs, ties, ratios = [], 0, []
+        for rate in (0.0, 0.1):
+            held = hold_ffn(inputs, cot, seed, rate, bf16, FFN_WIDE_FLOOR)
+            errs.append(held[:2])
+            if bf16:
+                ratios.append([f"{r:.2f}" for r in held[2]])
+            else:
+                ties = max(ties, held[2])
+        kern, plain, bwd_k, bwd_p, out_k, grad_k = held[4]
+        if not all(torch.equal(a, b) for a, b in zip(grad_k, bwd_k())):
+            raise AssertionError(f"ffn {'bf16' if bf16 else 'fp32'} at "
+                                 f"{VARIANT_FFN}: backward differs between "
+                                 f"two calls")
+        suffix, peak, dtype = (("", BF16_FLOP_PER_S, torch.bfloat16) if bf16
+                               else ("_fp32", TF32X3_FLOP_PER_S,
+                                     torch.float32))
+        gemm = "ffn_wgmma_gemm" if bf16 else "ffn_tf32x3_gemm"
+        with torch.no_grad():
+            fwd_ms = device_ms(lambda: kern(*inputs), expect=gemm)
+            plain_fwd = device_ms(lambda: plain(*inputs), 5)
+            _y, saved = ffn_route(*inputs, keep, 1 / 0.9, dtype)
+            route_fwd = device_ms(
+                lambda: ffn_route(*inputs, keep, 1 / 0.9, dtype))
+            route_bwd = device_ms(
+                lambda: ffn_route_bwd(cot[0], keep, 1 / 0.9, saved))
+        bwd_ms = device_ms(bwd_k, expect=gemm)
+        plain_bwd = device_ms(bwd_p, 5)
+        for name, err, ms, pms, rms, n_bytes, flops in (
+                ("ffn_fwd" + suffix, max(e[0] for e in errs), fwd_ms,
+                 plain_fwd, route_fwd, nbytes(*inputs) + nbytes(*out_k),
+                 fwd_flops),
+                ("ffn_bwd" + suffix, max(e[1] for e in errs), bwd_ms,
+                 plain_bwd, route_bwd,
+                 nbytes(*inputs[:4], *cot) + nbytes(*grad_k), bwd_flops)):
+            bound, by = bound_ms(n_bytes, flops, peak)
+            out[name] = {"shape": list(VARIANT_FFN), "max_abs_err": err,
+                         "ms": ms, "plain_ms": pms, "route_ms": rms,
+                         "bound_ms": bound, "bound_by": by}
+        if bf16:
+            out["ffn_fwd"]["band_ratios"] = ratios
+        else:
+            out["ffn_fwd_fp32"]["relu_ties"] = ties
+
+    b, t, h = VARIANT_LSTM
+    plan = lstm_plan(b, h, _build.sm_count(dev))
+    if plan.route != "resident":
+        raise AssertionError(f"lstm_plan{VARIANT_LSTM[::2]} = {plan}")
+    inputs, cot = lstm_inputs(dev, own, b, t, h)
+    _build.reset_launches()
+    out_k, grad_k, bwd_k = grads_of(fused_lstm, inputs, cot)
+    held_launches(f"fused_lstm at {VARIANT_LSTM}",
+                  {k: n for k, n in _build.LAUNCHES.items() if n},
+                  {"lstm_fwd": 1, "lstm_bwd": 1})
+    out_p, grad_p, bwd_p = grads_of(lstm_plain, inputs, cot)
+    what = f"lstm resident {VARIANT_LSTM}"
+    err_f = compare(what + " forward", out_k, out_p)
+    err_b = compare(what + " backward", grad_k, grad_p)
+    if not all(torch.equal(a, g) for a, g in zip(bwd_k(), grad_k)):
+        raise AssertionError(f"{what} backward: two calls differ")
+    lib_fwd, lib_bwd = cudnn_lstm(inputs, cot)
+    with torch.no_grad():
+        fwd_ms = device_ms(lambda: fused_lstm(*inputs),
+                           expect="lstm_fwd_resident")
+        plain_fwd = device_ms(lambda: lstm_plain(*inputs), 3)
+        lib_f = device_ms(lib_fwd)
+    gi, h0, c0, w_hh, _b_hh = inputs
+    mm = 2 * b * t * 4 * h * h
+    fwd_bytes = nbytes(*inputs) + nbytes(*out_k) + nbytes(out_k[0], gi)
+    bwd_bytes = (nbytes(w_hh, h0, c0) + nbytes(*cot) + nbytes(out_k[0]) * 2
+                 + nbytes(gi) + nbytes(*grad_k))
+    for name, err, ms, pms, lms, n_bytes, flops in (
+            ("lstm_fwd", err_f, fwd_ms, plain_fwd, lib_f, fwd_bytes, mm),
+            ("lstm_bwd", err_b,
+             device_ms(bwd_k, expect="lstm_bwd_resident"),
+             device_ms(bwd_p, 3), device_ms(lib_bwd),
+             bwd_bytes, 2 * mm)):
+        bound, by = bound_ms(n_bytes, flops)
+        out[name] = {"shape": list(VARIANT_LSTM), "max_abs_err": err,
+                     "ms": ms, "plain_ms": pms, "library_ms": lms,
+                     "bound_ms": bound, "bound_by": by}
+    return out
+
+
+def variant_args(flags):
+    from cpc2_torch.config import parse_args
+    return parse_args(["--pathDB", ".", "--random_seed", "0"] + list(flags))
+
+
+def variant_inputs(args, seed: int = 0):
+    """The recipe's batch, negatives, mask and quality for a step of
+    `args`, drawn with numpy: BERT's negatives (B*S, N) over the past
+    views' unmasked frames, the others' (B, N, W); the mask drawn as the
+    loader's side draws it (`train.step_mask`)."""
+    from cpc2_torch.train import step_mask
+    rs = np.random.RandomState(seed)
+    b, s, n = args.batchSizeGPU, args.sizeWindow // 160, \
+        args.negativeSamplingExt
+    batch = rs.randn(b, 2, 1, args.sizeWindow).astype(np.float32)
+    np.random.seed(seed)
+    mask = step_mask(args, b)
+    if args.cpc_mode == "bert":
+        free = np.flatnonzero(~mask[:b].reshape(-1))
+        neg = free[rs.randint(0, free.size, (b * s, n))]
+    else:
+        neg = rs.randint(0, b * s, (b, n, s - args.nPredicts))
+    quality = (rs.uniform(0, 1, (b, args.sizeWindow // 1600)).astype(
+        np.float32) if args.signal_quality_path is not None else None)
+    return [torch.from_numpy(x) if x is not None else None
+            for x in (batch, neg.astype(np.int32), mask, quality)]
+
+
+class FFNSpy:
+    """In place of `cpc2_torch.models.transformer.fused_ffn` inside a `with`
+    block: keeps each call's (x, w1, b1, seed); with `masks` (one (M, Dff)
+    float64 tensor a call), runs the FFN at dropout 0 with those ReLU
+    decisions instead of its own."""
+
+    def __init__(self, masks=None):
+        self.calls, self.masks, self.real = [], masks, None
+
+    def __enter__(self):
+        from cpc2_torch.models import transformer
+        self.real, transformer.fused_ffn = transformer.fused_ffn, self
+        return self
+
+    def __exit__(self, *exc):
+        from cpc2_torch.models import transformer
+        transformer.fused_ffn = self.real
+
+    def __call__(self, x, w1, b1, w2, b2, seed, rate=0.0, bf16=False):
+        self.calls.append(tuple(t.detach().clone()
+                                for t in (x, w1, b1, seed)))
+        if self.masks is None:
+            return self.real(x, w1, b1, w2, b2, seed, rate, bf16)
+        if rate:
+            raise AssertionError("FFNSpy with masks runs at dropout 0")
+        mask = self.masks[len(self.calls) - 1]
+        return ((x @ w1.t() + b1) * mask) @ w2.t() + b2
+
+    def decisions(self):
+        """Each call's ReLU decisions, (M, Dff) bool on the CPU, as the
+        FFN that ran took them (`ffn_hidden`)."""
+        return [(ffn_hidden(*call) > 0).cpu() for call in self.calls]
+
+
+def relu_matched_reference(card: FFNSpy, cpu: FFNSpy, run) -> tuple:
+    """The float64 reference of a step with the card's ReLU decisions in
+    every head FFN (`card`'s), from `run(spy)`, which runs the float64 CPU
+    step inside `spy` and returns its {name: tensor}; and, by head FFN,
+    the decisions that differ between the card and the CPU's fp32 step
+    (`cpu`)."""
+    ours, theirs = card.decisions(), cpu.decisions()
+    flips = [int((a != b).sum()) for a, b in zip(ours, theirs)]
+    return run(FFNSpy([d.double() for d in ours])), flips
+
+
+def check_variant_step(dev, name: str, flags, prec: str) -> tuple:
+    """One training step of `flags` at the recipe on the card against the
+    same step on the CPU (`_check_step`'s method: same weights, negatives,
+    mask and quality, dropout off), under `prec`, with the card step's
+    launches held to `variant_launches`. Under `fp32` the flags of
+    VARIANT_RELU_MATCHED are held against a float64 CPU step with the
+    card's ReLU decisions (`relu_matched_reference`) instead. Returns (max
+    abs err, launches, the card step's ms by CUDA events over 3 more
+    steps)."""
+    from cpc2_torch.feature_loader import build_model
+    from cpc2_torch.ops import _build
+    from cpc2_torch.train import get_criterion
+    from cpc2_torch.training import Trainer, make_optimizer
+    from cpc2_torch.training import precision as library_precision
+    args = variant_args(flags)
+    batch, neg, mask, quality = variant_inputs(args)
+    torch.manual_seed(0)
+    model_cpu, crit_cpu = build_model(args), get_criterion(args)
+    matched = prec == "fp32" and name in VARIANT_RELU_MATCHED
+    spies = {}
+
+    def step(device, dtype=torch.float32, spy=None):
+        """The step on `device` in `dtype` (inside `spy`): {name: the
+        losses, then each parameter's gradient}, the launches, a call
+        that runs another step."""
+        model = build_model(variant_args(flags)).to(device, dtype)
+        crit = get_criterion(args).to(device, dtype)
+        model.load_state_dict(model_cpu.state_dict())
+        crit.load_state_dict(crit_cpu.state_dict())
+        for mod in crit.modules():
+            if hasattr(mod, "rate"):
+                mod.rate = 0.0
+            if hasattr(mod, "dropout") and isinstance(mod.dropout, float):
+                mod.dropout = 0.0
+        named = (list(model.named_parameters(prefix="model"))
+                 + list(crit.named_parameters(prefix="criterion")))
+        trainer = Trainer(model, crit, make_optimizer(
+            args, [p for _n, p in named]))
+        step_in = [None if x is None else x.to(device) for x in (
+            batch, neg, mask, quality)]
+        step_in[0] = step_in[0].to(dtype)
+        if step_in[3] is not None:
+            step_in[3] = step_in[3].to(dtype)
+        _build.reset_launches()
+        with spy or contextlib.nullcontext():
+            losses, _accs = trainer.train_step(
+                step_in[0], step_in[1], mask=step_in[2], quality=step_in[3])
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+        out = {"losses": losses.detach().cpu()}
+        out.update((n, p.grad.cpu()) for n, p in named)
+        return out, launches, lambda: trainer.train_step(
+            step_in[0], step_in[1], mask=step_in[2], quality=step_in[3])
+
+    with library_precision(prec):
+        if matched:
+            spies = {"cpu": FFNSpy(), "card": FFNSpy()}
+        results = [step(torch.device("cpu"), spy=spies.get("cpu"))[0]]
+        card, launches, again = step(dev, spy=spies.get("card"))
+        results.append(card)
+        ms = cuda_ms(again, iters=3, warmup=1)
+        if matched:
+            ref, flips = relu_matched_reference(
+                spies["card"], spies["cpu"],
+                lambda spy: step(torch.device("cpu"), torch.float64, spy)[0])
+    held_launches(f"[variant step {name} {prec}]", launches,
+                  variant_launches(flags, True, prec))
+    what = f"{name} {prec} step at the recipe"
+    cpu, card = (list(r.values()) for r in results)
+    if matched:
+        off = {}
+        for n, g, c in zip(results[1], card, cpu):
+            err = (g.double() - c.double()).abs().max().item()
+            scale = c.double().abs().max().item()
+            if err > ATOL + 1e-3 * scale:
+                off[n] = f"{err / scale:.2e}"
+        log(f"  {what}: ReLU decisions that differ card vs cpu (fp32), "
+            f"by head FFN: {flips}; past 1e-3 card vs cpu (fp32), max abs "
+            f"over the largest: {off or 'none'}; held instead against "
+            f"float64 with the card's decisions")
+        return compare(what + " (card vs float64 with the card's ReLU "
+                       "decisions)", card, list(ref.values()),
+                       rtol=1e-3), launches, ms
+    if prec == "fp32":
+        worst = max(norm_rel(g, c) for g, c in zip(card[1:], cpu[1:])
+                    if c.abs().max() > 0) if name != "none" else 0.0
+        log(f"  {what}: worst gradient card vs cpu {worst:.2e} (2-norm, "
+            f"relative)")
+        return compare(what + " (card vs cpu)", card, cpu,
+                       rtol=1e-3), launches, ms
+    err = compare(f"{what} losses (card vs cpu)", card[:1], cpu[:1],
+                  rtol=FUSED_LOSS_RTOL)
+    for n, g, c in zip(list(results[1])[1:], card[1:], cpu[1:]):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{what} gradient {n}: non-finite")
+        rel = norm_rel(g, c)
+        tol = (FFN_LIN1_GRAD_NORM_TOL if ".ffnetwork.lin1." in n
+               else FUSED_GRAD_NORM_TOL)
+        if rel > tol:
+            raise AssertionError(f"{what} gradient {n}: card vs cpu "
+                                 f"{rel:.3e} (2-norm, relative)")
+        err = max(err, (g.double() - c.double()).abs().max().item())
+    return err, launches, ms
+
+
+def write_quality(work: str, source: str = "train_db_wav") -> str:
+    """Signal-quality files for the WAV corpus: for every `<rel>.wav`, a
+    `<rel>.pt` of its (SNR, C50) every 1,600 samples, each a (n, 1) tensor
+    drawn with numpy, and `min_max.csv`; the folder's path."""
+    from cpc2_torch.data.audio_io import audio_info
+    folder = os.path.join(work, "quality")
+    rs = np.random.RandomState(7)
+    root = os.path.join(work, source)
+    for path in sorted(glob.glob(os.path.join(root, "*", "*", "*.wav"))):
+        rel = os.path.relpath(path, root)
+        os.makedirs(os.path.join(folder, os.path.dirname(rel)),
+                    exist_ok=True)
+        n = audio_info(path)[0] // 1600
+        torch.save([torch.from_numpy(rs.uniform(0, 30, (n, 1)).astype(
+                        np.float32)),
+                    torch.from_numpy(rs.uniform(0, 60, (n, 1)).astype(
+                        np.float32))],
+                   os.path.join(folder, rel[:-len(".wav")] + ".pt"))
+    with open(os.path.join(folder, "min_max.csv"), "w") as f:
+        f.write("min_snr,max_snr,min_c50,max_c50\n0,30,0,60\n")
+    return folder
+
+
+def run_variant_epoch(dev, work: str, group: str, quality: str) -> dict:
+    """One epoch of `python -m cpc2_torch.train` at the CLI defaults with
+    the group's VARIANT_EPOCHS flags (`mask_quality`: on the WAV corpus
+    with `--signal_quality_path quality`), its launches held exactly to
+    `variant_launches` times its training and validation steps, its losses
+    finite, its checkpoint written."""
+    from cpc2_torch.ops import _build
+    from cpc2_torch.train import main
+    flags = list(VARIANT_EPOCHS[group])
+    db = "train_db"
+    if group == "mask_quality":
+        flags += ["--file_extension", ".wav", "--signal_quality_path",
+                  quality]
+        db = "train_db_wav"
+    ck = os.path.join(work, f"ck_variant_{group}")
+    _build.reset_launches()
+    record = main(train_argv(work, ck, *flags, db=db))
+    launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+    n_train, n_val = len(record["step_ms"]), record["val_steps"]
+    want = {}
+    for train, n in ((True, n_train), (False, n_val)):
+        for k, per in variant_launches(flags, train).items():
+            want[k] = want.get(k, 0) + n * per
+    held_launches(f"[variant epoch {group}] ({n_train} + {n_val} steps)",
+                  launches, want)
+    heads = 1 if group == "bert" else 12
+    for key in ("locLoss_train", "locAcc_train", "locLoss_val"):
+        values = np.asarray(record["logs"][key], dtype=np.float64)
+        if values.shape != (1, heads) or not np.isfinite(values).all():
+            raise AssertionError(f"[variant epoch {group}] {key}: {values}")
+    if n_train < 5:
+        raise AssertionError(f"[variant epoch {group}] only {n_train} steps")
+    record["launches"] = launches
+    record["checkpoint"] = os.path.join(ck, "checkpoint_0.pt")
+    return record
+
+
+def check_variant_dispatch(dev, group: str, corpus, offsets) -> dict:
+    """`--steps_per_dispatch 4` with the group's flags (VARIANT_DISPATCH):
+    a `MultiStep` of DISPATCH_N steps, its first group the eager warm-up,
+    the state copied to a second trainer, then 3 groups as graph replays
+    against the same 3 x N steps eagerly, each step with its mask (drawn as
+    the loader's side draws it) and, for `mask_quality`, its signal
+    quality, under `bf16mix`: the losses, parameters, Adam's state and the
+    generators bit for bit, and a replay's launches N times an eager
+    step's."""
+    from cpc2_torch.ops import _build
+    from cpc2_torch.train import step_mask
+    from cpc2_torch.training import MultiStep, precision
+    flags = VARIANT_DISPATCH[group]
+    args, graphed = dispatch_trainer(dev, 256, flags=flags)
+    _, eager = dispatch_trainer(dev, 256, flags=flags)
+    np.random.seed(11)
+    masks = torch.from_numpy(np.stack([np.stack(
+        [step_mask(args, 8) for _ in range(DISPATCH_N)])
+        for _ in range(offsets.shape[0])])).to(dev)
+    quality = (torch.from_numpy(np.random.RandomState(12).uniform(
+        0, 1, (offsets.shape[0], DISPATCH_N, 8, 12)).astype(
+            np.float32)).to(dev) if group == "mask_quality" else None)
+
+    def q(g):
+        return None if quality is None else quality[g]
+    with precision("bf16mix"):
+        multi = MultiStep(graphed, DISPATCH_N, corpus)
+        multi(offsets[0], None, q(0), masks[0])      # the warm-up, eager
+        eager.model.load_state_dict(graphed.model.state_dict())
+        eager.criterion.load_state_dict(graphed.criterion.state_dict())
+        eager.optimizer.load_state_dict(
+            copy.deepcopy(graphed.optimizer.state_dict()))
+        eager.generator.set_state(graphed.generator.get_state())
+        eager.augment_generator.set_state(
+            graphed.augment_generator.get_state())
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        rows = [multi(offsets[g], None, q(g), masks[g])[0].clone()
+                for g in range(1, 4)]
+        torch.cuda.synchronize()
+        eager_rows, per_step = [], None
+        for g in range(1, 4):
+            for i in range(DISPATCH_N):
+                _build.reset_launches()
+                eager_rows.append(eager.train_step(
+                    corpus.put(offsets[g][i]), mask=masks[g][i],
+                    quality=None if quality is None else quality[g][i])[0])
+                per_step = per_step or {
+                    k: n for k, n in _build.LAUNCHES.items() if n}
+    off = {k: (multi.launches.get(k, 0), n) for k, n in per_step.items()
+           if multi.launches.get(k, 0) != DISPATCH_N * n}
+    if off or set(multi.launches) - set(per_step):
+        raise AssertionError(f"[variant dispatch {group}] launches a replay "
+                             f"vs an eager step: {off}, "
+                             f"{multi.launches}")
+    differing = {}
+    got, want = torch.cat(rows), torch.cat(eager_rows)
+    if not torch.equal(got, want):
+        differing["losses"] = (got - want).abs().max().item()
+    state_g, state_e = trainer_state(graphed), trainer_state(eager)
+    for key, value in state_g.items():
+        if not torch.equal(value, state_e[key]):
+            differing[key] = (value.double() - state_e[key].double()
+                              ).abs().max().item()
+    if differing:
+        raise AssertionError(f"[variant dispatch {group}] replay vs eager "
+                             f"differ: {differing}")
+    return {"tensors": len(state_g) + 1, "captures": multi.captures,
+            "launches_per_replay": multi.launches}
+
+
+def run_variants(dev, work: str, card: str) -> dict:
+    """Phase 10: the kernels at the variants' new shapes, one step per flag
+    value card against CPU, one CLI epoch per group (the launch counts
+    held), the N = 4 graph replays with masks and quality, ABX from a
+    reverse and an MFCC checkpoint (features card against CPU within 1e-3),
+    and the LFB step's determinism."""
+    out = {}
+    start = time.perf_counter()
+    kernels = out["kernels"] = variant_kernels_fresh(work)
+    log(f"[variant kernels] {time.perf_counter() - start:.1f} s, {card}: "
+        + "; ".join(
+            f"{name} at {tuple(r['shape'])}: err {r['max_abs_err']:.2e}, "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            + (f"torch.matmul route {r['route_ms']:.4f} ms"
+               if "route_ms" in r else f"cuDNN {r['library_ms']:.4f} ms")
+            + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+            for name, r in kernels.items())
+        + "; every backward bit for bit across two calls (device time, in a "
+        "fresh process)")
+    steps = out["steps"] = {}
+    for name, flags in VARIANT_STEPS:
+        for prec in (("fp32", "bf16mix") if name in VARIANT_BOTH_PRECISIONS
+                     else ("fp32",)):
+            start = time.perf_counter()
+            err, launches, ms = check_variant_step(dev, name, flags, prec)
+            steps[f"{name} {prec}"] = {"max_abs_err": err,
+                                       "launches": launches, "ms": ms}
+            log(f"[variant step {name} {prec}] {' '.join(flags)}: card vs "
+                f"cpu at the recipe, max abs err {err:.2e}, "
+                f"{time.perf_counter() - start:.1f} s, card step {ms:.3f} ms "
+                f"(events, {card}), launches {launches}")
+    quality = write_quality(work)
+    epochs = out["epochs"] = {}
+    for group in VARIANT_EPOCHS:
+        start = time.perf_counter()
+        epochs[group] = run_variant_epoch(dev, work, group, quality)
+        log(f"[variant epoch {group}] {time.perf_counter() - start:.1f} s, "
+            f"{card}: {' '.join(VARIANT_EPOCHS[group])}, "
+            f"{len(epochs[group]['step_ms'])} + "
+            f"{epochs[group]['val_steps']} steps, median "
+            f"{epochs[group]['median_step_ms']:.3f} ms/step, launches "
+            f"{epochs[group]['launches']} (held exactly)")
+    corpus_d, offsets_d = dispatch_corpus(dev)
+    dispatch = out["dispatch"] = {}
+    for group in VARIANT_DISPATCH:
+        start = time.perf_counter()
+        dispatch[group] = check_variant_dispatch(dev, group, corpus_d,
+                                                 offsets_d)
+        log(f"[variant dispatch {group}] {time.perf_counter() - start:.1f} "
+            f"s, {card}: 3 groups of {DISPATCH_N} steps replayed bit for "
+            f"bit against eager steps ({dispatch[group]['tensors']} tensors), masks "
+            + ("and quality " if group == "mask_quality" else "")
+            + f"in each step, launches a replay "
+            f"{dispatch[group]['launches_per_replay']}")
+    del corpus_d
+    abx = out["abx"] = {}
+    for group in ("reverse", "mfcc"):
+        start = time.perf_counter()
+        r = run_abx(dev, work, epochs[group]["checkpoint"],
+                    cpu_batched=group == "mfcc")
+        abx[group] = {k: r[k] for k in ("scores", "feature_max_abs_err",
+                                        "launches", "features_s",
+                                        "scoring_s")}
+        log(f"[variant abx {group}] {time.perf_counter() - start:.1f} s, "
+            f"{card}: scores {r['scores']}, features {r['features_s']:.3f} "
+            f"s, scoring {r['scoring_s']:.3f} s, features card vs cpu "
+            f"{r['feature_max_abs_err']:.2e} (held to 1e-3)")
+    start = time.perf_counter()
+    det = out["determinism_lfb"] = step_determinism(
+        dev, flags=("--encoder_type", "lfb"))
+    log(f"[determinism] {time.perf_counter() - start:.1f} s: a "
+        f"--encoder_type lfb step at the CLI defaults, {det['passes']} "
+        f"passes on the same weights, batch and draws: of the losses and "
+        f"{det['gradients']} gradients these differ (max abs): "
+        f"{det['differing'] or 'none'}")
+    return out
+
+
+def variant_launches_by_kernel(variants: dict) -> dict:
+    """Each kernel's launches over phase 10's CLI epochs."""
+    total = {}
+    for record in variants["epochs"].values():
+        for k, n in record["launches"].items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4738,6 +5430,13 @@ def main() -> int:
         log(f"[phase 9] {time.perf_counter() - phase9:.1f} s, the whole "
             f"run so far {time.perf_counter() - t0:.1f} s of the 1,200 s "
             f"limit")
+
+        # phase 10: the model and criterion modes
+        phase10 = time.perf_counter()
+        variants = run_variants(dev, work, card)
+        log(f"[phase 10] {time.perf_counter() - phase10:.1f} s, the whole "
+            f"run so far {time.perf_counter() - t0:.1f} s of the 1,200 s "
+            f"limit")
     # each kernel's launches on its own path
     for k in kernels:
         path = (abx if k["name"] == "dtw" else records["fused"]
@@ -4747,7 +5446,9 @@ def main() -> int:
         k["launches"] = path["launches"][k["name"]]
     for key, by_kernel in (("launches_discrete_units", unit_launches(units)),
                            ("launches_common_voices",
-                            cv_launches(common_voices))):
+                            cv_launches(common_voices)),
+                           ("launches_variants",
+                            variant_launches_by_kernel(variants))):
         for k in kernels:
             if k["name"] in by_kernel:
                 k[key] = by_kernel[k["name"]]
@@ -4802,6 +5503,14 @@ def main() -> int:
         "probe": probes,
         "units": units,
         "common_voices": common_voices,
+        "variants": {
+            "kernels_at_new_shapes": variants["kernels"],
+            "steps": variants["steps"],
+            "epochs": {g: dict(epoch(r), val_steps=r["val_steps"],
+                               launches=r["launches"])
+                       for g, r in variants["epochs"].items()},
+            "dispatch": variants["dispatch"], "abx": variants["abx"],
+            "step_determinism_lfb": variants["determinism_lfb"]},
         "default_route_ms": yardsticks,
         "events_ms": events,
         "lstm": details,

@@ -232,7 +232,6 @@ def set_train_config(parser: argparse.ArgumentParser
 _DDP = "Data-parallel training (DDP)"
 _NEG_POOLS = "Negative pools across or within devices"
 BF16 = "bf16 precision"
-_VARIANTS = "Other model and criterion modes"
 _UNPORTED = (
     ('distributed', bool, _DDP),
     ('nGPU', lambda v: v > 1, _DDP),
@@ -243,12 +242,6 @@ _UNPORTED = (
     ('neg_pool_group', bool, _NEG_POOLS),
     ('precision', lambda v: v == 'bf16', BF16),
     ('adam_mu_dtype', lambda v: v != 'fp32', BF16),
-    ('cpc_mode', lambda v: v is not None, _VARIANTS),
-    ('encoder_type', lambda v: v != 'cpc', _VARIANTS),
-    ('rnnMode', lambda v: v != 'transformer', _VARIANTS),
-    ('multihead_rnn', bool, _VARIANTS),
-    ('mask_prob', lambda v: v > 0, _VARIANTS),
-    ('signal_quality_path', lambda v: v is not None, _VARIANTS),
 )
 
 
@@ -260,15 +253,15 @@ def _raise_unported(args: argparse.Namespace, entries) -> None:
                 f"(ROADMAP.md item: {item})")
 
 
-_MODEL_FLAGS = ('cpc_mode', 'encoder_type')
-
-
 def check_model_ported(args: argparse.Namespace) -> None:
-    """Raise `NotImplementedError` when the architecture flags (a
-    checkpoint's saved ones, say) name a model that is not ported."""
-    _raise_unported(args, [u for u in _UNPORTED if u[0] in _MODEL_FLAGS])
-    if args.arMode not in ('GRU', 'LSTM', 'RNN', 'no_ar', 'transformer'):
-        raise ValueError(f"unknown arMode {args.arMode!r}")
+    """Raise `ValueError` when the architecture flags (a checkpoint's saved
+    ones, say) name a model that no package builds."""
+    for name, known in (('arMode', ('GRU', 'LSTM', 'RNN', 'no_ar',
+                                    'transformer')),
+                        ('cpc_mode', (None, 'reverse', 'bert', 'none')),
+                        ('encoder_type', ('cpc', 'mfcc', 'lfb'))):
+        if getattr(args, name) not in known:
+            raise ValueError(f"unknown {name} {getattr(args, name)!r}")
 
 
 def check_ported(args: argparse.Namespace) -> None:

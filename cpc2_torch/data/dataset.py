@@ -1,6 +1,5 @@
 """In-RAM chunked audio corpus and its batch loader, a copy of
-`cpc2_tpu/data/dataset.py` (reference `cpc/dataset.py:23-600`) without
-signal-quality weights (ROADMAP.md item: Other model and criterion modes).
+`cpc2_tpu/data/dataset.py` (reference `cpc/dataset.py:23-600`).
 
 * packs: the sequence list is split so that each pack's total length fits
   `MAX_SIZE_LOADED`; one pack lives in RAM as one float32 array, and the
@@ -18,11 +17,21 @@ signal-quality weights (ROADMAP.md item: Other model and criterion modes).
   draws before the future views';
 * with `yield_indices` the loader yields each batch's window offsets and
   labels (`get_batch_meta`) instead of its audio, for `--corpus_on_device`
-  (`data/device_corpus.py`), where the pack lives on the device.
+  (`data/device_corpus.py`), where the pack lives on the device;
+* signal quality (`--signal_quality_path`, a WAV corpus): a `.pt` file
+  beside each sequence's relative path (`.wav` replaced by `.pt`) holds
+  its (SNR, C50) estimates every `signal_quality_step` samples, and
+  `min_max.csv` their ranges; each sequence is cut to its estimates'
+  length, the estimates are scaled to [0, 1] and their mean appended, and
+  a batch ends with its windows' `sizeWindow // signal_quality_step`
+  estimates of `signal_quality_mode`, (B, Q) float32.
 """
 
 from __future__ import annotations
 
+import csv
+import functools
+import os
 import random
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -43,11 +52,21 @@ def extract_length(couple) -> int:
     return n_frames
 
 
-def load_file(couple):
-    """Decode one file: (speaker, seqName, waveform float32)."""
+def load_file(couple, signal_quality_path=None,
+              signal_quality_step: int = 1600):
+    """Decode one file: (speaker, seqName, waveform float32), and with
+    `signal_quality_path` its (n, 2) estimates fourth, the waveform cut to
+    n x `signal_quality_step` samples (reference `dataset.py:411-431`)."""
     speaker, full_path = couple
     seq, _sr = load_audio(str(full_path))
-    return speaker, Path(full_path).stem, np.asarray(seq, dtype=np.float32)
+    seq = np.asarray(seq, dtype=np.float32)
+    if signal_quality_path is None:
+        return speaker, Path(full_path).stem, seq
+    import torch
+    sq = torch.load(signal_quality_path, weights_only=True)
+    sq = np.concatenate([np.asarray(t) for t in sq], axis=1)
+    return (speaker, Path(full_path).stem,
+            seq[:sq.shape[0] * signal_quality_step], sq)
 
 
 class PeakNorm:
@@ -68,12 +87,23 @@ class AudioBatchData:
                  augment_past: bool = False, augment_future: bool = False,
                  augmentation: Optional[Callable] = None,
                  keep_temporality: bool = True,
-                 past_equal_future: bool = False):
+                 past_equal_future: bool = False,
+                 signal_quality_path: Optional[str] = None,
+                 signal_quality_step: int = 1600,
+                 signal_quality_mode: Optional[str] = None):
         self.MAX_SIZE_LOADED = MAX_SIZE_LOADED
         self.dbPath = Path(path)
         self.sizeWindow = sizeWindow
         self.seqNames = [(s, self.dbPath / x) for s, x in seqNames]
         self.keep_temporality = keep_temporality
+        self.signal_quality_path = (Path(signal_quality_path)
+                                    if signal_quality_path is not None
+                                    else None)
+        self.signal_quality_step = signal_quality_step
+        self.signal_quality_size = self.sizeWindow // self.signal_quality_step
+        self.signal_quality_mode = signal_quality_mode
+        if self.signal_quality_path is not None:
+            self.init_min_max_signal_quality()
         self.transform = transform
         self.augment_past = augment_past
         self.augment_future = augment_future
@@ -90,6 +120,7 @@ class AudioBatchData:
         self.prepare()
         self.speakers = list(range(nSpeakers))
         self.data = np.zeros(0, dtype=np.float32)
+        self.data_quality = np.zeros((0, 3), dtype=np.float32)
         self.phoneSize = 0 if phoneLabelsDict is None else \
             phoneLabelsDict["step"]
         self.phoneStep = 0 if phoneLabelsDict is None else \
@@ -105,6 +136,27 @@ class AudioBatchData:
     # ------------------------------------------------------------------
     # Pack management
     # ------------------------------------------------------------------
+
+    def init_min_max_signal_quality(self):
+        """The estimates' ranges, from `min_max.csv` in the quality
+        directory (keys min_snr, max_snr, min_c50, max_c50)."""
+        file_path = self.signal_quality_path / 'min_max.csv'
+        if not file_path.is_file():
+            raise FileNotFoundError(
+                'Can not find file containing min/max values of snr and c50 '
+                'under: %s' % file_path)
+        with open(file_path, 'r') as fin:
+            reader = csv.reader(fin)
+            data = dict(zip(next(reader), next(reader)))
+        try:
+            self.min_snr = float(data['min_snr'])
+            self.max_snr = float(data['max_snr'])
+            self.min_c50 = float(data['min_c50'])
+            self.max_c50 = float(data['max_c50'])
+        except Exception:
+            raise ValueError(
+                "min_max.csv should contain the following keys: min_snr, "
+                "max_snr, min_c50, max_c50.")
 
     def resetPhoneLabels(self, newPhoneLabels, step):
         self.phoneSize = step
@@ -134,6 +186,12 @@ class AudioBatchData:
             self.seqNames = [item for b in blocks for item in b]
         else:
             random.shuffle(self.seqNames)
+
+        if self.signal_quality_path is not None:
+            self.signal_quality_names = [
+                self.signal_quality_path /
+                os.path.relpath(x, self.dbPath).replace('.wav', '.pt')
+                for s, x in self.seqNames]
 
         start_time = time.time()
         print("Checking length...")
@@ -180,9 +238,17 @@ class AudioBatchData:
         if self.nextPack == 0 and len(self.packageIndex) > 1:
             self.prepare()
             seq_start, seq_end = self.packageIndex[self.nextPack]
-        items = self.seqNames[seq_start:seq_end]
-        self._future = self.reload_pool.submit(
-            lambda: list(map(load_file, items)))
+        if self.signal_quality_path is not None:
+            loader = functools.partial(
+                load_file, signal_quality_step=self.signal_quality_step)
+            pairs = list(zip(self.seqNames[seq_start:seq_end],
+                             self.signal_quality_names[seq_start:seq_end]))
+            self._future = self.reload_pool.submit(
+                lambda: [loader(*pair) for pair in pairs])
+        else:
+            items = self.seqNames[seq_start:seq_end]
+            self._future = self.reload_pool.submit(
+                lambda: list(map(load_file, items)))
 
     def parseNextDataBlock(self):
         self.speakerLabel = [0]
@@ -192,8 +258,8 @@ class AudioBatchData:
         index_speaker = 0
 
         self.nextData.sort(key=lambda x: (x[0], x[1]))
-        tmp_data = []
-        for speaker, seq_name, seq in self.nextData:
+        tmp_data, tmp_quality = [], []
+        for speaker, seq_name, seq, *signal_quality in self.nextData:
             while self.speakers[index_speaker] < speaker:
                 index_speaker += 1
                 self.speakerLabel.append(speaker_size)
@@ -204,12 +270,20 @@ class AudioBatchData:
                 seq = seq[:len(self.phoneLabelsDict[seq_name])
                           * self.phoneSize]
             tmp_data.append(seq)
+            if signal_quality:
+                tmp_quality.append(signal_quality[0])
             self.seqLabel.append(self.seqLabel[-1] + seq.shape[0])
             speaker_size += seq.shape[0]
 
         self.speakerLabel.append(speaker_size)
         self.data = (np.concatenate(tmp_data, axis=0) if tmp_data
                      else np.zeros(0, np.float32))
+        if tmp_quality:
+            q = np.concatenate(tmp_quality, axis=0).astype(np.float32)
+            q[:, 0] = (q[:, 0] - self.min_snr) / (self.max_snr - self.min_snr)
+            q[:, 1] = (q[:, 1] - self.min_c50) / (self.max_c50 - self.min_c50)
+            self.data_quality = np.concatenate(
+                [q, q.mean(axis=1, keepdims=True)], axis=1)
         self._speaker_label_arr = np.asarray(self.speakerLabel)
         self._phone_label_arr = (np.asarray(self.phoneLabels, dtype=np.int64)
                                  if self.phoneLabels else None)
@@ -222,6 +296,17 @@ class AudioBatchData:
         id_phone = idx // self.phoneSize
         return self.phoneLabels[id_phone:(id_phone + self.phoneStep)]
 
+    def getSignalQuality(self, idx: int) -> np.ndarray:
+        """The `signal_quality_mode` estimates of the window at `idx`."""
+        i = idx // self.signal_quality_step
+        est = self.data_quality[i:i + self.signal_quality_size]
+        col = {'snr': 0, 'c50': 1, 'snr_c50': 2}.get(self.signal_quality_mode)
+        if col is None:
+            raise ValueError(
+                "--signal_quality_mode should be in "
+                "['snr', 'c50', 'snr_c50'].")
+        return est[:, col]
+
     def __len__(self):
         return self.totSize // self.sizeWindow
 
@@ -231,7 +316,9 @@ class AudioBatchData:
         after the transform, each augmented as the flags say (the past views
         first, window by window, then the future ones). The labels are the
         speakers (B,), or with phone labels the phones (B, W // 160); with
-        `doubleLabels` the speakers, and the phones third."""
+        `doubleLabels` the speakers, and the phones third. With signal
+        quality, the windows' estimates (B, W // signal_quality_step)
+        last."""
         idx = np.asarray(indices, dtype=np.int64)
         window = np.arange(self.sizeWindow, dtype=np.int64)
         wave = self.data[idx[:, None] + window[None, :]][:, None, :]
@@ -247,7 +334,7 @@ class AudioBatchData:
         if self.past_equal_future:
             future = past
         out = np.stack([past, future], axis=1)
-        return (out,) + self._meta(speaker, phone)
+        return (out,) + self._meta(speaker, phone, idx)
 
     def _labels(self, idx: np.ndarray):
         """The speakers (B,) of the windows starting at `idx`, and their
@@ -261,18 +348,23 @@ class AudioBatchData:
                                           + steps[None, :]]
         return speaker, phone
 
-    def _meta(self, speaker, phone) -> tuple:
+    def _meta(self, speaker, phone, idx: np.ndarray) -> tuple:
         if phone is None:
-            return (speaker,)
-        if self.doubleLabels:
-            return speaker, phone
-        return (phone,)
+            meta = (speaker,)
+        elif self.doubleLabels:
+            meta = (speaker, phone)
+        else:
+            meta = (phone,)
+        if self.signal_quality_path is not None:
+            meta += (np.stack([self.getSignalQuality(int(i)) for i in idx]),)
+        return meta
 
     def get_batch_meta(self, indices: Sequence[int]) -> tuple:
         """`get_batch(indices)[1:]` without gathering the windows: the
         labels that cross from the host under `--corpus_on_device`, where
         the audio is resident on the device."""
-        return self._meta(*self._labels(np.asarray(indices, dtype=np.int64)))
+        idx = np.asarray(indices, dtype=np.int64)
+        return self._meta(*self._labels(idx), idx)
 
     def gather_windows(self, indices: Sequence[int]) -> np.ndarray:
         """The clean (B, 2, 1, W) float32 windows at `indices`, the past

@@ -2,9 +2,11 @@
 `cpc2_tpu/dispatch.py:GroupAssembler` and `EPOCH_END`).
 
 The assembler runs on the loader's thread: it buffers each full batch's
-window offsets (`--corpus_on_device`; else the batch itself) and labels,
-and when N of them from one pack are in hand it stacks them into (N, B)
-int32 offsets and (N, ...) labels, pinned for their copy to a card. A pack swap flushes the buffered batches as a partial group
+window offsets (`--corpus_on_device`; else the batch itself), labels, and
+signal quality and masks where the run has them, and when N of them from
+one pack are in hand it stacks them into (N, B) int32 offsets, (N, ...)
+labels, (N, B, Q) quality and (N, 2B, S) masks, pinned for their copy to a
+card. A pack swap flushes the buffered batches as a partial group
 (offsets index the pack they were drawn from), and so does the `EPOCH_END`
 sentinel at the epoch's end. A partial group runs through the single step.
 """
@@ -18,11 +20,13 @@ EPOCH_END = object()       # the loader's last item: flush the buffer
 
 
 class GroupAssembler:
-    """Items are `(pack, offsets, labels)`: the host pack the offsets index
-    (held, so that a swap is seen by identity), the (B,) int32 offsets (or
-    a (B, 2, 1, W) batch, with no pack) and the batch's labels, numpy
+    """Items are `(pack, offsets, labels[, quality, mask])`: the host pack
+    the offsets index (held, so that a swap is seen by identity), the (B,)
+    int32 offsets (or a (B, 2, 1, W) batch, with no pack), the batch's
+    labels, and its (B, Q) signal quality and (2B, S) mask or None, numpy
     arrays. `add` returns `('idxgroup', pack, offsets (N, B), labels (N,
-    ...), n_examples)`, tensors, when a group completes,
+    ...), n_examples, quality (N, B, Q) or None, masks (N, 2B, S) or
+    None)`, tensors, when a group completes,
     `('idxpartial', items)` when the pack swaps mid-group, or None while
     buffering; `flush` returns what is buffered, a partial group when it is
     short of N (None when empty)."""
@@ -50,9 +54,14 @@ class GroupAssembler:
         self._buf.clear()
         if len(items) < self._spd:
             return ('idxpartial', items)
-        offsets = torch.from_numpy(np.stack([b[1] for b in items]))
-        labels = torch.from_numpy(np.stack([b[2] for b in items]))
-        if self._pin:
-            offsets, labels = offsets.pin_memory(), labels.pin_memory()
+        stacked = []
+        for j in range(1, 5):
+            if len(items[0]) <= j or items[0][j] is None:
+                stacked.append(None)
+                continue
+            t = torch.from_numpy(np.stack([b[j] for b in items]))
+            stacked.append(t.pin_memory() if self._pin else t)
+        offsets, labels, quality, masks = stacked
         n_ex = sum(b[1].shape[0] for b in items)
-        return ('idxgroup', items[0][0], offsets, labels, n_ex)
+        return ('idxgroup', items[0][0], offsets, labels, n_ex, quality,
+                masks)

@@ -32,8 +32,9 @@ from .config import check_model_ported
 from .data.audio_io import load_audio
 from .io.checkpoint import (get_checkpoint_data, load_args,
                             load_torch_checkpoint)
-from .models import (CPCAR, CPCEncoder, CPCModel, ConcatenatedModel, NoAr,
-                     build_transformer_ar)
+from .models import (CPCAR, BiDIRARTangled, CPCBertModel, CPCEncoder,
+                     CPCModel, ConcatenatedModel, LFBEncoder, MFCCEncoder,
+                     NoAr, build_transformer_ar)
 from .models.encoder import DOWNSAMPLING
 from .training import full_fp32
 
@@ -42,14 +43,21 @@ _TRAIN_MODE = "train_mode features"
 
 
 def get_encoder(args: argparse.Namespace) -> nn.Module:
-    """The learned conv encoder; the MFCC and LFB front-ends are not ported
-    (the flag parser refuses them)."""
+    """`--encoder_type` (reference `feature_loader.py:202-212`): the MFCC or
+    learned-filterbank front-end, else the conv encoder."""
+    if args.encoder_type == 'mfcc':
+        return MFCCEncoder(dim_encoded=args.hiddenEncoder)
+    if args.encoder_type == 'lfb':
+        return LFBEncoder(dim_encoded=args.hiddenEncoder)
     return CPCEncoder(size_hidden=args.hiddenEncoder, norm_mode=args.normMode)
 
 
 def get_ar(args: argparse.Namespace) -> nn.Module:
-    """The context network. Like the reference, the transformer AR sets
-    `args.hiddenGar = args.hiddenEncoder` in place."""
+    """The context network (reference `feature_loader.py:215-235`): the
+    transformer, else with `--cpc_mode bert` the bidirectional GRU, else
+    none or a recurrent one, time-reversed with `--cpc_mode reverse`. Like
+    the reference, the transformer AR sets `args.hiddenGar =
+    args.hiddenEncoder` in place."""
     if args.arMode == 'transformer':
         ar = build_transformer_ar(args.hiddenEncoder, args.hiddenGar,
                                   args.nLevelsGRU,
@@ -57,15 +65,26 @@ def get_ar(args: argparse.Namespace) -> nn.Module:
                                   args.abspos)
         args.hiddenGar = args.hiddenEncoder
         return ar
+    if args.cpc_mode == 'bert':
+        return BiDIRARTangled(dim_encoded=args.hiddenEncoder,
+                              dim_output=args.hiddenGar,
+                              n_levels=args.nLevelsGRU)
     if args.arMode == 'no_ar':
         return NoAr()
     return CPCAR(dim_encoded=args.hiddenEncoder, dim_output=args.hiddenGar,
                  keep_hidden=args.samplingType == "sequential",
-                 n_levels=args.nLevelsGRU, mode=args.arMode)
+                 n_levels=args.nLevelsGRU, mode=args.arMode,
+                 reverse=args.cpc_mode == 'reverse')
 
 
 def build_model(args: argparse.Namespace) -> CPCModel:
-    return CPCModel(gEncoder=get_encoder(args), gAR=get_ar(args))
+    """The model of the flags: a `CPCBertModel` under `--cpc_mode bert`,
+    else a `CPCModel` (with `mask_emb` under `--mask_prob`)."""
+    encoder, ar = get_encoder(args), get_ar(args)
+    if args.cpc_mode == 'bert':
+        return CPCBertModel(encoder, ar,
+                            supervised=getattr(args, 'supervised', False))
+    return CPCModel(encoder, ar, mask_prob=getattr(args, 'mask_prob', 0.0))
 
 
 def load_state(module: nn.Module, state: Dict[str, torch.Tensor],

@@ -2,10 +2,19 @@
 
 The JAX package names its flax scopes after the reference's torch modules,
 so a param path maps to a state-dict key by joining it with dots, with
-four rules:
+these rules (`cpc2_tpu/io/torch_ckpt.py:196-290`):
 
 * the K prediction heads are stacked on a leading axis under one
-  `predictors` scope; they become the per-head keys `predictors.{k}.*`;
+  `predictors` scope; they become the per-head keys `predictors.{k}.*`
+  (the multi-head trunk's single `predictor` scope is not stacked);
+* the reference's equalized layers wrap theirs in `.module`: the `ffd`
+  heads' `predictors.{k}.lin1.module.weight` and the `conv4/8/12` heads'
+  `predictors.{k}.module.module.weight`, which flax keeps as
+  `predictors/lin1/weight` and `predictors/weight` (rank 4 stacked; the
+  linear head's is rank 3 and has no bias);
+* a bidirectional GRU's backward direction is the flax scope `<name>_bwd`
+  with leaves `*_reverse`; torch keeps them in `<name>` beside the forward
+  direction's;
 * the layers of a torch `Sequential` are flax scopes `<name>_{i}`
   (`PhoneCriterionClassifier_{i}` for `--nLevelsPhone > 1`); they become
   `<name>.{i}.*`;
@@ -34,6 +43,11 @@ _CHANNEL_NORM = re.compile(r"^batchNorm\d+$")
 # which are stacked, and the concatenated models, which the JAX package does
 # not train)
 _LIST_SCOPE = re.compile(r"^(PhoneCriterionClassifier)_(\d+)$")
+# the equalized layers' `.module` wrappers (`criterion.py:FFNetwork`,
+# `ShiftedConv`), and a bidirectional GRU's backward scope
+_WRAPPER = "module"
+_BWD = "_bwd"
+_REVERSE = "_reverse"
 
 
 def _split_list_scopes(path: Tuple[str, ...]) -> Tuple[str, ...]:
@@ -77,11 +91,15 @@ def state_dict_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None,
     out: Dict[str, torch.Tensor] = {}
     for path, value in _leaves(params):
         path = _split_list_scopes(path)
+        if (len(path) >= 2 and path[-2].endswith(_BWD)
+                and path[-1].endswith(_REVERSE)):
+            path = path[:-2] + (path[-2][:-len(_BWD)], path[-1])
         if "predictors" in path:
             i = path.index("predictors")
             stacked = np.asarray(value)
+            inner = _unwrap_head(path[i + 1:], stacked.ndim)
             for k in range(stacked.shape[0]):
-                key = ".".join(path[:i] + ("predictors", str(k)) + path[i + 1:])
+                key = ".".join(path[:i] + ("predictors", str(k)) + inner)
                 out[key] = _tensor(stacked[k])
             continue
         if len(path) >= 2 and path[-2] == "bn":
@@ -102,6 +120,16 @@ def state_dict_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None,
     return out
 
 
+def _unwrap_head(inner: Tuple[str, ...], ndim: int) -> Tuple[str, ...]:
+    """A stacked head's path below `predictors`, with the reference's
+    `.module` wrappers of the `ffd` and `conv` heads put back."""
+    if len(inner) == 2 and inner[0] in ("lin1", "lin2"):
+        return (inner[0], _WRAPPER, inner[1])
+    if inner == ("bias",) or (inner == ("weight",) and ndim == 4):
+        return (_WRAPPER, _WRAPPER) + inner
+    return inner
+
+
 def _jax_path(module: nn.Module, key: str) -> Tuple[Tuple[str, ...],
                                                    Optional[int]]:
     """The flax param path of `module`'s parameter `key`, and the head it
@@ -117,6 +145,9 @@ def _jax_path(module: nn.Module, key: str) -> Tuple[Tuple[str, ...],
     if isinstance(owner, nn.modules.batchnorm._BatchNorm):
         parts = parts[:-1] + ["bn", "scale" if parts[-1] == "weight"
                               else "bias"]
+    parts = [p for p in parts if p != _WRAPPER]
+    if parts[-1].endswith(_REVERSE):
+        parts[-2] += _BWD
     return tuple(_join_list_scopes(parts)), head
 
 

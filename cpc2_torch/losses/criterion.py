@@ -12,6 +12,15 @@ The loss keeps the JAX package's formulation:
    positive's score, so that `pos >= max(neg)` counts it as correct, as the
    reference's single product over (1+N) candidates does;
 5. the cross-entropy over (1+N) candidates is `logsumexp - pos`.
+
+The prediction heads are `--rnnMode`'s (transformer, RNN, LSTM, linear,
+ffd, conv4/8/12; `transformer_adaptive_span` is the linear head, as in the
+JAX package, which has no adaptive span), or with `--multihead_rnn` one
+shared transformer trunk whose FFN emits all K heads
+(`MultiHeadPredictionNetwork`). `--cpc_mode reverse` flips time in the
+criterion as in the context network, `--cpc_mode none` trains nothing
+(`NoneCriterion`), and `--signal_quality_path` weights each window's loss
+by a sigmoid of its mean signal quality.
 """
 
 from __future__ import annotations
@@ -21,9 +30,11 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..models.ar import StackedRNN
 from ..models.layers import Dropout
-from ..models.transformer import TransformerAR
+from ..models.transformer import MultiHeadTransformerAR, TransformerAR
 from ..ops.infonce import negative_scores
+from .custom_layers import EqualizedConv1d, EqualizedLinear
 
 Tensor = torch.Tensor
 Generator = Optional[torch.Generator]
@@ -45,26 +56,148 @@ def sample_negative_indices(generator: Generator, batch_size: int,
     return seq_idx + batch_idx * seq_size
 
 
+class FFNetwork(nn.Module):
+    """The `ffd` head (reference `criterion.py:11-20`): EqualizedLinear ->
+    ReLU -> EqualizedLinear, widths dim_ar -> dim_enc -> dim_enc, no
+    dropout (the JAX package builds it at rate 0). Not the transformer's
+    FFN, and no kernel in the JAX package either."""
+
+    def __init__(self, din: int, dout: int, dff: int):
+        super().__init__()
+        self.lin1 = EqualizedLinear(din, dff)
+        self.lin2 = EqualizedLinear(dff, dout)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return self.lin2(torch.relu(self.lin1(x)))
+
+
+class ShiftedConv(nn.Module):
+    """The `conv4/8/12` head (reference `criterion.py:23-41`): a causal
+    (left-padded) equalized Conv1d, its layer `module.module` as in the
+    reference's state dicts. (B, W, C) in and out."""
+
+    def __init__(self, dim_in: int, dim_out: int, kernel_size: int):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.module = EqualizedConv1d(dim_in, dim_out, kernel_size,
+                                      padding=(kernel_size - 1, 0))
+
+    def forward(self, x: Tensor) -> Tensor:
+        return self.module(x.transpose(1, 2)).transpose(1, 2)
+
+
+def linear_predictor(dim_ar: int, dim_enc: int,
+                     residual_std: float = 0.01) -> nn.Linear:
+    """The `linear` head (reference `criterion.py:144-150`), no bias:
+    torch's default initialization, unless dim_enc > dim_ar, where the
+    weight is [randn(ar, ar); 0.01 * randn(enc - ar, ar)]."""
+    layer = nn.Linear(dim_ar, dim_enc, bias=False)
+    if dim_enc > dim_ar:
+        with torch.no_grad():
+            layer.weight.copy_(torch.cat([
+                torch.randn(dim_ar, dim_ar),
+                residual_std * torch.randn(dim_enc - dim_ar, dim_ar)]))
+    return layer
+
+
+RNN_MODES = ('transformer', 'RNN', 'LSTM', 'linear', 'ffd', 'conv4',
+             'conv8', 'conv12', 'transformer_adaptive_span')
+
+
 class PredictionNetwork(nn.Module):
-    """K independent transformer prediction heads `predictors.{k}`, each a
-    one-layer `TransformerAR` over windows of `size_input_seq` frames.
-    Returns the stacked predictions `(B, K, W, dim_enc)`."""
+    """K independent prediction heads `predictors.{k}` of `rnn_mode`
+    (`cpc2_tpu/losses/criterion.py:121-212`, reference
+    `criterion.py:97-173`). Returns the stacked predictions
+    `(B, K, W, dim_enc)`.
+
+    - `transformer`: a one-layer `TransformerAR` over windows of
+      `size_input_seq` frames;
+    - `RNN`: a one-layer tanh RNN that, like the reference's `nn.RNN`
+      without `batch_first`, scans the (B, W, C) context over the batch
+      axis: the JAX package keeps that, and so does the port;
+    - `LSTM`: a one-layer LSTM over the frames, its recurrence the LSTM
+      kernel (`ops/lstm.py`), one call a head;
+    - `ffd`: `FFNetwork`; `conv4/8/12`: `ShiftedConv` of that many taps;
+    - `linear` and `transformer_adaptive_span` (which the JAX package also
+      runs as the linear head, having no adaptive span): `linear_predictor`.
+    """
 
     def __init__(self, n_predicts: int, dim_ar: int, dim_enc: int,
-                 dropout: bool = False, size_input_seq: int = 116):
+                 dropout: bool = False, size_input_seq: int = 116,
+                 rnn_mode: str = 'transformer'):
         super().__init__()
-        self.predictors = nn.ModuleList(
-            TransformerAR(dim_enc, dim_ar, 1, size_input_seq)
-            for _ in range(n_predicts))
+        if rnn_mode not in RNN_MODES:
+            raise ValueError(f"unknown rnnMode {rnn_mode!r}")
+        self.rnn_mode = rnn_mode
+
+        def head():
+            if rnn_mode == 'transformer':
+                return TransformerAR(dim_enc, dim_ar, 1, size_input_seq)
+            if rnn_mode in ('RNN', 'LSTM'):
+                return StackedRNN(dim_ar, dim_enc, 1, rnn_mode)
+            if rnn_mode == 'ffd':
+                return FFNetwork(dim_ar, dim_enc, dim_enc)
+            if rnn_mode.startswith('conv'):
+                return ShiftedConv(dim_ar, dim_enc, int(rnn_mode[4:]))
+            return linear_predictor(dim_ar, dim_enc)
+
+        self.predictors = nn.ModuleList(head() for _ in range(n_predicts))
         # the reference's independent 0.5 dropout on every head's output
         self.drop = Dropout(0.5) if dropout else None
 
+    def _head(self, head: nn.Module, c: Tensor, generator: Generator
+              ) -> Tensor:
+        if self.rnn_mode == 'transformer':
+            return head(c, None, generator)[0]
+        if self.rnn_mode == 'RNN':
+            return head(c.transpose(0, 1))[0].transpose(0, 1)
+        if self.rnn_mode == 'LSTM':
+            return head(c)[0]
+        return head(c)
+
     def forward(self, c: Tensor, generator: Generator = None) -> Tensor:
-        ys = torch.stack([head(c, None, generator)[0]
+        ys = torch.stack([self._head(head, c, generator)
                           for head in self.predictors], dim=1)
         if self.drop is not None:
             ys = self.drop(ys, generator)
         return ys
+
+
+class MultiHeadPredictionNetwork(nn.Module):
+    """`--multihead_rnn` (`cpc2_tpu/losses/criterion.py:215-244`, reference
+    `criterion.py:44-94`): one transformer trunk, `predictor`, whose
+    classifier head emits the K predictions from one FFN of width
+    dim_ar -> 2048 -> K x dim_ar (the FFN kernel, one call for all K).
+    Returns `(B, K, W, dim_enc)`."""
+
+    def __init__(self, n_predicts: int, dim_ar: int, dim_enc: int,
+                 dropout: bool = False, size_input_seq: int = 116,
+                 rnn_mode: str = 'transformer'):
+        super().__init__()
+        if rnn_mode != 'transformer':
+            raise ValueError(f"unknown mode {rnn_mode}")
+        self.predictor = MultiHeadTransformerAR(dim_enc, dim_ar, 1,
+                                                size_input_seq, n_predicts)
+        self.drop = Dropout(0.5) if dropout else None
+
+    def forward(self, c: Tensor, generator: Generator = None) -> Tensor:
+        y = self.predictor(c, generator).permute(0, 2, 1, 3)
+        if self.drop is not None:
+            y = self.drop(y, generator)
+        return y
+
+
+class NoneCriterion(nn.Module):
+    """`--cpc_mode none` (reference `criterion.py:185-191`): a constant
+    zero loss and accuracy, (1, 1). The training step still runs Adam on
+    zero gradients, as the JAX step does."""
+
+    def forward(self, c_feature: Tensor, encoded_data: Tensor,
+                generator: Generator = None,
+                negative_indices: Optional[Tensor] = None,
+                quality: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+        zeros = torch.zeros((1, 1), device=c_feature.device)
+        return zeros, zeros.clone()
 
 
 class CPCUnsupervisedCriterion(nn.Module):
@@ -72,22 +205,44 @@ class CPCUnsupervisedCriterion(nn.Module):
 
     def __init__(self, n_predicts: int, dim_ar: int, dim_enc: int,
                  negative_sampling_ext: int, dropout: bool = False,
-                 size_input_seq: int = 128, n_skipped: int = 0):
+                 size_input_seq: int = 128, n_skipped: int = 0,
+                 mode: Optional[str] = None, rnn_mode: str = 'transformer',
+                 multihead_rnn: bool = False, growth_rate: float = 10.0,
+                 inflection_point_x: float = 0.5):
         super().__init__()
+        if mode not in (None, "reverse"):
+            raise ValueError("Invalid mode")
         self.n_predicts = n_predicts
         self.negative_sampling_ext = negative_sampling_ext
         self.n_skipped = n_skipped
-        self.wPrediction = PredictionNetwork(
+        self.mode = mode
+        self.growth_rate = growth_rate
+        self.inflection_point_x = inflection_point_x
+        network = (MultiHeadPredictionNetwork if multihead_rnn
+                   else PredictionNetwork)
+        self.wPrediction = network(
             n_predicts, dim_ar, dim_enc, dropout=dropout,
-            size_input_seq=size_input_seq - n_predicts)
+            size_input_seq=size_input_seq - n_predicts, rnn_mode=rnn_mode)
+
+    def _oriented(self, c_feature: Tensor, encoded_data: Tensor
+                  ) -> Tuple[Tensor, Tensor]:
+        """`--cpc_mode reverse` predicts the past: time flipped."""
+        if self.mode == "reverse":
+            return torch.flip(c_feature, (1,)), torch.flip(encoded_data, (1,))
+        return c_feature, encoded_data
 
     def forward(self, c_feature: Tensor, encoded_data: Tensor,
                 generator: Generator = None,
-                negative_indices: Optional[Tensor] = None
+                negative_indices: Optional[Tensor] = None,
+                quality: Optional[Tensor] = None
                 ) -> Tuple[Tensor, Tensor]:
         """c_feature (B, S, dim_ar), encoded_data (B, S, D) -> per-head
         (losses, accuracies), each (1, K - n_skipped). `negative_indices`
-        (B, N, W), flat rows of the pool, replaces the sampled negatives."""
+        (B, N, W), flat rows of the pool, replaces the sampled negatives.
+        `quality` (B, Q), the windows' signal quality, weights each
+        window's losses by 1e-5 + sigmoid(growth_rate * (mean - inflection
+        point)) (`cpc2_tpu/losses/criterion.py:526-530`)."""
+        c_feature, encoded_data = self._oriented(c_feature, encoded_data)
         b, s, _ = c_feature.shape
         d = encoded_data.shape[-1]
         k_p = self.n_predicts
@@ -123,6 +278,10 @@ class CPCUnsupervisedCriterion(nn.Module):
         losses = lse - pos                                    # (B, K, W)
         # ties go to the positive, as torch's argmax picks the first maximum
         correct = pos >= neg.max(dim=-1).values
+        if quality is not None:
+            weight = 1e-5 + torch.sigmoid(self.growth_rate * (
+                quality.mean(dim=1) - self.inflection_point_x))
+            losses = losses * weight[:, None, None]
         out_losses = losses.mean(dim=(0, 2))[self.n_skipped:][None, :]
         out_acc = correct.float().mean(dim=(0, 2))[self.n_skipped:][None, :]
         return out_losses, out_acc
@@ -141,6 +300,7 @@ class CPCUnsupervisedCriterion(nn.Module):
         dropout whatever the module's mode (counterpart of
         `cpc2_tpu/losses/criterion.py:551-558`, reference
         `criterion.py:304-327`)."""
+        c_feature, encoded_data = self._oriented(c_feature, encoded_data)
         w = c_feature.shape[1] - self.n_predicts
         training = self.training
         self.eval()

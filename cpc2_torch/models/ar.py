@@ -1,5 +1,5 @@
 """Autoregressive context networks (counterpart of `cpc2_tpu/models/ar.py`,
-reference `cpc/model.py:158-216`).
+reference `cpc/model.py:158-271`).
 
 The input projection of every step, `x @ W_ihᵀ + b_ih`, is one large matmul
 over all timesteps; only the hidden-to-hidden recurrence runs step by step.
@@ -49,10 +49,13 @@ def _rnn_scan(gi: Tensor, h: Tensor, w_hh: Tensor,
 
 class StackedRNN(nn.Module):
     """Multi-layer uni-directional RNN with torch's parameter names and
-    initialization, U(-1/sqrt(H), 1/sqrt(H)) for every tensor."""
+    initialization, U(-1/sqrt(H), 1/sqrt(H)) for every tensor. Each of
+    `suffixes` is a set of parameters (`weight_ih_l0{suffix}`, ...):
+    `('', '_reverse')` holds both directions of a bidirectional torch RNN,
+    and `forward(..., suffix=)` runs one of them."""
 
     def __init__(self, dim_input: int, dim_hidden: int, num_layers: int = 1,
-                 mode: str = "GRU"):
+                 mode: str = "GRU", suffixes: Tuple[str, ...] = ("",)):
         super().__init__()
         if mode not in _N_GATES:
             raise ValueError(f"unknown RNN mode {mode!r}")
@@ -63,14 +66,16 @@ class StackedRNN(nn.Module):
         bound = 1.0 / math.sqrt(dim_hidden)
         for layer in range(num_layers):
             d_in = dim_input if layer == 0 else dim_hidden
-            for name, shape in ((f"weight_ih_l{layer}", (gates, d_in)),
-                                (f"weight_hh_l{layer}", (gates, dim_hidden)),
-                                (f"bias_ih_l{layer}", (gates,)),
-                                (f"bias_hh_l{layer}", (gates,))):
-                self.register_parameter(name, nn.Parameter(
-                    torch.empty(shape).uniform_(-bound, bound)))
+            for suffix in suffixes:
+                for name, shape in (
+                        (f"weight_ih_l{layer}{suffix}", (gates, d_in)),
+                        (f"weight_hh_l{layer}{suffix}", (gates, dim_hidden)),
+                        (f"bias_ih_l{layer}{suffix}", (gates,)),
+                        (f"bias_hh_l{layer}{suffix}", (gates,))):
+                    self.register_parameter(name, nn.Parameter(
+                        torch.empty(shape).uniform_(-bound, bound)))
 
-    def forward(self, x: Tensor, hidden=None):
+    def forward(self, x: Tensor, hidden=None, suffix: str = ""):
         """x: (B, T, D). hidden: None (zeros), (L, B, H), or an `(h, c)`
         pair of those in LSTM mode. Returns (ys (B, T, H), new_hidden)."""
         b = x.shape[0]
@@ -84,10 +89,10 @@ class StackedRNN(nn.Module):
         out = x
         h_lasts, c_lasts = [], []
         for layer in range(self.num_layers):
-            w_ih = getattr(self, f"weight_ih_l{layer}")
-            w_hh = getattr(self, f"weight_hh_l{layer}")
-            b_ih = getattr(self, f"bias_ih_l{layer}")
-            b_hh = getattr(self, f"bias_hh_l{layer}")
+            w_ih = getattr(self, f"weight_ih_l{layer}{suffix}")
+            w_hh = getattr(self, f"weight_hh_l{layer}{suffix}")
+            b_ih = getattr(self, f"bias_ih_l{layer}{suffix}")
+            b_hh = getattr(self, f"bias_hh_l{layer}{suffix}")
             gi = torch.matmul(out, w_ih.t()) + b_ih
             if self.mode == "LSTM":
                 out, h_last, c_last = fused_lstm(gi, h0s[layer], c0s[layer],
@@ -107,18 +112,26 @@ class StackedRNN(nn.Module):
 class CPCAR(nn.Module):
     """GRU/LSTM/RNN context network. `forward(x, hidden)` returns
     `(context, new_hidden)`; the caller decides whether to carry
-    `new_hidden` into the next batch (the reference's `keepHidden`)."""
+    `new_hidden` into the next batch (the reference's `keepHidden`). With
+    `reverse` (`--cpc_mode reverse`) time is flipped before the network
+    and back after it (reference `cpc/model.py:190-206`)."""
 
     def __init__(self, dim_encoded: int, dim_output: int,
                  keep_hidden: bool = False, n_levels: int = 1,
-                 mode: str = "GRU"):
+                 mode: str = "GRU", reverse: bool = False):
         super().__init__()
         self.keep_hidden = keep_hidden
+        self.reverse = reverse
         self.baseNet = StackedRNN(dim_encoded, dim_output, n_levels, mode)
 
     def forward(self, x: Tensor, hidden=None, generator=None):
         """`generator` is unused: the recurrence draws nothing."""
-        return self.baseNet(x, hidden)
+        if self.reverse:
+            x = torch.flip(x, (1,))
+        y, new_hidden = self.baseNet(x, hidden)
+        if self.reverse:
+            y = torch.flip(y, (1,))
+        return y, new_hidden
 
 
 class NoAr(nn.Module):
@@ -127,3 +140,40 @@ class NoAr(nn.Module):
     def forward(self, x: Tensor, hidden: Optional[Tensor] = None,
                 generator=None):
         return x, None
+
+
+class BiDIRARTangled(nn.Module):
+    """One bidirectional GRU, `ARNet`, for BERT-style training (reference
+    `cpc/model.py:219-242`): `dim_output // 2` units a direction, the
+    backward direction's parameters named with torch's `_reverse` suffix.
+    Each direction is its own stack of `n_levels` layers, as in the JAX
+    package. Output (B, T, dim_output), the directions concatenated."""
+
+    def __init__(self, dim_encoded: int, dim_output: int, n_levels: int = 1):
+        super().__init__()
+        self.dim_output = dim_output
+        self.ARNet = StackedRNN(dim_encoded, dim_output // 2, n_levels, "GRU",
+                                suffixes=("", "_reverse"))
+
+    def forward(self, x: Tensor, hidden=None, generator=None):
+        yf, _ = self.ARNet(x)
+        yb, _ = self.ARNet(torch.flip(x, (1,)), suffix="_reverse")
+        return torch.cat([yf, torch.flip(yb, (1,))], dim=2), None
+
+
+class BiDIRAR(nn.Module):
+    """Two separate GRUs, `netForward` and `netBackward`, concatenated
+    (reference `cpc/model.py:245-271`)."""
+
+    def __init__(self, dim_encoded: int, dim_output: int, n_levels: int = 1):
+        super().__init__()
+        self.dim_output = dim_output
+        self.netForward = StackedRNN(dim_encoded, dim_output // 2, n_levels,
+                                     "GRU")
+        self.netBackward = StackedRNN(dim_encoded, dim_output // 2, n_levels,
+                                      "GRU")
+
+    def forward(self, x: Tensor, hidden=None, generator=None):
+        yf, _ = self.netForward(x)
+        yb, _ = self.netBackward(torch.flip(x, (1,)))
+        return torch.cat([yf, torch.flip(yb, (1,))], dim=2), None

@@ -171,6 +171,32 @@ class TransformerLayer(nn.Module):
         return self.ln_ffnetwork(self.last_linear(y + ff))
 
 
+class MultiClassifierTransformerHead(nn.Module):
+    """One attention trunk and one FFN for K classifiers
+    (`transformers.py:137-158`): the FFN is `dmodel -> dff -> dmodel * K`,
+    one call of the FFN kernels for all K heads. Output (B, S, K, dout)."""
+
+    def __init__(self, nclassifiers: int, size_seq: int = 32,
+                 dmodel: int = 512, dout: int = 512, dff: int = 2048,
+                 dropout: float = 0.1, nheads: int = 8,
+                 abspos: bool = False):
+        super().__init__()
+        self.nclassifiers = nclassifiers
+        self.multihead = MultiHeadAttention(size_seq, dropout, dmodel,
+                                            nheads, abspos)
+        self.ln_multihead = LayerNorm(dmodel)
+        self.ffnetwork = FFNetwork(dmodel, dmodel * nclassifiers, dff,
+                                   dropout)
+        self.last_linear = nn.Linear(dmodel, dout)
+        self.ln_ffnetwork = LayerNorm(dout)
+
+    def forward(self, x: Tensor, generator: Generator = None) -> Tensor:
+        y = self.ln_multihead(x + self.multihead(x, x, x, generator))
+        b, s, d = y.shape
+        ff = self.ffnetwork(y, generator).reshape(b, s, self.nclassifiers, d)
+        return self.ln_ffnetwork(self.last_linear(ff + y[:, :, None, :]))
+
+
 class StaticPositionEmbedding(nn.Module):
     """Sinusoidal positions (`transformers.py:161-173`)."""
 
@@ -206,6 +232,31 @@ class TransformerAR(nn.Sequential):
         for layer in self:
             x = layer(x, generator)
         return x, None
+
+
+class MultiHeadTransformerAR(nn.Sequential):
+    """`buildMultHeadTransformerAR` (`transformers.py:190-212`): an optional
+    static position embedding, `n_layers - 1` transformer layers and a
+    `MultiClassifierTransformerHead`, named '0', '1', ... `forward(x,
+    generator)` returns (B, S, n_heads_out, dim_encoded)."""
+
+    def __init__(self, dim_encoded: int, dim_ar: int, n_layers: int,
+                 size_seq: int, n_heads_out: int, abspos: bool = False):
+        layers = []
+        if abspos:
+            layers.append(StaticPositionEmbedding(size_seq, dim_ar))
+        layers += [TransformerLayer(size_seq=size_seq, dmodel=dim_ar,
+                                    dout=dim_encoded, abspos=abspos)
+                   for _ in range(n_layers - 1)]
+        layers.append(MultiClassifierTransformerHead(
+            n_heads_out, size_seq=size_seq, dmodel=dim_ar, dout=dim_encoded,
+            abspos=abspos))
+        super().__init__(*layers)
+
+    def forward(self, x: Tensor, generator: Generator = None) -> Tensor:
+        for layer in self:
+            x = layer(x, generator)
+        return x
 
 
 def build_transformer_ar(dim_encoded: int, dim_ar: int, n_layers: int,

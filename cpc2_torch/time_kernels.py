@@ -70,17 +70,20 @@ class ProfilerLostKernels(RuntimeError):
 
 
 def device_split(fn, iters: int = 20, warmup: int = WARMUP,
-                 counts: bool = False):
+                 counts: bool = False, expect: str = ""):
     """Device ms per call of `fn` by kernel name, by `torch.profiler`, over
     `iters` calls after `warmup` calls; with `counts`, also how many of
     each kernel the profile holds. Every call launches the same kernels,
-    so a profile in which a kernel's count is not a multiple of `iters`
+    so a profile in which a kernel's count is not a multiple of `iters`,
+    or (with `expect`) which holds no kernel whose name contains `expect`,
     lost events: it is taken again, up to PROFILE_ATTEMPTS profiles in all,
-    and the last one is kept if it holds at least half the calls' kernels.
-    (Profiles have held 19 of 20 launches of the LSTM's cluster and grid
-    kernels, and one of the grid kernels read half its time then; one held
-    3 of 20 InfoNCE forwards; three in a row lost LSTM launches on an
-    H100 80GB HBM3.)"""
+    and the last one is kept if it holds the expected kernel and at least
+    half the calls' kernels. (Profiles have held 19 of 20 launches of the
+    LSTM's cluster and grid kernels, and one of the grid kernels read half
+    its time then; one held 3 of 20 InfoNCE forwards; three in a row lost
+    LSTM launches on an H100 80GB HBM3; some lost every launch of the
+    LSTM's backward walk while its other kernels' counts stayed whole,
+    which only `expect` sees.)"""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -93,16 +96,17 @@ def device_split(fn, iters: int = 20, warmup: int = WARMUP,
             torch.cuda.synchronize()
         kernels = device_kernels(prof)
         # a profile that holds no device kernel at all lost them all
-        whole = bool(kernels) and all(e.count % iters == 0
-                                      for e in kernels)
-        if whole or (attempt == PROFILE_ATTEMPTS - 1 and
+        seen = any(expect in e.key for e in kernels)
+        whole = seen and all(e.count % iters == 0 for e in kernels)
+        if whole or (seen and attempt == PROFILE_ATTEMPTS - 1 and
                      2 * sum(e.count for e in kernels) >= iters):
             split = {e.key: device_us(e) / 1e3 / iters for e in kernels}
             return (split, {e.key: e.count for e in kernels}) if counts \
                 else split
     raise ProfilerLostKernels(f"the profiler caught fewer device kernels "
-                              f"than half of {iters} calls, "
-                              f"{PROFILE_ATTEMPTS} times")
+                              f"than half of {iters} calls"
+                              + (f", or no {expect}" if expect else "")
+                              + f", {PROFILE_ATTEMPTS} times")
 
 
 def event_ms(fn, iters: int = 20, warmup: int = WARMUP) -> float:
@@ -304,8 +308,10 @@ def time_lstm(dev, gen, iters: int) -> dict:
                 fn()
                 launches.append({k: n for k, n in _build.LAUNCHES.items()
                                  if n})
-            f_split, f_count = device_split(fwd, iters, counts=True)
-            b_split, b_count = device_split(bwd, iters, counts=True)
+            f_split, f_count = device_split(fwd, iters, counts=True,
+                                            expect="lstm_fwd")
+            b_split, b_count = device_split(bwd, iters, counts=True,
+                                            expect="lstm_bwd")
             lib_fwd, lib_bwd = cudnn_lstm(inputs, cot)
             with torch.no_grad():
                 lib_f = sum(device_split(lib_fwd, iters).values())

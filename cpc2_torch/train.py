@@ -40,6 +40,18 @@ device version stays on the host ahead of them. The loader runs on a
 thread `--host_prefetch` batches ahead of the steps (0: between them).
 Validation is never augmented.
 
+The model and criterion modes of the JAX package train too: the
+prediction heads of `--rnnMode` (RNN, LSTM, linear, ffd, conv4/8/12) or one
+shared trunk (`--multihead_rnn`), `--cpc_mode reverse`, `bert` or `none`,
+the MFCC and learned-filterbank front-ends (`--encoder_type mfcc|lfb`),
+span masks on the context network's input (`--mask_prob`,
+`--mask_length`) and a loss weighted by signal quality
+(`--signal_quality_path` with a WAV corpus, `--signal_quality_step`,
+`--signal_quality_mode`, `--growth_rate`, `--inflection_point_x`). The
+masks are drawn on the loader's side from numpy's global state, one row a
+view (2 x batch), for training and validation batches alike, as
+`cpc2_tpu/dispatch.py:stack_batch` draws them.
+
 `--corpus_on_device` keeps each split's pack on the device
 (`data/device_corpus.py`), the loader sending only window offsets;
 `--steps_per_dispatch N` runs N steps per dispatch (`training.MultiStep`:
@@ -75,9 +87,11 @@ from .io.checkpoint import (get_checkpoint_data, load_args,
                             load_torch_checkpoint, save_args,
                             save_checkpoint, save_logs)
 from .io.from_jax import jax_param_order, state_dict_from_jax
-from .losses import (CPCUnsupervisedCriterion, CTCPhoneCriterion,
-                     PhoneCriterion, SpeakerCriterion)
-from .models.encoder import DOWNSAMPLING
+from .losses import (CPCBertCriterion, CPCUnsupervisedCriterion,
+                     CTCPhoneCriterion, NoneCriterion, PhoneCriterion,
+                     SpeakerCriterion)
+from .models.cpc import compute_bert_mask, compute_mask_indices
+from .models.encoder import DOWNSAMPLING, encoded_seq_len
 from .training import (MultiStep, Trainer, make_lr_schedule,
                        make_optimizer, precision, resolve_device)
 from .utils.prefetch import PrefetchIterator, prefetch
@@ -111,12 +125,18 @@ def set_seed(seed: int) -> None:
 
 def get_criterion(args, n_speakers: int = 0,
                   n_phones: Optional[int] = None) -> nn.Module:
-    """Reference `train.py:27-59`: the CPC criterion, or with
-    `--supervised` the phone criterion (`--pathPhone`; the CTC one with
-    `--CTC`) or the speaker one over `n_speakers`. A supervised head reads
-    the encodings (`hiddenEncoder` wide) with `--onEncoder` where it can,
-    else the context (`hiddenGar` wide); the speaker head always reads the
-    last context frame."""
+    """Reference `train.py:27-59` (`cpc2_tpu/train.py:get_criterion`): the
+    CPC criterion (`--cpc_mode none`: `NoneCriterion`, `bert`: the masked
+    criterion), or with `--supervised` the phone criterion (`--pathPhone`;
+    the CTC one with `--CTC`) or the speaker one over `n_speakers`. A
+    supervised head reads the encodings (`hiddenEncoder` wide) with
+    `--onEncoder` where it can, else the context (`hiddenGar` wide); the
+    speaker head always reads the last context frame."""
+    if not args.supervised and args.cpc_mode == 'none':
+        return NoneCriterion()
+    if not args.supervised and args.cpc_mode == 'bert':
+        return CPCBertCriterion(args.hiddenGar, args.hiddenEncoder,
+                                args.negativeSamplingExt)
     if args.supervised:
         if args.pathPhone is None:
             return SpeakerCriterion(args.hiddenGar, n_speakers)
@@ -131,7 +151,23 @@ def get_criterion(args, n_speakers: int = 0,
         dim_enc=args.hiddenEncoder,
         negative_sampling_ext=args.negativeSamplingExt, dropout=args.dropout,
         size_input_seq=args.sizeWindow // DOWNSAMPLING,
-        n_skipped=args.n_skipped)
+        n_skipped=args.n_skipped, mode=args.cpc_mode, rnn_mode=args.rnnMode,
+        multihead_rnn=args.multihead_rnn, growth_rate=args.growth_rate,
+        inflection_point_x=args.inflection_point_x)
+
+
+def step_mask(args, batch: int) -> Optional[np.ndarray]:
+    """The host's draw of a step's mask, (2 x batch, frames) bool, from
+    numpy's global state (`cpc2_tpu/dispatch.py:stack_batch`): BERT blocks
+    of `nPredicts` frames under `--cpc_mode bert`, spans under
+    `--mask_prob`, else None."""
+    frames = encoded_seq_len(args.sizeWindow, args.encoder_type)
+    if args.cpc_mode == 'bert':
+        return compute_bert_mask((2 * batch, frames), 2, args.nPredicts)
+    if args.mask_prob > 0:
+        return compute_mask_indices((2 * batch, frames), args.mask_prob,
+                                    args.mask_length, min_masks=2)
+    return None
 
 
 def _split(args, seq_names):
@@ -167,13 +203,16 @@ def _split(args, seq_names):
 
 def _dispatch_items(loader, device: torch.device, load_ms: List[float],
                     batch_size: int, groups: Optional[GroupAssembler],
-                    offsets: bool):
+                    offsets: bool, args=None):
     """What the stepping thread runs, built on the loader's thread:
-    `('steps', [(pack, x, label), ...])`, one step each in order, or a
-    full group `('idxgroup', pack, x (N, ...), labels (N, ...), n)`, one
-    `MultiStep` dispatch. `x` is a (B, 2, 1, W) batch, or with `offsets`
-    (`--corpus_on_device`) the batch's (B,) window offsets into `pack`,
-    the host pack they were drawn from (None for batches). With `groups`
+    `('steps', [(pack, x, label, quality, mask), ...])`, one step each in
+    order, or a full group `('idxgroup', pack, x (N, ...), labels (N,
+    ...), n, quality, masks)`, one `MultiStep` dispatch. `x` is a (B, 2,
+    1, W) batch, or with `offsets` (`--corpus_on_device`) the batch's (B,)
+    window offsets into `pack`, the host pack they were drawn from (None
+    for batches); `quality` is the batch's signal quality, the loader's
+    last item when the corpus has it (else None), and `mask` the step's
+    mask drawn here (`step_mask`, with `args`). With `groups`
     (N > 1) full batches are buffered into groups; a short batch flushes
     the buffer and runs after it, so the steps keep the loader's order.
     Tensors are pinned for their copy to a card. Each loader item's host
@@ -187,8 +226,12 @@ def _dispatch_items(loader, device: torch.device, load_ms: List[float],
         return t.pin_memory() if pin else t
 
     def steps(items):
-        return ('steps', [(pack, tensor(x, x.dtype), tensor(y, np.int64))
-                          for pack, x, y in items])
+        return ('steps', [(pack, tensor(x, x.dtype), tensor(y, np.int64),
+                           None if q is None else tensor(q, np.float32),
+                           None if m is None else tensor(m, bool))
+                          for pack, x, y, q, m in items])
+
+    quality = getattr(loader.dataset, 'signal_quality_path', None) is not None
 
     def prep(full):
         if full is EPOCH_END:
@@ -196,7 +239,9 @@ def _dispatch_items(loader, device: torch.device, load_ms: List[float],
             return None if flushed is None else steps(flushed[1])
         x, label = full[:2]
         item = (loader.dataset.data if offsets else None,
-                np.asarray(x, np.int32) if offsets else x, np.asarray(label))
+                np.asarray(x, np.int32) if offsets else x, np.asarray(label),
+                np.asarray(full[-1], np.float32) if quality else None,
+                None if args is None else step_mask(args, x.shape[0]))
         if groups is None or item[1].shape[0] != batch_size:
             flushed = groups.flush() if groups is not None else None
             return steps(([] if flushed is None else flushed[1]) + [item])
@@ -251,7 +296,7 @@ def _run_steps(trainer: Trainer, items, device: torch.device,
     batch gathered from the resident pack (`corpus`) or copied to the
     device. Returns their (n, 2, K) losses and accuracies on the device."""
     rows = []
-    for pack, x, label in items:
+    for pack, x, label, quality, mask in items:
         if corpus is not None:
             corpus.ensure(pack)
             x = corpus.put(x)
@@ -259,7 +304,10 @@ def _run_steps(trainer: Trainer, items, device: torch.device,
             x = x.to(device, non_blocking=True)
         label = (label.to(device, non_blocking=True) if trainer.supervised
                  else None)
-        rows.append(torch.cat(trainer.train_step(x, label=label)))
+        quality, mask = (None if t is None else t.to(device, non_blocking=True)
+                         for t in (quality, mask))
+        rows.append(torch.cat(trainer.train_step(x, label=label, mask=mask,
+                                                 quality=quality)))
     return torch.stack(rows)
 
 
@@ -268,7 +316,7 @@ def train_epoch(trainer: Trainer, loader, device: torch.device,
                 prefetch_depth: int = 0,
                 corpus: Optional[DeviceCorpus] = None,
                 multi_step: Optional[MultiStep] = None,
-                batch_size: int = 0) -> Dict:
+                batch_size: int = 0, args=None) -> Dict:
     """One epoch of training steps. The loader runs on a thread
     `prefetch_depth` batches ahead (0: on this thread, between the steps)
     and groups its batches there (`_dispatch_items`); this thread issues
@@ -295,7 +343,8 @@ def train_epoch(trainer: Trainer, loader, device: torch.device,
               if multi_step is not None else None)
     batches = prefetch(_dispatch_items(loader, device, load_ms,
                                        batch_size, groups,
-                                       corpus is not None), prefetch_depth)
+                                       corpus is not None, args),
+                       prefetch_depth)
     try:
         ready = time.perf_counter()
         for item in batches:
@@ -308,10 +357,11 @@ def train_epoch(trainer: Trainer, loader, device: torch.device,
                     profiler, profiled = None, True
             start = time.perf_counter()
             if item[0] == 'idxgroup':
-                _, pack, x, labels, _n = item
+                _, pack, x, labels, _n, quality, masks = item
                 if corpus is not None:
                     corpus.ensure(pack)
-                rows = torch.stack(multi_step(x, labels), dim=1)
+                rows = torch.stack(multi_step(x, labels, quality, masks),
+                                   dim=1)
             else:
                 rows = _run_steps(trainer, item[1], device, corpus)
             dispatch_ms.append(1000.0 * (time.perf_counter() - start))
@@ -351,12 +401,16 @@ def train_epoch(trainer: Trainer, loader, device: torch.device,
 
 
 def val_epoch(trainer: Trainer, loader, device: torch.device,
-              corpus: Optional[DeviceCorpus] = None) -> Dict:
+              corpus: Optional[DeviceCorpus] = None, args=None) -> Dict:
     """The validation pass; with `corpus` each batch gathered from the
-    validation pack on the device."""
+    validation pack on the device. Its masks are drawn as the training
+    steps' are (`step_mask`, with `args`). The record's `val_steps` counts
+    its steps."""
     sums, n_steps = None, 0
+    quality = getattr(loader.dataset, 'signal_quality_path', None) is not None
     for full in loader:
         x, label = full[:2]
+        mask = None if args is None else step_mask(args, x.shape[0])
         if corpus is not None:
             corpus.ensure(loader.dataset.data)
             x = corpus.put(x)
@@ -364,7 +418,10 @@ def val_epoch(trainer: Trainer, loader, device: torch.device,
             x = torch.from_numpy(x).to(device)
         label = (torch.from_numpy(np.asarray(label)).to(device)
                  if trainer.supervised else None)
-        losses, accs = trainer.val_step(x, label=label)
+        q = (torch.from_numpy(np.asarray(full[-1], np.float32)).to(device)
+             if quality else None)
+        mask = None if mask is None else torch.from_numpy(mask).to(device)
+        losses, accs = trainer.val_step(x, label=label, mask=mask, quality=q)
         row = torch.cat([losses, accs]).double().cpu().numpy()
         sums = row if sums is None else sums + row
         n_steps += 1
@@ -372,7 +429,7 @@ def val_epoch(trainer: Trainer, loader, device: torch.device,
         return {}
     logs = {"locLoss_val": sums[0] / n_steps, "locAcc_val": sums[1] / n_steps}
     show_logs("Validation loss:", logs)
-    return logs
+    return dict(logs, val_steps=n_steps)
 
 
 # Flags a resumed run keeps from its own command line, not the checkpoint's
@@ -508,6 +565,10 @@ def main(argv: Optional[Sequence[str]]) -> Dict:
     trained per hour of step time."""
     args = parse_args(argv)
     logs, load_optimizer, built_from = _resume(args)
+    if args.signal_quality_path is not None and \
+            not os.path.exists(args.signal_quality_path):
+        raise ValueError("%s can't be found. Are you sure you provided the "
+                         "right location ?" % args.signal_quality_path)
     device = resolve_device(args.device)
     with precision(args.precision):
         return _train(args, logs, load_optimizer, built_from, device)
@@ -648,6 +709,9 @@ def _train(args, logs: Dict, load_optimizer: bool,
             noise_dataset, batch_size=args.batchSizeGPU, **generators)
 
     print(f'\nLoading audio data at {args.pathDB}')
+    quality = dict(signal_quality_path=args.signal_quality_path,
+                   signal_quality_step=args.signal_quality_step,
+                   signal_quality_mode=args.signal_quality_mode)
     train_dataset = AudioBatchData(
         args.pathDB, args.sizeWindow, seq_train, phone_labels, len(speakers),
         nProcessLoader=args.n_process_loader,
@@ -656,10 +720,12 @@ def _train(args, logs: Dict, load_optimizer: bool,
         augment_past=args.augment_past and use_host_aug,
         augment_future=args.augment_future and use_host_aug,
         augmentation=train_augment,
-        past_equal_future=args.past_equal_future and use_host_aug)
+        past_equal_future=args.past_equal_future and use_host_aug,
+        **quality)
     val_dataset = (AudioBatchData(args.pathDB, args.sizeWindow, seq_val,
                                   phone_labels, len(speakers),
-                                  nProcessLoader=args.n_process_loader)
+                                  nProcessLoader=args.n_process_loader,
+                                  **quality)
                    if seq_val else None)
 
     if args.load is not None:
@@ -730,6 +796,7 @@ def _train(args, logs: Dict, load_optimizer: bool,
     wait_ms: List[float] = []
     load_ms: List[float] = []
     dispatch_ms: List[float] = []
+    val_steps = 0
     start_time = time.time()
     try:
         for epoch in range(len(logs["epoch"]), args.nEpoch):
@@ -761,15 +828,17 @@ def _train(args, logs: Dict, load_optimizer: bool,
             loc_train = train_epoch(trainer, train_loader, device,
                                     args.logging_step, args.profile_dir,
                                     args.host_prefetch, corpus_train,
-                                    multi_step, batch_size)
+                                    multi_step, batch_size, args)
             step_ms += loc_train.pop("step_ms")
             wait_ms += loc_train.pop("wait_ms")
             load_ms += loc_train.pop("load_ms")
             dispatch_ms += loc_train.pop("dispatch_ms")
             if loc_train.pop("profiled"):
                 args.profile_dir = None       # one trace per run
-            loc_val = (val_epoch(trainer, val_loader, device, corpus_val)
+            loc_val = (val_epoch(trainer, val_loader, device, corpus_val,
+                                 args)
                        if val_dataset is not None else {})
+            val_steps += loc_val.pop("val_steps", 0)
             print(f'Ran {epoch + 1} epochs '
                   f'in {time.time() - start_time:.2f} seconds')
             if "locAcc_val" in loc_val:
@@ -798,7 +867,7 @@ def _train(args, logs: Dict, load_optimizer: bool,
 
     record = {"logs": logs, "step_ms": step_ms, "wait_ms": wait_ms,
               "load_ms": load_ms, "dispatch_ms": dispatch_ms,
-              "steps_per_dispatch": spd,
+              "steps_per_dispatch": spd, "val_steps": val_steps,
               "dispatch": "eager" if multi_step is None else multi_step.route,
               "param_devices": sorted({str(p.device) for p in params})}
     if multi_step is not None:

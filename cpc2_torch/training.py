@@ -4,7 +4,13 @@
 The step runs the encoder on `concat(past, future)`, the context network
 on the past half only, and the criterion with the future half's encodings
 as targets (the CPC criterion) or beside the labels (a supervised one,
-`--supervised`). The loss is the sum over the K heads of their mean losses;
+`--supervised`). `--mask_prob` writes the model's `mask_emb` into the
+context network's input at the masked frames of the past half; the BERT
+model (`--cpc_mode bert`) keeps the JAX package's single forward over both
+views, its masked blocks zeroed, and pairs the past half's context and
+mask with the future half's encodings. The loss is the sum over the K
+heads of their mean losses (`--cpc_mode none`: a constant, and every
+gradient 0, as JAX differentiates it);
 the optimizer is Adam (or SGD with momentum 0.9) with the flags' settings,
 whose update is optax's `adam` formula.
 
@@ -22,7 +28,9 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch import nn
 
+from .losses.bert import CPCBertCriterion
 from .losses.criterion import CTCPhoneCriterion, SupervisedCriterion
+from .models.cpc import CPCBertModel
 from .ops import _build
 
 Tensor = torch.Tensor
@@ -133,7 +141,9 @@ class Trainer:
 
     A supervised criterion (`losses/criterion.py:SupervisedCriterion`)
     takes the steps' `label` (the past views' speakers or phones) in place
-    of the negatives."""
+    of the negatives. The steps' `mask` (2B, S), drawn on the host, is the
+    `--mask_prob` span mask or the BERT block mask of both views; `quality`
+    (B, Q) weights the CPC criterion's losses (`--signal_quality_path`)."""
 
     def __init__(self, model: nn.Module, criterion: nn.Module,
                  optimizer: torch.optim.Optimizer,
@@ -172,49 +182,82 @@ class Trainer:
 
     def _forward(self, batch: Tensor, negative_indices: Optional[Tensor],
                  carry: bool, train: bool = False,
-                 label: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+                 label: Optional[Tensor] = None,
+                 mask: Optional[Tensor] = None,
+                 quality: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
         b = batch.shape[0]
         past, future = batch[:, 0, 0, :], batch[:, 1, 0, :]
         if train and self.device_augment is not None:
             past, future = self._augment(past, future)
         encoded = self.model.encode(torch.cat([past, future], dim=0))
-        hidden = self._hidden if carry else None
-        if hidden is not None and _batch_of(hidden) != b:
-            hidden = None
-        c_feature, new_hidden = self.model.context(encoded[:b], hidden,
-                                                   self.generator)
-        if carry and new_hidden is not None:
-            self._hidden = _detach(new_hidden)
+        if isinstance(self.model, CPCBertModel):
+            # `cpc2_tpu/training.py:550-566`: the context of both views,
+            # the masked blocks zeroed; the past's context and mask, the
+            # future's encodings
+            c_feature, _ = self.model.context(
+                self.model.mask(encoded, mask), None, self.generator)
+            c_feature = c_feature[:b]
+        else:
+            hidden = self._hidden if carry else None
+            if hidden is not None and _batch_of(hidden) != b:
+                hidden = None
+            ar_input = encoded[:b]
+            if mask is not None and hasattr(self.model, 'mask'):
+                ar_input = self.model.mask(ar_input, mask[:b])
+            c_feature, new_hidden = self.model.context(ar_input, hidden,
+                                                       self.generator)
+            if carry and new_hidden is not None:
+                self._hidden = _detach(new_hidden)
         if self.supervised:
             return self.criterion(c_feature, encoded[b:], label)
+        if isinstance(self.criterion, CPCBertCriterion):
+            if mask is None:
+                raise ValueError("the BERT criterion scores the masked "
+                                 "frames: the step needs its mask")
+            return self.criterion(c_feature, encoded[b:], mask[:b],
+                                  self.generator, negative_indices)
         return self.criterion(c_feature, encoded[b:], self.generator,
-                              negative_indices)
+                              negative_indices, quality)
 
     def train_step(self, batch: Tensor,
                    negative_indices: Optional[Tensor] = None,
-                   label: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+                   label: Optional[Tensor] = None,
+                   mask: Optional[Tensor] = None,
+                   quality: Optional[Tensor] = None
+                   ) -> Tuple[Tensor, Tensor]:
         """One optimizer step on `batch` (B, 2, 1, W); returns the per-head
         (losses, accuracies), each (1, K - n_skipped), or a supervised
-        criterion's (1, 1) on `label`, detached."""
+        criterion's (1, 1) on `label`, detached. A parameter the loss does
+        not reach (all of them under `--cpc_mode none`) steps on a zero
+        gradient, as in the JAX package, whose gradients are dense."""
         self.model.train()
         self.criterion.train()
         self.optimizer.zero_grad(set_to_none=True)
         losses, accs = self._forward(batch, negative_indices,
                                      self.keep_hidden, train=True,
-                                     label=label)
-        losses.sum().backward()
+                                     label=label, mask=mask, quality=quality)
+        total = losses.sum()
+        if total.requires_grad:
+            total.backward()
+        for group in self.optimizer.param_groups:
+            for p in group['params']:
+                if p.grad is None and p.requires_grad:
+                    p.grad = torch.zeros_like(p)
         self.optimizer.step()
         return losses.detach(), accs
 
     @torch.no_grad()
     def val_step(self, batch: Tensor,
                  negative_indices: Optional[Tensor] = None,
-                 label: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+                 label: Optional[Tensor] = None,
+                 mask: Optional[Tensor] = None,
+                 quality: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
         """The step's losses and accuracies in evaluation mode (no dropout,
         BatchNorm running statistics), without an update."""
         self.model.eval()
         self.criterion.eval()
-        return self._forward(batch, negative_indices, False, label=label)
+        return self._forward(batch, negative_indices, False, label=label,
+                             mask=mask, quality=quality)
 
 
 def dispatch_route(device: torch.device, criterion: nn.Module) -> str:
@@ -227,12 +270,14 @@ def dispatch_route(device: torch.device, criterion: nn.Module) -> str:
 
 class MultiStep:
     """`n_inner` optimizer steps of `trainer` a call
-    (`--steps_per_dispatch`): `multi_step(inputs, labels)` returns the
-    steps' (losses (N, K), accs (N, K)) on the device. `inputs` are (N,
-    B) window offsets into `corpus`'s resident pack
+    (`--steps_per_dispatch`): `multi_step(inputs, labels, quality, masks)`
+    returns the steps' (losses (N, K), accs (N, K)) on the device.
+    `inputs` are (N, B) window offsets into `corpus`'s resident pack
     (`data/device_corpus.py`), whose steps gather their batches on the
     device, or without a corpus the (N, B, 2, 1, W) batches; `labels` (N,
-    ...) are the batches' labels, which a supervised criterion takes. On
+    ...) are the batches' labels, which a supervised criterion takes;
+    `quality` (N, B, Q) and `masks` (N, 2B, S), where the run has them,
+    each step's signal quality and mask. On
     the graph route the returned tensors are the graph's outputs, which
     the next call overwrites.
 
@@ -267,57 +312,59 @@ class MultiStep:
         self._warm = False
         self._stream = (torch.cuda.Stream(self.device)
                         if self.route == "graph" else None)
-        self._static = None       # inputs, labels
+        self._static = None       # inputs, labels, quality, masks
         self._out = None
         self._lrs = None
         self._slab = None
 
-    def _steps(self, inputs: Tensor, labels: Optional[Tensor]
-               ) -> Tuple[Tensor, Tensor]:
+    def _steps(self, inputs: Tensor, labels: Optional[Tensor],
+               quality: Optional[Tensor] = None,
+               masks: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
         trainer, out = self.trainer, []
         for i in range(self.n_inner):
             batch = (self.corpus.put(inputs[i]) if self.corpus is not None
                      else inputs[i])
             label = labels[i] if trainer.supervised else None
-            out.append(trainer.train_step(batch, label=label))
+            out.append(trainer.train_step(
+                batch, label=label,
+                quality=None if quality is None else quality[i],
+                mask=None if masks is None else masks[i]))
         return (torch.cat([losses for losses, _ in out]),
                 torch.cat([accs for _, accs in out]))
 
-    def __call__(self, inputs: Tensor, labels: Optional[Tensor] = None
-                 ) -> Tuple[Tensor, Tensor]:
+    def __call__(self, inputs: Tensor, labels: Optional[Tensor] = None,
+                 quality: Optional[Tensor] = None,
+                 masks: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
         if labels is not None and not self.trainer.supervised:
             labels = None
+        given = (inputs, labels, quality, masks)
         if self.route == "eager":
-            return self._steps(
-                inputs.to(self.device, non_blocking=True),
-                None if labels is None
-                else labels.to(self.device, non_blocking=True))
+            return self._steps(*(None if t is None else
+                                 t.to(self.device, non_blocking=True)
+                                 for t in given))
         if not self._warm:
             current = torch.cuda.current_stream(self.device)
             self._stream.wait_stream(current)
             with torch.cuda.stream(self._stream):
-                out = self._steps(
-                    inputs.to(self.device, non_blocking=True),
-                    None if labels is None
-                    else labels.to(self.device, non_blocking=True))
+                out = self._steps(*(None if t is None else
+                                    t.to(self.device, non_blocking=True)
+                                    for t in given))
             current.wait_stream(self._stream)
             torch.cuda.synchronize(self.device)
             self._warm = True
             return out
         if self._static is None:
-            self._static = (torch.empty(inputs.shape, dtype=inputs.dtype,
-                                        device=self.device),
-                            None if labels is None else
-                            torch.empty(labels.shape, dtype=labels.dtype,
-                                        device=self.device))
+            self._static = tuple(
+                None if t is None else torch.empty(
+                    t.shape, dtype=t.dtype, device=self.device)
+                for t in given)
         lrs = [group['lr'] for group in self.trainer.optimizer.param_groups]
         slab = None if self.corpus is None else self.corpus.resident
         if self._graph is None or lrs != self._lrs or slab is not self._slab:
             self._capture(lrs, slab)
-        static_inputs, static_labels = self._static
-        static_inputs.copy_(inputs, non_blocking=True)
-        if static_labels is not None:
-            static_labels.copy_(labels, non_blocking=True)
+        for static, t in zip(self._static, given):
+            if static is not None:
+                static.copy_(t, non_blocking=True)
         self._graph.replay()
         for name, n in self.launches.items():
             _build.LAUNCHES[name] += n

@@ -154,14 +154,36 @@ BASE = ["--pathDB", "db", "--file_extension", ".wav"]
 
 @pytest.mark.parametrize("flags", [
     ["--adam_mu_dtype", "bf16"], ["--nGPU", "2"],
-    ["--distributed"], ["--cpc_mode", "reverse"],
-    ["--rnnMode", "linear"], ["--multihead_rnn"], ["--precision", "bf16"],
+    ["--distributed"], ["--data_axis_size", "2"],
+    ["--model_axis_size", "2"], ["--dcn_axis_size", "2"],
+    ["--precision", "bf16"],
     ["--global_negatives"], ["--neg_pool_group", "4"],
-    ["--encoder_type", "mfcc"],
+    ["--nGPU", "4"],
 ])
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         parse_args(BASE + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--cpc_mode", "reverse"], ["--cpc_mode", "bert"], ["--cpc_mode", "none"],
+    ["--rnnMode", "linear"], ["--rnnMode", "conv12"], ["--multihead_rnn"],
+    ["--encoder_type", "mfcc"], ["--encoder_type", "lfb"],
+    ["--mask_prob", "0.01", "--mask_length", "4"],
+    ["--signal_quality_path", "q", "--signal_quality_step", "800",
+     "--signal_quality_mode", "c50", "--growth_rate", "5",
+     "--inflection_point_x", "0.2"],
+])
+def test_variant_flags_parse(flags):
+    """The model and criterion modes are ported: they parse, and the
+    port raises no `NotImplementedError` for them."""
+    args = parse_args(BASE + flags)
+    if flags == ["--multihead_rnn"]:
+        assert args.multihead_rnn
+    else:
+        for name, value in zip(flags[::2], flags[1::2]):
+            got = getattr(args, name[2:])
+            assert got == type(got)(value), name
 
 
 @pytest.mark.parametrize("flags,phone,ctc,levels,on_encoder", [
