@@ -202,8 +202,10 @@ Phases, each of which fails the run with a nonzero exit:
    synthetic Common Voice-like corpus (`write_cv_corpus`: 40 training WAV
    utterances of 2-10 s, 4 validation ones of 2-6 s, 12 phones a second
    from 40); one `CVSteps` step card against CPU, frozen with `--LSTM
-   --seqNorm` and unfrozen, the loss and gradients at CTC_RTOL and the
-   parameters after the step at CV_PARAM_NORM_TOL (`[cv step ...]`);
+   --seqNorm` and unfrozen, the loss and gradients at CTC_RTOL (unfrozen:
+   the encoder's ReLU inputs at RTOL, then against a float64 CPU step
+   with the card's ReLU decisions) and the parameters after the step at
+   CV_PARAM_NORM_TOL (`[cv step ...]`);
    `common_voices_eval.main train` for one epoch frozen with `--LSTM
    --seqNorm` and unfrozen with `--LSTM`, every training and validation
    step launching exactly its LSTM kernels (`CV_STEP_LAUNCHES`), and `per`
@@ -250,6 +252,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import functools
 import glob
 import json
 import math
@@ -270,11 +273,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # in fp32 on the FMA units; the products of the encoder and of the FFN's
 # bf16 route take bf16 operands, so their bounds are reckoned at the bf16
 # rate; InfoNCE's products and the FFN's fp32 route's run in 3xTF32 (three
-# TF32 products for one at fp32 accuracy), a third of the TF32 rate.
+# TF32 products for one at fp32 accuracy), a third of the TF32 rate. A
+# product of a bf16 operand and an fp32 one needs two TF32 products (the
+# bf16 side has no low part), half the TF32 rate.
 MEMORY_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 TF32X3_FLOP_PER_S = 495e12 / 3
+TF32X2_FLOP_PER_S = 495e12 / 2
 
 # Tolerances of kernel against plain version: fp32 sums in another order.
 # An error passes when it is at most ATOL + RTOL * max|plain|.
@@ -336,12 +342,14 @@ def device_ms(fn, iters: int = 20, warmup: int = 3,
     return sum(device_split(fn, iters, warmup, expect).values())
 
 
-def bound_ms(n_bytes: float, flops: float, peak: float = FP32_FLOP_PER_S):
+def bound_ms(n_bytes: float, flops, peak: float = FP32_FLOP_PER_S):
     """Least time for the work: bytes over the memory rate or operations
     over the peak for their type, whichever is larger, and which one it
-    is."""
+    is. `flops` is a count at `peak`, or a list of (count, peak) pairs for
+    products of several operand types."""
     t_bytes = n_bytes / MEMORY_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
+    work = flops if isinstance(flops, list) else [(flops, peak)]
+    t_ops = sum(f / p for f, p in work) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1366,7 +1374,7 @@ def check_attention(dev, gen):
             for u in ptxas_usage(_build, kind)))
 
     pairs = n * s * (s + 1) // 2
-    src = "cpc2_torch/csrc/attention.cu"
+    src = "cpc2_torch/csrc/attention.cuh"
     rep = "cpc2_tpu/ops/attention_pallas.py"
     yard = {"attention_fwd": shift_fwd_ms, "attention_bwd": shift_bwd_ms}
     return [
@@ -2305,7 +2313,8 @@ def run_training(dev, work: str, mode: str = "default") -> dict:
     (DISPATCH_FLAGS) `dispatch`, and on `train_db` with `augmented_device`'s
     flags `device_augmented` at N = 1 and `dispatch_augmented` on the graph
     route; and two epochs across a learning-rate halving (SCHEDULE_FLAGS),
-    `schedule` at N = 1 and `dispatch_schedule` on the graph route."""
+    `schedule` at N = 1 and `dispatch_schedule` on the graph route; phase
+    11's BF16_EPOCHS with their flags (and opt-in kernels)."""
     from cpc2_torch.ops import _build
     from cpc2_torch.train import main
     ck = os.path.join(work, f"ck_{mode}")
@@ -2320,16 +2329,21 @@ def run_training(dev, work: str, mode: str = "default") -> dict:
                  "--augment_on_device"] + DISPATCH_FLAGS,
              "schedule": SCHEDULE_FLAGS,
              "dispatch_schedule": SCHEDULE_FLAGS + DISPATCH_FLAGS,
-             }.get(mode, [])
+             }.get(mode, BF16_EPOCHS.get(mode, ([], False))[0])
     db = "train_db"
     if mode.startswith("augmented"):
         extra, db = augment_argv(work) + extra, "train_db_part"
     n_epochs = 2 if mode.endswith("schedule") else 1
-    with fused_switches(mode == "fused"):
+    fused = mode == "fused" or BF16_EPOCHS.get(mode, ([], False))[1]
+    live = torch.cuda.memory_allocated(dev)
+    with fused_switches(fused):
         _build.reset_launches()
         record = main(train_argv(work, ck, *extra, db=db))
         launches = dict(_build.LAUNCHES)
-    must, must_not = EPOCHS[mode]
+    # the run's own peak: earlier checks of this process leave tensors live
+    record["peak_above_live_bytes"] = record["peak_memory_bytes"] - live
+    must, must_not = EPOCHS[mode] if mode in EPOCHS else BF16_EPOCH_KERNELS[
+        mode]
     check_launched(f"{mode} training", launches, must)
     ran = [k for k in must_not if launches[k]]
     if ran:
@@ -2510,6 +2524,9 @@ DISPATCH_SETUPS = (("default", "bf16mix", False, 256, False),
                    ("speaker", "bf16mix", False, 256, False))
 # the kernels each setup's step must launch inside the graph
 DISPATCH_KERNELS = {"default": TRAINING_KERNELS,
+                    "bf16": LSTM_RESIDENT + ("infonce_fwd", "infonce_bwd",
+                                             "ffn_fwd_bf16io", "ffn_bwd_bf16io",
+                                             "adam_bf16_moment"),
                     "fused": TRAINING_KERNELS + FUSED_KERNELS,
                     "fp32": FP32_KERNELS, "wide": WIDE_KERNELS,
                     "augmented": TRAINING_KERNELS,
@@ -2585,7 +2602,8 @@ def dispatch_corpus(dev, seconds: int = 120, seed: int = 3):
     return corpus, offsets.pin_memory() if dev.type == "cuda" else offsets
 
 
-def check_dispatch_setup(dev, setup, corpus, offsets, chain=None) -> dict:
+def check_dispatch_setup(dev, setup, corpus, offsets, chain=None,
+                         flags=()) -> dict:
     """One setup of DISPATCH_SETUPS: a `MultiStep` of DISPATCH_N steps
     from one seeded state, its first group the eager warm-up; the state
     then copied to a second trainer. Three groups on the first trainer as
@@ -2595,7 +2613,8 @@ def check_dispatch_setup(dev, setup, corpus, offsets, chain=None) -> dict:
     step counts and both generators' states: bit for bit, else the
     differing tensors named and held to DISPATCH_*_ATOL. Each kernel's
     launches per replay must be N times its launches in an eager step, and
-    the setup's kernels must launch inside the graph."""
+    the setup's kernels must launch inside the graph. `flags` go over the
+    trainers' defaults (phase 11's bf16 setup)."""
     from cpc2_torch.ops import _build
     from cpc2_torch.training import MultiStep
     from cpc2_torch.training import precision as library_precision
@@ -2606,9 +2625,9 @@ def check_dispatch_setup(dev, setup, corpus, offsets, chain=None) -> dict:
     with fused_switches(fused), library_precision(prec):
         args, graphed = dispatch_trainer(dev, width,
                                          chain if augmented else None,
-                                         supervised)
+                                         supervised, flags)
         _, eager = dispatch_trainer(dev, width, chain if augmented else None,
-                                    supervised)
+                                    supervised, flags)
         multi = MultiStep(graphed, DISPATCH_N, corpus)
         if multi.route != "graph":
             raise AssertionError(f"[dispatch {name}] route {multi.route}")
@@ -2809,6 +2828,9 @@ def hold_dispatch_epochs(graph: dict, eager: dict, what: str,
     return out
 
 
+# files a speaker of the timing corpus: 8 (12 gave a third more steps an
+# epoch, and the whole script came near its limit once phase 11 was added)
+TIMING_FILES = 8
 # the fresh processes of the [dispatch] timings: (label, flags), run in
 # this order and then in the reverse one under a device-only profiler
 DISPATCH_TIMINGS = (("N=1 host corpus", []),
@@ -2840,9 +2862,9 @@ RUNNER = ("import json, sys\n"
 
 
 def time_dispatch(work: str) -> list:
-    """The default training on `timing_db` (2 speakers x 12 files x 24 s
-    of FLAC, 56 steps an epoch: a short batch a speaker breaks a group, so
-    fewer speakers than `train_db`'s) in a fresh process per run, no
+    """The default training on `timing_db` (2 speakers x TIMING_FILES
+    files x 24 s of FLAC: a short batch a speaker breaks a group, so fewer
+    speakers than `train_db`'s) in a fresh process per run, no
     checkpoint written: DISPATCH_TIMINGS in order for two epochs, then
     reversed for one epoch under a device-only profiler. Median ms/step,
     the second epoch's mean ms/step (the warm-up, the capture and the
@@ -2853,7 +2875,8 @@ def time_dispatch(work: str) -> list:
     busy ms per training step, which `main` sets beside the unprofiled
     runs' median ms/step."""
     from cpc2_torch.profile_step import trace_summary
-    write_corpus(os.path.join(work, "timing_db"), n_speakers=2, n_files=12,
+    write_corpus(os.path.join(work, "timing_db"), n_speakers=2,
+                 n_files=TIMING_FILES,
                  seed=5)
     runs = [(label, flags, False) for label, flags in DISPATCH_TIMINGS]
     runs += [(label, flags, True) for label, flags in
@@ -3421,7 +3444,10 @@ KMEANS_ITERS = 5
 DPMEANS_ITERS = 2
 # A frame whose two nearest centroids' squared distances differ by less
 # than this share of the nearest one may take either id on the card and on
-# the CPU (fp32 sums in another order).
+# the CPU (fp32 sums in another order). The card's and the CPU's features of
+# one frame differ by their own fp32 rounding too, so a frame whose ids
+# differ is a near tie where its gap is below this on either side's
+# features (`unit_pass`).
 UNIT_GAP = 1e-5
 UNIT_RTOL = 1e-3
 
@@ -3473,7 +3499,8 @@ def recorded_features(store: list):
 
 
 def unit_pass(batches: list, mu: torch.Tensor, lam, device,
-              follow: list = None):
+              follow: list = None, follow_batches: list = None,
+              gaps: list = None):
     """One pass of k-means (`lam` None) or DP-means (penalty `lam`) over
     recorded feature batches from the centroids `mu` (k, D), in the fit's
     own arithmetic (`clustering._sq_distances`, `_one_hot_sums`, the sums
@@ -3481,11 +3508,14 @@ def unit_pass(batches: list, mu: torch.Tensor, lam, device,
     (k', D) on the CPU, each batch's decisions (the argmin ids before a
     cluster opens, and the row that opens one or -1) and how many decisions
     differ from `follow`'s. With `follow`, another run's decisions on the
-    same frames, each decision of this pass must be that run's or a near
-    tie (an id: `near_ties`; the row that opens a cluster: a farthest
-    distance within UNIT_GAP of the other row's, or of `lam`), and the sums
-    then take `follow`'s decisions: one run's arithmetic held to the other
-    run's choices."""
+    same frames (made on `follow_batches`, that run's features of them),
+    each decision of this pass must be that run's or a near tie (an id:
+    `near_ties` on this pass's features or on the other run's; the row
+    that opens a cluster: a farthest distance within UNIT_GAP of the other
+    row's, or of `lam`), and the sums then take `follow`'s decisions: one
+    run's arithmetic held to the other run's choices. Each differing id's
+    gaps on both sides' features (`tie_gaps`) are appended to `gaps` as
+    (batch, row, this side's, the other run's)."""
     from cpc2_torch.clustering.clustering import (_one_hot_sums, _rows,
                                                   _sq_distances)
     mu = mu.to(device, torch.float32)
@@ -3510,12 +3540,23 @@ def unit_pass(batches: list, mu: torch.Tensor, lam, device,
             want = want.to(device)
             differ = (assign != want).nonzero()[:, 0]
             if differ.numel():
-                tie = near_ties(x[differ].cpu().numpy(), mu.cpu().numpy())
-                if not tie.all():
+                ck = mu.cpu().numpy()
+                here = tie_gaps(x[differ].cpu().numpy(), ck)
+                there = (tie_gaps(_rows(follow_batches[b], d, "cpu")[
+                    differ.cpu()].numpy(), ck) if follow_batches is not None
+                    else here)
+                rows = differ.cpu().tolist()
+                if gaps is not None:
+                    gaps += [(b, r, float(g1), float(g2))
+                             for r, g1, g2 in zip(rows, here, there)]
+                bad = [(r, float(g1), float(g2))
+                       for r, g1, g2 in zip(rows, here, there)
+                       if min(g1, g2) >= UNIT_GAP]
+                if bad:
                     raise AssertionError(
-                        f"batch {b}: ids differ at rows "
-                        f"{differ[torch.as_tensor(~tie)][:10].tolist()} "
-                        f"that are no near ties")
+                        f"batch {b}: ids differ at rows that are no near "
+                        f"ties (row, gap over the nearest on this side's "
+                        f"features, on the other run's): {bad[:10]}")
                 differing += int(differ.numel())
             if opened != want_opened:
                 # both open a cluster, at two rows: their farthest
@@ -3594,12 +3635,14 @@ def audit_fit(name: str, lam, start: dict, runs: dict) -> dict:
         raise AssertionError(f"{name}: {per_iter} batches an iteration")
     nb = per_iter["cpu"]
     cpu_batches = runs["cpu"]["batches"]
-    errs, ties, parted = [], [], None
+    card_batches = runs["card"]["batches"]
+    errs, ties, parted, gaps = [], [], None, []
     prev = start["card"]
     for i in range(iters):
-        held, _, differing = unit_pass(cpu_batches[i * nb:(i + 1) * nb],
-                                       prev, lam, torch.device("cpu"),
-                                       follow=decisions["card"][i])
+        held, _, differing = unit_pass(
+            cpu_batches[i * nb:(i + 1) * nb], prev, lam, torch.device("cpu"),
+            follow=decisions["card"][i],
+            follow_batches=card_batches[i * nb:(i + 1) * nb], gaps=gaps)
         want = runs["card"]["steps"][i]
         errs.append(compare(f"{name} iteration {i + 1} (cpu from the card's "
                             f"centroids, the card's decisions)", [held],
@@ -3620,7 +3663,8 @@ def audit_fit(name: str, lam, start: dict, runs: dict) -> dict:
     else:
         end = (last["card"].double() - last["cpu"].double()).abs().max().item()
     return {"iteration_max_abs_err": errs, "near_tie_decisions": ties,
-            "parted_at": parted, "max_abs_err_vs_cpu": end}
+            "parted_at": parted, "max_abs_err_vs_cpu": end,
+            "tie_gaps": gaps}
 
 
 def audit_line(audit: dict) -> str:
@@ -3633,9 +3677,13 @@ def audit_line(audit: dict) -> str:
         ends = (f"a near tie parted the two fits at iteration "
                 f"{audit['parted_at']}, last centroids card vs cpu max abs "
                 f"err {end:.2e} (not held)")
+    gaps = ", ".join(f"({cpu:.2e}, {card:.2e})"
+                     for _b, _r, cpu, card in audit["tie_gaps"][:12])
     return (f"each iteration, cpu from the card's centroids with its "
             f"decisions, max abs err [{errs}], decisions at near ties "
-            f"{audit['near_tie_decisions']}; {ends}")
+            f"{audit['near_tie_decisions']} (their two nearest centroids' "
+            f"gap over the nearest on the cpu's features and on the card's: "
+            f"{gaps or 'none'}); {ends}")
 
 
 def fit_steps(run_dir: str, iters: int) -> list:
@@ -3749,14 +3797,20 @@ def unit_dpmeans(work: str, checkpoint: str) -> dict:
             "card_s": runs["card"]["s"], "cpu_s": runs["cpu"]["s"]}
 
 
-def near_ties(feats: np.ndarray, ck: np.ndarray) -> np.ndarray:
-    """Per frame, whether its two nearest centroids' squared distances
-    (float64) lie within UNIT_GAP of the nearest."""
+def tie_gaps(feats: np.ndarray, ck: np.ndarray) -> np.ndarray:
+    """Per frame, its two nearest centroids' squared distances' difference
+    (float64) over the nearest one."""
     x = feats.reshape(-1, ck.shape[-1]).astype(np.float64)
     c = ck.reshape(-1, ck.shape[-1]).astype(np.float64)
     d = (x * x).sum(1)[:, None] - 2 * x @ c.T + (c * c).sum(1)[None]
     d.sort(axis=1)
-    return d[:, 1] - d[:, 0] < UNIT_GAP * np.maximum(d[:, 0], 1e-12)
+    return (d[:, 1] - d[:, 0]) / np.maximum(d[:, 0], 1e-12)
+
+
+def near_ties(feats: np.ndarray, ck: np.ndarray) -> np.ndarray:
+    """Per frame, whether its two nearest centroids' squared distances
+    (float64) lie within UNIT_GAP of the nearest."""
+    return tie_gaps(feats, ck) < UNIT_GAP
 
 
 def read_quantized(path: str) -> dict:
@@ -4160,27 +4214,117 @@ def cv_step_batch(seed: int = 11) -> tuple:
             np.asarray([len(p) for _, p in utts], np.int32))
 
 
+class EncoderReluSpy:
+    """Around a `CPCEncoder` on its torch route inside a `with` block: keeps
+    each layer's normalized output, the input of its ReLU, on the CPU; with
+    `masks` (one 0/1 tensor a layer), runs the stack with those ReLU
+    decisions in place of its own."""
+
+    def __init__(self, encoder, masks=None):
+        self.encoder, self.masks, self.pre, self.hooks = encoder, masks, [], []
+
+    def __enter__(self):
+        from cpc2_torch.models.encoder import CONV_STACK
+        for i in range(len(CONV_STACK)):
+            norm = getattr(self.encoder, f"batchNorm{i}")
+            self.hooks.append(norm.register_forward_hook(
+                lambda _m, _x, out: self.pre.append(out.detach().cpu())))
+        if self.masks is not None:
+            self.encoder.forward = self.masked
+        return self
+
+    def __exit__(self, *exc):
+        for hook in self.hooks:
+            hook.remove()
+        self.encoder.__dict__.pop("forward", None)
+
+    def masked(self, x):
+        from cpc2_torch.models.encoder import conv_windows
+        if x.dim() == 2:
+            x = x[:, None, :]
+        for i, mask in enumerate(self.masks):
+            conv = getattr(self.encoder, f"conv{i}")
+            x = conv_windows(x, conv) if i == 0 else conv(x)
+            x = getattr(self.encoder, f"batchNorm{i}")(x) * mask
+        return x.transpose(1, 2)
+
+
+def encoder_flips(card: list, cpu: list, what: str) -> list:
+    """By encoder layer, the card's ReLU inputs (`card`) against the CPU's
+    fp32 ones (`cpu`): each layer within RTOL of its largest value, so a
+    decision can differ only where both sides lie that close to 0; and the
+    decisions that differ, with the largest |input| among them on each
+    side over the layer's largest (the gaps to 0 that one rounding
+    crossed)."""
+    if len(card) != len(cpu) or not card:
+        raise AssertionError(f"{what}: {len(card)} encoder layers on the "
+                             f"card, {len(cpu)} on the cpu (torch route)")
+    out = []
+    for i, (k, c) in enumerate(zip(card, cpu)):
+        scale = c.double().abs().max().item()
+        spread = (k.double() - c.double()).abs().max().item()
+        if spread > ATOL + RTOL * scale:
+            raise AssertionError(f"{what} encoder layer {i} ReLU input: max "
+                                 f"abs err {spread:.3e} vs max |cpu| "
+                                 f"{scale:.3e}")
+        flip = (k > 0) != (c > 0)
+        out.append({"flips": int(flip.sum()), "spread": spread / scale,
+                    "gap_card": (k[flip].abs().max().item() / scale
+                                 if flip.any() else 0.0),
+                    "gap_cpu": (c[flip].abs().max().item() / scale
+                                if flip.any() else 0.0)})
+    return out
+
+
+def cv_matched_reference(base_model, base_crit, batch, masks) -> list:
+    """The unfrozen `CVSteps` step's loss and gradients in float64 on the
+    CPU with the ReLU decisions `masks` in the encoder (`EncoderReluSpy`):
+    the model and criterion in train mode, the gradients from zero."""
+    model = copy.deepcopy(base_model).double().train()
+    crit = copy.deepcopy(base_crit).double().train()
+    seq = torch.from_numpy(np.asarray(batch[0])[:, 0]).double()
+    size_seq, phone, size_phone = (torch.as_tensor(np.asarray(a),
+                                                   dtype=torch.long)
+                                   for a in batch[1:])
+    with EncoderReluSpy(model.gEncoder, [m.double() for m in masks]):
+        c_feature, _encoded, _hidden = model(seq)
+    loss = crit(c_feature, size_seq, phone, size_phone).mean()
+    loss.backward()
+    return [loss.detach().reshape(1)] + [
+        p.grad for p in list(model.parameters()) + list(crit.parameters())]
+
+
 def check_cv_step(dev, checkpoint: str, mode: str) -> dict:
-    """One `CVSteps` training step (`mode`: frozen with --LSTM --seqNorm,
-    or unfrozen with the default head) at full width on `cv_step_batch`,
-    on the card and on the CPU from the same weights: the loss and every
-    gradient within CTC_RTOL of each tensor's largest value, every
-    parameter after the step within CV_PARAM_NORM_TOL in the 2-norm; and
-    whether a second card step from the same weights is bit for bit (a
-    report: torch lists its CUDA `ctc_loss` backward as
-    nondeterministic)."""
-    from cpc2_torch.eval import common_voices_eval as cve
+    """`cv_step` on the checkpoint's model and `cv_step_batch`."""
     from cpc2_torch.feature_loader import load_model
-    flags = ["--freeze", "--LSTM", "--seqNorm"] if mode == "frozen" else []
-    args = cve.parse_args(["train", "db", "phones.txt", checkpoint] + flags)
     base_model, hidden_gar, _ = load_model([checkpoint])
+    return cv_step(dev, base_model, hidden_gar, mode, cv_step_batch())
+
+
+def cv_step(dev, base_model, hidden_gar: int, mode: str, batch) -> dict:
+    """One `CVSteps` training step (`mode`: frozen with --LSTM --seqNorm,
+    or unfrozen with the default head) at full width on `batch`, on the
+    card and on the CPU from the same weights, and whether a second card
+    step from the same weights is bit for bit (a report: torch lists its
+    CUDA `ctc_loss` backward as nondeterministic). Frozen, the loss and
+    every gradient within CTC_RTOL of each tensor's largest value, card
+    against CPU. Unfrozen, the encoder's ReLU inputs card against CPU
+    (`encoder_flips`), then the loss and every gradient within CTC_RTOL
+    against a float64 CPU step that takes the card's ReLU decisions
+    (`cv_matched_reference`): a decision that one fp32 rounding flips moves
+    the gradient of its own layer's convolution by tenths of a percent of
+    its largest value.
+    Either way every parameter after the step within CV_PARAM_NORM_TOL in
+    the 2-norm, card against CPU."""
+    from cpc2_torch.eval import common_voices_eval as cve
+    flags = ["--freeze", "--LSTM", "--seqNorm"] if mode == "frozen" else []
+    args = cve.parse_args(["train", "db", "phones.txt", "model.pt"] + flags)
     torch.manual_seed(0)
     base_crit = cve.CTCPhoneCriterionCV(
         hidden_gar, CV_PHONES, use_lstm=args.LSTM, seq_norm=args.seqNorm,
         reduction=args.loss_reduction)
-    batch = cv_step_batch()
     batch = (batch[0], batch[1] // 160, *batch[2:])
-    runs = []
+    runs, spies = [], []
     for device in (torch.device("cpu"), dev, dev):
         model = copy.deepcopy(base_model).to(device)
         crit = copy.deepcopy(base_crit).to(device)
@@ -4189,14 +4333,34 @@ def check_cv_step(dev, checkpoint: str, mode: str) -> dict:
                             args.freeze)
         named = (list(model.named_parameters(prefix="model"))
                  + list(crit.named_parameters(prefix="criterion")))
-        loss = steps.train_batch(*batch)
+        spies.append(EncoderReluSpy(model.gEncoder))
+        with spies[-1] if mode == "unfrozen" else contextlib.nullcontext():
+            loss = steps.train_batch(*batch)
         runs.append((loss.reshape(1).cpu(),
                      [p.grad.detach().cpu() for _n, p in named],
                      [p.detach().cpu() for _n, p in named]))
     (loss_c, grad_c, par_c), (loss_k, grad_k, par_k) = runs[:2]
     what = f"cv step {mode} (card vs cpu)"
-    loss_err = compare(what + " loss", [loss_k], [loss_c], rtol=CTC_RTOL)
-    grad_err = compare(what + " gradients", grad_k, grad_c, rtol=CTC_RTOL)
+    out = {}
+    if mode == "frozen":
+        loss_err = compare(what + " loss", [loss_k], [loss_c],
+                           rtol=CTC_RTOL)
+        grad_err = compare(what + " gradients", grad_k, grad_c,
+                           rtol=CTC_RTOL)
+    else:
+        out["flips"] = encoder_flips(spies[1].pre, spies[0].pre, what)
+        out["past_fp32"] = {}
+        for (name, _p), k, c in zip(named, grad_k, grad_c):
+            err = (k.double() - c.double()).abs().max().item()
+            scale = c.double().abs().max().item()
+            if err > ATOL + CTC_RTOL * scale:
+                out["past_fp32"][name] = err / scale
+        ref = cv_matched_reference(base_model, base_crit, batch,
+                                   [p > 0 for p in spies[1].pre])
+        what = f"cv step {mode} (card vs float64 with the card's decisions)"
+        loss_err = compare(what + " loss", [loss_k], ref[:1], rtol=CTC_RTOL)
+        grad_err = compare(what + " gradients", grad_k, ref[1:],
+                           rtol=CTC_RTOL)
     rels = {name: norm_rel(k, c) for (name, _p), k, c in
             zip(named, par_k, par_c)}
     worst = max(rels, key=rels.get)
@@ -4206,12 +4370,13 @@ def check_cv_step(dev, checkpoint: str, mode: str) -> dict:
     again = runs[2]
     differing = [name for (name, _p), a, b in zip(named, again[2], par_k)
                  if not torch.equal(a, b)]
-    return {"loss": loss_c.item(), "loss_err": loss_err,
-            "grad_max_abs_err": grad_err, "worst_param": worst,
-            "worst_param_rel": rels[worst],
-            "card_steps_bit_for_bit": (torch.equal(again[0], loss_k)
-                                       and not differing),
-            "card_steps_differing": differing[:5]}
+    out.update({"loss": loss_c.item(), "loss_err": loss_err,
+                "grad_max_abs_err": grad_err, "worst_param": worst,
+                "worst_param_rel": rels[worst],
+                "card_steps_bit_for_bit": (torch.equal(again[0], loss_k)
+                                           and not differing),
+                "card_steps_differing": differing[:5]})
+    return out
 
 
 def run_cv_train(cv: dict, checkpoint: str, work: str, mode: str) -> dict:
@@ -4387,14 +4552,30 @@ def run_common_voices(dev, work: str, checkpoint: str, card: str) -> dict:
     cv["corpus"] = {k: corpus[k] for k in ("seconds", "longest_frames")}
     for mode in ("frozen", "unfrozen"):
         r = cv[f"step_{mode}"] = check_cv_step(dev, checkpoint, mode)
+        against = ("cpu" if mode == "frozen" else
+                   "float64 with the card's ReLU decisions")
         log(f"[cv step {mode}] 2 utterances of 2 and 3 s at 256 wide, card "
-            f"vs cpu: loss {r['loss']:.4f} err {r['loss_err']:.2e}, "
+            f"vs {against}: loss {r['loss']:.4f} err {r['loss_err']:.2e}, "
             f"gradients {r['grad_max_abs_err']:.2e} (CTC_RTOL {CTC_RTOL} of "
-            f"the largest), parameters after the step at most "
+            f"the largest), parameters after the step (vs cpu) at most "
             f"{r['worst_param_rel']:.2e} in the 2-norm ({r['worst_param']}; "
             f"tolerance {CV_PARAM_NORM_TOL}); two card steps "
             + ("bit for bit" if r["card_steps_bit_for_bit"] else
                f"differ in {r['card_steps_differing']}"))
+        if mode == "unfrozen":
+            log("  [cv step unfrozen] by encoder layer, the card's ReLU "
+                "inputs vs the cpu's (max abs over the largest) and the "
+                "decisions that "
+                "differ, with the largest |input| among them on the card / "
+                "the cpu over the largest: " + "; ".join(
+                    f"{i}: {f['spread']:.1e}, {f['flips']}" + (
+                        f" ({f['gap_card']:.1e} / {f['gap_cpu']:.1e})"
+                        if f["flips"] else "")
+                    for i, f in enumerate(r["flips"]))
+                + "; gradients past CTC_RTOL card vs cpu (fp32), max abs "
+                "over the largest: " + (", ".join(
+                    f"{n} {v:.2e}" for n, v in r["past_fp32"].items())
+                    or "none"))
     runs = cv["epochs"] = {mode: run_cv_train(corpus, checkpoint, work, mode)
                            for mode in CV_RUNS}
     per = cv["per"] = run_cv_per(runs["frozen_lstm"]["out"])
@@ -4533,34 +4714,35 @@ def held_launches(what: str, launches: dict, want: dict) -> None:
         raise AssertionError(f"{what}: launches (got, want) {off}")
 
 
-# `check_variant_kernels` in a process of its own: late in a whole run the
-# profiler has lost launches in every profile (all 17 of phase 10's
+# Kernel timings late in a whole run go to a process of their own: there
+# the profiler has lost launches in every profile (all 17 of phase 10's
 # timings in one run on an H100 80GB HBM3; a minute or more of retakes in
-# others), while a fresh process keeps them
-VARIANT_KERNELS_RUNNER = (
+# others; phase 11's attention backward in another), while a fresh process
+# keeps them. The runner calls `chip_smoke.<argv[3]>(the card)` and writes
+# its result as JSON to argv[2].
+FRESH_RUNNER = (
     "import json, sys\n"
     "sys.path.insert(0, sys.argv[1])\n"
     "import torch\n"
     "import chip_smoke\n"
     "torch.backends.cuda.matmul.allow_tf32 = False\n"
     "torch.backends.cudnn.allow_tf32 = False\n"
-    "out = chip_smoke.check_variant_kernels(torch.device('cuda', 0))\n"
+    "out = getattr(chip_smoke, sys.argv[3])(torch.device('cuda', 0))\n"
     "json.dump(out, open(sys.argv[2], 'w'))\n")
 
 
-def variant_kernels_fresh(work: str) -> dict:
-    """`check_variant_kernels` in a fresh process (VARIANT_KERNELS_RUNNER),
-    the library built by `main` loaded there; its `[profiler]` lines are
-    passed on."""
-    path = os.path.join(work, "variant_kernels.json")
-    proc = subprocess.run([sys.executable, "-c", VARIANT_KERNELS_RUNNER,
-                           ROOT, path], capture_output=True, text=True,
-                          timeout=600)
+def fresh(work: str, fn: str, label: str) -> dict:
+    """`fn` of this script in a fresh process (FRESH_RUNNER), the library
+    built by `main` loaded there; its `[profiler]` lines and the lines of
+    the checks it prints (indented) are passed on."""
+    path = os.path.join(work, f"{fn}.json")
+    proc = subprocess.run([sys.executable, "-c", FRESH_RUNNER, ROOT, path,
+                           fn], capture_output=True, text=True, timeout=600)
     for line in proc.stdout.splitlines():
-        if line.startswith("[profiler]"):
+        if line.startswith(("[profiler]", "  ")):
             log(line)
     if proc.returncode != 0:
-        raise AssertionError(f"[variant kernels] exit {proc.returncode}: "
+        raise AssertionError(f"[{label}] exit {proc.returncode}: "
                              f"{proc.stderr[-3000:]}")
     with open(path) as fh:
         return json.load(fh)
@@ -4577,7 +4759,7 @@ def check_variant_kernels(dev) -> dict:
     dropout (0.1) by device time beside its plain version, the bound and
     the library route (the same products as `torch.matmul`, `ffn_route`;
     cuDNN's LSTM), each by device time (`device_ms`). `run_variants` runs
-    it in a fresh process (`variant_kernels_fresh`)."""
+    it in a fresh process (`fresh`)."""
     from cpc2_torch.ops import _build
     from cpc2_torch.ops.ffn import keep_mask
     from cpc2_torch.ops.lstm import fused_lstm, lstm_plain, lstm_plan
@@ -4748,13 +4930,14 @@ def relu_matched_reference(card: FFNSpy, cpu: FFNSpy, run) -> tuple:
     return run(FFNSpy([d.double() for d in ours])), flips
 
 
-def check_variant_step(dev, name: str, flags, prec: str) -> tuple:
+def check_variant_step(dev, name: str, flags, prec: str,
+                       want=None) -> tuple:
     """One training step of `flags` at the recipe on the card against the
     same step on the CPU (`_check_step`'s method: same weights, negatives,
     mask and quality, dropout off), under `prec`, with the card step's
-    launches held to `variant_launches`. Under `fp32` the flags of
-    VARIANT_RELU_MATCHED are held against a float64 CPU step with the
-    card's ReLU decisions (`relu_matched_reference`) instead. Returns (max
+    launches held to `variant_launches` (or to `want`). Under `fp32` the
+    flags of VARIANT_RELU_MATCHED are held against a float64 CPU step with
+    the card's ReLU decisions (`relu_matched_reference`) instead. Returns (max
     abs err, launches, the card step's ms by CUDA events over 3 more
     steps)."""
     from cpc2_torch.feature_loader import build_model
@@ -4815,7 +4998,7 @@ def check_variant_step(dev, name: str, flags, prec: str) -> tuple:
                 spies["card"], spies["cpu"],
                 lambda spy: step(torch.device("cpu"), torch.float64, spy)[0])
     held_launches(f"[variant step {name} {prec}]", launches,
-                  variant_launches(flags, True, prec))
+                  want or variant_launches(flags, True, prec))
     what = f"{name} {prec} step at the recipe"
     cpu, card = (list(r.values()) for r in results)
     if matched:
@@ -4993,7 +5176,8 @@ def run_variants(dev, work: str, card: str) -> dict:
     and the LFB step's determinism."""
     out = {}
     start = time.perf_counter()
-    kernels = out["kernels"] = variant_kernels_fresh(work)
+    kernels = out["kernels"] = fresh(work, "check_variant_kernels",
+                                     "variant kernels")
     log(f"[variant kernels] {time.perf_counter() - start:.1f} s, {card}: "
         + "; ".join(
             f"{name} at {tuple(r['shape'])}: err {r['max_abs_err']:.2e}, "
@@ -5070,6 +5254,571 @@ def variant_launches_by_kernel(variants: dict) -> dict:
         for k, n in record["launches"].items():
             total[k] = total.get(k, 0) + n
     return total
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: `--precision bf16` (the transformer heads' bf16 activations, the
+# FFN's and the attention's bf16-in/bf16-out kernels) and `--adam_mu_dtype
+# bf16` (`cpc2_torch/optim.py`, the bf16-moment Adam kernel)
+# ---------------------------------------------------------------------------
+
+# the bf16-io FFN at the recipe and at the small step's ragged shape (the
+# bf16 kernels take widths that are multiples of 8); the bf16-io attention
+# at the recipe and at a unit whose dk comes in chunks (the wide kernels)
+BF16_FFN_SHAPES = ((8 * 116, 256, 2048, 256), (84, 64, 2048, 64))
+BF16_ATTENTION_SHAPES = ((64, 116, 32), (3, 8, 256))
+# the wide attention kernels timed, fp32 and bf16-io, at 64 units of 8 steps
+# and dk 256 (above a TMA box's 248: two chunks of dk)
+WIDE_ATTENTION_SHAPE = (64, 8, 256)
+BF16_IO_FFN = ("ffn_fwd_bf16io", "ffn_bwd_bf16io")
+BF16_IO_ATTENTION = ("attention_fwd_bf16io", "attention_bwd_bf16io")
+BF16_FLAGS = ["--precision", "bf16"]
+BF16_MU_FLAGS = BF16_FLAGS + ["--adam_mu_dtype", "bf16"]
+# the bf16 epochs: (flags, both opt-in kernels)
+BF16_EPOCHS = {"bf16": (BF16_FLAGS, False),
+               "bf16_mu": (BF16_MU_FLAGS, False),
+               "bf16_fused": (BF16_MU_FLAGS, True),
+               "bf16_dispatch": (BF16_MU_FLAGS + DISPATCH_FLAGS, False)}
+# the kernels each bf16 epoch must launch, and those it must not (as EPOCHS)
+BF16_CORE = LSTM_RESIDENT + ("infonce_fwd", "infonce_bwd") + BF16_IO_FFN
+BF16_MUST_NOT = FFN_KERNELS + LSTM_GRID + ("attention_fwd", "attention_bwd")
+BF16_EPOCH_KERNELS = {
+    "bf16": (BF16_CORE, BF16_MUST_NOT + FUSED_KERNELS + BF16_IO_ATTENTION
+             + ("adam_bf16_moment",)),
+    "bf16_mu": (BF16_CORE + ("adam_bf16_moment",),
+                BF16_MUST_NOT + FUSED_KERNELS + BF16_IO_ATTENTION),
+    "bf16_fused": (BF16_CORE + BF16_IO_ATTENTION
+                   + ("encoder_fwd", "encoder_bwd", "adam_bf16_moment"),
+                   BF16_MUST_NOT),
+    "bf16_dispatch": (BF16_CORE + ("adam_bf16_moment",),
+                      BF16_MUST_NOT + FUSED_KERNELS + BF16_IO_ATTENTION)}
+
+
+@functools.lru_cache(maxsize=None)
+def recipe_adam_launches() -> int:
+    """The bf16-moment Adam's launches in one step of the recipe: one for
+    each `optim.MAX_TENSORS` of the model's and the criterion's parameter
+    tensors (built on the CPU)."""
+    from cpc2_torch.config import parse_args
+    from cpc2_torch.feature_loader import build_model
+    from cpc2_torch.optim import MAX_TENSORS
+    from cpc2_torch.train import get_criterion
+    args = parse_args(["--pathDB", ".", *BF16_MU_FLAGS])
+    with torch.random.fork_rng(devices=[]):
+        n = len(list(build_model(args).parameters())
+                + list(get_criterion(args).parameters()))
+    return -(-n // MAX_TENSORS)
+
+
+def bf16_launches(train: bool, fused: bool, mu: bool) -> dict:
+    """The kernel launches of one training (`train`) or validation step of
+    the recipe under `--precision bf16`: the context LSTM and InfoNCE once,
+    the bf16-io FFN once a head (12), with `fused` the bf16-io attention
+    once a head and the encoder once, with `mu` (`--adam_mu_dtype bf16`)
+    the bf16-moment Adam's `recipe_adam_launches` a training step."""
+    k = 12
+    out = {"lstm_fwd": 1, "infonce_fwd": 1, "ffn_fwd_bf16io": k}
+    if fused:
+        out.update(attention_fwd_bf16io=k, encoder_fwd=1)
+    if train:
+        out.update({name.replace("_fwd", "_bwd"): n
+                    for name, n in out.items()})
+        if mu:
+            out["adam_bf16_moment"] = recipe_adam_launches()
+    return out
+
+
+# A bf16 output of a bf16-io kernel and of its plain version, both rounded
+# once from fp32 sums taken in other orders, differ by one bf16 ulp where a
+# value lies within that chatter of a rounding boundary: a handful of such
+# flips in a small tensor is its whole 2-norm difference, however right the
+# kernel. So a bf16 tensor's floor is what FLIPS flips at its largest
+# magnitude's ulp would make (`flip_floor`), or RTOL where that is larger.
+FLIPS = 4
+
+
+def flip_floor(t) -> float:
+    """The relative 2-norm of FLIPS one-ulp differences at the ulp of
+    max|t|, against t (bf16: 8 bits of significand)."""
+    top = t.double().abs().max().item()
+    if top == 0.0:
+        return RTOL
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+    return max(RTOL, ulp * math.sqrt(FLIPS) / t.double().norm().item())
+
+
+def hold_bf16io(what, names, kern, plain, wide, inputs, cot):
+    """`kern` against `plain` on bf16 inputs (the output and the gradients
+    of every input), each tensor held to FFN_BAND times the plain version's
+    own spread against the float64 version, or to its floor (`flip_floor`
+    for a bf16 tensor, else RTOL); the kernel's backward bit for bit across
+    two calls. The float64 version is `wide` (the plain version's function
+    on float64 tensors, with its rounding points inside) on float64 copies,
+    with the io's rounding points too: its output rounded to bf16, and the
+    gradient of each input that is bf16 here rounded to bf16. So the band
+    holds only the chatter of fp32 sums against float64 at the same
+    rounding points, not the roundings themselves. Returns (forward max abs
+    error, backward max abs error, each tensor's error over its limit, the
+    bands, the timing closures)."""
+    from cpc2_torch.ops.encoder import _RoundGrad, _RoundValue
+    io = [t.dtype == torch.bfloat16 for t in inputs]
+
+    def rounded(*a):
+        return _RoundValue.apply(wide(*(_RoundGrad.apply(t) if r else t
+                                        for t, r in zip(a, io))))
+    out_k, grad_k, bwd_k = grads_of(kern, inputs, cot)
+    out_p, grad_p, bwd_p = grads_of(plain, inputs, cot)
+    out_d, grad_d, _ = grads_of(rounded, [t.double() for t in inputs],
+                                [c.double() for c in cot])
+    got = out_k + list(grad_k)
+    want = out_p + list(grad_p)
+    errs, _, spreads, rels = band(what, names, got, want,
+                                  out_d + list(grad_d))
+    ratios = []
+    for n, p, err, spread in zip(names, want, rels, spreads):
+        floor = flip_floor(p) if p.dtype == torch.bfloat16 else RTOL
+        limit = max(FFN_BAND * spread, floor)
+        if err > limit:
+            raise AssertionError(f"{what} {n}: kernel vs plain {err:.3e} "
+                                 f"(2-norm, relative), plain fp32 vs fp64 "
+                                 f"{spread:.3e}, floor {floor:.3e}")
+        ratios.append(err / limit)
+    if not all(torch.equal(x, y) for x, y in zip(grad_k, bwd_k())):
+        raise AssertionError(f"{what} backward differs between two calls")
+    return errs[0], max(errs[1:]), ratios, spreads, (bwd_k, bwd_p, out_k,
+                                                     grad_k)
+
+
+def check_bf16_ffn(dev, gen) -> tuple:
+    """The FFN's bf16-io kernels (a bf16 x, y and dx; fp32 weights and
+    their gradients) against `ffn_plain` on the same bf16 x at
+    BF16_FFN_SHAPES, dropout 0 and 0.1, within FFN_BAND (`hold_bf16io`),
+    each backward bit for bit across two calls; timed at the recipe and 0.1
+    by device time (events beside) with the plain version and the
+    `torch.matmul` route on bf16 tensors (`ffn_route`). Returns the kernel
+    entries, the route's times and the events' times."""
+    from cpc2_torch.ops.ffn import ffn_plain, fused_ffn, keep_mask
+    seed = torch.tensor([12345], device=dev, dtype=torch.int32)
+    errs, ratios = [], []
+    for shape in BF16_FFN_SHAPES:
+        (x, *ws), cot = ffn_inputs(dev, gen, *shape)
+        inputs = [x.to(torch.bfloat16)] + ws
+        cot = [cot[0].to(torch.bfloat16)]
+        if shape == BF16_FFN_SHAPES[0]:
+            recipe = inputs, cot
+        for rate in (0.0, 0.1):
+            def kern(*a, rate=rate):
+                return fused_ffn(*a, seed, rate, True)
+
+            def plain(*a, rate=rate):
+                return ffn_plain(*a, seed, rate, True)
+            held = hold_bf16io(
+                f"ffn bf16io {shape} rate {rate}",
+                ["y", "dx", "dw1", "db1", "dw2", "db2"], kern, plain, plain,
+                inputs, cot)
+            errs.append(held[:2])
+            ratios += held[2]
+            if shape == BF16_FFN_SHAPES[0]:
+                timed = held[4]   # the recipe at rate 0.1 last
+    inputs, cot = recipe
+    bwd_k, bwd_p, out_k, grad_k = timed
+    m, din, dff, dout = BF16_FFN_SHAPES[0]
+    with torch.no_grad():
+        fwd_ms = device_ms(lambda: kern(*inputs), expect="ffn_wgmma_gemm")
+        plain_fwd = device_ms(lambda: plain(*inputs))
+        events = {"ffn_fwd_bf16io": cuda_ms(lambda: kern(*inputs))}
+        keep = keep_mask(seed, m, dff, 0.1)
+        _y, saved = ffn_route(*inputs, keep, 1 / 0.9)
+        yard = {"ffn_fwd_bf16io": device_ms(
+                    lambda: ffn_route(*inputs, keep, 1 / 0.9)),
+                "ffn_bwd_bf16io": device_ms(
+                    lambda: ffn_route_bwd(cot[0], keep, 1 / 0.9, saved))}
+    bwd_ms = device_ms(bwd_k, expect="ffn_wgmma_gemm")
+    plain_bwd = device_ms(bwd_p)
+    events["ffn_bwd_bf16io"] = cuda_ms(bwd_k)
+    log(f"  ffn bf16io kernels vs plain at {list(BF16_FFN_SHAPES)}, rates 0 "
+        f"and 0.1, relative 2-norm: at most {max(ratios):.2f} of the limit "
+        f"({FFN_BAND} x the plain version's own spread against float64 at "
+        f"the same rounding points, or the floor); every backward bit for "
+        f"bit across two calls")
+    gemm = 2 * m * din * dff
+    src, rep = "cpc2_torch/csrc/ffn.cu", "cpc2_tpu/ops/ffn_pallas.py"
+    return [kernel_entry("ffn_fwd_bf16io", src, rep + ":193",
+                         max(e[0] for e in errs), fwd_ms, plain_fwd, None,
+                         nbytes(*inputs) + nbytes(*out_k), 2 * gemm,
+                         BF16_FLOP_PER_S),
+            kernel_entry("ffn_bwd_bf16io", src, rep + ":217",
+                         max(e[1] for e in errs), bwd_ms, plain_bwd, None,
+                         nbytes(*inputs[:4], *cot) + nbytes(*grad_k),
+                         5 * gemm, BF16_FLOP_PER_S)], yard, events
+
+
+def attention_inputs(dev, draw, n, s, dk, dtype=torch.float32):
+    inputs = [torch.randn(n, s, dk, device=dev, generator=draw).to(dtype)
+              for _ in range(3)]
+    inputs.append(0.2 * torch.randn(dk, s, device=dev, generator=draw))
+    return inputs, [torch.randn(n, s, dk, device=dev,
+                                generator=draw).to(dtype)]
+
+
+def attention_ops(dk: int, pairs: int, bf16io: bool, backward: bool):
+    """The attention's products (each 2 dk operations a causal (row,
+    column) pair) by their operand types, as `bound_ms` takes them. fp32
+    io: every product fp32 x fp32 (3xTF32), 3 forward, 8 backward. bf16 io,
+    forward: q k^T and p~ v bf16 x bf16, q Krelpos bf16 x fp32; backward:
+    q k^T and g v^T bf16 x bf16; q Krelpos, p~^T g, dS k, dS^T q and
+    dKrelpos's dQP^T q bf16 x fp32; dQP Krelpos fp32 x fp32."""
+    per = 2 * dk * pairs
+    if not bf16io:
+        return [((8 if backward else 3) * per, TF32X3_FLOP_PER_S)]
+    return [(2 * per, BF16_FLOP_PER_S),
+            ((5 if backward else 1) * per, TF32X2_FLOP_PER_S),
+            ((1 if backward else 0) * per, TF32X3_FLOP_PER_S)]
+
+
+def check_bf16_attention(dev, gen) -> tuple:
+    """The attention's bf16-io kernels (bf16 q, k, v, out, dq, dk, dv; fp32
+    Krelpos and dKrelpos) against `attention_plain` on the same bf16 inputs
+    at BF16_ATTENTION_SHAPES, dropout 0 and 0.1, forward and every gradient
+    within FFN_BAND times the plain version's own fp32-vs-fp64 spread or
+    the floor (`hold_bf16io`: its float64 side rounds p~ to bf16 for p~ . v
+    as the plain version does, and the output and dq, dk, dv to bf16), each
+    backward bit for bit across two calls. A backward that rounds p~ where
+    it recomputes it fails this on dv
+    (`scripts/plant_attention_pv_rounding.py` shows it on the card). Timed
+    at the recipe and 0.1 by device time (events beside) with the plain
+    version and the module's torch route on the same bf16 inputs (its
+    shift trick, the port's default path). Then the wide kernels (dk in
+    chunks), fp32 and bf16-io, timed at WIDE_ATTENTION_SHAPE against their
+    plain versions. Returns the kernel entries, the route's times, the
+    events' times and the wide kernels' times."""
+    from cpc2_torch.models.transformer import ScaledDotProductAttention
+    from cpc2_torch.ops import attention as att
+    seed = torch.tensor([12345], device=dev, dtype=torch.int32)
+    errs, ratios = [], []
+    for i, (n, s, dk) in enumerate(BF16_ATTENTION_SHAPES):
+        inputs, cot = attention_inputs(dev, gen, n, s, dk, torch.bfloat16)
+        if i == 0:
+            recipe = inputs, cot
+        for rate in (0.0, 0.1):
+            def kern(*a, rate=rate):
+                return att.fused_relpos_attention(*a, seed, rate)
+
+            def plain(*a, rate=rate):
+                return att.attention_plain(*a, seed, rate)
+
+            def wide(*a, rate=rate):
+                return att._attention_f32(*a, seed, rate, True)
+            held = hold_bf16io(f"attention bf16io {(n, s, dk)} rate {rate}",
+                               ["out", "dq", "dk", "dv", "dkrel"], kern,
+                               plain, wide, inputs, cot)
+            errs.append(held[:2])
+            ratios += held[2]
+    inputs, cot = recipe
+    n, s, dk = BF16_ATTENTION_SHAPES[0]
+
+    def kern(*a):
+        return att.fused_relpos_attention(*a, seed, 0.1)
+
+    def plain(*a):
+        return att.attention_plain(*a, seed, 0.1)
+    out_k, grad_k, bwd_k = grads_of(kern, inputs, cot)
+    _, _, bwd_p = grads_of(plain, inputs, cot)
+    with torch.no_grad():
+        fwd_ms = device_ms(lambda: kern(*inputs))
+        plain_fwd = device_ms(lambda: plain(*inputs))
+        events = {"attention_fwd_bf16io": cuda_ms(lambda: kern(*inputs))}
+    bwd_ms = device_ms(bwd_k)
+    plain_bwd = device_ms(bwd_p)
+    events["attention_bwd_bf16io"] = cuda_ms(bwd_k)
+    module = ScaledDotProductAttention(s, dk, 0.1, relpos=True).to(dev)
+    with torch.no_grad():
+        module.Krelpos.copy_(inputs[3])
+    qkv = [t.detach().requires_grad_(True) for t in inputs[:3]]
+    out_m = module(*qkv, gen)
+    with torch.no_grad():
+        yard = {"attention_fwd_bf16io": device_ms(
+            lambda: module(*inputs[:3], gen))}
+    yard["attention_bwd_bf16io"] = device_ms(lambda: torch.autograd.grad(
+        out_m, qkv + [module.Krelpos], cot, retain_graph=True))
+    log(f"  attention bf16io kernels vs plain at "
+        f"{list(BF16_ATTENTION_SHAPES)}, rates 0 and 0.1, relative 2-norm: "
+        f"at most {max(ratios):.2f} of the limit ({FFN_BAND} x the plain "
+        f"version's own spread against float64 at the same rounding "
+        f"points, or the floor); every backward bit for bit across two "
+        f"calls")
+
+    wide_times = {}
+    plan = att.attention_plan(*WIDE_ATTENTION_SHAPE)
+    if plan.chunks < 2:
+        raise AssertionError(f"{WIDE_ATTENTION_SHAPE}: {plan.chunks} chunk")
+    own = torch.Generator(device=dev)
+    own.manual_seed(23)
+    wn, ws, wdk = WIDE_ATTENTION_SHAPE
+    pairs_w = wn * ws * (ws + 1) // 2
+    for label, dtype in (("fp32", torch.float32), ("bf16io", torch.bfloat16)):
+        w_in, w_cot = attention_inputs(dev, own, *WIDE_ATTENTION_SHAPE,
+                                       dtype)
+        o_k, g_k, b_k = grads_of(kern, w_in, w_cot)
+        o_p, g_p, b_p = grads_of(plain, w_in, w_cot)
+        if dtype == torch.float32:
+            err = max(compare(f"attention wide {WIDE_ATTENTION_SHAPE} fwd",
+                              o_k, o_p),
+                      compare(f"attention wide {WIDE_ATTENTION_SHAPE} bwd",
+                              g_k, g_p))
+        else:
+            err = hold_bf16io(
+                f"attention wide bf16io {WIDE_ATTENTION_SHAPE}",
+                ["out", "dq", "dk", "dv", "dkrel"], kern, plain,
+                lambda *a: att._attention_f32(*a, seed, 0.1, True), w_in,
+                w_cot)[1]
+        with torch.no_grad():
+            f_ms = device_ms(lambda: kern(*w_in), expect="attention_fwd_wide")
+            pf_ms = device_ms(lambda: plain(*w_in))
+        io = dtype == torch.bfloat16
+        for name, ms, pms, n_bytes, flops in (
+                ("fwd", f_ms, pf_ms, nbytes(*w_in, seed) + nbytes(*o_k),
+                 attention_ops(wdk, pairs_w, io, False)),
+                ("bwd", device_ms(b_k, expect="attention_bwd_wide"),
+                 device_ms(b_p), nbytes(*w_in, seed, *w_cot)
+                 + nbytes(*g_k), attention_ops(wdk, pairs_w, io, True))):
+            bound, by = bound_ms(n_bytes, flops)
+            wide_times[f"attention_{name}_wide {label}"] = {
+                "shape": list(WIDE_ATTENTION_SHAPE), "chunks": plan.chunks,
+                "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                "bound_ms": bound, "bound_by": by}
+    pairs = n * s * (s + 1) // 2
+    src = "cpc2_torch/csrc/attention.cuh"
+    rep = "cpc2_tpu/ops/attention_pallas.py"
+    return [kernel_entry("attention_fwd_bf16io", src, rep + ":159",
+                         max(e[0] for e in errs), fwd_ms, plain_fwd, None,
+                         nbytes(*inputs, seed) + nbytes(*out_k),
+                         attention_ops(dk, pairs, True, False)),
+            kernel_entry("attention_bwd_bf16io", src, rep + ":179",
+                         max(e[1] for e in errs), bwd_ms, plain_bwd, None,
+                         nbytes(*inputs, seed, *cot) + nbytes(*grad_k),
+                         attention_ops(dk, pairs, True, True))], \
+        yard, events, wide_times
+
+
+def check_adam_bf16(dev) -> tuple:
+    """The bf16-moment Adam kernel (`optim.adam_bf16_moment`) over the
+    recipe's parameters (model and criterion at the CLI defaults, random
+    gradients drawn from a generator of its own) against its plain version
+    on copies of the same state over 3 steps: the stored bf16 moments and
+    the second moments bit for bit (every operation an explicitly rounded
+    fp32 one on both), the parameters within RTOL (the bias corrections'
+    powers). Timed by device time (one update, the counts' increment
+    excluded) beside its plain version and torch's fused Adam on the same
+    parameters (another function: fp32 moments, `lerp`); the bound is the
+    bytes (p, nu read and written, g read, mu read and written in bf16).
+    Returns the kernel entry and torch's fused Adam's time."""
+    from cpc2_torch.config import parse_args
+    from cpc2_torch.feature_loader import build_model
+    from cpc2_torch.optim import adam_bf16_moment, adam_bf16_plain
+    from cpc2_torch.train import get_criterion
+    args = parse_args(["--pathDB", ".", "--random_seed", "0"])
+    torch.manual_seed(0)
+    params = [p.detach() for p in list(build_model(args).to(dev).parameters())
+              + list(get_criterion(args).to(dev).parameters())]
+    own = torch.Generator(device=dev)
+    own.manual_seed(29)
+    sides = []
+    for _ in range(2):
+        sides.append({"p": [p.clone() for p in params],
+                      "mu": [torch.zeros_like(p, dtype=torch.bfloat16)
+                             for p in params],
+                      "nu": [torch.zeros_like(p) for p in params],
+                      "t": [torch.zeros((), device=dev) for _ in params]})
+    lr, b1, b2, eps = args.learningRate, args.beta1, args.beta2, args.epsilon
+    for _ in range(3):
+        grads = [torch.randn(p.shape, device=dev, generator=own) * 1e-3
+                 for p in params]
+        for side, fn in zip(sides, (adam_bf16_moment, adam_bf16_plain)):
+            torch._foreach_add_(side["t"], 1.0)
+            fn(side["p"], grads, side["mu"], side["nu"], side["t"], lr, b1,
+               b2, eps)
+    kern_s, plain_s = sides
+    for key in ("mu", "nu"):
+        for i, (a, b) in enumerate(zip(kern_s[key], plain_s[key])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"adam_bf16_moment {key}[{i}]: kernel "
+                                     f"vs plain differ (max abs "
+                                     f"{(a.double() - b.double()).abs().max().item():.3e})")
+    err = compare("adam_bf16_moment parameters", kern_s["p"], plain_s["p"])
+    s = kern_s
+    ms = device_ms(lambda: adam_bf16_moment(s["p"], grads, s["mu"], s["nu"],
+                                            s["t"], lr, b1, b2, eps),
+                   expect="adam_bf16_moment")
+    plain_ms = device_ms(lambda: adam_bf16_plain(
+        plain_s["p"], grads, plain_s["mu"], plain_s["nu"], plain_s["t"], lr,
+        b1, b2, eps), 5)
+    fused = torch.optim.Adam([torch.nn.Parameter(p.clone()) for p in params],
+                             lr=lr, capturable=True, fused=True)
+    for p, g in zip(fused.param_groups[0]["params"], grads):
+        p.grad = g
+    fused.step()
+    fused_ms = device_ms(fused.step)
+    n = sum(p.numel() for p in params)
+    return kernel_entry("adam_bf16_moment", "cpc2_torch/csrc/adam.cu",
+                        "cpc2_tpu/training.py:56", err, ms, plain_ms, None,
+                        24 * n, 15 * n), fused_ms
+
+
+def check_bf16_kernels(dev) -> dict:
+    """Phase 11's kernel checks (`check_bf16_ffn`, `check_bf16_attention`,
+    `check_adam_bf16`), each drawing from one generator; `run_bf16` runs
+    it in a fresh process (`fresh`)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    with fused_switches(False):
+        ffn, ffn_yard, ffn_events = check_bf16_ffn(dev, gen)
+        att, att_yard, att_events, wide = check_bf16_attention(dev, gen)
+        adam, fused_adam_ms = check_adam_bf16(dev)
+    return {"kernels": ffn + att + [adam],
+            "route_ms": dict(ffn_yard, **att_yard, fused_adam=fused_adam_ms),
+            "events_ms": dict(ffn_events, **att_events),
+            "attention_wide": wide}
+
+
+def run_bf16_epochs(dev, work: str) -> dict:
+    """One CLI epoch a setup of BF16_EPOCHS on the FLAC corpus
+    (`run_training`), each one's launches held exactly to its steps times
+    `bf16_launches` (none of the fp32-io FFN kernels); `bf16_dispatch`
+    (N = 4, the pack on the device) held bit for bit to `bf16_mu` (N = 1,
+    host batches) by `hold_dispatch_epochs`."""
+    records = {}
+    for mode, (flags, fused) in BF16_EPOCHS.items():
+        rec = records[mode] = run_training(dev, work, mode)
+        mu = "--adam_mu_dtype" in flags
+        want = {}
+        for train, n in ((True, len(rec["step_ms"])),
+                         (False, rec["val_steps"])):
+            for k, per in bf16_launches(train, fused, mu).items():
+                want[k] = want.get(k, 0) + n * per
+        held_launches(f"[bf16 epoch {mode}]", {k: n for k, n in
+                                               rec["launches"].items() if n},
+                      want)
+    records["held"] = hold_dispatch_epochs(records["bf16_dispatch"],
+                                           records["bf16_mu"],
+                                           "bf16_dispatch")
+    return records
+
+
+def run_resume_bf16(work: str) -> dict:
+    """`--precision bf16 --adam_mu_dtype bf16`: two epochs from scratch
+    against the `bf16_mu` epoch's directory resumed to two, every tensor
+    of the two `checkpoint_1.pt` bit for bit (Adam's bf16 exp_avg among
+    them, saved as bf16)."""
+    import shutil
+
+    from cpc2_torch.train import main
+    whole = os.path.join(work, "ck_whole_bf16")
+    split = os.path.join(work, "ck_split_bf16")
+    shutil.copytree(os.path.join(work, "ck_bf16_mu"), split)
+    main(train_argv(work, whole, "--nEpoch", "2", *BF16_MU_FLAGS))
+    main(["--pathCheckpoint", split, "--nEpoch", "2"])
+    diffs = diff_checkpoints(os.path.join(whole, "checkpoint_1.pt"),
+                             os.path.join(split, "checkpoint_1.pt"))
+    saved = torch.load(os.path.join(split, "checkpoint_1.pt"),
+                       weights_only=True)
+    dtypes = {s["exp_avg"].dtype for s in saved["optimizer"]["state"].values()}
+    if dtypes != {torch.bfloat16}:
+        raise AssertionError(f"[resume bf16] exp_avg saved as {dtypes}")
+    if diffs:
+        raise AssertionError(f"[resume bf16] resumed vs uninterrupted differ "
+                             f"(max abs, relative 2-norm): "
+                             f"{dict(list(diffs.items())[:8])}")
+    return {"bit_for_bit": True, "tensors": len(_flat(saved))}
+
+
+def run_bf16(dev, work: str, card: str, default: dict) -> dict:
+    """Phase 11: `[bf16 kernels]` (the FFN's and the attention's bf16-io
+    kernels, the wide attention kernels, the bf16-moment Adam), `[bf16
+    step]` (one step at the recipe card against CPU under `--precision
+    bf16`, plain and with both opt-in kernels, launches held),
+    `[bf16 dispatch]` (3 groups of N = 4 with a bf16-moment Adam replayed
+    against eager steps, bit for bit), `[bf16 epochs]` (BF16_EPOCHS beside
+    the default epoch, `default`) and `[resume bf16]`."""
+    start = time.perf_counter()
+    out = fresh(work, "check_bf16_kernels", "bf16 kernels")
+    wide, fused_adam_ms = out["attention_wide"], out["route_ms"]["fused_adam"]
+    log(f"[bf16 kernels] {time.perf_counter() - start:.1f} s, {card} (a "
+        f"fresh process): "
+        + "; ".join(
+            f"{k['name']} err {k['max_abs_err']:.2e}, {k['ms']:.4f} ms, "
+            f"plain {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
+            f"({k['bound_by']})" + (
+                f", route {out['route_ms'][k['name']]:.4f} ms"
+                if k["name"] in out["route_ms"] else
+                f", torch's fused Adam (fp32 moments) {fused_adam_ms:.4f} ms")
+            + (f", events {out['events_ms'][k['name']]:.4f} ms"
+               if k["name"] in out["events_ms"] else "")
+            for k in out["kernels"])
+        + "; wide attention: " + "; ".join(
+            f"{name} at {tuple(r['shape'])} ({r['chunks']} chunks of dk) "
+            f"err {r['max_abs_err']:.2e}, {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms"
+            for name, r in wide.items()))
+    steps = out["steps"] = {}
+    for fused in (False, True):
+        start = time.perf_counter()
+        name = "bf16 fused" if fused else "bf16"
+        with fused_switches(fused):
+            err, launches, ms = check_variant_step(
+                dev, name, BF16_FLAGS, "bf16",
+                want=bf16_launches(True, fused, False))
+        steps[name] = {"max_abs_err": err, "launches": launches, "ms": ms}
+        log(f"[bf16 step {name}] card vs cpu at the recipe, max abs err "
+            f"{err:.2e}, {time.perf_counter() - start:.1f} s, card step "
+            f"{ms:.3f} ms (events, {card}), launches {launches}")
+    start = time.perf_counter()
+    corpus_d, offsets_d = dispatch_corpus(dev)
+    r = out["dispatch"] = check_dispatch_setup(
+        dev, ("bf16", "bf16", False, 256, False), corpus_d, offsets_d,
+        flags=BF16_MU_FLAGS)
+    del corpus_d
+    if not r["bit_for_bit"]:
+        raise AssertionError(f"[bf16 dispatch] replay vs eager differ: "
+                             f"{r['differing']}")
+    log(f"[bf16 dispatch] {time.perf_counter() - start:.1f} s, {card}: "
+        f"{' '.join(BF16_MU_FLAGS)}, 3 groups of {DISPATCH_N} steps as graph "
+        f"replays ({r['captures']} captures) vs {3 * DISPATCH_N} eager "
+        f"steps: bit for bit ({r['tensors']} tensors: losses, parameters, "
+        f"Adam's bf16 and fp32 moments and counts, both generators); "
+        f"launches a replay {r['launches_per_replay']}; peak memory "
+        f"{r['peak_bytes_graph']} bytes with the graph, "
+        f"{r['peak_bytes_eager']} eager")
+    start = time.perf_counter()
+    records = run_bf16_epochs(dev, work)
+    epochs = {mode: records[mode] for mode in BF16_EPOCHS}
+    out["epochs"] = {mode: {"steps": len(rec["step_ms"]),
+                            "val_steps": rec["val_steps"],
+                            "median_step_ms": rec["median_step_ms"],
+                            "peak_above_live_bytes": rec[
+                                "peak_above_live_bytes"],
+                            "launches": rec["launches"]}
+                     for mode, rec in epochs.items()}
+    log(f"[bf16 epochs] {time.perf_counter() - start:.1f} s, {card}: median "
+        f"ms/step, peak memory above what was live before the run: default "
+        f"{default['median_step_ms']:.3f} ms, "
+        f"{default['peak_above_live_bytes']} bytes; " + "; ".join(
+            f"{mode} ({' '.join(BF16_EPOCHS[mode][0])}"
+            f"{' CPC2_FUSED_ATTENTION=1 CPC2_FUSED_ENCODER=1' if BF16_EPOCHS[mode][1] else ''}, "
+            f"{len(rec['step_ms'])} + {rec['val_steps']} steps) "
+            f"{rec['median_step_ms']:.3f} ms, {rec['peak_above_live_bytes']} "
+            f"bytes, launches { {k: n for k, n in rec['launches'].items() if n}}"
+            for mode, rec in epochs.items())
+        + "; every launch count held exactly; bf16_dispatch vs bf16_mu "
+        "epoch means bit for bit")
+    start = time.perf_counter()
+    out["resume"] = run_resume_bf16(work)
+    log(f"[resume bf16] {time.perf_counter() - start:.1f} s: "
+        f"{' '.join(BF16_MU_FLAGS)}, checkpoint_1.pt of 2 epochs vs 1 + a "
+        f"resume to 2: bit for bit ({out['resume']['tensors']} tensors, "
+        f"exp_avg saved as bf16)")
+    out["records"] = records
+    return out
 
 
 def main() -> int:
@@ -5437,8 +6186,25 @@ def main() -> int:
         log(f"[phase 10] {time.perf_counter() - phase10:.1f} s, the whole "
             f"run so far {time.perf_counter() - t0:.1f} s of the 1,200 s "
             f"limit")
+
+        # phase 11: --precision bf16 and --adam_mu_dtype bf16
+        phase11 = time.perf_counter()
+        bf16 = run_bf16(dev, work, card, record)
+        log(f"[phase 11] {time.perf_counter() - phase11:.1f} s, the whole "
+            f"run so far {time.perf_counter() - t0:.1f} s of the 1,200 s "
+            f"limit")
+    # phase 11's kernels, each with its launches on its own bf16 epoch
+    bf16_path = {"ffn_fwd_bf16io": "bf16", "ffn_bwd_bf16io": "bf16",
+                 "attention_fwd_bf16io": "bf16_fused",
+                 "attention_bwd_bf16io": "bf16_fused",
+                 "adam_bf16_moment": "bf16_mu"}
+    for k in bf16["kernels"]:
+        k["launches"] = bf16["records"][bf16_path[k["name"]]]["launches"][
+            k["name"]]
     # each kernel's launches on its own path
     for k in kernels:
+        if k["name"] in bf16_path:
+            continue
         path = (abx if k["name"] == "dtw" else records["fused"]
                 if k["name"] in FUSED_KERNELS else records["fp32"]
                 if k["name"] in FP32_FFN else records["wide"]
@@ -5463,6 +6229,7 @@ def main() -> int:
                     "audio_hours_per_hour_with_waits"],
                 "step_ms_quartiles": statistics.quantiles(rec["step_ms"],
                                                           n=4)}
+    kernels += bf16["kernels"]
     summary = {
         "kernels": kernels,
         "slice": dict(epoch(record), step_parity_max_abs_err=step_err[
@@ -5511,6 +6278,8 @@ def main() -> int:
                        for g, r in variants["epochs"].items()},
             "dispatch": variants["dispatch"], "abx": variants["abx"],
             "step_determinism_lfb": variants["determinism_lfb"]},
+        "bf16": {k: v for k, v in bf16.items()
+                 if k not in ("kernels", "records")},
         "default_route_ms": yardsticks,
         "events_ms": events,
         "lstm": details,

@@ -135,9 +135,12 @@ def set_port_config(parser: argparse.ArgumentParser
                        help='fp32: library matmuls and convolutions in full '
                        'fp32, and the head FFN kernels in fp32. bf16mix '
                        '(default): library math in TF32, and the head FFN '
-                       'kernels in bf16 products with fp32 sums. The opt-in '
-                       'encoder kernel runs under bf16mix only; the other '
-                       'hand-written kernels compute in fp32 either way.')
+                       'kernels in bf16 products with fp32 sums. bf16: as '
+                       'bf16mix, and the transformer prediction heads in bf16 '
+                       'activations (the FFN and attention kernels bf16 in '
+                       'and out). The opt-in encoder kernel runs under '
+                       'bf16mix and bf16; the other hand-written kernels '
+                       'compute in fp32 either way.')
     group.add_argument('--data_axis_size', type=int, default=-1)
     group.add_argument('--model_axis_size', type=int, default=1)
     group.add_argument('--dcn_axis_size', type=int, default=0)
@@ -153,7 +156,9 @@ def set_port_config(parser: argparse.ArgumentParser
     group.add_argument('--pitch_algo', type=str, default='wsola',
                        choices=['vocoder', 'wsola'])
     group.add_argument('--adam_mu_dtype', type=str, default='fp32',
-                       choices=['fp32', 'bf16'])
+                       choices=['fp32', 'bf16'],
+                       help="bf16: Adam's first moment stored in bf16 "
+                       "(optax's mu_dtype), cpc2_torch.optim.AdamBF16Moment.")
     group.add_argument('--head_remat', nargs='?', const='nothing',
                        default=False, choices=['nothing', 'dots'],
                        help='XLA-only: accepted and ignored.')
@@ -231,7 +236,6 @@ def set_train_config(parser: argparse.ArgumentParser
 # the ROADMAP.md item that ports it).
 _DDP = "Data-parallel training (DDP)"
 _NEG_POOLS = "Negative pools across or within devices"
-BF16 = "bf16 precision"
 _UNPORTED = (
     ('distributed', bool, _DDP),
     ('nGPU', lambda v: v > 1, _DDP),
@@ -240,8 +244,6 @@ _UNPORTED = (
     ('dcn_axis_size', lambda v: v > 1, _DDP),
     ('global_negatives', bool, _NEG_POOLS),
     ('neg_pool_group', bool, _NEG_POOLS),
-    ('precision', lambda v: v == 'bf16', BF16),
-    ('adam_mu_dtype', lambda v: v != 'fp32', BF16),
 )
 
 

@@ -23,7 +23,13 @@
 //   SMs, and one last launch sums every split's partials and the bias
 //   sums' per-block partials in a fixed order. The bf16 hidden (M x Dff,
 //   3.8 MB at the recipe) goes through device memory and stays in L2
-//   between its two products.
+//   between its two products. Its bf16-in/bf16-out variant
+//   (`cpc2_ffn_{fwd,bwd}_bf16io`, `--precision bf16`, where the heads'
+//   activations are bf16) reads x and the incoming gradient as they come,
+//   so the cast launch takes the weights only (and db2's sums of the bf16
+//   g), and y and dx are summed in fp32 by the last launch, bias and split
+//   partials included, and rounded to bf16 once there, as the TPU kernel
+//   rounds its fp32 output block once.
 // - fp32 (`cpc2_ffn_{fwd,bwd}`, `--precision fp32`): the same products at
 //   fp32 accuracy, in 3xTF32 on the tensor cores (`ffn_tf32x3_gemm` of
 //   hopper_gemm.cuh): each operand as two TF32 planes, big and small, both
@@ -65,16 +71,28 @@ struct CastSeg {
 struct CastArgs {
   CastSeg seg[kMaxCast];
   int nseg;
-  // with colsum_rows > 0: partial[b][c] = sum of colsum_src over rows
-  // [kSumRows b, kSumRows (b + 1)), column c, for the (rows, cols) matrix
+  // with colsum_rows > 0: partial[b][c] = sum of colsum_src (or, where it
+  // is set, of the bf16 colsum_src16) over rows [kSumRows b, kSumRows (b +
+  // 1)), column c, for the (rows, cols) matrix
   const float* colsum_src;
   int colsum_rows, colsum_cols;
   float* partial;
+  const bf16* colsum_src16;
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// Four bf16 values (8 bytes) as floats.
+__device__ __forceinline__ float4 load_bf16x4(const bf16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
 // blockIdx.y < nseg: a vectorised fp32 -> bf16 cast of segment y, 8 values a
@@ -106,8 +124,10 @@ ffn_cast_bf16(CastArgs a) {
     for (int c4 = threadIdx.x; c4 < c4n; c4 += kCastThreads) {
       float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
       for (int r = r0; r < r1; ++r) {
-        const float4 v = reinterpret_cast<const float4*>(
-            a.colsum_src + static_cast<long>(r) * a.colsum_cols)[c4];
+        const long at = static_cast<long>(r) * a.colsum_cols + 4 * c4;
+        const float4 v =
+            a.colsum_src16 ? load_bf16x4(a.colsum_src16 + at)
+                           : *reinterpret_cast<const float4*>(a.colsum_src + at);
         acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
       }
       reinterpret_cast<float4*>(
@@ -135,6 +155,7 @@ struct SumSeg {
   const float* bias;  // nullptr, or `cols` values added per row
   int cols;
   float* out;
+  bf16* out16;        // or, where set, the sums rounded to bf16 here
 };
 
 struct SumArgs {
@@ -152,8 +173,9 @@ ffn_sum_partials(SumArgs a) {
     if (i == static_cast<int>(blockIdx.y)) s = a.seg[i];
   const bool vec =
       s.n % 4 == 0 && s.stride % 4 == 0 &&
-      (reinterpret_cast<uintptr_t>(s.part) |
-       reinterpret_cast<uintptr_t>(s.out)) % 16 == 0 &&
+      (reinterpret_cast<uintptr_t>(s.part) % 16 == 0) &&
+      (s.out16 ? reinterpret_cast<uintptr_t>(s.out16) % 8 == 0
+               : reinterpret_cast<uintptr_t>(s.out) % 16 == 0) &&
       (s.bias == nullptr ||
        (s.cols % 4 == 0 && reinterpret_cast<uintptr_t>(s.bias) % 16 == 0));
   const long step = static_cast<long>(gridDim.x) * kCastThreads;
@@ -163,7 +185,10 @@ ffn_sum_partials(SumArgs a) {
       float acc = s.part[i];
       for (int r = 1; r < s.count; ++r) acc += s.part[i + r * s.stride];
       if (s.bias) acc += s.bias[i % s.cols];
-      s.out[i] = acc;
+      if (s.out16)
+        s.out16[i] = __float2bfloat16_rn(acc);
+      else
+        s.out[i] = acc;
     }
     return;
   }
@@ -179,7 +204,11 @@ ffn_sum_partials(SumArgs a) {
       const float4 b = reinterpret_cast<const float4*>(s.bias)[i % (s.cols / 4)];
       acc.x += b.x; acc.y += b.y; acc.z += b.z; acc.w += b.w;
     }
-    reinterpret_cast<float4*>(s.out)[i] = acc;
+    if (s.out16)
+      reinterpret_cast<uint2*>(s.out16)[i] =
+          make_uint2(pack_bf16(acc.x, acc.y), pack_bf16(acc.z, acc.w));
+    else
+      reinterpret_cast<float4*>(s.out)[i] = acc;
   }
 }
 
@@ -220,12 +249,14 @@ cpc2::WgArgs gemm_args(int M, int N, int K) {
 }
 
 // A store product's output: the result itself when K is not split, else
-// its partials, summed into `out` (with `bias`) by the last launch.
+// its partials, summed into `out` (with `bias`) by the last launch. With
+// `out16` always its partials (one where K is not split), summed and
+// rounded to bf16 into `out16` by the last launch.
 template <typename Args>
 void store_to(Args* g, cpc2::SplitK split, Workspace* ws, float* out,
-              const float* bias, SumArgs* sums) {
+              const float* bias, SumArgs* sums, bf16* out16 = nullptr) {
   g->ldo = g->N;
-  if (split.splits == 1) {
+  if (split.splits == 1 && out16 == nullptr) {
     g->out = out;
     g->bias = bias;
     return;
@@ -234,30 +265,35 @@ void store_to(Args* g, cpc2::SplitK split, Workspace* ws, float* out,
   g->out = ws->take<float>(static_cast<size_t>(n) * split.splits);
   g->split_stride = n;
   g->bias = nullptr;
-  sums->seg[sums->nseg++] = {g->out, n, n, split.splits, bias, g->N, out};
+  sums->seg[sums->nseg++] = {g->out, n, n, split.splits, bias, g->N, out,
+                             out16};
 }
 
 // The bf16 forward on workspace `ws` (sizes only when ws.base is null).
-cudaError_t ffn_fwd_bf16(Workspace* ws, const float* x, const float* w1,
-                         const float* b1, const float* w2, const float* b2,
-                         const unsigned* seed, float* y, int M, int Din,
-                         int Dff, int Dout, unsigned threshold, float scale,
-                         cudaStream_t s) {
-  bf16* xb = ws->take<bf16>(static_cast<size_t>(M) * Din);
+// With `io`, x and y are bf16 (the bf16-in/bf16-out variant), else fp32.
+cudaError_t ffn_fwd_bf16(Workspace* ws, bool io, const void* x,
+                         const float* w1, const float* b1, const float* w2,
+                         const float* b2, const unsigned* seed, void* y,
+                         int M, int Din, int Dff, int Dout,
+                         unsigned threshold, float scale, cudaStream_t s) {
+  bf16* xb = io ? static_cast<bf16*>(const_cast<void*>(x))
+                : ws->take<bf16>(static_cast<size_t>(M) * Din);
   bf16* w1b = ws->take<bf16>(static_cast<size_t>(Dff) * Din);
   bf16* w2b = ws->take<bf16>(static_cast<size_t>(Dout) * Dff);
   bf16* hb = ws->take<bf16>(static_cast<size_t>(M) * Dff);
   SumArgs sums = {};
   const cpc2::SplitK split_y = cpc2::split_k(M, Dout, Dff);
   cpc2::WgArgs gy = gemm_args(M, Dout, Dff);
-  store_to(&gy, split_y, ws, y, b2, &sums);
+  store_to(&gy, split_y, ws, io ? nullptr : static_cast<float*>(y), b2,
+           &sums, io ? static_cast<bf16*>(y) : nullptr);
   if (ws->base == nullptr) return cudaSuccess;
 
   CastArgs cast = {};
-  cast.seg[0] = {x, xb, static_cast<long>(M) * Din};
-  cast.seg[1] = {w1, w1b, static_cast<long>(Dff) * Din};
-  cast.seg[2] = {w2, w2b, static_cast<long>(Dout) * Dff};
-  cast.nseg = 3;
+  if (!io)
+    cast.seg[cast.nseg++] = {static_cast<const float*>(x), xb,
+                             static_cast<long>(M) * Din};
+  cast.seg[cast.nseg++] = {w1, w1b, static_cast<long>(Dff) * Din};
+  cast.seg[cast.nseg++] = {w2, w2b, static_cast<long>(Dout) * Dff};
   cudaError_t err = cast_bf16(cast, s);
   if (err != cudaSuccess) return err;
   // hidden = bf16(dropout(relu(x W1^T + b1)))
@@ -278,16 +314,20 @@ cudaError_t ffn_fwd_bf16(Workspace* ws, const float* x, const float* w1,
 }
 
 // The bf16 backward on workspace `ws` (sizes only when ws.base is null).
-cudaError_t ffn_bwd_bf16(Workspace* ws, const float* x, const float* w1,
-                         const float* b1, const float* w2, const float* g,
-                         const unsigned* seed, float* dx, float* dw1,
-                         float* db1, float* dw2, float* db2, int M, int Din,
-                         int Dff, int Dout, unsigned threshold, float scale,
-                         cudaStream_t s) {
-  bf16* xb = ws->take<bf16>(static_cast<size_t>(M) * Din);
+// With `io`, x, g and dx are bf16 (the bf16-in/bf16-out variant), else
+// fp32; the weights' gradients are fp32 either way.
+cudaError_t ffn_bwd_bf16(Workspace* ws, bool io, const void* x,
+                         const float* w1, const float* b1, const float* w2,
+                         const void* g, const unsigned* seed, void* dx,
+                         float* dw1, float* db1, float* dw2, float* db2,
+                         int M, int Din, int Dff, int Dout,
+                         unsigned threshold, float scale, cudaStream_t s) {
+  bf16* xb = io ? static_cast<bf16*>(const_cast<void*>(x))
+                : ws->take<bf16>(static_cast<size_t>(M) * Din);
   bf16* w1b = ws->take<bf16>(static_cast<size_t>(Dff) * Din);
   bf16* w2b = ws->take<bf16>(static_cast<size_t>(Dout) * Dff);
-  bf16* gb = ws->take<bf16>(static_cast<size_t>(M) * Dout);
+  bf16* gb = io ? static_cast<bf16*>(const_cast<void*>(g))
+                : ws->take<bf16>(static_cast<size_t>(M) * Dout);
   bf16* hb = ws->take<bf16>(static_cast<size_t>(M) * Dff);
   const int row_blocks = (M + kSumRows - 1) / kSumRows;
   float* db2_part = ws->take<float>(static_cast<size_t>(row_blocks) * Dout);
@@ -305,16 +345,23 @@ cudaError_t ffn_bwd_bf16(Workspace* ws, const float* x, const float* w1,
   cpc2::WgArgs gw1 = gemm_args(Dff, Din, M);
   store_to(&gw1, split_dw1, ws, dw1, nullptr, &sums);
   cpc2::WgArgs gx = gemm_args(M, Din, Dff);
-  store_to(&gx, split_dx, ws, dx, nullptr, &sums);
+  store_to(&gx, split_dx, ws, io ? nullptr : static_cast<float*>(dx),
+           nullptr, &sums, io ? static_cast<bf16*>(dx) : nullptr);
   if (ws->base == nullptr) return cudaSuccess;
 
   CastArgs cast = {};
-  cast.seg[0] = {x, xb, static_cast<long>(M) * Din};
-  cast.seg[1] = {w1, w1b, static_cast<long>(Dff) * Din};
-  cast.seg[2] = {w2, w2b, static_cast<long>(Dout) * Dff};
-  cast.seg[3] = {g, gb, static_cast<long>(M) * Dout};
-  cast.nseg = 4;
-  cast.colsum_src = g;  // db2 = sum_m g, before the bf16 rounding
+  if (!io)
+    cast.seg[cast.nseg++] = {static_cast<const float*>(x), xb,
+                             static_cast<long>(M) * Din};
+  cast.seg[cast.nseg++] = {w1, w1b, static_cast<long>(Dff) * Din};
+  cast.seg[cast.nseg++] = {w2, w2b, static_cast<long>(Dout) * Dff};
+  if (io) {
+    cast.colsum_src16 = gb;  // db2 = sum_m g, in fp32 from the bf16 g
+  } else {
+    cast.seg[cast.nseg++] = {static_cast<const float*>(g), gb,
+                             static_cast<long>(M) * Dout};
+    cast.colsum_src = static_cast<const float*>(g);  // db2 before rounding
+  }
   cast.colsum_rows = M;
   cast.colsum_cols = Dout;
   cast.partial = db2_part;
@@ -646,35 +693,49 @@ int cpc2_ffn_bwd(const float* x, const float* w1, const float* b1,
 // Din, Dff and Dout must be multiples of 8 (TMA rows of 16-byte multiples),
 // and every pointer 16-byte aligned; the wrapper checks both.
 
-// Bytes of workspace the bf16 forward (backward != 0: backward) needs.
-long cpc2_ffn_bf16_workspace(int M, int Din, int Dff, int Dout,
-                             int backward) {
+// Bytes of workspace the bf16 forward (backward != 0: backward) needs;
+// io != 0: the bf16-in/bf16-out variant's.
+long cpc2_ffn_bf16_workspace(int M, int Din, int Dff, int Dout, int backward,
+                             int io) {
   Workspace ws{nullptr, 0};
   if (backward)
-    ffn_bwd_bf16(&ws, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                 nullptr, nullptr, nullptr, nullptr, nullptr, M, Din, Dff,
-                 Dout, 0u, 1.f, nullptr);
+    ffn_bwd_bf16(&ws, io != 0, nullptr, nullptr, nullptr, nullptr, nullptr,
+                 nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, M,
+                 Din, Dff, Dout, 0u, 1.f, nullptr);
   else
-    ffn_fwd_bf16(&ws, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                 nullptr, M, Din, Dff, Dout, 0u, 1.f, nullptr);
+    ffn_fwd_bf16(&ws, io != 0, nullptr, nullptr, nullptr, nullptr, nullptr,
+                 nullptr, nullptr, M, Din, Dff, Dout, 0u, 1.f, nullptr);
   return static_cast<long>(ws.used);
 }
 
 // As cpc2_ffn_fwd, in bf16 products; workspace of
-// cpc2_ffn_bf16_workspace(..., 0) bytes.
+// cpc2_ffn_bf16_workspace(..., 0, 0) bytes.
 int cpc2_ffn_fwd_bf16(const float* x, const float* w1, const float* b1,
                       const float* w2, const float* b2, const unsigned* seed,
                       void* workspace, float* y, int M, int Din, int Dff,
                       int Dout, unsigned threshold, float scale,
                       void* stream) {
   Workspace ws{static_cast<char*>(workspace), 0};
-  return (int)ffn_fwd_bf16(&ws, x, w1, b1, w2, b2, seed, y, M, Din, Dff,
-                           Dout, threshold, scale,
+  return (int)ffn_fwd_bf16(&ws, false, x, w1, b1, w2, b2, seed, y, M, Din,
+                           Dff, Dout, threshold, scale,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// As cpc2_ffn_fwd_bf16 with x and y in bf16 (y rounded once from its fp32
+// sum); workspace of cpc2_ffn_bf16_workspace(..., 0, 1) bytes.
+int cpc2_ffn_fwd_bf16io(const bf16* x, const float* w1, const float* b1,
+                        const float* w2, const float* b2,
+                        const unsigned* seed, void* workspace, bf16* y,
+                        int M, int Din, int Dff, int Dout,
+                        unsigned threshold, float scale, void* stream) {
+  Workspace ws{static_cast<char*>(workspace), 0};
+  return (int)ffn_fwd_bf16(&ws, true, x, w1, b1, w2, b2, seed, y, M, Din,
+                           Dff, Dout, threshold, scale,
                            static_cast<cudaStream_t>(stream));
 }
 
 // As cpc2_ffn_bwd, in bf16 products; workspace of
-// cpc2_ffn_bf16_workspace(..., 1) bytes.
+// cpc2_ffn_bf16_workspace(..., 1, 0) bytes.
 int cpc2_ffn_bwd_bf16(const float* x, const float* w1, const float* b1,
                       const float* w2, const float* g, const unsigned* seed,
                       void* workspace, float* dx, float* dw1, float* db1,
@@ -682,8 +743,23 @@ int cpc2_ffn_bwd_bf16(const float* x, const float* w1, const float* b1,
                       int Dout, unsigned threshold, float scale,
                       void* stream) {
   Workspace ws{static_cast<char*>(workspace), 0};
-  return (int)ffn_bwd_bf16(&ws, x, w1, b1, w2, g, seed, dx, dw1, db1, dw2,
-                           db2, M, Din, Dff, Dout, threshold, scale,
+  return (int)ffn_bwd_bf16(&ws, false, x, w1, b1, w2, g, seed, dx, dw1, db1,
+                           dw2, db2, M, Din, Dff, Dout, threshold, scale,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// As cpc2_ffn_bwd_bf16 with x, g and dx in bf16 (dx rounded once after
+// its split partials are summed); the weights' gradients fp32. Workspace
+// of cpc2_ffn_bf16_workspace(..., 1, 1) bytes.
+int cpc2_ffn_bwd_bf16io(const bf16* x, const float* w1, const float* b1,
+                        const float* w2, const bf16* g, const unsigned* seed,
+                        void* workspace, bf16* dx, float* dw1, float* db1,
+                        float* dw2, float* db2, int M, int Din, int Dff,
+                        int Dout, unsigned threshold, float scale,
+                        void* stream) {
+  Workspace ws{static_cast<char*>(workspace), 0};
+  return (int)ffn_bwd_bf16(&ws, true, x, w1, b1, w2, g, seed, dx, dw1, db1,
+                           dw2, db2, M, Din, Dff, Dout, threshold, scale,
                            static_cast<cudaStream_t>(stream));
 }
 

@@ -25,6 +25,7 @@ by a sigmoid of its mean signal quality.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -111,7 +112,10 @@ class PredictionNetwork(nn.Module):
     `(B, K, W, dim_enc)`.
 
     - `transformer`: a one-layer `TransformerAR` over windows of
-      `size_input_seq` frames;
+      `size_input_seq` frames; with `head_dtype` (bf16 under `--precision
+      bf16`) the context goes into the heads in that dtype and their
+      outputs come back in fp32, as the JAX package casts around its heads
+      (`cpc2_tpu/losses/criterion.py:192-201`); every other mode ignores it;
     - `RNN`: a one-layer tanh RNN that, like the reference's `nn.RNN`
       without `batch_first`, scans the (B, W, C) context over the batch
       axis: the JAX package keeps that, and so does the port;
@@ -124,11 +128,13 @@ class PredictionNetwork(nn.Module):
 
     def __init__(self, n_predicts: int, dim_ar: int, dim_enc: int,
                  dropout: bool = False, size_input_seq: int = 116,
-                 rnn_mode: str = 'transformer'):
+                 rnn_mode: str = 'transformer',
+                 head_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if rnn_mode not in RNN_MODES:
             raise ValueError(f"unknown rnnMode {rnn_mode!r}")
         self.rnn_mode = rnn_mode
+        self.head_dtype = head_dtype if rnn_mode == 'transformer' else None
 
         def head():
             if rnn_mode == 'transformer':
@@ -156,8 +162,12 @@ class PredictionNetwork(nn.Module):
         return head(c)
 
     def forward(self, c: Tensor, generator: Generator = None) -> Tensor:
+        if self.head_dtype is not None:
+            c = c.to(self.head_dtype)
         ys = torch.stack([self._head(head, c, generator)
                           for head in self.predictors], dim=1)
+        if self.head_dtype is not None:
+            ys = ys.float()
         if self.drop is not None:
             ys = self.drop(ys, generator)
         return ys
@@ -168,7 +178,8 @@ class MultiHeadPredictionNetwork(nn.Module):
     `criterion.py:44-94`): one transformer trunk, `predictor`, whose
     classifier head emits the K predictions from one FFN of width
     dim_ar -> 2048 -> K x dim_ar (the FFN kernel, one call for all K).
-    Returns `(B, K, W, dim_enc)`."""
+    Returns `(B, K, W, dim_enc)`. It runs in fp32 under every
+    `--precision`, as the JAX package's does."""
 
     def __init__(self, n_predicts: int, dim_ar: int, dim_enc: int,
                  dropout: bool = False, size_input_seq: int = 116,
@@ -201,14 +212,17 @@ class NoneCriterion(nn.Module):
 
 
 class CPCUnsupervisedCriterion(nn.Module):
-    """Multi-step InfoNCE over the encodings of the future view."""
+    """Multi-step InfoNCE over the encodings of the future view.
+    `head_dtype`: the transformer heads' activation dtype (bf16 under
+    `--precision bf16`, else None: fp32)."""
 
     def __init__(self, n_predicts: int, dim_ar: int, dim_enc: int,
                  negative_sampling_ext: int, dropout: bool = False,
                  size_input_seq: int = 128, n_skipped: int = 0,
                  mode: Optional[str] = None, rnn_mode: str = 'transformer',
                  multihead_rnn: bool = False, growth_rate: float = 10.0,
-                 inflection_point_x: float = 0.5):
+                 inflection_point_x: float = 0.5,
+                 head_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if mode not in (None, "reverse"):
             raise ValueError("Invalid mode")
@@ -219,7 +233,8 @@ class CPCUnsupervisedCriterion(nn.Module):
         self.growth_rate = growth_rate
         self.inflection_point_x = inflection_point_x
         network = (MultiHeadPredictionNetwork if multihead_rnn
-                   else PredictionNetwork)
+                   else functools.partial(PredictionNetwork,
+                                          head_dtype=head_dtype))
         self.wPrediction = network(
             n_predicts, dim_ar, dim_enc, dropout=dropout,
             size_input_seq=size_input_seq - n_predicts, rnn_mode=rnn_mode)

@@ -4,7 +4,11 @@
 
 Attention is `torch.matmul` and softmax, or, with CPC2_FUSED_ATTENTION=1,
 the CUDA kernel of `ops/attention.py`; the FFN runs through the CUDA kernels
-of `ops/ffn.py`. Module and parameter names follow the reference's
+of `ops/ffn.py`. A bf16 input (the prediction heads under `--precision
+bf16`, `losses/criterion.py`) runs the JAX package's bf16 flow: the
+linears and norms of `layers.py`, the logits, softmax and dropout in fp32
+with p~ cast to bf16 for the product with v, bf16 residuals, and the FFN's
+and the attention's bf16-in/bf16-out kernels. Module and parameter names follow the reference's
 (`multihead.Wq.weight`, `ln_multihead.weight`, `ffnetwork.lin1.weight`,
 `last_linear.weight`, ...), with the layers of a `TransformerAR` named
 '0', '1', ... like an `nn.Sequential`.
@@ -24,7 +28,7 @@ from torch import nn
 
 from ..ops.attention import fused_relpos_attention, use_fused_attention
 from ..ops.ffn import fused_ffn
-from .layers import Dropout, LayerNorm
+from .layers import Dropout, LayerNorm, Linear
 
 Tensor = torch.Tensor
 Generator = Optional[torch.Generator]
@@ -81,17 +85,21 @@ class ScaledDotProductAttention(nn.Module):
             seed = _dropout_seed(rate, generator, q.device)
             out = fused_relpos_attention(q, k, v, self.Krelpos, seed, rate)
             return out.reshape(n, -1, dk)[:, :s_orig]
-        qk = torch.matmul(q, k.transpose(1, 2))
+        # the logits, softmax and dropout in fp32 or wider (a bf16 q and k
+        # cast up; fp32 and fp64 ones are themselves); p~ in v's dtype
+        wide = torch.promote_types(q.dtype, torch.float32)
+        q32 = q.to(wide)
+        qk = torch.matmul(q32, k.to(wide).transpose(1, 2))
         if self.relpos:
             # rel[r, c] = q[r] . Krelpos[:, s-1-(r-c)] for c <= r: prepend a
             # zero column, view (S, S+1) as (S+1, S), drop the first row.
             bsz = q.shape[0]
-            qp = torch.matmul(q, self.Krelpos)
+            qp = torch.matmul(q32, self.Krelpos)
             qp = torch.cat([qp.new_zeros(bsz, s, 1), qp], dim=2)
             qk = qk + qp.reshape(bsz, s + 1, s)[:, 1:, :]
         a = torch.softmax(qk / math.sqrt(dk) + self.mask, dim=2)
         a = self.drop(a, generator)
-        out = torch.matmul(a, v)
+        out = torch.matmul(a.to(v.dtype), v)
         return out.reshape(n, -1, dk)[:, :s_orig]
 
 
@@ -103,10 +111,10 @@ class MultiHeadAttention(nn.Module):
         super().__init__()
         self.nheads = nheads
         self.dk = dmodel // nheads
-        self.Wq = nn.Linear(dmodel, dmodel, bias=False)
-        self.Wk = nn.Linear(dmodel, dmodel, bias=False)
-        self.Wv = nn.Linear(dmodel, dmodel, bias=False)
-        self.Wo = nn.Linear(dmodel, dmodel, bias=False)
+        self.Wq = Linear(dmodel, dmodel, bias=False)
+        self.Wk = Linear(dmodel, dmodel, bias=False)
+        self.Wv = Linear(dmodel, dmodel, bias=False)
+        self.Wo = Linear(dmodel, dmodel, bias=False)
         self.Att = ScaledDotProductAttention(size_seq, self.dk, dropout,
                                              relpos=not abspos)
 
@@ -132,7 +140,8 @@ class FFNetwork(nn.Module):
     generator on the input's device. Under `bf16mix` (TF32 library matmuls,
     `training.set_precision`) the FFN takes its bf16 route, as the JAX
     package's kernel takes single-pass bf16 products; under `fp32` and
-    inside `training.full_fp32()` its fp32 route."""
+    inside `training.full_fp32()` its fp32 route. A bf16 input takes the
+    bf16 route's bf16-in/bf16-out kernels."""
 
     def __init__(self, din: int, dout: int, dff: int, dropout: float):
         super().__init__()
@@ -144,9 +153,11 @@ class FFNetwork(nn.Module):
         rate = self.dropout if self.training else 0.0
         seed = _dropout_seed(rate, generator, x.device)
         lead = x.shape[:-1]
+        bf16 = (torch.backends.cuda.matmul.allow_tf32
+                or x.dtype == torch.bfloat16)
         y = fused_ffn(x.reshape(-1, x.shape[-1]), self.lin1.weight,
                       self.lin1.bias, self.lin2.weight, self.lin2.bias, seed,
-                      rate, bf16=torch.backends.cuda.matmul.allow_tf32)
+                      rate, bf16=bf16)
         return y.reshape(*lead, y.shape[-1])
 
 
@@ -162,7 +173,7 @@ class TransformerLayer(nn.Module):
                                             nheads, abspos)
         self.ln_multihead = LayerNorm(dmodel)
         self.ffnetwork = FFNetwork(dmodel, dmodel, dff, dropout)
-        self.last_linear = nn.Linear(dmodel, dout)
+        self.last_linear = Linear(dmodel, dout)
         self.ln_ffnetwork = LayerNorm(dout)
 
     def forward(self, x: Tensor, generator: Generator = None) -> Tensor:
@@ -187,7 +198,7 @@ class MultiClassifierTransformerHead(nn.Module):
         self.ln_multihead = LayerNorm(dmodel)
         self.ffnetwork = FFNetwork(dmodel, dmodel * nclassifiers, dff,
                                    dropout)
-        self.last_linear = nn.Linear(dmodel, dout)
+        self.last_linear = Linear(dmodel, dout)
         self.ln_ffnetwork = LayerNorm(dout)
 
     def forward(self, x: Tensor, generator: Generator = None) -> Tensor:
@@ -210,7 +221,7 @@ class StaticPositionEmbedding(nn.Module):
         self.register_buffer("pe", pe.float(), persistent=False)
 
     def forward(self, x: Tensor, generator: Generator = None) -> Tensor:
-        return x + self.pe[None, :x.shape[1], :]
+        return x + self.pe[None, :x.shape[1], :].to(x.dtype)
 
 
 class TransformerAR(nn.Sequential):

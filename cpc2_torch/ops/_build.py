@@ -32,7 +32,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cpc2_torch_kernels"
 SOURCES = ("lstm.cu", "ffn.cu", "infonce.cu", "dtw.cu", "attention.cu",
-           "encoder.cu")
+           "attention_bf16io.cu", "encoder.cu", "adam.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 LIBRARY = BUILD_DIR / "libcpc2_kernels.so"
 
@@ -40,13 +40,18 @@ LIBRARY = BUILD_DIR / "libcpc2_kernels.so"
 # `lstm_*_grid` its cooperative whole-card kernels for widths whose W_hh
 # slice does not fit a cluster (`ops/lstm.py:lstm_plan`). `ffn_fwd`/`ffn_bwd` are the FFN's bf16
 # kernels (`--precision bf16mix`), `ffn_*_fp32` its fp32 ones (`--precision
-# fp32`). `dtw` counts every DTW launch, `dtw_lanes` and `dtw_wave` each
-# route's (`ops/dtw.py:dtw_plan`).
+# fp32`), `ffn_*_bf16io` the bf16 ones' bf16-in/bf16-out variant
+# (`--precision bf16`), as are `attention_*_bf16io` the attention's.
+# `dtw` counts every DTW launch, `dtw_lanes` and `dtw_wave` each route's
+# (`ops/dtw.py:dtw_plan`). `adam_bf16_moment` is `optim.py`'s Adam with a
+# bf16 first moment (`--adam_mu_dtype bf16`).
 KERNELS = ("lstm_fwd", "lstm_bwd", "lstm_fwd_grid", "lstm_bwd_grid",
            "ffn_fwd", "ffn_bwd", "ffn_fwd_fp32", "ffn_bwd_fp32",
+           "ffn_fwd_bf16io", "ffn_bwd_bf16io",
            "infonce_fwd", "infonce_bwd", "dtw", "dtw_lanes", "dtw_wave",
-           "attention_fwd",
-           "attention_bwd", "encoder_fwd", "encoder_bwd")
+           "attention_fwd", "attention_bwd", "attention_fwd_bf16io",
+           "attention_bwd_bf16io", "encoder_fwd", "encoder_bwd",
+           "adam_bf16_moment")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
@@ -65,13 +70,18 @@ _SIGNATURES = {
     "cpc2_ffn_bwd": [_P] * 12 + [_L] + [_I] * 7 + [_U, _F, _P],
     "cpc2_ffn_fwd_bf16": [_P] * 8 + [_I] * 4 + [_U, _F, _P],
     "cpc2_ffn_bwd_bf16": [_P] * 12 + [_I] * 4 + [_U, _F, _P],
-    "cpc2_ffn_bf16_workspace": [_I] * 5,
+    "cpc2_ffn_fwd_bf16io": [_P] * 8 + [_I] * 4 + [_U, _F, _P],
+    "cpc2_ffn_bwd_bf16io": [_P] * 12 + [_I] * 4 + [_U, _F, _P],
+    "cpc2_ffn_bf16_workspace": [_I] * 6,
     "cpc2_infonce_fwd": [_P] * 4 + [_I] * 12 + [_L, _P],
     "cpc2_infonce_bwd": [_P] * 7 + [_I] * 22 + [_L, _P],
     "cpc2_dtw": [_P] * 4 + [_I] * 11 + [_P],
     "cpc2_dtw_layout": [_I] * 4 + [_P],
     "cpc2_attention_fwd": [_P] * 7 + [_I, _U, _F, _F, _P],
     "cpc2_attention_bwd": [_P] * 12 + [_I, _U, _F, _F, _P],
+    "cpc2_attention_fwd_bf16io": [_P] * 7 + [_I, _U, _F, _F, _P],
+    "cpc2_attention_bwd_bf16io": [_P] * 12 + [_I, _U, _F, _F, _P],
+    "cpc2_adam_bf16_moment": [_P] * 6 + [_I, _F, _F, _F, _F, _P],
     "cpc2_encoder_fwd": [_P] * 9 + [_I] * 3 + [_P],
     "cpc2_encoder_bwd": [_P] * 14 + [_L] + [_I] * 3 + [_P],
 }
@@ -256,17 +266,19 @@ def check_f32(name: str, *tensors: torch.Tensor) -> None:
             raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
 
 
-def launch(kernel, fn_name: str, device: torch.device, *args) -> None:
+def launch(kernel, fn_name: str, device: torch.device, *args,
+           times: int = 1) -> None:
     """Call `fn_name` of the library with `args` followed by the current
-    stream of `device`; raise if the launch failed, else count it under
-    `kernel` (a name, or a tuple of names each counted)."""
+    stream of `device`; raise if the launch failed, else count it `times`
+    (the launches that call made) under `kernel` (a name, or a tuple of
+    names each counted)."""
     fn = getattr(library(), fn_name)
     with torch.cuda.device(device):
         code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if code != 0:
         raise RuntimeError(f"{fn_name} failed to launch: CUDA error {code}")
     for name in (kernel,) if isinstance(kernel, str) else kernel:
-        LAUNCHES[name] += 1
+        LAUNCHES[name] += times
 
 
 def reset_launches() -> None:

@@ -38,6 +38,13 @@ kernel does (`ops/ffn.py`), so the kernels and `attention_plain` draw
 bit-identical masks. The TPU kernel draws its mask from the TPU's own
 generator, so against the JAX package only the distribution matches.
 
+bf16 q, k and v (the heads' bf16 activations under `--precision bf16`)
+take the kernels' bf16-in/bf16-out variant: the operands read as bf16 and
+exact in the products, p~ rounded to bf16 only as p~ . v's operand, out,
+dq, dk and dv stored as bf16, dKrelpos in fp32, and the backward's p~
+recomputed unrounded (the rounding is straight-through), as the JAX
+package's kernel takes them.
+
 `fused_relpos_attention` launches the kernels for CUDA tensors and runs
 `attention_plain` for CPU tensors; there is no other path.
 `use_fused_attention` is the opt-in gate (`CPC2_FUSED_ATTENTION=1`), as in
@@ -301,7 +308,35 @@ def attention_plain(q: Tensor, k: Tensor, v: Tensor, krelpos: Tensor,
                     seed: Tensor, rate: float = 0.0) -> Tensor:
     """The attention in plain PyTorch with the W2 table and the kernel's
     mask (autograd gives its backward). q, k, v: (N, S, dk); krelpos: (dk,
-    S); seed: one int32 value."""
+    S); seed: one int32 value. bf16 q, k, v: computed in fp32 from their
+    values, p~ rounded to bf16 as p~ . v's operand only (`_RoundedPV`: the
+    backward's dv and dp~ take p~ and its gradient unrounded), the output
+    rounded to bf16 once (the gradients of q, k and v, those of the casts,
+    then round once each)."""
+    if q.dtype == torch.bfloat16:
+        return _attention_f32(q.float(), k.float(), v.float(), krelpos, seed,
+                              rate, True).to(torch.bfloat16)
+    return _attention_f32(q, k, v, krelpos, seed, rate)
+
+
+class _RoundedPV(torch.autograd.Function):
+    """p~ . v with p~ rounded to bf16 in the product only: the backward
+    recomputes with the unrounded p~ (dv = p~^T g, dp~ = g v^T), as the
+    bf16 kernels and the TPU kernel do."""
+
+    @staticmethod
+    def forward(ctx, p, v):
+        ctx.save_for_backward(p, v)
+        return torch.matmul(p.to(torch.bfloat16).to(p.dtype), v)
+
+    @staticmethod
+    def backward(ctx, g):
+        p, v = ctx.saved_tensors
+        return torch.matmul(g, v.transpose(1, 2)), torch.matmul(
+            p.transpose(1, 2), g)
+
+
+def _attention_f32(q, k, v, krelpos, seed, rate, round_pv=False):
     n, s, dk = q.shape
     scale = 1.0 / dk ** 0.5
     logits = (torch.matmul(q, k.transpose(1, 2))
@@ -311,12 +346,18 @@ def attention_plain(q: Tensor, k: Tensor, v: Tensor, krelpos: Tensor,
     if rate > 0.0:
         keep = keep_mask(seed, n * s, s, rate).reshape(n, s, s)
         p = torch.where(keep, p / (1.0 - rate), torch.zeros_like(p))
-    return torch.matmul(p, v)
+    return _RoundedPV.apply(p, v) if round_pv else torch.matmul(p, v)
 
 
 def _check(q, k, v, krelpos, seed, rate) -> AttentionPlan:
     _build.check_cuda("fused_relpos_attention", q, k, v, krelpos, seed)
-    _build.check_f32("fused_relpos_attention", q, k, v, krelpos)
+    _build.check_f32("fused_relpos_attention", krelpos)
+    if q.dtype == torch.bfloat16:
+        if k.dtype != q.dtype or v.dtype != q.dtype:
+            raise TypeError("fused_relpos_attention: q, k and v take one "
+                            "dtype")
+    else:
+        _build.check_f32("fused_relpos_attention", q, k, v)
     n, s, dk = q.shape
     if (tuple(k.shape) != (n, s, dk) or tuple(v.shape) != (n, s, dk)
             or tuple(krelpos.shape) != (dk, s)):
@@ -354,9 +395,11 @@ class _FusedAttention(torch.autograd.Function):
         krelpos = _operand(krelpos, plan.dk_in, dim=0)
         seed = seed.contiguous()
         out = torch.empty_like(q)
+        io = "_bf16io" if q.dtype == torch.bfloat16 else ""
         if n:
             ints = plan.as_c_ints()
-            _build.launch("attention_fwd", "cpc2_attention_fwd", q.device,
+            _build.launch(f"attention_fwd{io}", f"cpc2_attention_fwd{io}",
+                          q.device,
                           q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           krelpos.data_ptr(), seed.data_ptr(), out.data_ptr(),
                           ctypes.addressof(ints), len(ints),
@@ -371,13 +414,16 @@ class _FusedAttention(torch.autograd.Function):
         q, k, v, krelpos, seed = ctx.saved_tensors
         rate, plan = ctx.rate, ctx.plan
         n, s, dk = plan.n, plan.s, plan.dk
-        g = _operand(g, plan.dk_in)
-        dq, dk_, dv, partial = (torch.empty_like(q) for _ in range(4))
+        g = _operand(g.to(q.dtype), plan.dk_in)
+        dq, dk_, dv = (torch.empty_like(q) for _ in range(3))
+        partial = torch.empty_like(q, dtype=torch.float32)
         # an empty batch sums no partials: zeros without a launch
         dkrel = (torch.empty_like if n else torch.zeros_like)(krelpos)
+        io = "_bf16io" if q.dtype == torch.bfloat16 else ""
         if n:
             ints = plan.as_c_ints()
-            _build.launch("attention_bwd", "cpc2_attention_bwd", q.device,
+            _build.launch(f"attention_bwd{io}", f"cpc2_attention_bwd{io}",
+                          q.device,
                           q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           krelpos.data_ptr(), seed.data_ptr(), g.data_ptr(),
                           dq.data_ptr(), dk_.data_ptr(), dv.data_ptr(),
@@ -393,10 +439,10 @@ def fused_relpos_attention(q: Tensor, k: Tensor, v: Tensor, krelpos: Tensor,
                            seed: Tensor, rate: float = 0.0) -> Tensor:
     """Causal relative-position attention over N units.
 
-    q, k, v: (N, S, dk); krelpos: (dk, S), the `Krelpos` parameter; seed:
-    one int32 value on q's device (unused when rate == 0); float32. Returns
-    (N, S, dk). CUDA tensors go through the kernel, CPU tensors through
-    `attention_plain`."""
+    q, k, v: (N, S, dk), float32 or all three bf16; krelpos: (dk, S), the
+    `Krelpos` parameter, float32; seed: one int32 value on q's device
+    (unused when rate == 0). Returns (N, S, dk) in q's dtype. CUDA tensors
+    go through the kernel, CPU tensors through `attention_plain`."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, krelpos, seed, rate)
     return _FusedAttention.apply(q, k, v, krelpos, seed, rate)

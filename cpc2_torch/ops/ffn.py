@@ -13,6 +13,10 @@ operations (1.9 GFLOP per head forward at the recipe). Two routes:
   the products are TMA-fed `wgmma` tiles with the bias, ReLU, dropout and
   their gradients fused into the epilogues (`csrc/hopper_gemm.cuh`). The
   bias gradients and the forward's bias add see unrounded fp32 values.
+  Where x is bf16 (`--precision bf16`, the heads' bf16 activations), the
+  bf16-in/bf16-out variant: x and the incoming gradient are read as they
+  come, and y and dx are summed in fp32 and rounded to bf16 once, as the
+  JAX package's kernel rounds its fp32 output block once to x's dtype.
 - `bf16=False` (`--precision fp32`): the same products at fp32 accuracy,
   in 3xTF32 on the tensor cores: each operand split into two TF32 planes,
   big and small, and each product taken as small*big + big*small +
@@ -30,7 +34,8 @@ draws its mask from the TPU's own generator, so against the JAX package
 only the distribution matches.
 
 `fused_ffn` launches a kernel for CUDA tensors and runs `ffn_plain` for
-CPU tensors; there is no other path.
+CPU tensors; there is no other path. It picks the bf16-in/bf16-out
+kernels by x's dtype.
 """
 
 from __future__ import annotations
@@ -94,7 +99,14 @@ def ffn_plain(x: Tensor, w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor,
     product, and the gradient of each product rounded before it reaches
     the product's operands, but not the bias gradients. A matmul of
     bf16-valued fp32 operands is exact in its products, so only the sums'
-    order differs from the kernels'."""
+    order differs from the kernels'. A bf16 x (which takes `bf16`) gives a
+    bf16 y, rounded once from the fp32 sum with b2; dx, the gradient of
+    the cast, is then rounded once after its fp32 sum."""
+    if x.dtype == torch.bfloat16:
+        if not bf16:
+            raise TypeError("ffn_plain: a bf16 x takes the bf16 route")
+        return ffn_plain(x.float(), w1, b1, w2, b2, seed, rate,
+                         True).to(torch.bfloat16)
     if bf16:
         x, w1, w2 = (_RoundValue.apply(t) for t in (x, w1, w2))
         pre = _RoundGrad.apply(x @ w1.t()) + b1
@@ -218,7 +230,11 @@ def ffn_fp32_plan(m: int, din: int, dff: int, dout: int,
 
 def _check(x, w1, b1, w2, b2, seed, rate, bf16) -> torch.device:
     device = _build.check_cuda("fused_ffn", x, w1, b1, w2, b2, seed)
-    _build.check_f32("fused_ffn", x, w1, b1, w2, b2)
+    _build.check_f32("fused_ffn", w1, b1, w2, b2)
+    if x.dtype == torch.bfloat16 and not bf16:
+        raise TypeError("fused_ffn: a bf16 x takes the bf16 route")
+    if x.dtype != torch.bfloat16:
+        _build.check_f32("fused_ffn", x)
     m, din = x.shape
     dff, dout = w1.shape[0], w2.shape[0]
     if (tuple(w1.shape) != (dff, din) or tuple(b1.shape) != (dff,)
@@ -246,9 +262,9 @@ def _aligned(name: str, *tensors: Tensor) -> None:
 
 @functools.lru_cache(maxsize=None)
 def _workspace_bytes(m: int, din: int, dff: int, dout: int,
-                     backward: bool) -> int:
+                     backward: bool, io: bool = False) -> int:
     return _build.library().cpc2_ffn_bf16_workspace(m, din, dff, dout,
-                                                    int(backward))
+                                                    int(backward), int(io))
 
 
 # Inside a CUDA graph (`training.MultiStep`) a launch keeps the arguments
@@ -268,12 +284,21 @@ class _FusedFFN(torch.autograd.Function):
         w2, b2, seed = w2.contiguous(), b2.contiguous(), seed.contiguous()
         m, din = x.shape
         dff, dout = w1.shape[0], w2.shape[0]
-        y = torch.empty((m, dout), device=device)
+        io = x.dtype == torch.bfloat16
+        y = torch.empty((m, dout), device=device, dtype=x.dtype)
         ptrs = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
                 b2.data_ptr(), seed.data_ptr())
         drop = (dropout_threshold(rate), 1.0 / (1.0 - rate))
         if m == 0:
             pass  # nothing to compute, nothing launched
+        elif io:
+            _aligned("fused_ffn", x, w1, b1, w2, b2)
+            scratch = torch.empty(
+                _workspace_bytes(m, din, dff, dout, False, True),
+                device=device, dtype=torch.uint8)
+            _build.launch("ffn_fwd_bf16io", "cpc2_ffn_fwd_bf16io", device,
+                          *ptrs, scratch.data_ptr(), y.data_ptr(), m, din,
+                          dff, dout, *drop)
         elif bf16:
             _aligned("fused_ffn", x, w1, b1, w2, b2)
             scratch = torch.empty(_workspace_bytes(m, din, dff, dout, False),
@@ -297,7 +322,8 @@ class _FusedFFN(torch.autograd.Function):
         x, w1, b1, w2, seed = ctx.saved_tensors
         rate = ctx.rate
         device = x.device
-        g = g.contiguous()
+        io = x.dtype == torch.bfloat16
+        g = g.to(x.dtype).contiguous()
         m, din = x.shape
         dff, dout = w1.shape[0], w2.shape[0]
         if m == 0:  # nothing launched: the weights' gradients are 0
@@ -313,7 +339,15 @@ class _FusedFFN(torch.autograd.Function):
         grads = (dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
                  dw2.data_ptr(), db2.data_ptr())
         drop = (dropout_threshold(rate), 1.0 / (1.0 - rate))
-        if ctx.bf16:
+        if io:
+            _aligned("fused_ffn", g, dx)
+            scratch = torch.empty(
+                _workspace_bytes(m, din, dff, dout, True, True),
+                device=device, dtype=torch.uint8)
+            _build.launch("ffn_bwd_bf16io", "cpc2_ffn_bwd_bf16io", device,
+                          *ptrs, scratch.data_ptr(), *grads, m, din, dff,
+                          dout, *drop)
+        elif ctx.bf16:
             _aligned("fused_ffn", g)
             scratch = torch.empty(_workspace_bytes(m, din, dff, dout, True),
                                   device=device, dtype=torch.uint8)
@@ -337,8 +371,9 @@ def fused_ffn(x: Tensor, w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor,
 
     x: (M, Din); w1: (Dff, Din); b1: (Dff,); w2: (Dout, Dff); b2: (Dout,);
     seed: one int32 value on x's device (unused when rate == 0). Returns
-    (M, Dout) float32. `bf16` takes the bf16 route (widths multiples of 8),
-    else the fp32 one (any widths). CUDA tensors go through the kernels, CPU
+    (M, Dout) in x's dtype. `bf16` takes the bf16 route (widths multiples of
+    8), else the fp32 one (any widths); a bf16 x takes the bf16 route's
+    bf16-in/bf16-out kernels. CUDA tensors go through the kernels, CPU
     tensors through `ffn_plain`."""
     if x.device.type == "cpu":
         return ffn_plain(x, w1, b1, w2, b2, seed, rate, bf16)

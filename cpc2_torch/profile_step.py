@@ -1,12 +1,16 @@
 """Where a training step's time goes on the card.
 
     python -m cpc2_torch.profile_step [--steps 10] [--trace out.json] \
-        [--precision bf16mix|fp32] [--hiddenEncoder 256] [--hiddenGar 256]
+        [--precision bf16mix|fp32|bf16] [--adam_mu_dtype fp32|bf16] \
+        [--hiddenEncoder 256] [--hiddenGar 256]
 
 `--hiddenEncoder 512 --hiddenGar 512` profiles a 512-wide model's step,
 whose LSTM takes the grid route (`ops/lstm.py:lstm_plan`). With
 CPC2_FUSED_ATTENTION=1 and CPC2_FUSED_ENCODER=1 in the environment it
 profiles the step through the opt-in attention and encoder kernels.
+`--precision bf16` profiles the heads in bf16 activations (the FFN's and,
+opt-in, the attention's bf16-in/bf16-out kernels, counted in their
+groups), `--adam_mu_dtype bf16` the bf16-moment Adam kernel.
 
 Builds the recipe model and criterion (the trainer's defaults: batch 8 x
 20,480 samples, 256-d encoder and LSTM, 12 transformer heads, 128
@@ -21,7 +25,8 @@ warm-up steps:
   port's hand-written kernels, of the FFN's kernels (the bf16 route's, or
   under `--precision fp32` the fp32 route's), of the LSTM's kernels, of
   InfoNCE's, of the opt-in attention's and of the opt-in encoder's (by
-  part: layers 2-5's products, norms, sums, layer 1), the device kernel
+  part: layers 2-5's products, norms, sums, layer 1), of the bf16-moment
+  Adam's, the device kernel
   launches per step, the launches per step of each of the port's kernel
   wrappers, and the kernels that take the most device time.
 
@@ -67,8 +72,10 @@ ENCODER_KERNELS = ("conv_wgmma_gemm", "norm_fwd", "norm_bwd", "sum_rows",
 # backward and its sum of the units' dKrelpos partials (the fragments also
 # match the older scalar kernels' names, for runs of an older tree).
 ATTENTION_KERNELS = ("attention_fwd", "attention_bwd", "relpos_grad_sum")
+# `--adam_mu_dtype bf16`'s update (`csrc/adam.cu`)
+ADAM_KERNELS = ("adam_bf16_moment",)
 PORT_KERNELS = FFN_KERNELS + FFN_FP32_KERNELS + LSTM_KERNELS + (
-    INFONCE_KERNELS) + ATTENTION_KERNELS + ENCODER_KERNELS
+    INFONCE_KERNELS) + ATTENTION_KERNELS + ENCODER_KERNELS + ADAM_KERNELS
 
 
 def encoder_parts(split: dict) -> dict:
@@ -152,13 +159,17 @@ def main(argv=None) -> dict:
     parser.add_argument("--steps", type=int, default=10)
     parser.add_argument("--trace", type=str, default=None,
                         help="write a Chrome trace of the profiled steps")
-    parser.add_argument("--precision", type=str, default="bf16mix")
+    parser.add_argument("--precision", type=str, default="bf16mix",
+                        choices=["fp32", "bf16mix", "bf16"])
+    parser.add_argument("--adam_mu_dtype", type=str, default="fp32",
+                        choices=["fp32", "bf16"])
     parser.add_argument("--hiddenEncoder", type=int, default=256)
     parser.add_argument("--hiddenGar", type=int, default=256)
     opts = parser.parse_args(argv)
 
     args = parse_args(["--pathDB", ".", "--file_extension", ".wav",
                        "--random_seed", "0", "--precision", opts.precision,
+                       "--adam_mu_dtype", opts.adam_mu_dtype,
                        "--hiddenEncoder", str(opts.hiddenEncoder),
                        "--hiddenGar", str(opts.hiddenGar)])
     device = resolve_device("cuda")
@@ -224,12 +235,12 @@ def main(argv=None) -> dict:
     kernels = device_kernels(prof)
     device_ms = sum(device_us(e) for e in kernels) / 1000.0 / opts.steps
     ffn_route = "fp32" if opts.precision == "fp32" else "bf16"
-    port_ms, ffn_ms, lstm_ms, infonce_ms, attention_ms = (
+    port_ms, ffn_ms, lstm_ms, infonce_ms, attention_ms, adam_ms = (
         sum(device_us(e) for e in kernels if any(k in e.key for k in names))
         / 1000.0 / opts.steps
         for names in (PORT_KERNELS, FFN_FP32_KERNELS if ffn_route == "fp32"
                       else FFN_KERNELS, LSTM_KERNELS, INFONCE_KERNELS,
-                      ATTENTION_KERNELS))
+                      ATTENTION_KERNELS, ADAM_KERNELS))
     encoder_ms = encoder_parts(
         {e.key: device_us(e) / 1000.0 / opts.steps for e in kernels})
     encoder_ms.pop("other", None)
@@ -237,7 +248,7 @@ def main(argv=None) -> dict:
     median = statistics.median(wall_ms)
     print(f"card: {torch.cuda.get_device_name(0)}; --hiddenEncoder "
           f"{args.hiddenEncoder} --hiddenGar {args.hiddenGar} --precision "
-          f"{args.precision}")
+          f"{args.precision} --adam_mu_dtype {args.adam_mu_dtype}")
     print(f"wall: median {median:.3f} ms/step over {opts.steps} steps "
           f"(min {min(wall_ms):.3f}, max {max(wall_ms):.3f}); "
           f"{args.batchSizeGPU * args.sizeWindow / 16000 / (median / 1e3):.1f}"
@@ -254,7 +265,8 @@ def main(argv=None) -> dict:
           f"{attention_ms:.3f} ms, the encoder's "
           f"{sum(encoder_ms.values()):.3f} ms ("
           + ", ".join(f"{k} {v:.3f}" for k, v in sorted(encoder_ms.items()))
-          + f"); {device_launches:g} device kernel launches per step")
+          + f"), the bf16-moment Adam's {adam_ms:.3f} ms; "
+          f"{device_launches:g} device kernel launches per step")
     print("the port's kernel wrappers, launches/step: " + ", ".join(
         f"{k} {n:g}" for k, n in launches.items()))
     print(f"{'device ms/step':>15} {'calls/step':>11}  kernel")
@@ -265,6 +277,7 @@ def main(argv=None) -> dict:
             "port_kernel_ms": port_ms, f"ffn_{ffn_route}_kernel_ms": ffn_ms,
             "lstm_kernel_ms": lstm_ms, "infonce_kernel_ms": infonce_ms,
             "attention_kernel_ms": attention_ms,
+            "adam_bf16_kernel_ms": adam_ms,
             "encoder_kernel_ms": encoder_ms,
             "device_launches_per_step": device_launches,
             "profiled_step_ms": profiled_ms,

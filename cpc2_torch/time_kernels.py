@@ -1,7 +1,8 @@
 """Hand-written kernels alone at the recipe, by device time.
 
     python -m cpc2_torch.time_kernels \
-        {attention,dtw,encoder,infonce,lstm} [--iters N]
+        {attention,attention_bf16io,dtw,encoder,ffn_bf16io,infonce,lstm} \
+        [--iters N]
 
 Draws one call's inputs of the recipe from seed 0 on the card, then
 profiles `--iters` forward calls and `--iters` backward calls of the
@@ -16,6 +17,9 @@ as text and as one JSON line:
   backward by `torch.autograd.grad` on a kept graph, with CUDA-event ms
   per call beside (host included) and the same work through the module's
   shift-trick route (`ScaledDotProductAttention`, the port's default path);
+* `attention_bf16io`: the same with bf16 q, k, v and cotangent (the heads
+  under `--precision bf16`): the bf16-in/bf16-out kernels, beside the
+  module's torch route on the same bf16 inputs;
 * `dtw`: `dtw_normalized` (forward only) at DTW_SHAPES: (a) one ABX
   flush of 18,432 pairs of 32 x 32 frames, lengths uniform in [1, 32];
   (b) a real flush's layout, 32 groups of 24 x rows by 24 a/b rows, 32 x
@@ -33,6 +37,11 @@ as text and as one JSON line:
   off 1 and 0) on 16 x 20,480 samples through `fused_encoder` with
   gradients kept (as in training), beside the module's cuDNN route under
   TF32;
+* `ffn_bf16io`: `fused_ffn` on a bf16 x at the recipe (928 x 256 -> 2048
+  -> 256, dropout 0.1, one head's call under `--precision bf16`), the
+  forward without gradients and the backward on a kept graph, CUDA-event
+  ms beside, and the same products as bf16 `torch.matmul` with the
+  epilogues as torch ops (the library route, forward and backward);
 * `infonce`: `negative_scores` on preds (8, 12, 116, 256), a pool of
   1,024 rows of 256 and 128 negatives a position from the trainer's own
   `sample_negative_indices`;
@@ -150,17 +159,18 @@ def encoder_inputs(dev, gen, n: int, t: int, c: int):
     return module, params, x, cot
 
 
-def time_attention(dev, gen, iters: int) -> dict:
+def time_attention(dev, gen, iters: int,
+                   dtype: torch.dtype = torch.float32) -> dict:
     from .models.transformer import ScaledDotProductAttention
     from .ops.attention import fused_relpos_attention
     n, s, dk, rate = 64, 116, 32, 0.1
-    leaves = [torch.randn(n, s, dk, device=dev, generator=gen,
-                          requires_grad=True) for _ in range(3)]
+    leaves = [torch.randn(n, s, dk, device=dev, generator=gen).to(
+        dtype).requires_grad_(True) for _ in range(3)]
     krel = (0.2 * torch.randn(dk, s, device=dev, generator=gen)
             ).requires_grad_(True)
     leaves.append(krel)
     seed = torch.tensor([12345], device=dev, dtype=torch.int32)
-    cot = torch.randn(n, s, dk, device=dev, generator=gen)
+    cot = torch.randn(n, s, dk, device=dev, generator=gen).to(dtype)
 
     def fwd():
         return fused_relpos_attention(*leaves, seed, rate)
@@ -188,6 +198,62 @@ def time_attention(dev, gen, iters: int) -> dict:
     return {"fwd": f_split, "bwd": b_split,
             "attention_fwd_events_ms": f_events,
             "attention_bwd_events_ms": b_events,
+            "route_fwd_ms": r_fwd, "route_bwd_ms": r_bwd}
+
+
+def time_attention_bf16io(dev, gen, iters: int) -> dict:
+    return time_attention(dev, gen, iters, torch.bfloat16)
+
+
+def time_ffn_bf16io(dev, gen, iters: int) -> dict:
+    from .ops.ffn import fused_ffn, keep_mask
+    m, din, dff, dout, rate = 8 * 116, 256, 2048, 256, 0.1
+    x = torch.randn(m, din, device=dev, generator=gen).to(
+        torch.bfloat16).requires_grad_(True)
+    ws = [(torch.randn(*shape, device=dev, generator=gen) / scale
+           ).requires_grad_(True)
+          for shape, scale in (((dff, din), 16), ((dff,), 16),
+                               ((dout, dff), 45), ((dout,), 45))]
+    seed = torch.tensor([12345], device=dev, dtype=torch.int32)
+    cot = torch.randn(m, dout, device=dev, generator=gen).to(torch.bfloat16)
+    leaves = [x] + ws
+
+    def fwd():
+        return fused_ffn(*leaves, seed, rate, True)
+    out = fwd()
+
+    def bwd():
+        return torch.autograd.grad(out, leaves, cot, retain_graph=True)
+    with torch.no_grad():
+        f_split = device_split(fwd, iters)
+        f_events = event_ms(fwd, iters)
+    b_split = device_split(bwd, iters)
+    b_events = event_ms(bwd, iters)
+
+    # the library route: the products as bf16 `torch.matmul`, the bias,
+    # ReLU, dropout and their gradients as torch ops
+    keep = keep_mask(seed, m, dff, rate) / (1.0 - rate)
+    w1b, w2b = ws[0].detach().to(torch.bfloat16), ws[2].detach().to(
+        torch.bfloat16)
+    xd = x.detach()
+
+    def route_fwd():
+        h = (torch.relu((xd @ w1b.t()).float() + ws[1].detach()) * keep).to(
+            torch.bfloat16)
+        return ((h @ w2b.t()).float() + ws[3].detach()).to(torch.bfloat16), h
+
+    with torch.no_grad():
+        _y, h = route_fwd()
+
+        def route_bwd():
+            dh = ((cot @ w2b).float() * ((h > 0) * keep)).to(torch.bfloat16)
+            return (dh @ w1b, dh.t() @ xd, dh.float().sum(0), cot.t() @ h,
+                    cot.float().sum(0))
+        r_fwd = sum(device_split(route_fwd, iters).values())
+        r_bwd = sum(device_split(route_bwd, iters).values())
+    return {"fwd": f_split, "bwd": b_split,
+            "ffn_fwd_bf16io_events_ms": f_events,
+            "ffn_bwd_bf16io_events_ms": b_events,
             "route_fwd_ms": r_fwd, "route_bwd_ms": r_bwd}
 
 
@@ -412,9 +478,10 @@ def time_dtw(dev, gen, iters: int) -> dict:
     return {"fwd": first["by_kernel"], "bwd": {}, "shapes": result}
 
 
-TIMERS = {"attention": time_attention, "dtw": time_dtw,
-          "encoder": time_encoder, "infonce": time_infonce,
-          "lstm": time_lstm}
+TIMERS = {"attention": time_attention,
+          "attention_bf16io": time_attention_bf16io, "dtw": time_dtw,
+          "encoder": time_encoder, "ffn_bf16io": time_ffn_bf16io,
+          "infonce": time_infonce, "lstm": time_lstm}
 
 
 def main(argv=None) -> dict:

@@ -74,7 +74,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .config import BF16, check_ported, parse_args
+from .config import check_ported, parse_args
 from .data import (AudioBatchData, PeakNorm, filter_seqs, find_all_seqs,
                    parse_seq_labels)
 from .data import augment_device
@@ -131,7 +131,8 @@ def get_criterion(args, n_speakers: int = 0,
     the CTC one with `--CTC`) or the speaker one over `n_speakers`. A
     supervised head reads the encodings (`hiddenEncoder` wide) with
     `--onEncoder` where it can, else the context (`hiddenGar` wide); the
-    speaker head always reads the last context frame."""
+    speaker head always reads the last context frame. The CPC criterion's
+    transformer heads run in `head_dtype(args)`."""
     if not args.supervised and args.cpc_mode == 'none':
         return NoneCriterion()
     if not args.supervised and args.cpc_mode == 'bert':
@@ -153,7 +154,16 @@ def get_criterion(args, n_speakers: int = 0,
         size_input_seq=args.sizeWindow // DOWNSAMPLING,
         n_skipped=args.n_skipped, mode=args.cpc_mode, rnn_mode=args.rnnMode,
         multihead_rnn=args.multihead_rnn, growth_rate=args.growth_rate,
-        inflection_point_x=args.inflection_point_x)
+        inflection_point_x=args.inflection_point_x,
+        head_dtype=head_dtype(args))
+
+
+def head_dtype(args) -> Optional[torch.dtype]:
+    """The transformer heads' activation dtype: bf16 under `--precision
+    bf16` (a resumed run reads it from its `checkpoint_args.json`), else
+    None (fp32)."""
+    return (torch.bfloat16 if getattr(args, 'precision', None) == 'bf16'
+            else None)
 
 
 def step_mask(args, batch: int) -> Optional[np.ndarray]:
@@ -466,6 +476,19 @@ def _resume(args) -> Tuple[Dict, bool, Optional[List[str]]]:
     return logs, True, built_from
 
 
+def _leaf_tensor(leaf) -> torch.Tensor:
+    """An optax leaf as a tensor: a torch tensor as it is, an array as
+    numpy gives it, and a bf16 array (`--adam_mu_dtype bf16`'s mu, numpy's
+    `ml_dtypes.bfloat16`, which torch does not take) by its bits."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16)
+    return torch.as_tensor(arr)
+
+
 def _optax_moments(optimizer: torch.optim.Optimizer, saved: Dict,
                    modules: Dict[str, nn.Module], norm_mode: str
                    ) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -475,7 +498,9 @@ def _optax_moments(optimizer: torch.optim.Optimizer, saved: Dict,
     count, then b1, b2, eps, eps_root and learning_rate, then Adam's count,
     mu and nu) or of `inject_hyperparams(optax.sgd)`'s (count,
     learning_rate, momentum, the trace), each moment over the param tree
-    `{'criterion', 'model'}` in `jax_param_order`."""
+    `{'criterion', 'model'}` in `jax_param_order`. A bf16 mu
+    (`--adam_mu_dtype bf16`) comes as its fp32 values, which the optimizer
+    stores in its own `exp_avg` dtype on loading."""
     order = jax_param_order(modules)
     adam = isinstance(optimizer, torch.optim.Adam)
     n_scalars, moments = (7, ("mu", "nu")) if adam else (3, ("trace",))
@@ -493,11 +518,7 @@ def _optax_moments(optimizer: torch.optim.Optimizer, saved: Dict,
         trees: Dict[str, Dict] = {name: {} for name in modules}
         for (path, shape), leaf in zip(order,
                                        leaves[start:start + len(order)]):
-            leaf = torch.as_tensor(leaf)
-            if leaf.dtype == torch.bfloat16:
-                raise NotImplementedError(
-                    f"optax {moment} in bf16 (--adam_mu_dtype bf16): not "
-                    f"ported to cpc2_torch (ROADMAP.md item: {BF16})")
+            leaf = _leaf_tensor(leaf)
             if tuple(leaf.shape) != shape:
                 raise ValueError(f"optax {moment} leaf {'/'.join(path)}: "
                                  f"shape {tuple(leaf.shape)}, the port's "

@@ -32,6 +32,7 @@ from .losses.bert import CPCBertCriterion
 from .losses.criterion import CTCPhoneCriterion, SupervisedCriterion
 from .models.cpc import CPCBertModel
 from .ops import _build
+from .optim import AdamBF16Moment
 
 Tensor = torch.Tensor
 
@@ -50,11 +51,15 @@ def set_precision(precision: str) -> None:
     in TF32, the card's analogue of the TPU's single-pass default, and the
     head FFN's kernels (`ops/ffn.py`) in bf16 products with fp32 sums, as
     the JAX package's FFN kernel under that precision; the opt-in encoder
-    kernel runs under `bf16mix` only. The other hand-written kernels
-    compute in fp32 either way."""
-    if precision not in ("fp32", "bf16mix"):
-        raise NotImplementedError(f"--precision {precision}: not ported")
-    tf32 = precision == "bf16mix"
+    kernel runs under `bf16mix` and `bf16` only. The other hand-written
+    kernels compute in fp32 either way. `bf16` sets the same switches as
+    `bf16mix` (as the JAX package's `'bfloat16'` matmul precision is the
+    TPU's default): what it adds, the transformer heads' bf16
+    activations, the criterion carries (`head_dtype`, built from
+    `--precision`)."""
+    if precision not in ("fp32", "bf16mix", "bf16"):
+        raise ValueError(f"unknown precision {precision!r}")
+    tf32 = precision != "fp32"
     torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.backends.cudnn.allow_tf32 = tf32
 
@@ -88,7 +93,14 @@ def make_optimizer(args: argparse.Namespace, params,
     fused Adam, which keeps its step count on the device and computes the
     bias corrections there, in fp32, in one multi-tensor kernel, so that a
     CUDA graph can replay its update (the unfused capturable route spends
-    about 400 tiny launches a step on them)."""
+    about 400 tiny launches a step on them). `--adam_mu_dtype bf16`:
+    `optim.AdamBF16Moment`, optax's update with a bf16 first moment, whose
+    counts follow the parameters' device whatever `capturable` says."""
+    if args.optimizer == 'adam' and getattr(args, 'adam_mu_dtype',
+                                            'fp32') == 'bf16':
+        return AdamBF16Moment(params, lr=args.learningRate,
+                              betas=(args.beta1, args.beta2),
+                              eps=args.epsilon)
     if args.optimizer == 'adam':
         return torch.optim.Adam(params, lr=args.learningRate,
                                 betas=(args.beta1, args.beta2),

@@ -263,7 +263,7 @@ def test_attention_plan_takes_every_gated_shape(monkeypatch):
 
 def _mtile_range(rank, ctas, tiles):
     """The m-tiles (16 columns of dk and dv, 16 rows of dKrelpos) that CTA
-    `rank` of the backward's cluster finishes (`csrc/attention.cu`: rank
+    `rank` of the backward's cluster finishes (`csrc/attention.cuh`: rank
     rho finishes [rho T / R, (rho + 1) T / R))."""
     return rank * tiles // ctas, (rank + 1) * tiles // ctas
 

@@ -347,8 +347,11 @@ def test_trainer_resumes_a_jax_run(mini_corpus, tmp_path, capsys):
 
 
 def test_optax_state_that_does_not_fit_raises(mini_corpus, tmp_path):
-    """A leaf count or shape that does not fit raises with both counts;
-    bf16 moments raise under their ROADMAP title."""
+    """A leaf count or shape that does not fit raises with both counts.
+    bf16 moments (`--adam_mu_dtype bf16`'s mu; the JAX package cannot write
+    them in torch format, so the test makes them, as torch tensors and as
+    numpy's `ml_dtypes.bfloat16` arrays) load: into torch's Adam as their
+    fp32 values, into `AdamBF16Moment` as the same bf16 values."""
     from cpc2_torch.train import _load_optimizer
     args = parse_args(_train_argv(mini_corpus, tmp_path))
     state, bundle, _tx, _g = _jax_train_state(args, "adam")
@@ -362,10 +365,29 @@ def test_optax_state_that_does_not_fit_raises(mini_corpus, tmp_path):
         with pytest.raises(ValueError, match=match):
             _load_optimizer(torch_opt, dict(saved, leaves=bad), modules,
                             args.normMode)
-    bf16 = leaves[:7] + [t.bfloat16() for t in leaves[7:]]
-    with pytest.raises(NotImplementedError, match="bf16 precision"):
-        _load_optimizer(torch_opt, dict(saved, leaves=bf16), modules,
-                        args.normMode)
+    import ml_dtypes
+
+    from cpc2_torch.optim import AdamBF16Moment
+    n = (len(leaves) - 7) // 2
+    mu = [t.bfloat16() for t in leaves[7:7 + n]]
+    params = {f"{name}.{k}": p for name, m in modules.items()
+              for k, p in m.named_parameters()}
+    for opt in (torch_opt, AdamBF16Moment(list(model.parameters())
+                                          + list(criterion.parameters()))):
+        for as_numpy in (False, True):
+            bf16 = leaves[:7] + [
+                t.float().numpy().astype(ml_dtypes.bfloat16) if as_numpy
+                else t for t in mu] + leaves[7 + n:]
+            _load_optimizer(opt, dict(saved, leaves=bf16), modules,
+                            args.normMode)
+            want = {key: v.to(torch.bfloat16) for key, v in _by_key(
+                state.opt_state.inner_state[0].mu).items()}
+            for key, p in params.items():
+                got = opt.state[p]["exp_avg"]
+                assert got.dtype == (torch.bfloat16 if isinstance(
+                    opt, AdamBF16Moment) else torch.float32), key
+                assert torch.equal(got.to(torch.bfloat16),
+                                   want[key].reshape(got.shape)), key
 
 
 # --- several checkpoints as one model --------------------------------------

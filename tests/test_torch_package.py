@@ -153,10 +153,9 @@ BASE = ["--pathDB", "db", "--file_extension", ".wav"]
 
 
 @pytest.mark.parametrize("flags", [
-    ["--adam_mu_dtype", "bf16"], ["--nGPU", "2"],
+    ["--nGPU", "2"],
     ["--distributed"], ["--data_axis_size", "2"],
     ["--model_axis_size", "2"], ["--dcn_axis_size", "2"],
-    ["--precision", "bf16"],
     ["--global_negatives"], ["--neg_pool_group", "4"],
     ["--nGPU", "4"],
 ])
@@ -173,10 +172,12 @@ def test_unported_flags_raise(flags):
     ["--signal_quality_path", "q", "--signal_quality_step", "800",
      "--signal_quality_mode", "c50", "--growth_rate", "5",
      "--inflection_point_x", "0.2"],
+    ["--precision", "bf16"], ["--adam_mu_dtype", "bf16"],
 ])
 def test_variant_flags_parse(flags):
-    """The model and criterion modes are ported: they parse, and the
-    port raises no `NotImplementedError` for them."""
+    """The model and criterion modes and the bf16 precision and Adam
+    moment are ported: they parse, and the port raises no
+    `NotImplementedError` for them."""
     args = parse_args(BASE + flags)
     if flags == ["--multihead_rnn"]:
         assert args.multihead_rnn
