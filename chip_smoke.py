@@ -127,11 +127,11 @@ Phases, each of which fails the run with a nonzero exit:
    the epoch means bit for bit, since every training run on the card
    updates with the capturable Adam); `[resume N=4]` as `[resume]`
    on the graph route; and `[dispatch timings]`: the default training on
-   a 56-step corpus in a fresh process each for N = 1 from host batches,
-   N = 1 from the resident pack, N = 4 and N = 8, two epochs in turn and
-   then one reversed under a device-only profiler (median ms/step, the
-   second epoch's mean, ms to dispatch, peak memory, the device's busy
-   share);
+   a 36-step corpus in a fresh process each for N = 1 from host batches,
+   N = 1 from the resident pack, N = 4 and N = 8, two epochs in turn, and
+   then N = 4 for one epoch under a device-only profiler (median ms/step,
+   the second epoch's mean, ms to dispatch, peak memory, the graph
+   route's busy share);
 6. write a phone corpus with its `.item` file (4 speakers x 8 files x 24
    tokens) and run `cpc2_torch.eval.eval_ABX.main from_checkpoint` on the
    checkpoint of phase 5 at its defaults, the counts again set to 0 just
@@ -237,11 +237,27 @@ Phases, each of which fails the run with a nonzero exit:
    and MFCC epochs' checkpoints, features card against CPU within 1e-3
    (`[variant abx ...]`); the LFB step's `[determinism]`; the phase's wall
    seconds on `[phase 10]`;
-11. print one `kernels` JSON line (the `lstm_fwd`, `dtw` and
+11. `--precision bf16` and `--adam_mu_dtype bf16` (`run_bf16`): the
+   bf16-io FFN and attention kernels, the wide attention kernels beside
+   their torch route, the bf16-moment Adam, steps, a replay, epochs and a
+   resume; the phase's wall seconds on `[phase 11]`;
+12. grouped negative pools (`run_neg_pool`): the InfoNCE kernels on a
+   grouped plan at NEG_POOL_SHAPES against their plain version, dz bit
+   for bit across two calls, and at batch 64 in groups of 8 the whole
+   pool's plan held against the grouped one, each timed beside the plain
+   version, the library route, the bound and batch 8's kernels, in a
+   fresh process (`[neg pool kernels]`); one step at batch 16 in groups of
+   8 card against CPU (`[neg pool step]`); one epoch of NEG_POOL_FLAGS on
+   a 24-minute WAV corpus, every launch held exactly to its batches
+   (`[neg pool epoch]`); an N = 4 replay at batch 64 bit for bit against
+   eager steps (`[neg pool dispatch]`); the phase's wall seconds on
+   `[phase 12]`;
+13. print one `kernels` JSON line (the `lstm_fwd`, `dtw` and
    `ffn_fwd_fp32` rows with their launches on the unit path,
    `launches_discrete_units`, the LSTM rows' on the Common Voices
-   path, `launches_common_voices`, and each training kernel's over phase
-   10's epochs, `launches_variants`) and, last, the `ok` line.
+   path, `launches_common_voices`, each training kernel's over phase
+   10's epochs, `launches_variants`, and the grouped InfoNCE rows' on
+   phase 12's epoch) and, last, the `ok` line.
 
 It exits nonzero, printing no result, when no CUDA card is available or
 when the `cpc2_torch` package is not beside it.
@@ -2530,7 +2546,10 @@ DISPATCH_KERNELS = {"default": TRAINING_KERNELS,
                     "fused": TRAINING_KERNELS + FUSED_KERNELS,
                     "fp32": FP32_KERNELS, "wide": WIDE_KERNELS,
                     "augmented": TRAINING_KERNELS,
-                    "speaker": LSTM_RESIDENT}
+                    "speaker": LSTM_RESIDENT,
+                    # phase 12: batch 64 in groups of 8
+                    "neg_pool": LSTM_RESIDENT + BF16_FFN + (
+                        "infonce_fwd_grouped", "infonce_bwd_grouped")}
 # Where a replay is not bit for bit the eager steps (a library kernel
 # choosing another algorithm under capture), the differing tensors are
 # held to `tests/test_multi_step.py`'s tolerances: losses atol 1e-6,
@@ -2588,9 +2607,10 @@ def trainer_state(trainer) -> dict:
     return out
 
 
-def dispatch_corpus(dev, seconds: int = 120, seed: int = 3):
+def dispatch_corpus(dev, seconds: int = 120, seed: int = 3, batch: int = 8):
     """A resident pack of `seconds` of random 16-bit audio and groups of
-    window offsets into it, (4, DISPATCH_N, 8) int32, drawn with numpy."""
+    window offsets into it, (4, DISPATCH_N, batch) int32, drawn with
+    numpy."""
     from cpc2_torch.data.device_corpus import DeviceCorpus
     rs = np.random.RandomState(seed)
     pack = rs.randint(-32768, 32768, 16000 * seconds).astype(
@@ -2598,7 +2618,7 @@ def dispatch_corpus(dev, seconds: int = 120, seed: int = 3):
     corpus = DeviceCorpus(20480, dev, pack.shape[0])
     corpus.ensure(pack)
     offsets = torch.from_numpy(rs.randint(
-        0, pack.shape[0] - 20480, (4, DISPATCH_N, 8)).astype(np.int32))
+        0, pack.shape[0] - 20480, (4, DISPATCH_N, batch)).astype(np.int32))
     return corpus, offsets.pin_memory() if dev.type == "cuda" else offsets
 
 
@@ -2832,12 +2852,17 @@ def hold_dispatch_epochs(graph: dict, eager: dict, what: str,
 # epoch, and the whole script came near its limit once phase 11 was added)
 TIMING_FILES = 8
 # the fresh processes of the [dispatch] timings: (label, flags), run in
-# this order and then in the reverse one under a device-only profiler
+# this order; then PROFILED_TIMINGS again under a device-only profiler
 DISPATCH_TIMINGS = (("N=1 host corpus", []),
                     ("N=1 device corpus", ["--corpus_on_device"]),
                     ("N=4", DISPATCH_FLAGS),
                     ("N=8", ["--corpus_on_device", "--steps_per_dispatch",
                              "8"]))
+# The profiled repeats: the graph route's busy share. The eager route's is
+# the `profiled` epoch's (`[profile]`); repeating all four routes profiled
+# took 150 s of a whole run that came to 1,177 s of its 1,200 s limit with
+# phase 12 on an H100 80GB HBM3.
+PROFILED_TIMINGS = ("N=4",)
 # A timing process: `main` on argv[4:], its record's numbers written to
 # argv[2]; with a trace path in argv[3], the whole run under
 # `torch.profiler` with device activity only (no host events to slow the
@@ -2866,9 +2891,9 @@ def time_dispatch(work: str) -> list:
     files x 24 s of FLAC: a short batch a speaker breaks a group, so fewer
     speakers than `train_db`'s) in a fresh process per run, no
     checkpoint written: DISPATCH_TIMINGS in order for two epochs, then
-    reversed for one epoch under a device-only profiler. Median ms/step,
-    the second epoch's mean ms/step (the warm-up, the capture and the
-    first calls are in the first), median ms to dispatch, peak device
+    PROFILED_TIMINGS for one epoch under a device-only profiler. Median
+    ms/step, the second epoch's mean ms/step (the warm-up, the capture and
+    the first calls are in the first), median ms to dispatch, peak device
     memory and, from the profiled runs' traces (`trace_summary`), the
     device's busy share from the run's first kernel to its last (loading,
     validation and the profiler's own cost on the host included) and its
@@ -2879,8 +2904,8 @@ def time_dispatch(work: str) -> list:
                  n_files=TIMING_FILES,
                  seed=5)
     runs = [(label, flags, False) for label, flags in DISPATCH_TIMINGS]
-    runs += [(label, flags, True) for label, flags in
-             reversed(DISPATCH_TIMINGS)]
+    runs += [(label, flags, True) for label, flags in DISPATCH_TIMINGS
+             if label in PROFILED_TIMINGS]
     out = []
     for i, (label, flags, profiled) in enumerate(runs):
         result = os.path.join(work, f"timing_{i}.json")
@@ -4931,15 +4956,17 @@ def relu_matched_reference(card: FFNSpy, cpu: FFNSpy, run) -> tuple:
 
 
 def check_variant_step(dev, name: str, flags, prec: str,
-                       want=None) -> tuple:
+                       want=None, draw=None) -> tuple:
     """One training step of `flags` at the recipe on the card against the
     same step on the CPU (`_check_step`'s method: same weights, negatives,
     mask and quality, dropout off), under `prec`, with the card step's
     launches held to `variant_launches` (or to `want`). Under `fp32` the
     flags of VARIANT_RELU_MATCHED are held against a float64 CPU step with
-    the card's ReLU decisions (`relu_matched_reference`) instead. Returns (max
-    abs err, launches, the card step's ms by CUDA events over 3 more
-    steps)."""
+    the card's ReLU decisions (`relu_matched_reference`) instead. With
+    `draw` ((B, N, W) int32), the criterion draws its negatives itself and
+    the draw returns `draw` (`fixed_draw`): the route of drawn indices
+    (phase 12's grouped plan). Returns (max abs err, launches, the card
+    step's ms by CUDA events over 3 more steps)."""
     from cpc2_torch.feature_loader import build_model
     from cpc2_torch.ops import _build
     from cpc2_torch.train import get_criterion
@@ -4947,6 +4974,8 @@ def check_variant_step(dev, name: str, flags, prec: str,
     from cpc2_torch.training import precision as library_precision
     args = variant_args(flags)
     batch, neg, mask, quality = variant_inputs(args)
+    if draw is not None:
+        neg = draw
     torch.manual_seed(0)
     model_cpu, crit_cpu = build_model(args), get_criterion(args)
     matched = prec == "fp32" and name in VARIANT_RELU_MATCHED
@@ -4974,17 +5003,20 @@ def check_variant_step(dev, name: str, flags, prec: str,
         step_in[0] = step_in[0].to(dtype)
         if step_in[3] is not None:
             step_in[3] = step_in[3].to(dtype)
+        given = None if draw is not None else step_in[1]
         _build.reset_launches()
-        with spy or contextlib.nullcontext():
+        with spy or contextlib.nullcontext(), (
+                contextlib.nullcontext() if draw is None
+                else fixed_draw(step_in[1], args.neg_pool_group)):
             losses, _accs = trainer.train_step(
-                step_in[0], step_in[1], mask=step_in[2], quality=step_in[3])
+                step_in[0], given, mask=step_in[2], quality=step_in[3])
         if device.type == "cuda":
             torch.cuda.synchronize()
         launches = {k: n for k, n in _build.LAUNCHES.items() if n}
         out = {"losses": losses.detach().cpu()}
         out.update((n, p.grad.cpu()) for n, p in named)
         return out, launches, lambda: trainer.train_step(
-            step_in[0], step_in[1], mask=step_in[2], quality=step_in[3])
+            step_in[0], given, mask=step_in[2], quality=step_in[3])
 
     with library_precision(prec):
         if matched:
@@ -5490,8 +5522,9 @@ def check_bf16_attention(dev, gen) -> tuple:
     version and the module's torch route on the same bf16 inputs (its
     shift trick, the port's default path). Then the wide kernels (dk in
     chunks), fp32 and bf16-io, timed at WIDE_ATTENTION_SHAPE against their
-    plain versions. Returns the kernel entries, the route's times, the
-    events' times and the wide kernels' times."""
+    plain versions and the module's torch route on the same inputs.
+    Returns the kernel entries, the route's times, the events' times and
+    the wide kernels' times."""
     from cpc2_torch.models.transformer import ScaledDotProductAttention
     from cpc2_torch.ops import attention as att
     seed = torch.tensor([12345], device=dev, dtype=torch.int32)
@@ -5572,21 +5605,29 @@ def check_bf16_attention(dev, gen) -> tuple:
                 ["out", "dq", "dk", "dv", "dkrel"], kern, plain,
                 lambda *a: att._attention_f32(*a, seed, 0.1, True), w_in,
                 w_cot)[1]
+        w_mod = ScaledDotProductAttention(ws, wdk, 0.1, relpos=True).to(dev)
         with torch.no_grad():
+            w_mod.Krelpos.copy_(w_in[3])
             f_ms = device_ms(lambda: kern(*w_in), expect="attention_fwd_wide")
             pf_ms = device_ms(lambda: plain(*w_in))
+            route_f = device_ms(lambda: w_mod(*w_in[:3], gen))
+        w_qkv = [t.detach().requires_grad_(True) for t in w_in[:3]]
+        w_out = w_mod(*w_qkv, gen)
+        route_b = device_ms(lambda: torch.autograd.grad(
+            w_out, w_qkv + [w_mod.Krelpos], w_cot, retain_graph=True))
         io = dtype == torch.bfloat16
-        for name, ms, pms, n_bytes, flops in (
-                ("fwd", f_ms, pf_ms, nbytes(*w_in, seed) + nbytes(*o_k),
+        for name, ms, pms, rms, n_bytes, flops in (
+                ("fwd", f_ms, pf_ms, route_f,
+                 nbytes(*w_in, seed) + nbytes(*o_k),
                  attention_ops(wdk, pairs_w, io, False)),
                 ("bwd", device_ms(b_k, expect="attention_bwd_wide"),
-                 device_ms(b_p), nbytes(*w_in, seed, *w_cot)
+                 device_ms(b_p), route_b, nbytes(*w_in, seed, *w_cot)
                  + nbytes(*g_k), attention_ops(wdk, pairs_w, io, True))):
             bound, by = bound_ms(n_bytes, flops)
             wide_times[f"attention_{name}_wide {label}"] = {
                 "shape": list(WIDE_ATTENTION_SHAPE), "chunks": plan.chunks,
                 "max_abs_err": err, "ms": ms, "plain_ms": pms,
-                "bound_ms": bound, "bound_by": by}
+                "route_ms": rms, "bound_ms": bound, "bound_by": by}
     pairs = n * s * (s + 1) // 2
     src = "cpc2_torch/csrc/attention.cuh"
     rep = "cpc2_tpu/ops/attention_pallas.py"
@@ -5758,7 +5799,8 @@ def run_bf16(dev, work: str, card: str, default: dict) -> dict:
         + "; wide attention: " + "; ".join(
             f"{name} at {tuple(r['shape'])} ({r['chunks']} chunks of dk) "
             f"err {r['max_abs_err']:.2e}, {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms"
+            f"{r['plain_ms']:.4f} ms, torch route {r['route_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms"
             for name, r in wide.items()))
     steps = out["steps"] = {}
     for fused in (False, True):
@@ -5818,6 +5860,379 @@ def run_bf16(dev, work: str, card: str, default: dict) -> dict:
         f"resume to 2: bit for bit ({out['resume']['tensors']} tensors, "
         f"exp_avg saved as bf16)")
     out["records"] = records
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: grouped negative pools (`--neg_pool_group`)
+# ---------------------------------------------------------------------------
+
+# (B, K, W, N, D, P, G): batch 64 in groups of 8 at the recipe's widths (the
+# reference's 8-GPU DataParallel recipe on one card), and an odd shape
+# whose groups' 60 pool rows are not a multiple of its 64-row dz tile
+NEG_POOL_SHAPES = ((64, 12, 116, 128, 256, 8192, 8),
+                   (6, 5, 9, 20, 36, 120, 3))
+NEG_POOL_FLAGS = ["--batchSizeGPU", "64", "--neg_pool_group", "8"]
+# the step card against CPU: batch 16, two groups of 8
+NEG_POOL_STEP_FLAGS = ["--batchSizeGPU", "16", "--neg_pool_group", "8"]
+GROUPED = ("infonce_fwd_grouped", "infonce_bwd_grouped")
+# the batch-64 epoch's corpus (WAV): 4 speakers x 4 files x 90 s; of the 16
+# files 15 train (a speaker's 270-360 s make 3-4 batches of 64 and a
+# short one) and 1 validates (70 windows: one batch of 64 and one of 6)
+NEG_POOL_DB = "neg_pool_db"
+
+
+def group_local(gen, b, p, w, n, group, dev):
+    """(B, W, N) int32 rows of a pool of p, element b's in its group's
+    rows; every other sample one of the group's first 16 rows, so that
+    rows repeat within a unit and across units."""
+    rows = p // (b // group)
+    base = (torch.arange(b, device=dev, dtype=torch.int32) // group
+            * rows)[:, None, None]
+    r = torch.randint(0, rows, (b, w, n), device=dev, generator=gen,
+                      dtype=torch.int32)
+    r[..., ::2] %= 16
+    return base + r
+
+
+@contextlib.contextmanager
+def fixed_draw(neg, group):
+    """The CPC criterion's own draw (`sample_negative_indices`) returns
+    `neg` (B, N, W) on the draw's device, after checking that it was asked
+    for pools of `group`: a step with fixed negatives that still takes the
+    route of indices the criterion drew."""
+    from cpc2_torch.losses import criterion
+    real = criterion.sample_negative_indices
+
+    def draw(generator, b, s, n, w, device, pool_group=None):
+        if pool_group != group:
+            raise AssertionError(f"the criterion drew pools of {pool_group}"
+                                 f", not {group}")
+        return neg.to(device)
+    criterion.sample_negative_indices = draw
+    try:
+        yield
+    finally:
+        criterion.sample_negative_indices = real
+
+
+def kernel_counts(fn, expect: str, iters: int = 20) -> tuple:
+    """(device ms a call by kernel, kernels of each name a call) of `fn`
+    (`time_kernels.device_split` with counts, `expect` in a kernel's
+    name), or the events' time and no counts where the profiler lost the
+    kernels."""
+    from cpc2_torch.time_kernels import ProfilerLostKernels
+    from cpc2_torch.time_kernels import device_split as split
+    try:
+        ms, counts = split(fn, iters, 3, counts=True, expect=expect)
+    except ProfilerLostKernels as lost:
+        ms = cuda_ms(fn, iters, 0)
+        log(f"[profiler] {lost}: timed by CUDA events instead, {ms:.4f} ms "
+            f"a call (the host's path included)")
+        return {EVENTS_KEY: ms}, {}
+    return ms, {k: c / iters for k, c in counts.items()}
+
+
+def one_launch_each(what: str, counts: dict, names) -> None:
+    """Each kernel of `names` once a call in `counts` (a kernel name holds
+    the fragment), whatever the number of groups."""
+    if not counts:
+        return
+    for name in names:
+        n = sum(c for k, c in counts.items() if name in k)
+        if n != 1:
+            raise AssertionError(f"{what}: {n} {name} launches a call")
+
+
+def check_neg_pool_kernels(dev) -> dict:
+    """The InfoNCE kernels on grouped pools at NEG_POOL_SHAPES: forward,
+    dpreds and dz against `negative_scores_plain` (ATOL + RTOL of the
+    largest), dz bit for bit across two calls, one call counted once under
+    GROUPED. At batch 64, on the trainer's own grouped draws
+    (`sample_negative_indices(pool_group=8)`): the whole pool's plan held
+    against the grouped one on the same indices (the forward, the same
+    kernel and plan, bit for bit), each kernel's launches a call from the
+    profile (one forward, one backward and one sum, whatever the groups),
+    and device times: the grouped forward and backward (by kernel), the
+    whole pool's backward, the plain version, the library route
+    (`infonce_route`, full fp32), and batch 8's kernels at the recipe on
+    the same card; the bound as `check_infonce` reckons it. Returns the
+    grouped kernels' entries and those figures."""
+    from cpc2_torch.losses import sample_negative_indices
+    from cpc2_torch.ops import _build
+    from cpc2_torch.ops.infonce import (infonce_plan, negative_scores,
+                                        negative_scores_plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    err_f = err_b = 0.0
+    plans = {}
+    for b, k, w, n, d, p, g in NEG_POOL_SHAPES:
+        plan = infonce_plan(b, k, w, n, d + (-d) % 4, p, sms, group=g)
+        plans[str((b, k, w, n, d, p, g))] = plan._asdict()
+        log(f"  [neg pool] plan at {(b, k, w, n, d, p, g)}: "
+            f"{p // plan.group_rows} groups of {plan.group_rows} rows in "
+            f"{plan.group_tiles} tiles of {plan.pt}, {plan.splits} splits "
+            f"of a group's {plan.group_units} units (at most "
+            f"{-(-plan.group_units // plan.splits)} a dz CTA)")
+        inputs = [torch.randn(b, k, w, d, device=dev, generator=gen),
+                  torch.randn(p, d, device=dev, generator=gen)]
+        idx = group_local(gen, b, p, w, n, g, dev)
+        cot = [torch.randn(b, k, w, n, device=dev, generator=gen)]
+        what = f"infonce grouped {(b, k, w, n, d, p, g)}"
+        _build.reset_launches()
+        out_k, grad_k, bwd_k = grads_of(
+            lambda a, z, idx=idx, g=g: negative_scores(a, z, idx, group=g),
+            inputs, cot)
+        launched = {name: c for name, c in _build.LAUNCHES.items() if c}
+        if launched != {GROUPED[0]: 1, GROUPED[1]: 1}:
+            raise AssertionError(f"{what}: launches {launched}")
+        out_p, grad_p, _ = grads_of(
+            lambda a, z, idx=idx: negative_scores_plain(a, z, idx), inputs,
+            cot)
+        err_f = max(err_f, compare(what + " forward", out_k, out_p))
+        err_b = max(err_b, compare(what + " backward", grad_k, grad_p))
+        if not all(torch.equal(a, c) for a, c in zip(bwd_k(), grad_k)):
+            raise AssertionError(what + " backward: two calls differ")
+
+    b, k, w, n, d, p, g = NEG_POOL_SHAPES[0]
+    inputs = [torch.randn(b, k, w, d, device=dev, generator=gen),
+              torch.randn(p, d, device=dev, generator=gen)]
+    idx = sample_negative_indices(gen, b, p // b, n, w, dev,
+                                  pool_group=g).transpose(1, 2).contiguous()
+    cot = [torch.randn(b, k, w, n, device=dev, generator=gen)]
+
+    def grouped(preds, z):
+        return negative_scores(preds, z, idx, group=g)
+
+    def whole(preds, z):
+        return negative_scores(preds, z, idx)
+
+    def plain(preds, z):
+        return negative_scores_plain(preds, z, idx)
+    out_g, grad_g, bwd_g = grads_of(grouped, inputs, cot)
+    out_w, grad_w, bwd_w = grads_of(whole, inputs, cot)
+    out_p, grad_p, bwd_p = grads_of(plain, inputs, cot)
+    err_f = max(err_f, compare("infonce grouped drawn forward", out_g,
+                               out_p))
+    err_b = max(err_b, compare("infonce grouped drawn backward", grad_g,
+                               grad_p))
+    compare("infonce whole pool vs grouped, backward", grad_w, grad_g)
+    if not torch.equal(out_w[0], out_g[0]) or not torch.equal(grad_w[0],
+                                                                grad_g[0]):
+        raise AssertionError("infonce whole pool vs grouped: the forward or "
+                             "dpreds differ (the same kernels and plans)")
+    whole_vs_grouped = (grad_w[1] - grad_g[1]).abs().max().item()
+    with torch.no_grad():
+        fwd_split, fwd_counts = kernel_counts(lambda: grouped(*inputs),
+                                              "gathered_fwd")
+        plain_fwd = device_ms(lambda: plain(*inputs))
+        route_fwd = device_ms(lambda: infonce_route(*inputs, idx))
+        events = {GROUPED[0]: cuda_ms(lambda: grouped(*inputs))}
+        route_out = infonce_route(*inputs, idx)
+
+        def route_bwd():
+            return infonce_route_bwd(cot[0], *inputs, idx)
+        route_bwd_ms = device_ms(route_bwd)
+        route_grad = route_bwd()
+    compare("infonce grouped route forward", [route_out], out_g)
+    compare("infonce grouped route backward", route_grad, grad_g)
+    bwd_split, bwd_counts = kernel_counts(bwd_g, "dz_sum")
+    whole_split, whole_counts = kernel_counts(bwd_w, "dz_sum")
+    for what, counts, names in (("grouped forward", fwd_counts,
+                                 ["gathered_fwd"]),
+                                ("grouped backward", bwd_counts,
+                                 ["gathered_bwd", "dz_sum"]),
+                                ("whole-pool backward", whole_counts,
+                                 ["gathered_bwd", "dz_sum"])):
+        one_launch_each(f"infonce {what} at batch {b}", counts, names)
+    plain_bwd = device_ms(bwd_p)
+    events[GROUPED[1]] = cuda_ms(bwd_g)
+
+    # batch 8's kernels at the recipe, re-read on this card
+    b8, k8, w8, n8, d8, p8 = INFONCE_SHAPES[0]
+    in8 = [torch.randn(b8, k8, w8, d8, device=dev, generator=gen),
+           torch.randn(p8, d8, device=dev, generator=gen)]
+    idx8 = sample_negative_indices(gen, b8, p8 // b8, n8, w8, dev).transpose(
+        1, 2).contiguous()
+    cot8 = [torch.randn(b8, k8, w8, n8, device=dev, generator=gen)]
+    _, _, bwd8 = grads_of(lambda a, z: negative_scores(a, z, idx8), in8,
+                          cot8)
+    with torch.no_grad():
+        fwd8 = device_ms(lambda: negative_scores(*in8, idx8),
+                         expect="gathered_fwd")
+    bwd8_split = device_split(bwd8, expect="dz_sum")
+
+    dots = 2 * b * k * w * n * d
+    src, rep = "cpc2_torch/csrc/infonce.cu", "cpc2_tpu/ops/infonce_pallas.py"
+    entries = [
+        kernel_entry(GROUPED[0], src, rep + ":107", err_f,
+                     sum(fwd_split.values()), plain_fwd, None,
+                     nbytes(*inputs, idx) + nbytes(*out_g), dots,
+                     TF32X3_FLOP_PER_S),
+        kernel_entry(GROUPED[1], src, rep + ":170", err_b,
+                     sum(bwd_split.values()), plain_bwd, None,
+                     nbytes(*cot, *inputs, idx) + nbytes(*grad_g), dots)]
+    return {"kernels": entries, "plans": plans,
+            "route_ms": {GROUPED[0]: route_fwd, GROUPED[1]: route_bwd_ms},
+            "events_ms": events, "grouped_fwd_split": fwd_split,
+            "grouped_bwd_split": bwd_split, "whole_pool_bwd_split":
+            whole_split, "whole_pool_bwd_ms": sum(whole_split.values()),
+            "kernels_a_call": {"grouped_fwd": fwd_counts,
+                               "grouped_bwd": bwd_counts,
+                               "whole_pool_bwd": whole_counts},
+            "dz_whole_vs_grouped_max_abs": whole_vs_grouped,
+            "batch8_fwd_ms": fwd8, "batch8_bwd_ms": sum(bwd8_split.values()),
+            "batch8_bwd_split": bwd8_split}
+
+
+def neg_pool_launches(b: int, train: bool) -> dict:
+    """One step's launches at batch b with NEG_POOL_FLAGS: the default
+    step's (`variant_launches`), InfoNCE's under GROUPED where 8 divides a
+    batch above 8 (the criterion's rule), else the whole pool's."""
+    out = variant_launches([], train)
+    if b > 8 and b % 8 == 0:
+        for name in ("infonce_fwd", "infonce_bwd"):
+            if name in out:
+                out[name + "_grouped"] = out.pop(name)
+    return out
+
+
+def run_neg_pool_epoch(dev, work: str) -> dict:
+    """One epoch of `python -m cpc2_torch.train` with NEG_POOL_FLAGS on
+    NEG_POOL_DB, each criterion call's batch recorded: every kernel's
+    launches held exactly to `neg_pool_launches` over the training and
+    validation steps, at least 10 training steps of 64 in groups, the
+    losses finite, the checkpoint written."""
+    from cpc2_torch.losses import criterion
+    from cpc2_torch.ops import _build
+    from cpc2_torch.train import main
+    calls = []
+    forward = criterion.CPCUnsupervisedCriterion.forward
+
+    def spy(self, c_feature, *args, **kwargs):
+        calls.append((c_feature.shape[0], self.training))
+        return forward(self, c_feature, *args, **kwargs)
+    ck = os.path.join(work, "ck_neg_pool")
+    live = torch.cuda.memory_allocated(dev)
+    criterion.CPCUnsupervisedCriterion.forward = spy
+    try:
+        _build.reset_launches()
+        record = main(train_argv(work, ck, "--file_extension", ".wav",
+                                 *NEG_POOL_FLAGS, db=NEG_POOL_DB))
+        launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+    finally:
+        criterion.CPCUnsupervisedCriterion.forward = forward
+    record["peak_above_live_bytes"] = record["peak_memory_bytes"] - live
+    n_train = len(record["step_ms"])
+    if [t for _b, t in calls].count(True) != n_train or \
+            len(calls) != n_train + record["val_steps"]:
+        raise AssertionError(f"[neg pool epoch] {len(calls)} criterion "
+                             f"calls for {n_train} + {record['val_steps']} "
+                             f"steps")
+    want = {}
+    for b, train in calls:
+        for k, per in neg_pool_launches(b, train).items():
+            want[k] = want.get(k, 0) + per
+    held_launches(f"[neg pool epoch] ({n_train} + {record['val_steps']} "
+                  f"steps)", launches, want)
+    full = sum(1 for b, t in calls if t and b == 64)
+    if full < 10:
+        raise AssertionError(f"[neg pool epoch] {full} training steps of "
+                             f"64, not 10 or more")
+    for key in ("locLoss_train", "locAcc_train", "locLoss_val"):
+        values = np.asarray(record["logs"][key], dtype=np.float64)
+        if values.shape != (1, 12) or not np.isfinite(values).all():
+            raise AssertionError(f"[neg pool epoch] {key}: {values}")
+    if not os.path.exists(os.path.join(ck, "checkpoint_0.pt")):
+        raise AssertionError("[neg pool epoch] no checkpoint_0.pt")
+    record["launches"] = {k: launches.get(k, 0) for k in _build.KERNELS}
+    record["batches"] = calls
+    return record
+
+
+def run_neg_pool(dev, work: str, card: str, default: dict) -> dict:
+    """Phase 12: `[neg pool kernels]` (`check_neg_pool_kernels`, in a fresh
+    process), `[neg pool step]` (one step at batch 16 in groups of 8 at the
+    recipe's widths, card against CPU on the same fixed group-local
+    negatives, drawn by the criterion (`fixed_draw`), in the `bf16mix`
+    band, launches held), `[neg pool epoch]` (`run_neg_pool_epoch` beside
+    batch 8's default epoch, `default`) and `[neg pool dispatch]` (3
+    groups of N = 4 at batch 64 replayed against eager steps, bit for
+    bit)."""
+    start = time.perf_counter()
+    out = fresh(work, "check_neg_pool_kernels", "neg pool kernels")
+    split = out["grouped_bwd_split"]
+    log(f"[neg pool kernels] {time.perf_counter() - start:.1f} s, {card} (a "
+        f"fresh process): " + "; ".join(
+            f"{k['name']} err {k['max_abs_err']:.2e}, {k['ms']:.4f} ms, "
+            f"plain {k['plain_ms']:.4f} ms, library route "
+            f"{out['route_ms'][k['name']]:.4f} ms, bound "
+            f"{k['bound_ms']:.4f} ms ({k['bound_by']}), events "
+            f"{out['events_ms'][k['name']]:.4f} ms" for k in out["kernels"])
+        + f"; at batch 64 the grouped backward by kernel "
+        + ", ".join(f"{n[:30]} {v:.4f}" for n, v in split.items())
+        + f", the whole pool's plan {out['whole_pool_bwd_ms']:.4f} ms ("
+        + ", ".join(f"{n[:30]} {v:.4f}" for n, v in
+                    out["whole_pool_bwd_split"].items())
+        + f"), its dz {out['dz_whole_vs_grouped_max_abs']:.2e} from the "
+        f"grouped one; kernels a call {out['kernels_a_call']}; batch 8 at "
+        f"the recipe {out['batch8_fwd_ms']:.4f} / "
+        f"{out['batch8_bwd_ms']:.4f} ms")
+    start = time.perf_counter()
+    rs = np.random.RandomState(4)
+    b, w, n = 16, 128 - 12, 128
+    base = (np.arange(b) // 8 * 8 * 128)[:, None, None]
+    draw = torch.from_numpy(
+        (base + rs.randint(0, 8 * 128, (b, n, w))).astype(np.int32))
+    want = neg_pool_launches(b, True)
+    err, launches, ms = check_variant_step(dev, "neg pool group",
+                                           NEG_POOL_STEP_FLAGS, "bf16mix",
+                                           want=want, draw=draw)
+    out["step"] = {"max_abs_err": err, "launches": launches, "ms": ms}
+    log(f"[neg pool step] card vs cpu at batch 16 in groups of 8, the "
+        f"recipe's widths, bf16mix, max abs err {err:.2e}, "
+        f"{time.perf_counter() - start:.1f} s, card step {ms:.3f} ms "
+        f"(events, {card}), launches {launches}")
+    start = time.perf_counter()
+    write_corpus(os.path.join(work, NEG_POOL_DB), ext=".wav", n_files=4,
+                 seconds=90.0, seed=12)
+    rec = run_neg_pool_epoch(dev, work)
+    out["epoch"] = {key: rec[key] for key in (
+        "median_step_ms", "audio_hours_per_hour", "peak_memory_bytes",
+        "peak_above_live_bytes", "val_steps", "launches", "batches")}
+    out["epoch"]["steps"] = len(rec["step_ms"])
+    log(f"[neg pool epoch] {time.perf_counter() - start:.1f} s, {card}: "
+        f"{' '.join(NEG_POOL_FLAGS)} on {NEG_POOL_DB} (WAV, 4 x 4 files x "
+        f"90 s), {len(rec['step_ms'])} + {rec['val_steps']} steps, batches "
+        f"{[b for b, _t in rec['batches']]}: median "
+        f"{rec['median_step_ms']:.3f} ms/step, "
+        f"{rec['audio_hours_per_hour']:.1f} audio-hours per hour, peak "
+        f"memory {rec['peak_memory_bytes']} bytes "
+        f"({rec['peak_above_live_bytes']} above what was live); batch 8's "
+        f"default epoch {default['median_step_ms']:.3f} ms/step, "
+        f"{default['audio_hours_per_hour']:.1f} audio-hours per hour, "
+        f"{default['peak_memory_bytes']} bytes; launches held exactly "
+        f"{ {k: v for k, v in rec['launches'].items() if v} }")
+    start = time.perf_counter()
+    corpus_d, offsets_d = dispatch_corpus(dev, batch=64)
+    r = out["dispatch"] = check_dispatch_setup(
+        dev, ("neg_pool", "bf16mix", False, 256, False), corpus_d, offsets_d,
+        flags=NEG_POOL_FLAGS)
+    del corpus_d
+    if not r["bit_for_bit"]:
+        raise AssertionError(f"[neg pool dispatch] replay vs eager differ: "
+                             f"{r['differing']}")
+    log(f"[neg pool dispatch] {time.perf_counter() - start:.1f} s, {card}: "
+        f"{' '.join(NEG_POOL_FLAGS)}, 3 groups of {DISPATCH_N} steps as "
+        f"graph replays ({r['captures']} captures) vs {3 * DISPATCH_N} "
+        f"eager steps: bit for bit ({r['tensors']} tensors); launches a "
+        f"replay {r['launches_per_replay']}; a group "
+        + ", ".join(f"{t:.3f}" for t in r["group_ms_graph"])
+        + " ms replayed, " + ", ".join(f"{t:.3f}" for t in
+                                       r["group_ms_eager"])
+        + f" ms eager; peak memory {r['peak_bytes_graph']} bytes with the "
+        f"graph, {r['peak_bytes_eager']} eager")
     return out
 
 
@@ -6066,7 +6481,7 @@ def main() -> int:
                       if not t["profiled"]}
         log(f"[dispatch timings] {time.perf_counter() - start:.1f} s, "
             f"{card}: the default training on timing_db in a fresh "
-            f"process each, in this order (two epochs; the last four one "
+            f"process each, in this order (two epochs; the last one "
             f"epoch under a device-only profiler): " + "; ".join(
                 f"{t['label']}{' (profiled)' if t['profiled'] else ''}: "
                 f"median {t['median_step_ms']:.3f} ms/step" + (
@@ -6193,6 +6608,13 @@ def main() -> int:
         log(f"[phase 11] {time.perf_counter() - phase11:.1f} s, the whole "
             f"run so far {time.perf_counter() - t0:.1f} s of the 1,200 s "
             f"limit")
+
+        # phase 12: grouped negative pools, batch 64 in groups of 8
+        phase12 = time.perf_counter()
+        neg_pool = run_neg_pool(dev, work, card, record)
+        log(f"[phase 12] {time.perf_counter() - phase12:.1f} s, the whole "
+            f"run so far {time.perf_counter() - t0:.1f} s of the 1,200 s "
+            f"limit")
     # phase 11's kernels, each with its launches on its own bf16 epoch
     bf16_path = {"ffn_fwd_bf16io": "bf16", "ffn_bwd_bf16io": "bf16",
                  "attention_fwd_bf16io": "bf16_fused",
@@ -6230,6 +6652,10 @@ def main() -> int:
                 "step_ms_quartiles": statistics.quantiles(rec["step_ms"],
                                                           n=4)}
     kernels += bf16["kernels"]
+    # phase 12's grouped plan, with its launches on the batch-64 epoch
+    for k in neg_pool["kernels"]:
+        k["launches"] = neg_pool["epoch"]["launches"][k["name"]]
+    kernels += neg_pool["kernels"]
     summary = {
         "kernels": kernels,
         "slice": dict(epoch(record), step_parity_max_abs_err=step_err[
@@ -6280,6 +6706,7 @@ def main() -> int:
             "step_determinism_lfb": variants["determinism_lfb"]},
         "bf16": {k: v for k, v in bf16.items()
                  if k not in ("kernels", "records")},
+        "neg_pool": {k: v for k, v in neg_pool.items() if k != "kernels"},
         "default_route_ms": yardsticks,
         "events_ms": events,
         "lstm": details,

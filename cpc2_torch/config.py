@@ -4,7 +4,10 @@ flags of `cpc2_tpu/train.py:parse_args`).
 The names, defaults and choices are the JAX package's, so a command line
 written for `python -m cpc2_tpu.train` parses here unchanged. Flags whose
 feature is not ported yet raise `NotImplementedError` naming the ROADMAP
-item when they are set away from their default. A few flags only mean
+item when a training run sets them away from their default; among them
+`--ckpt_format orbax`, whose writer (`orbax.checkpoint`) needs JAX. A
+checkpoint whose saved flags say `orbax` still loads its weights
+(`check_model_ported` reads only the architecture). A few flags only mean
 something to XLA and are accepted and do nothing: `--prng`, `--remat` and
 `--head_remat`. The port adds `--device`.
 """
@@ -170,7 +173,13 @@ def set_port_config(parser: argparse.ArgumentParser
                        'Incompatible with sequential sampling (hidden '
                        'carry).')
     group.add_argument('--global_negatives', action='store_true')
-    group.add_argument('--neg_pool_group', type=int, default=0)
+    group.add_argument('--neg_pool_group', type=int, default=0,
+                       help='Draw each window\'s InfoNCE negatives within '
+                       'its group of this many contiguous batch elements '
+                       '(0: the whole batch). --neg_pool_group 8 at batch '
+                       'G*8 trains as the reference\'s G-GPU DataParallel '
+                       'run does, on one card. Mutually exclusive with '
+                       '--global_negatives.')
     group.add_argument('--host_prefetch', type=int, default=2,
                        help='Batches the loader (sampling, gather, host '
                        'augmentation) runs ahead of the steps on a thread '
@@ -236,6 +245,7 @@ def set_train_config(parser: argparse.ArgumentParser
 # the ROADMAP.md item that ports it).
 _DDP = "Data-parallel training (DDP)"
 _NEG_POOLS = "Negative pools across or within devices"
+_ORBAX = "Orbax train-state checkpoints"
 _UNPORTED = (
     ('distributed', bool, _DDP),
     ('nGPU', lambda v: v > 1, _DDP),
@@ -243,7 +253,7 @@ _UNPORTED = (
     ('model_axis_size', lambda v: v != 1, _DDP),
     ('dcn_axis_size', lambda v: v > 1, _DDP),
     ('global_negatives', bool, _NEG_POOLS),
-    ('neg_pool_group', bool, _NEG_POOLS),
+    ('ckpt_format', lambda v: v == 'orbax', _ORBAX),
 )
 
 
@@ -267,7 +277,19 @@ def check_model_ported(args: argparse.Namespace) -> None:
 
 
 def check_ported(args: argparse.Namespace) -> None:
-    """Raise `NotImplementedError` for a flag whose feature is not ported."""
+    """Raise `NotImplementedError` for a flag whose feature is not ported,
+    and `ValueError` for `--neg_pool_group` beside `--global_negatives` or
+    not dividing `--batchSizeGPU` (`cpc2_tpu/train.py:1001-1010`). A
+    resumed run checks its saved flags here too."""
+    if args.neg_pool_group:
+        if args.global_negatives:
+            raise ValueError("--neg_pool_group and --global_negatives are "
+                             "mutually exclusive (one narrows the negative "
+                             "pool, the other widens it)")
+        if args.batchSizeGPU % args.neg_pool_group:
+            raise ValueError(
+                f"--neg_pool_group {args.neg_pool_group} must divide the "
+                f"per-shard batch (batchSizeGPU={args.batchSizeGPU})")
     _raise_unported(args, _UNPORTED)
 
 

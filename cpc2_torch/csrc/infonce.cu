@@ -58,6 +58,13 @@
 //   the TPU's dense 5.8. The units are split over several CTAs a tile to
 //   fill the card; each writes a partial, and a second launch sums them in
 //   ascending split order.
+// - Grouped pools (`--neg_pool_group`): where each batch element samples
+//   only its group's rows (G contiguous elements' G * P / B rows), the dz
+//   tiles cover each group's rows apart, no tile straddling two groups, and
+//   a tile's splits share only its group's G * W units. A dz CTA then walks
+//   G * W / splits units, not B * W / splits: at B = 64 in groups of 8 that
+//   is 464 units, not 3,712. The forward and dpreds gather any row anyway.
+//   One group is the whole pool's plan.
 //
 // Any shape: K in groups of KP (16 or 32) prediction rows, N in chunks of
 // 256 sampled rows, D in chunks (forward, dpreds) and slices (dz) that fit
@@ -103,7 +110,9 @@ __host__ __device__ inline int round_up(int x, int m) {
 // dz stage: the unit's chunk of at most nc indices, KR = min(K, KP) rows of
 // g at stride nc, KR rows of the preds slice at stride dzc; after the ring,
 // the (pt, dzc) accumulator and each consumer warp's list of nc sampled
-// rows.
+// rows. dz tiles: group_tiles tiles of pt rows over each group's group_rows
+// pool rows, row_tiles of them in all; a tile's splits share its group's
+// group_units units.
 struct FwdPlan {
   int rb, dc, stride, stage, stages;
 };
@@ -112,6 +121,7 @@ struct DpPlan {
 };
 struct DzPlan {
   int nc, dzc, stage, stages, pt, row_tiles, col_slices, splits;
+  int group_rows, group_units, group_tiles;
 };
 
 // dz threads: each owns CPT contiguous columns (64 / KP, so that its
@@ -529,12 +539,14 @@ __device__ void dpreds_role(unsigned char* smem, int cta,
 }
 
 // ---------------------------------------------------------------------------
-// Backward, dz CTAs: pool rows [rt * pt, + pt) and columns [cs * dzc, + dzc)
-// over units [u0, u1); items (group of KP predictions, chunk of kChunkN
-// sampled rows, unit), the unit fastest, so that the group's and chunk's
-// bounds are invariant in the unit loop (with the unit outside, the dz
-// CTAs were slower at the recipe). Writes the tile into this split's
-// partial.
+// Backward, dz CTAs: row tile rt, the tile t = rt % group_tiles of pool group
+// pg = rt / group_tiles, holds pool rows [pg * group_rows + t * pt, + pt)
+// (not past its group's last row) and columns [cs * dzc, + dzc), over units
+// [u0, u1) of its group's; items (group of KP predictions, chunk of kChunkN
+// sampled rows, unit), the unit fastest, so that the prediction group's and
+// chunk's bounds are invariant in the unit loop (with the unit outside, the
+// dz CTAs were slower at the recipe). Writes the tile into rows
+// [rt * pt, + pt) of this split's partial.
 // ---------------------------------------------------------------------------
 template <int KP>
 __device__ void dz_role(unsigned char* smem, int tile, int split,
@@ -548,10 +560,11 @@ __device__ void dz_role(unsigned char* smem, int tile, int split,
   const int nc = pl.nc, dzc = pl.dzc, pt = pl.pt, kr = min(K, KP);
   const Ring ring = ring_setup(smem, pl.stages, pl.stage);
   float* acc = ring.data + (long)pl.stages * pl.stage;  // (pt, dzc)
-  const int units = B * W;
-  const int u0 = (int)((long)split * units / pl.splits);
-  const int u1 = (int)((long)(split + 1) * units / pl.splits);
-  const int row0 = tile / pl.col_slices * pt;
+  const int rt = tile / pl.col_slices, pg = rt / pl.group_tiles;
+  const int gu = pl.group_units, ub = pg * gu;
+  const int u0 = ub + (int)((long)split * gu / pl.splits);
+  const int u1 = ub + (int)((long)(split + 1) * gu / pl.splits);
+  const int row0 = pg * pl.group_rows + rt % pl.group_tiles * pt;
   const int d0 = tile % pl.col_slices * dzc, cwz = min(dzc, D - d0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -593,7 +606,7 @@ __device__ void dz_role(unsigned char* smem, int tile, int split,
   int* list = reinterpret_cast<int*>(acc + (long)pt * dzc) + warp * nc;
   for (int r = group; r < pt; r += rg)
     if (mine) *reinterpret_cast<VT*>(acc + r * dzc + col) = VT{};
-  const int valid = min(pt, P - row0);
+  const int valid = min(pt, (pg + 1) * pl.group_rows - row0);
   int it = 0;
   for (int k0 = 0; k0 < K; k0 += KP) {
     const int kg = min(KP, K - k0);
@@ -669,7 +682,8 @@ __device__ void dz_role(unsigned char* smem, int tile, int split,
   }
   // each thread writes the entries it owns into this split's partial
   // (splits x row_tiles * pt x D)
-  float* out = partial + ((long)split * pl.row_tiles * pt + row0) * D + d0;
+  float* out =
+      partial + ((long)split * pl.row_tiles * pt + (long)rt * pt) * D + d0;
   for (int r = group; r < pt; r += rg)
     if (mine)
       *reinterpret_cast<VT*>(out + (long)r * D + col) =
@@ -694,15 +708,21 @@ gathered_bwd(const float* __restrict__ g, const float* __restrict__ preds,
               D, P, dz);
 }
 
-// dz[i] = sum over splits s, ascending, of partial[s][i], float4 at a time.
+// dz[i] = sum over splits s, ascending, of partial[s][i'], float4 at a time:
+// pool row r of group r / group_rows is row r % group_rows of its group's
+// tiles, which start at row r / group_rows * group_stride of a partial
+// (group_stride = group_tiles * pt; i' = i with one group).
 __global__ void dz_sum(const float4* __restrict__ partial,
                        float4* __restrict__ dz, long n4, long split4,
-                       int splits) {
+                       int splits, int d4, int group_rows, int group_stride) {
   for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < n4;
        i += (long)gridDim.x * blockDim.x) {
-    float4 s = partial[i];
+    const long r = i / d4;
+    const long j = (r / group_rows * group_stride + r % group_rows) * d4 +
+                   i % d4;
+    float4 s = partial[j];
     for (int k = 1; k < splits; ++k) {
-      const float4 v = partial[k * split4 + i];
+      const float4 v = partial[k * split4 + j];
       s.x += v.x;
       s.y += v.y;
       s.z += v.z;
@@ -742,7 +762,12 @@ bool bwd_ok(int KP, int B, int K, int W, int N, int D, int P,
          dz.dzc <= 256 * cpt && dz.stage % 4 == 0 &&
          (long)dz.stage >= (long)dz.nc * (1 + kr) + (long)kr * dz.dzc &&
          dz.stages >= 1 && dz.stages <= kMaxStages && dz.pt > 0 &&
-         (long)dz.row_tiles * dz.pt >= P && (dz.row_tiles - 1L) * dz.pt < P &&
+         dz.group_rows > 0 && P % dz.group_rows == 0 && dz.group_units > 0 &&
+         dz.group_units % W == 0 && B % (dz.group_units / W) == 0 &&
+         B / (dz.group_units / W) == P / dz.group_rows &&
+         dz.group_tiles > 0 && (long)dz.group_tiles * dz.pt >= dz.group_rows &&
+         (dz.group_tiles - 1L) * dz.pt < dz.group_rows &&
+         (long)dz.row_tiles == (long)dz.group_tiles * (P / dz.group_rows) &&
          (long)dz.col_slices * dz.dzc >= D &&
          (dz.col_slices - 1L) * dz.dzc < D && dz.splits > 0 &&
          smem >= kBarrierBytes + 4L * dp.stages * dp.stage &&
@@ -781,17 +806,22 @@ int cpc2_infonce_fwd(const float* preds, const float* z, const int* idx,
 
 // g (B,K,W,N) -> dpreds (B,K,W,D), dz (P,D). `partial` holds splits x
 // row_tiles * pt x D floats. One launch of dp_ctas dpreds CTAs beside
-// row_tiles x col_slices x splits dz CTAs, then the partials' sum.
+// row_tiles x col_slices x splits dz CTAs, then the partials' sum. With
+// pool groups (group_rows < P), idx of group u / group_units's units lies
+// in that group's group_rows rows.
 int cpc2_infonce_bwd(const float* g, const float* preds, const float* z,
                      const int* idx, float* dpreds, float* dz, float* partial,
                      int B, int K, int W, int N, int D, int P, int kp,
                      int rb, int dc, int zs, int gs, int dp_stage,
                      int dp_stages, int dp_ctas, int nc, int dzc,
                      int dz_stage, int dz_stages, int pt, int row_tiles,
-                     int col_slices, int splits, long smem, void* stream) {
+                     int col_slices, int splits, int group_rows,
+                     int group_units, int group_tiles, long smem,
+                     void* stream) {
   const DpPlan dp{rb, dc, zs, gs, dp_stage, dp_stages, dp_ctas};
-  const DzPlan dzp{nc,        dzc,       dz_stage,   dz_stages,
-                   pt,        row_tiles, col_slices, splits};
+  const DzPlan dzp{nc,        dzc,        dz_stage,   dz_stages,
+                   pt,        row_tiles,  col_slices, splits,
+                   group_rows, group_units, group_tiles};
   if ((kp != 16 && kp != 32) || !bwd_ok(kp, B, K, W, N, D, P, dp, dzp, smem))
     return (int)cudaErrorInvalidValue;
   const void* fn = kp == 16 ? (const void*)gathered_bwd<16>
@@ -812,7 +842,7 @@ int cpc2_infonce_bwd(const float* g, const float* preds, const float* z,
   const long blocks = (n4 + 255) / 256;
   dz_sum<<<(int)(blocks < 1056 ? blocks : 1056), 256, 0, s>>>(
       reinterpret_cast<const float4*>(partial), reinterpret_cast<float4*>(dz),
-      n4, split4, splits);
+      n4, split4, splits, D / 4, group_rows, group_tiles * pt);
   return (int)cudaGetLastError();
 }
 

@@ -43,13 +43,31 @@ Generator = Optional[torch.Generator]
 
 def sample_negative_indices(generator: Generator, batch_size: int,
                             seq_size: int, n_negative: int, window_size: int,
-                            device: torch.device) -> Tensor:
+                            device: torch.device,
+                            pool_group: Optional[int] = None) -> Tensor:
     """Flat rows of z.reshape(B*S, D), the reference's distribution
     (`criterion.py:237-267`): for every (b, n, w) a batch element
-    U[0, B) and the frame (U[1, S) + w) mod S. Returns (B, N, W) int32."""
+    U[0, B) and the frame (U[1, S) + w) mod S. Returns (B, N, W) int32.
+
+    `pool_group` G narrows the batch element's draw to b's group of G
+    contiguous elements, (b // G) * G + U[0, G): the reference's
+    DataParallel workers, each drawing within its own shard
+    (`cpc2_tpu/losses/criterion.py:251-280`). The draws are the same two
+    `randint`s in the same order, so G = B gives the whole-batch draw."""
     shape = (batch_size, n_negative, window_size)
-    batch_idx = torch.randint(0, batch_size, shape, generator=generator,
-                              device=device, dtype=torch.int32)
+    if pool_group:
+        if batch_size % pool_group:
+            raise ValueError(f"pool_group {pool_group} must divide the "
+                             f"batch {batch_size}")
+        group_base = (torch.arange(batch_size, device=device,
+                                   dtype=torch.int32)
+                      // pool_group * pool_group)[:, None, None]
+        batch_idx = group_base + torch.randint(
+            0, pool_group, shape, generator=generator, device=device,
+            dtype=torch.int32)
+    else:
+        batch_idx = torch.randint(0, batch_size, shape, generator=generator,
+                                  device=device, dtype=torch.int32)
     seq_idx = torch.randint(1, seq_size, shape, generator=generator,
                             device=device, dtype=torch.int32)
     base = torch.arange(window_size, device=device, dtype=torch.int32)
@@ -214,7 +232,12 @@ class NoneCriterion(nn.Module):
 class CPCUnsupervisedCriterion(nn.Module):
     """Multi-step InfoNCE over the encodings of the future view.
     `head_dtype`: the transformer heads' activation dtype (bf16 under
-    `--precision bf16`, else None: fp32)."""
+    `--precision bf16`, else None: fp32). `neg_pool_group` G
+    (`--neg_pool_group`, 0: the whole batch) draws each element's negatives
+    within its group of G contiguous elements; a batch of at most G
+    elements, or one that G does not divide, pools over the whole batch, as
+    a DataParallel worker holding a short tail shard does
+    (`cpc2_tpu/losses/criterion.py:440-449`)."""
 
     def __init__(self, n_predicts: int, dim_ar: int, dim_enc: int,
                  negative_sampling_ext: int, dropout: bool = False,
@@ -222,11 +245,13 @@ class CPCUnsupervisedCriterion(nn.Module):
                  mode: Optional[str] = None, rnn_mode: str = 'transformer',
                  multihead_rnn: bool = False, growth_rate: float = 10.0,
                  inflection_point_x: float = 0.5,
-                 head_dtype: Optional[torch.dtype] = None):
+                 head_dtype: Optional[torch.dtype] = None,
+                 neg_pool_group: int = 0):
         super().__init__()
         if mode not in (None, "reverse"):
             raise ValueError("Invalid mode")
         self.n_predicts = n_predicts
+        self.neg_pool_group = neg_pool_group
         self.negative_sampling_ext = negative_sampling_ext
         self.n_skipped = n_skipped
         self.mode = mode
@@ -253,7 +278,9 @@ class CPCUnsupervisedCriterion(nn.Module):
                 ) -> Tuple[Tensor, Tensor]:
         """c_feature (B, S, dim_ar), encoded_data (B, S, D) -> per-head
         (losses, accuracies), each (1, K - n_skipped). `negative_indices`
-        (B, N, W), flat rows of the pool, replaces the sampled negatives.
+        (B, N, W), flat rows of the pool, replaces the sampled negatives;
+        the kernels then take the whole pool's plan, whatever the group,
+        since nothing says such indices keep to their groups.
         `quality` (B, Q), the windows' signal quality, weights each
         window's losses by 1e-5 + sigmoid(growth_rate * (mean - inflection
         point)) (`cpc2_tpu/losses/criterion.py:526-530`)."""
@@ -265,10 +292,15 @@ class CPCUnsupervisedCriterion(nn.Module):
         device = c_feature.device
         preds = self.wPrediction(c_feature[:, :w], generator)  # (B, K, W, D)
 
+        group = self.neg_pool_group
+        if group and (b <= group or b % group):
+            group = 0
         if negative_indices is None:
             neg_idx = sample_negative_indices(
-                generator, b, s, self.negative_sampling_ext, w, device)
+                generator, b, s, self.negative_sampling_ext, w, device,
+                pool_group=group or None)
         else:
+            group = 0
             neg_idx = negative_indices.to(device=device, dtype=torch.int32)
             if neg_idx.shape != (b, self.negative_sampling_ext, w):
                 raise ValueError(f"negative_indices must be (B, N, W) = "
@@ -280,7 +312,8 @@ class CPCUnsupervisedCriterion(nn.Module):
 
         pos = self._positive_scores(preds, encoded_data, w)  # (B, K, W)
         z_flat = encoded_data.reshape(b * s, d)
-        neg = negative_scores(preds, z_flat, neg_idx_wn) / d  # (B, K, W, N)
+        neg = negative_scores(preds, z_flat, neg_idx_wn,
+                              group=group or None) / d        # (B, K, W, N)
 
         pos_flat_idx = (
             torch.arange(b, device=device)[:, None, None] * s

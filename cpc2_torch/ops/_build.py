@@ -42,13 +42,16 @@ LIBRARY = BUILD_DIR / "libcpc2_kernels.so"
 # kernels (`--precision bf16mix`), `ffn_*_fp32` its fp32 ones (`--precision
 # fp32`), `ffn_*_bf16io` the bf16 ones' bf16-in/bf16-out variant
 # (`--precision bf16`), as are `attention_*_bf16io` the attention's.
-# `dtw` counts every DTW launch, `dtw_lanes` and `dtw_wave` each route's
+# `infonce_*_grouped` count the InfoNCE kernels' launches under a grouped
+# pool's plan (`--neg_pool_group`, `ops/infonce.py:infonce_plan`), the
+# others' under the whole pool's. `dtw` counts every DTW launch, `dtw_lanes` and `dtw_wave` each route's
 # (`ops/dtw.py:dtw_plan`). `adam_bf16_moment` is `optim.py`'s Adam with a
 # bf16 first moment (`--adam_mu_dtype bf16`).
 KERNELS = ("lstm_fwd", "lstm_bwd", "lstm_fwd_grid", "lstm_bwd_grid",
            "ffn_fwd", "ffn_bwd", "ffn_fwd_fp32", "ffn_bwd_fp32",
            "ffn_fwd_bf16io", "ffn_bwd_bf16io",
-           "infonce_fwd", "infonce_bwd", "dtw", "dtw_lanes", "dtw_wave",
+           "infonce_fwd", "infonce_bwd", "infonce_fwd_grouped",
+           "infonce_bwd_grouped", "dtw", "dtw_lanes", "dtw_wave",
            "attention_fwd", "attention_bwd", "attention_fwd_bf16io",
            "attention_bwd_bf16io", "encoder_fwd", "encoder_bwd",
            "adam_bf16_moment")
@@ -74,7 +77,7 @@ _SIGNATURES = {
     "cpc2_ffn_bwd_bf16io": [_P] * 12 + [_I] * 4 + [_U, _F, _P],
     "cpc2_ffn_bf16_workspace": [_I] * 6,
     "cpc2_infonce_fwd": [_P] * 4 + [_I] * 12 + [_L, _P],
-    "cpc2_infonce_bwd": [_P] * 7 + [_I] * 22 + [_L, _P],
+    "cpc2_infonce_bwd": [_P] * 7 + [_I] * 25 + [_L, _P],
     "cpc2_dtw": [_P] * 4 + [_I] * 11 + [_P],
     "cpc2_dtw_layout": [_I] * 4 + [_P],
     "cpc2_attention_fwd": [_P] * 7 + [_I, _U, _F, _F, _P],

@@ -19,6 +19,16 @@ predictions, row blocks, column chunks, strides, stages, grids, dz tiles)
 from the shapes alone; the kernels take it as given. Any K, N, D and pool
 size: the wrapper pads D to a multiple of 4 and, for the backward, N too,
 and launches nothing for an empty shape.
+
+Grouped pools (`--neg_pool_group G`, counterpart of the JAX package's
+kernel vmapped over groups, `cpc2_tpu/losses/criterion.py:468-491`): with
+`group=G`, batch element b samples only the pool rows of its group b // G
+(G contiguous elements' rows). The forward and dpreds gather any row
+anyway; the dz plan then tiles each group's rows on their own and splits
+only that group's units over a tile's CTAs, so a dz CTA walks G·W / splits
+units instead of B·W / splits. Still one forward launch and the
+backward's two for the whole batch.
+
 `negative_scores` launches the kernels for CUDA tensors and runs
 `negative_scores_plain` for CPU tensors; there is no other path.
 """
@@ -77,7 +87,11 @@ class InfoncePlan(NamedTuple):
     stage: nc indices, then min(K, kp) rows of g at stride nc and of the
     preds slice at dzc; after the ring, the (pt, dzc) accumulator and each
     consumer warp's list of nc rows. Stages in floats, shared memory in
-    bytes. The backward runs at N rounded up to a multiple of 4, bwd_n."""
+    bytes. The backward runs at N rounded up to a multiple of 4, bwd_n.
+    dz tiles cover each group's group_rows pool rows apart (pool row
+    g·group_rows + t·pt + r for tile t of group g), and a tile's splits
+    share its group's group_units units; with one group this is the whole
+    pool's plan."""
     kp: int
     fwd_rb: int
     fwd_dc: int
@@ -99,10 +113,13 @@ class InfoncePlan(NamedTuple):
     dz_stage: int
     dz_stages: int
     pt: int           # pool rows of a dz tile
-    row_tiles: int
+    row_tiles: int    # over all groups: groups x group_tiles
     col_slices: int
-    splits: int       # dz CTAs a tile, each over a run of units
+    splits: int       # dz CTAs a tile, each over a run of its group's units
     bwd_smem: int
+    group_rows: int   # pool rows of a group (P with one group)
+    group_units: int  # (b, w) units of a group (B x W with one group)
+    group_tiles: int  # row tiles of a group, none straddling two groups
 
 
 def _ring(stage_floats: int, budget: int = SMEM_LIMIT) -> int:
@@ -137,19 +154,34 @@ def _chunk(n: int, d: int, widest: int, stage_floats) -> tuple:
         dc = _up(dc // 2, 8)
 
 
+def pool_groups(b: int, p: int, group) -> int:
+    """How many groups `group` (batch elements a group, or None) makes of
+    a batch of b over a pool of p rows: 1 for None or group >= b, else b //
+    group, which must divide both b and p (each element owns p / b rows)."""
+    if not group or group >= b:
+        return 1
+    if group < 0 or b % group or p % b:
+        raise ValueError(f"infonce: group {group} must divide the batch "
+                         f"{b}, and the batch the pool of {p} rows")
+    return b // group
+
+
 def infonce_plan(b: int, k: int, w: int, n: int, d: int, p: int,
-                 sms: int = H100_SMS) -> InfoncePlan:
+                 sms: int = H100_SMS, group=None) -> InfoncePlan:
     """The launches for preds (b, k, w, d), a pool of p rows and n samples
-    a position, on a card with `sms` multiprocessors. Any K, N and P; D a
-    multiple of 4 (the wrapper pads it). Raises ValueError on an empty
-    dimension (the wrapper launches nothing then) and on D not a multiple
-    of 4."""
+    a position, on a card with `sms` multiprocessors; with `group` G,
+    element b's samples lie in the rows of its group b // G (`pool_groups`).
+    Any K, N and P; D a multiple of 4 (the wrapper pads it). Raises
+    ValueError on an empty dimension (the wrapper launches nothing then),
+    on D not a multiple of 4 and on a group that does not divide."""
     if min(b, k, w, n, d, p, sms) <= 0:
         raise ValueError(f"infonce_plan: empty shape b={b} k={k} w={w} "
                          f"n={n} d={d} p={p}")
     if d % 4:
         raise ValueError(f"infonce_plan: the kernels take D a multiple of "
                          f"4, got {d}")
+    groups = pool_groups(b, p, group)
+    group_rows, group_units = p // groups, b * w // groups
     kp = 16 if k <= 16 else 32
     kr = min(k, kp)
     units = b * w
@@ -177,7 +209,7 @@ def infonce_plan(b: int, k: int, w: int, n: int, d: int, p: int,
     while True:
         dzc = _up(-(-d // slices), 4)
         dz_stage = nc * (1 + kr) + kr * dzc
-        pt = max(1, min(_up(p, 8), DZ_ACC_BYTES // (4 * dzc)))
+        pt = max(1, min(_up(group_rows, 8), DZ_ACC_BYTES // (4 * dzc)))
         while True:
             fixed = pt * dzc + CONSUMER_WARPS * nc
             dz_stages = _ring(dz_stage, SMEM_LIMIT - 4 * fixed)
@@ -187,9 +219,10 @@ def infonce_plan(b: int, k: int, w: int, n: int, d: int, p: int,
         if dz_stages >= 2:
             break
         slices += 1
-    row_tiles = -(-p // pt)
+    group_tiles = -(-group_rows // pt)
+    row_tiles = groups * group_tiles
     col_slices = -(-d // dzc)
-    splits = max(1, min(units, sms // (row_tiles * col_slices)))
+    splits = max(1, min(group_units, sms // (row_tiles * col_slices)))
     fwd_st = fwd_stage(fwd_rb, fwd_dc)
     dp_st = dp_stage(bwd_rb, bwd_dc)
     return InfoncePlan(
@@ -200,7 +233,8 @@ def infonce_plan(b: int, k: int, w: int, n: int, d: int, p: int,
         col_slices, splits,
         BARRIER_BYTES + 4 * max(bwd_stages * dp_st,
                                 dz_stages * dz_stage + pt * dzc
-                                + CONSUMER_WARPS * nc))
+                                + CONSUMER_WARPS * nc),
+        group_rows, group_units, group_tiles)
 
 
 def dz_partial_floats(plan: InfoncePlan, d: int) -> int:
@@ -240,20 +274,29 @@ def _pad_last(t: Tensor, size: int) -> Tensor:
 _SMS = {}
 
 
-def _plan(b, k, w, n, d4, p, device) -> InfoncePlan:
+def _plan(b, k, w, n, d4, p, device, group) -> InfoncePlan:
     if device not in _SMS:
         _SMS[device] = torch.cuda.get_device_properties(
             device).multi_processor_count
-    return infonce_plan(b, k, w, n, d4, p, _SMS[device])
+    return infonce_plan(b, k, w, n, d4, p, _SMS[device], group)
+
+
+def _counters(plan: InfoncePlan, p: int) -> tuple:
+    """The launch counters of a call: the grouped plan's own, so that a
+    run shows which plan it took."""
+    if plan.group_rows < p:
+        return "infonce_fwd_grouped", "infonce_bwd_grouped"
+    return "infonce_fwd", "infonce_bwd"
 
 
 class _NegativeScores(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, preds, z, idx):
+    def forward(ctx, preds, z, idx, group):
         device = _check(preds, z, idx)
         b, k, w, d = preds.shape
         n, p = idx.shape[2], z.shape[0]
+        pool_groups(b, p, group)
         ctx.shapes = preds.shape, z.shape
         out = torch.empty((b, k, w, n), device=device)
         if out.numel() == 0 or d == 0:  # nothing to launch
@@ -261,10 +304,10 @@ class _NegativeScores(torch.autograd.Function):
             return out.zero_()
         # D padded with zeros to a multiple of 4 adds nothing to any dot
         d4 = _up(d, 4)
-        plan = _plan(b, k, w, n, d4, p, device)
+        plan = _plan(b, k, w, n, d4, p, device, group)
         preds, z = _pad_last(preds, d4), _pad_last(z, d4)
         idx = _aligned(idx)
-        _build.launch("infonce_fwd", "cpc2_infonce_fwd", device,
+        _build.launch(_counters(plan, p)[0], "cpc2_infonce_fwd", device,
                       preds.data_ptr(), z.data_ptr(), idx.data_ptr(),
                       out.data_ptr(), b, k, w, n, d4, plan.kp, plan.fwd_rb,
                       plan.fwd_dc, plan.fwd_stride, plan.fwd_stage,
@@ -278,7 +321,8 @@ class _NegativeScores(torch.autograd.Function):
         preds_shape, z_shape = ctx.shapes
         plan = ctx.plan
         if plan is None:
-            return (g.new_zeros(preds_shape), g.new_zeros(z_shape), None)
+            return (g.new_zeros(preds_shape), g.new_zeros(z_shape), None,
+                    None)
         preds, z, idx = ctx.saved_tensors
         b, k, w, d4 = preds.shape
         p, d = z.shape[0], preds_shape[3]
@@ -290,7 +334,7 @@ class _NegativeScores(torch.autograd.Function):
         dz = torch.empty_like(z)
         partial = torch.empty(dz_partial_floats(plan, d4),
                               device=preds.device)
-        _build.launch("infonce_bwd", "cpc2_infonce_bwd", preds.device,
+        _build.launch(_counters(plan, p)[1], "cpc2_infonce_bwd", preds.device,
                       g.data_ptr(), preds.data_ptr(), z.data_ptr(),
                       idx.data_ptr(), dpreds.data_ptr(), dz.data_ptr(),
                       partial.data_ptr(), b, k, w, n4, d4, p, plan.kp,
@@ -298,19 +342,24 @@ class _NegativeScores(torch.autograd.Function):
                       plan.bwd_stage, plan.bwd_stages, plan.bwd_grid,
                       plan.nc, plan.dzc, plan.dz_stage, plan.dz_stages,
                       plan.pt, plan.row_tiles, plan.col_slices, plan.splits,
+                      plan.group_rows, plan.group_units, plan.group_tiles,
                       plan.bwd_smem)
         if d4 != d:
             dpreds, dz = dpreds[..., :d], dz[:, :d]
-        return dpreds, dz, None
+        return dpreds, dz, None, None
 
 
-def negative_scores(preds: Tensor, z: Tensor, idx: Tensor) -> Tensor:
+def negative_scores(preds: Tensor, z: Tensor, idx: Tensor,
+                    group=None) -> Tensor:
     """neg[b, k, w, n] = preds[b, k, w, :] · z[idx[b, w, n], :].
 
     preds: (B, K, W, D) float32; z: (P, D) float32; idx: (B, W, N) int32
-    rows of z, each in [0, P) (the kernels do not check the range). Returns
-    (B, K, W, N) float32. CUDA tensors go through the kernels, CPU tensors
-    through `negative_scores_plain`."""
+    rows of z, each in [0, P) (the kernels do not check the range). With
+    `group` G (below B), idx[b] must lie in the pool rows of b's group,
+    [b // G · G · P / B, + G · P / B): the kernels' dz tiles then walk only
+    their group's units (a row outside adds nothing to dz). Returns (B, K,
+    W, N) float32. CUDA tensors go through the kernels, CPU tensors through
+    `negative_scores_plain`, whose math is the same for any indices."""
     if preds.device.type == "cpu":
         return negative_scores_plain(preds, z, idx)
-    return _NegativeScores.apply(preds, z, idx)
+    return _NegativeScores.apply(preds, z, idx, group)

@@ -2,8 +2,11 @@
 
     python -m cpc2_torch.profile_step [--steps 10] [--trace out.json] \
         [--precision bf16mix|fp32|bf16] [--adam_mu_dtype fp32|bf16] \
-        [--hiddenEncoder 256] [--hiddenGar 256]
+        [--hiddenEncoder 256] [--hiddenGar 256] [--batchSizeGPU 8] \
+        [--neg_pool_group 0]
 
+`--batchSizeGPU 64 --neg_pool_group 8` profiles the batch-64 step whose
+negatives are drawn in groups of 8 (the InfoNCE kernels' grouped plan).
 `--hiddenEncoder 512 --hiddenGar 512` profiles a 512-wide model's step,
 whose LSTM takes the grid route (`ops/lstm.py:lstm_plan`). With
 CPC2_FUSED_ATTENTION=1 and CPC2_FUSED_ENCODER=1 in the environment it
@@ -165,13 +168,17 @@ def main(argv=None) -> dict:
                         choices=["fp32", "bf16"])
     parser.add_argument("--hiddenEncoder", type=int, default=256)
     parser.add_argument("--hiddenGar", type=int, default=256)
+    parser.add_argument("--batchSizeGPU", type=int, default=8)
+    parser.add_argument("--neg_pool_group", type=int, default=0)
     opts = parser.parse_args(argv)
 
     args = parse_args(["--pathDB", ".", "--file_extension", ".wav",
                        "--random_seed", "0", "--precision", opts.precision,
                        "--adam_mu_dtype", opts.adam_mu_dtype,
                        "--hiddenEncoder", str(opts.hiddenEncoder),
-                       "--hiddenGar", str(opts.hiddenGar)])
+                       "--hiddenGar", str(opts.hiddenGar),
+                       "--batchSizeGPU", str(opts.batchSizeGPU),
+                       "--neg_pool_group", str(opts.neg_pool_group)])
     device = resolve_device("cuda")
     set_precision(args.precision)
     torch.manual_seed(0)

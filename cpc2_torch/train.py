@@ -132,7 +132,9 @@ def get_criterion(args, n_speakers: int = 0,
     supervised head reads the encodings (`hiddenEncoder` wide) with
     `--onEncoder` where it can, else the context (`hiddenGar` wide); the
     speaker head always reads the last context frame. The CPC criterion's
-    transformer heads run in `head_dtype(args)`."""
+    transformer heads run in `head_dtype(args)` and draw their negatives
+    in groups of `--neg_pool_group` (training and validation alike); the
+    other criteria ignore that flag, as the JAX package's do."""
     if not args.supervised and args.cpc_mode == 'none':
         return NoneCriterion()
     if not args.supervised and args.cpc_mode == 'bert':
@@ -155,7 +157,8 @@ def get_criterion(args, n_speakers: int = 0,
         n_skipped=args.n_skipped, mode=args.cpc_mode, rnn_mode=args.rnnMode,
         multihead_rnn=args.multihead_rnn, growth_rate=args.growth_rate,
         inflection_point_x=args.inflection_point_x,
-        head_dtype=head_dtype(args))
+        head_dtype=head_dtype(args),
+        neg_pool_group=getattr(args, 'neg_pool_group', 0))
 
 
 def head_dtype(args) -> Optional[torch.dtype]:

@@ -156,7 +156,7 @@ BASE = ["--pathDB", "db", "--file_extension", ".wav"]
     ["--nGPU", "2"],
     ["--distributed"], ["--data_axis_size", "2"],
     ["--model_axis_size", "2"], ["--dcn_axis_size", "2"],
-    ["--global_negatives"], ["--neg_pool_group", "4"],
+    ["--global_negatives"], ["--ckpt_format", "orbax"],
     ["--nGPU", "4"],
 ])
 def test_unported_flags_raise(flags):
@@ -173,11 +173,12 @@ def test_unported_flags_raise(flags):
      "--signal_quality_mode", "c50", "--growth_rate", "5",
      "--inflection_point_x", "0.2"],
     ["--precision", "bf16"], ["--adam_mu_dtype", "bf16"],
+    ["--neg_pool_group", "4"],
 ])
 def test_variant_flags_parse(flags):
-    """The model and criterion modes and the bf16 precision and Adam
-    moment are ported: they parse, and the port raises no
-    `NotImplementedError` for them."""
+    """The model and criterion modes, the bf16 precision and Adam moment
+    and grouped negative pools are ported: they parse, and the port raises
+    no `NotImplementedError` for them."""
     args = parse_args(BASE + flags)
     if flags == ["--multihead_rnn"]:
         assert args.multihead_rnn
@@ -185,6 +186,29 @@ def test_variant_flags_parse(flags):
         for name, value in zip(flags[::2], flags[1::2]):
             got = getattr(args, name[2:])
             assert got == type(got)(value), name
+
+
+def test_orbax_checkpoint_args_still_load_weights(tmp_path):
+    """`--ckpt_format orbax` is refused in training only: a checkpoint whose
+    saved flags say `orbax` (the JAX package's writes its weights to the
+    `.pt` beside the train state) still loads for features."""
+    from cpc2_torch import feature_loader as fl
+    from cpc2_torch.io.checkpoint import save_args, save_checkpoint
+    args = parse_args(BASE + ["--hiddenEncoder", "16", "--hiddenGar", "16"])
+    args.ckpt_format = "orbax"
+    model = fl.build_model(args)
+    save_checkpoint(model.state_dict(), {}, {}, None,
+                    str(tmp_path / "checkpoint_0.pt"))
+    save_args(args, str(tmp_path / "checkpoint_args.json"))
+    (tmp_path / "checkpoint_logs.json").write_text("{}")
+    loaded, hidden_gar, hidden_encoder = fl.load_model(
+        [str(tmp_path / "checkpoint_0.pt")])
+    assert (hidden_gar, hidden_encoder) == (16, 16)
+    for key, value in model.state_dict().items():
+        assert torch.equal(loaded.state_dict()[key], value), key
+    with pytest.raises(NotImplementedError, match="Orbax train-state"):
+        from cpc2_torch.train import _resume
+        _resume(parse_args(["--pathCheckpoint", str(tmp_path)]))
 
 
 @pytest.mark.parametrize("flags,phone,ctc,levels,on_encoder", [
