@@ -252,12 +252,30 @@ Phases, each of which fails the run with a nonzero exit:
    (`[neg pool epoch]`); an N = 4 replay at batch 64 bit for bit against
    eager steps (`[neg pool dispatch]`); the phase's wall seconds on
    `[phase 12]`;
-13. print one `kernels` JSON line (the `lstm_fwd`, `dtw` and
+13. what feature extraction lacked, and the clustering criteria
+   (`run_feature_extras`): `FeatureModule(train_mode=True)` on a
+   transformer-context model at the recipe's widths (8 x 20,480 samples,
+   width 256, dropout 0.1) with the plain attention and with
+   CPC2_FUSED_ATTENTION=1, two calls differing, a second instance of the
+   seed replaying them bit for bit, every FFN and fused attention forward
+   held against `ffn_plain` / `attention_plain` with its dropout seed, the
+   kernels' launches in those calls, rate 0 bit for bit evaluation's, the
+   model unchanged (`[train_mode]`); `research/train_cca.py` between the
+   default epoch's checkpoint and a seed-1 one of its flags, fitted on the
+   card and in float64 on the CPU within CCA_TOL, the CLI on the card and
+   `FeatureModule(cca_projection=...)` on its pickle (`[cca]`, the fit's
+   seconds); `build_feature_files` over ragged files without and with
+   `bucket_frames`, card against CPU, one `lstm_fwd` a batch
+   (`[buckets]`); one DEC centroid update and one DeepClustering loss card
+   against CPU (`[clustering criteria]`); the phase's wall seconds on
+   `[phase 13]`;
+14. print one `kernels` JSON line (the `lstm_fwd`, `dtw` and
    `ffn_fwd_fp32` rows with their launches on the unit path,
    `launches_discrete_units`, the LSTM rows' on the Common Voices
    path, `launches_common_voices`, each training kernel's over phase
-   10's epochs, `launches_variants`, and the grouped InfoNCE rows' on
-   phase 12's epoch) and, last, the `ok` line.
+   10's epochs, `launches_variants`, the grouped InfoNCE rows' on
+   phase 12's epoch, and the rows of the kernels phase 13's paths ran,
+   `launches_feature_extras`) and, last, the `ok` line.
 
 It exits nonzero, printing no result, when no CUDA card is available or
 when the `cpc2_torch` package is not beside it.
@@ -6236,6 +6254,462 @@ def run_neg_pool(dev, work: str, card: str, default: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: what feature extraction lacked (`FeatureModule(train_mode=)`, the
+# CCA projection and its fit, `build_feature_files(bucket_frames=)`) and the
+# research clustering criteria
+# ---------------------------------------------------------------------------
+
+# The recipe's widths with the transformer context network: 8 windows of
+# 20,480 samples, 128 frames of 256 channels, 8 heads of 32, dropout 0.1.
+EXTRAS_BATCH, EXTRAS_WINDOW, EXTRAS_WIDTH = 8, 20480, 256
+TRAIN_MODE_SEED = 5
+# The CCA's components, and its card-vs-CPU tolerance: both fit the same
+# float64 matrices, so only another SVD and summation order part them; each
+# field is held to CCA_TOL of its largest entry.
+CCA_COMPONENTS = 32
+CCA_TOL = 1e-6
+# Ragged files of 2 to 4 seconds, and the buckets (frames) they share.
+BUCKET_FILES, BUCKET_FRAMES = 12, 50
+# Features card against CPU: fp32 in another order through the LSTM, as
+# `[concat]` holds them.
+EXTRAS_CPU_RTOL = 1e-3
+
+
+class CallSpy:
+    """In place of `module.<name>` inside a `with` block: keeps each call's
+    arguments (the positional ones, then the keywords' values) and output,
+    cloned, and returns the real call's output."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.calls, self.real = module, name, [], None
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+    def __call__(self, *args, **kwargs):
+        out = self.real(*args, **kwargs)
+        self.calls.append((tuple(a.detach().clone() if torch.is_tensor(a)
+                                 else a for a in args + tuple(
+                                     kwargs.values())),
+                           out.detach().clone()))
+        return out
+
+
+def set_dropout_rate(model, rate: float) -> None:
+    from cpc2_torch.models.transformer import FFNetwork
+    for m in model.modules():
+        if isinstance(m, FFNetwork):
+            m.dropout = rate
+        if hasattr(m, "drop"):
+            m.drop.rate = rate
+
+
+def check_train_mode(dev) -> dict:
+    """`FeatureModule(train_mode=True)` on a transformer-context model at the
+    recipe's widths (random weights from a seed), with the plain attention
+    and with the opt-in kernels on (the encoder's declines in `full_fp32`):
+    two calls differ, a second instance of
+    the same seed replays the first bit for bit, both differ from
+    evaluation's features; every FFN (and fused attention) forward of the
+    two calls, with its dropout seed, held against `ffn_plain`
+    (`attention_plain`) on the same inputs; the kernels launched in those
+    calls (counts set to 0 just before, read just after); at rate 0 the
+    features equal evaluation's bit for bit; no parameter, buffer or
+    module mode changed."""
+    from cpc2_torch import feature_loader as fl
+    from cpc2_torch.config import get_default_cpc_config
+    from cpc2_torch.models import transformer
+    from cpc2_torch.ops import _build
+    from cpc2_torch.ops.attention import attention_plain
+    from cpc2_torch.ops.ffn import ffn_plain
+
+    args = get_default_cpc_config()
+    args.arMode = "transformer"
+    args.hiddenEncoder = args.hiddenGar = EXTRAS_WIDTH
+    args.sizeWindow = EXTRAS_WINDOW
+    torch.manual_seed(13)
+    model = fl.build_model(args).to(dev).eval()
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    modes = [m.training for m in model.modules()]
+    rs = np.random.RandomState(13)
+    data = ((0.1 * rs.randn(EXTRAS_BATCH, EXTRAS_WINDOW)).astype(np.float32),
+            None)
+    out = {"routes": {}}
+    for fused in (False, True):
+        route = "fused attention" if fused else "plain attention"
+        with fused_switches(fused):
+            evaluated = fl.FeatureModule(model, False)(data)
+            maker = fl.FeatureModule(model, False, train_mode=True,
+                                     train_mode_seed=TRAIN_MODE_SEED)
+            with CallSpy(transformer, "fused_ffn") as ffn_spy, \
+                    CallSpy(transformer, "fused_relpos_attention") as att_spy:
+                torch.cuda.synchronize()
+                _build.reset_launches()
+                start = time.perf_counter()
+                first, second = maker(data), maker(data)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - start
+                launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+            replay = fl.FeatureModule(model, False, train_mode=True,
+                                      train_mode_seed=TRAIN_MODE_SEED)(data)
+            want = (EXTRAS_BATCH, EXTRAS_WINDOW // 160, EXTRAS_WIDTH)
+            if tuple(first.shape) != want or not torch.isfinite(first).all():
+                raise AssertionError(f"[train_mode {route}] features "
+                                     f"{tuple(first.shape)}, want {want}")
+            if torch.equal(first, second):
+                raise AssertionError(f"[train_mode {route}] two calls drew "
+                                     f"the same masks")
+            if not torch.equal(first, replay):
+                raise AssertionError(f"[train_mode {route}] the same seed "
+                                     f"did not replay the first call")
+            if torch.allclose(first, evaluated):
+                raise AssertionError(f"[train_mode {route}] the dropout "
+                                     f"left the features as evaluation's")
+            ffn_err = 0.0
+            for (x, w1, b1, w2, b2, seed, rate, bf16), y in ffn_spy.calls:
+                if rate != 0.1 or bf16:
+                    raise AssertionError(f"[train_mode {route}] an FFN call "
+                                         f"at rate {rate}, bf16 {bf16}")
+                ffn_err = max(ffn_err, compare(
+                    f"train_mode FFN {tuple(x.shape)}", [y],
+                    [ffn_plain(x, w1, b1, w2, b2, seed, rate)]))
+            att_err = 0.0
+            for (q, k, v, krelpos, seed, rate), y in att_spy.calls:
+                att_err = max(att_err, compare(
+                    f"train_mode attention {tuple(q.shape)}", [y],
+                    [attention_plain(q, k, v, krelpos, seed, rate)]))
+            if not ffn_spy.calls or launches.get("ffn_fwd_fp32", 0) == 0:
+                raise AssertionError(f"[train_mode {route}] the fp32 FFN "
+                                     f"kernel did not run: {launches}")
+            if fused != bool(att_spy.calls) or fused != bool(
+                    launches.get("attention_fwd", 0)):
+                raise AssertionError(f"[train_mode {route}] attention "
+                                     f"kernel launches {launches}")
+            set_dropout_rate(model, 0.0)
+            try:
+                rate0 = fl.FeatureModule(model, False, train_mode=True)(data)
+                eval0 = fl.FeatureModule(model, False)(data)
+            finally:
+                set_dropout_rate(model, 0.1)
+            if not torch.equal(rate0, eval0):
+                raise AssertionError(f"[train_mode {route}] at rate 0 the "
+                                     f"features differ from evaluation's")
+            out["routes"][route] = {
+                "ffn_calls": len(ffn_spy.calls),
+                "attention_calls": len(att_spy.calls),
+                "ffn_max_abs_err": ffn_err, "attention_max_abs_err": att_err,
+                "two_calls_ms": 1e3 * seconds, "launches": launches,
+                "mean_abs_change_vs_eval": (first - evaluated).abs().mean()
+                .item()}
+    after = model.state_dict()
+    changed = [k for k, v in state.items() if not torch.equal(after[k], v)]
+    if changed or [m.training for m in model.modules()] != modes:
+        raise AssertionError(f"[train_mode] the model changed: {changed}")
+    out["tensors_unchanged"] = len(state)
+    return out
+
+
+def seeded_checkpoint(work: str, checkpoint: str, seed: int) -> str:
+    """A checkpoint of `checkpoint`'s flags with random weights from
+    `seed`, in a run directory of its own."""
+    import shutil
+    from cpc2_torch.feature_loader import build_model
+    from cpc2_torch.io.checkpoint import get_checkpoint_data, save_checkpoint
+    src = os.path.dirname(checkpoint)
+    dst = os.path.join(work, f"ck_seed{seed}")
+    os.makedirs(dst)
+    for name in ("checkpoint_args.json", "checkpoint_logs.json"):
+        shutil.copy(os.path.join(src, name), dst)
+    args = get_checkpoint_data(src)[2]
+    torch.manual_seed(seed)
+    save_checkpoint(build_model(args).state_dict(), {}, None, None,
+                    os.path.join(dst, "checkpoint_0.pt"))
+    return os.path.join(dst, "checkpoint_0.pt")
+
+
+def hold_cca(what: str, got, want) -> float:
+    """The CCA fields of `got` against `want`, each within CCA_TOL of its
+    largest entry; the worst such ratio."""
+    worst = 0.0
+    for name in ("x_mean", "x_std", "x_rotations"):
+        a, b = getattr(got, name), getattr(want, name)
+        rel = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+        if a.shape != b.shape or rel > CCA_TOL:
+            raise AssertionError(f"[cca] {what}: {name} {rel:.3e} of its "
+                                 f"largest entry apart")
+        worst = max(worst, rel)
+    return worst
+
+
+def run_cca(dev, work: str, checkpoint: str) -> dict:
+    """`research/train_cca.py` between the default epoch's checkpoint and a
+    second of the same flags from another seed, over 8 generated WAV files
+    of 3 s: the two views extracted on the card, fitted on the card and in
+    float64 on the CPU (`hold_cca`, and the projected features); then the
+    CLI on the card end to end and `FeatureModule(cca_projection=...)` on
+    the card with its pickle."""
+    from cpc2_torch import feature_loader as fl
+    from cpc2_torch.ops import _build
+    from cpc2_torch.research import train_cca
+    from cpc2_torch.research.cca import fit_cca, load_cca
+
+    second = seeded_checkpoint(work, checkpoint, 1)
+    db = os.path.join(work, "cca_db")
+    write_corpus(db, ext=".wav", n_speakers=2, n_files=4, seconds=3.0,
+                 seed=13)
+    files = train_cca.corpus_files(db, ".wav")
+    opts = dict(no_batch=False, strict=True, max_size_seq=10240,
+                batch_size=8, device=dev)
+    views = [train_cca.checkpoint_extractor(ck, **opts)
+             for ck in (checkpoint, second)]
+    x, y = (np.vstack([view(os.path.join(db, rel)) for rel in files])
+            for view in views)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    card = fit_cca(x, y, CCA_COMPONENTS, device=dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - start
+    start = time.perf_counter()
+    cpu = fit_cca(x, y, CCA_COMPONENTS, device="cpu")
+    cpu_s = time.perf_counter() - start
+    fields = hold_cca("card vs cpu", card, cpu)
+    projected = np.abs(card.transform(x) - cpu.transform(x)).max()
+    scale = np.abs(cpu.transform(x)).max()
+    if projected > CCA_TOL * scale:
+        raise AssertionError(f"[cca] projected features card vs cpu "
+                             f"{projected:.3e} of {scale:.3e}")
+    out_dir = os.path.join(work, "cca_out")
+    _build.reset_launches()
+    start = time.perf_counter()
+    train_cca.main(["--path_cp_X", checkpoint, "--path_cp_Y", second,
+                    "--path_db", db, "--path_output", out_dir,
+                    "--n_components", str(CCA_COMPONENTS), "--device",
+                    dev.type])
+    cli_s = time.perf_counter() - start
+    cli_launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    check_launched("train_cca", cli_launches, ("lstm_fwd",))
+    pkl = os.path.join(out_dir,
+                       f"cca_model_n_components_{CCA_COMPONENTS}.pkl")
+    cli_fields = hold_cca("the CLI's pickle vs the card fit", load_cca(pkl),
+                          card)
+    model = fl.load_model([checkpoint])[0].to(dev)
+    rs = np.random.RandomState(15)
+    data = ((0.1 * rs.randn(EXTRAS_BATCH, EXTRAS_WINDOW)).astype(np.float32),
+            None)
+    got = fl.FeatureModule(model, False, cca_projection=pkl)(data)
+    plain = fl.FeatureModule(model, False)(data)
+    want = torch.from_numpy(load_cca(pkl).transform(
+        plain.cpu().double().numpy().reshape(-1, plain.shape[-1]))
+        ).reshape(got.shape[0], got.shape[1], -1)
+    if got.device != plain.device or tuple(got.shape) != (
+            EXTRAS_BATCH, EXTRAS_WINDOW // 160, CCA_COMPONENTS):
+        raise AssertionError(f"[cca] projected features {tuple(got.shape)} "
+                             f"on {got.device}")
+    proj_err = compare("cca projection on the card", [got.cpu()],
+                       [want.float()], rtol=1e-5)
+    return {"frames": int(x.shape[0]), "files": len(files),
+            "fit_s_card": card_s, "fit_s_cpu": cpu_s, "cli_s": cli_s,
+            "card_vs_cpu_fields_rel": fields,
+            "card_vs_cpu_projected_max_abs": float(projected),
+            "cli_vs_card_fit_rel": cli_fields,
+            "projection_max_abs_err": proj_err, "cli_launches": cli_launches}
+
+
+def run_buckets(dev, work: str, checkpoint: str) -> dict:
+    """`build_feature_files` over BUCKET_FILES ragged WAV files of 2-4 s on
+    the card with and without `bucket_frames`, each against the CPU, the
+    counts set to 0 just before and read just after each card pass: one
+    `lstm_fwd` a batch, as many batches as distinct (padded) lengths; the
+    bucketed features' frames before the last 4 held to the exact ones."""
+    from cpc2_torch import feature_loader as fl
+    from cpc2_torch.data.audio_io import save_wav
+    from cpc2_torch.ops import _build
+    rs = np.random.RandomState(16)
+    root = os.path.join(work, "ragged_db")
+    os.makedirs(root)
+    paths, lengths = [], []
+    for i in range(BUCKET_FILES):
+        n = int(rs.randint(2 * 16000, 4 * 16000))
+        path = os.path.join(root, f"r{i:02d}.wav")
+        save_wav(path, (0.2 * np.sin(np.arange(n) * (0.01 + 0.001 * i))
+                        + 0.05 * rs.randn(n)).astype(np.float32), 16000)
+        paths.append(path)
+        lengths.append(n)
+    card_model = fl.load_model([checkpoint])[0].to(dev)
+    cpu_model = fl.load_model([checkpoint])[0]
+    out, feats = {}, {}
+    for bucket in (0, BUCKET_FRAMES):
+        maker = fl.FeatureModule(card_model, False, keep_hidden=True)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        start = time.perf_counter()
+        card = fl.build_feature_files(maker, paths, bucket_frames=bucket)
+        seconds = time.perf_counter() - start
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        cpu = fl.build_feature_files(
+            fl.FeatureModule(cpu_model, False, keep_hidden=True), paths,
+            bucket_frames=bucket)
+        padded = {(-(-(n // 160) // bucket) * bucket * 160) if bucket else n
+                  for n in lengths}
+        if launches.get("lstm_fwd", 0) != len(padded):
+            raise AssertionError(f"[buckets {bucket}] lstm_fwd launches "
+                                 f"{launches}, want one a batch: "
+                                 f"{len(padded)}")
+        for p, n in zip(paths, lengths):
+            if card[p].shape != (1, n // 160, card_model.dim_context):
+                raise AssertionError(f"[buckets {bucket}] {p}: "
+                                     f"{card[p].shape}")
+        err = compare(f"bucket_frames {bucket} card vs cpu",
+                      [torch.from_numpy(card[p]) for p in paths],
+                      [torch.from_numpy(cpu[p]) for p in paths],
+                      rtol=EXTRAS_CPU_RTOL)
+        feats[bucket] = card
+        out[bucket] = {"batches": len(padded), "launches": launches,
+                       "seconds": seconds, "card_vs_cpu_max_abs": err}
+    body = compare("bucketed vs exact features before the last 4 frames",
+                   [torch.from_numpy(feats[BUCKET_FRAMES][p][:, :-4])
+                    for p in paths],
+                   [torch.from_numpy(feats[0][p][:, :-4]) for p in paths])
+    tail = max(float(np.abs(feats[BUCKET_FRAMES][p][:, -4:]
+                            - feats[0][p][:, -4:]).max()) for p in paths)
+    return {"files": BUCKET_FILES, "bucket_frames": BUCKET_FRAMES,
+            "exact": out[0], "bucketed": out[BUCKET_FRAMES],
+            "body_max_abs_vs_exact": body, "tail_max_abs_vs_exact": tail}
+
+
+def check_clustering_criteria(dev) -> dict:
+    """One `DeepEmbeddedClustering` centroid update (3 batches of 8 x 128 x
+    256 features drawn around 50 centroids, at rate 1) and one
+    `DeepClustering` loss (the same classifier weights, labels from the
+    centroids) on the card against the CPU, at RTOL of the largest value:
+    the centroids, and their move by the update on its own scale."""
+    from cpc2_torch.clustering.clustering import kMeanCluster
+    from cpc2_torch.research import DeepClustering, DeepEmbeddedClustering
+    rs = np.random.RandomState(17)
+    k, d = 50, EXTRAS_WIDTH
+    ck = rs.randn(1, k, d).astype(np.float32)
+    loader = [((ck[0][rs.randint(0, k, (EXTRAS_BATCH, 128))]
+                + rs.randn(EXTRAS_BATCH, 128, d)).astype(np.float32), None)
+              for _ in range(3)]
+    dec, dc, seconds = {}, {}, {}
+    for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        crit = DeepEmbeddedClustering(1.0, k, d, 0, 2, "kmean", device=where)
+        crit.init = True
+        crit.clusters = kMeanCluster(ck).to(where)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        crit.updateCLusters(loader, lambda data: torch.as_tensor(data[0]))
+        torch.cuda.synchronize()
+        seconds[side] = time.perf_counter() - start
+        dec[side] = crit.clusters.Ck.cpu()
+        head = DeepClustering(k, d, 0, 1, "kmean", device=where)
+        torch.manual_seed(18)
+        head.classifier.load_state_dict(torch.nn.Linear(d, k).state_dict())
+        head.clusters = kMeanCluster(ck).to(where)
+        head.step = 1
+        x = torch.from_numpy(loader[0][0]).to(where)
+        labels = head.assign_labels(x)
+        dc[side] = (head(x, labels).detach().cpu(), labels.cpu())
+    moves = {side: ck_new - torch.from_numpy(ck)
+             for side, ck_new in dec.items()}
+    moved = moves["cpu"].abs().max().item()
+    if moved < 1e-3:
+        raise AssertionError("[clustering criteria] the DEC update did not "
+                             "move the centroids")
+    if not torch.equal(dc["card"][1], dc["cpu"][1]):
+        raise AssertionError("[clustering criteria] assign_labels differ "
+                             "card vs cpu")
+    return {"dec_update_max_abs_err": compare(
+                "DEC update card vs cpu", [dec["card"], moves["card"]],
+                [dec["cpu"], moves["cpu"]]),
+            "dec_centroids_moved": moved,
+            "dec_update_s": seconds,
+            "deep_clustering_loss": dc["cpu"][0].item(),
+            "deep_clustering_max_abs_err": compare(
+                "DeepClustering loss card vs cpu", [dc["card"][0]],
+                [dc["cpu"][0]])}
+
+
+def run_feature_extras(dev, work: str, card: str, checkpoint: str) -> dict:
+    """Phase 13 (`check_train_mode`, `run_cca`, `run_buckets`,
+    `check_clustering_criteria`), each printed on its own line."""
+    start = time.perf_counter()
+    train_mode = check_train_mode(dev)
+    log(f"[train_mode] {time.perf_counter() - start:.1f} s, {card}: "
+        f"FeatureModule(train_mode=True) on a transformer-context model at "
+        f"{EXTRAS_BATCH} x {EXTRAS_WINDOW} samples, width {EXTRAS_WIDTH}, "
+        f"dropout 0.1: two calls differ, the seed replays them bit for bit, "
+        f"rate 0 equals evaluation bit for bit, "
+        f"{train_mode['tensors_unchanged']} tensors and every module's mode "
+        f"unchanged; " + "; ".join(
+            f"{route}: {r['ffn_calls']} FFN calls (max abs err vs ffn_plain "
+            f"{r['ffn_max_abs_err']:.2e}), {r['attention_calls']} fused "
+            f"attention calls ({r['attention_max_abs_err']:.2e} vs "
+            f"attention_plain), two calls {r['two_calls_ms']:.3f} ms (host "
+            f"clock), mean |train - eval| {r['mean_abs_change_vs_eval']:.3e}"
+            f", launches {r['launches']}"
+            for route, r in train_mode["routes"].items()))
+    start = time.perf_counter()
+    cca = run_cca(dev, work, checkpoint)
+    log(f"[cca] {time.perf_counter() - start:.1f} s, {card}: "
+        f"{CCA_COMPONENTS} components over {cca['frames']} frames of "
+        f"{cca['files']} files (the default epoch's checkpoint against a "
+        f"seed-1 one of its flags): fit {cca['fit_s_card']:.3f} s on the "
+        f"card, {cca['fit_s_cpu']:.3f} s in float64 on the CPU (host "
+        f"clock); fields card vs cpu {cca['card_vs_cpu_fields_rel']:.2e} of "
+        f"their largest (held to {CCA_TOL}), projected features "
+        f"{cca['card_vs_cpu_projected_max_abs']:.2e}; the CLI on the card "
+        f"{cca['cli_s']:.3f} s (its pickle vs the card fit "
+        f"{cca['cli_vs_card_fit_rel']:.2e}), launches "
+        f"{cca['cli_launches']}; FeatureModule(cca_projection=...) on the "
+        f"card {cca['projection_max_abs_err']:.2e} from the pickle's numpy "
+        f"transform")
+    start = time.perf_counter()
+    buckets = run_buckets(dev, work, checkpoint)
+    log(f"[buckets] {time.perf_counter() - start:.1f} s, {card}: "
+        f"build_feature_files over {buckets['files']} ragged files of 2-4 s: "
+        + "; ".join(
+            f"{name} {r['batches']} batches, launches {r['launches']}, "
+            f"{r['seconds']:.3f} s, card vs cpu {r['card_vs_cpu_max_abs']:.2e}"
+            for name, r in (("exact", buckets["exact"]),
+                            (f"bucket_frames {BUCKET_FRAMES}",
+                             buckets["bucketed"])))
+        + f"; bucketed vs exact {buckets['body_max_abs_vs_exact']:.2e} "
+        f"before the last 4 frames, {buckets['tail_max_abs_vs_exact']:.2e} "
+        f"in them")
+    start = time.perf_counter()
+    criteria = check_clustering_criteria(dev)
+    log(f"[clustering criteria] {time.perf_counter() - start:.1f} s, "
+        f"{card}: DEC update card vs cpu "
+        f"{criteria['dec_update_max_abs_err']:.2e} (centroids moved "
+        f"{criteria['dec_centroids_moved']:.2e}; "
+        f"{criteria['dec_update_s']['card']:.3f} s on the card, "
+        f"{criteria['dec_update_s']['cpu']:.3f} s on the CPU), "
+        f"DeepClustering loss {criteria['deep_clustering_loss']:.6f}, card "
+        f"vs cpu {criteria['deep_clustering_max_abs_err']:.2e}")
+    return {"train_mode": train_mode, "cca": cca, "buckets": buckets,
+            "clustering_criteria": criteria}
+
+
+def feature_extras_launches(extras: dict) -> dict:
+    """Each kernel's launches over phase 13's main paths: the two
+    `train_mode` routes' calls, the CCA CLI and the bucketed pass."""
+    total = {}
+    for launches in ([r["launches"] for r in
+                      extras["train_mode"]["routes"].values()]
+                     + [extras["cca"]["cli_launches"],
+                        extras["buckets"]["bucketed"]["launches"]]):
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6615,6 +7089,14 @@ def main() -> int:
         log(f"[phase 12] {time.perf_counter() - phase12:.1f} s, the whole "
             f"run so far {time.perf_counter() - t0:.1f} s of the 1,200 s "
             f"limit")
+
+        # phase 13: train_mode features, the CCA, bucket_frames and the
+        # clustering criteria
+        phase13 = time.perf_counter()
+        extras = run_feature_extras(dev, work, card, record["checkpoint"])
+        log(f"[phase 13] {time.perf_counter() - phase13:.1f} s, the whole "
+            f"run so far {time.perf_counter() - t0:.1f} s of the 1,200 s "
+            f"limit")
     # phase 11's kernels, each with its launches on its own bf16 epoch
     bf16_path = {"ffn_fwd_bf16io": "bf16", "ffn_bwd_bf16io": "bf16",
                  "attention_fwd_bf16io": "bf16_fused",
@@ -6636,7 +7118,9 @@ def main() -> int:
                            ("launches_common_voices",
                             cv_launches(common_voices)),
                            ("launches_variants",
-                            variant_launches_by_kernel(variants))):
+                            variant_launches_by_kernel(variants)),
+                           ("launches_feature_extras",
+                            feature_extras_launches(extras))):
         for k in kernels:
             if k["name"] in by_kernel:
                 k[key] = by_kernel[k["name"]]
@@ -6707,6 +7191,7 @@ def main() -> int:
         "bf16": {k: v for k, v in bf16.items()
                  if k not in ("kernels", "records")},
         "neg_pool": {k: v for k, v in neg_pool.items() if k != "kernels"},
+        "feature_extras": extras,
         "default_route_ms": yardsticks,
         "events_ms": events,
         "lstm": details,

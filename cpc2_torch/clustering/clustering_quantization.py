@@ -86,8 +86,8 @@ def feature_fn_for_clustering(clustering_args, nobatch: bool,
                               device="cuda"):
     """The feature maker the centroids were fit with, on `device`: the CPC
     checkpoint named in the clustering run's args.json, its `level_gru`,
-    its encoder or context choice, its `train_mode` (which raises) and any
-    dim-reduction projection."""
+    its encoder or context choice, its `train_mode` (the dropout on while
+    the features are made) and any dim-reduction projection."""
     from ..feature_loader import FeatureModule, load_model
 
     override = None

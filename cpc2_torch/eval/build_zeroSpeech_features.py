@@ -172,9 +172,10 @@ def main(argv):
 
     # The plain feature maker: files of equal length run as one batch
     # (`build_feature_files`), each file's features those of the per-file
-    # path. A maker with a head keeps the per-file loop.
+    # path. A maker with a head, and `--train_mode` (each forward draws its
+    # own dropout masks), keep the per-file loop.
     cache = None
-    if hasattr(feature_fn, 'reset_hidden'):
+    if hasattr(feature_fn, 'reset_hidden') and not args.train_mode:
         from ..feature_loader import build_feature_files
         paths = [os.path.join(args.pathDB, rel) for rel in rel_paths]
         cache = build_feature_files(feature_fn, paths,

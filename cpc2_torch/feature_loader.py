@@ -6,10 +6,13 @@ its `gEncoder` state dict, which the port's modules take unchanged whether
 the port or the JAX package wrote it; several checkpoints make one
 `ConcatenatedModel`. `FeatureModule` turns audio into the
 context network's (or the encoder's) features on the model's device,
-under `torch.no_grad()` and in full fp32. `build_feature` extracts one
-file in chunks; `build_feature_batch` runs a file's chunks as one batch,
-with no state carried; `build_feature_files` batches files of equal length
-and carries the context network's state across their chunks.
+under `torch.no_grad()` and in full fp32, with the dropout on
+(`train_mode`) or a CCA projection on top (`cca_projection`) if asked.
+`build_feature` extracts one file in chunks; `build_feature_batch` runs a
+file's chunks as one batch, with no state carried; `build_feature_files`
+batches files of equal length (or of the same number of
+`bucket_frames`-frame buckets) and carries the context network's state
+across their chunks.
 `ModelPhoneCombined`, `ModelClusterCombined` and `CPCModule` put a phone
 classifier, a k-means quantizer or the CPC criterion's scores on top of a
 feature maker.
@@ -18,6 +21,7 @@ feature maker.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 from collections import defaultdict
@@ -36,10 +40,13 @@ from .models import (CPCAR, BiDIRARTangled, CPCBertModel, CPCEncoder,
                      CPCModel, ConcatenatedModel, LFBEncoder, MFCCEncoder,
                      NoAr, build_transformer_ar)
 from .models.encoder import DOWNSAMPLING
+from .models.layers import Dropout
+from .models.transformer import FFNetwork, ScaledDotProductAttention
+from .research.cca import load_cca
 from .training import full_fp32
 
-_CCA = "CCA projection"
-_TRAIN_MODE = "train_mode features"
+# the modules whose `training` flag turns their dropout on, and nothing else
+_DROPOUT_MODULES = (Dropout, FFNetwork, ScaledDotProductAttention)
 
 
 def get_encoder(args: argparse.Namespace) -> nn.Module:
@@ -157,19 +164,26 @@ class FeatureModule:
     normalised along time (`seqNorm`). With `keep_hidden` the context
     network's state carries from one call to the next until
     `reset_hidden`. It runs on the model's device, in evaluation mode,
-    without gradients and in full fp32."""
+    without gradients and in full fp32.
+
+    `train_mode` keeps the dropout on while the features are made (the
+    reference skips `featureMaker.eval()`): for the length of each call the
+    dropout modules alone are put in training mode, and the masks (and the
+    kernels' dropout seeds) come from one `torch.Generator` on the model's
+    device seeded with `train_mode_seed`, so that each call draws anew and
+    a second instance replays the stream. The JAX package cannot run it
+    over a `batchNorm` encoder (its forward would have to update the
+    running statistics), and neither does this one.
+
+    `cca_projection` is the path of a pickled CCA, the port's own
+    (`research/train_cca.py`) or scikit-learn's, read without scikit-learn;
+    its X-side projection is applied to the features on the model's
+    device."""
 
     def __init__(self, model: nn.Module, get_encoded: bool,
                  collapse: bool = False, cca_projection: Optional[str] = None,
                  keep_hidden: bool = False, seqNorm: bool = False,
-                 train_mode: bool = False):
-        if cca_projection:
-            raise NotImplementedError(f"cca_projection: not ported to "
-                                      f"cpc2_torch (ROADMAP.md item: {_CCA})")
-        if train_mode:
-            raise NotImplementedError(
-                f"train_mode: not ported to cpc2_torch (ROADMAP.md item: "
-                f"{_TRAIN_MODE})")
+                 train_mode: bool = False, train_mode_seed: int = 0):
         self.model = model.eval()
         self.get_encoded = get_encoded
         self.collapse = collapse
@@ -177,6 +191,24 @@ class FeatureModule:
         self.seqNorm = seqNorm
         self.hidden = None
         self.device = next(model.parameters()).device
+        self.train_mode = train_mode
+        self.generator = None
+        if train_mode:
+            if any(isinstance(m, nn.modules.batchnorm._BatchNorm)
+                   for m in model.modules()):
+                raise ValueError(
+                    "train_mode with --normMode batchNorm: in training "
+                    "mode the encoder's BatchNorm would update its running "
+                    "statistics, which the JAX package's feature forward "
+                    "refuses (flax: the batch_stats collection is "
+                    "immutable); extract in evaluation mode or from a "
+                    "model with another --normMode")
+            self.generator = torch.Generator(device=self.device)
+            self.generator.manual_seed(train_mode_seed)
+        self.cca_projection = None
+        if cca_projection:
+            print("Loading canonical correlation analysis model.")
+            self.cca_projection = load_cca(cca_projection).to(self.device)
 
     @property
     def out_feature_dim(self) -> int:
@@ -191,17 +223,35 @@ class FeatureModule:
     def reset_hidden(self) -> None:
         self.hidden = None
 
+    @contextlib.contextmanager
+    def _dropout_on(self):
+        """The dropout modules in training mode for the `with` block, then
+        back as they were; nothing else of the model changes mode."""
+        if not self.train_mode:
+            yield
+            return
+        modules = [m for m in self.model.modules()
+                   if isinstance(m, _DROPOUT_MODULES)]
+        modes = [m.training for m in modules]
+        try:
+            for m in modules:
+                m.training = True
+            yield
+        finally:
+            for m, mode in zip(modules, modes):
+                m.training = mode
+
     def __call__(self, data) -> torch.Tensor:
         """data: (audio (B, T), label); audio may also be (B, 1, T) or
         (B, V, 1, T), of which the first view (V = 2: a training batch's
         past) is taken, as numpy or a tensor. Returns (B, frames, D) on the
-        model's device."""
+        model's device (D the CCA's components with a projection)."""
         batch_audio, _label = data
         x = _as_tensor(batch_audio).to(self.device, torch.float32)
         while x.ndim > 2:
             x = x[:, 0]
-        with torch.no_grad(), full_fp32():
-            c, e, h = self.model(x, self.hidden)
+        with torch.no_grad(), full_fp32(), self._dropout_on():
+            c, e, h = self.model(x, self.hidden, self.generator)
         if self.keep_hidden:
             self.hidden = h
         feats = e if self.get_encoded else c
@@ -209,6 +259,8 @@ class FeatureModule:
             feats = seqNormalization(feats)
         if self.collapse:
             feats = feats.reshape(-1, feats.shape[-1])
+        if self.cca_projection is not None:
+            feats = self.cca_projection(feats)
         return feats
 
 
@@ -315,21 +367,33 @@ buildFeature_batch = build_feature_batch
 
 def build_feature_files(feature_maker: Callable, seq_paths,
                         maxSizeSeq: int = 64000, seqNorm: bool = False,
-                        strict: bool = False, max_batch: int = 16
-                        ) -> Dict[str, np.ndarray]:
+                        strict: bool = False, max_batch: int = 16,
+                        bucket_frames: int = 0) -> Dict[str, np.ndarray]:
     """Whole-corpus features, batched across files (counterpart of
     `cpc2_tpu/feature_loader.py:build_feature_files`).
 
     Files with the same number of samples have the same chunks, so up to
     `max_batch` of them run as one batch per chunk, the context network's
     state carried across a batch's chunks (its batch axis is the file
-    axis); each file's features match `build_feature`'s. Files are
-    decoded on a thread pool while earlier batches run, and every batch's
-    features stay on the device until the end. Returns {path: (1, frames,
-    D) numpy}."""
+    axis); each file's features match `build_feature`'s. With
+    `bucket_frames > 0` every file is zero-padded up to the next multiple
+    of `bucket_frames` encoded frames, so that files of different lengths
+    share batches, and its features are cut back to its own frame count
+    (the padding reaches the last few frames through the encoder's edge,
+    as in the JAX package). Files are decoded (and padded) on a thread
+    pool while earlier batches run, and every batch's features stay on the
+    device until the end. Returns {path: (1, frames, D) numpy}."""
+    ds = _downsampling(feature_maker)
 
     def decode(path):
-        return path, np.asarray(load_audio(path)[0], dtype=np.float32)
+        seq = np.asarray(load_audio(path)[0], dtype=np.float32)
+        frames = seq.shape[-1] // ds
+        if bucket_frames > 0:
+            padded = -(-max(frames, 1) // bucket_frames) * bucket_frames
+            pad = padded * ds - seq.shape[-1]
+            if pad > 0:
+                seq = np.pad(seq, (0, pad))
+        return path, frames, seq
 
     pending = []       # (paths of the batch, device (B, frames, D))
 
@@ -341,9 +405,11 @@ def build_feature_files(feature_maker: Callable, seq_paths,
                         _chunked(feature_maker, stack, maxSizeSeq, seqNorm,
                                  strict)))
 
+    true_frames = {}
     buckets = defaultdict(list)
     with ThreadPoolExecutor(max_workers=4) as pool:
-        for path, seq in pool.map(decode, seq_paths):
+        for path, frames, seq in pool.map(decode, seq_paths):
+            true_frames[path] = frames
             buckets[seq.shape[-1]].append((path, seq))
             if len(buckets[seq.shape[-1]]) >= max_batch:
                 run_batch(buckets.pop(seq.shape[-1]))
@@ -354,7 +420,8 @@ def build_feature_files(feature_maker: Callable, seq_paths,
     for paths, feats in pending:
         whole = feats.cpu().numpy()
         for j, path in enumerate(paths):
-            out[path] = whole[j:j + 1]
+            out[path] = (whole[j:j + 1, :true_frames[path]]
+                         if bucket_frames > 0 else whole[j:j + 1])
     return out
 
 

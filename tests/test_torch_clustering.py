@@ -427,12 +427,45 @@ def test_cuda_without_a_card_raises(module, argv, tmp_path, monkeypatch):
         module.main(argv)
 
 
-def test_train_mode_raises(jax_checkpoint, corpus, tmp_path):
-    """`--train_mode` (dropout on while the features are made) is not
-    ported: the feature maker raises with its item's title."""
-    root, _item, _paths, _phones = corpus
-    with pytest.raises(NotImplementedError, match="train_mode features"):
-        clustering_script.main([str(jax_checkpoint), str(tmp_path / "o"),
-                                str(root), "--extension", ".wav",
-                                "--recursionLevel", "1", "--sizeWindow",
-                                "3200", "--train_mode", "--device", "cpu"])
+def test_train_mode_raises(jax_checkpoint, corpus, clustering_runs,
+                           tmp_path):
+    """`--train_mode` (dropout on while the features are made) no longer
+    raises: `clustering_script --train_mode` of both packages from the same
+    start centroids (the LSTM model has no dropout, so the features are
+    evaluation's) gives the same centroids, and `clustering_quantization`
+    of either run, whose `args.json` carries `train_mode`, the same
+    lines."""
+    import jax
+    root, _item, paths, _phones = corpus
+    start = clustering_runs["port"].parent / "start.pt"
+    argv = [str(jax_checkpoint), None, str(root), "--extension", ".wav",
+            "--recursionLevel", "1", "--sizeWindow", "3200", "-n", "1",
+            "-k", "4", "--load", str(start), "--train_mode"]
+    for side, main, batch, extra in (
+            ("port", clustering_script.main, len(jax.devices()),
+             ["--device", "cpu"]),
+            ("jax", jax_script.main, 1, [])):
+        argv[1] = str(tmp_path / side)
+        random.seed(0)
+        np.random.seed(0)
+        main(argv + ["--batchSizeGPU", str(batch)] + extra)
+    got, want = (torch.load(tmp_path / side / "checkpoint_last.pt",
+                            weights_only=False)["state_dict"]["Ck"]
+                 for side in ("port", "jax"))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    saved = json.loads((tmp_path / "port" / "args.json").read_text())
+    assert saved["train_mode"] is True
+    for feats in _quantized_features(jax_checkpoint, paths, "batched"):
+        assert _gap(feats, got[0].numpy()) > GAP
+    outputs = {}
+    for side, main, extra in (("port", clustering_quantization.main,
+                               ["--device", "cpu"]),
+                              ("jax", jax_quant.main, [])):
+        main([str(tmp_path / "port" / "checkpoint_last.pt"), str(root),
+              str(tmp_path / f"q_{side}"), "--file_extension", ".wav",
+              "--max_size_seq", "3200", "--batch_size", "2",
+              "--recursionLevel", "1"] + extra)
+        outputs[side] = (tmp_path / f"q_{side}" /
+                         "quantized_outputs.txt").read_text()
+    assert outputs["port"] == outputs["jax"]
+    assert len(outputs["port"].strip().split("\n")) == len(paths)

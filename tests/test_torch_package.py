@@ -2,9 +2,11 @@
 (every module, the supervised criteria's `losses/seq_alignment.py`, the
 probe's `eval/linear_separability.py`, the clustering, dim-reduction,
 unit-ABX, ZeroSpeech-export and Common Voices modules, the hub entry and the
-host DTW among them) pulls in nothing of JAX or the JAX package and builds
-nothing, the discrete-unit and Common Voices CLIs take the JAX package's
-flags plus `--device`, unported flags raise and ported ones (augmentation,
+host DTW, the CCA fit, the clustering criteria and the host tools among
+them) pulls in nothing of JAX, the JAX package, scikit-learn or pandas and
+builds nothing, the discrete-unit, Common Voices and CCA CLIs take the JAX
+package's flags plus `--device` and the host tools its flags alone,
+unported flags raise and ported ones (augmentation,
 `--supervised`) parse, `--device cuda` without a card raises, and
 `python -m cpc2_torch.train` trains on a wav corpus with `--device cpu`,
 and on a FLAC corpus at its own `--file_extension`.
@@ -40,7 +42,8 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
         f"for name in {_modules()!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'cpc2_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'cpc2_tpu', 'sklearn', "
+        "'pandas')]\n"
         "assert not bad, bad\n"
         "from cpc2_torch.ops import _build\n"
         "assert _build._lib is None\n"
@@ -60,7 +63,14 @@ def test_import_pulls_in_no_jax_and_builds_nothing(tmp_path):
             "cpc2_torch.eval.eval_ABX_clustering",
             "cpc2_torch.eval.build_zeroSpeech_features",
             "cpc2_torch.eval.common_voices_eval", "cpc2_torch.hub",
-            "cpc2_torch.ops.dtw_host"} <= set(_modules())
+            "cpc2_torch.ops.dtw_host", "cpc2_torch.research.cca",
+            "cpc2_torch.research.train_cca",
+            "cpc2_torch.research.clustering_criterion",
+            "cpc2_torch.tools.adjust_sample_rate",
+            "cpc2_torch.tools.best_val_epoch",
+            "cpc2_torch.tools.build_power_two_training",
+            "cpc2_torch.tools.extract_segments",
+            "cpc2_torch.tools.filter"} <= set(_modules())
 
 
 class _Parsed(Exception):
@@ -98,13 +108,22 @@ def _cli_entries():
                                        clustering_script)
     from cpc2_torch.eval import (build_zeroSpeech_features,
                                  common_voices_eval, eval_ABX_clustering)
-    from cpc2_torch.research import dim_reduction
+    from cpc2_torch.research import dim_reduction, train_cca
+    from cpc2_torch.tools import (adjust_sample_rate, best_val_epoch,
+                                  build_power_two_training, extract_segments)
+    from cpc2_torch.tools import filter as port_filter
     from cpc2_tpu.clustering import clustering_quantization as jax_quant
     from cpc2_tpu.clustering import clustering_script as jax_script
     from cpc2_tpu.eval import build_zeroSpeech_features as jax_export
     from cpc2_tpu.eval import common_voices_eval as jax_cv
     from cpc2_tpu.eval import eval_ABX_clustering as jax_abx
     from cpc2_tpu.research import dim_reduction as jax_dr
+    from cpc2_tpu.research import train_cca as jax_cca
+    from cpc2_tpu.tools import adjust_sample_rate as jax_resample
+    from cpc2_tpu.tools import best_val_epoch as jax_best
+    from cpc2_tpu.tools import build_power_two_training as jax_b2
+    from cpc2_tpu.tools import extract_segments as jax_segments
+    from cpc2_tpu.tools import filter as jax_filter
     return {"common_voices_train": (common_voices_eval.parse_args,
                                     jax_cv.parse_args),
             "common_voices_per": (common_voices_eval.parse_args,
@@ -118,7 +137,20 @@ def _cli_entries():
             "build_zeroSpeech_features": (
                 build_zeroSpeech_features.parse_export_args,
                 jax_export.parse_export_args),
-            "dim_reduction": (dim_reduction.parse_args, jax_dr.main)}
+            "dim_reduction": (dim_reduction.parse_args, jax_dr.main),
+            "train_cca": (train_cca.main, jax_cca.main),
+            "adjust_sample_rate": (adjust_sample_rate.parse_args,
+                                   jax_resample.parse_args),
+            "best_val_epoch": (best_val_epoch.main, jax_best.main),
+            "build_power_two_training": (build_power_two_training.main,
+                                         jax_b2.main),
+            "extract_segments": (extract_segments.main, jax_segments.main),
+            "filter": (port_filter.parse_args, jax_filter.parse_args)}
+
+
+# the host tools, which run no model, take no --device
+HOST_TOOLS = ("adjust_sample_rate", "best_val_epoch",
+              "build_power_two_training", "extract_segments", "filter")
 
 
 def _subparser(parser, name):
@@ -133,17 +165,24 @@ def _subparser(parser, name):
                                  "eval_ABX_clustering",
                                  "build_zeroSpeech_features",
                                  "dim_reduction", "common_voices_train",
-                                 "common_voices_per"])
+                                 "common_voices_per", "train_cca"]
+                         + list(HOST_TOOLS))
 def test_cli_flags_match_jax(cli):
-    """The discrete-unit CLIs and the Common Voices subcommands take the
-    JAX package's flags name for name, with its defaults, choices and
-    nargs, and `--device` besides (default cuda)."""
+    """The discrete-unit CLIs, the Common Voices subcommands, the CCA fit
+    and the host tools take the JAX package's flags name for name, with its
+    defaults, choices and nargs, and, where a model runs, `--device`
+    besides (default cuda)."""
+    if cli == "filter":
+        pytest.importorskip("pandas")
     port, jax_entry = _cli_entries()[cli]
     got, want = _parser(port, []), _parser(jax_entry, [])
     if cli.startswith("common_voices_"):
         command = cli[len("common_voices_"):]
         got, want = _subparser(got, command), _subparser(want, command)
     got, want = _flags(got), _flags(want)
+    if cli in HOST_TOOLS:
+        assert got == want
+        return
     device = got.pop(("--device",))
     assert device[1] == "cuda" and device[2] == ["cuda", "cpu"]
     assert got == want

@@ -370,8 +370,12 @@ def test_export_matches_jax(jax_checkpoint, phone_checkpoint,  # noqa: F811
 
 
 def test_export_cuda_without_a_card_and_train_mode_raise(
-        jax_checkpoint, corpus, tmp_path):  # noqa: F811
-    root, _item, _paths, _phones = corpus
+        jax_checkpoint, corpus, tmp_path, monkeypatch):  # noqa: F811
+    """`--device cuda` without a card raises; `--train_mode` runs the
+    per-file loop (no batching across files, as in the JAX package: each
+    forward draws its own dropout masks) and, on the LSTM model (no
+    dropout), writes the JAX package's `--train_mode` features."""
+    root, _item, paths, _phones = corpus
     argv = [str(root), str(tmp_path / "o"), str(jax_checkpoint)]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -379,6 +383,22 @@ def test_export_cuda_without_a_card_and_train_mode_raise(
         with pytest.raises(RuntimeError, match="no CUDA device"):
             dr.main([str(jax_checkpoint), str(tmp_path / "p.pt"),
                      "--pathDB", str(root)])
-    with pytest.raises(NotImplementedError, match="train_mode features"):
-        build_zeroSpeech_features.main(argv + ["--train_mode", "--device",
-                                               "cpu"])
+
+    def batched(*_args, **_kw):
+        raise AssertionError("--train_mode batched files")
+    monkeypatch.setattr(fl, "build_feature_files", batched)
+    outputs = {}
+    for side, main, extra in (("port", build_zeroSpeech_features.main,
+                               ["--device", "cpu"]),
+                              ("jax", jax_export.main, [])):
+        out = tmp_path / side
+        main([str(root), str(out), str(jax_checkpoint), "--format", "npy",
+              "--maxSizeSeq", "3200", "--train_mode"] + extra)
+        outputs[side] = {p.name: np.load(p) for p in sorted(out.glob("*"))}
+    assert sorted(outputs["port"]) == sorted(
+        f"{p.split('/')[-1][:-4]}.npy" for p in paths)
+    for name, got in outputs["port"].items():
+        np.testing.assert_allclose(got, outputs["jax"][name], err_msg=name,
+                                   **TOL)
+    sidecar = json.loads((tmp_path / "port.json").read_text())
+    assert sidecar["train_mode"] is True
