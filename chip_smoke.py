@@ -269,13 +269,33 @@ Phases, each of which fails the run with a nonzero exit:
    (`[buckets]`); one DEC centroid update and one DeepClustering loss card
    against CPU (`[clustering criteria]`); the phase's wall seconds on
    `[phase 13]`;
-14. print one `kernels` JSON line (the `lstm_fwd`, `dtw` and
+14. data-parallel training (`run_data_parallel`): the default epoch and
+   the N = 4 epoch again with `--distributed` as the one rank of a NCCL
+   group (WORLD_SIZE=1), each step's losses, the checkpoint and every
+   kernel's launches bit for bit the runs without it, both ms/step
+   (`[dp nccl default]`, `[dp nccl dispatch]`); two ranks sharing cuda:0
+   over `gloo` (`CPC2_DIST_BACKEND=gloo`), each a fresh process: its
+   `all_reduce` and `broadcast` of CUDA tensors (`[dp gloo
+   collectives]`), DP_STEPS steps at the recipe from the same weights and
+   negatives against the single process at batch 16 with
+   `--neg_pool_group 8`, and with `--global_negatives` against batch 16
+   over the whole pool, `fp32` at 1e-3 and `bf16mix` at the step rules,
+   the ranks bit for bit (`[dp steps ...]`), then one epoch of the CLI
+   with `--distributed --global_negatives` on DP_DB, each rank its share
+   of the files and its short batches in weighted rounds, the gathered
+   InfoNCE kernels launched on each (`[dp epoch]`); the gathered-pool
+   kernels at GATHERED_SHAPE against their plain version, timed beside
+   the library route and the bound, on rank 0 after its epoch (`[dp
+   kernels]`); the ranks start while the NCCL epochs run; the phase's
+   wall seconds on `[phase 14]`;
+15. print one `kernels` JSON line (the `lstm_fwd`, `dtw` and
    `ffn_fwd_fp32` rows with their launches on the unit path,
    `launches_discrete_units`, the LSTM rows' on the Common Voices
    path, `launches_common_voices`, each training kernel's over phase
    10's epochs, `launches_variants`, the grouped InfoNCE rows' on
-   phase 12's epoch, and the rows of the kernels phase 13's paths ran,
-   `launches_feature_extras`) and, last, the `ok` line.
+   phase 12's epoch, the rows of the kernels phase 13's paths ran,
+   `launches_feature_extras`, and the gathered InfoNCE rows' on rank 0
+   of phase 14's two-rank epoch) and, last, the `ok` line.
 
 It exits nonzero, printing no result, when no CUDA card is available or
 when the `cpc2_torch` package is not beside it.
@@ -5922,8 +5942,9 @@ def fixed_draw(neg, group):
     from cpc2_torch.losses import criterion
     real = criterion.sample_negative_indices
 
-    def draw(generator, b, s, n, w, device, pool_group=None):
-        if pool_group != group:
+    def draw(generator, b, s, n, w, device, pool_group=None,
+             pool_batch=None):
+        if pool_group != group or pool_batch is not None:
             raise AssertionError(f"the criterion drew pools of {pool_group}"
                                  f", not {group}")
         return neg.to(device)
@@ -6710,6 +6731,574 @@ def feature_extras_launches(extras: dict) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: data-parallel training (`--distributed`, two ranks sharing the
+# card, `--global_negatives` and its gathered-pool InfoNCE kernels)
+# ---------------------------------------------------------------------------
+
+GATHERED = ("infonce_fwd_gathered", "infonce_bwd_gathered")
+DP_RANKS = 2
+# the gathered pool of two ranks at the recipe: 8 local windows' 12 x 116
+# predictions against 2 x 8 x 128 rows of 256
+GATHERED_SHAPE = (8, 12, 116, 128, 256, DP_RANKS * 8 * 128)
+# steps of the two ranks against the single process's at batch 16
+DP_STEPS = 2
+# the two ranks' epoch: 4 speakers x 3 files x 26 s of WAV, files 0-1 of
+# each speaker train and file 2 validates (`--pathTrain`, `--pathVal`), so
+# that each rank's share of the files (two speakers) holds the same
+# windows: 8 full batches of 8 and 2 short ones a rank (`samespeaker`),
+# the short ones as weighted rounds at the epoch's end
+DP_DB = "dp_db"
+DP_SECONDS = 26.0
+# A rank: `chip_smoke.dp_rank(rank, work, port)` in a fresh process, its
+# result saved to argv[2]; `WORLD_SIZE`, `RANK`, `LOCAL_RANK`,
+# `MASTER_ADDR`, `MASTER_PORT` and `CPC2_DIST_BACKEND` in its environment.
+# The ranks start while the NCCL epochs run and wait for DP_GO (in the
+# work directory) before their first kernel.
+DP_GO = "dp_go"
+DP_RUNNER = (
+    "import sys\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "import torch\n"
+    "import chip_smoke\n"
+    "out = chip_smoke.dp_rank(int(sys.argv[3]), sys.argv[4], "
+    "int(sys.argv[5]))\n"
+    "torch.save(out, sys.argv[2])\n")
+
+
+def dp_trainer(dev, inputs: dict, mode: str, dp):
+    """A trainer at the recipe from `inputs`' weights, dropout off: as a
+    rank of `dp` (`--global_negatives` in `global` mode), or without `dp`
+    the single process at batch 16 (`--neg_pool_group 8` in `group`
+    mode)."""
+    from cpc2_torch.config import parse_args
+    from cpc2_torch.feature_loader import build_model
+    from cpc2_torch.train import get_criterion
+    from cpc2_torch.training import Trainer, make_optimizer
+    flags = ["--pathDB", ".", "--random_seed", "0"]
+    if dp is not None and mode == "global":
+        flags.append("--global_negatives")
+    if dp is None:
+        flags += ["--batchSizeGPU", "16"] + (
+            ["--neg_pool_group", "8"] if mode == "group" else [])
+    args = parse_args(flags)
+    model = build_model(args).to(dev)
+    crit = get_criterion(args).to(dev)
+    model.load_state_dict(inputs["model"])
+    crit.load_state_dict(inputs["criterion"])
+    for mod in crit.modules():      # dropout off, as `_check_step`
+        if hasattr(mod, "rate"):
+            mod.rate = 0.0
+        if hasattr(mod, "dropout") and isinstance(mod.dropout, float):
+            mod.dropout = 0.0
+    named = (list(model.named_parameters(prefix="model"))
+             + list(crit.named_parameters(prefix="criterion")))
+    params = [p for _n, p in named]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    trainer = Trainer(model, crit, make_optimizer(args, params,
+                                                  capturable=True), gen,
+                      dp=dp, global_negatives=args.global_negatives)
+    return trainer, named
+
+
+def dp_steps(dev, inputs: dict, precision: str, mode: str, dp) -> dict:
+    """DP_STEPS steps of `dp_trainer` on `inputs`' batches of 16 (a rank's
+    rows) with its negatives (a rank's own, or all of them in global rows):
+    each step's losses, the first step's gradients (over the ranks), the
+    parameters after, the kernels' launches and the steps' ms (events)."""
+    from cpc2_torch.ops import _build
+    from cpc2_torch.training import precision as library_precision
+    with library_precision(precision):
+        trainer, named = dp_trainer(dev, inputs, mode, dp)
+        _build.reset_launches()
+        losses, grads, ms = [], None, []
+        for i in range(DP_STEPS):
+            x = inputs["batch"][i].to(dev)
+            neg = inputs["neg"][mode][i]
+            if dp is not None:
+                # a rank's own rows; in `group` mode its own pool's
+                x, neg = dp.rows(x), neg[dp.rank]
+                if mode == "group":
+                    neg = neg - dp.rank * (GATHERED_SHAPE[5] // DP_RANKS)
+            else:
+                neg = neg.reshape(-1, *neg.shape[2:])
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out, _accs = trainer.train_step(x, neg.to(dev))
+            end.record()
+            torch.cuda.synchronize(dev)
+            ms.append(start.elapsed_time(end))
+            losses.append(out.cpu())
+            if grads is None:
+                grads = [p.grad.detach().cpu().clone() for _n, p in named]
+        launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+    return {"losses": losses, "grads": grads,
+            "names": [n for n, _p in named],
+            "params": [p.detach().cpu().clone() for _n, p in named],
+            "launches": launches, "ms": ms}
+
+
+def dp_alone(dev, inputs: dict, dp) -> dict:
+    """A one host's short batch on the card (`train_tails.TailRunner`):
+    the `global` mode trainer of `dp` in `fp32`, the device chain's
+    `bandreject` on both views drawn from a generator of the rank's own
+    (as `train.py` seeds it), takes a step on its rows of the first batch
+    of 16, one on its first 3 windows whole (the tail runner's
+    generators, no gathered pool) and one on its rows again; then the
+    ranks' replicas are compared (`check_replicas`). Returns the tail
+    step's losses, each tensor's float64 sum and the kernels' launches."""
+    from cpc2_torch.data.augment_device import make_device_augment
+    from cpc2_torch.ops import _build
+    from cpc2_torch.parallel import rank_seed
+    from cpc2_torch.train_tails import TailRunner, route
+    from cpc2_torch.training import precision as library_precision
+    batch = inputs["batch"][0].to(dev)
+    if route(3, batch.shape[0], dp) != "alone":
+        raise AssertionError("[dp alone] 3 windows do not run alone")
+    with library_precision("fp32"):
+        trainer, _named = dp_trainer(dev, inputs, "global", dp)
+        trainer.device_augment = (make_device_augment(["bandreject"]),
+                                  True, True, False)
+        trainer.augment_generator = torch.Generator(device=dev)
+        trainer.augment_generator.manual_seed(rank_seed(5, dp.rank))
+        tails = TailRunner(dev, rank_seed(0, dp.world))
+        _build.reset_launches()
+        trainer.train_step(dp.rows(batch))
+        losses, _accs = tails.train(trainer, batch[:3])
+        trainer.train_step(dp.rows(batch))
+        launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+        dp.check_replicas(trainer.model, trainer.criterion)
+    return {"tail_losses": losses.cpu(), "launches": launches,
+            "sums": [float(t.double().sum()) for m in (trainer.model,
+                                                       trainer.criterion)
+                     for t in m.state_dict().values()]}
+
+
+def dp_rank(rank: int, work: str, port: int) -> dict:
+    """One of the DP_RANKS ranks on cuda:0 over `gloo`, once DP_GO exists:
+    first a check that `gloo` takes CUDA tensors in `all_reduce` and
+    `broadcast`, then `dp_steps` in each precision and mode and
+    `dp_alone` in a process group of its own (port `port`), then one epoch of the CLI with
+    `--distributed --global_negatives` (`dp_epoch_argv`) in the
+    environment's layout; rank 0 then checks and times the gathered-pool
+    kernels alone (`check_gathered_kernels`), the other rank gone."""
+    import torch.distributed as dist
+    from cpc2_torch.ops import _build
+    from cpc2_torch.parallel import DataParallel, init_process_group
+    from cpc2_torch.train import main as train_main
+    dev = torch.device("cuda", 0)
+    out = {}
+    go = os.path.join(work, DP_GO)
+    deadline = time.perf_counter() + 300
+    while not os.path.exists(go):
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"rank {rank}: no {DP_GO} in 300 s")
+        time.sleep(0.05)
+    init_process_group(rank, DP_RANKS, dev, f"tcp://127.0.0.1:{port}")
+    try:
+        dp = DataParallel(rank, DP_RANKS, dev)
+        t = torch.full((5,), float(rank + 1), device=dev)
+        dp.all_reduce(t)
+        b = torch.full((3,), float(rank + 7), device=dev)
+        dist.broadcast(b, src=0)
+        if dp.backend != "gloo" or not bool((t == 3).all()) or \
+                not bool((b == 7).all()):
+            raise AssertionError(f"rank {rank}: {dp.backend} on CUDA "
+                                 f"tensors gave {t.tolist()}, {b.tolist()}")
+        out["collectives"] = dp.backend
+        inputs = torch.load(os.path.join(work, "dp_inputs.pt"),
+                            weights_only=True)
+        for prec in ("fp32", "bf16mix"):
+            for mode in ("group", "global"):
+                out[f"{prec} {mode}"] = dp_steps(dev, inputs, prec, mode, dp)
+        out["alone"] = dp_alone(dev, inputs, dp)
+    finally:
+        dist.destroy_process_group()
+    _build.reset_launches()
+    record = train_main(dp_epoch_argv(work))
+    out["epoch"] = {
+        "launches": {k: n for k, n in _build.LAUNCHES.items() if n},
+        **{k: record.get(k) for k in (
+            "step_losses", "median_step_ms", "val_steps", "ranks",
+            "backend", "audio_hours_per_hour")},
+        "steps": len(record["step_ms"]), "logs": record["logs"]}
+    if rank == 0:
+        out["kernels"] = check_gathered_kernels(dev)
+    return out
+
+
+def dp_epoch_argv(work: str) -> list:
+    return train_argv(work, os.path.join(work, "ck_dp2"), "--distributed",
+                      "--global_negatives", "--file_extension", ".wav",
+                      "--pathTrain", os.path.join(work, "dp_train.txt"),
+                      "--pathVal", os.path.join(work, "dp_val.txt"),
+                      db=DP_DB)
+
+
+def dp_inputs(work: str) -> dict:
+    """The ranks' weights (the recipe from seed 0), DP_STEPS batches of 16
+    windows and their negatives: in `group` mode (DP_RANKS, 8, N, W) each
+    rank's in its own 1,024 rows, in `global` mode over all 2,048; the
+    single process takes them in global rows. Saved for the ranks."""
+    from cpc2_torch.config import parse_args
+    from cpc2_torch.feature_loader import build_model
+    from cpc2_torch.train import get_criterion
+    args = parse_args(["--pathDB", ".", "--random_seed", "0"])
+    torch.manual_seed(0)
+    model, crit = build_model(args), get_criterion(args)
+    rs = np.random.RandomState(14)
+    b, _k, w, n, _d, p = GATHERED_SHAPE
+    rows = p // DP_RANKS
+    batch = [torch.from_numpy(0.1 * rs.randn(DP_RANKS * b, 2, 1, 20480)
+                              .astype(np.float32)) for _ in range(DP_STEPS)]
+    local = [rs.randint(0, rows, (DP_RANKS, b, n, w)) for _ in range(DP_STEPS)]
+    neg = {"group": [torch.from_numpy((x + (np.arange(DP_RANKS) * rows)
+                                       [:, None, None, None]).astype(
+                                           np.int32)) for x in local],
+           "global": [torch.from_numpy(rs.randint(0, p, (DP_RANKS, b, n, w))
+                                       .astype(np.int32))
+                      for _ in range(DP_STEPS)]}
+    inputs = {"model": model.state_dict(), "criterion": crit.state_dict(),
+              "batch": batch, "neg": neg}
+    torch.save(inputs, os.path.join(work, "dp_inputs.pt"))
+    return inputs
+
+
+def write_dp_corpus(work: str) -> None:
+    """DP_DB and its split lists."""
+    written = write_corpus(os.path.join(work, DP_DB), ext=".wav",
+                           n_files=3, seconds=DP_SECONDS, seed=14)
+    names = sorted(os.path.splitext(os.path.basename(p))[0]
+                   for p in written)
+    for split, keep in (("train", lambda s: not s.endswith("2")),
+                        ("val", lambda s: s.endswith("2"))):
+        with open(os.path.join(work, f"dp_{split}.txt"), "w") as fh:
+            fh.write("\n".join(s for s in names if keep(s)) + "\n")
+
+
+def hold_dp_steps(name: str, ranks: list, one: dict, precision: str) -> dict:
+    """The ranks' `dp_steps` against the single process's: every step's
+    losses and the first step's gradients (fp32: 1e-3 of each tensor's
+    largest; bf16mix: PERF.md section 2's step rules), the ranks bit for
+    bit equal. Returns the worst errors."""
+    a, b = ranks
+    for x, y in zip(a["losses"] + a["params"], b["losses"] + b["params"]):
+        if not torch.equal(x, y):
+            raise AssertionError(f"[dp steps {name}] the two ranks differ")
+    if precision == "fp32":
+        loss_err = compare(f"[dp steps {name}] losses", a["losses"],
+                           one["losses"], rtol=1e-3)
+        grad_err = compare(f"[dp steps {name}] gradients", a["grads"],
+                           one["grads"], rtol=1e-3)
+        return {"losses_max_abs": loss_err, "grads_max_abs": grad_err}
+    loss_err = compare(f"[dp steps {name}] losses", a["losses"],
+                       one["losses"], rtol=FUSED_LOSS_RTOL)
+    worst = 0.0
+    for gname, g, want in zip(a["names"], a["grads"], one["grads"]):
+        rel = norm_rel(g, want)
+        tol = (FFN_LIN1_GRAD_NORM_TOL if ".ffnetwork.lin1." in gname
+               else FUSED_GRAD_NORM_TOL)
+        if rel > tol:
+            raise AssertionError(f"[dp steps {name}] gradient {gname}: "
+                                 f"{rel:.3e} (2-norm, relative)")
+        worst = max(worst, rel)
+    return {"losses_max_abs": loss_err, "grads_worst_rel_2norm": worst}
+
+
+def check_gathered_kernels(dev) -> dict:
+    """The InfoNCE kernels at GATHERED_SHAPE, indices over the whole pool
+    as `--global_negatives` draws them: forward, dpreds and dz against
+    `negative_scores_plain` (ATOL + RTOL of the largest), the backward bit
+    for bit across two calls, one call counted once under GATHERED and
+    launching one `gathered_fwd`, one `gathered_bwd` and one `dz_sum`;
+    device times beside the plain version's, the library route's and the
+    bound as `check_infonce` reckons it. Returns the kernels' entries."""
+    from cpc2_torch.losses import sample_negative_indices
+    from cpc2_torch.ops import _build
+    from cpc2_torch.ops.infonce import (infonce_plan, negative_scores,
+                                        negative_scores_plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    b, k, w, n, d, p = GATHERED_SHAPE
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = infonce_plan(b, k, w, n, d, p, sms)
+    inputs = [torch.randn(b, k, w, d, device=dev, generator=gen),
+              torch.randn(p, d, device=dev, generator=gen)]
+    idx = sample_negative_indices(gen, b, 128, n, w, dev,
+                                  pool_batch=DP_RANKS * b).transpose(
+                                      1, 2).contiguous()
+    if int(idx.max()) < p // 2:
+        raise AssertionError("the draw kept to the local rows")
+    cot = [torch.randn(b, k, w, n, device=dev, generator=gen)]
+
+    def kernel(preds, z):
+        return negative_scores(preds, z, idx, ranks=DP_RANKS)
+
+    def plain(preds, z):
+        return negative_scores_plain(preds, z, idx)
+    _build.reset_launches()
+    out_k, grad_k, bwd_k = grads_of(kernel, inputs, cot)
+    launched = {name: c for name, c in _build.LAUNCHES.items() if c}
+    if launched != {GATHERED[0]: 1, GATHERED[1]: 1}:
+        raise AssertionError(f"gathered infonce: launches {launched}")
+    out_p, grad_p, bwd_p = grads_of(plain, inputs, cot)
+    err_f = compare("gathered infonce forward", out_k, out_p)
+    err_b = compare("gathered infonce backward", grad_k, grad_p)
+    if not all(torch.equal(x, y) for x, y in zip(bwd_k(), grad_k)):
+        raise AssertionError("gathered infonce backward: two calls differ")
+    with torch.no_grad():
+        fwd_split, fwd_counts = kernel_counts(lambda: kernel(*inputs),
+                                              "gathered_fwd")
+        plain_fwd = device_ms(lambda: plain(*inputs))
+        route_fwd = device_ms(lambda: infonce_route(*inputs, idx))
+        route_out = infonce_route(*inputs, idx)
+
+        def route_bwd():
+            return infonce_route_bwd(cot[0], *inputs, idx)
+        route_bwd_ms = device_ms(route_bwd)
+        route_grad = route_bwd()
+    compare("gathered infonce route forward", [route_out], out_k)
+    compare("gathered infonce route backward", route_grad, grad_k)
+    bwd_split, bwd_counts = kernel_counts(bwd_k, "dz_sum")
+    for what, counts, names in (("forward", fwd_counts, ["gathered_fwd"]),
+                                ("backward", bwd_counts,
+                                 ["gathered_bwd", "dz_sum"])):
+        one_launch_each(f"gathered infonce {what}", counts, names)
+    plain_bwd = device_ms(bwd_p)
+    events = {GATHERED[0]: cuda_ms(lambda: kernel(*inputs)),
+              GATHERED[1]: cuda_ms(bwd_k)}
+    dots = 2 * b * k * w * n * d
+    src, rep = "cpc2_torch/csrc/infonce.cu", "cpc2_tpu/ops/infonce_pallas.py"
+    entries = [
+        kernel_entry(GATHERED[0], src, rep + ":107", err_f,
+                     sum(fwd_split.values()), plain_fwd, None,
+                     nbytes(*inputs, idx) + nbytes(*out_k), dots,
+                     TF32X3_FLOP_PER_S),
+        kernel_entry(GATHERED[1], src, rep + ":170", err_b,
+                     sum(bwd_split.values()), plain_bwd, None,
+                     nbytes(*cot, *inputs, idx) + nbytes(*grad_k), dots)]
+    return {"kernels": entries, "plan": plan._asdict(),
+            "route_ms": {GATHERED[0]: route_fwd, GATHERED[1]: route_bwd_ms},
+            "events_ms": events, "bwd_split": bwd_split,
+            "kernels_a_call": {"fwd": fwd_counts, "bwd": bwd_counts}}
+
+
+def same_checkpoint(path_a: str, path_b: str) -> None:
+    """Every tensor of two checkpoints bit for bit equal, but the ranks'
+    generator states that a run under ranks adds (its rank 0's must be the
+    generator's state)."""
+    a, b = (_flat(torch.load(p, weights_only=True)) for p in (path_a, path_b))
+    ranks = [k for k in a if k.startswith("optimizer.rank_generator_states")]
+    if ranks and not torch.equal(a[ranks[0]], a["optimizer.generator_state"]):
+        raise AssertionError("rank 0's saved generator state is not the "
+                             "generator's")
+    a = {k: v for k, v in a.items() if k not in ranks}
+    if set(a) != set(b):
+        raise AssertionError(f"checkpoint keys differ: {set(a) ^ set(b)}")
+    differ = [k for k in sorted(a) if not torch.equal(a[k], b[k])]
+    if differ:
+        raise AssertionError(f"{path_a} vs {path_b}: {differ[:5]} differ")
+
+
+def run_nccl_rank(dev, work: str, tag: str, flags, reference: dict) -> dict:
+    """One epoch of the CLI with `--distributed` as the one rank of a NCCL
+    group (WORLD_SIZE=1, RANK=0, LOCAL_RANK=0 and a port of its own) with
+    `flags`, held bit for bit to `reference`, the same seeded epoch without
+    `--distributed`: every step's losses, the checkpoint, and every
+    kernel's launches exactly."""
+    from cpc2_torch.ops import _build
+    from cpc2_torch.parallel import free_port
+    from cpc2_torch.train import main
+    env = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    ck = os.path.join(work, f"ck_nccl_{tag}")
+    os.environ.update(env)
+    try:
+        _build.reset_launches()
+        record = main(train_argv(work, ck, "--distributed", *flags))
+        launches = dict(_build.LAUNCHES)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if (record["ranks"], record["backend"]) != (1, "nccl"):
+        raise AssertionError(f"[nccl {tag}] ran {record['ranks']} ranks "
+                             f"over {record['backend']}")
+    if record["step_losses"] != reference["step_losses"]:
+        raise AssertionError(f"[nccl {tag}] the step losses differ from "
+                             f"the run without --distributed")
+    same_checkpoint(os.path.join(ck, "checkpoint_0.pt"),
+                    reference["checkpoint"])
+    held_launches(f"[nccl {tag}]", {k: n for k, n in launches.items() if n},
+                  {k: n for k, n in reference["launches"].items() if n})
+    return {"median_step_ms": record["median_step_ms"],
+            "reference_median_step_ms": reference["median_step_ms"],
+            "steps": len(record["step_ms"]),
+            "dispatch": record["dispatch"],
+            "launches": {k: n for k, n in launches.items() if n}}
+
+
+def run_data_parallel(dev, work: str, card: str, records: dict) -> dict:
+    """Phase 14: `[dp nccl default]` and `[dp nccl dispatch]`
+    (`run_nccl_rank` against the default and the N = 4 epochs);
+    `[dp gloo collectives]`, `[dp steps <precision> <mode>]` (two `gloo`
+    ranks on cuda:0, `dp_rank`, against the single process at batch 16,
+    `hold_dp_steps`), `[dp alone]` (a short batch run whole on both,
+    `dp_alone`), `[dp epoch]` (their CLI epoch with `--distributed
+    --global_negatives`, GATHERED launched on each rank) and `[dp
+    kernels]` (`check_gathered_kernels` on rank 0 after it). The ranks
+    start first and wait for DP_GO, which the NCCL epochs' end writes."""
+    from cpc2_torch.ops import _build
+    from cpc2_torch.parallel import free_port
+    out = {}
+    start = time.perf_counter()
+    write_dp_corpus(work)
+    inputs = dp_inputs(work)
+    ports = [free_port(), free_port()]
+    path = [os.path.join(work, f"dp_rank{r}.pt") for r in range(DP_RANKS)]
+    procs = []
+    for rank in range(DP_RANKS):
+        env = dict(os.environ, WORLD_SIZE=str(DP_RANKS), RANK=str(rank),
+                   LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(ports[0]), CPC2_DIST_BACKEND="gloo")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", DP_RUNNER, ROOT, path[rank], str(rank),
+             work, str(ports[1])], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    one = {}
+    try:
+        for tag, flags, ref in (("default", [], records["default"]),
+                                ("dispatch", DISPATCH_FLAGS,
+                                 records["dispatch"])):
+            t = time.perf_counter()
+            r = out[f"nccl_{tag}"] = run_nccl_rank(dev, work, tag, flags,
+                                                   ref)
+            log(f"[dp nccl {tag}] {time.perf_counter() - t:.1f} s, {card}: "
+                f"--distributed as one NCCL rank {' '.join(flags)}, "
+                f"{r['steps']} steps ({r['dispatch']}): losses, checkpoint "
+                f"and launches bit for bit the run without --distributed; "
+                f"median {r['median_step_ms']:.3f} ms/step against "
+                f"{r['reference_median_step_ms']:.3f} without")
+        with open(os.path.join(work, DP_GO), "w"):
+            pass
+        for prec in ("fp32", "bf16mix"):
+            for mode in ("group", "global"):
+                one[f"{prec} {mode}"] = dp_steps(dev, inputs, prec, mode,
+                                                 None)
+        outs = [p.communicate(timeout=420) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, (_o, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"[dp rank {rank}] exit {p.returncode}: "
+                                 f"{err[-3000:]}")
+    ranks = [torch.load(x, weights_only=False) for x in path]
+    log(f"[dp gloo collectives] {DP_RANKS} ranks on cuda:0: "
+        f"{ranks[0]['collectives']} all_reduce and broadcast of CUDA "
+        f"tensors as expected")
+    out["steps"] = {}
+    for name, ref in one.items():
+        prec, mode = name.split()
+        got = [r[name] for r in ranks]
+        held = hold_dp_steps(name, got, ref, prec)
+        want = GATHERED if mode == "global" else ("infonce_fwd",
+                                                  "infonce_bwd")
+        for r in got:
+            check_launched(f"[dp steps {name}]", dict.fromkeys(
+                _build.KERNELS, 0) | r["launches"],
+                want + LSTM_RESIDENT + (FP32_FFN if prec == "fp32"
+                                        else BF16_FFN))
+            if any(r["launches"].get(k, 0) != DP_STEPS for k in want):
+                raise AssertionError(f"[dp steps {name}] launches "
+                                     f"{r['launches']}")
+        out["steps"][name] = dict(held, rank_ms=got[0]["ms"],
+                                  one_process_ms=ref["ms"],
+                                  launches=got[0]["launches"])
+        log(f"[dp steps {name}] {card}: {DP_RANKS} gloo ranks on cuda:0 x "
+            f"8 windows vs one process at batch 16 "
+            f"({'--neg_pool_group 8' if mode == 'group' else 'the whole pool'}"
+            f"), {DP_STEPS} steps, the same weights and negatives: "
+            + ", ".join(f"{k} {v:.2e}" for k, v in held.items())
+            + f"; ranks bit for bit; a rank's step "
+            + ", ".join(f"{t:.1f}" for t in got[0]["ms"]) + " ms, the one "
+            "process's " + ", ".join(f"{t:.1f}" for t in ref["ms"])
+            + f" ms (events); launches a rank {got[0]['launches']}")
+    alone = [r["alone"] for r in ranks]
+    tail = alone[0]["tail_losses"]
+    if alone[0]["sums"] != alone[1]["sums"] or not torch.equal(
+            tail, alone[1]["tail_losses"]) or not bool(
+                torch.isfinite(tail).all()):
+        raise AssertionError(f"[dp alone] the ranks differ after a short "
+                             f"batch run whole: {alone}")
+    for rank, a in enumerate(alone):
+        # the tail's 3 windows score over their own pool, the rows' steps
+        # over the gathered one
+        for name in ("infonce_fwd", "infonce_bwd"):
+            if a["launches"].get(name) != 1 or a["launches"].get(
+                    f"{name}_gathered") != 2:
+                raise AssertionError(f"[dp alone] rank {rank} launches "
+                                     f"{a['launches']}")
+    out["alone"] = {"tail_losses": tail.tolist(),
+                    "launches": alone[0]["launches"]}
+    log(f"[dp alone] {card}: a short batch of 3 windows run whole on both "
+        f"gloo ranks (`TailRunner`, device augmentation from its own "
+        f"generator, no gathered pool) between two steps on the ranks' "
+        f"rows of 16: replicas equal, the tail's losses "
+        f"{[round(v, 6) for v in tail.flatten().tolist()]}; launches a "
+        f"rank {alone[0]['launches']}")
+    epochs = [r["epoch"] for r in ranks]
+    for rank, e in enumerate(epochs):
+        check_launched(f"[dp epoch] rank {rank}", dict.fromkeys(
+            _build.KERNELS, 0) | e["launches"],
+            GATHERED + LSTM_RESIDENT + BF16_FFN)
+        losses = np.asarray(e["step_losses"], dtype=np.float64)
+        if not np.isfinite(losses).all() or e["ranks"] != DP_RANKS:
+            raise AssertionError(f"[dp epoch] rank {rank}: {e['ranks']} "
+                                 f"ranks, losses {losses}")
+    if epochs[0]["step_losses"] != epochs[1]["step_losses"]:
+        raise AssertionError("[dp epoch] the ranks' losses differ")
+    saved = torch.load(os.path.join(work, "ck_dp2", "checkpoint_0.pt"),
+                       weights_only=True)
+    if len(saved["optimizer"]["rank_generator_states"]) != DP_RANKS:
+        raise AssertionError("[dp epoch] the checkpoint lacks the ranks' "
+                             "generators")
+    out["epoch"] = epochs[0]
+    log(f"[dp epoch] {time.perf_counter() - start:.1f} s for the ranks "
+        f"(the NCCL epochs, the steps, this epoch and the kernels' check), "
+        f"{card}: --distributed --global_negatives on {DP_DB} "
+        f"({DP_RANKS} gloo ranks on cuda:0, each its share of the files), "
+        f"{epochs[0]['steps']} + {epochs[0]['val_steps']} steps a rank, "
+        f"median {epochs[0]['median_step_ms']:.3f} ms/step; rank 0's "
+        f"launches {epochs[0]['launches']}, rank 1's {epochs[1]['launches']}")
+    kern = out["kernels"] = ranks[0]["kernels"]
+    log(f"[dp kernels] {card} (rank 0's process after the epoch, the other "
+        f"rank gone): at {GATHERED_SHAPE} " + "; ".join(
+            f"{k['name']} err {k['max_abs_err']:.2e}, {k['ms']:.4f} ms, "
+            f"plain {k['plain_ms']:.4f} ms, library route "
+            f"{kern['route_ms'][k['name']]:.4f} ms, bound "
+            f"{k['bound_ms']:.4f} ms ({k['bound_by']}), events "
+            f"{kern['events_ms'][k['name']]:.4f} ms" for k in kern["kernels"])
+        + f"; the backward by kernel " + ", ".join(
+            f"{n[:30]} {v:.4f}" for n, v in kern["bwd_split"].items())
+        + f"; plan {plan_summary(kern['plan'])}; kernels a call "
+        f"{kern['kernels_a_call']}")
+    return out
+
+
+def plan_summary(plan: dict) -> str:
+    return (f"{plan['row_tiles']} dz tiles of {plan['pt']} rows x "
+            f"{plan['col_slices']} slices, {plan['splits']} splits of "
+            f"{plan['group_units']} units")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -7097,6 +7686,14 @@ def main() -> int:
         log(f"[phase 13] {time.perf_counter() - phase13:.1f} s, the whole "
             f"run so far {time.perf_counter() - t0:.1f} s of the 1,200 s "
             f"limit")
+
+        # phase 14: data-parallel training: one NCCL rank, two gloo ranks
+        # on cuda:0, the gathered-pool InfoNCE kernels
+        phase14 = time.perf_counter()
+        data_parallel = run_data_parallel(dev, work, card, records)
+        log(f"[phase 14] {time.perf_counter() - phase14:.1f} s, the whole "
+            f"run so far {time.perf_counter() - t0:.1f} s of the 1,200 s "
+            f"limit")
     # phase 11's kernels, each with its launches on its own bf16 epoch
     bf16_path = {"ffn_fwd_bf16io": "bf16", "ffn_bwd_bf16io": "bf16",
                  "attention_fwd_bf16io": "bf16_fused",
@@ -7140,6 +7737,11 @@ def main() -> int:
     for k in neg_pool["kernels"]:
         k["launches"] = neg_pool["epoch"]["launches"][k["name"]]
     kernels += neg_pool["kernels"]
+    # phase 14's gathered pool, with its launches on rank 0 of the
+    # two-rank `--global_negatives` epoch
+    for k in data_parallel["kernels"]["kernels"]:
+        k["launches"] = data_parallel["epoch"]["launches"].get(k["name"], 0)
+    kernels += data_parallel["kernels"]["kernels"]
     summary = {
         "kernels": kernels,
         "slice": dict(epoch(record), step_parity_max_abs_err=step_err[
@@ -7192,6 +7794,10 @@ def main() -> int:
                  if k not in ("kernels", "records")},
         "neg_pool": {k: v for k, v in neg_pool.items() if k != "kernels"},
         "feature_extras": extras,
+        "data_parallel": {
+            **{k: v for k, v in data_parallel.items() if k != "kernels"},
+            "kernels": {k: v for k, v in data_parallel["kernels"].items()
+                        if k != "kernels"}},
         "default_route_ms": yardsticks,
         "events_ms": events,
         "lstm": details,

@@ -1,5 +1,5 @@
 """CPC2 on PyTorch and CUDA: Contrastive Predictive Coding on raw audio for
-one NVIDIA Hopper card.
+NVIDIA Hopper cards, one or several data-parallel ranks (`parallel/`).
 
 A port of the JAX package `cpc2_tpu`, which stays the reference it is held
 against. This package imports `torch` and nothing of JAX or `cpc2_tpu`.

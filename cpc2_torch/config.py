@@ -144,9 +144,14 @@ def set_port_config(parser: argparse.ArgumentParser
                        'and out). The opt-in encoder kernel runs under '
                        'bf16mix and bf16; the other hand-written kernels '
                        'compute in fp32 either way.')
-    group.add_argument('--data_axis_size', type=int, default=-1)
+    group.add_argument('--data_axis_size', type=int, default=-1,
+                       help='Ranks the global batch is split over (-1: '
+                       '--nGPU).')
     group.add_argument('--model_axis_size', type=int, default=1)
-    group.add_argument('--dcn_axis_size', type=int, default=0)
+    group.add_argument('--dcn_axis_size', type=int, default=0,
+                       help='Nodes of the rank layout (node-major); must '
+                       'divide the ranks. The gradient all-reduce stays '
+                       'flat.')
     group.add_argument('--ckpt_format', type=str, default='torch',
                        choices=['torch', 'orbax'])
     group.add_argument('--profile_dir', type=str, default=None)
@@ -172,7 +177,10 @@ def set_port_config(parser: argparse.ArgumentParser
                        'round-trips; trajectories match 1 to fp tolerance. '
                        'Incompatible with sequential sampling (hidden '
                        'carry).')
-    group.add_argument('--global_negatives', action='store_true')
+    group.add_argument('--global_negatives', action='store_true',
+                       help='Draw the InfoNCE negatives from every rank\'s '
+                       'encodings (the pool gathered over the ranks) '
+                       'instead of the rank\'s own batch.')
     group.add_argument('--neg_pool_group', type=int, default=0,
                        help='Draw each window\'s InfoNCE negatives within '
                        'its group of this many contiguous batch elements '
@@ -195,8 +203,8 @@ def set_port_config(parser: argparse.ArgumentParser
                        'epochs - to fit in device memory beside the model '
                        '(--max_size_loaded bounds each pack), and clean host '
                        'windows: host-side augmentation is rejected '
-                       '(--augment_on_device composes). Single-process '
-                       'only.')
+                       '(--augment_on_device composes). Under ranks each '
+                       'rank keeps its own pack.')
     return parser
 
 
@@ -230,7 +238,10 @@ def set_train_config(parser: argparse.ArgumentParser
 
     group_gpu = parser.add_argument_group('GPUs')
     group_gpu.add_argument('--nGPU', type=int, default=-1,
-                           help='Devices to use; the port trains on one.')
+                           help='Devices to train on, one process a rank '
+                           '(-1: every visible CUDA device, or 1 with '
+                           '--device cpu); the global batch is nGPU x '
+                           'batchSizeGPU.')
     group_gpu.add_argument('--batchSizeGPU', type=int, default=8)
     parser.add_argument('--debug', action='store_true')
 
@@ -244,15 +255,9 @@ def set_train_config(parser: argparse.ArgumentParser
 # Features not ported yet: flag -> (is it set away from its default?,
 # the ROADMAP.md item that ports it).
 _DDP = "Data-parallel training (DDP)"
-_NEG_POOLS = "Negative pools across or within devices"
 _ORBAX = "Orbax train-state checkpoints"
 _UNPORTED = (
-    ('distributed', bool, _DDP),
-    ('nGPU', lambda v: v > 1, _DDP),
-    ('data_axis_size', lambda v: v > 1, _DDP),
     ('model_axis_size', lambda v: v != 1, _DDP),
-    ('dcn_axis_size', lambda v: v > 1, _DDP),
-    ('global_negatives', bool, _NEG_POOLS),
     ('ckpt_format', lambda v: v == 'orbax', _ORBAX),
 )
 

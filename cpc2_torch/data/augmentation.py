@@ -40,9 +40,15 @@ import random
 from typing import Optional
 
 import numpy as np
-from scipy import signal as sps
 
 SAMPLE_RATE = 16000.0
+
+
+def _signal():
+    """`scipy.signal`, imported at its first use: it takes seconds to
+    import, which every trainer process, a rank's too, would pay."""
+    from scipy import signal
+    return signal
 
 
 def energy_normalization(wav: np.ndarray) -> np.ndarray:
@@ -105,9 +111,10 @@ class BandrejectAugment:
             return x.astype(np.float32)
         numtaps = self.numtaps or self._auto_numtaps(lo, hi)
         # 120 dB attenuation like sox `sinc -a 120` -> Kaiser beta ~ 12.
-        taps = sps.firwin(numtaps, [lo, hi], fs=SAMPLE_RATE,
-                          window=('kaiser', 12.0), pass_zero='bandstop')
-        y = sps.fftconvolve(x, taps[None, :], mode='same')
+        taps = _signal().firwin(numtaps, [lo, hi], fs=SAMPLE_RATE,
+                                window=('kaiser', 12.0),
+                                pass_zero='bandstop')
+        y = _signal().fftconvolve(x, taps[None, :], mode='same')
         return y.astype(np.float32)
 
 
@@ -285,7 +292,7 @@ def _freeverb(x: np.ndarray, reverberance: float, hf_damping: float,
         a[0] = 1.0
         a[d] = -feedback * (1 - damping)
         a[d + 1] = -feedback * damping
-        wet += sps.lfilter(b, a, x)
+        wet += _signal().lfilter(b, a, x)
     wet /= len(_COMB_TUNINGS)
     for tuning in _ALLPASS_TUNINGS:
         d = tuning
@@ -295,7 +302,7 @@ def _freeverb(x: np.ndarray, reverberance: float, hf_damping: float,
         a = np.zeros(d + 1)
         a[0] = 1.0
         a[d] = -0.5
-        wet = sps.lfilter(b, a, wet)
+        wet = _signal().lfilter(b, a, wet)
     mix = reverberance / 100.0
     y = (1 - mix * 0.5) * x + mix * 0.5 * wet * (10 ** (wet_gain_db / 20))
     return y
@@ -481,7 +488,8 @@ class NaturalReverb:
         self.current_ir = np.asarray(ir, dtype=np.float32)
 
     def _apply_ir(self, x: np.ndarray, ir: np.ndarray) -> np.ndarray:
-        y = sps.fftconvolve(x, ir[None, :], mode='full')[..., :x.shape[-1]]
+        y = _signal().fftconvolve(x, ir[None, :],
+                                  mode='full')[..., :x.shape[-1]]
         return peak_normalization(y).astype(np.float32)
 
     def __call__(self, x: np.ndarray) -> np.ndarray:

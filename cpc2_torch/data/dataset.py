@@ -46,6 +46,25 @@ from .samplers import (BatchSampler, SameSpeakerSampler, SequentialSampler,
                        TemporalSameSpeakerSampler, UniformAudioSampler)
 
 
+def filter_distributed(files: Sequence, rank: int, world: int) -> list:
+    """Rank `rank`'s contiguous share of `files` out of `world` ranks, as
+    `cpc2_tpu/train.py:531-543` shards a corpus over its hosts: the items
+    from len * rank // world up to len * (rank + 1) // world."""
+    start = len(files) * rank // world
+    end = len(files) * (rank + 1) // world
+    return list(files[start:end])
+
+
+def pack_windows(data, indices: Sequence[int],
+                 size_window: int) -> np.ndarray:
+    """The (B, 2, 1, W) float32 windows of the flat pack `data` at
+    `indices`, the past view duplicated as the future one."""
+    idx = np.asarray(indices, dtype=np.int64)
+    window = np.arange(size_window, dtype=np.int64)
+    wave = np.asarray(data)[idx[:, None] + window[None, :]][:, None, :]
+    return np.stack([wave, wave], axis=1).astype(np.float32)
+
+
 def extract_length(couple) -> int:
     _speaker, loc_path = couple
     n_frames, _sr = audio_info(str(loc_path))
@@ -376,10 +395,7 @@ class AudioBatchData:
                 and (self.augment_past or self.augment_future)):
             raise ValueError("gather_windows is for clean (untransformed, "
                              "unaugmented-on-host) corpora only")
-        idx = np.asarray(indices, dtype=np.int64)
-        window = np.arange(self.sizeWindow, dtype=np.int64)
-        wave = self.data[idx[:, None] + window[None, :]][:, None, :]
-        return np.stack([wave, wave], axis=1).astype(np.float32)
+        return pack_windows(self.data, indices, self.sizeWindow)
 
     def getBaseSampler(self, type: str, batchSize: int, offset: int,
                        batchSizePerGPU: Optional[int] = None):

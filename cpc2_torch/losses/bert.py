@@ -48,10 +48,13 @@ class CPCBertCriterion(nn.Module):
 
     def forward(self, c_feature: Tensor, encoded_data: Tensor, label: Tensor,
                 generator: Optional[torch.Generator] = None,
-                negative_indices: Optional[Tensor] = None
+                negative_indices: Optional[Tensor] = None,
+                example_weights: Optional[Tensor] = None
                 ) -> Tuple[Tensor, Tensor]:
         """`negative_indices` (B*S, N), flat frames of the batch, replaces
-        the draw."""
+        the draw. `example_weights` (B,): each example's mean over its own
+        masked frames, weighted and summed over the batch
+        (`cpc2_tpu/losses/bert.py:61-70`)."""
         b, s, _ = c_feature.shape
         d = encoded_data.shape[-1]
         mask = label.to(torch.bool)
@@ -77,6 +80,13 @@ class CPCBertCriterion(nn.Module):
         losses = lse - pos
         correct = pos >= neg.max(dim=-1).values
         w = mask.to(torch.float32)
+        if example_weights is not None:
+            ew = example_weights.to(torch.float32)
+            per_n = w.sum(dim=1).clamp_min(1)
+            per_loss = (losses * w).sum(dim=1) / per_n
+            per_acc = (correct.to(torch.float32) * w).sum(dim=1) / per_n
+            return ((per_loss * ew).sum().reshape(1, 1),
+                    (per_acc * ew).sum().reshape(1, 1))
         loss = (losses * w).sum() / n_pos
         acc = (correct.to(torch.float32) * w).sum() / n_pos
         return loss.reshape(1, 1), acc.reshape(1, 1)

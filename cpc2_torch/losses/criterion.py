@@ -35,6 +35,7 @@ from ..models.ar import StackedRNN
 from ..models.layers import Dropout
 from ..models.transformer import MultiHeadTransformerAR, TransformerAR
 from ..ops.infonce import negative_scores
+from ..parallel.data_parallel import gather_pool
 from .custom_layers import EqualizedConv1d, EqualizedLinear
 
 Tensor = torch.Tensor
@@ -44,7 +45,8 @@ Generator = Optional[torch.Generator]
 def sample_negative_indices(generator: Generator, batch_size: int,
                             seq_size: int, n_negative: int, window_size: int,
                             device: torch.device,
-                            pool_group: Optional[int] = None) -> Tensor:
+                            pool_group: Optional[int] = None,
+                            pool_batch: Optional[int] = None) -> Tensor:
     """Flat rows of z.reshape(B*S, D), the reference's distribution
     (`criterion.py:237-267`): for every (b, n, w) a batch element
     U[0, B) and the frame (U[1, S) + w) mod S. Returns (B, N, W) int32.
@@ -53,9 +55,15 @@ def sample_negative_indices(generator: Generator, batch_size: int,
     contiguous elements, (b // G) * G + U[0, G): the reference's
     DataParallel workers, each drawing within its own shard
     (`cpc2_tpu/losses/criterion.py:251-280`). The draws are the same two
-    `randint`s in the same order, so G = B gives the whole-batch draw."""
+    `randint`s in the same order, so G = B gives the whole-batch draw.
+    `pool_batch` widens it instead to U[0, pool_batch), the elements of
+    every rank's batch (`--global_negatives`); the two exclude each
+    other."""
     shape = (batch_size, n_negative, window_size)
     if pool_group:
+        if pool_batch is not None:
+            raise ValueError("pool_group and pool_batch are mutually "
+                             "exclusive")
         if batch_size % pool_group:
             raise ValueError(f"pool_group {pool_group} must divide the "
                              f"batch {batch_size}")
@@ -66,8 +74,9 @@ def sample_negative_indices(generator: Generator, batch_size: int,
             0, pool_group, shape, generator=generator, device=device,
             dtype=torch.int32)
     else:
-        batch_idx = torch.randint(0, batch_size, shape, generator=generator,
-                                  device=device, dtype=torch.int32)
+        batch_idx = torch.randint(0, pool_batch or batch_size, shape,
+                                  generator=generator, device=device,
+                                  dtype=torch.int32)
     seq_idx = torch.randint(1, seq_size, shape, generator=generator,
                             device=device, dtype=torch.int32)
     base = torch.arange(window_size, device=device, dtype=torch.int32)
@@ -224,7 +233,9 @@ class NoneCriterion(nn.Module):
     def forward(self, c_feature: Tensor, encoded_data: Tensor,
                 generator: Generator = None,
                 negative_indices: Optional[Tensor] = None,
-                quality: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+                quality: Optional[Tensor] = None,
+                example_weights: Optional[Tensor] = None,
+                pool=None) -> Tuple[Tensor, Tensor]:
         zeros = torch.zeros((1, 1), device=c_feature.device)
         return zeros, zeros.clone()
 
@@ -274,8 +285,9 @@ class CPCUnsupervisedCriterion(nn.Module):
     def forward(self, c_feature: Tensor, encoded_data: Tensor,
                 generator: Generator = None,
                 negative_indices: Optional[Tensor] = None,
-                quality: Optional[Tensor] = None
-                ) -> Tuple[Tensor, Tensor]:
+                quality: Optional[Tensor] = None,
+                example_weights: Optional[Tensor] = None,
+                pool=None) -> Tuple[Tensor, Tensor]:
         """c_feature (B, S, dim_ar), encoded_data (B, S, D) -> per-head
         (losses, accuracies), each (1, K - n_skipped). `negative_indices`
         (B, N, W), flat rows of the pool, replaces the sampled negatives;
@@ -283,7 +295,17 @@ class CPCUnsupervisedCriterion(nn.Module):
         since nothing says such indices keep to their groups.
         `quality` (B, Q), the windows' signal quality, weights each
         window's losses by 1e-5 + sigmoid(growth_rate * (mean - inflection
-        point)) (`cpc2_tpu/losses/criterion.py:526-530`)."""
+        point)) (`cpc2_tpu/losses/criterion.py:526-530`).
+
+        `pool` (`--global_negatives`, a `parallel.DataParallel` of more
+        than one rank): the negatives are drawn over every rank's
+        encodings, gathered into a pool of ranks x B x S rows in rank
+        order (`parallel.gather_pool`), and this rank's positives sit at
+        its offset rank x B x S in it (`cpc2_tpu/losses/criterion.py:
+        434-438`). `example_weights` (B,): per-example means over the
+        window, weighted sums over the batch, which the caller divides by
+        the weights' sum over the ranks (the weighted step of
+        `training.Trainer`)."""
         c_feature, encoded_data = self._oriented(c_feature, encoded_data)
         b, s, _ = c_feature.shape
         d = encoded_data.shape[-1]
@@ -292,13 +314,23 @@ class CPCUnsupervisedCriterion(nn.Module):
         device = c_feature.device
         preds = self.wPrediction(c_feature[:, :w], generator)  # (B, K, W, D)
 
+        ranks = 1 if pool is None else pool.world
+        z_flat = encoded_data.reshape(b * s, d)
+        shard_offset = 0
+        if ranks > 1:
+            if self.neg_pool_group:
+                raise ValueError("neg_pool_group and global negatives are "
+                                 "mutually exclusive")
+            z_flat = gather_pool(z_flat, pool)
+            shard_offset = pool.rank * b * s
         group = self.neg_pool_group
         if group and (b <= group or b % group):
             group = 0
         if negative_indices is None:
             neg_idx = sample_negative_indices(
                 generator, b, s, self.negative_sampling_ext, w, device,
-                pool_group=group or None)
+                pool_group=group or None,
+                pool_batch=ranks * b if ranks > 1 else None)
         else:
             group = 0
             neg_idx = negative_indices.to(device=device, dtype=torch.int32)
@@ -306,19 +338,21 @@ class CPCUnsupervisedCriterion(nn.Module):
                 raise ValueError(f"negative_indices must be (B, N, W) = "
                                  f"{(b, self.negative_sampling_ext, w)}, got "
                                  f"{tuple(neg_idx.shape)}")
-            if bool((neg_idx < 0).any()) or bool((neg_idx >= b * s).any()):
-                raise ValueError("negative_indices must lie in [0, B*S)")
+            rows = z_flat.shape[0]
+            if bool((neg_idx < 0).any()) or bool((neg_idx >= rows).any()):
+                raise ValueError(f"negative_indices must lie in [0, {rows}),"
+                                 f" the pool's rows")
         neg_idx_wn = neg_idx.transpose(1, 2).contiguous()     # (B, W, N)
 
         pos = self._positive_scores(preds, encoded_data, w)  # (B, K, W)
-        z_flat = encoded_data.reshape(b * s, d)
-        neg = negative_scores(preds, z_flat, neg_idx_wn,
-                              group=group or None) / d        # (B, K, W, N)
+        neg = negative_scores(preds, z_flat, neg_idx_wn, group=group or None,
+                              ranks=ranks) / d               # (B, K, W, N)
 
         pos_flat_idx = (
             torch.arange(b, device=device)[:, None, None] * s
             + torch.arange(1, k_p + 1, device=device)[None, :, None]
-            + torch.arange(w, device=device)[None, None, :])  # (B, K, W)
+            + torch.arange(w, device=device)[None, None, :]
+            + shard_offset)                      # (B, K, W), pool rows
         collides = neg_idx_wn[:, None] == pos_flat_idx[..., None]
         neg = torch.where(collides, pos[..., None], neg)
 
@@ -330,9 +364,15 @@ class CPCUnsupervisedCriterion(nn.Module):
             weight = 1e-5 + torch.sigmoid(self.growth_rate * (
                 quality.mean(dim=1) - self.inflection_point_x))
             losses = losses * weight[:, None, None]
-        out_losses = losses.mean(dim=(0, 2))[self.n_skipped:][None, :]
-        out_acc = correct.float().mean(dim=(0, 2))[self.n_skipped:][None, :]
-        return out_losses, out_acc
+        if example_weights is not None:
+            ew = example_weights.to(losses.dtype)[:, None]
+            out_losses = (losses.mean(dim=2) * ew).sum(dim=0)
+            out_acc = (correct.float().mean(dim=2) * ew).sum(dim=0)
+        else:
+            out_losses = losses.mean(dim=(0, 2))
+            out_acc = correct.float().mean(dim=(0, 2))
+        return (out_losses[self.n_skipped:][None, :],
+                out_acc[self.n_skipped:][None, :])
 
     def _positive_scores(self, preds: Tensor, encoded_data: Tensor,
                          w: int) -> Tensor:
@@ -380,6 +420,14 @@ def _mean(x: Tensor) -> Tensor:
     return x.float().mean().reshape(1, 1)
 
 
+def _weighted(x: Tensor, example_weights: Tensor) -> Tensor:
+    """The sum over the batch of each example's mean of `x` (B, ...) times
+    its weight, (1, 1): the weighted step's share of the mean over the
+    ranks' real examples (`cpc2_tpu/losses/criterion.py:589-593`)."""
+    per = x.float().reshape(x.shape[0], -1).mean(dim=1)
+    return (per * example_weights.float()).sum().reshape(1, 1)
+
+
 class SpeakerCriterion(SupervisedCriterion):
     """Linear speaker classifier on the last context frame: it reads
     `c_feature[:, -1]` whatever `--onEncoder` says."""
@@ -389,10 +437,17 @@ class SpeakerCriterion(SupervisedCriterion):
         self.linearSpeakerClassifier = nn.Linear(dim_ar, n_speakers)
 
     def forward(self, c_feature: Tensor, other_encoded: Tensor,
-                label: Tensor) -> Tuple[Tensor, Tensor]:
+                label: Tensor, example_weights: Optional[Tensor] = None
+                ) -> Tuple[Tensor, Tensor]:
         logits = self.linearSpeakerClassifier(c_feature[:, -1, :])
+        hit = logits.argmax(-1) == label
+        if example_weights is not None:
+            ce = torch.nn.functional.cross_entropy(logits, label,
+                                                   reduction='none')
+            return _weighted(ce, example_weights), _weighted(hit,
+                                                             example_weights)
         loss = torch.nn.functional.cross_entropy(logits, label)
-        return loss.reshape(1, 1), _mean(logits.argmax(-1) == label)
+        return loss.reshape(1, 1), _mean(hit)
 
 
 class AdvSpeakerCriterion(SupervisedCriterion):
@@ -446,12 +501,20 @@ class PhoneCriterion(SupervisedCriterion):
     getPrediction = get_prediction
 
     def forward(self, c_feature: Tensor, other_encoded: Tensor,
-                label: Tensor) -> Tuple[Tensor, Tensor]:
+                label: Tensor, example_weights: Optional[Tensor] = None
+                ) -> Tuple[Tensor, Tensor]:
         feats = other_encoded if self.on_encoder else c_feature
         logits = self.get_prediction(feats)
+        hit = logits.argmax(-1) == label
+        if example_weights is not None:
+            ce = torch.nn.functional.cross_entropy(
+                logits.reshape(-1, logits.shape[-1]), label.reshape(-1),
+                reduction='none').reshape(label.shape)
+            return _weighted(ce, example_weights), _weighted(hit,
+                                                             example_weights)
         loss = torch.nn.functional.cross_entropy(
             logits.reshape(-1, logits.shape[-1]), label.reshape(-1))
-        return loss.reshape(1, 1), _mean(logits.argmax(-1) == label)
+        return loss.reshape(1, 1), _mean(hit)
 
 
 def collapse_label_chain_padded(labels: Tensor) -> Tuple[Tensor, Tensor]:
@@ -487,7 +550,8 @@ class CTCPhoneCriterion(SupervisedCriterion):
         self.PhoneCriterionClassifier = nn.Linear(dim_ar, n_phones + 1)
 
     def forward(self, c_feature: Tensor, other_encoded: Tensor,
-                label: Tensor) -> Tuple[Tensor, Tensor]:
+                label: Tensor, example_weights: Optional[Tensor] = None
+                ) -> Tuple[Tensor, Tensor]:
         b, s, _ = c_feature.shape
         logits = self.PhoneCriterionClassifier(c_feature)
         targets, sizes = collapse_label_chain_padded(label)
@@ -500,8 +564,10 @@ class CTCPhoneCriterion(SupervisedCriterion):
         loss = torch.where((sizes <= s) & torch.isfinite(loss), loss,
                            torch.zeros_like(loss))
         loss = loss / sizes.clamp_min(1).to(loss.dtype)
-        return (loss.mean().reshape(1, 1),
-                torch.zeros((1, 1), device=logits.device))
+        zero = torch.zeros((1, 1), device=logits.device)
+        if example_weights is not None:
+            return _weighted(loss, example_weights), zero
+        return loss.mean().reshape(1, 1), zero
 
 
 class ModelCriterionCombined(nn.Module):

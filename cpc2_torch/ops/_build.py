@@ -12,6 +12,12 @@ The host libraries (the audio decoders and the host DTW) are built apart, one `g
 (`build_host`), into the same directory: they need no `nvcc` and no card,
 so the CPU tests build them too.
 
+A build holds an exclusive `fcntl` lock on `BUILD_DIR/.build.lock`, and
+looks again whether the library is up to date once it has the lock: ranks
+that start at once on a fresh tree build it once, the others wait and load
+what it built. The lock goes with the process that holds it, so a build
+cut off leaves nothing to clear.
+
 `LAUNCHES` counts, per kernel, the calls that launched it on the card; a
 run sets the counts to 0 and reads them afterwards to show which kernels
 its path went through.
@@ -19,7 +25,9 @@ its path went through.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import os
 import shutil
@@ -43,15 +51,17 @@ LIBRARY = BUILD_DIR / "libcpc2_kernels.so"
 # fp32`), `ffn_*_bf16io` the bf16 ones' bf16-in/bf16-out variant
 # (`--precision bf16`), as are `attention_*_bf16io` the attention's.
 # `infonce_*_grouped` count the InfoNCE kernels' launches under a grouped
-# pool's plan (`--neg_pool_group`, `ops/infonce.py:infonce_plan`), the
-# others' under the whole pool's. `dtw` counts every DTW launch, `dtw_lanes` and `dtw_wave` each route's
+# pool's plan (`--neg_pool_group`, `ops/infonce.py:infonce_plan`),
+# `infonce_*_gathered` on a pool gathered over the ranks
+# (`--global_negatives`), the others' on the batch's own pool. `dtw` counts every DTW launch, `dtw_lanes` and `dtw_wave` each route's
 # (`ops/dtw.py:dtw_plan`). `adam_bf16_moment` is `optim.py`'s Adam with a
 # bf16 first moment (`--adam_mu_dtype bf16`).
 KERNELS = ("lstm_fwd", "lstm_bwd", "lstm_fwd_grid", "lstm_bwd_grid",
            "ffn_fwd", "ffn_bwd", "ffn_fwd_fp32", "ffn_bwd_fp32",
            "ffn_fwd_bf16io", "ffn_bwd_bf16io",
            "infonce_fwd", "infonce_bwd", "infonce_fwd_grouped",
-           "infonce_bwd_grouped", "dtw", "dtw_lanes", "dtw_wave",
+           "infonce_bwd_grouped", "infonce_fwd_gathered",
+           "infonce_bwd_gathered", "dtw", "dtw_lanes", "dtw_wave",
            "attention_fwd", "attention_bwd", "attention_fwd_bf16io",
            "attention_bwd_bf16io", "encoder_fwd", "encoder_bwd",
            "adam_bf16_moment")
@@ -146,13 +156,32 @@ def _up_to_date() -> bool:
     return LIBRARY.stat().st_mtime >= max(d.stat().st_mtime for d in deps)
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """`BUILD_DIR`'s lock between processes, held inside the block."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 def build(force: bool = False) -> Path:
     """Compile the kernels (one `nvcc` per source, in parallel) and link
-    them into `LIBRARY`. The compiler's `-Xptxas -v` report (registers,
-    shared memory, spills per kernel) is kept in `build.log`."""
+    them into `LIBRARY`, under the build lock. The compiler's `-Xptxas -v`
+    report (registers, shared memory, spills per kernel) is kept in
+    `build.log`."""
     if not force and _up_to_date():
         return LIBRARY
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _build_lock():
+        if not force and _up_to_date():
+            return LIBRARY
+        return _build_kernels()
+
+
+def _build_kernels() -> Path:
     nvcc = _nvcc()
     flags = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                     "-Xptxas", "-v"]
@@ -192,20 +221,30 @@ def host_buildable(name: str) -> bool:
 
 def build_host(name: str, force: bool = False) -> Path:
     """Compile host library `name` with `g++ -O3 -fPIC -std=c++17 -shared`
-    into `BUILD_DIR/lib<name>.so`, unless it is newer than its source.
-    Raises with the compiler's output when the build fails."""
+    into `BUILD_DIR/lib<name>.so`, unless it is newer than its source,
+    under the build lock. Raises with the compiler's output when the
+    build fails."""
     source, libs, _headers = HOST_LIBRARIES[name]
     src = HOST_CSRC / source
     out = BUILD_DIR / f"lib{name}.so"
-    if (not force and out.exists()
-            and out.stat().st_mtime >= src.stat().st_mtime):
+
+    def current() -> bool:
+        return (not force and out.exists()
+                and out.stat().st_mtime >= src.stat().st_mtime)
+    if current():
         return out
     if not host_buildable(name):
         raise RuntimeError(f"{name}: none of {list(_headers)} exists")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # a name of this process's own, so that processes building at once
-    # never write one file; the rename is atomic
-    tmp = BUILD_DIR / f"lib{name}.so.{os.getpid()}.tmp"
+    with _build_lock():
+        if current():
+            return out
+        return _build_host(src, libs, out)
+
+
+def _build_host(src: Path, libs, out: Path) -> Path:
+    # written under another name and renamed, which is atomic: a process
+    # that loads the library without the lock never sees half of it
+    tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
     cxx = os.environ.get("CXX", "g++")
     proc = subprocess.run([cxx, "-O3", "-fPIC", "-std=c++17", "-shared",
                            "-o", str(tmp), str(src), *libs],

@@ -29,6 +29,14 @@ only that group's units over a tile's CTAs, so a dz CTA walks G·W / splits
 units instead of B·W / splits. Still one forward launch and the
 backward's two for the whole batch.
 
+Gathered pools (`--global_negatives`): the pool is every rank's
+encodings, `ranks` x B x S rows, against this rank's B local elements. The
+plan already takes p apart from b: the forward and dpreds gather from any
+row, and the dz tiles cover all p rows, each summing the local units that
+sampled it (rows no local unit sampled get 0, which the gather's backward
+sums over the ranks). The launches count under `infonce_fwd_gathered` and
+`infonce_bwd_gathered`.
+
 `negative_scores` launches the kernels for CUDA tensors and runs
 `negative_scores_plain` for CPU tensors; there is no other path.
 """
@@ -281,22 +289,39 @@ def _plan(b, k, w, n, d4, p, device, group) -> InfoncePlan:
     return infonce_plan(b, k, w, n, d4, p, _SMS[device], group)
 
 
-def _counters(plan: InfoncePlan, p: int) -> tuple:
-    """The launch counters of a call: the grouped plan's own, so that a
-    run shows which plan it took."""
+def _counters(plan: InfoncePlan, p: int, ranks: int) -> tuple:
+    """The launch counters of a call: the grouped plan's and the gathered
+    pool's own, so that a run shows which plan it took."""
     if plan.group_rows < p:
         return "infonce_fwd_grouped", "infonce_bwd_grouped"
+    if ranks > 1:
+        return "infonce_fwd_gathered", "infonce_bwd_gathered"
     return "infonce_fwd", "infonce_bwd"
+
+
+def check_pool(b: int, p: int, group, ranks: int) -> None:
+    """A gathered pool (`ranks` > 1) holds `ranks` equal shares of rows and
+    takes no group; a group must divide as `pool_groups` says."""
+    if ranks < 1:
+        raise ValueError(f"infonce: ranks must be at least 1, got {ranks}")
+    if ranks > 1:
+        if group:
+            raise ValueError("infonce: a gathered pool takes no group")
+        if p % ranks:
+            raise ValueError(f"infonce: a pool of {p} rows does not split "
+                             f"into {ranks} ranks' shares")
+    pool_groups(b, p, group)
 
 
 class _NegativeScores(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, preds, z, idx, group):
+    def forward(ctx, preds, z, idx, group, ranks):
         device = _check(preds, z, idx)
         b, k, w, d = preds.shape
         n, p = idx.shape[2], z.shape[0]
-        pool_groups(b, p, group)
+        check_pool(b, p, group, ranks)
+        ctx.ranks = ranks
         ctx.shapes = preds.shape, z.shape
         out = torch.empty((b, k, w, n), device=device)
         if out.numel() == 0 or d == 0:  # nothing to launch
@@ -307,7 +332,8 @@ class _NegativeScores(torch.autograd.Function):
         plan = _plan(b, k, w, n, d4, p, device, group)
         preds, z = _pad_last(preds, d4), _pad_last(z, d4)
         idx = _aligned(idx)
-        _build.launch(_counters(plan, p)[0], "cpc2_infonce_fwd", device,
+        _build.launch(_counters(plan, p, ranks)[0], "cpc2_infonce_fwd",
+                      device,
                       preds.data_ptr(), z.data_ptr(), idx.data_ptr(),
                       out.data_ptr(), b, k, w, n, d4, plan.kp, plan.fwd_rb,
                       plan.fwd_dc, plan.fwd_stride, plan.fwd_stage,
@@ -322,7 +348,7 @@ class _NegativeScores(torch.autograd.Function):
         plan = ctx.plan
         if plan is None:
             return (g.new_zeros(preds_shape), g.new_zeros(z_shape), None,
-                    None)
+                    None, None)
         preds, z, idx = ctx.saved_tensors
         b, k, w, d4 = preds.shape
         p, d = z.shape[0], preds_shape[3]
@@ -334,7 +360,8 @@ class _NegativeScores(torch.autograd.Function):
         dz = torch.empty_like(z)
         partial = torch.empty(dz_partial_floats(plan, d4),
                               device=preds.device)
-        _build.launch(_counters(plan, p)[1], "cpc2_infonce_bwd", preds.device,
+        _build.launch(_counters(plan, p, ctx.ranks)[1], "cpc2_infonce_bwd",
+                      preds.device,
                       g.data_ptr(), preds.data_ptr(), z.data_ptr(),
                       idx.data_ptr(), dpreds.data_ptr(), dz.data_ptr(),
                       partial.data_ptr(), b, k, w, n4, d4, p, plan.kp,
@@ -346,11 +373,11 @@ class _NegativeScores(torch.autograd.Function):
                       plan.bwd_smem)
         if d4 != d:
             dpreds, dz = dpreds[..., :d], dz[:, :d]
-        return dpreds, dz, None, None
+        return dpreds, dz, None, None, None
 
 
 def negative_scores(preds: Tensor, z: Tensor, idx: Tensor,
-                    group=None) -> Tensor:
+                    group=None, ranks: int = 1) -> Tensor:
     """neg[b, k, w, n] = preds[b, k, w, :] · z[idx[b, w, n], :].
 
     preds: (B, K, W, D) float32; z: (P, D) float32; idx: (B, W, N) int32
@@ -358,8 +385,12 @@ def negative_scores(preds: Tensor, z: Tensor, idx: Tensor,
     `group` G (below B), idx[b] must lie in the pool rows of b's group,
     [b // G · G · P / B, + G · P / B): the kernels' dz tiles then walk only
     their group's units (a row outside adds nothing to dz). Returns (B, K,
-    W, N) float32. CUDA tensors go through the kernels, CPU tensors through
-    `negative_scores_plain`, whose math is the same for any indices."""
+    W, N) float32. `ranks` > 1: z is a pool gathered over that many ranks
+    (`--global_negatives`), `ranks` equal shares of rows, and takes no
+    group (`check_pool`). CUDA tensors go through the kernels, CPU tensors
+    through `negative_scores_plain`, whose math is the same for any
+    indices."""
     if preds.device.type == "cpu":
+        check_pool(preds.shape[0], z.shape[0], group, ranks)
         return negative_scores_plain(preds, z, idx)
-    return _NegativeScores.apply(preds, z, idx, group)
+    return _NegativeScores.apply(preds, z, idx, group, ranks)

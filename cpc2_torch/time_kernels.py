@@ -96,8 +96,9 @@ def device_split(fn, iters: int = 20, warmup: int = WARMUP,
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    # device activity only: the host's events are not read here, and
+    # aggregating them (`key_averages`) cost seconds a profile
+    acts = [torch.profiler.ProfilerActivity.CUDA]
     for attempt in range(PROFILE_ATTEMPTS):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(iters):

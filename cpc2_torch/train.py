@@ -1,5 +1,5 @@
-"""CPC pretraining on one device (counterpart of `cpc2_tpu/train.py`,
-reference `cpc/train.py`).
+"""CPC pretraining on one device or data-parallel ranks (counterpart of
+`cpc2_tpu/train.py`, reference `cpc/train.py`).
 
 Run: `python -m cpc2_torch.train --pathDB <corpus>` (FLAC by default;
 `--file_extension .wav` and the compressed formats of `data/audio_io.py`
@@ -57,29 +57,43 @@ view (2 x batch), for training and validation batches alike, as
 `--steps_per_dispatch N` runs N steps per dispatch (`training.MultiStep`:
 on a card one CUDA graph replay). Both compose with each other and with
 `--augment_on_device`, not with a host augmentation.
+
+`--nGPU N` (and `--data_axis_size`) trains N ranks on this host, one
+process each, every rank taking its rows of the loader's global batch;
+`--distributed` runs this process as one rank of a torchrun or SLURM
+layout, each rank loading its share of the files (`main`). The ranks
+average their gradients, metrics and BatchNorm statistics each step
+(`parallel/`), route short batches by `train_tails.route`, and rank 0
+writes the checkpoints and logs; `--global_negatives` draws the negatives
+over every rank's encodings.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import random
+import shutil
 import statistics
 import sys
+import tempfile
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from .config import check_ported, parse_args
-from .data import (AudioBatchData, PeakNorm, filter_seqs, find_all_seqs,
-                   parse_seq_labels)
+from .data import (AudioBatchData, PeakNorm, filter_distributed,
+                   filter_seqs, find_all_seqs, parse_seq_labels)
 from .data import augment_device
 from .data.augmentation import (augmentation_factory,
                                 canonical_augment_type, restart)
+from .data.dataset import pack_windows
 from .data.device_corpus import DeviceCorpus
 from .dispatch import EPOCH_END, GroupAssembler
 from .feature_loader import build_model, load_model, load_state
@@ -92,6 +106,11 @@ from .losses import (CPCBertCriterion, CPCUnsupervisedCriterion,
                      SpeakerCriterion)
 from .models.cpc import compute_bert_mask, compute_mask_indices
 from .models.encoder import DOWNSAMPLING, encoded_seq_len
+from .ops import _build
+from .parallel import (DataParallel, free_port, init_distributed_mode,
+                       init_process_group, peek_distributed, rank_device,
+                       rank_layout, rank_seed)
+from .train_tails import PodTailRunner, TailRunner, route
 from .training import (MultiStep, Trainer, make_lr_schedule,
                        make_optimizer, precision, resolve_device)
 from .utils.prefetch import PrefetchIterator, prefetch
@@ -216,22 +235,25 @@ def _split(args, seq_names):
 
 def _dispatch_items(loader, device: torch.device, load_ms: List[float],
                     batch_size: int, groups: Optional[GroupAssembler],
-                    offsets: bool, args=None):
+                    offsets: bool, args=None, dp=None):
     """What the stepping thread runs, built on the loader's thread:
-    `('steps', [(pack, x, label, quality, mask), ...])`, one step each in
-    order, or a full group `('idxgroup', pack, x (N, ...), labels (N,
-    ...), n, quality, masks)`, one `MultiStep` dispatch. `x` is a (B, 2,
-    1, W) batch, or with `offsets` (`--corpus_on_device`) the batch's (B,)
-    window offsets into `pack`, the host pack they were drawn from (None
-    for batches); `quality` is the batch's signal quality, the loader's
-    last item when the corpus has it (else None), and `mask` the step's
-    mask drawn here (`step_mask`, with `args`). With `groups`
-    (N > 1) full batches are buffered into groups; a short batch flushes
-    the buffer and runs after it, so the steps keep the loader's order.
-    Tensors are pinned for their copy to a card. Each loader item's host
-    time (sampling, gather, host augmentation, grouping, pinning) is
-    appended to `load_ms`: the work the prefetch thread takes off the
-    stepping thread."""
+    `('steps', [(pack, x, label, quality, mask, kind), ...])`, one step
+    each in order, or a full group `('idxgroup', pack, x (N, ...), labels
+    (N, ...), n, quality, masks)`, one `MultiStep` dispatch. `x` is a (B,
+    2, 1, W) batch, or with `offsets` (`--corpus_on_device`) the batch's
+    (B,) window offsets into `pack`, the host pack they were drawn from
+    (None for batches); `quality` is the batch's signal quality, the
+    loader's last item when the corpus has it (else None), and `mask` the
+    step's mask drawn here (`step_mask`, with `args`). Under ranks (`dp`)
+    `kind` is the batch's `train_tails.route` against the full
+    `batch_size`: a `rows` batch is cut to this rank's rows here
+    (`parallel.rank_rows`, the mask's too), an `alone` one stays whole and
+    a `tail` one is buffered by the stepping thread. With `groups` (N >
+    1) full batches are buffered into groups; a short batch flushes the
+    buffer and runs after it, so the steps keep the loader's order. Tensors are pinned for their copy to a card. Each
+    loader item's host time (sampling, gather, host augmentation,
+    grouping, pinning) is appended to `load_ms`: the work the prefetch
+    thread takes off the stepping thread."""
     pin = device.type == "cuda"
 
     def tensor(a, dtype):
@@ -241,8 +263,9 @@ def _dispatch_items(loader, device: torch.device, load_ms: List[float],
     def steps(items):
         return ('steps', [(pack, tensor(x, x.dtype), tensor(y, np.int64),
                            None if q is None else tensor(q, np.float32),
-                           None if m is None else tensor(m, bool))
-                          for pack, x, y, q, m in items])
+                           None if m is None else tensor(m, bool),
+                           kind[0] if kind else "whole")
+                          for pack, x, y, q, m, *kind in items])
 
     quality = getattr(loader.dataset, 'signal_quality_path', None) is not None
 
@@ -255,9 +278,15 @@ def _dispatch_items(loader, device: torch.device, load_ms: List[float],
                 np.asarray(x, np.int32) if offsets else x, np.asarray(label),
                 np.asarray(full[-1], np.float32) if quality else None,
                 None if args is None else step_mask(args, x.shape[0]))
-        if groups is None or item[1].shape[0] != batch_size:
+        n = item[1].shape[0]
+        kind = route(n, batch_size, dp)
+        if kind == "rows":
+            item = (item[0],) + tuple(None if t is None else dp.rows(t)
+                                      for t in item[1:])
+        if groups is None or n != batch_size:
             flushed = groups.flush() if groups is not None else None
-            return steps(([] if flushed is None else flushed[1]) + [item])
+            return steps(([] if flushed is None else flushed[1])
+                         + [item + (kind,)])
         out = groups.add(item)
         return steps(out[1]) if out is not None and out[0] == 'idxpartial' \
             else out
@@ -304,12 +333,23 @@ def _stop_profiler(profiler, device: torch.device, profile_dir: str) -> None:
 
 
 def _run_steps(trainer: Trainer, items, device: torch.device,
-               corpus: Optional[DeviceCorpus]) -> torch.Tensor:
+               corpus: Optional[DeviceCorpus],
+               tails: Optional[PodTailRunner] = None,
+               tail_runner: Optional[TailRunner] = None
+               ) -> Optional[torch.Tensor]:
     """Single steps, in order, of a `('steps', items)` dispatch item: each
     batch gathered from the resident pack (`corpus`) or copied to the
-    device. Returns their (n, 2, K) losses and accuracies on the device."""
+    device; an `alone` batch through `tail_runner`, a `tail` one buffered
+    in `tails` (as audio) for the epoch's end. Returns the (n, 2, K)
+    losses and accuracies of the steps run, on the device, or None."""
     rows = []
-    for pack, x, label, quality, mask in items:
+    for pack, x, label, quality, mask, kind in items:
+        if kind == "tail":
+            if corpus is not None:
+                # as audio: the resident pack may change before the end
+                x = pack_windows(pack, x, tails.size_window)
+            tails.add((x, label, quality, mask))
+            continue
         if corpus is not None:
             corpus.ensure(pack)
             x = corpus.put(x)
@@ -319,9 +359,11 @@ def _run_steps(trainer: Trainer, items, device: torch.device,
                  else None)
         quality, mask = (None if t is None else t.to(device, non_blocking=True)
                          for t in (quality, mask))
-        rows.append(torch.cat(trainer.train_step(x, label=label, mask=mask,
-                                                 quality=quality)))
-    return torch.stack(rows)
+        step = (trainer.train_step if kind != "alone" else
+                functools.partial(tail_runner.train, trainer))
+        rows.append(torch.cat(step(x, label=label, mask=mask,
+                                   quality=quality)))
+    return torch.stack(rows) if rows else None
 
 
 def train_epoch(trainer: Trainer, loader, device: torch.device,
@@ -329,7 +371,9 @@ def train_epoch(trainer: Trainer, loader, device: torch.device,
                 prefetch_depth: int = 0,
                 corpus: Optional[DeviceCorpus] = None,
                 multi_step: Optional[MultiStep] = None,
-                batch_size: int = 0, args=None) -> Dict:
+                batch_size: int = 0, args=None,
+                tails: Optional[PodTailRunner] = None,
+                tail_runner: Optional[TailRunner] = None) -> Dict:
     """One epoch of training steps. The loader runs on a thread
     `prefetch_depth` batches ahead (0: on this thread, between the steps)
     and groups its batches there (`_dispatch_items`); this thread issues
@@ -338,26 +382,55 @@ def train_epoch(trainer: Trainer, loader, device: torch.device,
     host-clock time is the dispatch's own. With `corpus`
     (`--corpus_on_device`) the loader yields window offsets and the steps
     gather their batches from the resident pack. A batch other than
-    `batch_size` long runs as a single step. The record's `step_ms`
-    holds each step's time (a dispatch's divided by its steps),
-    `dispatch_ms` each dispatch's host time until it returned (before the
-    synchronise), `wait_ms`, for each step, its share of the host-clock
-    time from the end of the dispatch before (from the epoch's start for
-    the first) until its batches were in hand, and `load_ms` each batch's
-    host time on the loader's thread. With `profile_dir`, the dispatches
-    from the one that holds step PROFILE_START up to step PROFILE_STOP - 1
-    (or to the epoch's end) are traced into it; the record's `profiled`
-    says whether a trace was written."""
+    `batch_size` long runs as a single step; under ranks as
+    `train_tails.route` says (`tail_runner` for one host's, `tails` for
+    the weighted rounds of ranks that load their own files, run after the
+    loader's last batch). The record's `step_ms` holds each step's time (a
+    dispatch's divided by its steps), `step_losses` each step's per-head
+    losses, `dispatch_ms` each dispatch's host time until it returned
+    (before the synchronise), `wait_ms`, for each step, its share of the
+    host-clock time from the end of the dispatch before (from the epoch's
+    start for the first) until its batches were in hand, and `load_ms`
+    each batch's host time on the loader's thread. With `profile_dir`, the
+    dispatches from the one that holds step PROFILE_START up to step
+    PROFILE_STOP - 1 (or to the epoch's end) are traced into it; the
+    record's `profiled` says whether a trace was written."""
     sums, n_steps, step_ms, wait_ms, load_ms = None, 0, [], [], []
-    dispatch_ms = []
+    dispatch_ms, step_losses = [], []
     window_start, window_steps, last = time.perf_counter(), 0, None
     profiler, profiled = None, False
     groups = (GroupAssembler(multi_step.n_inner, device.type == "cuda")
               if multi_step is not None else None)
     batches = prefetch(_dispatch_items(loader, device, load_ms,
                                        batch_size, groups,
-                                       corpus is not None, args),
+                                       corpus is not None, args,
+                                       trainer.dp),
                        prefetch_depth)
+
+    def account(rows, start, wait):
+        nonlocal sums, n_steps, window_steps, last, window_start
+        rows = rows.double().cpu().numpy()      # (n, 2, K)
+        n = rows.shape[0]
+        step_ms.extend([1000.0 * (time.perf_counter() - start) / n] * n)
+        wait_ms.extend([wait / n] * n)
+        for row in rows:
+            sums = row if sums is None else sums + row
+            step_losses.append(row[0].tolist())
+        n_steps += n
+        window_steps += n
+        if window_steps >= logging_step:
+            elapsed = time.perf_counter() - window_start
+            print(f"Update {n_steps}")
+            print(f"elapsed: {elapsed:.1f} s")
+            print(f"{1000.0 * elapsed / window_steps:.1f} ms per batch")
+            window = sums if last is None else sums - last
+            show_logs("Training loss", {"locLoss_train": window[0] /
+                                        window_steps,
+                                        "locAcc_train": window[1] /
+                                        window_steps})
+            last, window_start, window_steps = sums.copy(), \
+                time.perf_counter(), 0
+
     try:
         ready = time.perf_counter()
         for item in batches:
@@ -376,32 +449,26 @@ def train_epoch(trainer: Trainer, loader, device: torch.device,
                 rows = torch.stack(multi_step(x, labels, quality, masks),
                                    dim=1)
             else:
-                rows = _run_steps(trainer, item[1], device, corpus)
-            dispatch_ms.append(1000.0 * (time.perf_counter() - start))
-            rows = rows.double().cpu().numpy()      # (n, 2, K)
-            n = rows.shape[0]
-            step_ms += [1000.0 * (time.perf_counter() - start) / n] * n
-            wait_ms += [wait / n] * n
-            for row in rows:
-                sums = row if sums is None else sums + row
-            n_steps += n
-            window_steps += n
-            if window_steps >= logging_step:
-                elapsed = time.perf_counter() - window_start
-                print(f"Update {n_steps}")
-                print(f"elapsed: {elapsed:.1f} s")
-                print(f"{1000.0 * elapsed / window_steps:.1f} ms per batch")
-                window = sums if last is None else sums - last
-                show_logs("Training loss", {"locLoss_train": window[0] /
-                                            window_steps,
-                                            "locAcc_train": window[1] /
-                                            window_steps})
-                last, window_start, window_steps = sums.copy(), \
-                    time.perf_counter(), 0
+                rows = _run_steps(trainer, item[1], device, corpus, tails,
+                                  tail_runner)
+            if rows is not None:
+                dispatch_ms.append(1000.0 * (time.perf_counter() - start))
+                account(rows, start, wait)
             ready = time.perf_counter()
     finally:
         if isinstance(batches, PrefetchIterator):
             batches.close()
+    if tails is not None:
+        with_quality = getattr(loader.dataset, 'signal_quality_path',
+                               None) is not None
+        # each round timed as a dispatch of its own
+        rounds, start = 0, time.perf_counter()
+        for _n, losses, accs in tails.run_train(trainer, with_quality):
+            dispatch_ms.append(1000.0 * (time.perf_counter() - start))
+            account(torch.cat([losses, accs])[None], start, 0.0)
+            rounds, start = rounds + 1, time.perf_counter()
+        if rounds:
+            print(f"(ran {rounds} weighted tail rounds)")
     if profiler is not None:      # the epoch ended inside the window
         _stop_profiler(profiler, device, profile_dir)
         profiled = True
@@ -409,32 +476,52 @@ def train_epoch(trainer: Trainer, loader, device: torch.device,
                                        "locAcc_train": sums[1] / n_steps})
     record.update(iter=n_steps, step_ms=step_ms, wait_ms=wait_ms,
                   load_ms=load_ms, dispatch_ms=dispatch_ms,
-                  profiled=profiled)
+                  profiled=profiled, step_losses=step_losses)
     return record
 
 
 def val_epoch(trainer: Trainer, loader, device: torch.device,
-              corpus: Optional[DeviceCorpus] = None, args=None) -> Dict:
+              corpus: Optional[DeviceCorpus] = None, args=None,
+              batch_size: int = 0, tails: Optional[PodTailRunner] = None,
+              tail_runner: Optional[TailRunner] = None) -> Dict:
     """The validation pass; with `corpus` each batch gathered from the
     validation pack on the device. Its masks are drawn as the training
-    steps' are (`step_mask`, with `args`). The record's `val_steps` counts
-    its steps."""
+    steps' are (`step_mask`, with `args`), and under ranks its batches
+    take `train_tails.route` against `batch_size` as the training steps'
+    do. The record's `val_steps` counts its steps."""
     sums, n_steps = None, 0
     quality = getattr(loader.dataset, 'signal_quality_path', None) is not None
     for full in loader:
         x, label = full[:2]
         mask = None if args is None else step_mask(args, x.shape[0])
+        label = np.asarray(label)
+        q = np.asarray(full[-1], np.float32) if quality else None
+        kind = route(x.shape[0], batch_size, trainer.dp)
+        if kind == "rows":
+            x, label, q, mask = (None if t is None else trainer.dp.rows(t)
+                                 for t in (x, label, q, mask))
+        if kind == "tail":
+            if corpus is not None:
+                x = pack_windows(loader.dataset.data, x, tails.size_window)
+            tails.add((x, label, q, mask))
+            continue
         if corpus is not None:
             corpus.ensure(loader.dataset.data)
             x = corpus.put(x)
         else:
             x = torch.from_numpy(x).to(device)
-        label = (torch.from_numpy(np.asarray(label)).to(device)
-                 if trainer.supervised else None)
-        q = (torch.from_numpy(np.asarray(full[-1], np.float32)).to(device)
-             if quality else None)
+        label = (torch.from_numpy(label).to(device) if trainer.supervised
+                 else None)
+        q = None if q is None else torch.from_numpy(q).to(device)
         mask = None if mask is None else torch.from_numpy(mask).to(device)
-        losses, accs = trainer.val_step(x, label=label, mask=mask, quality=q)
+        step = (trainer.val_step if kind != "alone" else
+                functools.partial(tail_runner.val, trainer))
+        losses, accs = step(x, label=label, mask=mask, quality=q)
+        row = torch.cat([losses, accs]).double().cpu().numpy()
+        sums = row if sums is None else sums + row
+        n_steps += 1
+    for _n, losses, accs in ([] if tails is None else
+                             tails.run_val(trainer, quality)):
         row = torch.cat([losses, accs]).double().cpu().numpy()
         sums = row if sums is None else sums + row
         n_steps += 1
@@ -446,12 +533,19 @@ def val_epoch(trainer: Trainer, loader, device: torch.device,
 
 
 # Flags a resumed run keeps from its own command line, not the checkpoint's
-# (`cpc2_tpu/train.py:382-388`, plus the port's `--device`).
+# (`cpc2_tpu/train.py:382-388`, plus the port's `--device`), and the rank
+# layout's fields (`parallel.init_distributed_mode`).
+_RANK_FIELDS = {"is_slurm_job", "n_nodes", "node_id", "local_rank",
+                "global_rank", "world_size", "n_gpu_per_node", "is_master",
+                "multi_node", "multi_gpu", "is_local_master"}
 _RUN_FLAGS = {"nGPU", "pathCheckpoint", "debug", "restart", "max_size_loaded",
-              "nEpoch", "save_step", "device"}
+              "nEpoch", "save_step", "device"} | _RANK_FIELDS
 # Where the port's checkpoints keep the state of the trainer's generator:
-# in the optimizer entry, beside torch's own state dict.
+# in the optimizer entry, beside torch's own state dict; under ranks also
+# every rank's, in rank order, and the tail runner's.
 GENERATOR_KEY = "generator_state"
+RANK_GENERATORS_KEY = "rank_generator_states"
+TAIL_GENERATOR_KEY = "tail_generator_state"
 
 
 def _resume(args) -> Tuple[Dict, bool, Optional[List[str]]]:
@@ -571,6 +665,8 @@ def _load_optimizer(optimizer: torch.optim.Optimizer, saved,
             "orbax run keeps its optimizer state in <checkpoint>.orbax)")
     saved = dict(saved)
     generator_state = saved.pop(GENERATOR_KEY, None)
+    saved.pop(RANK_GENERATORS_KEY, None)
+    saved.pop(TAIL_GENERATOR_KEY, None)
     # `capturable` and `fused` say how this run's Adam updates (fused, its
     # step count on the device, on a card), not a setting of the saved run
     saved["param_groups"] = [
@@ -584,18 +680,160 @@ def _load_optimizer(optimizer: torch.optim.Optimizer, saved,
 
 
 def main(argv: Optional[Sequence[str]]) -> Dict:
-    """Train as the flags say; returns the run's record: per-epoch logs,
-    every training step's time in ms, its median, and the audio hours
-    trained per hour of step time."""
+    """Train as the flags say; returns the run's record (rank 0's under
+    ranks): per-epoch logs, every training step's time in ms and losses,
+    the median time, and the audio hours trained per hour of step time.
+
+    `--distributed` (or a resume whose saved flags say so,
+    `parallel.peek_distributed`) runs this process as one rank of the
+    environment's layout (`parallel.init_distributed_mode`: torchrun's or
+    SLURM's variables), on `cuda:<local rank>` or the CPU, each rank
+    loading its own share of the files. Otherwise `--data_axis_size`
+    ranks (-1: `--nGPU`, itself -1 for every visible card) train on this
+    host, one process each, spawned here, every rank taking its rows of
+    the one loader's global batch of nGPU x batchSizeGPU; the kernels are
+    built once before the ranks start."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    boot = None
+    if peek_distributed(argv):
+        boot = argparse.Namespace()
+        init_distributed_mode(boot)
     args = parse_args(argv)
     logs, load_optimizer, built_from = _resume(args)
     if args.signal_quality_path is not None and \
             not os.path.exists(args.signal_quality_path):
         raise ValueError("%s can't be found. Are you sure you provided the "
                          "right location ?" % args.signal_quality_path)
+    if args.distributed:
+        if boot is None:
+            boot = argparse.Namespace()
+            init_distributed_mode(boot)
+        vars(args).update(vars(boot))
+        return _rank_run(args, logs, load_optimizer, built_from, pod=True)
+    world = _one_host_layout(args)
+    if world > 1:
+        return _spawn(argv, world, args.device)
     device = resolve_device(args.device)
     with precision(args.precision):
         return _train(args, logs, load_optimizer, built_from, device)
+
+
+def _one_host_layout(args) -> int:
+    """The ranks of a run on this host (`cpc2_tpu/train.py:1050-1055`,
+    `:676`): `--nGPU` -1 is every visible card (1 on the CPU), 0 is 1;
+    `--data_axis_size` D > 0 ranks, else nGPU, which the visible cards
+    must hold and which must divide the global batch nGPU x batchSizeGPU;
+    `--dcn_axis_size` must divide them."""
+    visible = torch.cuda.device_count() if args.device == "cuda" else 1
+    if args.nGPU == 0:
+        args.nGPU = 1
+    if args.nGPU < 0:
+        args.nGPU = max(visible, 1)
+    world = args.data_axis_size if args.data_axis_size > 0 else args.nGPU
+    if world > 1 and args.device == "cuda" and world > visible:
+        raise RuntimeError(f"{world} ranks asked, {visible} CUDA device(s) "
+                           f"visible: one rank a card")
+    if (args.nGPU * args.batchSizeGPU) % world:
+        raise ValueError(f"the global batch nGPU x batchSizeGPU = "
+                         f"{args.nGPU * args.batchSizeGPU} does not split "
+                         f"over {world} ranks")
+    rank_layout(world, args.dcn_axis_size)
+    return world
+
+
+def _spawn(argv: List[str], world: int, device_name: str) -> Dict:
+    """`world` rank processes on this host (`_spawn_rank`), rank 0's record
+    back through a file."""
+    import torch.multiprocessing as mp
+    if device_name == "cuda":
+        _build.build()
+    port = free_port()
+    tmp = tempfile.mkdtemp(prefix="cpc2_ranks_")
+    try:
+        path = os.path.join(tmp, "record.pt")
+        mp.start_processes(_spawn_rank, args=(argv, world, port, path),
+                           nprocs=world, join=True, start_method="spawn")
+        return torch.load(path, weights_only=False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _spawn_rank(rank: int, argv: List[str], world: int, port: int,
+                path: str) -> None:
+    args = parse_args(argv)
+    logs, load_optimizer, built_from = _resume(args)
+    _one_host_layout(args)
+    vars(args).update(is_slurm_job=False, n_nodes=1, node_id=0,
+                      local_rank=rank, global_rank=rank, world_size=world,
+                      n_gpu_per_node=world, is_master=rank == 0,
+                      multi_node=False, multi_gpu=True)
+    record = _rank_run(args, logs, load_optimizer, built_from, pod=False,
+                       init_method=f"tcp://127.0.0.1:{port}")
+    if rank == 0:
+        torch.save(record, path)
+
+
+def _rank_run(args, logs: Dict, load_optimizer: bool,
+              built_from: Optional[List[str]], pod: bool,
+              init_method: Optional[str] = None) -> Dict:
+    """This process as rank `args.global_rank` of `args.world_size`: its
+    device, the process group (left when the run ends, whatever happens),
+    the training; ranks above 0 print nothing. `pod`: the ranks load their
+    own files (`--distributed`)."""
+    rank, world = args.global_rank, args.world_size
+    if pod:
+        print('Distributed mode, moving to 1 process for data loading')
+        args.n_process_loader = 1
+        rank_layout(world, args.dcn_axis_size)
+    args.is_local_master = rank == 0
+    device = rank_device(args.device, args.local_rank)
+    per_host = max(1, getattr(args, "n_gpu_per_node", world))
+    if device.type == "cpu" and per_host > 1:
+        # the host's cores shared out among its ranks
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // per_host))
+    elif device.type == "cuda" and pod:
+        _build.build()
+    stdout = sys.stdout
+    init_process_group(rank, world, device, init_method)
+    try:
+        if rank:
+            sys.stdout = open(os.devnull, "w")
+        dp = DataParallel(rank, world, device, args.dcn_axis_size,
+                          pod=pod and world > 1)
+        print(f"Rank {rank} of {world} on {device} ({dp.backend}), nodes x "
+              f"ranks {tuple(dp.layout.shape)}")
+        with precision(args.precision):
+            return _train(args, logs, load_optimizer, built_from, device, dp)
+    finally:
+        if sys.stdout is not stdout:
+            sys.stdout.close()
+            sys.stdout = stdout
+        dist.destroy_process_group()
+
+
+def _restore_generators(saved, generator_state, generator: torch.Generator,
+                        tail_runner: Optional[TailRunner],
+                        dp: Optional[DataParallel]) -> None:
+    """The saved states of the trainer's generator (this rank's, where
+    the checkpoint holds every rank's of as many ranks) and the tail
+    runner's; where a state is missing, its seed's stream starts again."""
+    rank, world = (0, 1) if dp is None else (dp.rank, dp.world)
+    states = saved.get(RANK_GENERATORS_KEY) if isinstance(saved, dict) \
+        else None
+    if states is not None and len(states) == world:
+        generator_state = states[rank]
+    elif rank:
+        generator_state = None
+    if generator_state is None:
+        print("The checkpoint holds no generator state for this rank: the "
+              "negatives and dropout draws start again from --random_seed")
+    else:
+        generator.set_state(generator_state)
+        print("Restored the generator state")
+    tail_state = saved.get(TAIL_GENERATOR_KEY) if isinstance(saved, dict) \
+        else None
+    if tail_runner is not None and tail_state is not None:
+        tail_runner.generator.set_state(tail_state)
 
 
 def _best(logs: Dict, path: str) -> Tuple[float, Optional[Dict]]:
@@ -609,10 +847,12 @@ def _best(logs: Dict, path: str) -> Tuple[float, Optional[Dict]]:
     return max(accs), load_torch_checkpoint(path)["best"]
 
 
-def _noise_dataset(args, generators) -> Optional[AudioBatchData]:
+def _noise_dataset(args, generators, shard=None
+                   ) -> Optional[AudioBatchData]:
     """The noise corpus of `--pathDBNoise` (`cpc2_tpu/train.py:508-529`):
     windows peak-normalised, and with `--meta_aug` augmented by
-    `--meta_aug_type` (both views the same)."""
+    `--meta_aug_type` (both views the same); `shard` keeps a rank's share
+    of its files (`--distributed`)."""
     if args.pathDBNoise is None or not (args.augment_past
                                         or args.augment_future):
         return None
@@ -623,6 +863,8 @@ def _noise_dataset(args, generators) -> Optional[AudioBatchData]:
         seq_noise = filter_seqs(args.pathSeqNoise, seq_noise)
     if args.debug:
         seq_noise = seq_noise[:100]
+    if shard is not None:
+        seq_noise = shard(seq_noise)
     print(f'\nLoading noise data at {args.pathDBNoise}')
     return AudioBatchData(
         args.pathDBNoise, args.sizeWindow, seq_noise, None, 1,
@@ -692,7 +934,16 @@ def _device_augment(args, dev_types: List[str], noise_dataset
 
 
 def _train(args, logs: Dict, load_optimizer: bool,
-           built_from: Optional[List[str]], device: torch.device) -> Dict:
+           built_from: Optional[List[str]], device: torch.device,
+           dp: Optional[DataParallel] = None) -> Dict:
+    """The run on `device`; under ranks (`dp`) as one of them: every rank
+    builds the same model from the seed and takes rank 0's weights, draws
+    its negatives and dropout from a generator of its own (`rank_seed`),
+    loads the one loader's global batch and takes its rows, or with
+    `dp.pod` loads its share of the files (`filter_distributed`) after the
+    ranks checked their loaders' lengths, and only rank 0 writes the
+    checkpoints and logs."""
+    rank = 0 if dp is None else dp.rank
     set_seed(args.random_seed)
     torch.manual_seed(args.random_seed)
     print(f'CONFIG:\n{json.dumps(vars(args), indent=4, sort_keys=True)}')
@@ -704,6 +955,15 @@ def _train(args, logs: Dict, load_optimizer: bool,
         cache_path=args.path_cache)
     print(f'Found files: {len(seq_names)} seqs, {len(speakers)} speakers')
     seq_train, seq_val = _split(args, seq_names)
+    shard = None
+    if dp is not None and dp.pod:
+        shard = functools.partial(filter_distributed, rank=rank,
+                                  world=dp.world)
+        print(f'Initial worker files: {len(seq_train)} train, '
+              f'{len(seq_val)} val')
+        seq_train, seq_val = shard(seq_train), shard(seq_val)
+        print(f'Current worker files: {len(seq_train)} train, '
+              f'{len(seq_val)} val')
     phone_labels, n_phones = None, None
     if args.supervised and args.pathPhone is not None:
         print("Loading the phone labels at " + args.pathPhone)
@@ -714,7 +974,7 @@ def _train(args, logs: Dict, load_optimizer: bool,
     # the host augmenters' generators, reseeded at every epoch
     generators = {"rng": np.random.RandomState(args.random_seed),
                   "choice_rng": random.Random(args.random_seed)}
-    noise_dataset = _noise_dataset(args, generators)
+    noise_dataset = _noise_dataset(args, generators, shard)
     device_augment = _device_augment(args, dev_types, noise_dataset)
     use_host_aug = device_augment is None or bool(host_types)
     if args.corpus_on_device:
@@ -774,26 +1034,41 @@ def _train(args, logs: Dict, load_optimizer: bool,
     optimizer = make_optimizer(args, params,
                                capturable=device.type == "cuda")
     generator = torch.Generator(device=device)
-    generator.manual_seed(args.random_seed)
+    generator.manual_seed(rank_seed(args.random_seed, rank))
+    # the one-host ranks' short batches that every rank runs whole, and
+    # the weighted rounds of ranks that load their own files
+    tail_runner = pod_tails = None
+    if dp is not None and not dp.pod and dp.world > 1:
+        # a stream that no rank's generator draws
+        tail_runner = TailRunner(device, rank_seed(args.random_seed,
+                                                   dp.world))
     best_acc, best_state = -1.0, None
     if load_optimizer:
+        saved = load_torch_checkpoint(args.load[0])["optimizer"]
         generator_state = _load_optimizer(
-            optimizer, load_torch_checkpoint(args.load[0])["optimizer"],
-            {"criterion": criterion, "model": model}, args.normMode)
-        if generator_state is None:
-            print("The checkpoint holds no generator state: the negatives "
-                  "and dropout draws start again from --random_seed")
-        else:
-            generator.set_state(generator_state)
-            print("Restored the generator state")
+            optimizer, saved, {"criterion": criterion, "model": model},
+            args.normMode)
+        _restore_generators(saved, generator_state, generator, tail_runner,
+                            dp)
         best_acc, best_state = _best(logs, args.load[0])
+    if dp is not None:
+        dp.replicate(model, criterion)
     trainer = Trainer(model, criterion, optimizer, generator,
                       keep_hidden=model.keeps_hidden,
                       device_augment=device_augment,
-                      augment_generator=torch.Generator(device=device))
+                      augment_generator=torch.Generator(device=device),
+                      dp=dp, global_negatives=args.global_negatives)
     lr_fn = make_lr_schedule(args.learningRate, args.schedulerStep,
                              args.schedulerRamp)
-    batch_size = args.batchSizeGPU
+    # the loader's batch: the global one on one host (each rank takes its
+    # rows), the rank's own where the ranks load their own files
+    batch_size = (args.batchSizeGPU if dp is not None and dp.pod
+                  else max(args.nGPU, 1) * args.batchSizeGPU)
+    if dp is not None and dp.pod:
+        pod_tails = PodTailRunner(
+            dp, batch_size, encoded_seq_len(args.sizeWindow,
+                                            args.encoder_type),
+            args.sizeWindow, args.cpc_mode == 'bert' or args.mask_prob > 0)
     # --corpus_on_device: one resident pack per split, kept across epochs
     corpus_train = corpus_val = None
     if args.corpus_on_device:
@@ -808,7 +1083,7 @@ def _train(args, logs: Dict, load_optimizer: bool,
         torch.cuda.reset_peak_memory_stats(device)
 
     path_checkpoint = None
-    if args.pathCheckpoint is not None:
+    if args.pathCheckpoint is not None and rank == 0:
         os.makedirs(args.pathCheckpoint, exist_ok=True)
         path_checkpoint = os.path.join(args.pathCheckpoint, "checkpoint")
         # `load` stays what the model was built from, so that a
@@ -817,6 +1092,7 @@ def _train(args, logs: Dict, load_optimizer: bool,
                   path_checkpoint + "_args.json")
 
     step_ms: List[float] = []
+    step_losses: List[List[float]] = []
     wait_ms: List[float] = []
     load_ms: List[float] = []
     dispatch_ms: List[float] = []
@@ -833,7 +1109,11 @@ def _train(args, logs: Dict, load_optimizer: bool,
             set_seed(epoch_seed)
             for gen in generators.values():
                 gen.seed(epoch_seed)
-            trainer.augment_generator.manual_seed(epoch_seed)
+            trainer.augment_generator.manual_seed(rank_seed(epoch_seed,
+                                                            rank))
+            if tail_runner is not None:
+                tail_runner.augment_generator.manual_seed(
+                    rank_seed(epoch_seed, dp.world))
             for dataset in (noise_dataset, train_dataset):
                 if dataset is not None:
                     restart(dataset.augmentation)
@@ -849,10 +1129,15 @@ def _train(args, logs: Dict, load_optimizer: bool,
             print("Training dataset %d batches, Validation dataset %d "
                   "batches, batch size %d" % (len(train_loader),
                                               len(val_loader), batch_size))
+            if dp is not None and dp.pod:
+                dp.check_lengths([len(train_loader), len(val_loader)],
+                                 "loader lengths")
             loc_train = train_epoch(trainer, train_loader, device,
                                     args.logging_step, args.profile_dir,
                                     args.host_prefetch, corpus_train,
-                                    multi_step, batch_size, args)
+                                    multi_step, batch_size, args, pod_tails,
+                                    tail_runner)
+            step_losses += loc_train.pop("step_losses")
             step_ms += loc_train.pop("step_ms")
             wait_ms += loc_train.pop("wait_ms")
             load_ms += loc_train.pop("load_ms")
@@ -860,7 +1145,7 @@ def _train(args, logs: Dict, load_optimizer: bool,
             if loc_train.pop("profiled"):
                 args.profile_dir = None       # one trace per run
             loc_val = (val_epoch(trainer, val_loader, device, corpus_val,
-                                 args)
+                                 args, batch_size, pod_tails, tail_runner)
                        if val_dataset is not None else {})
             val_steps += loc_val.pop("val_steps", 0)
             print(f'Ran {epoch + 1} epochs '
@@ -876,14 +1161,24 @@ def _train(args, logs: Dict, load_optimizer: bool,
                     value.tolist() if isinstance(value, np.ndarray)
                     else value)
             logs["epoch"].append(epoch)
-            if path_checkpoint is not None and (
+            if dp is not None and dp.world > 1:
+                dp.check_replicas(model, criterion)
+            if args.pathCheckpoint is not None and (
                     epoch % logs["saveStep"] == 0 or epoch == args.nEpoch - 1):
-                save_checkpoint(model.state_dict(), criterion.state_dict(),
-                                dict(optimizer.state_dict(), **{
-                                    GENERATOR_KEY: generator.get_state()}),
-                                best_state,
-                                f"{path_checkpoint}_{epoch}.pt")
-                save_logs(logs, path_checkpoint + "_logs.json")
+                states = {GENERATOR_KEY: generator.get_state()}
+                if dp is not None:      # every rank joins the gather
+                    states[RANK_GENERATORS_KEY] = dp.gather_states(
+                        generator.get_state())
+                if tail_runner is not None:
+                    states[TAIL_GENERATOR_KEY] = \
+                        tail_runner.generator.get_state()
+                if path_checkpoint is not None:
+                    save_checkpoint(model.state_dict(),
+                                    criterion.state_dict(),
+                                    dict(optimizer.state_dict(), **states),
+                                    best_state,
+                                    f"{path_checkpoint}_{epoch}.pt")
+                    save_logs(logs, path_checkpoint + "_logs.json")
     finally:
         for dataset in (train_dataset, val_dataset, noise_dataset):
             if dataset is not None:
@@ -891,11 +1186,16 @@ def _train(args, logs: Dict, load_optimizer: bool,
 
     record = {"logs": logs, "step_ms": step_ms, "wait_ms": wait_ms,
               "load_ms": load_ms, "dispatch_ms": dispatch_ms,
+              "step_losses": step_losses,
               "steps_per_dispatch": spd, "val_steps": val_steps,
               "dispatch": "eager" if multi_step is None else multi_step.route,
-              "param_devices": sorted({str(p.device) for p in params})}
+              "param_devices": sorted({str(p.device) for p in params}),
+              "ranks": 1 if dp is None else dp.world,
+              "backend": None if dp is None else dp.backend}
     if multi_step is not None:
         record["graph_captures"] = multi_step.captures
+    if tail_runner is not None:
+        record["alone_steps"] = tail_runner.steps
     if device.type == "cuda":
         record["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
     if step_ms:

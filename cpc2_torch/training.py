@@ -17,6 +17,12 @@ whose update is optax's `adam` formula.
 `MultiStep` runs N steps per call (`--steps_per_dispatch`, counterpart of
 `cpc2_tpu/training.py:build_multi_step`): on a card, one replay of a CUDA
 graph of the N steps.
+
+Under ranks (`parallel.DataParallel`, `--nGPU`/`--distributed`) each step
+averages the gradients, losses, accuracies and BatchNorm statistics over
+the ranks, as the JAX step `pmean`s them over its data mesh; the weighted
+step (`example_weights`, the ranks' padded tails) divides by the weights'
+sum over the ranks and sums the gradients (`cpc2_tpu/training.py:280-330`).
 """
 
 from __future__ import annotations
@@ -155,13 +161,25 @@ class Trainer:
     takes the steps' `label` (the past views' speakers or phones) in place
     of the negatives. The steps' `mask` (2B, S), drawn on the host, is the
     `--mask_prob` span mask or the BERT block mask of both views; `quality`
-    (B, Q) weights the CPC criterion's losses (`--signal_quality_path`)."""
+    (B, Q) weights the CPC criterion's losses (`--signal_quality_path`).
+
+    `dp` (a `parallel.DataParallel`, or None for one process): the rank
+    this trainer runs as; its steps reduce over the ranks, and with
+    `global_negatives` the CPC criterion draws over the pool gathered from
+    every rank. Under ranks the gradients live in `grad_buffers`
+    (`DataParallel.bind_gradients`), one flat buffer a dtype.
+    `alone(generator, augment_generator)` runs steps on the rank's batch
+    alone, without the gathered pool, drawing from generators that every
+    rank holds alike (the tail that every rank runs whole,
+    `train_tails.TailRunner`); their reductions stay, so that the ranks
+    hold one replica whatever each card computes."""
 
     def __init__(self, model: nn.Module, criterion: nn.Module,
                  optimizer: torch.optim.Optimizer,
                  generator: Optional[torch.Generator] = None,
                  keep_hidden: bool = False, device_augment=None,
-                 augment_generator: Optional[torch.Generator] = None):
+                 augment_generator: Optional[torch.Generator] = None,
+                 dp=None, global_negatives: bool = False):
         self.model = model
         self.criterion = criterion
         self.optimizer = optimizer
@@ -170,7 +188,26 @@ class Trainer:
         self.device_augment = device_augment
         self.augment_generator = augment_generator
         self.supervised = isinstance(criterion, SupervisedCriterion)
+        self.dp = dp
+        self.global_negatives = global_negatives
+        self.grad_buffers = (None if dp is None else dp.bind_gradients(
+            p for group in optimizer.param_groups for p in group['params']))
         self._hidden = None
+
+    @contextlib.contextmanager
+    def alone(self, generator: Optional[torch.Generator],
+              augment_generator: Optional[torch.Generator]):
+        """Steps inside the block draw from `generator` and
+        `augment_generator` and score over the rank's batch alone (no
+        gathered pool)."""
+        saved = self.generator, self.augment_generator, self.global_negatives
+        self.generator, self.augment_generator = generator, augment_generator
+        self.global_negatives = False
+        try:
+            yield
+        finally:
+            (self.generator, self.augment_generator,
+             self.global_negatives) = saved
 
     def set_learning_rate(self, lr: float) -> None:
         for group in self.optimizer.param_groups:
@@ -196,7 +233,9 @@ class Trainer:
                  carry: bool, train: bool = False,
                  label: Optional[Tensor] = None,
                  mask: Optional[Tensor] = None,
-                 quality: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+                 quality: Optional[Tensor] = None,
+                 example_weights: Optional[Tensor] = None
+                 ) -> Tuple[Tensor, Tensor]:
         b = batch.shape[0]
         past, future = batch[:, 0, 0, :], batch[:, 1, 0, :]
         if train and self.device_augment is not None:
@@ -220,62 +259,120 @@ class Trainer:
                                                        self.generator)
             if carry and new_hidden is not None:
                 self._hidden = _detach(new_hidden)
+        weights = ({} if example_weights is None
+                   else {"example_weights": example_weights})
         if self.supervised:
-            return self.criterion(c_feature, encoded[b:], label)
+            return self.criterion(c_feature, encoded[b:], label, **weights)
         if isinstance(self.criterion, CPCBertCriterion):
             if mask is None:
                 raise ValueError("the BERT criterion scores the masked "
                                  "frames: the step needs its mask")
             return self.criterion(c_feature, encoded[b:], mask[:b],
-                                  self.generator, negative_indices)
+                                  self.generator, negative_indices,
+                                  **weights)
+        pool = (self.dp if self.global_negatives and self.dp is not None
+                and self.dp.world > 1 else None)
         return self.criterion(c_feature, encoded[b:], self.generator,
-                              negative_indices, quality)
+                              negative_indices, quality, pool=pool,
+                              **weights)
+
+    def _weight_total(self, example_weights: Optional[Tensor]
+                      ) -> Optional[Tensor]:
+        """The weights' sum over the ranks (at least 1e-9), or None."""
+        if example_weights is None:
+            return None
+        total = example_weights.float().sum()
+        if self.dp is not None:
+            total = self.dp.all_reduce(total.reshape(1))[0]
+        return total.clamp_min(1e-9)
+
+    def _metrics(self, losses: Tensor, accs: Tensor,
+                 total: Optional[Tensor]) -> Tuple[Tensor, Tensor]:
+        """The step's losses and accuracies over the ranks: their mean, or
+        with weights their sum over the total weight; in one
+        `all_reduce`."""
+        if self.dp is None and total is None:
+            return losses, accs
+        both = torch.cat([losses.detach().float(), accs.detach().float()])
+        if self.dp is not None:
+            both = self.dp.all_reduce(both.clone())
+        both = both / (self.dp.world if total is None and self.dp is not None
+                       else total)
+        return both[:losses.shape[0]], both[losses.shape[0]:]
 
     def train_step(self, batch: Tensor,
                    negative_indices: Optional[Tensor] = None,
                    label: Optional[Tensor] = None,
                    mask: Optional[Tensor] = None,
-                   quality: Optional[Tensor] = None
+                   quality: Optional[Tensor] = None,
+                   example_weights: Optional[Tensor] = None
                    ) -> Tuple[Tensor, Tensor]:
         """One optimizer step on `batch` (B, 2, 1, W); returns the per-head
         (losses, accuracies), each (1, K - n_skipped), or a supervised
         criterion's (1, 1) on `label`, detached. A parameter the loss does
         not reach (all of them under `--cpc_mode none`) steps on a zero
-        gradient, as in the JAX package, whose gradients are dense."""
+        gradient, as in the JAX package, whose gradients are dense.
+
+        Under ranks the gradients, metrics and BatchNorm statistics are
+        averaged over them. With `example_weights` (B,) (0 on a padded
+        row) the step is the exact mean over the real examples of every
+        rank: the criterion's weighted sums over the weights' total, the
+        gradients summed over the ranks, the statistics averaged over the
+        ranks that hold a real row."""
         self.model.train()
         self.criterion.train()
-        self.optimizer.zero_grad(set_to_none=True)
+        # under ranks the gradients stay views of `grad_buffers`
+        self.optimizer.zero_grad(set_to_none=self.dp is None)
+        total = self._weight_total(example_weights)
         losses, accs = self._forward(batch, negative_indices,
                                      self.keep_hidden, train=True,
-                                     label=label, mask=mask, quality=quality)
-        total = losses.sum()
-        if total.requires_grad:
-            total.backward()
-        for group in self.optimizer.param_groups:
-            for p in group['params']:
-                if p.grad is None and p.requires_grad:
-                    p.grad = torch.zeros_like(p)
+                                     label=label, mask=mask, quality=quality,
+                                     example_weights=example_weights)
+        objective = losses.sum() if total is None else losses.sum() / total
+        if objective.requires_grad:
+            objective.backward()
+        params = [p for group in self.optimizer.param_groups
+                  for p in group['params']]
+        for p in params:
+            if p.grad is None and p.requires_grad:
+                p.grad = torch.zeros_like(p)
+        if self.dp is not None:
+            self.dp.reduce_gradients(self.grad_buffers, mean=total is None)
+            self.dp.reduce_batch_stats(
+                (self.model, self.criterion), None if example_weights is None
+                else (example_weights.sum() > 0))
+        losses, accs = self._metrics(losses.detach(), accs, total)
         self.optimizer.step()
-        return losses.detach(), accs
+        return losses, accs
 
     @torch.no_grad()
     def val_step(self, batch: Tensor,
                  negative_indices: Optional[Tensor] = None,
                  label: Optional[Tensor] = None,
                  mask: Optional[Tensor] = None,
-                 quality: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+                 quality: Optional[Tensor] = None,
+                 example_weights: Optional[Tensor] = None
+                 ) -> Tuple[Tensor, Tensor]:
         """The step's losses and accuracies in evaluation mode (no dropout,
-        BatchNorm running statistics), without an update."""
+        BatchNorm running statistics), without an update; averaged over
+        the ranks, or with `example_weights` weighted as `train_step`'s."""
         self.model.eval()
         self.criterion.eval()
-        return self._forward(batch, negative_indices, False, label=label,
-                             mask=mask, quality=quality)
+        total = self._weight_total(example_weights)
+        losses, accs = self._forward(batch, negative_indices, False,
+                                     label=label, mask=mask, quality=quality,
+                                     example_weights=example_weights)
+        return self._metrics(losses, accs, total)
 
 
-def dispatch_route(device: torch.device, criterion: nn.Module) -> str:
+def dispatch_route(device: torch.device, criterion: nn.Module,
+                   dp=None) -> str:
     """`MultiStep`'s route: `graph` on a CUDA device unless the criterion
-    copies to the host (`--CTC`), else `eager`."""
-    if device.type == "cuda" and not isinstance(criterion, CTCPhoneCriterion):
+    copies to the host (`--CTC`) or the ranks reduce over `gloo`, whose
+    collectives a CUDA graph cannot capture (NCCL's it can), else
+    `eager`."""
+    if device.type == "cuda" and not isinstance(criterion, CTCPhoneCriterion) \
+            and (dp is None or dp.backend == "nccl"):
         return "graph"
     return "eager"
 
@@ -308,16 +405,21 @@ class MultiStep:
     launch counts (`ops/_build.py:LAUNCHES`) taken at the capture are
     added at every replay: a replay launches nothing from Python.
 
-    `route` is `eager` on the CPU, and for a criterion that copies to the
-    host (`--CTC`: torch's CUDA `ctc_loss` reads its lengths there): the N
-    steps run one after another, the losses copied once per call."""
+    Under NCCL ranks the steps' all-reduces are captured with them, so a
+    replay reduces as N eager steps do.
+
+    `route` is `eager` on the CPU, for a criterion that copies to the
+    host (`--CTC`: torch's CUDA `ctc_loss` reads its lengths there) and
+    under `gloo` ranks: the N steps run one after another, the losses
+    copied once per call."""
 
     def __init__(self, trainer: Trainer, n_inner: int, corpus=None):
         self.trainer = trainer
         self.n_inner = n_inner
         self.corpus = corpus
         self.device = next(trainer.model.parameters()).device
-        self.route = dispatch_route(self.device, trainer.criterion)
+        self.route = dispatch_route(self.device, trainer.criterion,
+                                    trainer.dp)
         self.launches = {}        # a replay's kernel launches
         self.captures = 0
         self._graph = None
