@@ -460,18 +460,21 @@ def kernel_entry(name, source, replaces, err, ms, plain_ms, library_ms,
 
 def check_sass(build) -> str:
     """The GEMM kernels must be `wgmma` products fed by TMA: the bf16 FFN
-    route's and the encoder's conv products' SASS holds HGMMA and UTMALDG,
-    the fp32 FFN route's HGMMA in TF32 (an HGMMA line naming TF32) and
-    UTMALDG; the attention kernels' `mma.sync` products are HMMA in TF32 (an
-    HMMA line naming TF32); the fp32 FFN's, the encoder's, the
-    attention's and the DTW routes' kernels (the lane route's ten) spill
-    nothing. Returns a summary with each one's registers and spills from
-    the build log."""
+    route's, the bf16-io FFN route's blocks' (`ffn_io_hidden`,
+    `ffn_io_split`) and the encoder's conv products' SASS holds HGMMA and
+    UTMALDG, the fp32 FFN route's HGMMA in TF32 (an HGMMA line naming
+    TF32) and UTMALDG; the attention kernels' `mma.sync` products are HMMA
+    in TF32 (an HMMA line naming TF32) on TMA boxes (UTMALDG: the bf16-io
+    instantiations' too); the fp32 FFN's, the bf16-io FFN's, the
+    encoder's, the attention's and the DTW routes' kernels (the lane
+    route's ten) spill nothing. Returns a summary with each one's registers
+    and spills from the build log."""
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "--dump-sass", str(build.LIBRARY)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
     found = {"ffn_wgmma_gemm": [], "ffn_tf32x3_gemm": [],
+             "ffn_io_hidden": [], "ffn_io_split": [],
              "conv_wgmma_gemm": [], "attention_fwd_mma": [],
              "attention_bwd_mma": [], "attention_fwd_wide": [],
              "attention_bwd_wide": []}
@@ -481,9 +484,10 @@ def check_sass(build) -> str:
         if kind is None:
             continue
         if kind.startswith("attention"):
-            missing = [] if any("HMMA" in line and "TF32" in line
-                                for line in fn.splitlines()) else [
-                                    "HMMA ... TF32"]
+            missing = ([] if any("HMMA" in line and "TF32" in line
+                                 for line in fn.splitlines()) else [
+                                     "HMMA ... TF32"]) + (
+                [] if "UTMALDG" in fn else ["UTMALDG"])
         else:
             missing = [op for op in ("HGMMA", "UTMALDG") if op not in fn]
         if kind == "ffn_tf32x3_gemm" and not any(
@@ -494,6 +498,7 @@ def check_sass(build) -> str:
             raise AssertionError(f"{name}: no {missing} in its SASS")
         found[kind].append(name)
     for kind, least in (("ffn_wgmma_gemm", 5), ("ffn_tf32x3_gemm", 3),
+                        ("ffn_io_hidden", 1), ("ffn_io_split", 3),
                         ("conv_wgmma_gemm", 2), ("attention_fwd_mma", 3),
                         ("attention_bwd_mma", 3), ("attention_fwd_wide", 1),
                         ("attention_bwd_wide", 1)):
@@ -506,7 +511,8 @@ def check_sass(build) -> str:
         raise AssertionError(f"the DTW kernels in the build log: "
                              f"{usage['dtw_lanes'] + usage['dtw_wave']}")
     attention = [k for k in found if k.startswith("attention")]
-    spilled = [u for kind in ["ffn_tf32x3_gemm", "conv_wgmma_gemm",
+    spilled = [u for kind in ["ffn_tf32x3_gemm", "ffn_io_hidden",
+                              "ffn_io_split", "conv_wgmma_gemm",
                               "dtw_lanes", "dtw_wave"] + attention
                for u in usage[kind] if not u.endswith(" 0 spill bytes")]
     if spilled:
@@ -514,10 +520,13 @@ def check_sass(build) -> str:
     return (f"{len(found['ffn_wgmma_gemm'])} bf16 FFN GEMM kernels, each "
             f"with HGMMA and UTMALDG; {len(found['ffn_tf32x3_gemm'])} fp32 "
             f"(3xTF32) ones, each with HGMMA in TF32 and UTMALDG; "
+            f"{len(found['ffn_io_hidden']) + len(found['ffn_io_split'])} "
+            f"bf16-io FFN blocks, each with HGMMA and UTMALDG; "
             f"{len(found['conv_wgmma_gemm'])} encoder conv products, each "
             f"with HGMMA and UTMALDG; "
-            f"{sum(len(found[k]) for k in attention)} attention kernels, "
-            f"each with HMMA in TF32; ptxas: "
+            f"{sum(len(found[k]) for k in attention)} attention kernels "
+            f"(bf16-io included), each with HMMA in TF32 and UTMALDG; "
+            f"ptxas: "
             + " | ".join(u for lines in usage.values() for u in lines))
 
 
@@ -5336,7 +5345,9 @@ def variant_launches_by_kernel(variants: dict) -> dict:
 # bf16 kernels take widths that are multiples of 8); the bf16-io attention
 # at the recipe and at a unit whose dk comes in chunks (the wide kernels)
 BF16_FFN_SHAPES = ((8 * 116, 256, 2048, 256), (84, 64, 2048, 64))
-BF16_ATTENTION_SHAPES = ((64, 116, 32), (3, 8, 256))
+# the recipe, a wide one (dk in chunks), and one whose rows do not fit a
+# staging region beside the fp32 ones (its boxes widened in place)
+BF16_ATTENTION_SHAPES = ((64, 116, 32), (3, 8, 256), (3, 86, 97))
 # the wide attention kernels timed, fp32 and bf16-io, at 64 units of 8 steps
 # and dk 256 (above a TMA box's 248: two chunks of dk)
 WIDE_ATTENTION_SHAPE = (64, 8, 256)
@@ -5459,15 +5470,31 @@ def hold_bf16io(what, names, kern, plain, wide, inputs, cot):
                                                      grad_k)
 
 
+def kernel_short(name: str) -> str:
+    """A profiled kernel's name without its namespaces and parameters."""
+    import re
+    found = re.search(r"(\w+(?:<[^()]*>)?)\(", name)
+    return found[1] if found else name
+
+
+def split_line(split: dict) -> str:
+    return ", ".join(f"{kernel_short(k)} {v:.4f}" for k, v in split.items())
+
+
 def check_bf16_ffn(dev, gen) -> tuple:
     """The FFN's bf16-io kernels (a bf16 x, y and dx; fp32 weights and
     their gradients) against `ffn_plain` on the same bf16 x at
     BF16_FFN_SHAPES, dropout 0 and 0.1, within FFN_BAND (`hold_bf16io`),
-    each backward bit for bit across two calls; timed at the recipe and 0.1
-    by device time (events beside) with the plain version and the
-    `torch.matmul` route on bf16 tensors (`ffn_route`). Returns the kernel
-    entries, the route's times and the events' times."""
-    from cpc2_torch.ops.ffn import ffn_plain, fused_ffn, keep_mask
+    each backward bit for bit across two calls; at the recipe the launches
+    a call by the profile's kernel counts (3 forward, 3 backward, no
+    `ffn_sum_partials`); timed at the recipe and 0.1 by device time,
+    split by launch (`device_split`; events beside), with the plain
+    version and the `torch.matmul` route on bf16 tensors (`ffn_route`).
+    Returns the kernel entries, the route's times, the events' times and
+    the splits (with the clusters of 2, 4 and 8 split CTAs the card holds
+    at once)."""
+    from cpc2_torch.ops.ffn import cluster_fits, ffn_plain, fused_ffn, \
+        keep_mask
     seed = torch.tensor([12345], device=dev, dtype=torch.int32)
     errs, ratios = [], []
     for shape in BF16_FFN_SHAPES:
@@ -5494,7 +5521,8 @@ def check_bf16_ffn(dev, gen) -> tuple:
     bwd_k, bwd_p, out_k, grad_k = timed
     m, din, dff, dout = BF16_FFN_SHAPES[0]
     with torch.no_grad():
-        fwd_ms = device_ms(lambda: kern(*inputs), expect="ffn_wgmma_gemm")
+        fwd_split = device_split(lambda: kern(*inputs), expect="ffn_io_split")
+        fwd_ms = sum(fwd_split.values())
         plain_fwd = device_ms(lambda: plain(*inputs))
         events = {"ffn_fwd_bf16io": cuda_ms(lambda: kern(*inputs))}
         keep = keep_mask(seed, m, dff, 0.1)
@@ -5503,9 +5531,22 @@ def check_bf16_ffn(dev, gen) -> tuple:
                     lambda: ffn_route(*inputs, keep, 1 / 0.9)),
                 "ffn_bwd_bf16io": device_ms(
                     lambda: ffn_route_bwd(cot[0], keep, 1 / 0.9, saved))}
-    bwd_ms = device_ms(bwd_k, expect="ffn_wgmma_gemm")
+    bwd_split = device_split(bwd_k, expect="ffn_io_split")
+    bwd_ms = sum(bwd_split.values())
     plain_bwd = device_ms(bwd_p)
     events["ffn_bwd_bf16io"] = cuda_ms(bwd_k)
+    for what, fn, most in (("fwd", lambda: kern(*inputs), 3),
+                           ("bwd", bwd_k, 3)):
+        with torch.no_grad() if what == "fwd" else contextlib.nullcontext():
+            _, counts = kernel_counts(fn, "ffn_io_split", 5)
+        ours = {kernel_short(k): n for k, n in counts.items()
+                if kernel_short(k).startswith("ffn_")}
+        if (not ours or sum(ours.values()) > most
+                or any("sum_partials" in k for k in ours)):
+            raise AssertionError(f"ffn bf16io {what}: launches a call "
+                                 f"{ours}, at most {most} and no "
+                                 f"ffn_sum_partials")
+    clusters = dict(zip(("2", "4", "8"), cluster_fits(inputs[0].device)))
     log(f"  ffn bf16io kernels vs plain at {list(BF16_FFN_SHAPES)}, rates 0 "
         f"and 0.1, relative 2-norm: at most {max(ratios):.2f} of the limit "
         f"({FFN_BAND} x the plain version's own spread against float64 at "
@@ -5520,7 +5561,9 @@ def check_bf16_ffn(dev, gen) -> tuple:
             kernel_entry("ffn_bwd_bf16io", src, rep + ":217",
                          max(e[1] for e in errs), bwd_ms, plain_bwd, None,
                          nbytes(*inputs[:4], *cot) + nbytes(*grad_k),
-                         5 * gemm, BF16_FLOP_PER_S)], yard, events
+                         5 * gemm, BF16_FLOP_PER_S)], yard, events, {
+        "ffn_fwd_bf16io": fwd_split, "ffn_bwd_bf16io": bwd_split,
+        "clusters": clusters}
 
 
 def attention_inputs(dev, draw, n, s, dk, dtype=torch.float32):
@@ -5548,21 +5591,24 @@ def attention_ops(dk: int, pairs: int, bf16io: bool, backward: bool):
 
 def check_bf16_attention(dev, gen) -> tuple:
     """The attention's bf16-io kernels (bf16 q, k, v, out, dq, dk, dv; fp32
-    Krelpos and dKrelpos) against `attention_plain` on the same bf16 inputs
-    at BF16_ATTENTION_SHAPES, dropout 0 and 0.1, forward and every gradient
+    Krelpos and dKrelpos; q, k, v and g staged by TMA boxes of a bf16 map
+    and widened in shared memory) against `attention_plain` on the same
+    bf16 inputs at BF16_ATTENTION_SHAPES, dropout 0 and 0.1, forward and
+    every gradient
     within FFN_BAND times the plain version's own fp32-vs-fp64 spread or
     the floor (`hold_bf16io`: its float64 side rounds p~ to bf16 for p~ . v
     as the plain version does, and the output and dq, dk, dv to bf16), each
     backward bit for bit across two calls. A backward that rounds p~ where
     it recomputes it fails this on dv
     (`scripts/plant_attention_pv_rounding.py` shows it on the card). Timed
-    at the recipe and 0.1 by device time (events beside) with the plain
-    version and the module's torch route on the same bf16 inputs (its
-    shift trick, the port's default path). Then the wide kernels (dk in
+    at the recipe and 0.1 by device time, split by launch (events beside),
+    with the plain version and the module's torch route on the same bf16
+    inputs (its shift trick, the port's default path). Then the wide
+    kernels (dk in
     chunks), fp32 and bf16-io, timed at WIDE_ATTENTION_SHAPE against their
     plain versions and the module's torch route on the same inputs.
-    Returns the kernel entries, the route's times, the events' times and
-    the wide kernels' times."""
+    Returns the kernel entries, the route's times, the events' times, the
+    wide kernels' times and the recipe's device split by launch."""
     from cpc2_torch.models.transformer import ScaledDotProductAttention
     from cpc2_torch.ops import attention as att
     seed = torch.tensor([12345], device=dev, dtype=torch.int32)
@@ -5596,10 +5642,13 @@ def check_bf16_attention(dev, gen) -> tuple:
     out_k, grad_k, bwd_k = grads_of(kern, inputs, cot)
     _, _, bwd_p = grads_of(plain, inputs, cot)
     with torch.no_grad():
-        fwd_ms = device_ms(lambda: kern(*inputs))
+        fwd_split = device_split(lambda: kern(*inputs),
+                                 expect="attention_fwd_mma")
+        fwd_ms = sum(fwd_split.values())
         plain_fwd = device_ms(lambda: plain(*inputs))
         events = {"attention_fwd_bf16io": cuda_ms(lambda: kern(*inputs))}
-    bwd_ms = device_ms(bwd_k)
+    bwd_split = device_split(bwd_k, expect="attention_bwd_mma")
+    bwd_ms = sum(bwd_split.values())
     plain_bwd = device_ms(bwd_p)
     events["attention_bwd_bf16io"] = cuda_ms(bwd_k)
     module = ScaledDotProductAttention(s, dk, 0.1, relpos=True).to(dev)
@@ -5677,7 +5726,8 @@ def check_bf16_attention(dev, gen) -> tuple:
                          max(e[1] for e in errs), bwd_ms, plain_bwd, None,
                          nbytes(*inputs, seed, *cot) + nbytes(*grad_k),
                          attention_ops(dk, pairs, True, True))], \
-        yard, events, wide_times
+        yard, events, wide_times, {"attention_fwd_bf16io": fwd_split,
+                                   "attention_bwd_bf16io": bwd_split}
 
 
 def check_adam_bf16(dev) -> tuple:
@@ -5751,13 +5801,14 @@ def check_bf16_kernels(dev) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(31)
     with fused_switches(False):
-        ffn, ffn_yard, ffn_events = check_bf16_ffn(dev, gen)
-        att, att_yard, att_events, wide = check_bf16_attention(dev, gen)
+        ffn, ffn_yard, ffn_events, ffn_splits = check_bf16_ffn(dev, gen)
+        att, att_yard, att_events, wide, att_splits = check_bf16_attention(
+            dev, gen)
         adam, fused_adam_ms = check_adam_bf16(dev)
     return {"kernels": ffn + att + [adam],
             "route_ms": dict(ffn_yard, **att_yard, fused_adam=fused_adam_ms),
             "events_ms": dict(ffn_events, **att_events),
-            "attention_wide": wide}
+            "attention_wide": wide, "splits": dict(ffn_splits, **att_splits)}
 
 
 def run_bf16_epochs(dev, work: str) -> dict:
@@ -5840,6 +5891,15 @@ def run_bf16(dev, work: str, card: str, default: dict) -> dict:
             f"{r['plain_ms']:.4f} ms, torch route {r['route_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms"
             for name, r in wide.items()))
+    splits = out["splits"]
+    log(f"[bf16 kernels] at the recipe, device ms a call by launch "
+        f"(route beside, {card}): " + "; ".join(
+            f"{name}: {split_line(splits[name])} (sum "
+            f"{sum(splits[name].values()):.4f}, route "
+            f"{out['route_ms'][name]:.4f})"
+            for name in BF16_IO_FFN + BF16_IO_ATTENTION)
+        + f"; split-block clusters the card holds at once: "
+        f"{splits['clusters']}")
     steps = out["steps"] = {}
     for fused in (False, True):
         start = time.perf_counter()

@@ -84,13 +84,27 @@
 //
 // bf16-in/bf16-out variant (`cpc2_attention_{fwd,bwd}_bf16io`, the heads'
 // bf16 activations under `--precision bf16`): every kernel above is also
-// instantiated for bf16 q, k, v and g (the template's `In`). Those are read
-// by plain 8-byte loads into the same fp32 rows that the boxes fill (zeros
-// past S and dk_in alike), where they are exact in the 3xTF32 products;
-// the forward rounds p~ to bf16 only as p~ . v's operand and stores o as
-// bf16; the backward recomputes p~ in fp32 (the rounding is straight-
-// through, as in the TPU kernel) and stores dq, dk and dv as bf16, the
-// units' dKrelpos partials and their sum in fp32.
+// instantiated for bf16 q, k, v and g (the template's `In`). What held its
+// first version back was its staging: every thread loaded the rows by
+// plain 8-byte loads before any product, with nothing in flight beside
+// them, and each product paid three TF32 products where its operands' small
+// planes were zero. Now q, k, v and g come by TMA boxes of a bf16 3-D map
+// (dk_in, S, N), dk_in padded to 8 (16-byte strides), on the mbarrier the
+// fp32 boxes use, while the Krelpos transpose runs; the block then widens
+// them to the fp32 rows at ld (zeros past dk and S, as the fp32 boxes leave
+// them; `widen`). The boxes land in a staging region of their own where the
+// block still fits with it (the recipe: one pass of whole rows a warp,
+// about 0.5 us), else at the end of the rows they fill, widened in place
+// in a few passes (every shape the gate lets through fits so). A bf16 value
+// is its own TF32 rounding, so `mma3` leaves out the terms of a zero small
+// plane: q.k, G.V^T and the forward's p~.v take one TF32 product (exact), a
+// product with one bf16 operand two, the fp32 ones (Krelpos, dS, the
+// backward's p~) three; the sums are those of three bit for bit. The
+// forward rounds p~ to bf16 only as p~ . v's operand and stores o as bf16;
+// the backward recomputes p~ in fp32 (the rounding is straight-through, as
+// in the TPU kernel) and stores dq, dk and dv as bf16, the units' dKrelpos
+// partials and their sum in fp32. Latency bounds these kernels as it bounds
+// the fp32 ones.
 #pragma once
 
 #include "hopper_gemm.cuh"
@@ -145,6 +159,7 @@ struct AttnPlan {
       fwd_smem;
   int bwd_ctas, bwd_warps, mtiles, b_k, b_v, b_krel, b_q, b_g, b_pd, b_ds,
       b_dqp, b_raw, b_floats, exchange, bwd_smem;
+  int io, f_st, b_st;
 };
 constexpr int kPlanInts = sizeof(AttnPlan) / sizeof(int);
 
@@ -152,14 +167,23 @@ int up(int x, int m) { return (x + m - 1) / m * m; }
 int region(int floats) { return up(floats, 32); }  // 128-byte aligned
 
 // The layout that the kernels below use, from (n, s, dk), the CTAs a unit
-// and the chunk of dk; ok is false where no instantiation, TMA box or block
-// takes it. A chunk narrower than dkp (the wide kernels) takes one CTA a
-// unit and the narrowest instantiation.
-bool layout(int n, int s, int dk, int rf, int rb, int dc, AttnPlan* p) {
-  if (n < 0 || s < 1 || dk < 1 || dk % 4 != 0) return false;
+// and the chunk of dk, for fp32 or (io) bf16 operands; ok is false where no
+// instantiation, TMA box or block takes it. A chunk narrower than dkp (the
+// wide kernels) takes one CTA a unit and the narrowest instantiation. bf16
+// rows are dk_in = dk padded to 8 (TMA's 16-byte strides). Their boxes land
+// in a staging region of their own (f_st, b_st: K, V, then every warp
+// slot's Q, then G), after Krelpos's raw copy, where the block still fits
+// with it; else (f_st, b_st 0) at the end of the fp32 rows they are widened
+// into, in place (`widen`), which takes no shared memory.
+bool layout(int n, int s, int dk, int rf, int rb, int dc, int io,
+            AttnPlan* p) {
+  if (n < 0 || s < 1 || dk < 1 || dk % (io ? 8 : 4) != 0 || io < 0 ||
+      io > 1)
+    return false;
   AttnPlan& q = *p;
   q.n = n;
   q.s = s;
+  q.io = io;
   q.dk_in = dk;
   q.dkp = up(dk, 8);
   q.dc = dc;
@@ -187,6 +211,16 @@ bool layout(int n, int s, int dk, int rf, int rb, int dc, AttnPlan* p) {
   q.f_raw = wide ? q.f_x + region(x) : q.f_x;
   q.f_floats = wide ? q.f_raw + region(dc * s)
                     : q.f_x + region(x > dk * s ? x : dk * s);
+  q.f_st = 0;
+  if (io) {  // staged where the block still fits
+    const int st = q.f_raw + region((wide ? dc : dk) * s);
+    const int end = st + region(dc * (2 * sp + kTile * q.fwd_warps) / 2);
+    const int floats = wide ? end : q.f_x + (x > end - q.f_x ? x : end - q.f_x);
+    if (kHeaderBytes + 4 * floats <= kSmemLimit) {
+      q.f_st = st;
+      q.f_floats = floats;
+    }
+  }
   q.fwd_smem = kHeaderBytes + 4 * q.f_floats;
   q.bwd_ctas = rb;
   q.bwd_warps = 2 * ((q.pairs + rb - 1) / rb);
@@ -205,6 +239,17 @@ bool layout(int n, int s, int dk, int rf, int rb, int dc, AttnPlan* p) {
   q.b_raw = wide ? planes_end : q.b_pd;
   q.b_floats = wide ? q.b_raw + region(dc * s)
                     : (planes_end > stage_end ? planes_end : stage_end);
+  q.b_st = 0;
+  if (io) {
+    const int st = q.b_raw + region((wide ? dc : dk) * s);
+    const int end =
+        st + region(dc * (2 * sp + 2 * kTile * q.bwd_warps) / 2);
+    const int floats = wide ? end : (planes_end > end ? planes_end : end);
+    if (kHeaderBytes + 4 * floats <= kSmemLimit) {
+      q.b_st = st;
+      q.b_floats = floats;
+    }
+  }
   q.exchange = (rb - 1) * q.mtiles * 3 * (q.dkp / 8) * 128;
   q.bwd_smem = kHeaderBytes + 4 * q.b_floats;
   return true;
@@ -214,11 +259,11 @@ bool layout(int n, int s, int dk, int rf, int rb, int dc, AttnPlan* p) {
 bool plan_ok(const AttnPlan& got, bool backward) {
   AttnPlan want;
   if (!layout(got.n, got.s, got.dk_in, got.fwd_ctas, got.bwd_ctas, got.dc,
-              &want))
+              got.io, &want))
     return false;
   want.dk = got.dk;
-  if (got.dk < 1 || got.dk > got.dk_in || up(got.dk, 4) != got.dk_in ||
-      up(got.dk, 8) != got.dkp)
+  if (got.dk < 1 || got.dk > got.dk_in ||
+      up(got.dk, got.io ? 8 : 4) != got.dk_in || up(got.dk, 8) != got.dkp)
     return false;
   const int* a = reinterpret_cast<const int*>(&got);
   const int* b = reinterpret_cast<const int*>(&want);
@@ -238,9 +283,6 @@ struct AttnArgs {
   void* dk;               // backward: (N, S, dk_in), In
   void* dv;               // backward: (N, S, dk_in), In
   float* partial;         // backward: each unit's dKrelpos^T (N, S, dk_in)
-  // the bf16 kernels' q, k, v and g (N, S, dk_in), which the fp32 ones
-  // take through their tensor maps
-  const bf16 *q, *k, *v, *g;
   uint32_t threshold;     // drop when dropout_bits < threshold
   float keep_scale;       // 1 / (1 - rate)
   float scale;            // 1 / sqrt(dk)
@@ -278,20 +320,36 @@ struct Split {
   uint32_t big[4], small[4];
 };
 
+// kBf: the values are bf16 (8 significant bits), whose TF32 rounding is
+// themselves: big is the value, small is zero and left unset.
+template <bool kBf = false>
 __device__ __forceinline__ void split4(const float (&v)[4], Split& f) {
 #pragma unroll
-  for (int e = 0; e < 4; ++e) split_tf32(v[e], f.big[e], f.small[e]);
+  for (int e = 0; e < 4; ++e) {
+    if constexpr (kBf)
+      f.big[e] = __float_as_uint(v[e]);
+    else
+      split_tf32(v[e], f.big[e], f.small[e]);
+  }
 }
 
 // A . B in 3xTF32: the small terms into lo, big * big into hi (two chains,
-// summed hi + lo at the end).
+// summed hi + lo at the end). kAB (kBB): A's (B's) values are bf16, so
+// their small plane is zero and the term it enters is left out: the same
+// sums bit for bit, one product fewer (with both, one product: exact).
+template <bool kAB = false, bool kBB = false>
 __device__ __forceinline__ void mma3(float* hi, float* lo, const Split& a,
                                      float b0, float b1) {
   uint32_t bb[2], bs[2];
-  split_tf32(b0, bb[0], bs[0]);
-  split_tf32(b1, bb[1], bs[1]);
-  mma_tf32(lo, a.small, bb);
-  mma_tf32(lo, a.big, bs);
+  if constexpr (kBB) {
+    bb[0] = __float_as_uint(b0);
+    bb[1] = __float_as_uint(b1);
+  } else {
+    split_tf32(b0, bb[0], bs[0]);
+    split_tf32(b1, bb[1], bs[1]);
+  }
+  if constexpr (!kAB) mma_tf32(lo, a.small, bb);
+  if constexpr (!kBB) mma_tf32(lo, a.big, bs);
   mma_tf32(hi, a.big, bb);
 }
 
@@ -328,16 +386,19 @@ __device__ __forceinline__ void load_a(const float* x, int ld, int k0,
 
 // A C fragment as the A fragment of the next product, its columns taken as
 // k in the order k = t <-> 2t, k = t + 4 <-> 2t + 1.
+template <bool kBf = false>
 __device__ __forceinline__ void c_as_a(const float (&c)[4], Split& f) {
   const float v[4] = {c[0], c[2], c[1], c[3]};
-  split4(v, f);
+  split4<kBf>(v, f);
 }
 
 // One row tile's (16 x 8 n) fragments of a product over the dkp columns of
 // the tile's rows x (at ld), against rows of y (at ldy, rows past ymax
 // clamped) or, with kRel, of the swizzled krel_t: acc[u] = x . y[8 (u0 + u)
 // .. +8]^T for u < nu, rounded up to a group (with kAdd, acc[u] +=).
-template <int kN, bool kRel, bool kAdd = false>
+// kXB, kYB: x's, y's values are bf16 (`mma3`).
+template <int kN, bool kRel, bool kAdd = false, bool kXB = false,
+          bool kYB = false>
 __device__ __forceinline__ void rows_product(const float* x, int ld,
                                              const float* y, int ldy,
                                              int ymax, int dkp, int u0,
@@ -356,13 +417,13 @@ __device__ __forceinline__ void rows_product(const float* x, int ld,
       float v[4];
       load_a(x, ld, k0, v);
       Split a;
-      split4(v, a);
+      split4<kXB>(v, a);
 #pragma unroll
       for (int uu = 0; uu < kG; ++uu) {
         const float b0 = kRel ? yr[uu][(k0 + t) ^ swz(g)] : yr[uu][k0 + t];
         const float b1 =
             kRel ? yr[uu][(k0 + t + 4) ^ swz(g)] : yr[uu][k0 + t + 4];
-        mma3(hi[uu], split_of<kN>() ? lo[uu] : hi[uu], a, b0, b1);
+        mma3<kXB, kYB>(hi[uu], split_of<kN>() ? lo[uu] : hi[uu], a, b0, b1);
       }
     }
 #pragma unroll
@@ -379,8 +440,9 @@ __device__ __forceinline__ void rows_product(const float* x, int ld,
 
 // o += A_u . B_u over k steps u < nu (rounded up to a group), A_u the C
 // fragment acc[u] taken as an A fragment, B_u rows 8 u + 2t and 8 u + 2t + 1
-// of y (at ld, clamped at ymax), columns d0 + 8 nt + g.
-template <int kN>
+// of y (at ld, clamped at ymax), columns d0 + 8 nt + g. kAB, kYB: acc's,
+// y's values are bf16 (`mma3`).
+template <int kN, bool kAB = false, bool kYB = false>
 __device__ __forceinline__ void c_product(const float (&acc)[kN][4], int nu,
                                           const float* y, int ld, int ymax,
                                           int d0,
@@ -394,20 +456,20 @@ __device__ __forceinline__ void c_product(const float (&acc)[kN][4], int nu,
     for (int uu = 0; uu < kG; ++uu) {
       const int u = g0 + uu;
       Split fa;
-      c_as_a(acc[u], fa);
+      c_as_a<kAB>(acc[u], fa);
       const float* y0 = y + min(8 * u + 2 * t, ymax - 1) * ld + d0 + g;
 #pragma unroll
       for (int nt = 0; nt < kC; ++nt)
-        mma3(o.hi[nt], split_of<kN>() ? o.lo[nt] : o.hi[nt], fa, y0[8 * nt],
-             y0[ld + 8 * nt]);
+        mma3<kAB, kYB>(o.hi[nt], split_of<kN>() ? o.lo[nt] : o.hi[nt], fa,
+                       y0[8 * nt], y0[ld + 8 * nt]);
     }
   }
 }
 
 // o += dS . y as c_product, with dS read back from the warp's ds plane
 // (rows at lds) instead of registers: the widest instantiation's dq, whose
-// probabilities' 96 registers are free by then.
-template <int kN>
+// probabilities' 96 registers are free by then. kYB: y's values are bf16.
+template <int kN, bool kYB = false>
 __device__ __forceinline__ void plane_product(const float* x, int lds, int nu,
                                               const float* y, int ld,
                                               int ymax, int d0,
@@ -425,33 +487,8 @@ __device__ __forceinline__ void plane_product(const float* x, int lds, int nu,
     const float* y0 = y + min(8 * u + 2 * t, ymax - 1) * ld + d0 + g;
 #pragma unroll
     for (int nt = 0; nt < kC; ++nt)
-      mma3(o.hi[nt], split_of<kN>() ? o.lo[nt] : o.hi[nt], fa, y0[8 * nt],
-           y0[ld + 8 * nt]);
-  }
-}
-
-// Rows [r0, r0 + rows) of unit `unit` of a bf16 (N, S, dk_in) tensor,
-// columns [x0, x0 + ld), as fp32 rows of ld floats into `dst`: what a box
-// of the fp32 kernels' map brings, zeros past S and past dk_in included
-// (dk_in and x0 are multiples of 4, so 4 values come or none).
-__device__ __forceinline__ void load_rows_bf16(float* dst, const bf16* src,
-                                               const AttnPlan& p, int unit,
-                                               int r0, int rows, int x0) {
-  const int q4 = p.ld / 4;
-  for (int i = threadIdx.x; i < rows * q4; i += blockDim.x) {
-    const int r = i / q4, c = 4 * (i - r * q4);
-    const int row = r0 + r, col = x0 + c;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < p.s && col < p.dk_in) {
-      const uint2 raw = *reinterpret_cast<const uint2*>(
-          src + ((long)unit * p.s + row) * p.dk_in + col);
-      const float2 lo = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-      const float2 hi = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-      v = make_float4(lo.x, lo.y, hi.x, hi.y);
-    }
-    *reinterpret_cast<float4*>(dst + r * p.ld + c) = v;
+      mma3<false, kYB>(o.hi[nt], split_of<kN>() ? o.lo[nt] : o.hi[nt], fa,
+                       y0[8 * nt], y0[ld + 8 * nt]);
   }
 }
 
@@ -460,18 +497,207 @@ __host__ __device__ constexpr bool is_bf16() {
   return sizeof(In) == 2;
 }
 
+// Where the boxes of a unit land: fp32 ones in the rows themselves (k and
+// v: sp rows; q and g: a warp slot's 16 rows at + l kTile ld), bf16 ones
+// (rows of dc values) at the end of the rows they are widened into.
+template <typename In>
+struct Boxes {
+  float *k, *v, *q, *g;
+  int sp, dc, ld, warps;
+  bf16* st;  // the staging region, or nullptr: in place
+  // the bf16 rows of region `rows` (n of them) whose staging slot begins
+  // `slot` rows into the staging region
+  __device__ __forceinline__ bf16* src(float* rows, int n, int slot) const {
+    return st ? st + slot * dc
+              : reinterpret_cast<bf16*>(rows + n * ld) - n * dc;
+  }
+  __device__ __forceinline__ void* at(float* rows, int n, int slot) const {
+    return is_bf16<In>() ? (void*)src(rows, n, slot) : (void*)rows;
+  }
+  __device__ __forceinline__ void* dst_k() const { return at(k, sp, 0); }
+  __device__ __forceinline__ void* dst_v() const { return at(v, sp, sp); }
+  __device__ __forceinline__ void* dst_q(int l) const {
+    return at(q + l * kTile * ld, kTile, 2 * sp + kTile * l);
+  }
+  __device__ __forceinline__ void* dst_g(int l) const {
+    return at(g + l * kTile * ld, kTile, 2 * sp + kTile * (warps + l));
+  }
+  // a row's bytes in a box
+  __device__ __forceinline__ uint32_t row_bytes() const {
+    return is_bf16<In>() ? 2u * dc : 4u * ld;
+  }
+};
+
+// The boxes of a unit in the forward's (kBwd false) or the backward's
+// regions of the block's floats at `base`.
+template <bool kBwd, typename In>
+__device__ __forceinline__ Boxes<In> unit_boxes(const AttnPlan& p,
+                                                float* base) {
+  if constexpr (kBwd)
+    return {base + p.b_k, base + p.b_v, base + p.b_q, base + p.b_g,
+            kTile * p.tiles, p.dc, p.ld, p.bwd_warps,
+            p.b_st ? reinterpret_cast<bf16*>(base + p.b_st) : nullptr};
+  else
+    return {base + p.f_k, base + p.f_v, base + p.f_q, nullptr,
+            kTile * p.tiles, p.dc, p.ld, p.fwd_warps,
+            p.f_st ? reinterpret_cast<bf16*>(base + p.f_st) : nullptr};
+}
+
+// The lanes' share of widening rows of dc values: a warp takes 32 / (dc /
+// 8) rows at a time, lane (row, piece) = (lane / (dc / 8), lane % (dc /
+// 8)), a piece 8 values (16 bytes in, 32 out); lanes past the warp's
+// rows idle.
+struct WidenLanes {
+  int c8n, piece, first, step;
+  __device__ __forceinline__ explicit WidenLanes(int dc) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    c8n = dc / 8;
+    const int rpw = 32 / c8n, sub = lane / c8n;
+    piece = lane - sub * c8n;
+    step = (blockDim.x >> 5) * rpw;
+    first = sub < rpw ? warp * rpw + sub : 1 << 30;
+  }
+};
+
+__device__ __forceinline__ void widen_piece(float* d, uint4 raw, bool last) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+  float f[8];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 v =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+    f[2 * e] = v.x;
+    f[2 * e + 1] = v.y;
+  }
+  *reinterpret_cast<float4*>(d) = make_float4(f[0], f[1], f[2], f[3]);
+  *reinterpret_cast<float4*>(d + 4) = make_float4(f[4], f[5], f[6], f[7]);
+  if (last)  // the row's padding: zeros, as a box of the fp32 map leaves it
+    *reinterpret_cast<float4*>(d + 8) = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// Rows [a, b) of fp32 rows at ld widened from the bf16 rows of dc values
+// at src.
+__device__ __forceinline__ void widen_rows(float* dst, const bf16* src,
+                                           int a, int b, int dc, int ld,
+                                           const WidenLanes& wl) {
+#pragma unroll 2
+  for (int r = a + wl.first; r < b; r += wl.step)
+    widen_piece(dst + r * ld + 8 * wl.piece,
+                *reinterpret_cast<const uint4*>(src + r * dc + 8 * wl.piece),
+                wl.piece == wl.c8n - 1);
+}
+
+// widen_rows over two regions of the same rows (K and V) in one loop.
+__device__ __forceinline__ void widen_rows2(float* dst0, const bf16* src0,
+                                            float* dst1, const bf16* src1,
+                                            int a, int b, int dc, int ld,
+                                            const WidenLanes& wl) {
+#pragma unroll 2
+  for (int r = a + wl.first; r < b; r += wl.step) {
+    const uint4 v0 =
+        *reinterpret_cast<const uint4*>(src0 + r * dc + 8 * wl.piece);
+    const uint4 v1 =
+        *reinterpret_cast<const uint4*>(src1 + r * dc + 8 * wl.piece);
+    widen_piece(dst0 + r * ld + 8 * wl.piece, v0, wl.piece == wl.c8n - 1);
+    widen_piece(dst1 + r * ld + 8 * wl.piece, v1, wl.piece == wl.c8n - 1);
+  }
+}
+
+// The end of the next pass over a region of `rows` rows, `done` of them
+// widened: the rows whose fp32 writes end before the bf16 rows still
+// unread begin (bf16 row r lies at byte rows (4 ld - 2 dc) + 2 dc r of the
+// region, so fp32 row r's write covers only bf16 rows at or before r):
+// about half the rows left; `done` itself when one row is left, whose fp32
+// row covers its own bf16 one.
+__device__ __forceinline__ int widen_upto(int rows, int done, int dc,
+                                          int ld) {
+  return (rows * (4 * ld - 2 * dc) + 2 * dc * done) / (4 * ld);
+}
+
+// bf16: the landed boxes of `what` (1 K, 2 V, 4 Q, 8 G) widened to the
+// fp32 rows by every thread of the block. Staged: one pass, a barrier.
+// In place: K and V on one schedule of passes, every own warp slot's Q and
+// G on another, a barrier after each round (about log2 of the rows: 7 at
+// SP = 128, 5.3 us on an H100 against one staged pass's 0.5), then each
+// region's last row by one warp, read into registers before it is
+// written. The rows are ready after the final barrier.
+template <typename In>
+__device__ __forceinline__ void widen(const Boxes<In>& b, int what, int rank,
+                                      int R, int tiles) {
+  const int dc = b.dc, ld = b.ld;
+  const WidenLanes wl(dc);
+  const int sp = b.sp;
+  const int last = b.st ? 0 : 1;  // in place: a last row apart
+  int kv = what & 3 ? 0 : sp, sl = what & 12 ? 0 : kTile;
+  while (kv < sp - last || sl < kTile - last) {
+    if (kv < sp - last) {
+      const int to = b.st ? sp : widen_upto(sp, kv, dc, ld);
+      if ((what & 3) == 3)  // both: one loop, twice the loads in flight
+        widen_rows2(b.k, b.src(b.k, sp, 0), b.v, b.src(b.v, sp, sp), kv, to,
+                    dc, ld, wl);
+      else if (what & 1)
+        widen_rows(b.k, b.src(b.k, sp, 0), kv, to, dc, ld, wl);
+      else if (what & 2)
+        widen_rows(b.v, b.src(b.v, sp, sp), kv, to, dc, ld, wl);
+      kv = to;
+    }
+    if (sl < kTile - last) {
+      const int to = b.st ? kTile : widen_upto(kTile, sl, dc, ld);
+      for (int l = 0; l < b.warps; ++l) {
+        if (own_tile(rank, R, tiles, l) < 0) continue;
+        float* q = b.q + l * kTile * ld;
+        if (what & 4)
+          widen_rows(q, b.src(q, kTile, 2 * sp + kTile * l), sl, to, dc, ld,
+                     wl);
+        if (what & 8) {
+          float* g = b.g + l * kTile * ld;
+          widen_rows(g, b.src(g, kTile, 2 * sp + kTile * (b.warps + l)), sl,
+                     to, dc, ld, wl);
+        }
+      }
+      sl = to;
+    }
+    __syncthreads();
+  }
+  if (b.st) return;
+  // region i (0 K, 1 V, then Q and G of each warp slot) by warp i % warps
+  const int lane = threadIdx.x & 31, warps_n = blockDim.x >> 5;
+  for (int i = threadIdx.x >> 5; i < 2 + 2 * b.warps; i += warps_n) {
+    float* dst = nullptr;
+    int rows = kTile;
+    if (i < 2) {
+      dst = (what >> i) & 1 ? (i == 0 ? b.k : b.v) : nullptr;
+      rows = b.sp;
+    } else if (own_tile(rank, R, tiles, (i - 2) >> 1) >= 0 &&
+               (what >> (2 + (i & 1))) & 1) {
+      dst = (i & 1 ? b.g : b.q) + ((i - 2) >> 1) * kTile * ld;
+    }
+    if (dst == nullptr) continue;
+    uint4 raw = {};
+    const bool live = lane < wl.c8n;
+    if (live)
+      raw = *reinterpret_cast<const uint4*>(
+          reinterpret_cast<const bf16*>(dst + rows * ld) - dc + 8 * lane);
+    __syncwarp();
+    if (live)
+      widen_piece(dst + (rows - 1) * ld + 8 * lane, raw, lane == wl.c8n - 1);
+  }
+  __syncthreads();
+}
+
 // Staging, shared by both kernels: K and V of the unit and the CTA's Q (and
-// G) tiles by TMA boxes (bf16: by `load_rows_bf16`), Krelpos by one bulk
-// copy into `stage`, all on one mbarrier; then Krelpos transposed into
-// krel_t (zeros past S and dk).
+// G) tiles by TMA boxes (fp32: straight into the rows; bf16: at the end of
+// the rows they fill), Krelpos by one bulk copy into `stage`, on two
+// mbarriers; Krelpos transposed into krel_t (zeros past S and dk) while the
+// boxes are in flight, then the bf16 boxes widened in place.
 template <bool kBwd, typename In>
 __device__ __forceinline__ void stage_unit(
     const AttnPlan& p, const AttnArgs& a, const CUtensorMap* map_k,
     const CUtensorMap* map_v, const CUtensorMap* map_q,
-    const CUtensorMap* map_g, uint64_t* bar, float* sk, float* sv, float* sq,
-    float* sg, float* krel_t, float* stage, int unit, int rank, int R,
-    int warps) {
-  const int sp = kTile * p.tiles;
+    const CUtensorMap* map_g, uint64_t* bar, float* base, float* krel_t,
+    float* stage, int unit, int rank, int R) {
+  const Boxes<In> b = unit_boxes<kBwd, In>(p, base);
+  const int sp = kTile * p.tiles, warps = b.warps;
   if (threadIdx.x == 0) {
     mbar_init(&bar[0], 1);
     mbar_init(&bar[1], 1);
@@ -483,36 +709,16 @@ __device__ __forceinline__ void stage_unit(
     bulk_copy(stage, a.krel, 4u * p.dk_in * p.s, &bar[0]);
     int own = 0;
     for (int l = 0; l < warps; ++l) own += own_tile(rank, R, p.tiles, l) >= 0;
-    const uint32_t box = (uint32_t)(4 * p.ld);
-    if constexpr (is_bf16<In>()) {
-      mbar_expect_tx(&bar[1], 0u);  // the loads below, not the copy engine
-    } else {
-      mbar_expect_tx(&bar[1],
-                     2 * box * sp + (kBwd ? 2 : 1) * box * kTile * own);
-      tma_load_3d(sk, map_k, &bar[1], 0, 0, unit);
-      tma_load_3d(sv, map_v, &bar[1], 0, 0, unit);
-      for (int l = 0; l < warps; ++l) {
-        const int tile = own_tile(rank, R, p.tiles, l);
-        if (tile < 0) continue;
-        tma_load_3d(sq + l * kTile * p.ld, map_q, &bar[1], 0, kTile * tile,
-                    unit);
-        if (kBwd)
-          tma_load_3d(sg + l * kTile * p.ld, map_g, &bar[1], 0, kTile * tile,
-                      unit);
-      }
-    }
-  }
-  if constexpr (is_bf16<In>()) {
-    load_rows_bf16(sk, a.k, p, unit, 0, sp, 0);
-    load_rows_bf16(sv, a.v, p, unit, 0, sp, 0);
+    const uint32_t row = b.row_bytes();
+    mbar_expect_tx(&bar[1], 2 * row * sp + (kBwd ? 2 : 1) * row * kTile * own);
+    tma_load_3d(b.dst_k(), map_k, &bar[1], 0, 0, unit);
+    tma_load_3d(b.dst_v(), map_v, &bar[1], 0, 0, unit);
     for (int l = 0; l < warps; ++l) {
       const int tile = own_tile(rank, R, p.tiles, l);
       if (tile < 0) continue;
-      load_rows_bf16(sq + l * kTile * p.ld, a.q, p, unit, kTile * tile,
-                     kTile, 0);
+      tma_load_3d(b.dst_q(l), map_q, &bar[1], 0, kTile * tile, unit);
       if (kBwd)
-        load_rows_bf16(sg + l * kTile * p.ld, a.g, p, unit, kTile * tile,
-                       kTile, 0);
+        tma_load_3d(b.dst_g(l), map_g, &bar[1], 0, kTile * tile, unit);
     }
   }
   // Krelpos transposed while the boxes land: a warp takes 8 rows j of
@@ -530,7 +736,10 @@ __device__ __forceinline__ void stage_unit(
     }
   }
   mbar_wait(&bar[1], 0);
-  __syncthreads();
+  if constexpr (is_bf16<In>())
+    widen<In>(b, kBwd ? 15 : 7, rank, R, p.tiles);
+  else
+    __syncthreads();
 }
 
 // The column tiles of a row tile's relative term: QP's columns [8 jlo, 8
@@ -632,8 +841,9 @@ __device__ __forceinline__ void softmax_rows(const AttnPlan& p, float scale,
 
 // Row tile `tile`'s probabilities in acc[u] (column tiles u < ncol, and 0
 // up to the end of the last group), from its q rows (at ld) against k and
-// krel_t, with `qp`, the warp's 16 x lds scratch, for the relative term.
-template <int kN>
+// krel_t, with `qp`, the warp's 16 x lds scratch, for the relative term;
+// kBf: q and k hold bf16 values.
+template <int kN, bool kBf>
 __device__ __forceinline__ void row_probs(const AttnPlan& p, float scale,
                                           const float* q, const float* sk,
                                           const float* krel_t, float* qp,
@@ -641,9 +851,11 @@ __device__ __forceinline__ void row_probs(const AttnPlan& p, float scale,
                                           float (&acc)[kN][4]) {
   const int s = p.s, last = kTile * p.tiles - 1;
   const int jlo = rel_lo(s, tile), njt = (s + 7) / 8 - jlo;
-  rows_product<kN, true>(q, p.ld, krel_t, p.ldr, last, p.dkp, jlo, njt, acc);
+  rows_product<kN, true, false, kBf>(q, p.ld, krel_t, p.ldr, last, p.dkp,
+                                     jlo, njt, acc);
   store_qp<kN>(p, qp, jlo, njt, acc);
-  rows_product<kN, false>(q, p.ld, sk, p.ld, last, p.dkp, 0, ncol, acc);
+  rows_product<kN, false, false, kBf, kBf>(q, p.ld, sk, p.ld, last, p.dkp, 0,
+                                           ncol, acc);
   softmax_rows<kN>(p, scale, qp, tile, ncol, acc);
 }
 
@@ -818,6 +1030,7 @@ attention_fwd_mma(const __grid_constant__ CUtensorMap map_k,
                   const __grid_constant__ CUtensorMap map_q,
                   const __grid_constant__ AttnArgs a) {
   constexpr int kN = 2 * kMaxTiles;
+  constexpr bool kBf = is_bf16<In>();
   extern __shared__ __align__(128) unsigned char smem[];
   const AttnPlan& p = a.p;
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
@@ -829,17 +1042,16 @@ attention_fwd_mma(const __grid_constant__ CUtensorMap map_k,
   float* sx = base + p.f_x;
   const int R = p.fwd_ctas, rank = blockIdx.x % R, unit = blockIdx.x / R;
   const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
-  stage_unit<false, In>(p, a, &map_k, &map_v, &map_q, nullptr, bar, sk, sv,
-                        sq, nullptr, krel_t, base + p.f_raw, unit, rank, R,
-                        p.fwd_warps);
+  stage_unit<false, In>(p, a, &map_k, &map_v, &map_q, nullptr, bar, base,
+                        krel_t, base + p.f_raw, unit, rank, R);
 
   const int tile = own_tile(rank, R, p.tiles, warp);
   if (tile < 0) return;  // no block-wide barrier follows
   const int s = p.s, r0 = kTile * tile;
   const int ncol = min(2 * (tile + 1), (s + 7) / 8);
   float acc[kN][4];
-  row_probs<kN>(p, a.scale, sq + warp * kTile * p.ld, sk, krel_t,
-                sx + warp * kTile * p.lds, tile, ncol, acc);
+  row_probs<kN, kBf>(p, a.scale, sq + warp * kTile * p.ld, sk, krel_t,
+                     sx + warp * kTile * p.lds, tile, ncol, acc);
   const uint32_t seed = *a.seed;
   const uint32_t rbits[2] = {row_bits(seed, unit * s + r0 + g),
                              row_bits(seed, unit * s + r0 + g + 8)};
@@ -852,7 +1064,7 @@ attention_fwd_mma(const __grid_constant__ CUtensorMap map_k,
   for (int d0 = 0; d0 < p.dkp; d0 += 8 * kC) {
     ChunkT<kC> o;
     o.zero();
-    c_product<kN>(acc, ncol, sv, p.ld, kTile * p.tiles - 1, d0, o);
+    c_product<kN, kBf, kBf>(acc, ncol, sv, p.ld, kTile * p.tiles - 1, d0, o);
     float out_c[kC][4];
     o.sum(out_c);
     store_chunk(out, r0, s, p.dk_in, d0, min(kC, (p.dkp - d0) / 8), out_c);
@@ -890,7 +1102,8 @@ __device__ __forceinline__ void store_remote(float* local, int rank,
 // (dQP[r, j] = 0 for j < S-1-r). Row tiles wholly before it are skipped;
 // a kept tile's 8-row blocks before it or past S enter as zeros. k runs
 // over the rows in slot order, each block's rows in the order k = t <->
-// 2t, k = t + 4 <-> 2t + 1.
+// 2t, k = t + 4 <-> 2t + 1. kYB: the rows (q or g) hold bf16 values.
+template <bool kYB>
 __device__ __forceinline__ void column_chunk(const AttnPlan& p, int rank,
                                              int warps, const float* plane,
                                              const float* rows, int x, int m,
@@ -917,7 +1130,8 @@ __device__ __forceinline__ void column_chunk(const AttnPlan& p, int rank,
       const float* y0 = rows + lr * p.ld + d0 + g;
 #pragma unroll
       for (int nt = 0; nt < kChunk; ++nt)
-        mma3(o.hi[nt], o.lo[nt], fa, y0[8 * nt], y0[p.ld + 8 * nt]);
+        mma3<false, kYB>(o.hi[nt], o.lo[nt], fa, y0[8 * nt],
+                         y0[p.ld + 8 * nt]);
     }
   }
   o.sum(out);
@@ -932,6 +1146,7 @@ attention_bwd_mma(const __grid_constant__ CUtensorMap map_k,
                   const __grid_constant__ AttnArgs a) {
   constexpr int kN = 2 * kMaxTiles;
   constexpr int kG = group_of<kN>();
+  constexpr bool kBf = is_bf16<In>();
   extern __shared__ __align__(128) unsigned char smem[];
   const AttnPlan& p = a.p;
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
@@ -950,8 +1165,8 @@ attention_bwd_mma(const __grid_constant__ CUtensorMap map_k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int s = p.s, dk_in = p.dk_in;
-  stage_unit<true, In>(p, a, &map_k, &map_v, &map_q, &map_g, bar, sk, sv, sq,
-                       sg, krel_t, base + p.b_raw, unit, rank, R, W);
+  stage_unit<true, In>(p, a, &map_k, &map_v, &map_q, &map_g, bar, base,
+                       krel_t, base + p.b_raw, unit, rank, R);
 
   // Row side: a warp per own tile.
   const int tile = own_tile(rank, R, p.tiles, warp);
@@ -965,7 +1180,7 @@ attention_bwd_mma(const __grid_constant__ CUtensorMap map_k,
     float* ds = sds + warp * kTile * p.lds;
     float* dqp = sdqp + warp * kTile * p.lds;
     float acc[kN][4];
-    row_probs<kN>(p, a.scale, q, sk, krel_t, dqp, tile, ncol, acc);
+    row_probs<kN, kBf>(p, a.scale, q, sk, krel_t, dqp, tile, ncol, acc);
     const uint32_t seed = *a.seed;
     const uint32_t rbits[2] = {row_bits(seed, unit * s + r0 + g),
                                row_bits(seed, unit * s + r0 + g + 8)};
@@ -987,11 +1202,11 @@ attention_bwd_mma(const __grid_constant__ CUtensorMap map_k,
         float v[4];
         load_a(gr, p.ld, k0, v);
         Split fa;
-        split4(v, fa);
+        split4<kBf>(v, fa);
 #pragma unroll
         for (int uu = 0; uu < kG; ++uu)
-          mma3(hi[uu], split_of<kN>() ? lo[uu] : hi[uu], fa, vr[uu][k0 + t],
-               vr[uu][k0 + t + 4]);
+          mma3<kBf, kBf>(hi[uu], split_of<kN>() ? lo[uu] : hi[uu], fa,
+                         vr[uu][k0 + t], vr[uu][k0 + t + 4]);
       }
 #pragma unroll
       for (int uu = 0; uu < kG; ++uu) {
@@ -1010,9 +1225,9 @@ attention_bwd_mma(const __grid_constant__ CUtensorMap map_k,
       ChunkT<kC> o;
       o.zero();
       if constexpr (split_of<kN>())
-        c_product<kN>(acc, ncol, sk, p.ld, last, d0, o);
+        c_product<kN, false, kBf>(acc, ncol, sk, p.ld, last, d0, o);
       else
-        plane_product<kN>(ds, p.lds, ncol, sk, p.ld, last, d0, o);
+        plane_product<kN, kBf>(ds, p.lds, ncol, sk, p.ld, last, d0, o);
       rel_dq<kN>(p, dqp, krel_t, jlo, njt, d0, o);
       float out_c[kC][4];
       o.sum(out_c);
@@ -1044,8 +1259,8 @@ attention_bwd_mma(const __grid_constant__ CUtensorMap map_k,
         const int d0 = 8 * kChunk * ch;
         const int nt_end = min(kChunk, (p.dkp - d0) / 8);
         float o[kChunk][4];
-        column_chunk(p, rank, W, x == 0 ? sds : x == 1 ? spd : sdqp,
-                     x == 1 ? sg : sq, x, m, d0, o);
+        column_chunk<kBf>(p, rank, W, x == 0 ? sds : x == 1 ? spd : sdqp,
+                          x == 1 ? sg : sq, x, m, d0, o);
 #pragma unroll
         for (int nt = 0; nt < kChunk; ++nt)
           if (nt < nt_end)
@@ -1063,8 +1278,8 @@ attention_bwd_mma(const __grid_constant__ CUtensorMap map_k,
       const int d0 = 8 * kChunk * ch;
       const int nt_end = min(kChunk, (p.dkp - d0) / 8);
       float o[kChunk][4];
-      column_chunk(p, rank, W, x == 0 ? sds : x == 1 ? spd : sdqp,
-                   x == 1 ? sg : sq, x, m, d0, o);
+      column_chunk<kBf>(p, rank, W, x == 0 ? sds : x == 1 ? spd : sdqp,
+                        x == 1 ? sg : sq, x, m, d0, o);
       if (!waited) {
         cluster_wait();  // every rank's phase-1 stores have landed
         waited = true;
@@ -1109,62 +1324,52 @@ enum : int { kStageK = 1, kStageV = 2, kStageQ = 4, kStageG = 8, kStageRel = 16 
 
 // Chunk c of dk (columns [c dc, c dc + dc)) of the operands in `what`, one
 // CTA a unit, on the mbarrier's next phase (`parity`): K and V of the unit
-// and the CTA's Q (and G) tiles by TMA boxes at column c dc, Krelpos's
-// rows [c dc, c dc + dc) by one bulk copy into `raw`, then transposed into
-// krel_t (zeros past S and past dk). Every thread's reads of the last
-// chunk end before the copies start. bf16 operands come by
-// `load_rows_bf16` instead of boxes.
-template <typename In>
+// and the CTA's Q (and G) tiles by TMA boxes at column c dc (bf16: at the
+// end of the rows they fill, then widened in place), Krelpos's rows [c dc, c
+// dc + dc) by one bulk copy into `raw`, then transposed into krel_t (zeros
+// past S and past dk). Every thread's reads of the last chunk end before
+// the copies start.
+template <bool kBwd, typename In>
 __device__ __forceinline__ void stage_chunk(
     const AttnPlan& p, const AttnArgs& a, const CUtensorMap* map_k,
     const CUtensorMap* map_v, const CUtensorMap* map_q,
-    const CUtensorMap* map_g, uint64_t* bar, uint32_t parity, float* sk,
-    float* sv, float* sq, float* sg, float* krel_t, float* raw, int unit,
-    int warps, int c, int what) {
+    const CUtensorMap* map_g, uint64_t* bar, uint32_t parity, float* base,
+    float* krel_t, float* raw, int unit, int c, int what) {
+  const Boxes<In> b = unit_boxes<kBwd, In>(p, base);
   const int sp = kTile * p.tiles, x0 = c * p.dc;
   const int rel_rows = min(p.dc, p.dk_in - x0);
+  // bf16: the last chunk's widened rows, written by this proxy, are where
+  // the next boxes land
+  if (is_bf16<In>()) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   __syncthreads();
   if (threadIdx.x == 0) {
     int own = 0;
-    for (int l = 0; l < warps; ++l) own += own_tile(0, 1, p.tiles, l) >= 0;
-    const uint32_t box = (uint32_t)(4 * p.ld);
-    const int boxed = is_bf16<In>() ? 0 : what;
+    for (int l = 0; l < b.warps; ++l) own += own_tile(0, 1, p.tiles, l) >= 0;
+    const uint32_t row = b.row_bytes();
     uint32_t bytes = 0;
-    if (boxed & kStageK) bytes += box * sp;
-    if (boxed & kStageV) bytes += box * sp;
-    if (boxed & kStageQ) bytes += box * kTile * own;
-    if (boxed & kStageG) bytes += box * kTile * own;
+    if (what & kStageK) bytes += row * sp;
+    if (what & kStageV) bytes += row * sp;
+    if (what & kStageQ) bytes += row * kTile * own;
+    if (what & kStageG) bytes += row * kTile * own;
     if (what & kStageRel) bytes += 4u * rel_rows * p.s;
     mbar_expect_tx(bar, bytes);
     if (what & kStageRel)
       bulk_copy(raw, a.krel + (long)x0 * p.s, 4u * rel_rows * p.s, bar);
-    if (boxed & kStageK) tma_load_3d(sk, map_k, bar, x0, 0, unit);
-    if (boxed & kStageV) tma_load_3d(sv, map_v, bar, x0, 0, unit);
-    for (int l = 0; l < warps; ++l) {
-      const int tile = own_tile(0, 1, p.tiles, l);
-      if (tile < 0) continue;
-      if (boxed & kStageQ)
-        tma_load_3d(sq + l * kTile * p.ld, map_q, bar, x0, kTile * tile, unit);
-      if (boxed & kStageG)
-        tma_load_3d(sg + l * kTile * p.ld, map_g, bar, x0, kTile * tile, unit);
-    }
-  }
-  if constexpr (is_bf16<In>()) {
-    if (what & kStageK) load_rows_bf16(sk, a.k, p, unit, 0, sp, x0);
-    if (what & kStageV) load_rows_bf16(sv, a.v, p, unit, 0, sp, x0);
-    for (int l = 0; l < warps; ++l) {
+    if (what & kStageK) tma_load_3d(b.dst_k(), map_k, bar, x0, 0, unit);
+    if (what & kStageV) tma_load_3d(b.dst_v(), map_v, bar, x0, 0, unit);
+    for (int l = 0; l < b.warps; ++l) {
       const int tile = own_tile(0, 1, p.tiles, l);
       if (tile < 0) continue;
       if (what & kStageQ)
-        load_rows_bf16(sq + l * kTile * p.ld, a.q, p, unit, kTile * tile,
-                       kTile, x0);
+        tma_load_3d(b.dst_q(l), map_q, bar, x0, kTile * tile, unit);
       if (what & kStageG)
-        load_rows_bf16(sg + l * kTile * p.ld, a.g, p, unit, kTile * tile,
-                       kTile, x0);
+        tma_load_3d(b.dst_g(l), map_g, bar, x0, kTile * tile, unit);
     }
-    __syncthreads();
   }
   mbar_wait(bar, parity);
+  if constexpr (is_bf16<In>())
+    if (what & (kStageK | kStageV | kStageQ | kStageG))
+      widen<In>(b, what & 15, 0, 1, p.tiles);
   if (what & kStageRel) {
     const int lane = threadIdx.x & 31, warps_n = blockDim.x >> 5;
     for (int j0 = 8 * (threadIdx.x >> 5); j0 < sp; j0 += 8 * warps_n) {
@@ -1174,8 +1379,8 @@ __device__ __forceinline__ void stage_chunk(
         krel_t[j * p.ldr + (d ^ swz(j))] = (j < p.s && d < rel_rows) ? v : 0.f;
       }
     }
-    __syncthreads();
   }
+  if (is_bf16<In>() || (what & kStageRel)) __syncthreads();
 }
 
 __device__ __forceinline__ void init_bar(uint64_t* bar) {
@@ -1192,6 +1397,7 @@ attention_fwd_wide(const __grid_constant__ CUtensorMap map_k,
                    const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ AttnArgs a) {
   constexpr int kN = 2 * kMaxTiles, kC = chunk_of<kN>();
+  constexpr bool kBf = is_bf16<In>();
   extern __shared__ __align__(128) unsigned char smem[];
   const AttnPlan& p = a.p;
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
@@ -1215,14 +1421,15 @@ attention_fwd_wide(const __grid_constant__ CUtensorMap map_k,
   // q.k and QP over the chunks of dk, in registers.
   float acc[kN][4] = {}, qpa[kN][4] = {};
   for (int c = 0; c < p.chunks; ++c) {
-    stage_chunk<In>(p, a, &map_k, nullptr, &map_q, nullptr, bar, phase++ & 1,
-                    sk, nullptr, sq, nullptr, krel_t, raw, unit, p.fwd_warps,
-                    c, kStageK | kStageQ | kStageRel);
+    stage_chunk<false, In>(p, a, &map_k, nullptr, &map_q, nullptr, bar,
+                           phase++ & 1, base, krel_t, raw, unit, c,
+                           kStageK | kStageQ | kStageRel);
     if (tile < 0) continue;
     const int cols = min(p.dc, p.dkp - c * p.dc);
-    rows_product<kN, true, true>(q, p.ld, krel_t, p.ldr, last, cols, jlo, njt,
-                                 qpa);
-    rows_product<kN, false, true>(q, p.ld, sk, p.ld, last, cols, 0, ncol, acc);
+    rows_product<kN, true, true, kBf>(q, p.ld, krel_t, p.ldr, last, cols, jlo,
+                                      njt, qpa);
+    rows_product<kN, false, true, kBf, kBf>(q, p.ld, sk, p.ld, last, cols, 0,
+                                            ncol, acc);
   }
   if (tile >= 0) {
     store_qp<kN>(p, qp, jlo, njt, qpa);
@@ -1238,15 +1445,15 @@ attention_fwd_wide(const __grid_constant__ CUtensorMap map_k,
   // out_t = p~ . V, a chunk of dk at a time.
   In* out = static_cast<In*>(a.out) + (long)unit * s * p.dk_in;
   for (int c = 0; c < p.chunks; ++c) {
-    stage_chunk<In>(p, a, nullptr, &map_v, nullptr, nullptr, bar, phase++ & 1,
-                    nullptr, sv, nullptr, nullptr, nullptr, nullptr, unit,
-                    p.fwd_warps, c, kStageV);
+    stage_chunk<false, In>(p, a, nullptr, &map_v, nullptr, nullptr, bar,
+                           phase++ & 1, base, nullptr, nullptr, unit, c,
+                           kStageV);
     if (tile < 0) continue;
     const int x0 = c * p.dc, cols = min(p.dc, p.dkp - x0);
     for (int d0 = 0; d0 < cols; d0 += 8 * kC) {
       ChunkT<kC> o;
       o.zero();
-      c_product<kN>(acc, ncol, sv, p.ld, last, d0, o);
+      c_product<kN, kBf, kBf>(acc, ncol, sv, p.ld, last, d0, o);
       float out_c[kC][4];
       o.sum(out_c);
       store_chunk(out, kTile * tile, s, p.dk_in, x0 + d0,
@@ -1263,6 +1470,7 @@ attention_bwd_wide(const __grid_constant__ CUtensorMap map_k,
                    const __grid_constant__ CUtensorMap map_g,
                    const __grid_constant__ AttnArgs a) {
   constexpr int kN = 2 * kMaxTiles, kG = group_of<kN>(), kC = chunk_of<kN>();
+  constexpr bool kBf = is_bf16<In>();
   static_assert(split_of<kN>(), "dq takes dS from registers");
   extern __shared__ __align__(128) unsigned char smem[];
   const AttnPlan& p = a.p;
@@ -1295,16 +1503,17 @@ attention_bwd_wide(const __grid_constant__ CUtensorMap map_k,
   // Row side: q.k, QP and dP = G_t . V^T over the chunks of dk.
   float acc[kN][4] = {}, qpa[kN][4] = {}, dpa[kN][4] = {};
   for (int c = 0; c < p.chunks; ++c) {
-    stage_chunk<In>(p, a, &map_k, &map_v, &map_q, &map_g, bar, phase++ & 1,
-                    sk, sv, sq, sg, krel_t, raw, unit, W, c,
-                    kStageK | kStageV | kStageQ | kStageG | kStageRel);
+    stage_chunk<true, In>(p, a, &map_k, &map_v, &map_q, &map_g, bar,
+                          phase++ & 1, base, krel_t, raw, unit, c,
+                          kStageK | kStageV | kStageQ | kStageG | kStageRel);
     if (tile < 0) continue;
     const int cols = min(p.dc, p.dkp - c * p.dc);
-    rows_product<kN, true, true>(q, p.ld, krel_t, p.ldr, last, cols, jlo, njt,
-                                 qpa);
-    rows_product<kN, false, true>(q, p.ld, sk, p.ld, last, cols, 0, ncol, acc);
-    rows_product<kN, false, true>(gr, p.ld, sv, p.ld, last, cols, 0, ncol,
-                                  dpa);
+    rows_product<kN, true, true, kBf>(q, p.ld, krel_t, p.ldr, last, cols, jlo,
+                                      njt, qpa);
+    rows_product<kN, false, true, kBf, kBf>(q, p.ld, sk, p.ld, last, cols, 0,
+                                            ncol, acc);
+    rows_product<kN, false, true, kBf, kBf>(gr, p.ld, sv, p.ld, last, cols, 0,
+                                            ncol, dpa);
   }
   if (tile >= 0) {
     store_qp<kN>(p, dqp, jlo, njt, qpa);
@@ -1328,15 +1537,15 @@ attention_bwd_wide(const __grid_constant__ CUtensorMap map_k,
   // the unit's dKrelpos^T = dQP^T Q by m-tiles, a chunk of dk at a time.
   In* dq = static_cast<In*>(a.out) + (long)unit * s * dk_in;
   for (int c = 0; c < p.chunks; ++c) {
-    stage_chunk<In>(p, a, &map_k, nullptr, &map_q, &map_g, bar, phase++ & 1,
-                    sk, nullptr, sq, sg, krel_t, raw, unit, W, c,
-                    kStageK | kStageQ | kStageG | kStageRel);
+    stage_chunk<true, In>(p, a, &map_k, nullptr, &map_q, &map_g, bar,
+                          phase++ & 1, base, krel_t, raw, unit, c,
+                          kStageK | kStageQ | kStageG | kStageRel);
     const int x0 = c * p.dc, cols = min(p.dc, p.dkp - x0);
     if (tile >= 0) {
       for (int d0 = 0; d0 < cols; d0 += 8 * kC) {
         ChunkT<kC> o;
         o.zero();
-        c_product<kN>(acc, ncol, sk, p.ld, last, d0, o);
+        c_product<kN, false, kBf>(acc, ncol, sk, p.ld, last, d0, o);
         rel_dq<kN>(p, dqp, krel_t, jlo, njt, d0, o);
         float out_c[kC][4];
         o.sum(out_c);
@@ -1349,8 +1558,8 @@ attention_bwd_wide(const __grid_constant__ CUtensorMap map_k,
       const long at = (long)unit * s * dk_in;
       for (int d0 = 0; d0 < cols; d0 += 8 * kChunk) {
         float o[kChunk][4];
-        column_chunk(p, 0, W, x == 0 ? sds : x == 1 ? spd : sdqp,
-                     x == 1 ? sg : sq, x, m, d0, o);
+        column_chunk<kBf>(p, 0, W, x == 0 ? sds : x == 1 ? spd : sdqp,
+                          x == 1 ? sg : sq, x, m, d0, o);
         const int nt_end = min(kChunk, (cols - d0) / 8);
         if (x == 2)
           store_chunk(a.partial + at, kTile * m, s, dk_in, x0 + d0, nt_end, o);
@@ -1375,30 +1584,37 @@ __global__ void relpos_grad_sum(const float* __restrict__ partial,
   dkrel[d * S + j] = acc;
 }
 
-// A (N, S, dk_in) fp32 tensor read in boxes of `rows` rows of ld floats:
+// A (N, S, dk_in) tensor read in boxes of `rows` rows: fp32 ones ld floats
+// wide, bf16 ones dc values wide (dk_in a multiple of 8: 16-byte strides);
 // columns past dk_in and rows past S come as zeros.
-cudaError_t unit_map(CUtensorMap* map, const float* ptr, const AttnPlan& p,
+template <typename In>
+cudaError_t unit_map(CUtensorMap* map, const In* ptr, const AttnPlan& p,
                      int rows) {
   cpc2::EncodeTiledFn encode = cpc2::tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
+  constexpr cuuint64_t kSize = sizeof(In);
   const cuuint64_t dims[3] = {(cuuint64_t)p.dk_in, (cuuint64_t)p.s,
                               (cuuint64_t)p.n};
-  const cuuint64_t strides[2] = {(cuuint64_t)p.dk_in * 4,
-                                 (cuuint64_t)p.dk_in * p.s * 4};
-  const cuuint32_t box[3] = {(cuuint32_t)p.ld, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)p.dk_in * kSize,
+                                 (cuuint64_t)p.dk_in * p.s * kSize};
+  const cuuint32_t box[3] = {(cuuint32_t)(is_bf16<In>() ? p.dc : p.ld),
+                             (cuuint32_t)rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, is_bf16<In>() ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                         : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      3, const_cast<In*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-bool read_plan(const int* ints, int n_ints, bool backward, AttnPlan* p) {
+// The plan of the fp32 (io 0) or bf16 (io 1) kernels, if it holds.
+bool read_plan(const int* ints, int n_ints, bool backward, int io,
+               AttnPlan* p) {
   if (ints == nullptr || n_ints != kPlanInts) return false;
   *p = *reinterpret_cast<const AttnPlan*>(ints);
-  return plan_ok(*p, backward);
+  return p->io == io && plan_ok(*p, backward);
 }
 
 typedef void (*FwdKernel)(CUtensorMap, CUtensorMap, CUtensorMap, AttnArgs);
@@ -1422,15 +1638,15 @@ BwdKernel bwd_kernel(const AttnPlan& p) {
                               : attention_bwd_mma<12, In>;
 }
 
-// The forward as the plan lays it out; fp32 operands come by their tensor
-// maps, bf16 ones through the arguments (their maps stay unused).
+// The forward as the plan lays it out.
 template <typename In>
 int attention_fwd(const In* q, const In* k, const In* v, const float* krel,
                   const unsigned* seed, In* out, const int* plan, int n_plan,
                   unsigned threshold, float keep_scale, float scale,
                   cudaStream_t stream) {
   AttnArgs a{};
-  if (!read_plan(plan, n_plan, false, &a.p)) return (int)cudaErrorInvalidValue;
+  if (!read_plan(plan, n_plan, false, is_bf16<In>(), &a.p))
+    return (int)cudaErrorInvalidValue;
   const AttnPlan& p = a.p;
   if (p.n == 0) return 0;
   a.krel = krel;
@@ -1440,18 +1656,12 @@ int attention_fwd(const In* q, const In* k, const In* v, const float* krel,
   a.keep_scale = keep_scale;
   a.scale = scale;
   CUtensorMap mk{}, mv{}, mq{};
-  if constexpr (is_bf16<In>()) {
-    a.q = q;
-    a.k = k;
-    a.v = v;
-  } else {
-    cudaError_t err = unit_map(&mk, k, p, kTile * p.tiles);
-    if (err == cudaSuccess) err = unit_map(&mv, v, p, kTile * p.tiles);
-    if (err == cudaSuccess) err = unit_map(&mq, q, p, kTile);
-    if (err != cudaSuccess) return (int)err;
-  }
+  cudaError_t err = unit_map(&mk, k, p, kTile * p.tiles);
+  if (err == cudaSuccess) err = unit_map(&mv, v, p, kTile * p.tiles);
+  if (err == cudaSuccess) err = unit_map(&mq, q, p, kTile);
+  if (err != cudaSuccess) return (int)err;
   FwdKernel fn = fwd_kernel<In>(p);
-  cudaError_t err = cpc2::set_smem((const void*)fn, p.fwd_smem);
+  err = cpc2::set_smem((const void*)fn, p.fwd_smem);
   if (err != cudaSuccess) return (int)err;
   fn<<<p.n * p.fwd_ctas, 32 * p.fwd_warps, p.fwd_smem, stream>>>(mk, mv, mq,
                                                                   a);
@@ -1466,7 +1676,8 @@ int attention_bwd(const In* q, const In* k, const In* v, const float* krel,
                   int n_plan, unsigned threshold, float keep_scale,
                   float scale, cudaStream_t s) {
   AttnArgs a{};
-  if (!read_plan(plan, n_plan, true, &a.p)) return (int)cudaErrorInvalidValue;
+  if (!read_plan(plan, n_plan, true, is_bf16<In>(), &a.p))
+    return (int)cudaErrorInvalidValue;
   const AttnPlan& p = a.p;
   if (p.n == 0) return 0;
   a.krel = krel;
@@ -1479,20 +1690,13 @@ int attention_bwd(const In* q, const In* k, const In* v, const float* krel,
   a.keep_scale = keep_scale;
   a.scale = scale;
   CUtensorMap mk{}, mv{}, mq{}, mg{};
-  if constexpr (is_bf16<In>()) {
-    a.q = q;
-    a.k = k;
-    a.v = v;
-    a.g = g;
-  } else {
-    cudaError_t err = unit_map(&mk, k, p, kTile * p.tiles);
-    if (err == cudaSuccess) err = unit_map(&mv, v, p, kTile * p.tiles);
-    if (err == cudaSuccess) err = unit_map(&mq, q, p, kTile);
-    if (err == cudaSuccess) err = unit_map(&mg, g, p, kTile);
-    if (err != cudaSuccess) return (int)err;
-  }
+  cudaError_t err = unit_map(&mk, k, p, kTile * p.tiles);
+  if (err == cudaSuccess) err = unit_map(&mv, v, p, kTile * p.tiles);
+  if (err == cudaSuccess) err = unit_map(&mq, q, p, kTile);
+  if (err == cudaSuccess) err = unit_map(&mg, g, p, kTile);
+  if (err != cudaSuccess) return (int)err;
   BwdKernel fn = bwd_kernel<In>(p);
-  cudaError_t err = cpc2::set_smem((const void*)fn, p.bwd_smem);
+  err = cpc2::set_smem((const void*)fn, p.bwd_smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg{};
   cudaLaunchAttribute attr{};

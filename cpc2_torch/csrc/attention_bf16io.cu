@@ -7,8 +7,8 @@
 extern "C" {
 
 // As cpc2_attention_fwd with q, k, v and out in bf16 (p~ rounded to bf16
-// as p~ . v's operand, out rounded once); krel stays fp32. Every pointer
-// 8-byte aligned.
+// as p~ . v's operand, out rounded once); krel stays fp32. dk_in a
+// multiple of 8 (the plan's bf16 rows); every pointer 16-byte aligned.
 int cpc2_attention_fwd_bf16io(const bf16* q, const bf16* k, const bf16* v,
                               const float* krel, const unsigned* seed,
                               bf16* out, const int* plan, int n_plan,

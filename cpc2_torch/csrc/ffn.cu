@@ -23,13 +23,29 @@
 //   SMs, and one last launch sums every split's partials and the bias
 //   sums' per-block partials in a fixed order. The bf16 hidden (M x Dff,
 //   3.8 MB at the recipe) goes through device memory and stays in L2
-//   between its two products. Its bf16-in/bf16-out variant
-//   (`cpc2_ffn_{fwd,bwd}_bf16io`, `--precision bf16`, where the heads'
-//   activations are bf16) reads x and the incoming gradient as they come,
-//   so the cast launch takes the weights only (and db2's sums of the bf16
-//   g), and y and dx are summed in fp32 by the last launch, bias and split
-//   partials included, and rounded to bf16 once there, as the TPU kernel
-//   rounds its fp32 output block once.
+//   between its two products.
+// - bf16-in/bf16-out (`cpc2_ffn_{fwd,bwd}_bf16io`, `--precision bf16`,
+//   where the heads' activations are bf16): x and the incoming gradient are
+//   read as they come, y and dx summed in fp32 and rounded to bf16 once, as
+//   the TPU kernel rounds its fp32 output block once. Its first version ran
+//   the bf16 route's chain (4 launches forward, 7 backward) and wrote every
+//   split's fp32 partial to device memory (about 24 MB a backward) for the
+//   sum launch, with db2's sums walking 16 rows of g a thread in series.
+//   Its own blocks now (hopper_gemm.cuh, the bf16-io section;
+//   `ops/ffn.py:ffn_bf16io_plan` mirrors `io_layout`): one launch casts the
+//   weights once a forward (the backward reads that cast); `ffn_io_hidden`
+//   takes the hidden and, in the backward, dh of
+//   the same 128 x 128 tile in one CTA (the hidden's signs kept in
+//   registers, db1's column sums per tile, db2's per 32 rows of g from dh's
+//   A boxes); `ffn_io_split` takes y (forward), dW2 and dW1 together, and
+//   dx, each tile's k tiles split over a thread-block cluster whose CTAs
+//   add their partials in shared memory, in rank order, bias and bf16
+//   rounding in the same pass, and finishes db1 and db2 from their
+//   partials in order. No fp32 partial of a product in device memory, no
+//   sum launch: 3 launches forward, 3 backward, the backward bit for bit
+//   from call to call. Bound by operations at the recipe (1.9 GFLOP
+//   forward), the products are 8 k tiles or fewer a CTA, so its time is
+//   the launches' ramps and the clusters' one exchange each.
 // - fp32 (`cpc2_ffn_{fwd,bwd}`, `--precision fp32`): the same products at
 //   fp32 accuracy, in 3xTF32 on the tensor cores (`ffn_tf32x3_gemm` of
 //   hopper_gemm.cuh): each operand as two TF32 planes, big and small, both
@@ -71,28 +87,16 @@ struct CastSeg {
 struct CastArgs {
   CastSeg seg[kMaxCast];
   int nseg;
-  // with colsum_rows > 0: partial[b][c] = sum of colsum_src (or, where it
-  // is set, of the bf16 colsum_src16) over rows [kSumRows b, kSumRows (b +
-  // 1)), column c, for the (rows, cols) matrix
+  // with colsum_rows > 0: partial[b][c] = sum of colsum_src over rows
+  // [kSumRows b, kSumRows (b + 1)), column c, for the (rows, cols) matrix
   const float* colsum_src;
   int colsum_rows, colsum_cols;
   float* partial;
-  const bf16* colsum_src16;
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-// Four bf16 values (8 bytes) as floats.
-__device__ __forceinline__ float4 load_bf16x4(const bf16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
 // blockIdx.y < nseg: a vectorised fp32 -> bf16 cast of segment y, 8 values a
@@ -124,10 +128,8 @@ ffn_cast_bf16(CastArgs a) {
     for (int c4 = threadIdx.x; c4 < c4n; c4 += kCastThreads) {
       float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
       for (int r = r0; r < r1; ++r) {
-        const long at = static_cast<long>(r) * a.colsum_cols + 4 * c4;
-        const float4 v =
-            a.colsum_src16 ? load_bf16x4(a.colsum_src16 + at)
-                           : *reinterpret_cast<const float4*>(a.colsum_src + at);
+        const float4 v = *reinterpret_cast<const float4*>(
+            a.colsum_src + static_cast<long>(r) * a.colsum_cols + 4 * c4);
         acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
       }
       reinterpret_cast<float4*>(
@@ -155,7 +157,6 @@ struct SumSeg {
   const float* bias;  // nullptr, or `cols` values added per row
   int cols;
   float* out;
-  bf16* out16;        // or, where set, the sums rounded to bf16 here
 };
 
 struct SumArgs {
@@ -174,8 +175,7 @@ ffn_sum_partials(SumArgs a) {
   const bool vec =
       s.n % 4 == 0 && s.stride % 4 == 0 &&
       (reinterpret_cast<uintptr_t>(s.part) % 16 == 0) &&
-      (s.out16 ? reinterpret_cast<uintptr_t>(s.out16) % 8 == 0
-               : reinterpret_cast<uintptr_t>(s.out) % 16 == 0) &&
+      (reinterpret_cast<uintptr_t>(s.out) % 16 == 0) &&
       (s.bias == nullptr ||
        (s.cols % 4 == 0 && reinterpret_cast<uintptr_t>(s.bias) % 16 == 0));
   const long step = static_cast<long>(gridDim.x) * kCastThreads;
@@ -185,10 +185,7 @@ ffn_sum_partials(SumArgs a) {
       float acc = s.part[i];
       for (int r = 1; r < s.count; ++r) acc += s.part[i + r * s.stride];
       if (s.bias) acc += s.bias[i % s.cols];
-      if (s.out16)
-        s.out16[i] = __float2bfloat16_rn(acc);
-      else
-        s.out[i] = acc;
+      s.out[i] = acc;
     }
     return;
   }
@@ -204,11 +201,7 @@ ffn_sum_partials(SumArgs a) {
       const float4 b = reinterpret_cast<const float4*>(s.bias)[i % (s.cols / 4)];
       acc.x += b.x; acc.y += b.y; acc.z += b.z; acc.w += b.w;
     }
-    if (s.out16)
-      reinterpret_cast<uint2*>(s.out16)[i] =
-          make_uint2(pack_bf16(acc.x, acc.y), pack_bf16(acc.z, acc.w));
-    else
-      reinterpret_cast<float4*>(s.out)[i] = acc;
+    reinterpret_cast<float4*>(s.out)[i] = acc;
   }
 }
 
@@ -249,14 +242,12 @@ cpc2::WgArgs gemm_args(int M, int N, int K) {
 }
 
 // A store product's output: the result itself when K is not split, else
-// its partials, summed into `out` (with `bias`) by the last launch. With
-// `out16` always its partials (one where K is not split), summed and
-// rounded to bf16 into `out16` by the last launch.
+// its partials, summed into `out` (with `bias`) by the last launch.
 template <typename Args>
 void store_to(Args* g, cpc2::SplitK split, Workspace* ws, float* out,
-              const float* bias, SumArgs* sums, bf16* out16 = nullptr) {
+              const float* bias, SumArgs* sums) {
   g->ldo = g->N;
-  if (split.splits == 1 && out16 == nullptr) {
+  if (split.splits == 1) {
     g->out = out;
     g->bias = bias;
     return;
@@ -265,33 +256,27 @@ void store_to(Args* g, cpc2::SplitK split, Workspace* ws, float* out,
   g->out = ws->take<float>(static_cast<size_t>(n) * split.splits);
   g->split_stride = n;
   g->bias = nullptr;
-  sums->seg[sums->nseg++] = {g->out, n, n, split.splits, bias, g->N, out,
-                             out16};
+  sums->seg[sums->nseg++] = {g->out, n, n, split.splits, bias, g->N, out};
 }
 
 // The bf16 forward on workspace `ws` (sizes only when ws.base is null).
-// With `io`, x and y are bf16 (the bf16-in/bf16-out variant), else fp32.
-cudaError_t ffn_fwd_bf16(Workspace* ws, bool io, const void* x,
-                         const float* w1, const float* b1, const float* w2,
-                         const float* b2, const unsigned* seed, void* y,
-                         int M, int Din, int Dff, int Dout,
-                         unsigned threshold, float scale, cudaStream_t s) {
-  bf16* xb = io ? static_cast<bf16*>(const_cast<void*>(x))
-                : ws->take<bf16>(static_cast<size_t>(M) * Din);
+cudaError_t ffn_fwd_bf16(Workspace* ws, const float* x, const float* w1,
+                         const float* b1, const float* w2, const float* b2,
+                         const unsigned* seed, float* y, int M, int Din,
+                         int Dff, int Dout, unsigned threshold, float scale,
+                         cudaStream_t s) {
+  bf16* xb = ws->take<bf16>(static_cast<size_t>(M) * Din);
   bf16* w1b = ws->take<bf16>(static_cast<size_t>(Dff) * Din);
   bf16* w2b = ws->take<bf16>(static_cast<size_t>(Dout) * Dff);
   bf16* hb = ws->take<bf16>(static_cast<size_t>(M) * Dff);
   SumArgs sums = {};
   const cpc2::SplitK split_y = cpc2::split_k(M, Dout, Dff);
   cpc2::WgArgs gy = gemm_args(M, Dout, Dff);
-  store_to(&gy, split_y, ws, io ? nullptr : static_cast<float*>(y), b2,
-           &sums, io ? static_cast<bf16*>(y) : nullptr);
+  store_to(&gy, split_y, ws, y, b2, &sums);
   if (ws->base == nullptr) return cudaSuccess;
 
   CastArgs cast = {};
-  if (!io)
-    cast.seg[cast.nseg++] = {static_cast<const float*>(x), xb,
-                             static_cast<long>(M) * Din};
+  cast.seg[cast.nseg++] = {x, xb, static_cast<long>(M) * Din};
   cast.seg[cast.nseg++] = {w1, w1b, static_cast<long>(Dff) * Din};
   cast.seg[cast.nseg++] = {w2, w2b, static_cast<long>(Dout) * Dff};
   cudaError_t err = cast_bf16(cast, s);
@@ -314,20 +299,16 @@ cudaError_t ffn_fwd_bf16(Workspace* ws, bool io, const void* x,
 }
 
 // The bf16 backward on workspace `ws` (sizes only when ws.base is null).
-// With `io`, x, g and dx are bf16 (the bf16-in/bf16-out variant), else
-// fp32; the weights' gradients are fp32 either way.
-cudaError_t ffn_bwd_bf16(Workspace* ws, bool io, const void* x,
-                         const float* w1, const float* b1, const float* w2,
-                         const void* g, const unsigned* seed, void* dx,
-                         float* dw1, float* db1, float* dw2, float* db2,
-                         int M, int Din, int Dff, int Dout,
-                         unsigned threshold, float scale, cudaStream_t s) {
-  bf16* xb = io ? static_cast<bf16*>(const_cast<void*>(x))
-                : ws->take<bf16>(static_cast<size_t>(M) * Din);
+cudaError_t ffn_bwd_bf16(Workspace* ws, const float* x, const float* w1,
+                         const float* b1, const float* w2, const float* g,
+                         const unsigned* seed, float* dx, float* dw1,
+                         float* db1, float* dw2, float* db2, int M, int Din,
+                         int Dff, int Dout, unsigned threshold, float scale,
+                         cudaStream_t s) {
+  bf16* xb = ws->take<bf16>(static_cast<size_t>(M) * Din);
   bf16* w1b = ws->take<bf16>(static_cast<size_t>(Dff) * Din);
   bf16* w2b = ws->take<bf16>(static_cast<size_t>(Dout) * Dff);
-  bf16* gb = io ? static_cast<bf16*>(const_cast<void*>(g))
-                : ws->take<bf16>(static_cast<size_t>(M) * Dout);
+  bf16* gb = ws->take<bf16>(static_cast<size_t>(M) * Dout);
   bf16* hb = ws->take<bf16>(static_cast<size_t>(M) * Dff);
   const int row_blocks = (M + kSumRows - 1) / kSumRows;
   float* db2_part = ws->take<float>(static_cast<size_t>(row_blocks) * Dout);
@@ -345,23 +326,15 @@ cudaError_t ffn_bwd_bf16(Workspace* ws, bool io, const void* x,
   cpc2::WgArgs gw1 = gemm_args(Dff, Din, M);
   store_to(&gw1, split_dw1, ws, dw1, nullptr, &sums);
   cpc2::WgArgs gx = gemm_args(M, Din, Dff);
-  store_to(&gx, split_dx, ws, io ? nullptr : static_cast<float*>(dx),
-           nullptr, &sums, io ? static_cast<bf16*>(dx) : nullptr);
+  store_to(&gx, split_dx, ws, dx, nullptr, &sums);
   if (ws->base == nullptr) return cudaSuccess;
 
   CastArgs cast = {};
-  if (!io)
-    cast.seg[cast.nseg++] = {static_cast<const float*>(x), xb,
-                             static_cast<long>(M) * Din};
+  cast.seg[cast.nseg++] = {x, xb, static_cast<long>(M) * Din};
   cast.seg[cast.nseg++] = {w1, w1b, static_cast<long>(Dff) * Din};
   cast.seg[cast.nseg++] = {w2, w2b, static_cast<long>(Dout) * Dff};
-  if (io) {
-    cast.colsum_src16 = gb;  // db2 = sum_m g, in fp32 from the bf16 g
-  } else {
-    cast.seg[cast.nseg++] = {static_cast<const float*>(g), gb,
-                             static_cast<long>(M) * Dout};
-    cast.colsum_src = static_cast<const float*>(g);  // db2 before rounding
-  }
+  cast.seg[cast.nseg++] = {g, gb, static_cast<long>(M) * Dout};
+  cast.colsum_src = g;  // db2 before rounding
   cast.colsum_rows = M;
   cast.colsum_cols = Dout;
   cast.partial = db2_part;
@@ -402,6 +375,182 @@ cudaError_t ffn_bwd_bf16(Workspace* ws, bool io, const void* x,
                                                       s);
   if (err != cudaSuccess) return err;
   return sum_partials(sums, s);
+}
+
+// --- bf16-io route: the hidden's tiles, the products split in clusters -----
+
+// The host's plan (`ops/ffn.py:ffn_bf16io_plan`), field for field: the
+// widths, the clusters of 2, 4 and 8 split CTAs the card holds at once
+// (`cpc2_ffn_io_max_clusters`); each split launch's cluster (y; dW2 and dW1
+// together; dx), the kernels' shared memory, and the workspace of a
+// forward and of a backward.
+struct IoPlan {
+  long m, din, dff, dout, fit2, fit4, fit8;
+  long y_cluster, dw_cluster, dx_cluster;
+  long smem, fwd_bytes, bwd_bytes;
+};
+constexpr int kIoPlanLongs = sizeof(IoPlan) / sizeof(long);
+
+int tiles_of(long n) { return static_cast<int>((n + cpc2::kWgBN - 1) / cpc2::kWgBN); }
+int k_tiles_of(long k) { return static_cast<int>((k + cpc2::kWgBK - 1) / cpc2::kWgBK); }
+
+// The largest cluster, of 2, 4 or 8 CTAs and at most k_tiles (every rank
+// a run of k tiles), of which the card holds a launch's `tiles` at once
+// (fits: 2, 4, 8); 1 where none.
+long io_cluster(long tiles, long k_tiles, const long (&fits)[3]) {
+  long c = 1;
+  for (int i = 0; i < 3; ++i)
+    if (2 * c <= k_tiles && tiles <= fits[i]) c *= 2;
+    else break;
+  return c;
+}
+
+// The workspace: the bf16 hidden; in the backward also dh and the bias
+// gradients' partials (db1's per 128-row tile, db2's per 32 rows of g).
+// Every region starts on a 256-byte boundary. (The bf16 weights are the
+// caller's: the forward casts them, the backward reads that cast.)
+struct IoSpace {
+  bf16 *hb, *dhb;
+  float *db1_part, *db2_part;
+};
+
+IoSpace io_space(Workspace* ws, long M, long Din, long Dff, long Dout,
+                 bool backward) {
+  IoSpace r = {};
+  r.hb = ws->take<bf16>(static_cast<size_t>(M * Dff));
+  if (backward) {
+    const long m_tiles = tiles_of(M);
+    r.dhb = ws->take<bf16>(static_cast<size_t>(M * Dff));
+    r.db1_part = ws->take<float>(static_cast<size_t>(m_tiles * Dff));
+    r.db2_part = ws->take<float>(
+        static_cast<size_t>(cpc2::kWgBM / cpc2::kIoSumRows * m_tiles * Dout));
+  }
+  return r;
+}
+
+IoPlan io_layout(long m, long din, long dff, long dout, long fit2,
+                 long fit4, long fit8) {
+  IoPlan p = {m, din, dff, dout, fit2, fit4, fit8};
+  const long fits[3] = {fit2, fit4, fit8};
+  const long mt = tiles_of(m), it = tiles_of(din), ft = tiles_of(dff),
+             ot = tiles_of(dout);
+  p.y_cluster = io_cluster(mt * ot, k_tiles_of(dff), fits);
+  p.dw_cluster = io_cluster(ot * ft + ft * it, k_tiles_of(m), fits);
+  p.dx_cluster = io_cluster(mt * it, k_tiles_of(dff), fits);
+  p.smem = cpc2::kIoHiddenSmem;  // the larger of the two blocks' (split:
+                                 // kWgSmemBytes)
+  Workspace fwd{nullptr, 0}, bwd{nullptr, 0};
+  io_space(&fwd, m, din, dff, dout, false);
+  io_space(&bwd, m, din, dff, dout, true);
+  p.fwd_bytes = static_cast<long>(fwd.used);
+  p.bwd_bytes = static_cast<long>(bwd.used);
+  return p;
+}
+
+// Does the host's plan equal the layout, for widths the route takes?
+bool io_plan_ok(const long* got, int n) {
+  if (got == nullptr || n != kIoPlanLongs) return false;
+  const IoPlan& g = *reinterpret_cast<const IoPlan*>(got);
+  if (g.m <= 0 || g.din <= 0 || g.dff <= 0 || g.dout <= 0 || g.din % 8 ||
+      g.dff % 8 || g.dout % 8 || g.fit2 < 0 || g.fit4 < 0 || g.fit8 < 0 ||
+      g.m > (1l << 30))
+    return false;
+  const IoPlan want = io_layout(g.m, g.din, g.dff, g.dout, g.fit2, g.fit4,
+                                g.fit8);
+  const long* w = reinterpret_cast<const long*>(&want);
+  for (int i = 0; i < kIoPlanLongs; ++i)
+    if (got[i] != w[i]) return false;
+  return true;
+}
+
+cpc2::IoProduct io_product(int M, int N, int K, int first, float* out,
+                           bf16* out16, const float* bias) {
+  cpc2::IoProduct p = {};
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.n_tiles = tiles_of(N);
+  p.first = first;
+  p.tiles = tiles_of(M) * p.n_tiles;
+  p.out = out;
+  p.out16 = out16;
+  p.bias = bias;
+  return p;
+}
+
+// The bf16-io forward: the weights cast to bf16 into wb (W1, then W2),
+// the hidden, y split in clusters and rounded once to bf16 (3 launches).
+cudaError_t ffn_fwd_io(const IoPlan& p, void* workspace, const bf16* x,
+                       const float* w1, const float* b1, const float* w2,
+                       const float* b2, const unsigned* seed, bf16* wb,
+                       bf16* y, unsigned threshold, float scale,
+                       cudaStream_t s) {
+  const int M = p.m, Din = p.din, Dff = p.dff, Dout = p.dout;
+  Workspace ws{static_cast<char*>(workspace), 0};
+  const IoSpace w = io_space(&ws, M, Din, Dff, Dout, false);
+  bf16* w1b = wb;
+  bf16* w2b = wb + static_cast<long>(Dff) * Din;
+  CastArgs cast = {};
+  cast.seg[cast.nseg++] = {w1, w1b, static_cast<long>(Dff) * Din};
+  cast.seg[cast.nseg++] = {w2, w2b, static_cast<long>(Dout) * Dff};
+  cudaError_t err = cast_bf16(cast, s);
+  if (err != cudaSuccess) return err;
+  cpc2::IoHiddenArgs h = {M, Din, Dff, Dout, b1, seed, threshold, scale,
+                          w.hb, nullptr, nullptr, nullptr};
+  err = cpc2::io_hidden(x, w1b, nullptr, nullptr, h, s);
+  if (err != cudaSuccess) return err;
+  // y = hidden W2^T + b2
+  cpc2::IoArgs a = {};
+  a.products = 1;
+  a.cluster = static_cast<int>(p.y_cluster);
+  a.p[0] = io_product(M, Dout, Dff, 0, nullptr, y, b2);
+  const bf16* A[1] = {w.hb};
+  const bf16* B[1] = {w2b};
+  return cpc2::io_split<true, true>(A, B, a, s);
+}
+
+// The bf16-io backward from the forward's bf16 weights wb: the hidden and
+// dh with the bias partials; dW2 and dW1 split in clusters, db2 and db1
+// summed; dx split in clusters and rounded once to bf16 (3 launches).
+cudaError_t ffn_bwd_io(const IoPlan& p, void* workspace, const bf16* x,
+                       const bf16* wb, const float* b1, const bf16* g,
+                       const unsigned* seed, bf16* dx, float* dw1,
+                       float* db1, float* dw2, float* db2,
+                       unsigned threshold, float scale, cudaStream_t s) {
+  const int M = p.m, Din = p.din, Dff = p.dff, Dout = p.dout;
+  Workspace ws{static_cast<char*>(workspace), 0};
+  const IoSpace w = io_space(&ws, M, Din, Dff, Dout, true);
+  const bf16* w1b = wb;
+  const bf16* w2b = wb + static_cast<long>(Dff) * Din;
+  cpc2::IoHiddenArgs h = {M, Din, Dff, Dout, b1, seed, threshold, scale,
+                          w.hb, w.dhb, w.db1_part, w.db2_part};
+  cudaError_t err = cpc2::io_hidden(x, w1b, g, w2b, h, s);
+  if (err != cudaSuccess) return err;
+  // dW2[o, f] = sum_m g[m, o] hidden[m, f] (A = g^T M-major, B = hidden
+  // N-major) and db2; dW1[f, d] = sum_m dh[m, f] x[m, d] and db1
+  cpc2::IoArgs a = {};
+  a.products = 2;
+  a.cluster = static_cast<int>(p.dw_cluster);
+  a.p[0] = io_product(Dout, Dff, M, 0, dw2, nullptr, nullptr);
+  a.p[0].colsum_part = w.db2_part;
+  a.p[0].colsum_count = cpc2::kWgBM / cpc2::kIoSumRows * tiles_of(M);
+  a.p[0].colsum_out = db2;
+  a.p[1] = io_product(Dff, Din, M, a.p[0].tiles, dw1, nullptr, nullptr);
+  a.p[1].colsum_part = w.db1_part;
+  a.p[1].colsum_count = tiles_of(M);
+  a.p[1].colsum_out = db1;
+  const bf16* A[2] = {g, w.dhb};
+  const bf16* B[2] = {w.hb, x};
+  err = cpc2::io_split<false, false>(A, B, a, s);
+  if (err != cudaSuccess) return err;
+  // dx = dh W1 (B = W1 read N-major)
+  cpc2::IoArgs d = {};
+  d.products = 1;
+  d.cluster = static_cast<int>(p.dx_cluster);
+  d.p[0] = io_product(M, Din, Dff, 0, nullptr, dx, nullptr);
+  const bf16* A1[1] = {w.dhb};
+  const bf16* B1[1] = {w1b};
+  return cpc2::io_split<true, false>(A1, B1, d, s);
 }
 
 // --- fp32 route: the operands' TF32 planes, the 3xTF32 products ------------
@@ -693,49 +842,35 @@ int cpc2_ffn_bwd(const float* x, const float* w1, const float* b1,
 // Din, Dff and Dout must be multiples of 8 (TMA rows of 16-byte multiples),
 // and every pointer 16-byte aligned; the wrapper checks both.
 
-// Bytes of workspace the bf16 forward (backward != 0: backward) needs;
-// io != 0: the bf16-in/bf16-out variant's.
-long cpc2_ffn_bf16_workspace(int M, int Din, int Dff, int Dout, int backward,
-                             int io) {
+// Bytes of workspace the bf16 forward (backward != 0: backward) needs.
+long cpc2_ffn_bf16_workspace(int M, int Din, int Dff, int Dout,
+                             int backward) {
   Workspace ws{nullptr, 0};
   if (backward)
-    ffn_bwd_bf16(&ws, io != 0, nullptr, nullptr, nullptr, nullptr, nullptr,
-                 nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, M,
-                 Din, Dff, Dout, 0u, 1.f, nullptr);
+    ffn_bwd_bf16(&ws, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                 nullptr, nullptr, nullptr, nullptr, nullptr, M, Din, Dff,
+                 Dout, 0u, 1.f, nullptr);
   else
-    ffn_fwd_bf16(&ws, io != 0, nullptr, nullptr, nullptr, nullptr, nullptr,
-                 nullptr, nullptr, M, Din, Dff, Dout, 0u, 1.f, nullptr);
+    ffn_fwd_bf16(&ws, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                 nullptr, M, Din, Dff, Dout, 0u, 1.f, nullptr);
   return static_cast<long>(ws.used);
 }
 
 // As cpc2_ffn_fwd, in bf16 products; workspace of
-// cpc2_ffn_bf16_workspace(..., 0, 0) bytes.
+// cpc2_ffn_bf16_workspace(..., 0) bytes.
 int cpc2_ffn_fwd_bf16(const float* x, const float* w1, const float* b1,
                       const float* w2, const float* b2, const unsigned* seed,
                       void* workspace, float* y, int M, int Din, int Dff,
                       int Dout, unsigned threshold, float scale,
                       void* stream) {
   Workspace ws{static_cast<char*>(workspace), 0};
-  return (int)ffn_fwd_bf16(&ws, false, x, w1, b1, w2, b2, seed, y, M, Din,
-                           Dff, Dout, threshold, scale,
-                           static_cast<cudaStream_t>(stream));
-}
-
-// As cpc2_ffn_fwd_bf16 with x and y in bf16 (y rounded once from its fp32
-// sum); workspace of cpc2_ffn_bf16_workspace(..., 0, 1) bytes.
-int cpc2_ffn_fwd_bf16io(const bf16* x, const float* w1, const float* b1,
-                        const float* w2, const float* b2,
-                        const unsigned* seed, void* workspace, bf16* y,
-                        int M, int Din, int Dff, int Dout,
-                        unsigned threshold, float scale, void* stream) {
-  Workspace ws{static_cast<char*>(workspace), 0};
-  return (int)ffn_fwd_bf16(&ws, true, x, w1, b1, w2, b2, seed, y, M, Din,
-                           Dff, Dout, threshold, scale,
+  return (int)ffn_fwd_bf16(&ws, x, w1, b1, w2, b2, seed, y, M, Din, Dff, Dout,
+                           threshold, scale,
                            static_cast<cudaStream_t>(stream));
 }
 
 // As cpc2_ffn_bwd, in bf16 products; workspace of
-// cpc2_ffn_bf16_workspace(..., 1, 0) bytes.
+// cpc2_ffn_bf16_workspace(..., 1) bytes.
 int cpc2_ffn_bwd_bf16(const float* x, const float* w1, const float* b1,
                       const float* w2, const float* g, const unsigned* seed,
                       void* workspace, float* dx, float* dw1, float* db1,
@@ -743,24 +878,70 @@ int cpc2_ffn_bwd_bf16(const float* x, const float* w1, const float* b1,
                       int Dout, unsigned threshold, float scale,
                       void* stream) {
   Workspace ws{static_cast<char*>(workspace), 0};
-  return (int)ffn_bwd_bf16(&ws, false, x, w1, b1, w2, g, seed, dx, dw1, db1,
-                           dw2, db2, M, Din, Dff, Dout, threshold, scale,
+  return (int)ffn_bwd_bf16(&ws, x, w1, b1, w2, g, seed, dx, dw1, db1, dw2,
+                           db2, M, Din, Dff, Dout, threshold, scale,
                            static_cast<cudaStream_t>(stream));
 }
 
-// As cpc2_ffn_bwd_bf16 with x, g and dx in bf16 (dx rounded once after
-// its split partials are summed); the weights' gradients fp32. Workspace
-// of cpc2_ffn_bf16_workspace(..., 1, 1) bytes.
-int cpc2_ffn_bwd_bf16io(const bf16* x, const float* w1, const float* b1,
-                        const float* w2, const bf16* g, const unsigned* seed,
-                        void* workspace, bf16* dx, float* dw1, float* db1,
-                        float* dw2, float* db2, int M, int Din, int Dff,
-                        int Dout, unsigned threshold, float scale,
-                        void* stream) {
-  Workspace ws{static_cast<char*>(workspace), 0};
-  return (int)ffn_bwd_bf16(&ws, true, x, w1, b1, w2, g, seed, dx, dw1, db1,
-                           dw2, db2, M, Din, Dff, Dout, threshold, scale,
-                           static_cast<cudaStream_t>(stream));
+// --- bf16-io route -----------------------------------------------------------
+// The plan (`plan`, n_plan longs) must equal io_layout's for its widths
+// (M > 0; Din, Dff, Dout multiples of 8), and the workspace is its
+// fwd_bytes or bwd_bytes long; else the call is refused. wb holds the
+// weights in bf16, W1 (Dff x Din) then W2 (Dout x Dff): the forward writes
+// it, its backward reads it.
+
+// As cpc2_ffn_fwd_bf16 with x and y in bf16 (y rounded once from its fp32
+// sum).
+int cpc2_ffn_fwd_bf16io(const bf16* x, const float* w1, const float* b1,
+                        const float* w2, const float* b2,
+                        const unsigned* seed, void* workspace, bf16* wb,
+                        bf16* y, const long* plan, int n_plan,
+                        unsigned threshold, float scale, void* stream) {
+  if (!io_plan_ok(plan, n_plan)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cpc2::current_context();
+  if (err != cudaSuccess) return (int)err;
+  return (int)ffn_fwd_io(*reinterpret_cast<const IoPlan*>(plan), workspace,
+                         x, w1, b1, w2, b2, seed, wb, y, threshold, scale,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// As cpc2_ffn_bwd_bf16 with x, g and dx in bf16 (dx rounded once from its
+// fp32 sum) and the forward's bf16 weights wb; the weights' gradients
+// fp32.
+int cpc2_ffn_bwd_bf16io(const bf16* x, const bf16* wb, const float* b1,
+                        const bf16* g, const unsigned* seed, void* workspace,
+                        bf16* dx, float* dw1, float* db1, float* dw2,
+                        float* db2, const long* plan, int n_plan,
+                        unsigned threshold, float scale, void* stream) {
+  if (!io_plan_ok(plan, n_plan)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cpc2::current_context();
+  if (err != cudaSuccess) return (int)err;
+  return (int)ffn_bwd_io(*reinterpret_cast<const IoPlan*>(plan), workspace,
+                         x, wb, b1, g, seed, dx, dw1, db1, dw2, db2,
+                         threshold, scale,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// Clusters of `cluster` CTAs of the bf16-io split block that the card holds
+// at once (cudaOccupancyMaxActiveClusters), or minus a CUDA error code.
+int cpc2_ffn_io_max_clusters(int cluster) {
+  auto kernel = cpc2::ffn_io_split<true, true>;
+  cudaError_t err = cpc2::set_smem((const void*)kernel, cpc2::kWgSmemBytes);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr = {};
+  cfg.gridDim = dim3(cluster * 16);
+  cfg.blockDim = dim3(cpc2::kWgThreads);
+  cfg.dynamicSmemBytes = cpc2::kWgSmemBytes;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 }  // extern "C"

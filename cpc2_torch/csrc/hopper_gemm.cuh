@@ -3,7 +3,9 @@
 // fp32 accumulators in registers, and fused epilogues applied on the
 // accumulator fragment. The FFN kernels of ffn.cu and the encoder's conv
 // products (encoder.cu) are built from them. Two blocks share the ring, the
-// tile and the split-K scheme:
+// tile and the split-K scheme below; the bf16-in/bf16-out FFN's own two
+// blocks (`ffn_io_hidden`, `ffn_io_split`: clusters instead of split
+// partials) close the file:
 //
 // `ffn_wgmma_gemm`, bf16 operands (the FFN's `bf16mix` route):
 // C[m, n] = sum_k A(m, k) * B(n, k)
@@ -445,6 +447,18 @@ inline cudaError_t bf16_tensor_map(CUtensorMap* map, const bf16* ptr,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// cuTensorMapEncodeTiled works in the calling thread's current context,
+// which a thread that has launched nothing yet may not have (autograd's
+// worker, running a backward whose first call encodes maps:
+// CUDA_ERROR_INVALID_CONTEXT). cudaSetDevice binds the device's primary
+// context to the thread (the device of the context current, if any: a
+// rank's); it neither synchronises nor breaks a stream capture.
+inline cudaError_t current_context() {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  return err != cudaSuccess ? err : cudaSetDevice(dev);
+}
+
 inline int sm_count() {
   static int n = 0;
   if (n == 0) {
@@ -830,6 +844,576 @@ cudaError_t tf32x3_gemm(const Planes& A, const Planes& B, TfArgs args,
   const int splits = k_tiles > 0 ? (k_tiles + per - 1) / per : 1;
   dim3 grid((N + kWgBN - 1) / kWgBN, (M + kWgBM - 1) / kWgBM, splits);
   kernel<<<grid, kWgThreads, kTfSmemBytes, stream>>>(map_a, map_b, args);
+  return cudaGetLastError();
+}
+
+// --- bf16-io blocks ----------------------------------------------------------
+//
+// The FFN's bf16-in/bf16-out route (`--precision bf16`, csrc/ffn.cu) on the
+// bf16 block's tile, ring and products, with two blocks of its own:
+//
+// `ffn_io_hidden`, one 128 x 128 (m, f) tile of the hidden a CTA: the
+// hidden's product (x W1^T, K = Din) with its bias, ReLU and dropout, stored
+// as bf16 with the tile's signs kept in registers (staged through shared
+// memory, so that a warp stores whole rows of 256 bytes: the fragments'
+// scattered 4-byte stores took 7.6 of the first version's 10.3 us on an
+// H100); in the backward the same
+// CTA then takes dh's product (g W2, K = Dout) on the same tile from the same
+// ring, scales it by those signs, stores dh as bf16 and db1's column sums of
+// the unrounded dh per tile. The CTAs of f tile 0 also sum g's columns per
+// 32 rows from the A boxes that dh's product reads (db2's partials).
+//
+// `ffn_io_split`, the products whose K is long (y; dW2, dW1; dx), each
+// output tile's k tiles split over the R CTAs of one thread-block cluster:
+// every CTA keeps its fp32 partial in its own shared memory (over its ring,
+// dead by then), and after one cluster barrier each CTA sums one slice of
+// the tile's rows over the R partials in rank order through distributed
+// shared memory (every rank's loads of a place issued before its sums),
+// adds the bias, and stores fp32 or rounds once to bf16. (Stores of every
+// partial into its summing rank's memory, a second barrier and local sums
+// took 0.5-1 us more a launch on an H100.) No partial goes to device
+// memory; the sums' order is fixed (no atomics). One
+// launch holds up to kIoMaxProducts products of the same operand majors and
+// cluster size; the CTAs of n tile 0 of a product may also finish a bias
+// gradient from its per-tile partials, in order (`colsum_*`).
+
+constexpr int kIoMaxProducts = 2;
+constexpr int kIoMaxCluster = 8;
+constexpr int kIoLd = kWgBN + 8;  // a partial's row in shared memory, floats
+constexpr int kIoSumRows = 32;    // rows of g a db2 partial sums
+static_assert(kWgBM * kIoLd * 4 <= kWgStages * kWgStageBytes,
+              "a partial fits the ring");
+// The hidden block's staged bf16 tile after its ring: 128 rows of 128
+// values, 272 bytes apart (the fragment's writes and the 16-byte reads
+// each hit 32 banks).
+constexpr int kIoTileLd = 2 * kWgBN + 16;
+constexpr int kIoHiddenSmem = kWgSmemBytes + kWgBM * kIoTileLd;
+
+// One product of an `ffn_io_split` launch: C (M x N) = A B^T over K, its
+// tiles (n_tiles a row of tiles) clusters [first, first + tiles) of the
+// launch.
+struct IoProduct {
+  int M, N, K;
+  int n_tiles, first, tiles;
+  float* out;                // fp32 C (row stride N), or
+  bf16* out16;               // C rounded once to bf16 (row stride N)
+  const float* bias;         // or nullptr: N values added to C's rows
+  const float* colsum_part;  // or nullptr: (colsum_count, M) partials
+  int colsum_count;
+  float* colsum_out;         // M values: the partials' sums, in order
+};
+
+struct IoArgs {
+  IoProduct p[kIoMaxProducts];
+  int products, cluster;
+};
+
+struct IoMaps {
+  CUtensorMap a[kIoMaxProducts], b[kIoMaxProducts];
+};
+
+struct IoHiddenArgs {
+  int M, Din, Dff, Dout;
+  const float* bias;       // b1
+  const uint32_t* seed;    // one value in device memory
+  uint32_t threshold;      // drop when dropout_bits < threshold
+  float scale;             // 1 / (1 - rate)
+  bf16* hidden;            // (M, Dff)
+  bf16* dh;                // (M, Dff), or nullptr: the forward
+  float* db1_part;         // (m tiles, Dff)
+  float* db2_part;         // (m tiles x 4, Dout): g's sums per kIoSumRows
+};
+
+// Rank r's k tiles of a product of k_tiles split over R ranks: the runs
+// [r k / R, (r + 1) k / R), none empty while R <= k.
+__host__ __device__ __forceinline__ int io_k_begin(int r, int k_tiles,
+                                                   int R) {
+  return static_cast<int>(static_cast<long>(r) * k_tiles / R);
+}
+
+// The producer's loads of k tiles [kt0, kt1) of one product at (m0, n0),
+// ring slots counted on by `it`.
+template <bool kAK, bool kBK>
+__device__ __forceinline__ void io_produce(uint8_t* smem, uint64_t* full,
+                                           uint64_t* empty,
+                                           const CUtensorMap* ma,
+                                           const CUtensorMap* mb, int m0,
+                                           int n0, int kt0, int kt1,
+                                           int& it) {
+  for (int t = kt0; t < kt1; ++t, ++it) {
+    const int s = it % kWgStages;
+    mbar_wait(&empty[s], ((it / kWgStages) & 1) ^ 1);
+    mbar_expect_tx(&full[s], kWgStageBytes);
+    uint8_t* a = smem + s * kWgStageBytes;
+    uint8_t* b = a + kWgOperandBytes;
+    const int k = t * kWgBK;
+    if (kAK) {
+      tma_load(a, ma, &full[s], k, m0);
+    } else {
+      tma_load(a, ma, &full[s], m0, k);
+      tma_load(a + kWgOperandBytes / 2, ma, &full[s], m0 + 64, k);
+    }
+    if (kBK) {
+      tma_load(b, mb, &full[s], k, n0);
+    } else {
+      tma_load(b, mb, &full[s], n0, k);
+      tma_load(b + kWgOperandBytes / 2, mb, &full[s], n0 + 64, k);
+    }
+  }
+}
+
+// The consumers' products over nk k tiles from the ring into acc; every
+// stage is released once read, the last one included. With `g_sums`, each
+// k tile's A box (128 rows of 64 bf16 columns, K-major, 128-byte swizzle)
+// also gives each column's sums over its kIoSumRows-row blocks, in row
+// order, to g_sums[block * g_ld + the k tile's column].
+template <bool kAK, bool kBK>
+__device__ __forceinline__ void io_consume(uint8_t* smem, uint64_t* full,
+                                           uint64_t* empty, int nk, int& it,
+                                           float (&acc)[64],
+                                           float* g_sums = nullptr,
+                                           long g_ld = 0, int g_cols = 0) {
+  const int wg = threadIdx.x / 128;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < nk; ++i, ++it) {
+    const int s = it % kWgStages;
+    mbar_wait(&full[s], (it / kWgStages) & 1);
+    const uint8_t* a = smem + s * kWgStageBytes + wg * (kWgOperandBytes / 2);
+    const uint8_t* b = smem + s * kWgStageBytes + kWgOperandBytes;
+    fence_acc(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgBK / 16; ++kk) {
+      const uint64_t da = kAK ? wg_desc(a + 32 * kk, 16, 1024)
+                              : wg_desc(a + 2048 * kk, kWgOperandBytes / 2,
+                                        1024);
+      const uint64_t db = kBK ? wg_desc(b + 32 * kk, 16, 1024)
+                              : wg_desc(b + 2048 * kk, kWgOperandBytes / 2,
+                                        1024);
+      wgmma_m64n128k16<kAK ? 0 : 1, kBK ? 0 : 1>(acc, da, db);
+    }
+    wg_commit();
+    if (g_sums != nullptr) {
+      // while the products run: column c, block q of the box's rows
+      static_assert(kWgConsumers / 64 * kIoSumRows == kWgBM, "4 blocks");
+      const uint8_t* box = smem + s * kWgStageBytes;
+      const int c = threadIdx.x % 64, q = threadIdx.x / 64;
+      float sum = 0.f;
+#pragma unroll 8
+      for (int r = kIoSumRows * q; r < kIoSumRows * (q + 1); ++r)
+        sum += __bfloat162float(*reinterpret_cast<const bf16*>(
+            box + r * 128 + ((((c >> 3) ^ (r & 7)) << 4) | ((c & 7) << 1))));
+      const int col = i * kWgBK + c;
+      if (col < g_cols) g_sums[q * g_ld + col] = sum;
+    }
+    wg_wait<1>();  // the previous tile's products are done with its stage
+    fence_acc(acc);
+    if (i > 0) mbar_arrive(&empty[(it - 1) % kWgStages]);
+  }
+  wg_wait<0>();
+  fence_acc(acc);
+  if (nk > 0) mbar_arrive(&empty[(it - 1) % kWgStages]);
+}
+
+__device__ __forceinline__ uint32_t io_pack(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// A bf16 128 x 128 output tile, as the consumers' accumulator fragments
+// hold it (packed[2 j + h]: rows 16 warp + lane / 4 + 8 h, columns 2 (lane
+// % 4) + 8 j and + 1), to out (row stride ld) at (m0, n0), rows below M and
+// columns below N, through `tile` in shared memory: each warpgroup writes
+// its 64 rows there, then reads them back 16 bytes a thread, so that a
+// warp's stores are two whole rows of 256 bytes.
+__device__ __forceinline__ void io_store_tile(uint8_t* tile,
+                                              const uint32_t (&packed)[32],
+                                              bf16* out, long ld, int m0,
+                                              int n0, int M, int N) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wg = threadIdx.x / 128;
+  const int r0 = 16 * warp + lane / 4, c0 = 2 * (lane % 4);
+  // the warpgroup's last reads of this tile are done
+  asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(tile + (r0 + 8 * h) * kIoTileLd +
+                                   2 * (c0 + 8 * j)) = packed[2 * j + h];
+  asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
+  const int t = threadIdx.x % 128;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int chunk = t + 128 * i;
+    const int row = 64 * wg + chunk / 16, col = 8 * (chunk % 16);
+    if (m0 + row < M && n0 + col < N)
+      *reinterpret_cast<uint4*>(out + (long)(m0 + row) * ld + n0 + col) =
+          *reinterpret_cast<const uint4*>(tile + row * kIoTileLd + 2 * col);
+  }
+}
+
+__device__ __forceinline__ void io_ring_init(uint64_t* full,
+                                             uint64_t* empty) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWgConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// Launch 2 of the backward (and the forward's hidden): grid (f tiles, m
+// tiles), one CTA a tile.
+__global__ void __launch_bounds__(kWgThreads, 1)
+ffn_io_hidden(const __grid_constant__ CUtensorMap map_x,
+              const __grid_constant__ CUtensorMap map_w1,
+              const __grid_constant__ CUtensorMap map_g,
+              const __grid_constant__ CUtensorMap map_w2,
+              const __grid_constant__ IoHiddenArgs args) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* red = reinterpret_cast<float*>(smem + kWgStages * kWgStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 8 * kWgBN);
+  uint64_t* empty = full + kWgStages;
+  const int m0 = blockIdx.y * kWgBM, n0 = blockIdx.x * kWgBN;
+  const int ka = (args.Din + kWgBK - 1) / kWgBK;
+  const int kb = args.dh ? (args.Dout + kWgBK - 1) / kWgBK : 0;
+  io_ring_init(full, empty);
+  int it = 0;
+  if (threadIdx.x >= kWgConsumers) {
+    if (threadIdx.x == kWgConsumers) {
+      io_produce<true, true>(smem, full, empty, &map_x, &map_w1, m0, n0, 0,
+                             ka, it);
+      io_produce<true, false>(smem, full, empty, &map_g, &map_w2, m0, n0, 0,
+                              kb, it);
+    }
+    return;
+  }
+  float acc[64];
+  io_consume<true, true>(smem, full, empty, ka, it, acc);
+
+  // hidden = bf16(keep ? relu(acc + b1) * scale : 0); its signs kept:
+  // bit 2j + e of pos[h] for acc[4j + 2h + e]
+  uint8_t* tile = reinterpret_cast<uint8_t*>(empty + kWgStages);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int row0 = m0 + 16 * warp + lane / 4;
+  const int colb = n0 + 2 * (lane % 4);
+  const int M = args.M, N = args.Dff;
+  const uint32_t seed = args.threshold ? *args.seed : 0u;
+  uint32_t rbits[2], pos[2] = {0u, 0u}, packed[32];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    rbits[h] = mix32(seed ^ mix32(static_cast<uint32_t>(row0 + 8 * h)));
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = colb + 8 * j;
+    const float b0 = col < N ? args.bias[col] : 0.f;
+    const float b1 = col < N ? args.bias[col + 1] : 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v0 = fmaxf(acc[4 * j + 2 * h] + b0, 0.f);
+      float v1 = fmaxf(acc[4 * j + 2 * h + 1] + b1, 0.f);
+      if (args.threshold) {
+        const bool k0 = mix32(rbits[h] + col) >= args.threshold;
+        const bool k1 = mix32(rbits[h] + col + 1) >= args.threshold;
+        v0 = k0 ? v0 * args.scale : 0.f;
+        v1 = k1 ? v1 * args.scale : 0.f;
+      }
+      packed[2 * j + h] = io_pack(v0, v1);
+      pos[h] |= (v0 > 0.f ? 1u : 0u) << (2 * j);
+      pos[h] |= (v1 > 0.f ? 1u : 0u) << (2 * j + 1);
+    }
+  }
+  io_store_tile(tile, packed, args.hidden, N, m0, n0, M, N);
+  if (args.dh == nullptr) return;
+
+  // dh = (g W2) * (hidden > 0 ? scale : 0); db2's partials from g's boxes
+  // in the CTAs of f tile 0
+  float* g_sums = blockIdx.x == 0 ? args.db2_part + (long)blockIdx.y *
+                                                        kWgBM / kIoSumRows *
+                                                        args.Dout
+                                  : nullptr;
+  io_consume<true, false>(smem, full, empty, kb, it, acc, g_sums, args.Dout,
+                          args.Dout);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // rows past M: the hidden's sign bits there are those of a product
+      // of zero rows, but g's rows there are zero too, so acc is 0
+      const float v0 = acc[4 * j + 2 * h] *
+                       ((pos[h] >> (2 * j)) & 1u ? args.scale : 0.f);
+      const float v1 = acc[4 * j + 2 * h + 1] *
+                       ((pos[h] >> (2 * j + 1)) & 1u ? args.scale : 0.f);
+      packed[2 * j + h] = io_pack(v0, v1);
+      s0 += v0;
+      s1 += v1;
+    }
+    // the warp's 16 rows: lanes with the same lane % 4 share columns
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+    }
+    if (lane < 4) {
+      red[warp * kWgBN + 8 * j + 2 * lane] = s0;
+      red[warp * kWgBN + 8 * j + 2 * lane + 1] = s1;
+    }
+  }
+  io_store_tile(tile, packed, args.dh, N, m0, n0, M, N);
+  asm volatile("bar.sync 1, %0;" ::"n"(kWgConsumers) : "memory");
+  if (threadIdx.x < kWgBN && n0 + threadIdx.x < N) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) s += red[w * kWgBN + threadIdx.x];
+    args.db1_part[blockIdx.y * static_cast<long>(N) + n0 + threadIdx.x] = s;
+  }
+}
+
+__device__ __forceinline__ void io_cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// Four floats at `local`'s place in the shared memory of cluster CTA `rank`.
+__device__ __forceinline__ float4 io_load_remote(const float* local,
+                                                 int rank) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(addr) : "r"(smem_u32(local)), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// Four sums to C at `at`: fp32, or rounded once to bf16.
+__device__ __forceinline__ void io_store4(const IoProduct& P, long at,
+                                          float4 v) {
+  if (P.out16)
+    *reinterpret_cast<uint2*>(P.out16 + at) =
+        make_uint2(io_pack(v.x, v.y), io_pack(v.z, v.w));
+  else
+    *reinterpret_cast<float4*>(P.out + at) = v;
+}
+
+// Rank `rank`'s slice of a tile's rows (kWgBM / kR of them), summed over
+// the kR ranks' partials (`part`, at the same place in each CTA's shared
+// memory) in rank order, the bias added, stored. Each thread loads 16
+// places' floats (16 / kR places, every rank's) before it sums them: a
+// round trip to the cluster's memory for many loads.
+template <int kR>
+__device__ __forceinline__ void io_reduce(const IoProduct& P,
+                                          const float* part, int rank,
+                                          int m0, int n0) {
+  constexpr int kRows = kWgBM / kR, kPlaces = 16 / kR;
+  constexpr int kN = kRows * (kWgBN / 4);
+  for (int i0 = threadIdx.x; i0 < kN; i0 += kPlaces * kWgThreads) {
+    float4 v[kPlaces][kR];
+#pragma unroll
+    for (int u = 0; u < kPlaces; ++u) {
+      const int i = i0 + u * kWgThreads;
+      const int r = rank * kRows + i / (kWgBN / 4), c = 4 * (i % (kWgBN / 4));
+#pragma unroll
+      for (int q = 0; q < kR; ++q)
+        if (i < kN) v[u][q] = io_load_remote(part + r * kIoLd + c, q);
+    }
+#pragma unroll
+    for (int u = 0; u < kPlaces; ++u) {
+      const int i = i0 + u * kWgThreads;
+      const int r = rank * kRows + i / (kWgBN / 4), c = 4 * (i % (kWgBN / 4));
+      const int row = m0 + r, col = n0 + c;
+      if (i >= kN || row >= P.M || col >= P.N) continue;
+      float4 s = v[u][0];
+#pragma unroll
+      for (int q = 1; q < kR; ++q) {
+        s.x += v[u][q].x;
+        s.y += v[u][q].y;
+        s.z += v[u][q].z;
+        s.w += v[u][q].w;
+      }
+      if (P.bias) {
+        const float4 b = *reinterpret_cast<const float4*>(P.bias + col);
+        s.x += b.x;
+        s.y += b.y;
+        s.z += b.z;
+        s.w += b.w;
+      }
+      io_store4(P, (long)row * P.N + col, s);
+    }
+  }
+}
+
+// The split products: grid (clusters of the launch) x R, cluster (R, 1, 1).
+template <bool kAK, bool kBK>
+__global__ void __launch_bounds__(kWgThreads, 1)
+ffn_io_split(const __grid_constant__ IoMaps maps,
+             const __grid_constant__ IoArgs args) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* red = reinterpret_cast<float*>(smem + kWgStages * kWgStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 8 * kWgBN);
+  uint64_t* empty = full + kWgStages;
+  const int R = args.cluster;
+  const int cid = blockIdx.x / R, rank = blockIdx.x % R;
+  const int pi = args.products > 1 && cid >= args.p[1].first ? 1 : 0;
+  const IoProduct& P = args.p[pi];
+  const int tile = cid - P.first;
+  const int m0 = tile / P.n_tiles * kWgBM, n0 = tile % P.n_tiles * kWgBN;
+  const int k_tiles = (P.K + kWgBK - 1) / kWgBK;
+  const int kt0 = io_k_begin(rank, k_tiles, R);
+  const int kt1 = io_k_begin(rank + 1, k_tiles, R);
+  io_ring_init(full, empty);
+  int it = 0;
+  float acc[64];
+  if (threadIdx.x >= kWgConsumers) {
+    if (threadIdx.x == kWgConsumers)
+      io_produce<kAK, kBK>(smem, full, empty, &maps.a[pi], &maps.b[pi], m0,
+                           n0, kt0, kt1, it);
+  } else {
+    io_consume<kAK, kBK>(smem, full, empty, kt1 - kt0, it, acc);
+  }
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int r0 = 16 * warp + lane / 4, c0 = 2 * (lane % 4);
+  const int M = P.M, N = P.N;
+  if (R == 1) {
+    if (threadIdx.x < kWgConsumers) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = n0 + c0 + 8 * j;
+        if (col >= N) continue;
+        const float b0 = P.bias ? P.bias[col] : 0.f;
+        const float b1 = P.bias ? P.bias[col + 1] : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + r0 + 8 * h;
+          if (row >= M) continue;
+          const float v0 = acc[4 * j + 2 * h] + b0;
+          const float v1 = acc[4 * j + 2 * h + 1] + b1;
+          const long at = (long)row * N + col;
+          if (P.out16)
+            *reinterpret_cast<__nv_bfloat162*>(P.out16 + at) =
+                __floats2bfloat162_rn(v0, v1);
+          else
+            *reinterpret_cast<float2*>(P.out + at) = make_float2(v0, v1);
+        }
+      }
+    }
+  } else {
+    // every CTA's partial to its own shared memory, over the ring once
+    // both warpgroups' products are done with it
+    float* part = reinterpret_cast<float*>(smem);
+    if (threadIdx.x < kWgConsumers) {
+      asm volatile("bar.sync 1, %0;" ::"n"(kWgConsumers) : "memory");
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(part + (r0 + 8 * h) * kIoLd + c0 +
+                                     8 * j) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+    io_cluster_sync();
+    switch (R) {
+      case 2: io_reduce<2>(P, part, rank, m0, n0); break;
+      case 4: io_reduce<4>(P, part, rank, m0, n0); break;
+      default: io_reduce<8>(P, part, rank, m0, n0); break;
+    }
+    io_cluster_sync();  // no CTA leaves while another reads its partial
+  }
+  // a bias gradient's per-tile partials summed in order, by rank 0 of the
+  // product's n tile 0
+  if (P.colsum_out && n0 == 0 && rank == 0 && threadIdx.x < kWgBM &&
+      m0 + threadIdx.x < M) {
+    const int r = m0 + threadIdx.x;
+    float s = 0.f;
+    for (int i0 = 0; i0 < P.colsum_count; i0 += 8) {
+      float v[8];  // eight partials' loads in flight, then their sums
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        v[u] = i0 + u < P.colsum_count
+                   ? P.colsum_part[(long)(i0 + u) * M + r] : 0.f;
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (i0 + u < P.colsum_count) s += v[u];
+    }
+    P.colsum_out[r] = s;
+  }
+}
+
+inline cudaError_t io_maps(CUtensorMap* ma, CUtensorMap* mb, bool ak, bool bk,
+                           const bf16* A, const bf16* B, int M, int N,
+                           int K) {
+  cudaError_t err = ak ? bf16_tensor_map(ma, A, K, M, kWgBM)
+                       : bf16_tensor_map(ma, A, M, K, kWgBK);
+  if (err != cudaSuccess) return err;
+  return bk ? bf16_tensor_map(mb, B, K, N, kWgBN)
+            : bf16_tensor_map(mb, B, N, K, kWgBK);
+}
+
+// One ffn_io_split launch of args.products products (A[i], B[i] in the
+// stated majors), args.cluster CTAs a tile.
+template <bool kAK, bool kBK>
+cudaError_t io_split(const bf16* const* A, const bf16* const* B,
+                     IoArgs args, cudaStream_t stream) {
+  IoMaps maps = {};
+  int clusters = 0;
+  for (int i = 0; i < args.products; ++i) {
+    const IoProduct& p = args.p[i];
+    if (p.first != clusters) return cudaErrorInvalidValue;
+    clusters += p.tiles;
+    const cudaError_t err = io_maps(&maps.a[i], &maps.b[i], kAK, kBK, A[i],
+                                    B[i], p.M, p.N, p.K);
+    if (err != cudaSuccess) return err;
+  }
+  if (clusters == 0) return cudaSuccess;
+  auto kernel = ffn_io_split<kAK, kBK>;
+  cudaError_t err = set_smem((const void*)kernel, kWgSmemBytes);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr = {};
+  cfg.gridDim = dim3(clusters * args.cluster);
+  cfg.blockDim = dim3(kWgThreads);
+  cfg.dynamicSmemBytes = kWgSmemBytes;
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = args.cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, maps, args);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The hidden (and with args.dh, dh and the bias partials) of M rows.
+inline cudaError_t io_hidden(const bf16* x, const bf16* w1, const bf16* g,
+                             const bf16* w2, const IoHiddenArgs& args,
+                             cudaStream_t stream) {
+  if (args.M <= 0 || args.Dff <= 0) return cudaSuccess;
+  CUtensorMap mx = {}, mw1 = {}, mg = {}, mw2 = {};
+  cudaError_t err = io_maps(&mx, &mw1, true, true, x, w1, args.M, args.Dff,
+                            args.Din);
+  if (err != cudaSuccess) return err;
+  if (args.dh) {
+    err = io_maps(&mg, &mw2, true, false, g, w2, args.M, args.Dff,
+                  args.Dout);
+    if (err != cudaSuccess) return err;
+  }
+  err = set_smem((const void*)ffn_io_hidden, kIoHiddenSmem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((args.Dff + kWgBN - 1) / kWgBN, (args.M + kWgBM - 1) / kWgBM);
+  ffn_io_hidden<<<grid, kWgThreads, kIoHiddenSmem, stream>>>(mx, mw1, mg,
+                                                              mw2, args);
   return cudaGetLastError();
 }
 

@@ -83,9 +83,10 @@ _SIGNATURES = {
     "cpc2_ffn_bwd": [_P] * 12 + [_L] + [_I] * 7 + [_U, _F, _P],
     "cpc2_ffn_fwd_bf16": [_P] * 8 + [_I] * 4 + [_U, _F, _P],
     "cpc2_ffn_bwd_bf16": [_P] * 12 + [_I] * 4 + [_U, _F, _P],
-    "cpc2_ffn_fwd_bf16io": [_P] * 8 + [_I] * 4 + [_U, _F, _P],
-    "cpc2_ffn_bwd_bf16io": [_P] * 12 + [_I] * 4 + [_U, _F, _P],
-    "cpc2_ffn_bf16_workspace": [_I] * 6,
+    "cpc2_ffn_fwd_bf16io": [_P] * 10 + [_I, _U, _F, _P],
+    "cpc2_ffn_bwd_bf16io": [_P] * 12 + [_I, _U, _F, _P],
+    "cpc2_ffn_bf16_workspace": [_I] * 5,
+    "cpc2_ffn_io_max_clusters": [_I],
     "cpc2_infonce_fwd": [_P] * 4 + [_I] * 12 + [_L, _P],
     "cpc2_infonce_bwd": [_P] * 7 + [_I] * 25 + [_L, _P],
     "cpc2_dtw": [_P] * 4 + [_I] * 11 + [_P],

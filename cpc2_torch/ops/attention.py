@@ -27,10 +27,11 @@ shared memory holds at S up to 58), the wide kernels take one CTA a unit
 and dk in chunks: the products over dk add up chunk by chunk, and the
 outputs come a chunk of columns at a time.
 
-`attention_plan(N, S, dk)` holds every launch choice and shared-memory
-layout; the kernels take it as given and refuse a plan that does not hold
-what they put there. The wrapper pads dk to a multiple of 4 (16-byte rows
-for the copies) with zeros; the kernels pad it to 8 in shared memory.
+`attention_plan(N, S, dk, bf16)` holds every launch choice and
+shared-memory layout; the kernels take it as given and refuse a plan that
+does not hold what they put there. The wrapper pads dk with zeros to a
+multiple of 4 for fp32 operands and of 8 for bf16 ones (16-byte rows for
+the copies); the kernels pad it to 8 in shared memory.
 
 Dropout keeps (unit, r, c) when the hash of `csrc/common.cuh:dropout_bits`
 at row `unit·S + r`, column c is at or above the threshold, as the FFN
@@ -39,8 +40,10 @@ bit-identical masks. The TPU kernel draws its mask from the TPU's own
 generator, so against the JAX package only the distribution matches.
 
 bf16 q, k and v (the heads' bf16 activations under `--precision bf16`)
-take the kernels' bf16-in/bf16-out variant: the operands read as bf16 and
-exact in the products, p~ rounded to bf16 only as p~ . v's operand, out,
+take the kernels' bf16-in/bf16-out variant: the operands come by TMA boxes
+of a bf16 map, landing at the end of the fp32 rows they are widened into
+in place, exact in the products (a product of two bf16 operands is one
+TF32 product, not three), p~ rounded to bf16 only as p~ . v's operand, out,
 dq, dk and dv stored as bf16, dKrelpos in fp32, and the backward's p~
 recomputed unrounded (the rounding is straight-through), as the JAX
 package's kernel takes them.
@@ -136,7 +139,14 @@ class AttentionPlan(NamedTuple):
     score gradients, and `b_raw` (over the planes in one chunk); the
     cluster's exchange of partials lies over k, v and krel_t once the rows
     are done. The backward's CTA finishes m-tiles [ρ T / R, (ρ + 1) T / R)
-    of dk, dv and dKrelpos, at most `mtiles` of them."""
+    of dk, dv and dKrelpos, at most `mtiles` of them. `io` 1: bf16
+    operands in rows of dk_in = dk padded to 8 (TMA's 16-byte strides),
+    whose boxes (dc values a row) land in a staging region at `f_st`,
+    `b_st` (after Krelpos's raw copy: K, V, then every warp slot's q rows,
+    then g's) where the block still fits with it, and are widened from
+    there to the fp32 rows in one pass; where it would not fit (f_st, b_st
+    0), at the end of the fp32 rows they fill, widened in place over a few
+    passes. 0: fp32 operands, whose boxes land in the rows themselves."""
     n: int
     s: int
     dk: int
@@ -175,6 +185,9 @@ class AttentionPlan(NamedTuple):
     b_floats: int
     exchange: int
     bwd_smem: int
+    io: int
+    f_st: int
+    b_st: int
 
     def as_c_ints(self):
         """The plan as the C entry points read it (`AttnPlan` in
@@ -200,11 +213,11 @@ def own_tile(rank: int, ctas: int, tiles: int, slot: int) -> int:
     return -1 if other == pair else other
 
 
-def _layout(n, s, dk, fwd_ctas, bwd_ctas, dc):
+def _layout(n, s, dk, fwd_ctas, bwd_ctas, dc, io=0):
     tiles = -(-s // TILE)
     pairs = -(-tiles // 2)
     sp = TILE * tiles
-    dk_in, dkp = _up(dk, 4), _up(dk, 8)
+    dk_in, dkp = _up(dk, 8 if io else 4), _up(dk, 8)
     wide = dc < dkp
     ld, ldr, lds = dc + 4, _up(dc, 32), sp + 4
     max_tiles = next((m for m in MAX_TILES if tiles <= m), None)
@@ -220,6 +233,13 @@ def _layout(n, s, dk, fwd_ctas, bwd_ctas, dc):
     qp = fwd_warps * TILE * lds
     f_raw = f_x + a(qp) if wide else f_x
     f_floats = f_raw + a(dc * s) if wide else f_x + a(max(qp, dk_in * s))
+    f_st = 0
+    if io:  # staged where the block still fits
+        st = f_raw + a((dc if wide else dk_in) * s)
+        end = st + a(dc * (2 * sp + TILE * fwd_warps) // 2)
+        floats = end if wide else f_x + max(qp, end - f_x)
+        if HEADER_BYTES + 4 * floats <= SMEM_LIMIT:
+            f_st, f_floats = st, floats
     bwd_warps = 2 * -(-pairs // bwd_ctas)
     rows = TILE * bwd_warps
     mtiles = -(-tiles // bwd_ctas)
@@ -233,13 +253,20 @@ def _layout(n, s, dk, fwd_ctas, bwd_ctas, dc):
     b_raw = planes_end if wide else b_pd
     b_floats = (b_raw + a(dc * s) if wide
                 else max(planes_end, b_pd + a(dk_in * s)))
+    b_st = 0
+    if io:
+        st = b_raw + a((dc if wide else dk_in) * s)
+        end = st + a(dc * (2 * sp + 2 * TILE * bwd_warps) // 2)
+        floats = end if wide else max(planes_end, end)
+        if HEADER_BYTES + 4 * floats <= SMEM_LIMIT:
+            b_st, b_floats = st, floats
     exchange = (bwd_ctas - 1) * mtiles * 3 * (dkp // 8) * 128
     return AttentionPlan(
         n, s, dk, dk_in, dkp, dc, -(-dkp // dc), tiles, pairs, max_tiles,
         ld, ldr, lds, fwd_ctas, fwd_warps, f_k, f_v, f_krel, f_q, f_x, f_raw,
         f_floats, HEADER_BYTES + 4 * f_floats, bwd_ctas, bwd_warps, mtiles,
         b_k, b_v, b_krel, b_q, b_g, b_pd, b_ds, b_dqp, b_raw, b_floats,
-        exchange, HEADER_BYTES + 4 * b_floats)
+        exchange, HEADER_BYTES + 4 * b_floats, io, f_st, b_st)
 
 
 def _fits_fwd(p: AttentionPlan) -> bool:
@@ -251,8 +278,10 @@ def _fits_bwd(p: AttentionPlan) -> bool:
             and p.exchange <= p.b_q - p.b_k)
 
 
-def attention_plan(n: int, s: int, dk: int) -> AttentionPlan:
-    """The kernels' plan for N units of S steps and width dk. Where a unit
+def attention_plan(n: int, s: int, dk: int,
+                   bf16: bool = False) -> AttentionPlan:
+    """The kernels' plan for N units of S steps and width dk, of fp32 or
+    (`bf16`) bf16 operands (rows padded to 8). Where a unit
     fits a block whole (one chunk of dk), the forward takes FWD_CTAS CTAs a
     unit (fewer where there are fewer pairs, more where a CTA's shared
     memory or warps would not hold its tiles) and the backward the smallest
@@ -262,11 +291,11 @@ def attention_plan(n: int, s: int, dk: int) -> AttentionPlan:
     max(MAX_TILES), or a unit that fits neither way (dk at S above 64 that
     the gate's limits refuse too). Plans are cached: a head call costs no
     planning on the host."""
-    return _plan(n, s, dk)
+    return _plan(n, s, dk, int(bool(bf16)))
 
 
 @functools.lru_cache(maxsize=256)
-def _plan(n: int, s: int, dk: int) -> AttentionPlan:
+def _plan(n: int, s: int, dk: int, io: int) -> AttentionPlan:
     if n < 0 or s < 1 or dk < 1:
         raise ValueError(f"attention_plan: no kernel for N {n}, S {s}, "
                          f"dk {dk}")
@@ -278,16 +307,16 @@ def _plan(n: int, s: int, dk: int) -> AttentionPlan:
 
     def pick(first, fits):
         for r in range(min(first, pairs), min(pairs, MAX_CLUSTER) + 1):
-            if fits(_layout(n, s, dk, r, r, dkp)):
+            if fits(_layout(n, s, dk, r, r, dkp, io)):
                 return r
         return None
     if dkp + 4 <= MAX_BOX:
         rf, rb = pick(FWD_CTAS, _fits_fwd), pick(2, _fits_bwd)
         if rf is not None and rb is not None:
-            return _layout(n, s, dk, rf, rb, dkp)
+            return _layout(n, s, dk, rf, rb, dkp, io)
     if tiles <= MAX_TILES[0]:
         for dc in range(min(dkp - 8, MAX_BOX - 8), 0, -8):
-            plan = _layout(n, s, dk, 1, 1, dc)
+            plan = _layout(n, s, dk, 1, 1, dc, io)
             if _fits_fwd(plan) and _fits_bwd(plan):
                 return plan
     raise ValueError(f"attention_plan: no layout for S {s}, dk {dk} within "
@@ -370,7 +399,7 @@ def _check(q, k, v, krelpos, seed, rate) -> AttentionPlan:
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"fused_relpos_attention: dropout rate {rate} not "
                          f"in [0, 1)")
-    return attention_plan(n, s, dk)
+    return attention_plan(n, s, dk, q.dtype == torch.bfloat16)
 
 
 def _operand(x: Tensor, dk_in: int, dim: int = -1) -> Tensor:

@@ -14,9 +14,12 @@ operations (1.9 GFLOP per head forward at the recipe). Two routes:
   their gradients fused into the epilogues (`csrc/hopper_gemm.cuh`). The
   bias gradients and the forward's bias add see unrounded fp32 values.
   Where x is bf16 (`--precision bf16`, the heads' bf16 activations), the
-  bf16-in/bf16-out variant: x and the incoming gradient are read as they
-  come, and y and dx are summed in fp32 and rounded to bf16 once, as the
-  JAX package's kernel rounds its fp32 output block once to x's dtype.
+  bf16-in/bf16-out route of its own (`ffn_bf16io_plan`): x and the
+  incoming gradient are read as they come, y and dx are summed in fp32
+  and rounded to bf16 once, as the JAX package's kernel rounds its fp32
+  output block once to x's dtype; the hidden and dh share one launch, and
+  the products whose K is long split it over the CTAs of a thread-block
+  cluster, which add their partials in shared memory, in rank order.
 - `bf16=False` (`--precision fp32`): the same products at fp32 accuracy,
   in 3xTF32 on the tensor cores: each operand split into two TF32 planes,
   big and small, and each product taken as small*big + big*small +
@@ -40,6 +43,7 @@ kernels by x's dtype.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple
 
@@ -228,6 +232,143 @@ def ffn_fp32_plan(m: int, din: int, dff: int, dout: int,
                    dx, fwd, bwd)
 
 
+# The bf16 kernels' tile (`csrc/hopper_gemm.cuh`: 128 x 128 outputs, k tiles
+# of 64 bf16), the bf16-io hidden block's dynamic shared memory (1,024 bytes
+# of alignment, a ring of 4 stages of two 16 KB boxes, 8 warps' column
+# sums, the stages' two mbarriers, the staged bf16 tile of 128 rows 272
+# bytes apart; the split block has no tile), the bf16-io route's clusters
+# (2, 4 and 8 CTAs: portable sizes) and g's rows a db2 partial sums.
+IO_TILE, IO_K_TILE = 128, 64
+IO_SMEM = 1024 + 4 * 2 * 16384 + 8 * 128 * 4 + 2 * 4 * 8 + 128 * 272
+IO_CLUSTERS = (2, 4, 8)
+IO_SUM_ROWS = 32
+# Clusters of 2, 4 and 8 split CTAs (one a multiprocessor: their shared
+# memory) that an H100 80GB HBM3 holds at once, as its
+# `cudaOccupancyMaxActiveClusters` gave them (`chip_smoke.py`'s `[bf16
+# kernels]` line): the plan's default; on a card the wrapper asks the card.
+H100_CLUSTER_FITS = (66, 30, 15)
+
+
+class IoProduct(NamedTuple):
+    """One product of the bf16-io kernels: its grid of output tiles, its k
+    tiles, and the CTAs of the cluster that splits them (1: not split)."""
+    m_tiles: int
+    n_tiles: int
+    k_tiles: int
+    cluster: int
+
+    def k_runs(self):
+        """Each rank's k tiles [k0, k1): r k / R to (r + 1) k / R
+        (`hopper_gemm.cuh:io_k_begin`)."""
+        k, c = self.k_tiles, self.cluster
+        return [(r * k // c, (r + 1) * k // c) for r in range(c)]
+
+
+class FFNIoPlan(NamedTuple):
+    """The bf16-io kernels' plan (`csrc/ffn.cu:io_layout`). Launches: the
+    forward casts W1 and W2 to bf16, takes the hidden by (m, f) tiles
+    (`ffn_io_hidden`), then y split over clusters of `y.cluster` CTAs
+    (`ffn_io_split`); the backward takes the hidden and dh by the same
+    tiles in one launch, from the forward's bf16 weights (`weights` bf16
+    values, W1 then W2, which the forward's caller keeps for it), then dW2
+    and dW1 in one launch of clusters of `dw2.cluster` (= `dw1.cluster`)
+    CTAs, then dx. Each split product's tile is summed over its cluster's
+    ranks in shared memory: the workspace holds the hidden and dh and the
+    bias gradients' partials (db1 per 128-row tile, db2 per 32 rows), never
+    a partial of y, dx, dW1 or dW2."""
+    m: int
+    din: int
+    dff: int
+    dout: int
+    fits: tuple     # clusters of 2, 4, 8 CTAs the card holds at once
+    hidden: IoProduct
+    dh: IoProduct
+    y: IoProduct
+    dw2: IoProduct
+    dw1: IoProduct
+    dx: IoProduct
+    smem: int
+    weights: int
+    fwd_bytes: int
+    bwd_bytes: int
+
+    def as_c_longs(self):
+        """The plan as the C entry points read it (`IoPlan` in
+        csrc/ffn.cu): a ctypes array of longs, made once a plan."""
+        return _c_longs(self)
+
+
+@functools.lru_cache(maxsize=64)
+def _c_longs(plan: FFNIoPlan):
+    values = (plan.m, plan.din, plan.dff, plan.dout, *plan.fits,
+              plan.y.cluster, plan.dw2.cluster,
+              plan.dx.cluster, plan.smem, plan.fwd_bytes, plan.bwd_bytes)
+    return (ctypes.c_long * len(values))(*values)
+
+
+def _io_cluster(tiles: int, k_tiles: int, fits: tuple) -> int:
+    """The largest cluster, of 2, 4 or 8 CTAs and at most k_tiles (every
+    rank a run of k tiles), of which the card holds a launch's `tiles` at
+    once, so that the launch runs in one wave; 1 where none."""
+    c = 1
+    for fit in fits:
+        if 2 * c > k_tiles or tiles > fit:
+            break
+        c *= 2
+    return c
+
+
+@functools.lru_cache(maxsize=None)
+def ffn_bf16io_plan(m: int, din: int, dff: int, dout: int,
+                    fits: tuple = H100_CLUSTER_FITS) -> FFNIoPlan:
+    """The bf16-io kernels' plan for a bf16 x (m, din), W1 (dff, din), W2
+    (dout, dff) on a card that holds `fits` clusters of 2, 4 and 8 split
+    CTAs at once: tiles, each split launch's cluster (the largest that
+    keeps the launch in one wave), the ranks' runs of k tiles, shared
+    memory and the workspace, region by region as `csrc/ffn.cu:io_space`
+    lays it out; the C entry points refuse a plan that differs from
+    theirs. m > 0; the widths multiples of 8 (TMA's 16-byte rows)."""
+    if m <= 0 or min(din, dff, dout) <= 0 or din % 8 or dff % 8 or dout % 8:
+        raise ValueError(f"ffn_bf16io_plan: no kernel for "
+                         f"{(m, din, dff, dout)}")
+    fits = tuple(fits)
+    if len(fits) != len(IO_CLUSTERS) or min(fits) < 0:
+        raise ValueError(f"ffn_bf16io_plan: cluster fits {fits}")
+    mt, it, ft, ot = (_cdiv(w, IO_TILE) for w in (m, din, dff, dout))
+
+    def kt(k):
+        return _cdiv(k, IO_K_TILE)
+    y = IoProduct(mt, ot, kt(dff), _io_cluster(mt * ot, kt(dff), fits))
+    dw = _io_cluster(ot * ft + ft * it, kt(m), fits)
+    dx = IoProduct(mt, it, kt(dff), _io_cluster(mt * it, kt(dff), fits))
+
+    def bf16s(n):
+        return _up(2 * n, ALIGN)
+
+    def floats(n):
+        return _up(4 * n, ALIGN)
+    fwd = bf16s(m * dff)
+    bwd = (fwd + bf16s(m * dff) + floats(mt * dff)
+           + floats(IO_TILE // IO_SUM_ROWS * mt * dout))
+    return FFNIoPlan(m, din, dff, dout, fits,
+                     IoProduct(mt, ft, kt(din), 1),
+                     IoProduct(mt, ft, kt(dout), 1), y,
+                     IoProduct(ot, ft, kt(m), dw), IoProduct(ft, it, kt(m), dw),
+                     dx, IO_SMEM, dff * din + dout * dff, fwd, bwd)
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_fits(device: torch.device) -> tuple:
+    """The clusters of 2, 4 and 8 bf16-io split CTAs that `device` holds at
+    once (`cudaOccupancyMaxActiveClusters`), asked once a device."""
+    lib = _build.library()
+    with torch.cuda.device(device):
+        fits = tuple(lib.cpc2_ffn_io_max_clusters(c) for c in IO_CLUSTERS)
+    if min(fits) < 0:
+        raise RuntimeError(f"cpc2_ffn_io_max_clusters failed: {fits}")
+    return fits
+
+
 def _check(x, w1, b1, w2, b2, seed, rate, bf16) -> torch.device:
     device = _build.check_cuda("fused_ffn", x, w1, b1, w2, b2, seed)
     _build.check_f32("fused_ffn", w1, b1, w2, b2)
@@ -262,9 +403,9 @@ def _aligned(name: str, *tensors: Tensor) -> None:
 
 @functools.lru_cache(maxsize=None)
 def _workspace_bytes(m: int, din: int, dff: int, dout: int,
-                     backward: bool, io: bool = False) -> int:
+                     backward: bool) -> int:
     return _build.library().cpc2_ffn_bf16_workspace(m, din, dff, dout,
-                                                    int(backward), int(io))
+                                                    int(backward))
 
 
 # Inside a CUDA graph (`training.MultiStep`) a launch keeps the arguments
@@ -293,12 +434,16 @@ class _FusedFFN(torch.autograd.Function):
             pass  # nothing to compute, nothing launched
         elif io:
             _aligned("fused_ffn", x, w1, b1, w2, b2)
-            scratch = torch.empty(
-                _workspace_bytes(m, din, dff, dout, False, True),
-                device=device, dtype=torch.uint8)
+            plan = ffn_bf16io_plan(m, din, dff, dout,
+                                   cluster_fits(device))
+            scratch = torch.empty(plan.fwd_bytes, device=device,
+                                  dtype=torch.uint8)
+            wb = torch.empty(plan.weights, device=device, dtype=torch.bfloat16)
+            c_plan = plan.as_c_longs()
             _build.launch("ffn_fwd_bf16io", "cpc2_ffn_fwd_bf16io", device,
-                          *ptrs, scratch.data_ptr(), y.data_ptr(), m, din,
-                          dff, dout, *drop)
+                          *ptrs, scratch.data_ptr(), wb.data_ptr(),
+                          y.data_ptr(), ctypes.addressof(c_plan), len(c_plan),
+                          *drop)
         elif bf16:
             _aligned("fused_ffn", x, w1, b1, w2, b2)
             scratch = torch.empty(_workspace_bytes(m, din, dff, dout, False),
@@ -313,13 +458,14 @@ class _FusedFFN(torch.autograd.Function):
             _build.launch("ffn_fwd_fp32", "cpc2_ffn_fwd", device, *ptrs,
                           scratch.data_ptr(), y.data_ptr(), plan.fwd_bytes,
                           m, din, dff, dout, plan.y.per, *drop)
-        ctx.save_for_backward(x, w1, b1, w2, seed)
+        ctx.save_for_backward(x, w1, b1, w2, seed,
+                              wb if io and m else None)
         ctx.rate, ctx.bf16 = rate, bf16
         return y
 
     @staticmethod
     def backward(ctx, g):
-        x, w1, b1, w2, seed = ctx.saved_tensors
+        x, w1, b1, w2, seed, wb = ctx.saved_tensors
         rate = ctx.rate
         device = x.device
         io = x.dtype == torch.bfloat16
@@ -341,12 +487,16 @@ class _FusedFFN(torch.autograd.Function):
         drop = (dropout_threshold(rate), 1.0 / (1.0 - rate))
         if io:
             _aligned("fused_ffn", g, dx)
-            scratch = torch.empty(
-                _workspace_bytes(m, din, dff, dout, True, True),
-                device=device, dtype=torch.uint8)
+            plan = ffn_bf16io_plan(m, din, dff, dout,
+                                   cluster_fits(device))
+            scratch = torch.empty(plan.bwd_bytes, device=device,
+                                  dtype=torch.uint8)
+            c_plan = plan.as_c_longs()
             _build.launch("ffn_bwd_bf16io", "cpc2_ffn_bwd_bf16io", device,
-                          *ptrs, scratch.data_ptr(), *grads, m, din, dff,
-                          dout, *drop)
+                          x.data_ptr(), wb.data_ptr(), b1.data_ptr(),
+                          g.data_ptr(), seed.data_ptr(), scratch.data_ptr(),
+                          *grads, ctypes.addressof(c_plan), len(c_plan),
+                          *drop)
         elif ctx.bf16:
             _aligned("fused_ffn", g)
             scratch = torch.empty(_workspace_bytes(m, din, dff, dout, True),

@@ -19,7 +19,9 @@ as text and as one JSON line:
   shift-trick route (`ScaledDotProductAttention`, the port's default path);
 * `attention_bf16io`: the same with bf16 q, k, v and cotangent (the heads
   under `--precision bf16`): the bf16-in/bf16-out kernels, beside the
-  module's torch route on the same bf16 inputs;
+  module's torch route on the same bf16 inputs; this and `attention`, and
+  `ffn_bf16io`, print each kernel's launches a call beside its time, and
+  the route's time beside the call's;
 * `dtw`: `dtw_normalized` (forward only) at DTW_SHAPES: (a) one ABX
   flush of 18,432 pairs of 32 x 32 frames, lengths uniform in [1, 32];
   (b) a real flush's layout, 32 groups of 24 x rows by 24 a/b rows, 32 x
@@ -160,6 +162,11 @@ def encoder_inputs(dev, gen, n: int, t: int, c: int):
     return module, params, x, cot
 
 
+def per_call(counts: dict, iters: int) -> dict:
+    """A profile's kernel counts as launches a call."""
+    return {key: n / iters for key, n in counts.items()}
+
+
 def time_attention(dev, gen, iters: int,
                    dtype: torch.dtype = torch.float32) -> dict:
     from .models.transformer import ScaledDotProductAttention
@@ -180,9 +187,9 @@ def time_attention(dev, gen, iters: int,
     def bwd():
         return torch.autograd.grad(out, leaves, cot, retain_graph=True)
     with torch.no_grad():
-        f_split = device_split(fwd, iters)
+        f_split, f_counts = device_split(fwd, iters, counts=True)
         f_events = event_ms(fwd, iters)
-    b_split = device_split(bwd, iters)
+    b_split, b_counts = device_split(bwd, iters, counts=True)
     b_events = event_ms(bwd, iters)
 
     module = ScaledDotProductAttention(s, dk, rate, relpos=True).to(dev)
@@ -197,6 +204,8 @@ def time_attention(dev, gen, iters: int,
         out_m, qkv + [module.Krelpos], cot, retain_graph=True),
         iters).values())
     return {"fwd": f_split, "bwd": b_split,
+            "fwd_launches": per_call(f_counts, iters),
+            "bwd_launches": per_call(b_counts, iters),
             "attention_fwd_events_ms": f_events,
             "attention_bwd_events_ms": b_events,
             "route_fwd_ms": r_fwd, "route_bwd_ms": r_bwd}
@@ -226,9 +235,9 @@ def time_ffn_bf16io(dev, gen, iters: int) -> dict:
     def bwd():
         return torch.autograd.grad(out, leaves, cot, retain_graph=True)
     with torch.no_grad():
-        f_split = device_split(fwd, iters)
+        f_split, f_counts = device_split(fwd, iters, counts=True)
         f_events = event_ms(fwd, iters)
-    b_split = device_split(bwd, iters)
+    b_split, b_counts = device_split(bwd, iters, counts=True)
     b_events = event_ms(bwd, iters)
 
     # the library route: the products as bf16 `torch.matmul`, the bias,
@@ -253,6 +262,8 @@ def time_ffn_bf16io(dev, gen, iters: int) -> dict:
         r_fwd = sum(device_split(route_fwd, iters).values())
         r_bwd = sum(device_split(route_bwd, iters).values())
     return {"fwd": f_split, "bwd": b_split,
+            "fwd_launches": per_call(f_counts, iters),
+            "bwd_launches": per_call(b_counts, iters),
             "ffn_fwd_bf16io_events_ms": f_events,
             "ffn_bwd_bf16io_events_ms": b_events,
             "route_fwd_ms": r_fwd, "route_bwd_ms": r_bwd}
@@ -524,13 +535,19 @@ def main(argv=None) -> dict:
               f"{r['bwd_launches_per_call']}; kernels in the profile of "
               f"{opts.iters} calls {r['fwd_kernel_count']} / "
               f"{r['bwd_kernel_count']}")
-    for what, split in (("forward", fwd), ("backward", bwd)):
+    for what, tag, split in (("forward", "fwd", fwd),
+                             ("backward", "bwd", bwd)):
         if not split:
             continue
-        print(f"{name} {what}: {sum(split.values()):.4f} ms per call")
+        launches = result.get(f"{tag}_launches", {})
+        print(f"{name} {what}: {sum(split.values()):.4f} ms per call"
+              + (f", route {result[f'route_{tag}_ms']:.4f} ms"
+                 if f"route_{tag}_ms" in result else ""))
         for key, ms in sorted(split.items(), key=lambda kv: -kv[1]):
             part = (encoder_part(key) or "other") if name == "encoder" else ""
-            print(f"  {ms:9.4f}  {part:9s} {key[:90]}")
+            count = (f"{launches[key]:g} a call" if key in launches
+                     else "")
+            print(f"  {ms:9.4f}  {part:9s} {count:10s} {key[:90]}")
     print(json.dumps(result))
     return result
 

@@ -261,6 +261,104 @@ def test_attention_plan_takes_every_gated_shape(monkeypatch):
     assert att.attention_plan(0, 116, 32).n == 0
 
 
+def test_attention_plan_for_bf16_takes_every_gated_shape():
+    """The bf16 kernels' plans at every (S, dk) that the gate's limits take
+    (dk up to 11,621 at S = 1): rows of dk_in = dk padded to 8, so a row's
+    stride is a multiple of TMA's 16 bytes, and so is every box's row (dc
+    bf16 values, at most MAX_BOX); staged (f_st, b_st), the staging region
+    lies after Krelpos's raw copy and holds K, V and every warp slot's q
+    (and g) rows, clear of the rows they are widened into and of the
+    block's end; in place, each box lands at the end of the fp32 rows it
+    fills (K and V: SP rows of ld floats, a warp slot of q or g: 16), half
+    their bytes or less, on a 128-byte boundary, and the layout is the
+    fp32 plan's but for dk_in and the raw copy of Krelpos (dk_in rows); it
+    fits a block. The recipe's is staged in both kernels."""
+    chunked = staged = 0
+    for s in range(1, att.MAX_S + 1):
+        dk = 1
+        while att._within_limits(s, dk):
+            plan = att.attention_plan(1, s, dk, bf16=True)
+            fp32 = att.attention_plan(1, s, dk)
+            assert plan.io == 1 and fp32.io == 0
+            assert plan.dk_in == -(-dk // 8) * 8 and (2 * plan.dk_in) % 16 == 0
+            assert (2 * plan.dc) % 16 == 0 and plan.dc <= att.MAX_BOX
+            for rows in (16 * plan.tiles, 16):
+                assert 2 * rows * plan.dc <= 2 * rows * plan.ld
+                assert (4 * rows * plan.ld - 2 * rows * plan.dc) % 128 == 0
+            assert plan.fwd_smem <= 232448 and plan.bwd_smem <= 232448
+            sp = 16 * plan.tiles
+            raw = (plan.dc if plan.chunks > 1 else plan.dk_in) * s
+            for st, raw_at, warps, kinds, end, rows_end in (
+                    (plan.f_st, plan.f_raw, plan.fwd_warps, 1,
+                     plan.f_floats, plan.f_x),
+                    (plan.b_st, plan.b_raw, plan.bwd_warps, 2,
+                     plan.b_floats, plan.b_pd)):
+                if st:
+                    assert st % 32 == 0 and st >= raw_at + raw >= rows_end
+                    assert (st + plan.dc * (2 * sp + 16 * kinds * warps) // 2
+                            <= end)
+            if dk % 8 == 0 and not plan.f_st and not plan.b_st:
+                assert plan[:-3] == fp32[:-3]
+            chunked += plan.chunks > 1
+            staged += bool(plan.f_st and plan.b_st)
+            dk += 1
+    assert chunked > 39000 and staged > 30000
+    recipe = att.attention_plan(64, 116, 32, bf16=True)
+    assert recipe.f_st and recipe.b_st
+
+
+def _widen_passes(rows, dc, ld):
+    """The passes of `csrc/attention.cuh:widen` over a region of `rows` fp32
+    rows at ld whose bf16 box (rows of dc values) landed at its end: each
+    pass the rows [done, upto) whose fp32 writes end before the bf16 rows
+    still unread begin; then the last row alone."""
+    done, passes = 0, []
+    while True:
+        start = rows * (4 * ld - 2 * dc) + 2 * dc * done
+        upto = min(start // (4 * ld), rows)
+        if upto <= done:
+            return passes + [(done, rows)]
+        passes.append((done, upto))
+        done = upto
+
+
+@pytest.mark.parametrize("n,s,dk", PLAN_SHAPES)
+def test_bf16_boxes_widen_in_place_without_overwriting(n, s, dk):
+    """Replayed on the bytes of a region, the in-place widening reads every
+    bf16 value before any fp32 write covers it: within a pass no write
+    reaches the bf16 rows it or a later pass reads, the passes cover every
+    row once, the last row (which covers its own bf16 row) goes alone
+    through registers, and the rows come out as the fp32 boxes leave them,
+    zeros in each row's last 4 floats."""
+    plan = att.attention_plan(n, s, dk, bf16=True)
+    for rows in (16 * plan.tiles, 16):
+        dc, ld = plan.dc, plan.ld
+        base = rows * (4 * ld - 2 * dc)    # byte of bf16 row 0
+        passes = _widen_passes(rows, dc, ld)
+        assert [r for a, b in passes for r in range(a, b)] == list(
+            range(rows))
+        assert passes[-1] == (rows - 1, rows)
+        assert len(passes) <= 2 + int(np.log2(rows))
+        for a, b in passes[:-1]:
+            assert 4 * ld * b <= base + 2 * dc * a
+        region = np.full(4 * ld * rows, 255, np.uint8)
+        values = np.arange(rows * dc, dtype=np.float32).reshape(rows, dc)
+        src = torch.from_numpy(values).to(torch.bfloat16).view(torch.int16)
+        region[base:] = src.numpy().view(np.uint8).reshape(-1)
+        for a, b in passes:
+            read = region[base + 2 * dc * a:base + 2 * dc * b].copy()
+            widened = torch.from_numpy(read.view(np.int16)).view(
+                torch.bfloat16).float().reshape(b - a, dc)
+            out = torch.zeros(b - a, ld)
+            out[:, :dc] = widened
+            region[4 * ld * a:4 * ld * b] = out.numpy().view(np.uint8).reshape(
+                -1)
+        got = region.view(np.float32).reshape(rows, ld)
+        want = torch.zeros(rows, ld)
+        want[:, :dc] = torch.from_numpy(values).to(torch.bfloat16).float()
+        np.testing.assert_array_equal(got, want.numpy())
+
+
 def _mtile_range(rank, ctas, tiles):
     """The m-tiles (16 columns of dk and dv, 16 rows of dKrelpos) that CTA
     `rank` of the backward's cluster finishes (`csrc/attention.cuh`: rank
@@ -281,18 +379,47 @@ def _swz(j):
     return ((j & 3) << 3) | (j & 4)
 
 
+def _widened(plan, x):
+    """A bf16 (N, S, dk) operand's rows as the bf16 kernels stage them: the
+    wrapper pads dk to dk_in with zeros; chunk c's TMA box (dc values from
+    column c dc, zeros past S and past dk_in) lands as bf16 in the staging
+    region and is widened to fp32 rows of ld = dc + 4 floats, zeros in the
+    last 4; the chunks' columns side by side (dkp of them), NaN where no
+    chunk writes."""
+    n, s, dk = x.shape
+    sp = 16 * plan.tiles
+    src = torch.zeros(n, s, plan.dk_in, dtype=torch.bfloat16)
+    src[..., :dk] = x
+    out = torch.full((n, sp, plan.dkp), float("nan"))
+    for c in range(plan.chunks):
+        x0 = c * plan.dc
+        box = torch.zeros(n, sp, plan.dc, dtype=torch.bfloat16)
+        w = min(plan.dc, plan.dk_in - x0)
+        box[:, :s, :w] = src[..., x0:x0 + w]
+        rows = torch.zeros(n, sp, plan.ld)
+        rows[..., :plan.dc] = box.float()
+        cols = min(plan.dc, plan.dkp - x0)
+        out[..., x0:x0 + cols] = rows[..., :cols]
+    return out
+
+
 def _emulate(plan, q, k, v, krel, seed, rate, g):
     """The kernels' tiled algorithm in torch, every index from `plan`: the
     forward's output and the backward's dq, dk, dv and dKrelpos. dk comes
     in the plan's chunks: each chunk's krel_t is staged and swizzled on its
     own, the products over dk add up chunk by chunk, and the outputs are
     written a chunk of columns at a time. Planes and outputs the kernels
-    leave unwritten hold NaN here, so a read or a gap shows."""
+    leave unwritten hold NaN here, so a read or a gap shows. A bf16 plan
+    (`io`) takes bf16 q, k, v and g through their widened rows
+    (`_widened`), rounds p~ to bf16 as p~ . v's operand only, and rounds
+    out, dq, dk and dv to bf16 once."""
     n, s, dk, t = plan.n, plan.s, plan.dk, plan.tiles
     sp, dkp, lds = 16 * t, plan.dkp, plan.lds
     scale, ks = 1.0 / dk ** 0.5, 1.0 / (1.0 - rate)
 
     def pad(x):
+        if plan.io:
+            return _widened(plan, x)
         out = torch.zeros(n, sp, dkp)
         out[:, :s, :dk] = x
         return out
@@ -360,6 +487,8 @@ def _emulate(plan, q, k, v, krel, seed, rate, g):
             r0, ncol, _, _, p, kp, _ = probs(tile)
             order = _permuted(torch.arange(8 * ncol))
             pt = torch.where(kp, p * ks, torch.zeros_like(p))
+            if plan.io:
+                pt = pt.to(torch.bfloat16).float()
             for x0, cols in chunks:
                 put(out, r0, min(16, s - r0), x0, cols,
                     pt[:, :, order] @ V[:, order, x0:x0 + cols])
@@ -451,6 +580,8 @@ def _emulate(plan, q, k, v, krel, seed, rate, g):
     dkrel = partial[0].T.clone()
     for u in range(1, n):
         dkrel = dkrel + partial[u].T
+    if plan.io:
+        out, dq, dk_, dv = (x.to(torch.bfloat16) for x in (out, dq, dk_, dv))
     return out, dq, dk_, dv, dkrel
 
 
@@ -483,6 +614,46 @@ def test_tiled_emulation_matches_plain(n, s, dk, rate):
     torch.testing.assert_close(got[0], want.detach(), **FWD)
     for name, a, b in zip(("dq", "dk", "dv", "dKrelpos"), got[1:], leaves):
         torch.testing.assert_close(a, b.grad, msg=name, **GRAD)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("n,s,dk", EMULATED_SHAPES)
+def test_tiled_emulation_matches_plain_on_bf16(n, s, dk, rate):
+    """The bf16 kernels' algorithm, emulated from their plan (rows of dk
+    padded to 8, each chunk's boxes widened from bf16 to the fp32 rows,
+    p~ rounded for p~ . v only, out, dq, dk and dv rounded once) against
+    `attention_plain` on the same bf16 tensors and its autograd gradients
+    (bf16 for q, k and v, rounded once from fp32; fp32 for dKrelpos). The
+    two take their fp32 sums in other orders, so a value that lies within
+    that of a bf16 rounding boundary (p~, or an output) may round one step
+    apart: each bf16 tensor within 1e-3 of its 2-norm and no element more
+    than 2 bf16 steps of its largest value away; dKrelpos, whose terms a
+    flipped p~ moves by about 2^-9, within 1e-4 of its 2-norm."""
+    rs = np.random.RandomState(7)
+    q, k, v = (torch.from_numpy(rs.randn(n, s, dk).astype(np.float32)).to(
+        torch.bfloat16) for _ in range(3))
+    krel = torch.from_numpy(0.3 * rs.randn(dk, s).astype(np.float32))
+    g = torch.from_numpy(rs.randn(n, s, dk).astype(np.float32)).to(
+        torch.bfloat16)
+    seed = torch.tensor([321], dtype=torch.int32)
+    plan = att.attention_plan(n, s, dk, bf16=True)
+    got = _emulate(plan, q, k, v, krel, seed, rate, g)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v, krel)]
+    want = attention_plain(*leaves, seed, rate)
+    want.backward(g)
+    for name, a, b in zip(("out", "dq", "dk", "dv", "dKrelpos"), got,
+                          [want.detach()] + [x.grad for x in leaves]):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
+        a, b = a.double(), b.double()
+        rel = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+        if name == "dKrelpos":
+            assert rel <= 1e-4, (name, rel)
+            continue
+        top = b.abs().max().item()
+        step = 2.0 ** (np.floor(np.log2(top)) - 7) if top else 0.0
+        assert (a - b).abs().max().item() <= 2 * step, name
+        assert rel <= 1e-3, (name, rel)
 
 
 @pytest.mark.parametrize("n,s,dk", [x for x in PLAN_SHAPES if x[0]])

@@ -30,7 +30,7 @@ from cpc2_tpu.ops.attention_pallas import \
 from cpc2_tpu.ops.ffn_pallas import fused_ffn as jax_fused_ffn
 from cpc2_torch.ops import attention as att
 from cpc2_torch.ops.attention import attention_plain
-from cpc2_torch.ops.ffn import ffn_plain, keep_mask
+from cpc2_torch.ops.ffn import ffn_bf16io_plan, ffn_plain, keep_mask
 
 torch.set_num_threads(1)
 
@@ -145,6 +145,48 @@ def test_ffn_plain_bf16io_matches_pallas(monkeypatch):
                                ["dw1", "db1", "dw2", "db2"]):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                    atol=1e-5, err_msg=name)
+
+
+def test_ffn_bf16io_emulation_matches_pallas(monkeypatch):
+    """The bf16-io kernels' decomposition emulated from their plan
+    (`tests/test_torch_ffn.py:_emulate_bf16io_route`: y in clusters of 2,
+    dW2 and dW1 in clusters of 4, uneven runs of k tiles, ragged tiles)
+    against the JAX kernel in interpret mode on the same numpy inputs at
+    the TPU's default precision, dropout off, as
+    `test_ffn_plain_bf16io_matches_pallas` runs it. The inputs are
+    multiples of 1/8, so every sum up to the hidden and dh is exact in any
+    order and both sides round the same hidden and dh; y and dx then round
+    alike from sums within FWD and GRAD of the JAX kernel's unrounded ones
+    (`assert_rounds_alike`), and the weights' gradients are held to GRAD
+    (fp32 sums in other orders)."""
+    from tests.test_torch_ffn import _emulate_bf16io_route
+    _tpu_default_precision(monkeypatch)
+    m, din, dff, dout = 200, 72, 136, 24
+    rs = np.random.RandomState(9)
+    arrays = [_eighths(rs, m, din), _eighths(rs, dff, din), _eighths(rs, dff),
+              _eighths(rs, dout, dff), _eighths(rs, dout)]
+    g = _eighths(rs, m, dout)
+    plan = ffn_bf16io_plan(m, din, dff, dout)
+    assert (plan.y.cluster, plan.dw2.cluster, plan.dx.cluster) == (2, 4, 2)
+    keep = torch.ones(m, dff, dtype=torch.bool)
+    y, grads = _emulate_bf16io_route(
+        plan, *(torch.from_numpy(a) for a in arrays + [g]), keep, 0.0)
+
+    seed = jnp.zeros((1, 1), jnp.int32)
+
+    def run(dtype):
+        out, vjp = jax.vjp(lambda *a: jax_fused_ffn(*a, seed, 0.0, True),
+                           jnp.asarray(arrays[0], dtype),
+                           *map(jnp.asarray, arrays[1:]))
+        return out, vjp(jnp.asarray(g, dtype))
+    _y16, grads16 = run(jnp.bfloat16)
+    y32, grads32 = run(jnp.float32)
+    assert_rounds_alike(y, y32, name="y", **FWD)
+    assert_rounds_alike(grads[0], grads32[0], name="dx", **GRAD)
+    for got, want, name in zip(grads[1:], grads16[1:],
+                               ["dw1", "db1", "dw2", "db2"]):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   err_msg=name, **GRAD)
 
 
 def test_ffnetwork_takes_bf16_in_and_out():

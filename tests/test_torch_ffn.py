@@ -2,7 +2,9 @@
 bf16=True)` against an explicit float64 computation with the bf16 kernels'
 rounding points, against the fp32 route, and the module's choice of route
 under each precision; then the fp32 kernels' plan (`ffn_fp32_plan`), their
-decomposition emulated from that plan, and their 3xTF32 products.
+decomposition emulated from that plan, and their 3xTF32 products; then the
+bf16-io kernels' plan (`ffn_bf16io_plan`) and their decomposition emulated
+from it.
 
 The explicit computation takes inputs that are multiples of 1/8 in [-1, 1]:
 they are bf16 values, and every sum of their products up to the hidden is
@@ -20,9 +22,11 @@ import torch
 
 from cpc2_tpu.ops.ffn_pallas import fused_ffn as jax_fused_ffn
 from cpc2_torch.models import transformer
-from cpc2_torch.ops.ffn import (ALIGN, K_TILE, PAD, SPLIT_ROWS, TILE,
-                                FFNPlan, Product, ffn_fp32_plan, ffn_plain,
-                                keep_mask)
+from cpc2_torch.ops.ffn import (ALIGN, H100_CLUSTER_FITS, IO_CLUSTERS,
+                                IO_K_TILE, IO_SUM_ROWS, IO_TILE, K_TILE, PAD,
+                                SPLIT_ROWS, TILE,
+                                FFNPlan, IoProduct, Product, ffn_bf16io_plan,
+                                ffn_fp32_plan, ffn_plain, keep_mask)
 from cpc2_torch.training import full_fp32, set_precision
 
 torch.set_num_threads(1)
@@ -457,3 +461,232 @@ def test_three_tf32_products_keep_fp32_accuracy_at_the_recipe(name):
     assert (three.double() - exact).abs().max().item() <= 2e-6 * scale
     one = ab @ bb.T
     assert (one.double() - exact).abs().max().item() > 1e-4 * scale
+
+
+# --- the bf16-io route: plan and decomposition --------------------------------
+
+# The recipe, the small step's shape, the multi-head trunk's 3,072 columns
+# and widths that are no multiples of 64 or 128.
+IO_SHAPES = (RECIPE, (84, 64, 2048, 64), (928, 256, 2048, 3072),
+             (200, 72, 136, 24), (37, 8, 24, 16))
+SMEM_LIMIT = 232448
+
+
+def _io_launches(plan):
+    """The split launches' products, as `csrc/ffn.cu` groups them: y; dW2
+    and dW1; dx."""
+    return [[plan.y], [plan.dw2, plan.dw1], [plan.dx]]
+
+
+def _io_ctas(products):
+    """Each CTA of one `ffn_io_split` launch as the kernel maps it
+    (`hopper_gemm.cuh:ffn_io_split`): (product, m tile, n tile, rank, its
+    k tiles [k0, k1), the tile's rows it sums over the cluster)."""
+    r = products[0].cluster
+    firsts = [0]
+    for p in products:
+        firsts.append(firsts[-1] + p.m_tiles * p.n_tiles)
+    out = []
+    for b in range(firsts[-1] * r):
+        cid, rank = divmod(b, r)
+        pi = 1 if len(products) > 1 and cid >= firsts[1] else 0
+        p = products[pi]
+        tile = cid - firsts[pi]
+        k0, k1 = p.k_runs()[rank]
+        rows = IO_TILE // r
+        out.append((pi, tile // p.n_tiles, tile % p.n_tiles, rank, k0, k1,
+                    range(rank * rows, rank * rows + rows)))
+    return out
+
+
+@pytest.mark.parametrize("shape", IO_SHAPES)
+@pytest.mark.parametrize("fits", [H100_CLUSTER_FITS, (7, 3, 1), (0, 0, 0)])
+def test_ffn_bf16io_plan_owns_every_tile_and_k_tile_once(shape, fits):
+    """Every output tile of each product is owned by one cluster, whose
+    ranks take each k tile once (none empty) and sum each of the tile's
+    rows once; a cluster has 1, 2, 4 or 8 CTAs, and a split launch of
+    clusters holds no more of them than the card holds at once (`fits`:
+    one wave); the hidden and dh are not split;
+    shared memory within a block's 232,448 bytes; the workspace holds the
+    bf16 hidden and dh and the bias
+    gradients' partials, region by region, and no fp32 partial of y, dx,
+    dW1 or dW2 (the bf16 weights, W1 then W2, are the forward's, kept for
+    the backward)."""
+    m, din, dff, dout = shape
+    plan = ffn_bf16io_plan(m, din, dff, dout, fits)
+    widths = dict(hidden=(m, dff, din), dh=(m, dff, dout), y=(m, dout, dff),
+                  dw2=(dout, dff, m), dw1=(dff, din, m), dx=(m, din, dff))
+    for name, (rows, cols, k) in widths.items():
+        p = getattr(plan, name)
+        assert (p.m_tiles, p.n_tiles, p.k_tiles) == (
+            -(-rows // IO_TILE), -(-cols // IO_TILE), -(-k // IO_K_TILE))
+        assert p.cluster in (1, *IO_CLUSTERS) and p.cluster <= p.k_tiles
+    assert plan.hidden.cluster == plan.dh.cluster == 1
+    assert plan.dw2.cluster == plan.dw1.cluster
+    for products in _io_launches(plan):
+        ctas = _io_ctas(products)
+        r = products[0].cluster
+        assert r == 1 or len(ctas) // r <= fits[IO_CLUSTERS.index(r)]
+        for pi, p in enumerate(products):
+            for mt in range(p.m_tiles):
+                for nt in range(p.n_tiles):
+                    mine = [c for c in ctas if c[:3] == (pi, mt, nt)]
+                    assert sorted(c[3] for c in mine) == list(range(r))
+                    k_tiles = [t for c in mine for t in range(c[4], c[5])]
+                    assert sorted(k_tiles) == list(range(p.k_tiles))
+                    assert all(c[5] > c[4] for c in mine)
+                    rows = sorted(i for c in mine for i in c[6])
+                    assert rows == list(range(IO_TILE))
+    assert plan.smem <= SMEM_LIMIT
+    assert plan.weights == dff * din + dout * dff
+
+    def region(n, size):
+        return -(-n * size // ALIGN) * ALIGN
+    fwd = region(m * dff, 2)
+    assert plan.fwd_bytes == fwd
+    assert plan.bwd_bytes == (fwd + region(m * dff, 2)
+                              + region(plan.hidden.m_tiles * dff, 4)
+                              + region(IO_TILE // IO_SUM_ROWS
+                                       * plan.hidden.m_tiles * dout, 4))
+
+
+def test_ffn_bf16io_plan_at_the_recipe():
+    """At the recipe on an H100 (66, 30 and 15 clusters of 2, 4 and 8 at
+    once): y and dx 16 tiles in clusters of 4 (8 of their 32 k tiles a
+    rank, 64 CTAs: 16 clusters of 8 would take two waves), dW2 and dW1 64
+    tiles in clusters of 2 (7 and 8 of their 15 k tiles, 128 CTAs); the
+    hidden and dh 8 x 16 tiles of 4 k tiles. The C layout's fields, as the
+    entry points read them."""
+    plan = ffn_bf16io_plan(*RECIPE)
+    assert plan.hidden == plan.dh == IoProduct(8, 16, 4, 1)
+    assert plan.y == plan.dx == IoProduct(8, 2, 32, 4)
+    assert plan.dw2 == IoProduct(2, 16, 15, 2)
+    assert plan.dw1 == IoProduct(16, 2, 15, 2)
+    assert plan.y.k_runs() == [(8 * r, 8 * r + 8) for r in range(4)]
+    assert plan.dw2.k_runs() == [(0, 7), (7, 15)]
+    assert list(plan.as_c_longs()) == [928, 256, 2048, 256, 66, 30, 15, 4, 2,
+                                       4, 171072, plan.fwd_bytes,
+                                       plan.bwd_bytes]
+    assert plan.fwd_bytes == 928 * 2048 * 2
+
+
+def test_ffn_bf16io_plan_refuses_what_the_kernels_do_not_take():
+    for shape in ((0, 256, 2048, 256), (8, 12, 16, 16), (8, 16, 16, 4)):
+        with pytest.raises(ValueError):
+            ffn_bf16io_plan(*shape)
+    for fits in ((66, 30), (66, -1, 15)):
+        with pytest.raises(ValueError):
+            ffn_bf16io_plan(*RECIPE, fits)
+
+
+def _round(t: torch.Tensor) -> torch.Tensor:
+    """float32 values rounded to bf16 (to nearest even), as float32."""
+    return t.to(torch.bfloat16).float()
+
+
+def _io_product(a: torch.Tensor, b: torch.Tensor, p: IoProduct, k: int):
+    """C = A B^T (float32 tensors holding bf16 values) as an `ffn_io_split`
+    cluster takes it: each rank sums its run of k tiles of 64, a tile at a
+    time in fp32 (a tile's products exact, summed in float64), then the
+    ranks' partials are added in rank order in fp32."""
+    out = None
+    for k0, k1 in p.k_runs():
+        part = torch.zeros(a.shape[0], b.shape[0])
+        for t in range(k0, k1):
+            cols = slice(IO_K_TILE * t, min(IO_K_TILE * (t + 1), k))
+            part = part + (a[:, cols].double() @ b[:, cols].double().T).float()
+        out = part if out is None else out + part
+    return out
+
+
+def _row_block_sums(v: torch.Tensor, rows: int) -> torch.Tensor:
+    """Column sums of v per block of `rows` rows, in fp32, the blocks added
+    in order."""
+    out = torch.zeros(v.shape[1])
+    for r0 in range(0, v.shape[0], rows):
+        out = out + v[r0:r0 + rows].sum(0)
+    return out
+
+
+def _emulate_bf16io_route(plan, x, w1, b1, w2, b2, g, keep, rate):
+    """The bf16-io kernels' decomposition (`csrc/ffn.cu:ffn_fwd_io`,
+    `ffn_bwd_io`) from the plan, on a bf16 x and g held in float32: the
+    weights rounded to bf16 by the cast launch; the hidden by 128 x 128
+    tiles (bias, ReLU, dropout in fp32, rounded to bf16; its signs kept
+    unrounded); y split over its cluster, summed in rank order with b2
+    and rounded once; dh from the same tiles (g W2 scaled by the signs,
+    rounded to bf16; db1's column sums of the unrounded dh per 128-row
+    tile, the tiles added in order); db2 from g's sums per 32 rows, added
+    in order; dW2 = g^T h and dW1 = dh^T x, and dx = dh W1 rounded once,
+    each split over its cluster as the plan says. The backward reads the
+    forward's bf16 weights."""
+    m, din = x.shape
+    dff, dout = w1.shape[0], w2.shape[0]
+    w1b, w2b = _round(w1), _round(w2)
+    scale = 1.0 / (1.0 - rate)
+    pre = _io_product(x, w1b, plan.hidden, din) + b1
+    v = torch.where(keep, torch.relu(pre) * scale, torch.zeros_like(pre))
+    h = _round(v)
+    y = _round(_io_product(h, w2b, plan.y, dff) + b2)
+    dh = _io_product(g, w2b.T, plan.dh, dout) * torch.where(v > 0, scale,
+                                                             0.0)
+    dhb = _round(dh)
+    db1 = _row_block_sums(dh, IO_TILE)
+    db2 = _row_block_sums(g, IO_SUM_ROWS)
+    dw2 = _io_product(g.T, h.T, plan.dw2, m)
+    dw1 = _io_product(dhb.T, x.T, plan.dw1, m)
+    dx = _round(_io_product(dhb, w1b.T, plan.dx, dff))
+    return y, [dx, dw1, db1, dw2, db2]
+
+
+def _io_inputs(shape, seed=13):
+    m, din, dff, dout = shape
+    rs = np.random.RandomState(seed)
+    arrays = [rs.randn(m, din), rs.randn(dff, din) / 16, rs.randn(dff) / 16,
+              rs.randn(dout, dff) / 45, rs.randn(dout) / 45, rs.randn(m, dout)]
+    t = [torch.from_numpy(a.astype(np.float32)) for a in arrays]
+    t[0], t[5] = _round(t[0]), _round(t[5])  # x and g are bf16
+    return t
+
+
+@pytest.mark.parametrize("shape,fits", [((200, 72, 136, 24), H100_CLUSTER_FITS),
+                                        ((84, 64, 2048, 64), H100_CLUSTER_FITS),
+                                        ((200, 72, 136, 24), (0, 0, 0)),
+                                        ((37, 8, 24, 16), H100_CLUSTER_FITS)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_ffn_bf16io_route_emulated_from_its_plan(shape, fits, rate):
+    """The bf16-io kernels' decomposition (`_emulate_bf16io_route`) against
+    `ffn_plain` on the same bf16 x and g, with clusters of 2, 4 and 8
+    (uneven runs of k tiles included) and unsplit ones (no cluster fits). The
+    plain version computes its sums in float64 here, with the same
+    rounding points (the output and dx rounded to bf16), so the two differ
+    by the kernels' fp32 sums and by the bf16 values that those move
+    across a rounding boundary: y and dx (bf16) within 2e-3 of their
+    2-norm, and no element more than 2 bf16 steps of the largest value
+    away; the fp32 gradients within 1e-5 of their 2-norm (the fp32 sums
+    leave about 1e-7 here, and a flip in a stored hidden or dh value moves
+    them by about 2^-9 of one of their terms: 2e-7 at (84, 64, 2048,
+    64))."""
+    m, din, dff, dout = shape
+    x, w1, b1, w2, b2, g = _io_inputs(shape)
+    seed = torch.tensor([3], dtype=torch.int32)
+    keep = keep_mask(seed, m, dff, rate)
+    plan = ffn_bf16io_plan(m, din, dff, dout, fits)
+    y, grads = _emulate_bf16io_route(plan, x, w1, b1, w2, b2, g, keep, rate)
+    leaves = [t.double().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
+    want = ffn_plain(*leaves, seed, rate, True)
+    want.backward(g.double())
+    refs = [_round(want.detach().float()), _round(leaves[0].grad.float())]
+    refs += [t.grad for t in leaves[1:]]
+    for name, got, ref in zip(["y", "dx", "dw1", "db1", "dw2", "db2"],
+                              [y] + grads, refs):
+        assert got.shape == ref.shape and torch.isfinite(got).all(), name
+        ref = ref.double()
+        rel = ((got.double() - ref).norm() / ref.norm()).item()
+        if name in ("y", "dx"):
+            top = ref.abs().max().item()
+            step = 2.0 ** (np.floor(np.log2(top)) - 7)
+            assert (got.double() - ref).abs().max().item() <= 2 * step, name
+            assert rel <= 2e-3, (name, rel)
+        else:
+            assert rel <= 1e-5, (name, rel)
